@@ -1,0 +1,92 @@
+"""Build and load the port's CUDA kernels (``repro_torch/csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library of
+its own with a plain C interface, loaded with ``ctypes``. Nothing builds at
+import: the first call of a kernel's wrapper builds its library, and
+``build()`` builds several at once (one ``nvcc`` process per source, all
+started together). Libraries go to ``build/kernels/`` at the root of the
+checkout (listed in ``.gitignore``); a library's name carries a hash of its
+source and flags, so an edited kernel rebuilds and an unchanged one loads.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+KERNELS = ("esffn", "paged_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every named kernel whose library is missing, all ``nvcc``
+    processes at once, and wait for them. Returns each compiled kernel's
+    compiler output (``-Xptxas -v``: registers, shared memory, spills);
+    raises with that output if a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = out.with_suffix(".log")
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=fh, stderr=subprocess.STDOUT)
+        running[name] = (proc, tmp, out, log)
+    logs, failed = {}, []
+    for name, (proc, tmp, out, log) in running.items():
+        proc.wait()
+        logs[name] = log.read_text()
+        if proc.returncode != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(
+            f"{n}.cu:\n{logs[n]}" for n in failed))
+    return logs
+
+
+def load(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``fn`` of kernel library ``name``, built on first
+    use, with its argument types set (every pointer and the stream as
+    ``c_void_p``, so none is cut to 32 bits) and an int result."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    func = getattr(lib, fn)
+    func.argtypes = list(argtypes)
+    func.restype = ctypes.c_int
+    return func

@@ -1,0 +1,337 @@
+"""Paged continuous-batching serving engine (counterpart of
+``repro.launch.serve``'s ``PagedServer`` and its CLI).
+
+Every occupied slot advances one token per decode macro-step over the
+shared KV page pool; admission is by free-page budget (worst-case pages
+reserved up front, so FIFO decode never starves the pool mid-request);
+prompts prefill in batch-1 chunks interleaved with the decode steps, with
+pages granted a chunk's worth at a time and on demand at decode page
+boundaries. Greedy decoding only.
+
+Not in this slice (ROADMAP.md): the dense ``BatchedServer``, sampled
+decoding, hetero page shares, prefix cache, disaggregation, speculative
+decoding, fault handling and observability.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import configs as cfglib
+from repro_torch.common import cdiv, resolve_device
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import lm
+from repro_torch.parallel.cache import PagePool
+from repro_torch.parallel.sharding import ParallelConfig
+
+
+_SAMPLED = ("sampled decoding (temperature > 0) is not ported yet "
+            "(ROADMAP.md: sampled decoding)")
+
+
+@dataclass
+class Request:
+    """One serving request: prompt tokens in, up to ``max_new`` greedy
+    tokens out."""
+    rid: int
+    prompt: np.ndarray           # (S_prompt,)
+    max_new: int
+    out: list = field(default_factory=list)
+    temperature: float = 0.0     # only 0 (greedy) is ported
+
+
+def argmax_token(logits_row) -> int:
+    """The engine-wide greedy convention: upcast the row to f32, then
+    argmax; ties resolve to the lowest index."""
+    if isinstance(logits_row, torch.Tensor):
+        logits_row = logits_row.detach().float().cpu().numpy()
+    row = np.asarray(logits_row, np.float32).reshape(-1)
+    return int(np.argmax(row))
+
+
+def next_token(logits_row, req: Request) -> int:
+    """Greedy next-token selection."""
+    if req.temperature > 0.0:
+        raise NotImplementedError(_SAMPLED)
+    return argmax_token(logits_row)
+
+
+@dataclass
+class _PagedSlot:
+    req: Request
+    order: int           # admission sequence (FIFO prefill priority)
+    reserved: int        # worst-case pages reserved from the pool
+    pages: list = field(default_factory=list)  # phys page per logical page
+    pos: int = 0         # prompt tokens consumed
+    length: int = 0      # tokens resident in the paged cache
+    reclaimed: int = 0   # leading logical pages released behind the window
+    allocated: int = 0   # pool.alloc calls (reservations consumed)
+
+
+class PagedServer:
+    """Continuous batching over the paged KV cache.
+
+    A request is admitted only when its worst-case page count
+    ``ceil((prompt + max_new - 1) / page_size)`` can be reserved; prefill
+    grants a chunk's worth of pages before each ``prefill_chunk``-token
+    batch-1 chunk, decode one page per boundary crossing; on all-windowed
+    stacks pages wholly behind the window return to the pool mid-request.
+    The K/V pools and lengths live on ``device`` (the GPU unless
+    ``device="cpu"``); tables and the schedule live on the host.
+    """
+
+    def __init__(self, cfg, pcfg, *, num_slots: int, page_size: int,
+                 num_pages: int, max_pages_per_slot: int, params,
+                 prefill_chunk: int = 16, device=None):
+        self.cfg, self.pcfg = cfg, pcfg
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params lie on {params['embed'].device}, the "
+                             f"server runs on {self.device}")
+        self.num_slots = num_slots
+        self.page_size = page_size
+        self.max_pages_per_slot = max_pages_per_slot
+        self.prefill_chunk = prefill_chunk
+        self.params = params
+        self.cache = lm.init_paged_cache(cfg, num_slots, num_pages, page_size,
+                                         self.device)
+        self.page_bytes = lm.paged_kv_page_bytes(cfg, page_size)
+        self.pool = PagePool(num_pages, page_bytes=self.page_bytes)
+        # Window page reclamation: when EVERY attention layer is windowed,
+        # a page wholly behind the window is dead and returns to the pool.
+        self.reclaim_window = (
+            cfg.window if cfg.window > 0 and all(
+                cfg.attn_kind(i) == "local" for i in range(cfg.num_layers))
+            else None)
+        self.table = np.zeros((num_slots, max_pages_per_slot), np.int32)
+        self.serve_step = steps_lib.make_paged_serve_step(cfg, pcfg, page_size)
+        self.prefill_step = steps_lib.make_paged_prefill_step(cfg, pcfg,
+                                                              page_size)
+        self.slots: list[Optional[_PagedSlot]] = [None] * num_slots
+        self.queue: deque[Request] = deque()
+        self.free = sorted(range(num_slots), reverse=True)
+        self.decode_times_s: list = []
+        self.ttft_s: dict = {}           # rid -> first-token latency
+        self.admissions = 0
+        self._order = 0
+        self._run_t0 = 0.0
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _need_pages(self, req: Request) -> int:
+        # cache rows written = prompt + fed-back outputs (the last
+        # generated token is never fed back)
+        return cdiv(len(req.prompt) + req.max_new - 1, self.page_size)
+
+    def submit(self, req: Request):
+        if len(req.prompt) < 1 or req.max_new < 1:
+            raise ValueError(f"request {req.rid}: empty prompt or max_new")
+        if req.temperature > 0.0:
+            raise NotImplementedError(_SAMPLED)
+        need = self._need_pages(req)
+        if need > min(self.max_pages_per_slot, self.pool.num_pages - 1):
+            raise ValueError(
+                f"request {req.rid} needs {need} pages > max_pages_per_slot "
+                f"{self.max_pages_per_slot} or the pool's "
+                f"{self.pool.num_pages - 1} allocatable pages")
+        self.queue.append(req)
+
+    # -- scheduling ticks -----------------------------------------------------
+
+    def _admit(self):
+        """Strict FIFO: the queue head admits as soon as a slot is free and
+        its worst-case pages can be reserved; nothing overtakes it."""
+        while self.queue and self.free:
+            req = self.queue[0]
+            need = self._need_pages(req)
+            if not self.pool.try_reserve(need):
+                return
+            self.queue.popleft()
+            slot = self.free.pop()
+            self.cache = lm.reset_slot(self.cfg, self.cache, slot)
+            self.slots[slot] = _PagedSlot(req, self._order, reserved=need)
+            self._order += 1
+            self.admissions += 1
+            self.table[slot, :] = 0
+
+    def _ensure_pages(self, slot: int, st: _PagedSlot, length: int):
+        """Back every position below ``length`` with a physical page drawn
+        from the request's admission reservation."""
+        while (length - 1) // self.page_size >= len(st.pages):
+            st.pages.append(self.pool.alloc())
+            st.allocated += 1
+            self.table[slot, len(st.pages) - 1] = st.pages[-1]
+
+    def _reclaim(self, slot: int, st: _PagedSlot):
+        """Release pages wholly behind the attention window; the table
+        entry drops to the sink (attention masks those positions)."""
+        if self.reclaim_window is None:
+            return
+        dead = (st.length - self.reclaim_window) // self.page_size
+        while st.reclaimed < dead:
+            j = st.reclaimed
+            self.pool.release([st.pages[j]])
+            st.pages[j] = 0
+            self.table[slot, j] = 0
+            st.reclaimed += 1
+
+    def _finish(self, slot: int, st: _PagedSlot, done: list):
+        done.append(st.req)
+        self.pool.release([p for p in st.pages if p != 0],
+                          unused_reserved=st.reserved - st.allocated)
+        self.table[slot, :] = 0
+        self.slots[slot] = None
+        self.free.append(slot)
+
+    def _prefill_tick(self, done: list) -> bool:
+        """One chunk of the FIFO-oldest prefilling request."""
+        cand = [(st.order, slot, st) for slot, st in enumerate(self.slots)
+                if st is not None and st.pos < len(st.req.prompt)]
+        if not cand:
+            return False
+        _, slot, st = min(cand)
+        n = min(self.prefill_chunk, len(st.req.prompt) - st.pos)
+        self._ensure_pages(slot, st, st.length + n)
+        toks = np.zeros((self.prefill_chunk,), np.int32)
+        toks[:n] = st.req.prompt[st.pos: st.pos + n]
+        last, self.cache = self.prefill_step(
+            self.params, self._tensor(toks), n, slot,
+            self._tensor(self.table[slot]), self.cache)
+        st.pos += n
+        st.length += n
+        self._reclaim(slot, st)
+        if st.pos == len(st.req.prompt):
+            st.req.out.append(next_token(last, st.req))
+            self.ttft_s[st.req.rid] = time.perf_counter() - self._run_t0
+            if len(st.req.out) >= st.req.max_new:
+                self._finish(slot, st, done)
+        return True
+
+    def _decode_tick(self, done: list) -> bool:
+        """One decode macro-step over every slot past prefill."""
+        dec = [(slot, st) for slot, st in enumerate(self.slots)
+               if st is not None and st.pos >= len(st.req.prompt)]
+        if not dec:
+            return False
+        tokens = np.zeros((self.num_slots, 1), np.int32)
+        active = np.zeros((self.num_slots,), bool)
+        for slot, st in dec:
+            self._ensure_pages(slot, st, st.length + 1)
+            tokens[slot, 0] = st.req.out[-1]
+            active[slot] = True
+        t0 = time.perf_counter()
+        logits, self.cache = self.serve_step(
+            self.params,
+            {"tokens": self._tensor(tokens),
+             "page_table": self._tensor(self.table),
+             "active": self._tensor(active)},
+            self.cache)
+        nxt = logits[:, -1].float().cpu().numpy()
+        self.decode_times_s.append(time.perf_counter() - t0)
+        for slot, st in dec:
+            st.length += 1
+            st.req.out.append(next_token(nxt[slot], st.req))
+            self._reclaim(slot, st)
+            if len(st.req.out) >= st.req.max_new:
+                self._finish(slot, st, done)
+        return True
+
+    def run(self, max_steps: int = 100000) -> list[Request]:
+        """Drive admission + ticks until every request has finished."""
+        done: list[Request] = []
+        steps = 0
+        self._run_t0 = time.perf_counter()
+        while (self.queue or any(s is not None for s in self.slots)) \
+                and steps < max_steps:
+            self._admit()
+            advanced = self._prefill_tick(done)
+            advanced |= self._decode_tick(done)
+            if not advanced and not self.queue:
+                break
+            steps += 1
+        return done
+
+    def stats(self) -> dict:
+        return {**self.pool.stats(), "admissions": self.admissions}
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+def main(argv=None):
+    """CLI entry point: paged continuous batching of random prompts
+    through a seeded random-weight model."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the paged KV pool (the only engine "
+                         "ported so far)")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pages", type=int, default=0,
+                    help="shared pool size incl. the sink page "
+                         "(0 -> slots * ceil(max_seq/page)/2 + 1)")
+    ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights")
+    args = ap.parse_args(argv)
+    if not args.paged:
+        raise NotImplementedError(
+            "dense BatchedServer not yet ported; run with --paged "
+            "(ROADMAP.md)")
+    device = resolve_device(args.device)
+    cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
+           else cfglib.get_config(args.arch))
+    pcfg = ParallelConfig(blk=16)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = lm.init_params(cfg, generator=gen, device=device)
+    pages = args.pages or (
+        args.slots * cdiv(args.max_seq, args.page_size) // 2 + 1)
+    server = PagedServer(
+        cfg, pcfg, num_slots=args.slots, page_size=args.page_size,
+        num_pages=pages,
+        max_pages_per_slot=cdiv(args.max_seq, args.page_size),
+        params=params, prefill_chunk=args.prefill_chunk, device=device)
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        server.submit(Request(
+            rid=i,
+            prompt=rng.integers(0, cfg.vocab_size, size=8).astype(np.int32),
+            max_new=args.max_new))
+    t0 = time.time()
+    done = server.run()
+    dt = time.time() - t0
+    total_tokens = sum(len(r.out) for r in done)
+    print(f"[serve] {len(done)} requests, {total_tokens} tokens "
+          f"in {dt:.2f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s)")
+    if server.decode_times_s:
+        ts = np.asarray(server.decode_times_s[1:] or server.decode_times_s)
+        print(f"[serve] measured decode step: median "
+              f"{np.median(ts) * 1e3:.1f}ms p90 "
+              f"{np.percentile(ts, 90) * 1e3:.1f}ms over {len(ts)} steps")
+    st = server.stats()
+    print(f"[serve] page pool: {st['peak_in_use_pages']} peak pages "
+          f"({st['peak_in_use_bytes'] / 1024:.1f} KiB KV resident) of "
+          f"{st['num_pages'] - 1} allocatable; {st['total_allocs']} allocs, "
+          f"leak-free={st['free_pages'] == st['num_pages'] - 1}")
+    for r in done[:3]:
+        print(f"  req {r.rid}: {r.out[:8]}...")
+    return done
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,199 @@
+"""LM assembly of the serving slice (counterpart of ``repro.models.lm``):
+parameter init, the paged KV cache, and the forward pass.
+
+The layer stack is a Python list of per-layer parameter dicts and the
+forward an unrolled loop over it (the JAX package stacks layers per period
+for ``lax.scan``; ``convert.params_from_jax`` unstacks them). The ported
+stacks are decoder-only all-attention models with GLU-expert MoE FFNs on
+every FFN layer (qwen3-moe, mixtral); other configurations raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.common import torch_dtype
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+from repro_torch.parallel.sharding import ParallelConfig, normal_init
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for a configuration this slice does not port."""
+    missing = []
+    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+        missing.append("recurrent mixers (mamba/xlstm)")
+    if cfg.moe is None or not cfg.glu or any(
+            not cfg.is_moe_layer(i) for i in range(cfg.num_layers)):
+        missing.append("dense or MLP-expert FFN layers")
+    if cfg.cross_attn or cfg.frontend or cfg.num_codebooks > 1 \
+            or cfg.prefix_len:
+        missing.append("frontends, cross-attention, codebook heads, prefixes")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {'; '.join(missing)} are not ported yet "
+            f"(ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_block(cfg: ModelConfig, dtype, generator, device) -> dict:
+    """One block's parameters: attention mixer + MoE FFN."""
+    return {
+        "ln1": tfm.init_norm(cfg, device),
+        "mixer": tfm.init_attention(cfg, dtype, generator, device),
+        "ln2": tfm.init_norm(cfg, device),
+        "ffn": tfm.init_moe_ffn(cfg, dtype, generator, device),
+    }
+
+
+def init_params(cfg: ModelConfig, *, generator: torch.Generator,
+                device) -> dict:
+    """Full parameter tree, drawn from ``generator`` (on ``device``): the
+    JAX package's shapes and its 0.02-std normal, not its numbers."""
+    check_supported(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    p = {
+        "embed": normal_init((cfg.vocab_size, cfg.d_model), dtype, generator,
+                             device),
+        "final_norm": tfm.init_norm(cfg, device),
+        "layers": [init_block(cfg, dtype, generator, device)
+                   for _ in range(cfg.num_layers)],
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = normal_init((cfg.d_model, cfg.vocab_size), dtype,
+                                generator, device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# paged serving cache
+# ---------------------------------------------------------------------------
+
+def paged_cache_spec(cfg: ModelConfig, num_slots: int, num_pages: int,
+                     page_size: int) -> dict:
+    """Shapes and dtypes of the paged decode cache: per attention layer a
+    SHARED pool of ``num_pages`` pages, ``(num_pages, page_size, Hkv, hd)``
+    for K and for V (physical page 0 is the write sink for inactive slots),
+    and the per-slot resident length."""
+    pool = ((num_pages, page_size, cfg.num_kv_heads, cfg.hd),
+            torch_dtype(cfg.dtype))
+    return {"layers": [{"k": pool, "v": pool} for _ in range(cfg.num_layers)],
+            "len": ((num_slots,), torch.int32)}
+
+
+def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
+                     page_size: int, device) -> dict:
+    spec = paged_cache_spec(cfg, num_slots, num_pages, page_size)
+    zeros = lambda sd: torch.zeros(sd[0], dtype=sd[1], device=device)  # noqa: E731
+    return {"layers": [{k: zeros(sd) for k, sd in layer.items()}
+                       for layer in spec["layers"]],
+            "len": zeros(spec["len"])}
+
+
+def paged_kv_page_bytes(cfg: ModelConfig, page_size: int) -> int:
+    """Device bytes ONE physical page costs across every attention layer —
+    the unit ``parallel.cache.PagePool`` budgets admission in."""
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    itemsize = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+    return n_attn * 2 * page_size * cfg.num_kv_heads * cfg.hd * itemsize
+
+
+def reset_slot(cfg: ModelConfig, cache: dict, slot: int,
+               length: int = 0) -> dict:
+    """Reset one slot's length so a new request can reuse it. K/V needs no
+    scrub: freshly granted pages are masked by ``len``."""
+    cache["len"][slot] = length
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
+                cache: dict):
+    """One block: attention + MoE FFN. Returns (x, cache, aux, z)."""
+    h = tfm.apply_norm(p["ln1"], x, ctx.cfg)
+    out, cache = tfm.apply_attention(p["mixer"], h, ctx, idx, cache)
+    x = x + out
+    h2 = tfm.apply_norm(p["ln2"], x, ctx.cfg)
+    y, aux, z = tfm.apply_moe_ffn(p["ffn"], h2, ctx)
+    return x + y, cache, aux, z
+
+
+def run_layers(layers: list, x: torch.Tensor, ctx: tfm.Ctx,
+               cache_layers: list):
+    """The unrolled layer loop. Returns (x, aux, z, cache_layers)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = []
+    for idx, (lp, lc) in enumerate(zip(layers, cache_layers)):
+        x, nc, a, zz = apply_block(lp, x, ctx, idx, lc)
+        new_caches.append(nc)
+        aux = aux + a
+        z = z + zz
+    return x, aux, z, new_caches
+
+
+def _embed_in(params: dict, tokens: torch.Tensor, cfg: ModelConfig, dtype):
+    x = params["embed"][tokens.long()].to(dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
+    return x
+
+
+def _logits_out(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Vocabulary logits in f32 (the JAX head's f32 accumulation)."""
+    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    return x.float() @ w.float()
+
+
+def forward(params: dict, inputs: dict, cfg: ModelConfig,
+            pcfg: ParallelConfig, *, mode: str, cache: dict, paged: dict,
+            active: Optional[torch.Tensor] = None,
+            return_hidden: bool = False):
+    """Serving forward over the paged cache. Returns (logits, cache,
+    aux_loss, z_loss); with ``return_hidden`` the final normed hidden
+    states stand in for the logits.
+
+    ``mode="decode"``: one token per slot, ``active`` (B,) bool masks
+    slots that write nothing (sink page) and do not advance.
+    ``mode="prefill"``: a chunk continuing at each slot's resident length,
+    ``active`` (B, S) marks its valid rows; logits of the last row only.
+    ``paged``: ``{"table": (B, maxp) int32, "page_size": int}``."""
+    if mode not in ("decode", "prefill"):
+        raise NotImplementedError(
+            f"forward mode {mode!r}: only paged serving is ported")
+    dtype = torch_dtype(cfg.dtype)
+    x = _embed_in(params, inputs["tokens"], cfg, dtype)
+    b, s, _ = x.shape
+    cache_len = cache["len"]
+    positions = cache_len.long()[:, None] + torch.arange(s, device=x.device)
+    ctx = tfm.Ctx(cfg=cfg, pcfg=pcfg, mode=mode, positions=positions,
+                  cache_len=cache_len, paged=paged, decode_active=active)
+    x, aux, z, new_layers = run_layers(params["layers"], x, ctx,
+                                       cache["layers"])
+    x = tfm.apply_norm(params["final_norm"], x, cfg)
+
+    if return_hidden:
+        logits = x
+    elif mode == "prefill":
+        logits = _logits_out(params, x[:, -1:], cfg)
+    else:
+        logits = _logits_out(params, x, cfg)
+
+    if active is None:
+        adv = s
+    elif mode == "decode":
+        adv = active.int()
+    else:
+        adv = active.int().sum(dim=1)
+    new_cache = {"layers": new_layers,
+                 "len": (cache_len + adv).to(torch.int32)}
+    n_moe = max(sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers)), 1)
+    return logits, new_cache, aux / n_moe, z / n_moe

@@ -1,0 +1,202 @@
+"""Transformer building blocks of the serving slice (counterpart of
+``repro.models.transformer``): norms, GQA attention over the paged KV
+cache, and the MoE FFN.
+
+Parameters are plain dicts of tensors. The paged K/V pools are updated in
+place (the JAX version returns new pools): serving holds one pool and
+never needs the old one, so the port saves the copy.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention import NEG_INF, paged_attention
+from repro_torch.models import attention as attn_lib
+from repro_torch.parallel.moe_parallel import MoEStatic, moe_layer
+from repro_torch.parallel.sharding import ParallelConfig, normal_init
+
+
+@dataclasses.dataclass
+class Ctx:
+    """Per-call context threaded through apply functions."""
+    cfg: ModelConfig
+    pcfg: ParallelConfig
+    mode: str                           # prefill | decode
+    positions: torch.Tensor             # (B, S) absolute positions
+    cache_len: torch.Tensor             # (B,) filled length before this step
+    paged: dict                         # {"table": (B, maxp) i32, "page_size"}
+    decode_active: Optional[torch.Tensor] = None  # (B,) decode / (B, S)
+    #   prefill mask: inactive slots and rows write to the sink page only
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg: ModelConfig, device, d: Optional[int] = None) -> dict:
+    d = d or cfg.d_model
+    p = {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
+    return p
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return out.to(x.dtype)
+
+
+def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if "bias" in p:
+        return layernorm(p, x, cfg.norm_eps)
+    return rmsnorm(p, x, cfg.norm_eps)
+
+
+def _head_rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN
+# ---------------------------------------------------------------------------
+
+def init_moe_ffn(cfg: ModelConfig, dtype, generator, device) -> dict:
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_ff, m.num_experts
+    return {
+        "router": normal_init((d, e), torch.float32, generator, device),
+        "w_gate": normal_init((e, d, f), dtype, generator, device),
+        "w_up": normal_init((e, d, f), dtype, generator, device),
+        "w_down": normal_init((e, f, d), dtype, generator, device),
+    }
+
+
+def apply_moe_ffn(p: dict, x: torch.Tensor, ctx: Ctx):
+    """Returns (y, aux_loss, z_loss). x: (B, S, D)."""
+    m = ctx.cfg.moe
+    ms = MoEStatic(num_experts=m.num_experts, top_k=m.top_k, act=ctx.cfg.act,
+                   glu=ctx.cfg.glu, norm_topk=m.norm_topk,
+                   softmax_after_topk=m.softmax_after_topk)
+    return moe_layer(x, p, ms, ctx.pcfg)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention over the paged KV cache
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg: ModelConfig, dtype, generator, device) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    p = {
+        "wq": normal_init((d, hq * hd), dtype, generator, device),
+        "wk": normal_init((d, hkv * hd), dtype, generator, device),
+        "wv": normal_init((d, hkv * hd), dtype, generator, device),
+        "wo": normal_init((hq * hd, d), dtype, generator, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
+    return p
+
+
+def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
+                    cache: dict):
+    """Self-attention against the paged KV pools of ``cache`` (written in
+    place). Returns (y, cache).
+
+    decode: one token per slot; its K/V row goes to page
+    ``table[slot, len // page]`` at offset ``len % page`` (inactive slots
+    to the sink page 0) and the read runs ``kernels.paged_attention``.
+    prefill: a chunk continuing at ``cache_len``; its rows are scattered
+    into the granted pages (rows past the valid count go to the sink) and
+    the chunk attends causally over the gathered logical view."""
+    cfg = ctx.cfg
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    local = cfg.attn_kind(layer_idx) == "local" and cfg.window > 0
+    window = cfg.window if local else None
+
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = _head_rms(q, p["q_norm"], cfg.norm_eps)
+        k = _head_rms(k, p["k_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        q = attn_lib.rope(q, ctx.positions, cfg.rope_theta)
+        k = attn_lib.rope(k, ctx.positions, cfg.rope_theta)
+
+    page = int(ctx.paged["page_size"])
+    table = ctx.paged["table"]                        # (B, maxp) int32
+    maxp = table.shape[1]
+    k_pool, v_pool = cache["k"], cache["v"]
+    rows = torch.arange(b, device=x.device)
+    # Indices past the table clamp, as JAX's gathers do; the rows they
+    # address are inactive and redirected to the sink page.
+    if ctx.mode == "decode":
+        assert s == 1
+        active = ctx.decode_active
+        if active is None:
+            active = torch.ones(b, dtype=torch.bool, device=x.device)
+        length = ctx.cache_len
+        logical = (length // page).clamp(max=maxp - 1).long()
+        phys = torch.where(active, table[rows, logical], 0).long()
+        off = (length % page).long()
+        k_pool[phys, off] = k[:, 0].to(k_pool.dtype)
+        v_pool[phys, off] = v[:, 0].to(v_pool.dtype)
+        lengths = (length + active.int()).to(torch.int32)
+        out = paged_attention(q, k_pool, v_pool, table, lengths,
+                              window=window, softcap=cfg.logit_softcap)
+    elif ctx.mode == "prefill":
+        active = ctx.decode_active                     # (B, S) valid rows
+        if active is None:
+            active = torch.ones((b, s), dtype=torch.bool, device=x.device)
+        pos_abs = ctx.cache_len.long()[:, None] + torch.arange(
+            s, device=x.device)[None]                  # (B, S)
+        logical = (pos_abs // page).clamp(max=maxp - 1)
+        phys = torch.where(active, table[rows[:, None], logical], 0).long()
+        off = pos_abs % page
+        k_pool[phys.reshape(-1), off.reshape(-1)] = \
+            k.reshape(b * s, hkv, hd).to(k_pool.dtype)
+        v_pool[phys.reshape(-1), off.reshape(-1)] = \
+            v.reshape(b * s, hkv, hd).to(v_pool.dtype)
+
+        s_all = maxp * page
+        pt = table.long()
+        k_view = k_pool[pt].reshape(b, s_all, hkv, hd)
+        v_view = v_pool[pt].reshape(b, s_all, hkv, hd)
+        g = hq // hkv
+        qg = q.reshape(b, s, hkv, g, hd)
+        logits = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(),
+                              k_view.float()) * (hd ** -0.5)
+        if cfg.logit_softcap:
+            logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+        kpos = torch.arange(s_all, device=x.device)[None, None]
+        allowed = kpos <= pos_abs[:, :, None]          # causal, absolute
+        if window is not None:
+            allowed &= kpos > pos_abs[:, :, None] - window
+        logits = torch.where(allowed[:, :, None, None, :], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bqhgk,bkhd->bqhgd",
+                           probs.to(v_view.dtype).float(), v_view.float())
+        out = out.reshape(b, s, hq, hd).to(q.dtype)
+    else:
+        raise NotImplementedError(
+            f"attention mode {ctx.mode!r}: only paged prefill and decode "
+            f"are ported (ROADMAP.md)")
+    y = out.reshape(b, s, hq * hd) @ p["wo"]
+    return y, cache
