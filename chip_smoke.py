@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. The card's name and power limit (``nvidia-smi``).
-2. Build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+2. Build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once).
 3. Kernel phase: each kernel against its plain PyTorch version on the card,
    at the served shapes, in bf16 and f32 (TF32 off for the plain versions):
@@ -26,6 +26,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    (8-token prompts, 16 new tokens) through ``PagedServer`` with 8 slots and
    16-token pages. The kernels' launch counts are set to 0 just before and
    read just after; both must be positive.
+
+The serve phase's weights are then freed, and the training slice runs:
+
+6. Kernel phase at training shapes (qwen3-moe-30b-a3b, 4 x 1024 tokens,
+   top-8, blk 128: Np 49,024 sorted rows): ``esmm`` in bf16 and f32 at
+   (Np, 2048) x (128, 2048, 768), transposed at (Np, 2048) x
+   (128, 768, 2048)^T, and once with a bias; ``estmm`` in bf16 at
+   (Np, 2048) x (Np, 768), and once on a layout where 4 experts have no
+   rows, whose dW must be exactly 0; ``esffn_glu`` at N 4096, blk 128.
+   Each against its plain version, timed as in phase 3, with the time of
+   ``torch._grouped_mm`` (one PyTorch call computing the same grouped
+   product) where the installed torch has it for the dtype.
+7. Training reference: one ``loss_fn`` forward and backward of a 2-layer
+   model at full width in f32 (2 x 64 tokens, blk 16) on the GPU (the
+   kernels) and on the CPU (the plain versions) from the same weights and
+   batch: the losses must agree within ``TRAIN_LOSS_RTOL`` and every grad
+   leaf within ``TRAIN_GRAD_TOL`` x its max |grad|.
+8. Train phase: qwen3-moe-30b-a3b at full width and 4 layers in bf16,
+   AdamW with f32 masters, ``remat="block"``, the synthetic token stream
+   at global batch 4 x 1024 tokens, blk 128: one warm-up step, then 3
+   steps through ``make_train_step`` with the launch counts set to 0 just
+   before and read just after (per step: 2 ``esffn_glu``, 5 ``esmm`` and
+   3 ``estmm`` a layer). Every loss must be finite.
 
 It then prints the kernels' JSON line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -50,7 +73,16 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 ESFFN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # x max|plain|
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-5}    # x max|plain|
+# ESMM/ESTMM sum in f32 in another order than cuBLAS; bf16 outputs may
+# then round one ulp (2^-8 relative) apart.
+GEMM_TOL = {"bfloat16": 1e-2, "float32": 1e-5}    # x max|plain|
+# GPU vs CPU in f32 differ by summation order only: measured 0 on the loss
+# and 3.7e-6 x max|grad| on the worst grad leaf (H100, 700 W).
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_GRAD_TOL = 1e-4                             # x max|grad| of the leaf
 SERVE_DEPTH = 48
+TRAIN_DEPTH = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
 
 
 def card_line() -> str:
@@ -200,11 +232,311 @@ def paged_attention_cases(torch, flush):
     return cases
 
 
+def _sorted_layout(torch, n, empty_experts=0, seed=5):
+    """qwen3-moe-30b-a3b's routing of n random tokens (top-8 of 128
+    experts, blk 128); with ``empty_experts`` every pick of the first few
+    experts moves to the expert ``empty_experts`` places on, so those
+    experts get no rows."""
+    from repro_torch.core.reindex import build_reindex
+    from repro_torch.core.routing import route
+
+    d, e, k = 2048, 128, 8
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    router = torch.randn((d, e), generator=gen, device="cuda") * 0.02
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    r = route(x, router, k)
+    idx = r.expert_idx
+    if empty_experts:
+        idx = torch.where(idx < empty_experts, idx + empty_experts, idx)
+    return x, build_reindex(idx, r.gates, e, 128), gen
+
+
+def _check(name, kern, plain, tol_rel):
+    if not bool(kern.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = (kern.float() - plain.float()).abs().max().item()
+    tol = tol_rel * plain.float().abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name}: max abs err {err} > {tol}")
+    return err, tol
+
+
+def _library_ms(torch, flush, fn, dtype):
+    """Time of ``torch._grouped_mm`` computing the same grouped product,
+    or (None, reason) where this torch has none for the dtype."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch has no _grouped_mm"
+    if dtype != "bfloat16":
+        return None, "torch._grouped_mm takes bf16 operands only"
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except RuntimeError as err:   # the library refused these operands
+        return None, f"torch._grouped_mm refused the operands: {err}"
+    return time_ms(torch, fn, flush), "torch._grouped_mm"
+
+
+def train_kernel_cases(torch, flush):
+    """Phase 6: esmm, estmm and esffn_glu at the train phase's shapes."""
+    from repro_torch.core.reindex import gather_rows
+    from repro_torch.kernels import esffn, esmm, estmm
+
+    n, d, e, f = TRAIN_BATCH * TRAIN_SEQ, 2048, 128, 768
+    x, ri, gen = _sorted_layout(torch, n)
+    np_rows, nblk = ri.row_token.numel(), ri.block_expert.numel()
+    be, pc = ri.block_expert, ri.padded_counts
+    experts = int((pc > 0).sum())
+    # offsets of the grouped library call: tail blocks belong to E-1
+    offs = torch.cumsum(pc, 0).to(torch.int32)
+    offs[-1] = np_rows
+    shape = {"N": n, "D": d, "E": e, "F": f, "top_k": 8, "blk": 128,
+             "Np": np_rows, "experts_with_rows": experts}
+    res = {"esmm": [], "estmm": [], "esffn_glu": []}
+
+    for dtype, trans, bias in (("bfloat16", False, False),
+                               ("float32", False, False),
+                               ("bfloat16", True, False),
+                               ("float32", True, False),
+                               ("bfloat16", False, True)):
+        td = getattr(torch, dtype)
+        k_dim, n_dim = (d, f)
+        w = (torch.randn((e, n_dim, k_dim) if trans else (e, k_dim, n_dim),
+                         generator=gen, device="cuda") * 0.02).to(td)
+        b = ((torch.randn((e, n_dim), generator=gen, device="cuda") * 0.1)
+             .to(td) if bias else None)
+        xs = gather_rows(x.to(td), ri.row_token)
+        args = (xs, w, b, be)
+        kw = dict(transpose_rhs=trans)
+        name = f"esmm {dtype} trans={trans} bias={bias}"
+        plain = esmm.esmm_plain(*args, **kw)
+        kern = esmm.esmm(*args, **kw)
+        torch.cuda.synchronize()
+        err, tol = _check(name, kern, plain, GEMM_TOL[dtype])
+        s_ = xs.element_size()
+        nbytes = (np_rows * k_dim * s_ + experts * k_dim * n_dim * s_
+                  + (experts * n_dim * s_ if bias else 0) + nblk * 4
+                  + np_rows * n_dim * s_)
+        b_ms, b_by = bound(nbytes, 2 * np_rows * k_dim * n_dim, dtype)
+        wl = w.transpose(1, 2) if trans else w
+        lib_ms, lib_note = _library_ms(
+            torch, flush, lambda: torch._grouped_mm(xs, wl, offs=offs), dtype)
+        res["esmm"].append({
+            "shape": {**shape, "K": k_dim, "Nout": n_dim,
+                      "transpose_rhs": trans, "bias": bias},
+            "dtype": dtype, "max_abs_err": err, "tolerance": tol,
+            "kernel_ms": time_ms(torch, lambda: esmm.esmm(*args, **kw), flush),
+            "plain_ms": time_ms(torch, lambda: esmm.esmm_plain(*args, **kw),
+                                flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library": lib_note})
+        del w, b, xs, plain, kern
+
+    for dtype, empty in (("bfloat16", 0), ("float32", 0), ("bfloat16", 4)):
+        td = getattr(torch, dtype)
+        lay_x, lay = (x, ri) if not empty else _sorted_layout(
+            torch, n, empty_experts=empty, seed=6)[:2]
+        lpc, lbe = lay.padded_counts, lay.block_expert
+        x1 = gather_rows(lay_x.to(td), lay.row_token)
+        x2 = (torch.randn((x1.shape[0], f), generator=gen, device="cuda")
+              * (lay.row_gate != 0)[:, None]).to(td)
+        args = (x1, x2, lbe, lpc)
+        name = f"estmm {dtype} empty={empty}"
+        plain = estmm.estmm_plain(*args)
+        kern = estmm.estmm(*args)
+        torch.cuda.synchronize()
+        err, tol = _check(name, kern, plain, GEMM_TOL[dtype])
+        n_empty = int((lpc == 0).sum())
+        if empty and (n_empty < empty
+                      or not torch.equal(kern[lpc == 0],
+                                         torch.zeros_like(kern[lpc == 0]))):
+            raise AssertionError(f"{name}: {n_empty} empty experts, dW not "
+                                 f"exactly 0")
+        rows = int(lpc.sum()) + (x1.shape[0] - int(lpc.sum())
+                                 if int(lpc[-1]) > 0 else 0)
+        s_ = x1.element_size()
+        nbytes = rows * (d + f) * s_ + e * 4 + e * d * f * 4
+        b_ms, b_by = bound(nbytes, 2 * rows * d * f, dtype)
+        loffs = torch.cumsum(lpc, 0).to(torch.int32)
+        loffs[-1] = x1.shape[0]
+        lib_ms, lib_note = _library_ms(      # writes bf16, not f32
+            torch, flush, lambda: torch._grouped_mm(x1.t(), x2, offs=loffs),
+            dtype)
+        res["estmm"].append({
+            "shape": {**shape, "D1": d, "D2": f, "empty_experts": n_empty,
+                      "rows_read": rows},
+            "dtype": dtype, "max_abs_err": err, "tolerance": tol,
+            "kernel_ms": time_ms(torch, lambda: estmm.estmm(*args), flush),
+            "plain_ms": time_ms(torch, lambda: estmm.estmm_plain(*args),
+                                flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library": lib_note})
+        del x1, x2, plain, kern
+
+    td = torch.bfloat16
+    ws = [(torch.randn(sh, generator=gen, device="cuda") * 0.02).to(td)
+          for sh in ((e, d, f), (e, d, f), (e, f, d))]
+    xb = x.to(td)
+    args = (xb, ri.row_token, ri.row_gate, be, *ws)
+    plain = esffn.esffn_glu_plain(*args)
+    kern = esffn.esffn_glu(*args)
+    torch.cuda.synchronize()
+    err, tol = _check("esffn_glu N 4096 blk 128", kern, plain,
+                      ESFFN_TOL["bfloat16"])
+    live = int((ri.row_gate != 0).sum())
+    nbytes = (n * d * 2 + experts * 3 * d * f * 2 + np_rows * 8 + nblk * 4
+              + np_rows * d * 2)
+    b_ms, b_by = bound(nbytes, 6 * live * d * f, "bfloat16")
+    res["esffn_glu"].append({
+        "shape": {**shape, "live_rows": live}, "dtype": "bfloat16",
+        "max_abs_err": err, "tolerance": tol,
+        "kernel_ms": time_ms(torch, lambda: esffn.esffn_glu(*args), flush),
+        "plain_ms": time_ms(torch, lambda: esffn.esffn_glu_plain(*args),
+                            flush),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no one PyTorch call computes it"})
+    return res
+
+
+def train_reference_phase(torch):
+    """Phase 7: one loss_fn forward + backward of a 2-layer full-width f32
+    model on the GPU (kernels) and the CPU (plain versions)."""
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=2, dtype="float32")
+    pcfg = ParallelConfig(blk=16)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = lm.init_params(cfg, generator=gen, device="cuda")
+    batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
+                                   vocab_size=cfg.vocab_size,
+                                   seed=7)).batch(0)
+    loss_fn = steps.make_loss_fn(cfg, pcfg)
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.detach().to(device).requires_grad_(), params)
+        total, metrics = loss_fn(p, batch_to(batch, device))
+        grads = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
+        out[device] = (float(metrics["loss"].detach()), float(total.detach()),
+                       [None if g is None else g.cpu() for g in grads])
+        del p, grads
+    (lg, tg, gg), (lc, tc, gc) = out["cuda"], out["cpu"]
+    if not abs(tg - tc) <= TRAIN_LOSS_RTOL * abs(tc):
+        raise AssertionError(f"train reference: GPU loss {tg} vs CPU {tc}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        if (a is None) != (b is None):
+            raise AssertionError(f"train reference: grad leaf {i} missing")
+        if a is None:
+            continue
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if not err <= TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"train reference: grad leaf {i} "
+                                 f"{tuple(b.shape)} err {err} > "
+                                 f"{TRAIN_GRAD_TOL} x {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    print(f"[train-reference] 2-layer full-width f32, 2 x 64 tokens: loss "
+          f"GPU {lg!r} CPU {lc!r}, total GPU {tg!r} CPU {tc!r} (rel diff "
+          f"{abs(tg - tc) / abs(tc):.3e}); {len(gc)} grad leaves, worst max "
+          f"|diff| / max |grad| {worst:.3e}")
+    return {"loss_gpu": lg, "loss_cpu": lc, "total_rel_diff":
+            abs(tg - tc) / abs(tc), "worst_grad_rel": worst}
+
+
+def train_phase(torch):
+    """Phase 8: 4 full-width layers, bf16, AdamW, remat="block"."""
+    import math
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.kernels import esffn, esmm, estmm
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to, build_state
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    cfg = cfglib.get_config("qwen3-moe-30b-a3b")
+    print(f"[train] depth cut: {cfg.num_layers} -> {TRAIN_DEPTH} layers")
+    cfg = dataclasses.replace(cfg, num_layers=TRAIN_DEPTH)
+    pcfg = ParallelConfig(blk=min(128, max(16, TRAIN_SEQ // 4)),
+                          remat="block")
+    opt_cfg = adamw.OptimizerConfig(peak_lr=3e-4, warmup_steps=20,
+                                    decay_steps=40, master_fp32=True)
+    t0 = time.perf_counter()
+    params, opt_state = build_state(cfg, opt_cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   tree_leaves(params) + tree_leaves(opt_state)
+                   if t is not None) / 1e9
+    print(f"[train] {cfg.name}: {TRAIN_DEPTH} layers at full width, "
+          f"{n_params / 1e9:.3f} B parameters, {state_gb:.2f} GB of bf16 "
+          f"weights + f32 masters and moments, built in "
+          f"{time.perf_counter() - t0:.1f}s; blk {pcfg.blk}, remat "
+          f"{pcfg.remat}")
+    source = TokenSource(DataConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH,
+                                    vocab_size=cfg.vocab_size, seed=0))
+    train_step = steps.make_train_step(cfg, pcfg, opt_cfg)
+
+    def run(step):
+        batch = batch_to(source.batch(step), "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = train_step(params, opt_state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    m, dt = run(0)                        # warm-up, unmeasured
+    print(f"[train] warm-up step: loss {m['loss']:.4f} ({dt:.2f}s)")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (esffn.esffn_glu, esmm.esmm, estmm.estmm):
+        fn.launches = 0
+    times, log = [], []
+    for step in range(1, TRAIN_STEPS + 1):
+        m, dt = run(step)
+        times.append(dt)
+        log.append(m)
+        print(f"[train] step {step}: loss {m['loss']:.6f} aux "
+              f"{m['aux_loss']:.6f} z {m['z_loss']:.4f} grad norm "
+              f"{m['grad_norm']:.6f} lr {m['lr']:.2e} ({dt:.3f}s)")
+    launches = {"esffn_glu": esffn.esffn_glu.launches,
+                "esmm": esmm.esmm.launches, "estmm": estmm.estmm.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in log):
+        raise AssertionError(f"train: non-finite loss or grad norm {log}")
+    want = {"esffn_glu": 2, "esmm": 5, "estmm": 3}
+    want = {k: v * TRAIN_DEPTH * TRAIN_STEPS for k, v in want.items()}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, expected {want}")
+    med = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens: step median {med * 1e3:.1f}ms, {tokens / med:.1f} "
+          f"tokens/s; peak allocated {peak / 1e9:.2f} GB; launches "
+          f"{launches}")
+    return launches, {"steps": log, "step_times_s": times,
+                      "step_median_ms": med * 1e3,
+                      "tokens_per_s": tokens / med,
+                      "peak_allocated_gb": peak / 1e9,
+                      "layers": TRAIN_DEPTH, "params": n_params,
+                      "state_gb": state_gb}
+
+
 def reference_phase(torch):
     """2 layers at full width in f32: GPU (kernels) vs CPU (plain versions)
     from the same weights must give the same greedy tokens."""
     import numpy as np
     from repro_torch import configs as cfglib
+    from repro_torch.common import tree_map
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import ParallelConfig
@@ -213,7 +545,7 @@ def reference_phase(torch):
                               num_layers=2, dtype="float32")
     gen = torch.Generator(device="cuda").manual_seed(3)
     params = lm.init_params(cfg, generator=gen, device="cuda")
-    cpu_params = _map_tree(lambda t: t.cpu(), params)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
                for _ in range(3)]
@@ -235,6 +567,7 @@ def reference_phase(torch):
 def serve_phase(torch):
     import numpy as np
     from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves
     from repro_torch.kernels import esffn, paged_attention
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -248,7 +581,7 @@ def serve_phase(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = lm.init_params(cfg, generator=gen, device="cuda")
     torch.cuda.synchronize()
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
           f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, expert d_ff "
@@ -318,20 +651,6 @@ def serve_phase(torch):
                       "layers": cfg.num_layers}
 
 
-def _map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_tree(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _leaves(tree):
-    out = []
-    _map_tree(out.append, tree)
-    return out
-
-
 def main() -> int:
     import torch
 
@@ -369,22 +688,44 @@ def main() -> int:
     launches, serve_res = serve_phase(torch)
     print(f"[serve] {json.dumps(serve_res)}")
 
-    def entry(name, source, replaces, cases):
+    torch.cuda.empty_cache()           # the serve phase's weights are gone
+    print(f"[train] device memory allocated before training: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    train_res = train_kernel_cases(torch, flush)
+    for c in sum(train_res.values(), []):
+        print(f"[kernel-train] {json.dumps(c)}")
+    del flush
+    torch.cuda.empty_cache()
+    train_ref = train_reference_phase(torch)
+    torch.cuda.empty_cache()
+    train_launches, train_out = train_phase(torch)
+    print(f"[train] {json.dumps({**train_out, 'reference': train_ref})}")
+    launches.update({k: train_launches[k] for k in ("esmm", "estmm")})
+
+    def entry(name, source, replaces, cases, **extra):
         head = cases[0]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": head["max_abs_err"],
                 "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                "bound_by": head["bound_by"], "library_ms": None,
+                "bound_by": head["bound_by"],
+                "library_ms": head.get("library_ms"),
                 "shape": head["shape"], "dtype": head["dtype"],
-                "tolerance": head["tolerance"], "cases": cases}
+                "tolerance": head["tolerance"], "cases": cases, **extra}
 
     print(json.dumps({"kernels": [
         entry("esffn_glu", "src/repro_torch/csrc/esffn.cu",
-              "src/repro/kernels/esffn.py:280", esffn_res),
+              "src/repro/kernels/esffn.py:280",
+              esffn_res + train_res["esffn_glu"],
+              train_launches=train_launches["esffn_glu"]),
         entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:295", attn_res),
+        entry("esmm", "src/repro_torch/csrc/esmm.cu",
+              "src/repro/kernels/esmm.py:80", train_res["esmm"]),
+        entry("estmm", "src/repro_torch/csrc/estmm.cu",
+              "src/repro/kernels/estmm.py:43", train_res["estmm"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

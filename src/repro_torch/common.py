@@ -1,7 +1,7 @@
 """Small shared utilities of the PyTorch port (counterpart of ``repro.common``)."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -43,3 +43,27 @@ def torch_dtype(name: Optional[str]) -> torch.dtype:
     """``ModelConfig.dtype`` string -> torch dtype."""
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
             "float16": torch.float16}[name]
+
+
+def tree_leaves(tree) -> List:
+    """The leaves of a tree of dicts and lists, in a fixed order: dict keys
+    sorted (as ``jax.tree`` orders them), lists in order. ``None`` is a
+    leaf."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure), keeping the structure; leaves
+    are visited in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)

@@ -1,4 +1,4 @@
-"""Weight carry-over from the JAX package's parameter tree.
+"""Weight and optimizer-state carry-over from the JAX package's trees.
 
 The two packages draw their random weights differently (threefry vs the
 torch generator), so comparisons carry one tree across instead of
@@ -26,7 +26,7 @@ def _to_tensor(a, device) -> torch.Tensor:
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+    return None if tree is None else fn(tree)
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
@@ -35,7 +35,25 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
     arrays, or anything ``np.asarray`` takes), on ``device`` (the GPU
     unless given)."""
     check_supported(cfg)
+    return _unstack(tree, cfg, resolve_device(device))
+
+
+def opt_state_from_jax(state: dict, cfg: ModelConfig, *, device=None) -> dict:
+    """The port's AdamW state (``optim.adamw.init_opt_state``'s layout)
+    from ``repro.optim.adamw``'s: the moments ``m``/``v`` and the f32
+    ``master`` copies (None where a parameter is f32) unstacked as
+    ``params_from_jax`` unstacks the parameters, and ``step`` as an int32
+    0-d tensor, all on ``device`` (the GPU unless given)."""
+    check_supported(cfg)
     device = resolve_device(device)
+    out = {k: _unstack(state[k], cfg, device)
+           for k in ("m", "v", "master") if k in state}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=device)
+    return out
+
+
+def _unstack(tree: dict, cfg: ModelConfig, device) -> dict:
     period = cfg.period
     layers = []
     for li in range(cfg.num_layers):

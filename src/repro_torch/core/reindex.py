@@ -102,6 +102,11 @@ def gather_rows(x: torch.Tensor, row_token: torch.Tensor) -> torch.Tensor:
     return xp[row_token.long()]
 
 
+def gather_sorted(x: torch.Tensor, ri: ReIndex) -> torch.Tensor:
+    """``gather_rows`` driven by a full ReIndex descriptor."""
+    return gather_rows(x, ri.row_token)
+
+
 def combine_scatter(ys: torch.Tensor, ri: ReIndex, num_tokens: int) -> torch.Tensor:
     """Gate-weighted scatter-add combine: (Np, D) sorted rows -> (N, D)."""
     vals = ys * ri.row_gate[:, None].to(ys.dtype)

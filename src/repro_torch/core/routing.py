@@ -1,6 +1,8 @@
 """Top-k expert routing (counterpart of ``repro.core.routing``).
 
-Training jitter (``noise_rng``) is not ported: this slice serves only.
+Training jitter (``noise_rng``) is not ported: the training step routes
+without it (``launch.steps.make_loss_fn`` passes no rng, as the JAX
+package's does).
 """
 from __future__ import annotations
 

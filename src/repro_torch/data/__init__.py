@@ -1,0 +1,1 @@
+"""PyTorch port: see the matching module of ``repro`` for the reference."""

@@ -1,14 +1,106 @@
-"""Step functions of the paged serving engine (counterpart of the serving
-half of ``repro.launch.steps``). PyTorch runs eagerly, so a step is a plain
-closure; the chunk's valid count and the slot arrive as host ints.
+"""Step functions (counterpart of ``repro.launch.steps``): the training
+step (loss, grads, AdamW update) and the paged serving engine's steps.
+PyTorch runs eagerly, so a step is a plain closure; the serving chunk's
+valid count and slot arrive as host ints. One device only: the JAX
+builders' ``mesh`` is None here.
 """
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import ParallelConfig
+
+
+def xent_loss(logits, labels, mask):
+    """Mean cross entropy over the masked positions. logits (B, S, V)."""
+    logits = logits.float()
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum((lse - ll) * mask) / denom
+
+
+def _chunk_loss(params, x_c, lbl_c, m_c, cfg):
+    lg = lm._logits_out(params, x_c, cfg)
+    mx = torch.amax(lg, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lg - mx), dim=-1)) + mx[..., 0]
+    ll = torch.gather(lg, -1, lbl_c.long()[..., None])[..., 0]
+    return torch.sum((lse - ll) * m_c)
+
+
+def chunked_xent(x, params, cfg: ModelConfig, labels, mask,
+                 n_chunks: int = 16):
+    """Cross entropy over sequence chunks: one (B, S_c, V) f32 logits block
+    at a time, recomputed in the backward (``torch.utils.checkpoint``), so
+    full-sequence logits (which dominate activation memory at 150k-entry
+    vocabularies) never exist. x: (B, S, D) final hidden states."""
+    s = x.shape[1]
+    while s % n_chunks:
+        n_chunks //= 2
+    cs = s // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * cs, (c + 1) * cs)
+        total = total + checkpoint(_chunk_loss, params, x[:, sl],
+                                   labels[:, sl], mask[:, sl], cfg,
+                                   use_reentrant=False)
+    return total / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig):
+    """Training loss closure: LM forward (hidden-state output) + chunked
+    cross entropy + MoE aux/z losses, weighted per ``cfg.moe``. Routing
+    takes no jitter. ``loss_fn(params, batch) -> (total, metrics)``;
+    batch holds tokens, labels (B, S) int and loss_mask (B, S) f32."""
+    aw = cfg.moe.aux_weight if cfg.moe else 0.0
+    zw = cfg.moe.z_weight if cfg.moe else 0.0
+
+    def loss_fn(params, batch):
+        hidden, _, aux, z = lm.forward(params, batch, cfg, pcfg,
+                                       mode="train", return_hidden=True)
+        loss = chunked_xent(hidden, params, cfg, batch["labels"],
+                            batch["loss_mask"])
+        total = loss + aw * aux + zw * z
+        return total, {"loss": loss, "aux_loss": aux, "z_loss": z}
+
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
+                    opt_cfg: adamw.OptimizerConfig):
+    """The train step: grads of ``make_loss_fn``'s total by autograd, then
+    the AdamW update. ``train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``; params and opt_state are updated in place
+    (``adamw.apply_updates``) and metrics are 0-d tensors on the device.
+    The update runs under the profiler range ``train_step.adamw``
+    (``scripts/torch_train_profile.py`` reads its device time)."""
+    loss_fn = make_loss_fn(cfg, pcfg)
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        total, metrics = loss_fn(params, batch)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        it = iter(grads)
+        grad_tree = tree_map(lambda _: next(it), params)
+        with record_function("train_step.adamw"):
+            params, opt_state, om = adamw.apply_updates(
+                params, grad_tree, opt_state, opt_cfg)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, {**metrics, **om,
+                                   "total_loss": total.detach()}
+
+    return train_step
 
 
 def make_paged_serve_step(cfg: ModelConfig, pcfg: ParallelConfig,

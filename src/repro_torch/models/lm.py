@@ -1,5 +1,5 @@
-"""LM assembly of the serving slice (counterpart of ``repro.models.lm``):
-parameter init, the paged KV cache, and the forward pass.
+"""LM assembly (counterpart of ``repro.models.lm``): parameter init, the
+paged KV cache, and the forward pass (training, and paged serving).
 
 The layer stack is a Python list of per-layer parameter dicts and the
 forward an unrolled loop over it (the JAX package stacks layers per period
@@ -13,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import torch_dtype
 from repro_torch.configs.base import ModelConfig
@@ -126,14 +127,30 @@ def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
     return x + y, cache, aux, z
 
 
+def _train_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int):
+    x, _, aux, z = apply_block(p, x, ctx, idx, None)
+    return x, aux, z
+
+
 def run_layers(layers: list, x: torch.Tensor, ctx: tfm.Ctx,
                cache_layers: list):
-    """The unrolled layer loop. Returns (x, aux, z, cache_layers)."""
+    """The unrolled layer loop. Returns (x, aux, z, cache_layers).
+
+    A training forward with ``pcfg.remat == "block"`` checkpoints each
+    block (``torch.utils.checkpoint``, non-reentrant): only its input is
+    saved and its forward, kernels included, runs again in the backward,
+    as the JAX package's ``jax.checkpoint`` of a period does."""
+    remat = ctx.mode == "train" and ctx.pcfg.remat != "none"
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     z = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for idx, (lp, lc) in enumerate(zip(layers, cache_layers)):
-        x, nc, a, zz = apply_block(lp, x, ctx, idx, lc)
+        if remat:
+            x, a, zz = checkpoint(_train_block, lp, x, ctx, idx,
+                                  use_reentrant=False)
+            nc = lc
+        else:
+            x, nc, a, zz = apply_block(lp, x, ctx, idx, lc)
         new_caches.append(nc)
         aux = aux + a
         z = z + zz
@@ -154,30 +171,45 @@ def _logits_out(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def forward(params: dict, inputs: dict, cfg: ModelConfig,
-            pcfg: ParallelConfig, *, mode: str, cache: dict, paged: dict,
+            pcfg: ParallelConfig, *, mode: str, cache: Optional[dict] = None,
+            paged: Optional[dict] = None,
             active: Optional[torch.Tensor] = None,
             return_hidden: bool = False):
-    """Serving forward over the paged cache. Returns (logits, cache,
-    aux_loss, z_loss); with ``return_hidden`` the final normed hidden
-    states stand in for the logits.
+    """Forward pass. Returns (logits, cache, aux_loss, z_loss); with
+    ``return_hidden`` the final normed hidden states stand in for the
+    logits.
 
+    ``mode="train"``: the full sequence at positions ``arange(S)``, no
+    cache (the returned cache is None).
     ``mode="decode"``: one token per slot, ``active`` (B,) bool masks
     slots that write nothing (sink page) and do not advance.
     ``mode="prefill"``: a chunk continuing at each slot's resident length,
     ``active`` (B, S) marks its valid rows; logits of the last row only.
-    ``paged``: ``{"table": (B, maxp) int32, "page_size": int}``."""
-    if mode not in ("decode", "prefill"):
+    ``paged`` (serving): ``{"table": (B, maxp) int32, "page_size": int}``."""
+    if mode not in ("train", "decode", "prefill"):
         raise NotImplementedError(
-            f"forward mode {mode!r}: only paged serving is ported")
+            f"forward mode {mode!r}: only training and paged serving are "
+            f"ported")
+    train = mode == "train"
+    if train and (cache is not None or paged is not None
+                  or active is not None):
+        raise ValueError("paged cache / active mask are serving-side only")
     dtype = torch_dtype(cfg.dtype)
     x = _embed_in(params, inputs["tokens"], cfg, dtype)
     b, s, _ = x.shape
-    cache_len = cache["len"]
-    positions = cache_len.long()[:, None] + torch.arange(s, device=x.device)
+    if train:
+        cache_len = None
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        cache_layers = [None] * len(params["layers"])
+    else:
+        cache_len = cache["len"]
+        positions = cache_len.long()[:, None] + torch.arange(
+            s, device=x.device)
+        cache_layers = cache["layers"]
     ctx = tfm.Ctx(cfg=cfg, pcfg=pcfg, mode=mode, positions=positions,
                   cache_len=cache_len, paged=paged, decode_active=active)
     x, aux, z, new_layers = run_layers(params["layers"], x, ctx,
-                                       cache["layers"])
+                                       cache_layers)
     x = tfm.apply_norm(params["final_norm"], x, cfg)
 
     if return_hidden:
@@ -187,6 +219,9 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
     else:
         logits = _logits_out(params, x, cfg)
 
+    n_moe = max(sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers)), 1)
+    if train:
+        return logits, None, aux / n_moe, z / n_moe
     if active is None:
         adv = s
     elif mode == "decode":
@@ -195,5 +230,4 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
         adv = active.int().sum(dim=1)
     new_cache = {"layers": new_layers,
                  "len": (cache_len + adv).to(torch.int32)}
-    n_moe = max(sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers)), 1)
     return logits, new_cache, aux / n_moe, z / n_moe

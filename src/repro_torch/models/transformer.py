@@ -1,6 +1,6 @@
-"""Transformer building blocks of the serving slice (counterpart of
-``repro.models.transformer``): norms, GQA attention over the paged KV
-cache, and the MoE FFN.
+"""Transformer building blocks (counterpart of ``repro.models.transformer``):
+norms, GQA attention (full-sequence for training, over the paged KV cache
+for serving), and the MoE FFN.
 
 Parameters are plain dicts of tensors. The paged K/V pools are updated in
 place (the JAX version returns new pools): serving holds one pool and
@@ -25,10 +25,10 @@ class Ctx:
     """Per-call context threaded through apply functions."""
     cfg: ModelConfig
     pcfg: ParallelConfig
-    mode: str                           # prefill | decode
+    mode: str                           # train | prefill | decode
     positions: torch.Tensor             # (B, S) absolute positions
-    cache_len: torch.Tensor             # (B,) filled length before this step
-    paged: dict                         # {"table": (B, maxp) i32, "page_size"}
+    cache_len: Optional[torch.Tensor]   # (B,) filled length before this step
+    paged: Optional[dict]               # {"table": (B, maxp) i32, "page_size"}
     decode_active: Optional[torch.Tensor] = None  # (B,) decode / (B, S)
     #   prefill mask: inactive slots and rows write to the sink page only
 
@@ -115,9 +115,11 @@ def init_attention(cfg: ModelConfig, dtype, generator, device) -> dict:
 
 def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
                     cache: dict):
-    """Self-attention against the paged KV pools of ``cache`` (written in
-    place). Returns (y, cache).
+    """Self-attention. Returns (y, cache).
 
+    train: the full sequence attends causally to itself
+    (``attention.chunked_attention``); no cache.
+    Serving reads and writes the paged KV pools of ``cache`` in place.
     decode: one token per slot; its K/V row goes to page
     ``table[slot, len // page]`` at offset ``len % page`` (inactive slots
     to the sink page 0) and the read runs ``kernels.paged_attention``.
@@ -139,6 +141,12 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
     if cfg.use_rope:
         q = attn_lib.rope(q, ctx.positions, cfg.rope_theta)
         k = attn_lib.rope(k, ctx.positions, cfg.rope_theta)
+
+    if ctx.mode == "train":
+        out = attn_lib.chunked_attention(
+            q, k, v, causal=True, window=window, prefix_len=cfg.prefix_len,
+            softcap=cfg.logit_softcap, q_chunk=2048)
+        return out.reshape(b, s, hq * hd) @ p["wo"], cache
 
     page = int(ctx.paged["page_size"])
     table = ctx.paged["table"]                        # (B, maxp) int32
@@ -196,7 +204,7 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
         out = out.reshape(b, s, hq, hd).to(q.dtype)
     else:
         raise NotImplementedError(
-            f"attention mode {ctx.mode!r}: only paged prefill and decode "
-            f"are ported (ROADMAP.md)")
+            f"attention mode {ctx.mode!r}: only training and paged "
+            f"prefill and decode are ported (ROADMAP.md)")
     y = out.reshape(b, s, hq * hd) @ p["wo"]
     return y, cache

@@ -1,6 +1,7 @@
 """Parallel configuration and initializers (counterpart of the parts of
-``repro.parallel.sharding`` the serving slice needs). The port runs on one
-device, so only the expert-sorted layout's block size is configurable."""
+``repro.parallel.sharding`` the ported slices need). The port runs on one
+device, so only the expert-sorted layout's block size and the training
+forward's rematerialisation are configurable."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,8 +11,16 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """blk: rows per single-expert block of the expert-sorted layout."""
+    """blk: rows per single-expert block of the expert-sorted layout.
+    remat: "block" recomputes each block's forward in the training
+    backward (``torch.utils.checkpoint``; only the block inputs are
+    saved), "none" saves every activation. Serving forwards ignore it."""
     blk: int = 128
+    remat: str = "block"          # none | block
+
+    def __post_init__(self):
+        if self.remat not in ("none", "block"):
+            raise ValueError(f"remat {self.remat!r}: none | block")
 
 
 def normal_init(shape, dtype: torch.dtype, generator: torch.Generator,
