@@ -50,6 +50,33 @@ The serve phase's weights are then freed, and the training slice runs:
    before and read just after (per step: 2 ``esffn_glu``, 5 ``esmm`` and
    3 ``estmm`` a layer). Every loss must be finite.
 
+The training state is then freed, and the Swin-MoE slice runs (Swin-MoE-
+Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
+
+9. Kernel phase at the Swin train shapes, global batch 128 at 224^2: stage 2
+   (N 25,088 tokens, D 384, F 1536: Np 26,112 sorted rows) and stage 3
+   (N 6,272, D 768, F 3072: Np 7,296). ``esffn_mlp`` with both biases,
+   ``esfk`` and ``ess`` at each (dW1/db1 and dW2/db2 operands), also on a
+   layout where 3 experts have no rows (their dW and db exactly 0), with
+   the time of the unfused ``estmm`` + ``ess`` pair beside ``esfk``'s, and
+   ``esmm`` in f32 with a bias (the z recompute) and transposed (t, dX);
+   ``esffn_mlp`` once in bf16. Timed as phase 3, against the plain
+   versions; ``torch.segment_reduce`` is the library yardstick for ``ess``.
+10. Swin reference: Swin-MoE-Small at full width, depth cut to (2, 2, 2, 2)
+   (one MoE block each in stages 2 and 3), f32, 2 images: one
+   ``make_train_step`` loss and its grads on the GPU (the kernels) and on
+   the CPU (the plain versions) from the same weights must agree within
+   ``SWIN_LOSS_RTOL`` and ``SWIN_GRAD_TOL``.
+11. Swin train: Swin-MoE-Small at full width and depth, global batch
+   ``SWIN_BATCH`` of seeded 224^2 images and labels, AdamW
+   (``master_fp32=False``): one warm-up step, then ``SWIN_STEPS`` steps
+   whose launch counts must be exactly 10 ``esffn_mlp``, 30 ``esmm``, 20
+   ``esfk`` and 0 ``ess`` a step. Then one forward and backward of the
+   same loss from the same state with ``set_fused_backward(True)`` and
+   with ``(False)`` (the paper's Fig. 12 ablation: 0 ``esfk``, 20
+   ``estmm``, 20 ``ess``): the grads must agree within
+   ``SWIN_ABLATION_TOL``.
+
 It then prints the kernels' JSON line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -83,6 +110,17 @@ TRAIN_GRAD_TOL = 1e-4                             # x max|grad| of the leaf
 SERVE_DEPTH = 48
 TRAIN_DEPTH = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
+# Swin: the f32 kernels sum in another order than the plain versions'
+# cuBLAS products (TF32 off): 1e-4 x max|plain| as ESFFN_TOL in f32.
+SWIN_KERNEL_TOL = 1e-4
+SWIN_LOSS_RTOL = 1e-5
+SWIN_GRAD_TOL = 1e-4                              # x max|grad| of the leaf
+# fused vs unfused backward on the card: dW is the same sum in the same
+# order; db is summed in another (ESFK's rows vs ESS's 32 row lanes), and
+# the relative-position tables' grads take atomic adds in no fixed order.
+SWIN_ABLATION_TOL = 1e-5                          # x max|grad| of the leaf
+SWIN_BATCH, SWIN_STEPS = 128, 3
+SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
 
 
 def card_line() -> str:
@@ -531,6 +569,361 @@ def train_phase(torch):
                       "state_gb": state_gb}
 
 
+def _swin_layout(torch, n, d, empty_experts=0, seed=8):
+    """Swin-MoE-Small's routing of n random tokens of width d (top-1 of 8
+    experts, blk 128); with ``empty_experts`` the picks of the first few
+    experts move to the expert that many places on, so those get no rows."""
+    from repro_torch.core.reindex import build_reindex
+    from repro_torch.core.routing import route
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    router = torch.randn((d, 8), generator=gen, device="cuda") * 0.02
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    r = route(x, router, 1)
+    idx = r.expert_idx
+    if empty_experts:
+        idx = torch.where(idx < empty_experts, idx + empty_experts, idx)
+    return x, build_reindex(idx, r.gates, 8, 128), gen
+
+
+def _rows_read(pc, np_rows):
+    """Rows of the non-empty experts' runs (the tail belongs to E-1)."""
+    return int(pc.sum()) + (np_rows - int(pc.sum()) if int(pc[-1]) > 0 else 0)
+
+
+def swin_kernel_cases(torch, flush):
+    """Phase 9: esffn_mlp, esfk, ess and f32 biased esmm at the Swin train
+    shapes (stage 2 and stage 3 of Swin-MoE-Small at global batch 128)."""
+    from repro_torch.core.reindex import gather_rows
+    from repro_torch.kernels import esffn, esfk, esmm, ess, estmm
+
+    res = {"esffn_mlp": [], "esfk": [], "ess": [], "esmm": []}
+    e = 8
+    for stage, n, d in ((2, SWIN_BATCH * 196, 384), (3, SWIN_BATCH * 49, 768)):
+        f = 4 * d
+        for empty in (0, 3):
+            x, ri, gen = _swin_layout(torch, n, d, empty, seed=8 + stage)
+            np_rows, nblk = ri.row_token.numel(), ri.block_expert.numel()
+            be, pc, rg = ri.block_expert, ri.padded_counts, ri.row_gate
+            experts = int((pc > 0).sum())
+            n_empty = int((pc == 0).sum())
+            if empty and n_empty < empty:
+                raise AssertionError(f"swin layout: {n_empty} empty experts")
+            live = int((rg != 0).sum())
+            rows = _rows_read(pc, np_rows)
+            shape = {"stage": stage, "N": n, "D": d, "F": f, "E": e,
+                     "top_k": 1, "blk": 128, "Np": np_rows,
+                     "live_rows": live, "empty_experts": n_empty}
+
+            def randn(*sh, scale=1.0, g=gen):
+                return torch.randn(sh, generator=g, device="cuda") * scale
+
+            w1, w2 = randn(e, d, f, scale=0.02), randn(e, f, d, scale=0.02)
+            b1, b2 = randn(e, f, scale=0.1), randn(e, d, scale=0.1)
+            dtypes = ("float32", "bfloat16") if stage == 2 and not empty \
+                else ("float32",)
+            for dtype in dtypes:
+                td = getattr(torch, dtype)
+                args = (x.to(td), ri.row_token, rg, be, w1.to(td), b1,
+                        w2.to(td), b2)
+                name = f"esffn_mlp stage {stage} {dtype} empty={n_empty}"
+                plain = esffn.esffn_mlp_plain(*args)
+                kern = esffn.esffn_mlp(*args)
+                torch.cuda.synchronize()
+                tol_rel = SWIN_KERNEL_TOL if dtype == "float32" \
+                    else ESFFN_TOL["bfloat16"]
+                err, tol = _check(name, kern, plain, tol_rel)
+                if not torch.equal(kern[rg == 0], torch.zeros_like(
+                        kern[rg == 0])):
+                    raise AssertionError(f"{name}: padding rows not 0")
+                s_ = x.to(td).element_size()
+                nbytes = (n * d * s_ + experts * 2 * d * f * s_
+                          + experts * (d + f) * 4 + np_rows * 8 + nblk * 4
+                          + np_rows * d * s_)
+                b_ms, b_by = bound(nbytes, 4 * live * d * f, dtype)
+                res["esffn_mlp"].append({
+                    "shape": shape, "dtype": dtype, "max_abs_err": err,
+                    "tolerance": tol,
+                    "kernel_ms": time_ms(torch, lambda: esffn.esffn_mlp(
+                        *args), flush),
+                    "plain_ms": time_ms(torch, lambda: esffn.esffn_mlp_plain(
+                        *args), flush),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "library": "none: no one PyTorch call computes it"})
+                del plain, kern
+
+            # the backward's operands: xs (Np, D) with dz (Np, F) for
+            # (dW1, db1), h (Np, F) with dys (Np, D) for (dW2, db2); zero
+            # on padding rows, as the backward gives them
+            on = (rg != 0)[:, None]
+            xs = gather_rows(x, ri.row_token)
+            hs, dz, dys = randn(np_rows, f) * on, randn(np_rows, f) * on, \
+                randn(np_rows, d) * on
+            for x1, x2, what in ((xs, dz, "dW1,db1"), (hs, dys, "dW2,db2")):
+                args = (x1, x2, be, pc)
+                name = f"esfk stage {stage} {what} empty={n_empty}"
+                pw, pb = esfk.esfk_plain(*args)
+                kern_w, kern_b = esfk.esfk(*args)
+                torch.cuda.synchronize()
+                err_w, tol_w = _check(name + " dW", kern_w, pw,
+                                      SWIN_KERNEL_TOL)
+                err_b, tol_b = _check(name + " db", kern_b, pb,
+                                      SWIN_KERNEL_TOL)
+                z = pc == 0
+                if not (torch.equal(kern_w[z], torch.zeros_like(kern_w[z]))
+                        and torch.equal(kern_b[z],
+                                        torch.zeros_like(kern_b[z]))):
+                    raise AssertionError(f"{name}: empty experts not 0")
+                d1, d2 = x1.shape[1], x2.shape[1]
+                nbytes = rows * (d1 + d2) * 4 + e * 4 + e * d1 * d2 * 4 \
+                    + e * d2 * 4
+                b_ms, b_by = bound(nbytes, 2 * rows * d1 * d2 + rows * d2,
+                                   "float32")
+                res["esfk"].append({
+                    "shape": {**shape, "D1": d1, "D2": d2, "grads": what,
+                              "rows_read": rows},
+                    "dtype": "float32", "max_abs_err": max(err_w, err_b),
+                    "tolerance": min(tol_w, tol_b),
+                    "kernel_ms": time_ms(torch, lambda: esfk.esfk(*args),
+                                         flush),
+                    "plain_ms": time_ms(torch, lambda: esfk.esfk_plain(*args),
+                                        flush),
+                    # the paper's Fig. 12 ablation at the kernel level: the
+                    # unfused pair the backward runs instead of ESFK
+                    "unfused_estmm_ess_ms": time_ms(torch, lambda: (
+                        estmm.estmm(*args), ess.ess(x2, be, pc)), flush),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "library": "none: no one PyTorch call computes dW and db"})
+
+                args = (x2, be, pc)
+                name = f"ess stage {stage} D {d2} empty={n_empty}"
+                plain = ess.ess_plain(*args)
+                kern = ess.ess(*args)
+                torch.cuda.synchronize()
+                err, tol = _check(name, kern, plain, SWIN_KERNEL_TOL)
+                if not torch.equal(kern[z], torch.zeros_like(kern[z])):
+                    raise AssertionError(f"{name}: empty experts not 0")
+                # the library call: one segment sum over the expert runs
+                # (the tail rows go to E-1), then the empty-expert mask
+                lengths = pc.clone()
+                lengths[-1] += np_rows - int(pc.sum())
+                lib = torch.segment_reduce(x2, "sum", lengths=lengths)
+                torch.cuda.synchronize()
+                _check(name + " segment_reduce", torch.where(
+                    (pc > 0)[:, None], lib, 0.0), plain, SWIN_KERNEL_TOL)
+                b_ms, b_by = bound(rows * d2 * 4 + e * 4 + e * d2 * 4,
+                                   rows * d2, "float32")
+                res["ess"].append({
+                    "shape": {**shape, "D": d2, "rows_read": rows},
+                    "dtype": "float32", "max_abs_err": err, "tolerance": tol,
+                    "kernel_ms": time_ms(torch, lambda: ess.ess(*args), flush),
+                    "plain_ms": time_ms(torch, lambda: ess.ess_plain(*args),
+                                        flush),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": time_ms(torch, lambda: torch.segment_reduce(
+                        x2, "sum", lengths=lengths), flush),
+                    "library": "torch.segment_reduce"})
+
+            if empty:
+                continue
+            # f32 ESMM of the MLP backward: z = xs W1 + b1, t = dys W2^T,
+            # dX = dz W1^T
+            for xa, w, b, trans, what in ((xs, w1, b1, False, "z"),
+                                          (dys, w2, None, True, "t"),
+                                          (dz, w1, None, True, "dX")):
+                args = (xa, w, b, be)
+                kw = dict(transpose_rhs=trans)
+                name = f"esmm f32 stage {stage} {what}"
+                plain = esmm.esmm_plain(*args, **kw)
+                kern = esmm.esmm(*args, **kw)
+                torch.cuda.synchronize()
+                err, tol = _check(name, kern, plain, GEMM_TOL["float32"])
+                k_dim, n_dim = xa.shape[1], kern.shape[1]
+                nbytes = (np_rows * k_dim * 4 + experts * k_dim * n_dim * 4
+                          + (experts * n_dim * 4 if b is not None else 0)
+                          + nblk * 4 + np_rows * n_dim * 4)
+                b_ms, b_by = bound(nbytes, 2 * np_rows * k_dim * n_dim,
+                                   "float32")
+                res["esmm"].append({
+                    "shape": {**shape, "K": k_dim, "Nout": n_dim,
+                              "transpose_rhs": trans, "bias": b is not None,
+                              "product": what},
+                    "dtype": "float32", "max_abs_err": err, "tolerance": tol,
+                    "kernel_ms": time_ms(torch, lambda: esmm.esmm(*args, **kw),
+                                         flush),
+                    "plain_ms": time_ms(torch, lambda: esmm.esmm_plain(
+                        *args, **kw), flush),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "library": "none: torch._grouped_mm takes bf16 only"})
+                del plain, kern
+            del x, xs, hs, dz, dys, w1, w2, b1, b2
+    return res
+
+
+def _swin_grads(torch, params, loss_fn, images, labels):
+    """(loss, grads of every leaf) of one forward and backward."""
+    from repro_torch.common import tree_leaves, tree_map
+
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    it = iter(leaves)
+    total, _ = loss_fn(tree_map(lambda _: next(it), params), images, labels)
+    return float(total.detach()), torch.autograd.grad(total, leaves)
+
+
+def _grad_err(a_grads, b_grads, tol_rel, what):
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(a_grads, b_grads)):
+        a, b = a.float().cpu(), b.float().cpu()
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if not err <= tol_rel * scale:
+            raise AssertionError(f"{what}: grad leaf {i} {tuple(b.shape)} err "
+                                 f"{err} > {tol_rel} x {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def swin_reference_phase(torch):
+    """Phase 10: Swin-MoE-Small at full width, cut depth, f32: one loss and
+    its grads on the GPU (kernels) and the CPU (plain versions)."""
+    from repro_torch.common import tree_map
+    from repro_torch.configs import swin_moe_small
+    from repro_torch.models import swin
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    cfg = dataclasses.replace(swin_moe_small.CONFIG, depths=SWIN_REF_DEPTHS)
+    pcfg = ParallelConfig(blk=128)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = swin.init_swin(cfg, generator=gen, device="cuda")
+    # non-zero biases, so that the bias paths carry signal
+    params = tree_map(lambda t: t + 0.02 * torch.randn(
+        t.shape, generator=gen, device="cuda") if t.ndim <= 2 else t, params)
+    images, labels = swin.synthetic_batch(cfg, SWIN_REF_BATCH, generator=gen,
+                                          device="cuda")
+    loss_fn = swin.make_loss_fn(cfg, pcfg)
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(device), params)
+        out[device] = _swin_grads(torch, p, loss_fn, images.to(device),
+                                  labels.to(device))
+        del p
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    if not abs(lg - lc) <= SWIN_LOSS_RTOL * abs(lc):
+        raise AssertionError(f"swin reference: GPU loss {lg} vs CPU {lc}")
+    worst = _grad_err(gg, gc, SWIN_GRAD_TOL, "swin reference")
+    print(f"[swin-reference] Swin-MoE-Small full width, depths "
+          f"{SWIN_REF_DEPTHS}, f32, {SWIN_REF_BATCH} images: loss GPU {lg!r} "
+          f"CPU {lc!r} (rel diff {abs(lg - lc) / abs(lc):.3e}); {len(gc)} "
+          f"grad leaves, worst max |diff| / max |grad| {worst:.3e}")
+    return {"loss_gpu": lg, "loss_cpu": lc,
+            "loss_rel_diff": abs(lg - lc) / abs(lc), "worst_grad_rel": worst,
+            "depths": list(SWIN_REF_DEPTHS), "images": SWIN_REF_BATCH}
+
+
+def swin_train_phase(torch):
+    """Phase 11: Swin-MoE-Small at full width and depth, f32, AdamW."""
+    import math
+    from repro_torch.common import tree_leaves
+    from repro_torch.configs import swin_moe_small
+    from repro_torch.kernels import esffn, esfk, esmm, ess, estmm, ops
+    from repro_torch.models import swin
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    cfg = swin_moe_small.CONFIG
+    pcfg = ParallelConfig(blk=128)
+    opt_cfg = adamw.OptimizerConfig(master_fp32=False)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = swin.init_swin(cfg, generator=gen, device="cuda")
+    opt_state = adamw.init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_moe = sum(t.numel() for st in params["stages"] for b in st["blocks"]
+                if "moe" in b for t in tree_leaves(b["moe"]))
+    print(f"[swin] {cfg.name}: depths {cfg.depths}, dims {cfg.dims}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
+          f"{n_params / 1e6:.2f} M parameters ({n_moe / 1e6:.2f} M in the MoE "
+          f"blocks), f32, built in {time.perf_counter() - t0:.1f}s; global "
+          f"batch {SWIN_BATCH} at {cfg.img_size}^2, blk {pcfg.blk}")
+    batches = [swin.synthetic_batch(cfg, SWIN_BATCH, generator=gen,
+                                    device="cuda")
+               for _ in range(SWIN_STEPS + 1)]
+    train_step = swin.make_train_step(cfg, pcfg, opt_cfg)
+    kernels = {"esffn_mlp": esffn.esffn_mlp, "esmm": esmm.esmm,
+               "esfk": esfk.esfk, "ess": ess.ess, "estmm": estmm.estmm}
+
+    def run(i):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = train_step(params, opt_state, *batches[i])
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    m, dt = run(0)                        # warm-up, unmeasured
+    print(f"[swin] warm-up step: loss {m['loss']:.4f} ({dt:.2f}s)")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    times, log = [], []
+    for step in range(1, SWIN_STEPS + 1):
+        m, dt = run(step)
+        times.append(dt)
+        log.append(m)
+        print(f"[swin] step {step}: loss {m['loss']:.6f} ce {m['ce']:.6f} aux "
+              f"{m['aux_loss']:.6f} grad norm {m['grad_norm']:.6f} lr "
+              f"{m['lr']:.2e} ({dt:.3f}s)")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in log):
+        raise AssertionError(f"swin train: non-finite loss or grad norm {log}")
+    want = {"esffn_mlp": 10, "esmm": 30, "esfk": 20, "ess": 0, "estmm": 0}
+    want = {k: v * SWIN_STEPS for k, v in want.items()}
+    if launches != want:
+        raise AssertionError(f"swin train: launches {launches}, expected "
+                             f"{want}")
+    med = statistics.median(times)
+    print(f"[swin] {SWIN_STEPS} steps of {SWIN_BATCH} images: step median "
+          f"{med * 1e3:.1f}ms, {SWIN_BATCH / med:.1f} images/s; peak "
+          f"allocated {peak / 1e9:.2f} GB; launches {launches}")
+
+    # Fig. 12 ablation: the same loss's grads, fused and unfused backward
+    loss_fn = swin.make_loss_fn(cfg, pcfg)
+    ablation = {}
+    for fused in (True, False):
+        ops.set_fused_backward(fused)
+        try:
+            for fn in kernels.values():
+                fn.launches = 0
+            loss, grads = _swin_grads(torch, params, loss_fn, *batches[0])
+            torch.cuda.synchronize()
+        finally:
+            ops.set_fused_backward(True)
+        ablation[fused] = (loss, grads,
+                           {k: fn.launches for k, fn in kernels.items()})
+        del grads
+    (lf, gf, cf), (lu, gu, cu) = ablation[True], ablation[False]
+    if cf != {"esffn_mlp": 10, "esmm": 30, "esfk": 20, "ess": 0, "estmm": 0}:
+        raise AssertionError(f"swin fused backward: launches {cf}")
+    if cu != {"esffn_mlp": 10, "esmm": 30, "esfk": 0, "ess": 20, "estmm": 20}:
+        raise AssertionError(f"swin unfused backward: launches {cu}")
+    if lf != lu:
+        raise AssertionError(f"swin ablation: loss {lf} fused vs {lu} unfused")
+    worst = _grad_err(gu, gf, SWIN_ABLATION_TOL, "swin ablation")
+    print(f"[swin] unfused backward (ESTMM + ESS): launches {cu}; loss equal "
+          f"({lf!r}); worst grad max |diff| / max |grad| {worst:.3e} against "
+          f"the fused (ESFK) backward")
+    launches_by_path = {"swin_train": launches, "swin_unfused_backward": cu}
+    return launches_by_path, {
+        "config": cfg.name, "params": n_params, "moe_params": n_moe,
+        "batch": SWIN_BATCH, "steps": log, "step_times_s": times,
+        "step_median_ms": med * 1e3, "images_per_s": SWIN_BATCH / med,
+        "peak_allocated_gb": peak / 1e9,
+        "ablation_worst_grad_rel": worst}
+
+
 def reference_phase(torch):
     """2 layers at full width in f32: GPU (kernels) vs CPU (plain versions)
     from the same weights must give the same greedy tokens."""
@@ -701,12 +1094,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, train_out = train_phase(torch)
     print(f"[train] {json.dumps({**train_out, 'reference': train_ref})}")
-    launches.update({k: train_launches[k] for k in ("esmm", "estmm")})
+    torch.cuda.empty_cache()               # the qwen training state is gone
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    swin_res = swin_kernel_cases(torch, flush)
+    for c in sum(swin_res.values(), []):
+        print(f"[kernel-swin] {json.dumps(c)}")
+    del flush
+    torch.cuda.empty_cache()
+    swin_ref = swin_reference_phase(torch)
+    torch.cuda.empty_cache()
+    swin_launches, swin_out = swin_train_phase(torch)
+    print(f"[swin] {json.dumps({**swin_out, 'reference': swin_ref})}")
+
+    # Each kernel's launches on the main paths that ran it: the serve run
+    # (phase 5), the qwen train steps (phase 8), the Swin train steps and
+    # the unfused-backward pass (phase 11).
+    paths = {"serve": launches, "qwen_train": train_launches, **swin_launches}
+    by_path = {}
+    for path, counts in paths.items():
+        for name, n in counts.items():
+            if n:
+                by_path.setdefault(name, {})[path] = n
 
     def entry(name, source, replaces, cases, **extra):
         head = cases[0]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": sum(by_path.get(name, {}).values()),
+                "launches_by_path": by_path.get(name, {}),
                 "max_abs_err": head["max_abs_err"],
                 "ms": head["kernel_ms"], "kernel_ms": head["kernel_ms"],
                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -718,14 +1133,20 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("esffn_glu", "src/repro_torch/csrc/esffn.cu",
               "src/repro/kernels/esffn.py:280",
-              esffn_res + train_res["esffn_glu"],
-              train_launches=train_launches["esffn_glu"]),
+              esffn_res + train_res["esffn_glu"]),
         entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:295", attn_res),
         entry("esmm", "src/repro_torch/csrc/esmm.cu",
-              "src/repro/kernels/esmm.py:80", train_res["esmm"]),
+              "src/repro/kernels/esmm.py:80",
+              train_res["esmm"] + swin_res["esmm"]),
         entry("estmm", "src/repro_torch/csrc/estmm.cu",
               "src/repro/kernels/estmm.py:43", train_res["estmm"]),
+        entry("esffn_mlp", "src/repro_torch/csrc/esffn.cu",
+              "src/repro/kernels/esffn.py:339", swin_res["esffn_mlp"]),
+        entry("esfk", "src/repro_torch/csrc/esfk.cu",
+              "src/repro/kernels/esfk.py:82", swin_res["esfk"]),
+        entry("ess", "src/repro_torch/csrc/ess.cu",
+              "src/repro/kernels/ess.py:43", swin_res["ess"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

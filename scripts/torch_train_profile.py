@@ -62,12 +62,6 @@ KINDS = (
 )
 
 
-def kind_of(name: str) -> str:
-    for frag, kind in KINDS:
-        if frag in name:
-            return kind
-    return "other"
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
@@ -112,6 +106,19 @@ def main(argv=None) -> int:
         for i in range(args.steps + 1, 2 * args.steps + 1):
             run(i)
         torch.cuda.synchronize()
+    return report(prof, args.steps, wall, KINDS,
+                  {"layers": cfg.num_layers, "tokens": batch * seq,
+                   "train_step_wall_ms": wall * 1e3,
+                   "tokens_per_s": batch * seq / wall})
+
+
+def report(prof, steps: int, wall: float, kinds_table, head: dict) -> int:
+    """Print, as JSON lines, ``head`` with the device busy time a step
+    (summed over the device's own events), the idle share ``1 - busy /
+    wall`` and the device events a step; the device time of the kernels
+    launched in each ``train_step.*`` profiler range; device time and
+    launches a step by kind of work (``kinds_table``: name fragment ->
+    kind, first match wins); the top 30 kernels by name."""
     rows, ranges = [], {}
     for ev in prof.key_averages():
         if ev.key.startswith("train_step."):
@@ -125,26 +132,23 @@ def main(argv=None) -> int:
             continue                     # host ops; their kernels are listed
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
-        rows.append((dev_us / args.steps / 1e3, ev.count / args.steps,
-                     ev.key))
+        rows.append((dev_us / steps / 1e3, ev.count / steps, ev.key))
     if not rows:
         print("the profiler recorded no device events", file=sys.stderr)
         return 1
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(json.dumps({"layers": cfg.num_layers, "tokens": batch * seq,
-                      "train_step_wall_ms": wall * 1e3,
-                      "tokens_per_s": batch * seq / wall,
-                      "device_busy_ms": busy,
+    print(json.dumps({**head, "device_busy_ms": busy,
                       "device_idle_share": 1 - busy / (wall * 1e3),
                       "device_events_per_step": sum(r[1] for r in rows)}))
     print(json.dumps({"range_device_ms_per_step": {
-        k: us / args.steps / 1e3 for k, us in sorted(ranges.items())}}))
+        k: us / steps / 1e3 for k, us in sorted(ranges.items())}}))
     kinds: dict = {}
     for ms, n, name in rows:
-        k = kinds.setdefault(kind_of(name), [0.0, 0.0])
-        k[0] += ms
-        k[1] += n
+        kind = next((k for frag, k in kinds_table if frag in name), "other")
+        acc = kinds.setdefault(kind, [0.0, 0.0])
+        acc[0] += ms
+        acc[1] += n
     for kind, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
         print(json.dumps({"kind": kind, "ms_per_step": ms,
                           "share_of_busy": ms / busy,

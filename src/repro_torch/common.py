@@ -18,6 +18,10 @@ ACTIVATIONS: dict = {
 #: Activation ids of the CUDA kernels (``csrc/esffn.cu``'s ``act`` argument).
 ACT_IDS = {"silu": 0, "gelu": 1, "relu": 2, "tanh": 3}
 
+#: What quantized expert weights (``w_scales``/``scales``) raise with.
+QUANT_NOT_PORTED = ("quantized expert weights (w_scales) are not ported yet "
+                    "(ROADMAP.md: quantization slice)")
+
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)

@@ -2,8 +2,11 @@
 
 The two packages draw their random weights differently (threefry vs the
 torch generator), so comparisons carry one tree across instead of
-initialising twice. The JAX tree stacks each period position's leaves over
-periods (``lax.scan`` layout); the port keeps one dict per layer.
+initialising twice. The JAX LM tree stacks each period position's leaves
+over periods (``lax.scan`` layout); the port keeps one dict per layer. The
+Swin tree (dicts and the ``stages``/``blocks`` lists) has the same
+structure and leaf layouts in both packages, so it carries over leaf for
+leaf.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import check_supported
+from repro_torch.models.swin import SwinConfig
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -26,6 +30,8 @@ def _to_tensor(a, device) -> torch.Tensor:
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
     return None if tree is None else fn(tree)
 
 
@@ -63,4 +69,39 @@ def _unstack(tree: dict, cfg: ModelConfig, device) -> dict:
     out = {k: _map(v, lambda a: _to_tensor(a, device))
            for k, v in tree.items() if k != "layers"}
     out["layers"] = layers
+    return out
+
+
+def _check_swin(tree: dict, cfg: SwinConfig) -> None:
+    depths = tuple(len(st["blocks"]) for st in tree["stages"])
+    if depths != tuple(cfg.depths):
+        raise ValueError(f"the tree's stage depths {depths} are not "
+                         f"{cfg.name}'s {tuple(cfg.depths)}")
+
+
+def swin_params_from_jax(tree: dict, cfg: SwinConfig, *, device=None) -> dict:
+    """The port's Swin parameters from the value tree of
+    ``split_tree(repro.models.swin.init_swin(...))[0]`` (leaves as numpy
+    arrays, or anything ``np.asarray`` takes), leaf for leaf in the same
+    layouts, on ``device`` (the GPU unless given)."""
+    _check_swin(tree, cfg)
+    device = resolve_device(device)
+    return _map(tree, lambda a: _to_tensor(a, device))
+
+
+def swin_opt_state_from_jax(state: dict, cfg: SwinConfig, *,
+                            device=None) -> dict:
+    """The port's AdamW state for Swin from ``repro.optim.adamw``'s: the
+    moments ``m``/``v`` (and ``master``, where the state has one: not at
+    ``master_fp32=False``) as ``swin_params_from_jax`` carries the
+    parameters, and ``step`` as an int32 0-d tensor, on ``device`` (the GPU
+    unless given)."""
+    device = resolve_device(device)
+    out = {}
+    for k in ("m", "v", "master"):
+        if k in state:
+            _check_swin(state[k], cfg)
+            out[k] = _map(state[k], lambda a: _to_tensor(a, device))
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=device)
     return out

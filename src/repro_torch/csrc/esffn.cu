@@ -1,4 +1,7 @@
-// Fused GLU expert FFN over the expert-sorted layout, for Hopper (sm_90a).
+// Fused expert FFNs over the expert-sorted layout, for Hopper (sm_90a): the
+// GLU form (esffn_glu_launch) and the biased 2-MLP form (esffn_mlp_launch).
+//
+// === GLU form ===
 //
 // Replaces the TPU kernel repro/kernels/esffn.py::esffn_glu_pallas (body
 // _esffn_glu_kernel): per BLK-row block of the sorted layout, gather the
@@ -34,7 +37,38 @@
 //    the products are matrix-vector shaped and the FLOPs are small beside
 //    the bytes (wgmma/TMA pipelines come in a later change).
 //
-// Plain C interface for ctypes: esffn_glu_launch returns cudaGetLastError().
+// === 2-MLP form ===
+//
+// Replaces the TPU kernel repro/kernels/esffn.py::esffn_mlp_pallas (body
+// _esffn_mlp_kernel): per BLK-row block, out = (act(x[tok] W1[e] + b1[e])
+// W2[e] + b2[e]) * row_gate. Rounding follows the TPU kernel: z = x W1 sums
+// in f32, b1 is added in f32, z is rounded to T, h = act(z) is T; the down
+// accumulator starts from b2 (once per row, not once per F tile) and sums
+// h W2 in f32, and the output is (acc * gate) rounded to T. Biases are f32.
+//
+// What bounds it on this card: at training shapes (Swin-MoE-Small, stage 2
+// of 0-3: Np 26,112 rows, D 384, F 1536, 8 experts; every row of a block
+// but the group's last is live) it is two dense GEMMs of 2 Np D F FLOPs each
+// against (Np D + E D F + Np F) elements, some 140 FLOP/byte in f32: the
+// operations bound it, at the f32 FMA rate this kernel uses. So the design
+// is the shared-memory-tiled GEMM of csrc/esmm.cu, twice:
+//
+//  * The up launch (esffn_mlp_kernel<kUp>) runs on a (BM-row tile, 64-column
+//    F tile) grid, BM = 64 at BLK 128 (else the largest of 32, 16, 8 that
+//    divides BLK), so a tile lies in one block and reads one expert's W1.
+//    Its A rows are gathered straight from the UNSORTED x through
+//    row_token; its epilogue adds b1, rounds, applies act and writes h
+//    (Np x F, T) for the live rows only.
+//  * The down launch (esffn_mlp_kernel<!kUp>) runs on a (BM-row tile,
+//    64-column D tile) grid over h, its accumulators seeded with b2[e];
+//    the epilogue multiplies by the gate. The TPU kernel keeps the (BLK, D)
+//    f32 accumulator in VMEM across the sequential F axis; here each CTA
+//    loops over F itself, so nothing carries between CTAs.
+//  * Rows whose gate is 0 (padding) are staged as 0, never read from x or
+//    h, and written as 0; a tile with no live row reads no weight.
+//
+// Plain C interface for ctypes: esffn_glu_launch and esffn_mlp_launch return
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -271,6 +305,158 @@ int launch(const void* x, const void* row_token, const void* row_gate,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// 2-MLP form
+// ---------------------------------------------------------------------------
+
+constexpr int kMlpBN = 64;  // output columns of a CTA
+constexpr int kMlpBK = 16;  // contraction slice staged per step
+constexpr int kMlpTN = 4;   // columns of a thread, strided by 16
+
+// One BM x 64 output tile of either product, on expert e = block_expert of
+// the tile's block. kUp: a = x (N, K = D) gathered through row_token, w =
+// W1 (E, D, F), out = h (Np, F) on live rows. !kUp: a = h (Np, K = F), w =
+// W2 (E, F, D), out (Np, D) on every row.
+template <typename T, int BM, bool kUp>
+__global__ void __launch_bounds__(kThreads)
+esffn_mlp_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
+                 const float* __restrict__ row_gate,
+                 const int* __restrict__ block_expert, const T* __restrict__ w,
+                 const float* __restrict__ bias, T* __restrict__ out, int n,
+                 int k, int ncols, int blk, int act) {
+  constexpr int TM = BM >= 16 ? BM / 16 : 1;
+  constexpr int kRowThreads = BM / TM;  // 16, or 8 at BM 8
+  __shared__ float as[kMlpBK][BM + 4];  // A tile, K-major
+  __shared__ float bs[kMlpBK][kMlpBN + 4];
+  __shared__ int src[BM];               // row of `a` feeding each tile row; -1: dead
+  __shared__ float gate[BM];
+
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * kMlpBN;
+  const int tid = threadIdx.x;
+  bool live = false;
+  if (tid < BM) {
+    const float g = row_gate[m0 + tid];
+    live = g != 0.0f;
+    gate[tid] = g;
+    src[tid] = !live ? -1 : (kUp ? min(row_token[m0 + tid], n - 1) : m0 + tid);
+  }
+  const int ty = tid / 16, tx = tid % 16;
+  const bool active = ty < kRowThreads;
+  if (!__syncthreads_or(live)) {  // padding tile: no weight is read
+    if (!kUp && active) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < kMlpTN; ++j) {
+          const int col = n0 + tx + 16 * j;
+          if (col < ncols)
+            out[(size_t)(m0 + ty + kRowThreads * i) * ncols + col] = from_f<T>(0.0f);
+        }
+    }
+    return;
+  }
+
+  const int e = block_expert[m0 / blk];
+  const T* we = w + (size_t)e * k * ncols;
+  float acc[TM][kMlpTN];
+#pragma unroll
+  for (int j = 0; j < kMlpTN; ++j) {
+    const int col = n0 + tx + 16 * j;
+    // b2 seeds the down accumulator once per row
+    const float bv = (!kUp && bias != nullptr && col < ncols) ? bias[(size_t)e * ncols + col] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) acc[i][j] = bv;
+  }
+
+  for (int k0 = 0; k0 < k; k0 += kMlpBK) {
+    for (int idx = tid; idx < BM * kMlpBK; idx += kThreads) {
+      const int r = idx / kMlpBK, kk = idx % kMlpBK;
+      const int s = src[r];
+      as[kk][r] = (s >= 0 && k0 + kk < k) ? to_f(a[(size_t)s * k + k0 + kk]) : 0.0f;
+    }
+    for (int idx = tid; idx < kMlpBK * kMlpBN; idx += kThreads) {
+      const int kk = idx / kMlpBN, c = idx % kMlpBN;
+      bs[kk][c] = (k0 + kk < k && n0 + c < ncols)
+                      ? to_f(we[(size_t)(k0 + kk) * ncols + n0 + c]) : 0.0f;
+    }
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < kMlpBK; ++kk) {
+        float av[TM], bv[kMlpTN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) av[i] = as[kk][ty + kRowThreads * i];
+#pragma unroll
+        for (int j = 0; j < kMlpTN; ++j) bv[j] = bs[kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < kMlpTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty + kRowThreads * i;
+    const size_t row = (size_t)(m0 + r);
+    const bool on = src[r] >= 0;
+#pragma unroll
+    for (int j = 0; j < kMlpTN; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (col >= ncols) continue;
+      if (kUp) {
+        if (!on) continue;  // h of a dead row is never read
+        const float z = acc[i][j] + (bias != nullptr ? bias[(size_t)e * ncols + col] : 0.0f);
+        out[row * ncols + col] = from_f<T>(act_fn(act, round_t<T>(z)));
+      } else {
+        out[row * ncols + col] = on ? from_f<T>(acc[i][j] * gate[r]) : from_f<T>(0.0f);
+      }
+    }
+  }
+}
+
+template <typename T, int BM>
+int mlp_launch_bm(const void* x, const void* row_token, const void* row_gate,
+                  const void* block_expert, const void* w1, const void* b1,
+                  const void* w2, const void* b2, void* h, void* out, int n,
+                  int d, int f, int np_rows, int blk, int act,
+                  cudaStream_t stream) {
+  const dim3 up_grid(np_rows / BM, (f + kMlpBN - 1) / kMlpBN);
+  esffn_mlp_kernel<T, BM, true><<<up_grid, kThreads, 0, stream>>>(
+      (const T*)x, (const int*)row_token, (const float*)row_gate,
+      (const int*)block_expert, (const T*)w1, (const float*)b1, (T*)h, n, d,
+      f, blk, act);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 down_grid(np_rows / BM, (d + kMlpBN - 1) / kMlpBN);
+  esffn_mlp_kernel<T, BM, false><<<down_grid, kThreads, 0, stream>>>(
+      (const T*)h, (const int*)row_token, (const float*)row_gate,
+      (const int*)block_expert, (const T*)w2, (const float*)b2, (T*)out, n,
+      f, d, blk, act);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int mlp_launch(const void* x, const void* row_token, const void* row_gate,
+               const void* block_expert, const void* w1, const void* b1,
+               const void* w2, const void* b2, void* h, void* out, int n,
+               int d, int f, int np_rows, int blk, int act,
+               cudaStream_t stream) {
+#define ESFFN_MLP_BM(BM)                                                      \
+  return mlp_launch_bm<T, BM>(x, row_token, row_gate, block_expert, w1, b1,  \
+                              w2, b2, h, out, n, d, f, np_rows, blk, act,     \
+                              stream)
+  if (blk % 64 == 0) ESFFN_MLP_BM(64);
+  if (blk % 32 == 0) ESFFN_MLP_BM(32);
+  if (blk % 16 == 0) ESFFN_MLP_BM(16);
+  ESFFN_MLP_BM(8);
+#undef ESFFN_MLP_BM
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. act: ACT_IDS. h: (Np, F) scratch of
@@ -287,4 +473,22 @@ extern "C" int esffn_glu_launch(const void* x, const void* row_token,
                                  wd, h, out, n, d, f, np_rows, blk, act, s);
   return launch<float>(x, row_token, row_gate, block_expert, wg, wu, wd, h,
                        out, n, d, f, np_rows, blk, act, s);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (x, w1, w2, h and out). b1 (E, F) and b2
+// (E, D) are f32 or null. h: (Np, F) scratch of dtype T (live rows
+// written); out: (Np, D). Requires blk % 8 == 0 (the wrapper checks).
+extern "C" int esffn_mlp_launch(const void* x, const void* row_token,
+                                const void* row_gate, const void* block_expert,
+                                const void* w1, const void* b1, const void* w2,
+                                const void* b2, void* h, void* out, int n,
+                                int d, int f, int np_rows, int blk, int dtype,
+                                int act, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return mlp_launch<__nv_bfloat16>(x, row_token, row_gate, block_expert, w1,
+                                     b1, w2, b2, h, out, n, d, f, np_rows, blk,
+                                     act, s);
+  return mlp_launch<float>(x, row_token, row_gate, block_expert, w1, b1, w2,
+                           b2, h, out, n, d, f, np_rows, blk, act, s);
 }

@@ -6,7 +6,8 @@
 // sorted layout, where e = block_expert[block], with W (E, K, N), or
 // (E, N, K) read transposed (transpose_rhs: the dX and t = dy Wd^T
 // orientation of the backward). Products accumulate in f32 from the bias
-// (or 0) and the output is rounded once to T, as the TPU kernel does.
+// (or 0; the bias is read as f32 whatever T is, as the TPU kernel casts it)
+// and the output is rounded once to T, as the TPU kernel does.
 //
 // What bounds it on this card: at training shapes (Np ~ 49k rows, K 2048,
 // N 768, or K 768, N 2048) it is a dense GEMM of 2 Np K N FLOPs against
@@ -51,7 +52,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <typename T, int BM, bool kTrans>
 __global__ void __launch_bounds__(kThreads)
 esmm_kernel(const T* __restrict__ xs, const T* __restrict__ w,
-            const T* __restrict__ b, const int* __restrict__ block_expert,
+            const float* __restrict__ b, const int* __restrict__ block_expert,
             T* __restrict__ ys, int k, int n, int blk) {
   constexpr int TM = BM >= 16 ? BM / 16 : 1;
   constexpr int kRowThreads = BM / TM;  // 16, or 8 at BM 8
@@ -70,7 +71,7 @@ esmm_kernel(const T* __restrict__ xs, const T* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < kTN; ++j) {
     const int col = n0 + tx + 16 * j;
-    const float bv = (b != nullptr && col < n) ? to_f(b[(size_t)e * n + col]) : 0.0f;
+    const float bv = (b != nullptr && col < n) ? b[(size_t)e * n + col] : 0.0f;
 #pragma unroll
     for (int i = 0; i < TM; ++i) acc[i][j] = bv;
   }
@@ -127,11 +128,11 @@ int launch_bm(const void* xs, const void* w, const void* b,
   const dim3 grid(np_rows / BM, (n + kBN - 1) / kBN);
   if (transpose)
     esmm_kernel<T, BM, true><<<grid, kThreads, 0, stream>>>(
-        (const T*)xs, (const T*)w, (const T*)b, (const int*)block_expert,
+        (const T*)xs, (const T*)w, (const float*)b, (const int*)block_expert,
         (T*)ys, k, n, blk);
   else
     esmm_kernel<T, BM, false><<<grid, kThreads, 0, stream>>>(
-        (const T*)xs, (const T*)w, (const T*)b, (const int*)block_expert,
+        (const T*)xs, (const T*)w, (const float*)b, (const int*)block_expert,
         (T*)ys, k, n, blk);
   return (int)cudaGetLastError();
 }
@@ -151,8 +152,8 @@ int launch(const void* xs, const void* w, const void* b,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (xs, w, b and ys alike). xs (Np, K);
-// w (E, K, N), or (E, N, K) when transpose != 0; b (E, N) or null;
+// dtype: 0 = float32, 1 = bfloat16 (xs, w and ys alike). xs (Np, K);
+// w (E, K, N), or (E, N, K) when transpose != 0; b (E, N) f32 or null;
 // block_expert (Np / blk,); ys (Np, N). Requires blk % 8 == 0 and
 // Np % blk == 0 (the wrapper checks).
 extern "C" int esmm_launch(const void* xs, const void* w, const void* b,

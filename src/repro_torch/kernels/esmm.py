@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from repro_torch.common import QUANT_NOT_PORTED
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,9 +60,10 @@ def _check_cuda_args(xs, w, b, block_expert, transpose_rhs):
     if b is not None and b.shape != (e, n):
         raise ValueError(f"bias {tuple(b.shape)} is not (E, N) = ({e}, {n})")
     if xs.dtype not in _DTYPES or w.dtype != xs.dtype or (
-            b is not None and b.dtype != xs.dtype):
-        raise TypeError(f"esmm takes float32 or bfloat16 xs, w and b of one "
-                        f"dtype, got {xs.dtype}, {w.dtype}, "
+            b is not None and b.dtype not in (xs.dtype, torch.float32)):
+        raise TypeError(f"esmm takes float32 or bfloat16 xs and w of one "
+                        f"dtype and a bias of that dtype or float32, got "
+                        f"{xs.dtype}, {w.dtype}, "
                         f"{None if b is None else b.dtype}")
     if block_expert.dtype != torch.int32 or block_expert.ndim != 1:
         raise TypeError("block_expert must be a 1-D int32 tensor")
@@ -85,12 +87,11 @@ def esmm(xs, w, b, block_expert, *, w_scales=None,
     """Grouped matmul ys = xs @ W[e] (+ b[e]) on the sorted layout.
 
     xs: (Np, K); w: (E, K, N), or (E, N, K) with ``transpose_rhs``;
-    b: (E, N) or None; block_expert: (Np // blk,) int32. Returns (Np, N) in
+    b: (E, N) or None, in xs.dtype or f32 (added in f32, as the TPU
+    kernel adds it); block_expert: (Np // blk,) int32. Returns (Np, N) in
     ``xs.dtype``, accumulated in f32."""
     if w_scales is not None:
-        raise NotImplementedError(
-            "quantized expert weights (w_scales) are not ported yet "
-            "(ROADMAP.md: quantization slice)")
+        raise NotImplementedError(QUANT_NOT_PORTED)
     if xs.device.type == "cpu":
         return esmm_plain(xs, w, b, block_expert, transpose_rhs=transpose_rhs)
     if xs.device.type != "cuda":
@@ -98,6 +99,8 @@ def esmm(xs, w, b, block_expert, *, w_scales=None,
     np_rows, k, n, blk = _check_cuda_args(xs, w, b, block_expert,
                                           transpose_rhs)
     launch = build.load("esmm", "esmm_launch", _ARGTYPES)
+    if b is not None:
+        b = b.float()                     # the kernel reads the bias in f32
     ys = torch.empty((np_rows, n), dtype=xs.dtype, device=xs.device)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream

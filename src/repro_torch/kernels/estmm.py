@@ -5,7 +5,8 @@ expert-sorted layout (paper Fig. 4(d); counterpart of
 ``dW[e] = sum_{rows i of e} x1[i]^T x2[i]`` in f32, (E, D1, D2); an expert
 whose ``counts`` entry is 0 gets exactly 0. The GLU expert FFN's backward
 computes its weight gradients with it (experts without biases need no
-``db``, so the fused ESFK kernel is not on that path).
+``db``, so the fused ESFK kernel is not on that path), and so does the
+biased MLP expert FFN's unfused backward (beside ESS for ``db``).
 
 * ``estmm`` — the wrapper. On a CUDA tensor it launches the hand-written
   kernel of ``csrc/estmm.cu`` (see its source note for the design) and
@@ -40,12 +41,12 @@ def estmm_plain(x1, x2, block_expert, counts) -> torch.Tensor:
     return torch.where((counts > 0)[:, None, None], out, 0.0)
 
 
-def _check_cuda_args(x1, x2, block_expert, counts):
+def _check_cuda_args(x1, x2, block_expert, counts, name: str = "estmm"):
     if x1.ndim != 2 or x2.ndim != 2 or x1.shape[0] != x2.shape[0]:
-        raise ValueError(f"estmm takes x1 (Np, D1) and x2 (Np, D2), got "
+        raise ValueError(f"{name} takes x1 (Np, D1) and x2 (Np, D2), got "
                          f"{tuple(x1.shape)}, {tuple(x2.shape)}")
     if x1.dtype not in _DTYPES or x2.dtype != x1.dtype:
-        raise TypeError(f"estmm takes float32 or bfloat16 x1 and x2 of one "
+        raise TypeError(f"{name} takes float32 or bfloat16 x1 and x2 of one "
                         f"dtype, got {x1.dtype}, {x2.dtype}")
     if (block_expert.dtype != torch.int32 or counts.dtype != torch.int32
             or block_expert.ndim != 1 or counts.ndim != 1):
@@ -61,9 +62,9 @@ def _check_cuda_args(x1, x2, block_expert, counts):
                          f"to 128")
     tensors = (x1, x2, block_expert, counts)
     if any(t.device != x1.device for t in tensors):
-        raise ValueError("estmm operands lie on different devices")
+        raise ValueError(f"{name} operands lie on different devices")
     if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("estmm operands must be contiguous")
+        raise ValueError(f"{name} operands must be contiguous")
     return np_rows, x1.shape[1], x2.shape[1], counts.shape[0]
 
 

@@ -7,29 +7,39 @@ wrapper decides). The backward is wired as the paper's Table 5, as the
 JAX package's ``custom_vjp``s wire it:
 
 * ``esmm`` — differentiable ESMM: dX by ESMM with the other weight
-  orientation, dW by ESTMM (``_esmm_fwd``/``_esmm_bwd``).
-* ``esffn_glu`` — the fused GLU expert FFN: the forward is the fused
-  kernel; the backward is flash-style (``_esffn_glu_bwd``): only xs-level
-  residuals are saved, the hidden is recomputed by ESMM, and the grads
-  flow through ESMM (g, u, ``t = dys_w Wd^T``, dX) and ESTMM (dWg, dWu,
-  dWd), with a gradient for ``row_gate``.
+  orientation, (dW, db) by ``_esfk_any`` (``_esmm_fwd``/``_esmm_bwd``).
+* ``esffn_glu`` / ``esffn_mlp`` — the fused expert FFNs: the forward is
+  the fused kernel; the backward is flash-style (``_esffn_glu_bwd``,
+  ``_esffn_mlp_bwd``): only xs-level residuals are saved, the hidden is
+  recomputed by ESMM, and the grads flow through ESMM (recompute, ``t =
+  dys_w W_down^T``, dX) and ``_esfk_any`` (dW, and db where the expert has
+  biases), with a gradient for ``row_gate``.
 
-GLU experts have no biases, so ``db`` is never needed on this path; the
-fused ESFK kernel (dW and db in one pass) and ESS (db alone) belong to the
-MLP-expert slice and raise here.
+``_esfk_any`` computes (dW, db) with the fused ESFK kernel when a bias
+needs its db and the backward is fused (the default), else with ESTMM and,
+for db, ESS: ``set_fused_backward(False)`` is the paper's Fig. 12
+"fused kernel" ablation. Bias-free experts (GLU) always take ESTMM.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.common import ACTIVATIONS
+from repro_torch.common import ACTIVATIONS, QUANT_NOT_PORTED
 from repro_torch.core.reindex import gather_rows
 from repro_torch.kernels import esffn as esffn_kernel
+from repro_torch.kernels import esfk as esfk_kernel
 from repro_torch.kernels import esmm as esmm_kernel
+from repro_torch.kernels import ess as ess_kernel
 from repro_torch.kernels import estmm as estmm_kernel
 
-_MLP_SLICE = ("expert biases (ESFK / ESS: dW with db) are not ported yet "
-              "(ROADMAP.md: the MLP-expert slice, with esffn_mlp)")
+_FUSED_BACKWARD = True
+
+
+def set_fused_backward(fused: bool) -> None:
+    """Toggle the ESFK fusion (paper Fig. 12 "fused kernel" ablation):
+    with False, (dW, db) take ESTMM and ESS."""
+    global _FUSED_BACKWARD
+    _FUSED_BACKWARD = fused
 
 
 def _esmm_any(transpose_rhs, xs, w, b, block_expert, w_scales=None):
@@ -38,11 +48,15 @@ def _esmm_any(transpose_rhs, xs, w, b, block_expert, w_scales=None):
 
 
 def _esfk_any(x1, x2, block_expert, padded_counts, need_db):
-    """(dW, db) with db=None when need_db is False: ESTMM alone."""
-    if need_db:
-        raise NotImplementedError(_MLP_SLICE)
-    return estmm_kernel.estmm(x1.contiguous(), x2.contiguous(), block_expert,
-                              padded_counts), None
+    """(dW, db) with db=None when need_db is False: ESFK in one pass when
+    the backward is fused and db is needed, else ESTMM (+ ESS for db)."""
+    x1, x2 = x1.contiguous(), x2.contiguous()
+    if _FUSED_BACKWARD and need_db:
+        return esfk_kernel.esfk(x1, x2, block_expert, padded_counts)
+    dw = estmm_kernel.estmm(x1, x2, block_expert, padded_counts)
+    db = (ess_kernel.ess(x2, block_expert, padded_counts) if need_db
+          else None)
+    return dw, db
 
 
 class _ESMM(torch.autograd.Function):
@@ -64,12 +78,19 @@ class _ESMM(torch.autograd.Function):
         if need_x:
             # dX: ESMM with the opposite weight orientation.
             dxs = _esmm_any(not t, dy, w, None, block_expert)
+        if t and ctx.has_b and need_b:
+            # ESFK sums x2 = xs here, not dy; the JAX op refuses it too
+            # (its bwd rule's db has the wrong shape).
+            raise NotImplementedError(
+                "the bias grad of a transposed ESMM is not defined")
         if need_w or need_b:
-            # dW by ESTMM (db, where a bias needs one, by ESFK).
+            # dW (ESTMM) + db (ESS), fused as ESFK (paper rows 4/5/8/9).
             x1, x2 = (dy, xs) if t else (xs, dy)
             dw, db = _esfk_any(x1, x2, block_expert, padded_counts,
                                ctx.has_b and need_b)
             dw = dw.to(w.dtype)
+            if db is not None:
+                db = db.to(dy.dtype)    # JAX: db.astype(dy.dtype)
         return dxs, dw, db, None, None, None
 
 
@@ -78,12 +99,9 @@ def esmm(xs, w, b, block_expert, padded_counts, *, w_scales=None,
     """Differentiable expert-specific matmul on the sorted layout.
 
     xs: (Np, K); w: (E, K, N), or (E, N, K) with transpose_rhs; b: (E, N)
-    or None; block_expert/padded_counts from ``core.reindex.build_reindex``.
-    A bias runs forward; its backward (db) raises (the MLP-expert slice)."""
+    or None; block_expert/padded_counts from ``core.reindex.build_reindex``."""
     if w_scales is not None:
-        raise NotImplementedError(
-            "quantized expert weights (w_scales) are not ported yet "
-            "(ROADMAP.md: quantization slice)")
+        raise NotImplementedError(QUANT_NOT_PORTED)
     return _ESMM.apply(xs, w, b, block_expert, padded_counts, transpose_rhs)
 
 
@@ -92,13 +110,13 @@ estmm = estmm_kernel.estmm
 
 
 def esfk(x1, x2, block_expert, padded_counts):
-    """(dW, db): needs ``db``, so it belongs to the MLP-expert slice."""
+    """(dW, db) of the sorted rows: ESFK, or ESTMM + ESS when the backward
+    is not fused. Non-differentiable."""
     return _esfk_any(x1, x2, block_expert, padded_counts, True)
 
 
-def ess(x, block_expert, padded_counts):
-    """db[e] = sum of expert e's rows: the MLP-expert slice."""
-    raise NotImplementedError(_MLP_SLICE)
+#: Non-differentiable ESS: (Np, D) -> (E, D) f32 per-expert sums.
+ess = ess_kernel.ess
 
 
 def _scatter_dx(x, row_token, dxs):
@@ -161,8 +179,71 @@ def esffn_glu(x, row_token, row_gate, block_expert, padded_counts, w_gate,
     ``core.reindex.scatter_rows``. ``padded_counts`` gives the backward's
     ESTMM each expert's run of rows."""
     if scales is not None:
-        raise NotImplementedError(
-            "quantized expert weights (w_scales) are not ported yet "
-            "(ROADMAP.md: quantization slice)")
+        raise NotImplementedError(QUANT_NOT_PORTED)
     return _ESFFNGLU.apply(x, row_token, row_gate, block_expert,
                            padded_counts, w_gate, w_up, w_down, act)
+
+
+class _ESFFNMLP(torch.autograd.Function):
+    """Fused 2-MLP expert FFN with the flash-style recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, row_token, row_gate, block_expert, padded_counts,
+                w1, b1, w2, b2, act):
+        ctx.act = act
+        ctx.has_b = (b1 is not None, b2 is not None)
+        # xs-level residuals only: no (Np, F) hidden is saved.
+        ctx.save_for_backward(x, row_token, row_gate, block_expert,
+                              padded_counts, w1, b1, w2, b2)
+        return esffn_kernel.esffn_mlp(x, row_token, row_gate, block_expert,
+                                      w1, b1, w2, b2, act=act)
+
+    @staticmethod
+    def backward(ctx, dys_w):
+        x, row_token, row_gate, be, pc, w1, b1, w2, b2 = ctx.saved_tensors
+        has_b1, has_b2 = ctx.has_b
+        dys_w = dys_w.contiguous()
+        # Recompute z (with b1) from the xs-level residuals.
+        xs = gather_rows(x, row_token)
+        z = _esmm_any(False, xs, w1, b1, be)
+        with torch.enable_grad():
+            z_ = z.detach().requires_grad_()
+            h = ACTIVATIONS[ctx.act](z_)
+        # d_gate[r] = dys_w[r] . ys[r] with ys = h W2 + b2, split so ys is
+        # never rebuilt: the h W2 term contracts t = dys_w W2^T against h,
+        # the b2 term is direct.
+        t = _esmm_any(True, dys_w, w2, None, be)
+        d_gate = torch.sum(t.float() * h.detach().float(), dim=-1)
+        if has_b2:
+            blk = xs.shape[0] // be.shape[0]
+            b2_rows = b2[be.long().repeat_interleave(blk)]
+            d_gate = d_gate + torch.sum(dys_w.float() * b2_rows.float(),
+                                        dim=-1)
+        gate = row_gate[:, None].to(dys_w.dtype)
+        dys = dys_w * gate
+        (dz,) = torch.autograd.grad(h, z_, (t * gate).to(h.dtype))
+        h = h.detach()
+        dw2, db2 = _esfk_any(h, dys, be, pc, has_b2)
+        dw1, db1 = _esfk_any(xs, dz, be, pc, has_b1)
+        dxs = _esmm_any(True, dz, w1, None, be)
+        return (_scatter_dx(x, row_token, dxs), None,
+                d_gate.to(row_gate.dtype), None, None,
+                dw1.to(w1.dtype), db1.to(b1.dtype) if has_b1 else None,
+                dw2.to(w2.dtype), db2.to(b2.dtype) if has_b2 else None, None)
+
+
+def esffn_mlp(x, row_token, row_gate, block_expert, padded_counts, w1, b1,
+              w2, b2, *, scales=None, act: str = "gelu") -> torch.Tensor:
+    """Fused 2-MLP expert FFN ``(act(x W1 + b1) W2 + b2) * gate`` over the
+    sorted layout, differentiable in x, row_gate, the weights and the
+    biases (either bias may be None).
+
+    x: (N, D) UNSORTED tokens; w1 (E, D, F), b1 (E, F), w2 (E, F, D), b2
+    (E, D); row maps from ``core.reindex.build_reindex``. Returns the
+    gate-weighted sorted output (Np, D) — combine it with
+    ``core.reindex.scatter_rows``. The backward's (dW, db) pairs take ESFK
+    (``set_fused_backward(False)``: ESTMM + ESS)."""
+    if scales is not None:
+        raise NotImplementedError(QUANT_NOT_PORTED)
+    return _ESFFNMLP.apply(x, row_token, row_gate, block_expert,
+                           padded_counts, w1, b1, w2, b2, act)

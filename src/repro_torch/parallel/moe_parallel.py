@@ -3,7 +3,9 @@
 Only the single-device path is ported: ``moe_layer`` with ``mesh=None``
 flattens (B, S, D) to tokens and runs the local body of
 ``hexa_moe_island`` — ``espec.hexa_moe_ffn``: route, expert-sorted
-re-index, fused expert FFN, combine.
+re-index, fused expert FFN (GLU, or 2-MLP with biases), combine. The
+layer's parameters are a dict: 'router' plus 'w_gate'/'w_up'/'w_down'
+(``MoEStatic.glu``) or 'w1'/'b1'/'w2'/'b2' (the JAX ``MoEParams`` fields).
 The mesh islands (model-/data-centric dispatch, hetero masking, EP) belong
 to a later slice.
 """

@@ -195,20 +195,22 @@ def test_estmm_argument_checks():
 
 
 def test_bias_grads_belong_to_the_mlp_expert_slice():
-    """ESFK (dW with db) and ESS raise, naming the slice that ports them;
+    """ESFK (dW with db) and ESS compute the bias grads of the MLP-expert
+    slice: the biased ESMM's backward gives db = the per-expert sum of dy;
     the bias-free ESMM backward does not need them."""
-    x1, x2 = torch.zeros((16, 8)), torch.zeros((16, 8))
+    x1 = torch.arange(16 * 8, dtype=torch.float32).reshape(16, 8) / 100
     be, pc = torch.zeros(2, dtype=torch.int32), torch.tensor(
         [16], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="MLP-expert slice"):
-        tops.esfk(x1, x2, be, pc)
-    with pytest.raises(NotImplementedError, match="MLP-expert slice"):
-        tops.ess(x2, be, pc)
+    dw, db = tops.esfk(x1, x1, be, pc)
+    torch.testing.assert_close(dw, (x1.t() @ x1)[None])
+    torch.testing.assert_close(db, x1.sum(0)[None])
+    assert torch.equal(tops.ess(x1, be, pc), db)
     w = torch.zeros((1, 8, 8), requires_grad=True)
     b = torch.zeros((1, 8), requires_grad=True)
     y = tops.esmm(x1, w, b, be, pc)
-    with pytest.raises(NotImplementedError, match="MLP-expert slice"):
-        y.sum().backward()
+    (y * x1).sum().backward()
+    torch.testing.assert_close(b.grad, x1.sum(0)[None])
+    w.grad = None
     y = tops.esmm(x1, w, b.detach(), be, pc)
     y.sum().backward()
     assert w.grad.shape == w.shape
