@@ -77,6 +77,23 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    ``estmm``, 20 ``ess``): the grads must agree within
    ``SWIN_ABLATION_TOL``.
 
+The Swin state is then freed, and the flash-attention slice runs (no model
+path of either package calls it, so its public entry point is its path):
+
+12. ``flash_attention`` at the ``FLASH_CASES`` (qwen3-moe-30b-a3b's
+   attention width at the LM train batch, the head case, and at S 4096;
+   gemma3-12b, musicgen-large and gemma-2b heads; one f32 full case): each
+   case through the entry point once with the launch count set to 0 before
+   and read after, then against ``flash_attention_plain`` (bf16 element by
+   element within one output ulp, ``FLASH_BF16_RTOL`` and
+   ``FLASH_BF16_ATOL``; f32 within ``FLASH_F32_TOL`` x max|plain|; the head
+   case also against the port's ``chunked_attention``), timed as phase 3,
+   with ``scaled_dot_product_attention`` as the library yardstick (the
+   backend that ran is recorded, and its output is read by the same
+   check); then the untimed ``FLASH_CHECK_CASES`` (f32 causal at the head
+   shape and at hd 256, and S that leaves partial tiles) against the plain
+   version.
+
 It then prints the kernels' JSON line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -88,6 +105,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -121,6 +139,32 @@ SWIN_GRAD_TOL = 1e-4                              # x max|grad| of the leaf
 SWIN_ABLATION_TOL = 1e-5                          # x max|grad| of the leaf
 SWIN_BATCH, SWIN_STEPS = 128, 3
 SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
+# flash attention: kernel and plain version both compute in f32 (in
+# another order: 6e-7 apart at most in f32 on an H100) and round once, so
+# in bf16 they differ by at most one output ulp (<= 2^-7 |plain|), element
+# by element; the 2^-14 floor is for outputs near 0, where an ulp is below
+# the f32 noise. Rounding p to bf16 before PV (barred by the kernel's
+# contract) moves outputs by more. f32 as tests/test_flash_kernel.py.
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 2.0 ** -14
+FLASH_F32_TOL = 2e-5                              # x max|plain|
+# (case, B, S, Hq, Hkv, hd, dtype, causal); the first is the head case
+FLASH_CASES = (
+    ("qwen3-moe-30b-a3b train batch", 4, 1024, 32, 4, 128, "bfloat16", True),
+    ("qwen3-moe-30b-a3b long context", 1, 4096, 32, 4, 128, "bfloat16", True),
+    ("gemma3-12b heads", 2, 2048, 16, 8, 256, "bfloat16", True),
+    ("musicgen-large heads (MHA)", 4, 1024, 32, 32, 64, "bfloat16", True),
+    ("gemma-2b heads (MQA)", 4, 1024, 8, 1, 256, "bfloat16", True),
+    ("qwen3 width, f32, full", 1, 1024, 32, 4, 128, "float32", False),
+)
+FLASH_CHECK_CASES = (                  # (B, S, Hq, Hkv, hd, dtype, causal)
+    (4, 1024, 32, 4, 128, "float32", True),
+    (2, 2048, 16, 8, 256, "float32", True),
+    (1, 200, 4, 2, 256, "float32", True),
+    (2, 200, 8, 2, 128, "float32", True),
+    (2, 200, 8, 2, 128, "float32", False),
+    (1, 96, 4, 1, 256, "bfloat16", True),
+    (1, 80, 4, 4, 64, "float32", True),
+)
 
 
 def card_line() -> str:
@@ -297,6 +341,30 @@ def _check(name, kern, plain, tol_rel):
     if not err <= tol:
         raise AssertionError(f"{name}: max abs err {err} > {tol}")
     return err, tol
+
+
+def _flash_err(kern, plain, dtype):
+    """(max abs err, worst err / limit, limit): bf16 element by element
+    within FLASH_BF16_RTOL |plain| + FLASH_BF16_ATOL, f32 within
+    FLASH_F32_TOL x max|plain|. Passes where the worst ratio is <= 1."""
+    diff = (kern.float() - plain.float()).abs()
+    err = diff.max().item()
+    if dtype == "bfloat16":
+        lim = FLASH_BF16_RTOL * plain.float().abs() + FLASH_BF16_ATOL
+        return err, (diff / lim).max().item(), (
+            f"{FLASH_BF16_RTOL} x |plain| + {FLASH_BF16_ATOL}, elementwise")
+    tol = FLASH_F32_TOL * plain.float().abs().max().item()
+    return err, err / tol, tol
+
+
+def _check_flash(name, kern, plain, dtype):
+    if not bool(kern.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err, ratio, lim = _flash_err(kern, plain, dtype)
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: max abs err {err}, {ratio} x the "
+                             f"limit {lim}")
+    return err, ratio, lim
 
 
 def _library_ms(torch, flush, fn, dtype):
@@ -924,6 +992,111 @@ def swin_train_phase(torch):
         "ablation_worst_grad_rel": worst}
 
 
+def _sdpa_ms(torch, flush, q, k, v, causal):
+    """The library yardstick: ``scaled_dot_product_attention`` on (B, H, S,
+    hd) views, under the first backend of flash, efficient, cuDNN and math
+    that takes these inputs. Returns (output, ms, backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel(backend), warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # a refusal warns, then raises
+            try:
+                out = call()
+                torch.cuda.synchronize()
+            except RuntimeError:       # this backend refused the inputs
+                continue
+            return out.transpose(1, 2), time_ms(torch, call, flush), \
+                backend.name
+    raise AssertionError("scaled_dot_product_attention: no backend ran")
+
+
+def flash_cases(torch, flush):
+    """Phase 12: flash_attention at full attention widths. Its public entry
+    point is its path (no model path runs it): each case goes through it
+    once with the launch count set to 0 before and read after; then each
+    output is held against the plain version, and timed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import chunked_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def inputs(b, s, hq, hkv, hd, dtype):
+        td = getattr(torch, dtype)
+        return [torch.randn((b, s, h, hd), generator=gen, device="cuda")
+                .to(td) for h in (hq, hkv, hkv)]
+
+    args = [inputs(*c[1:7]) for c in FLASH_CASES]
+    fa.flash_attention.launches = 0
+    outs = [fa.flash_attention(*a, causal=c[7])
+            for a, c in zip(args, FLASH_CASES)]
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    if launches != len(FLASH_CASES):
+        raise AssertionError(f"flash_attention: {launches} launches for "
+                             f"{len(FLASH_CASES)} calls")
+
+    cases = []
+    for i, ((name, b, s, hq, hkv, hd, dtype, causal), (q, k, v), kern) in \
+            enumerate(zip(FLASH_CASES, args, outs)):
+        what = f"flash_attention {name}"
+        plain = fa.flash_attention_plain(q, k, v, causal=causal)
+        err, ratio, lim = _check_flash(what, kern, plain, dtype)
+        extra = {}
+        if i == 0:                     # the head case
+            with torch.no_grad():
+                chunked = chunked_attention(q, k, v, causal=causal)
+            extra["chunked_attention_err"], extra[
+                "chunked_attention_err_over_tol"], _ = _check_flash(
+                    what + " vs chunked_attention", kern, chunked, dtype)
+            del chunked
+        lib, lib_ms, backend = _sdpa_ms(torch, flush, q, k, v, causal)
+        # SDPA read by the same check, for the record (it is no port)
+        extra["library_max_abs_err"], extra["library_err_over_tol"], _ = \
+            _flash_err(lib, plain, dtype)
+        itemsize = q.element_size()
+        pairs = s * (s + 1) // 2 if causal else s * s     # live (q, k) pairs
+        b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * itemsize,
+                           4 * b * hq * pairs * hd, dtype)
+        cases.append({
+            "shape": {"case": name, "B": b, "S": s, "Hq": hq, "Hkv": hkv,
+                      "hd": hd, "causal": causal},
+            "dtype": dtype, "max_abs_err": err, "err_over_tol": ratio,
+            "tolerance": lim,
+            "kernel_ms": time_ms(torch, lambda: fa.flash_attention(
+                q, k, v, causal=causal), flush),
+            "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=causal), flush, iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library": f"torch scaled_dot_product_attention ({backend})",
+            **extra})
+        print(f"[flash] {name}: err {err:.3g} ({ratio:.3f} x limit), "
+              f"SDPA {extra['library_err_over_tol']:.3f} x limit")
+        del plain, lib
+
+    # untimed: f32 causal at the head shape and at hd 256 (each kernel
+    # instance of hd 256 runs), and S not a multiple of the kernel's
+    # 64-row q blocks or of its kv tiles
+    for b, s, hq, hkv, hd, dtype, causal in FLASH_CHECK_CASES:
+        q, k, v = inputs(b, s, hq, hkv, hd, dtype)
+        err, ratio, _ = _check_flash(
+            f"flash_attention B {b} S {s} hd {hd} {dtype} causal={causal}",
+            fa.flash_attention(q, k, v, causal=causal),
+            fa.flash_attention_plain(q, k, v, causal=causal), dtype)
+        print(f"[flash] B {b} S {s} {hq}/{hkv} heads hd {hd} {dtype} "
+              f"causal={causal}: err {err:.3g} ({ratio:.3f} x limit)")
+        del q, k, v
+    return launches, cases
+
+
 def reference_phase(torch):
     """2 layers at full width in f32: GPU (kernels) vs CPU (plain versions)
     from the same weights must give the same greedy tokens."""
@@ -1105,6 +1278,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     swin_launches, swin_out = swin_train_phase(torch)
     print(f"[swin] {json.dumps({**swin_out, 'reference': swin_ref})}")
+    torch.cuda.empty_cache()               # the Swin training state is gone
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flash_launches, flash_res = flash_cases(torch, flush)
+    for c in flash_res:
+        print(f"[kernel-flash] {json.dumps(c)}")
+    del flush
 
     # Each kernel's launches on the main paths that ran it: the serve run
     # (phase 5), the qwen train steps (phase 8), the Swin train steps and
@@ -1147,6 +1326,12 @@ def main() -> int:
               "src/repro/kernels/esfk.py:82", swin_res["esfk"]),
         entry("ess", "src/repro_torch/csrc/ess.cu",
               "src/repro/kernels/ess.py:43", swin_res["ess"]),
+        # no model path runs it (launches_by_path is empty): its path is
+        # its own entry point, driven once a case in phase 12
+        {**entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:80", flash_res),
+         "launches": flash_launches,
+         "launches_from": "phase 12, the public entry point"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

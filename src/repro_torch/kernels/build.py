@@ -20,7 +20,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("esffn", "esfk", "esmm", "ess", "estmm", "paged_attention")
+KERNELS = ("esffn", "esfk", "esmm", "ess", "estmm", "flash_attention",
+           "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
