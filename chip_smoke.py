@@ -30,14 +30,24 @@ Phases, in order; any failure exits non-zero and prints no result:
 The serve phase's weights are then freed, and the training slice runs:
 
 6. Kernel phase at training shapes (qwen3-moe-30b-a3b, 4 x 1024 tokens,
-   top-8, blk 128: Np 49,024 sorted rows): ``esmm`` in bf16 and f32 at
-   (Np, 2048) x (128, 2048, 768), transposed at (Np, 2048) x
-   (128, 768, 2048)^T, and once with a bias; ``estmm`` in bf16 at
-   (Np, 2048) x (Np, 768), and once on a layout where 4 experts have no
-   rows, whose dW must be exactly 0; ``esffn_glu`` at N 4096, blk 128.
-   Each against its plain version, timed as in phase 3, with the time of
-   ``torch._grouped_mm`` (one PyTorch call computing the same grouped
-   product) where the installed torch has it for the dtype.
+   top-8, blk 128: Np 49,024 sorted rows), every shape the LM layer
+   launches, on both kernel routes (``_route``: ``wgmma``, bf16 on the
+   tensor cores; ``simt``, f32 FMA): ``esmm`` (``ESMM_TRAIN_CASES``) in
+   bf16 and f32 at (Np, 2048) x (128, 2048, 768), transposed at the same
+   and at (Np, 768) x (128, 2048, 768)^T (the dX products), once with a
+   bias, and in bf16 at blk 64 (wgmma) and blk 32 (simt); ``estmm``
+   (``ESTMM_TRAIN_CASES``) at (Np, 2048) x (Np, 768) in bf16 and f32, at
+   768 x 2048 (dWd), at blk 64 and 32, and once on a layout where 4
+   experts have no rows, whose dW must be exactly 0; ``esffn_glu`` at
+   N 4096, blk 128. Each call's route is read from the per-route launch
+   counts and must be the expected one. Each against its plain version,
+   timed as in phase 3, with the time of ``torch._grouped_mm`` (one
+   PyTorch call computing the same grouped product) where the installed
+   torch has it for the dtype. Negative controls on the head cases' data:
+   the plain output with one 64-wide K step left out, and with one
+   block's expert swapped for its neighbour's, must each fail the limit.
+   Untimed, both kernels also run on the wgmma route at the small and
+   ragged ``GEMM_CHECK_WIDTHS`` against their plain versions.
 7. Training reference: one ``loss_fn`` forward and backward of a 2-layer
    model at full width in f32 (2 x 64 tokens, blk 16) on the GPU (the
    kernels) and on the CPU (the plain versions) from the same weights and
@@ -48,7 +58,8 @@ The serve phase's weights are then freed, and the training slice runs:
    at global batch 4 x 1024 tokens, blk 128: one warm-up step, then 3
    steps through ``make_train_step`` with the launch counts set to 0 just
    before and read just after (per step: 2 ``esffn_glu``, 5 ``esmm`` and
-   3 ``estmm`` a layer). Every loss must be finite.
+   3 ``estmm`` a layer, every ``esmm`` and ``estmm`` on the wgmma route).
+   Every loss must be finite.
 
 The training state is then freed, and the Swin-MoE slice runs (Swin-MoE-
 Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
@@ -59,7 +70,8 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    ``esfk`` and ``ess`` at each (dW1/db1 and dW2/db2 operands), also on a
    layout where 3 experts have no rows (their dW and db exactly 0), with
    the time of the unfused ``estmm`` + ``ess`` pair beside ``esfk``'s, and
-   ``esmm`` in f32 with a bias (the z recompute) and transposed (t, dX);
+   ``esmm`` in f32 with a bias (the z recompute) and transposed (t, dX),
+   on the simt route;
    ``esffn_mlp`` once in bf16. Timed as phase 3, against the plain
    versions; ``torch.segment_reduce`` is the library yardstick for ``ess``.
 10. Swin reference: Swin-MoE-Small at full width, depth cut to (2, 2, 2, 2)
@@ -71,10 +83,11 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    ``SWIN_BATCH`` of seeded 224^2 images and labels, AdamW
    (``master_fp32=False``): one warm-up step, then ``SWIN_STEPS`` steps
    whose launch counts must be exactly 10 ``esffn_mlp``, 30 ``esmm``, 20
-   ``esfk`` and 0 ``ess`` a step. Then one forward and backward of the
-   same loss from the same state with ``set_fused_backward(True)`` and
-   with ``(False)`` (the paper's Fig. 12 ablation: 0 ``esfk``, 20
-   ``estmm``, 20 ``ess``): the grads must agree within
+   ``esfk`` and 0 ``ess`` a step, every ``esmm`` on the f32 simt route.
+   Then one forward and backward of the same loss from the same state
+   with ``set_fused_backward(True)`` and with ``(False)`` (the paper's
+   Fig. 12 ablation: 0 ``esfk``, 20 ``estmm``, 20 ``ess``, all on the
+   simt route): the grads must agree within
    ``SWIN_ABLATION_TOL``.
 
 The Swin state is then freed, and the flash-attention slice runs (no model
@@ -314,11 +327,11 @@ def paged_attention_cases(torch, flush):
     return cases
 
 
-def _sorted_layout(torch, n, empty_experts=0, seed=5):
+def _sorted_layout(torch, n, empty_experts=0, seed=5, blk=128):
     """qwen3-moe-30b-a3b's routing of n random tokens (top-8 of 128
-    experts, blk 128); with ``empty_experts`` every pick of the first few
-    experts moves to the expert ``empty_experts`` places on, so those
-    experts get no rows."""
+    experts) on the sorted layout of block size ``blk``; with
+    ``empty_experts`` every pick of the first few experts moves to the
+    expert ``empty_experts`` places on, so those experts get no rows."""
     from repro_torch.core.reindex import build_reindex
     from repro_torch.core.routing import route
 
@@ -330,7 +343,7 @@ def _sorted_layout(torch, n, empty_experts=0, seed=5):
     idx = r.expert_idx
     if empty_experts:
         idx = torch.where(idx < empty_experts, idx + empty_experts, idx)
-    return x, build_reindex(idx, r.gates, e, 128), gen
+    return x, build_reindex(idx, r.gates, e, blk), gen
 
 
 def _check(name, kern, plain, tol_rel):
@@ -382,6 +395,132 @@ def _library_ms(torch, flush, fn, dtype):
     return time_ms(torch, fn, flush), "torch._grouped_mm"
 
 
+def _routed(torch, fn, kernel):
+    """Call ``fn`` once and return (its output, the route it launched on,
+    read from the kernel's per-route counts)."""
+    before = dict(kernel.launches_by_route)
+    out = fn()
+    torch.cuda.synchronize()
+    moved = [r for r, n in kernel.launches_by_route.items() if n != before[r]]
+    if len(moved) != 1:
+        raise AssertionError(f"{kernel.__name__}: one call moved the route "
+                             f"counts {moved}")
+    return out, moved[0]
+
+
+def _must_fail(name, wrong, plain, tol_rel):
+    """Negative control: ``wrong`` (the plain output with a tile-mapping
+    fault put in) must fail ``_check`` at the limit the kernels meet.
+    Returns its error over the limit."""
+    try:
+        _check(name, wrong, plain, tol_rel)
+    except AssertionError:
+        err = (wrong.float() - plain.float()).abs().max().item()
+        return err / (tol_rel * plain.float().abs().max().item())
+    raise AssertionError(f"negative control {name} passed the limit")
+
+
+def _rates(case, nbytes, flops):
+    """TFLOP/s and GB/s the kernel reached (the bound's bytes and flops
+    over its time)."""
+    case["tflops"] = flops / case["kernel_ms"] / 1e9
+    case["gb_per_s"] = nbytes / case["kernel_ms"] / 1e6
+    return case
+
+
+# Phase 6 cases (dtype, transpose_rhs, bias, K, N, blk, route): every
+# shape the LM layer launches (g/u at K 2048 -> N 768, t transposed at the
+# same, the two dX products transposed at K 768 -> N 2048), f32 on the
+# simt route, and the 64- and 32-row instances.
+ESMM_TRAIN_CASES = (
+    ("bfloat16", False, False, 2048, 768, 128, "wgmma"),
+    ("float32", False, False, 2048, 768, 128, "simt"),
+    ("bfloat16", True, False, 2048, 768, 128, "wgmma"),
+    ("float32", True, False, 2048, 768, 128, "simt"),
+    ("bfloat16", False, True, 2048, 768, 128, "wgmma"),
+    ("bfloat16", True, False, 768, 2048, 128, "wgmma"),
+    ("bfloat16", False, False, 2048, 768, 64, "wgmma"),
+    ("bfloat16", False, False, 2048, 768, 32, "simt"),
+)
+# (dtype, empty experts, D1, D2, blk, route): dWg/dWu at 2048 x 768, dWd
+# at 768 x 2048.
+ESTMM_TRAIN_CASES = (
+    ("bfloat16", 0, 2048, 768, 128, "wgmma"),
+    ("float32", 0, 2048, 768, 128, "simt"),
+    ("bfloat16", 4, 2048, 768, 128, "wgmma"),
+    ("bfloat16", 0, 768, 2048, 128, "wgmma"),
+    ("bfloat16", 0, 2048, 768, 64, "wgmma"),
+    ("bfloat16", 0, 2048, 768, 32, "simt"),
+)
+
+
+# Untimed bf16 checks at small and ragged widths on the wgmma route:
+# (K, N) for esmm and (D1, D2) for estmm, each at blk 128 and 64, both
+# weight orientations, with and without a bias; width 8 is the least the
+# route takes, 136 and 200 leave partial K steps and N / D tiles.
+GEMM_CHECK_WIDTHS = ((8, 8), (136, 200), (200, 136))
+
+
+def gemm_check_cases(torch):
+    """Phase 6, untimed: esmm and estmm on the wgmma route at the
+    GEMM_CHECK_WIDTHS over a random top-2 layout of 8 experts, two of them
+    empty, against the plain versions within GEMM_TOL."""
+    from repro_torch.core.reindex import build_reindex
+    from repro_torch.kernels import esmm, estmm
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    e, worst, n_cases = 8, 0.0, 0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    for blk in (128, 64):
+        idx = torch.randint(2, e, (300, 2), generator=gen, device="cuda")
+        lay = build_reindex(idx.int(), torch.rand((300, 2), generator=gen,
+                                                  device="cuda"), e, blk)
+        be, pc, np_rows = lay.block_expert, lay.padded_counts, \
+            lay.row_token.numel()
+        for a, b in GEMM_CHECK_WIDTHS:
+            for trans in (False, True):
+                for bias in (False, True):
+                    xs = randn(np_rows, a).bfloat16()
+                    w = (randn(e, b, a) if trans else randn(e, a, b)).bfloat16()
+                    bv = randn(e, b) if bias else None
+                    kern, route = _routed(torch, lambda: esmm.esmm(
+                        xs, w, bv, be, transpose_rhs=trans), esmm.esmm)
+                    name = (f"esmm check blk {blk} K {a} N {b} trans={trans} "
+                            f"bias={bias}")
+                    if route != "wgmma":
+                        raise AssertionError(f"{name}: took {route}")
+                    err, tol = _check(name, kern, esmm.esmm_plain(
+                        xs, w, bv, be, transpose_rhs=trans),
+                        GEMM_TOL["bfloat16"])
+                    worst, n_cases = max(worst, err / tol), n_cases + 1
+            x1, x2 = randn(np_rows, a).bfloat16(), randn(np_rows, b).bfloat16()
+            kern, route = _routed(torch, lambda: estmm.estmm(x1, x2, be, pc),
+                                  estmm.estmm)
+            name = f"estmm check blk {blk} D1 {a} D2 {b}"
+            if route != "wgmma":
+                raise AssertionError(f"{name}: took {route}")
+            err, tol = _check(name, kern, estmm.estmm_plain(x1, x2, be, pc),
+                              GEMM_TOL["bfloat16"])
+            if not torch.equal(kern[pc == 0], torch.zeros_like(kern[pc == 0])):
+                raise AssertionError(f"{name}: empty experts not exactly 0")
+            worst, n_cases = max(worst, err / tol), n_cases + 1
+    print(f"[kernel-train] {n_cases} untimed esmm/estmm wgmma checks at widths "
+          f"{GEMM_CHECK_WIDTHS}: worst err {worst:.3f} x the limit")
+    return {"cases": n_cases, "worst_err_over_tol": worst}
+
+
+def _neighbour_swap(be):
+    """block_expert with the first block whose neighbour belongs to
+    another expert moved to that expert."""
+    i = int((be[1:] != be[:-1]).nonzero()[0, 0])
+    wrong = be.clone()
+    wrong[i] = be[i + 1]
+    return wrong
+
+
 def train_kernel_cases(torch, flush):
     """Phase 6: esmm, estmm and esffn_glu at the train phase's shapes."""
     from repro_torch.core.reindex import gather_rows
@@ -389,67 +528,106 @@ def train_kernel_cases(torch, flush):
 
     n, d, e, f = TRAIN_BATCH * TRAIN_SEQ, 2048, 128, 768
     x, ri, gen = _sorted_layout(torch, n)
-    np_rows, nblk = ri.row_token.numel(), ri.block_expert.numel()
-    be, pc = ri.block_expert, ri.padded_counts
-    experts = int((pc > 0).sum())
-    # offsets of the grouped library call: tail blocks belong to E-1
-    offs = torch.cumsum(pc, 0).to(torch.int32)
-    offs[-1] = np_rows
-    shape = {"N": n, "D": d, "E": e, "F": f, "top_k": 8, "blk": 128,
-             "Np": np_rows, "experts_with_rows": experts}
-    res = {"esmm": [], "estmm": [], "esffn_glu": []}
+    layouts = {128: ri}
+    for blk in (64, 32):
+        layouts[blk] = _sorted_layout(torch, n, blk=blk)[1]
+    res = {"esmm": [], "estmm": [], "esffn_glu": [], "negative_controls": [],
+           "checks": gemm_check_cases(torch)}
 
-    for dtype, trans, bias in (("bfloat16", False, False),
-                               ("float32", False, False),
-                               ("bfloat16", True, False),
-                               ("float32", True, False),
-                               ("bfloat16", False, True)):
+    def offsets(lay):
+        # offsets of the grouped library call: tail blocks belong to E-1
+        offs = torch.cumsum(lay.padded_counts, 0).to(torch.int32)
+        offs[-1] = lay.row_token.numel()
+        return offs
+
+    def shape_of(lay, blk):
+        return {"N": n, "D": d, "E": e, "F": f, "top_k": 8, "blk": blk,
+                "Np": lay.row_token.numel(),
+                "experts_with_rows": int((lay.padded_counts > 0).sum())}
+
+    for i, (dtype, trans, bias, k_dim, n_dim, blk, want) in enumerate(
+            ESMM_TRAIN_CASES):
         td = getattr(torch, dtype)
-        k_dim, n_dim = (d, f)
+        lay = layouts[blk]
+        be, np_rows, nblk = lay.block_expert, lay.row_token.numel(), \
+            lay.block_expert.numel()
+        experts = int((lay.padded_counts > 0).sum())
         w = (torch.randn((e, n_dim, k_dim) if trans else (e, k_dim, n_dim),
                          generator=gen, device="cuda") * 0.02).to(td)
         b = ((torch.randn((e, n_dim), generator=gen, device="cuda") * 0.1)
              .to(td) if bias else None)
-        xs = gather_rows(x.to(td), ri.row_token)
+        # K 2048: the tokens' rows; K 768: a dg-like operand, zero on
+        # padding rows as the backward gives it
+        xs = (gather_rows(x.to(td), lay.row_token) if k_dim == d else
+              (torch.randn((np_rows, k_dim), generator=gen, device="cuda")
+               * (lay.row_gate != 0)[:, None]).to(td))
         args = (xs, w, b, be)
         kw = dict(transpose_rhs=trans)
-        name = f"esmm {dtype} trans={trans} bias={bias}"
+        name = (f"esmm {dtype} trans={trans} bias={bias} K {k_dim} N {n_dim} "
+                f"blk {blk}")
         plain = esmm.esmm_plain(*args, **kw)
-        kern = esmm.esmm(*args, **kw)
-        torch.cuda.synchronize()
+        kern, route = _routed(torch, lambda: esmm.esmm(*args, **kw),
+                              esmm.esmm)
+        if route != want:
+            raise AssertionError(f"{name}: took the {route} route, not {want}")
         err, tol = _check(name, kern, plain, GEMM_TOL[dtype])
+        if i == 0:      # the head case: faults a tile mapping makes
+            k0 = 1024
+            xs_cut = xs.clone()
+            xs_cut[:, k0:k0 + 64] = 0
+            res["negative_controls"].append({
+                "kernel": "esmm", "fault": f"K step [{k0}, {k0 + 64}) left out",
+                "err_over_tol": _must_fail(
+                    name + " without one K step",
+                    esmm.esmm_plain(xs_cut, w, b, be, **kw), plain,
+                    GEMM_TOL[dtype])})
+            res["negative_controls"].append({
+                "kernel": "esmm", "fault": "one block on its neighbour's expert",
+                "err_over_tol": _must_fail(
+                    name + " with a block's expert swapped",
+                    esmm.esmm_plain(xs, w, b, _neighbour_swap(be), **kw),
+                    plain, GEMM_TOL[dtype])})
+            del xs_cut
         s_ = xs.element_size()
         nbytes = (np_rows * k_dim * s_ + experts * k_dim * n_dim * s_
                   + (experts * n_dim * s_ if bias else 0) + nblk * 4
                   + np_rows * n_dim * s_)
-        b_ms, b_by = bound(nbytes, 2 * np_rows * k_dim * n_dim, dtype)
+        flops = 2 * np_rows * k_dim * n_dim
+        b_ms, b_by = bound(nbytes, flops, dtype)
         wl = w.transpose(1, 2) if trans else w
+        offs = offsets(lay)
         lib_ms, lib_note = _library_ms(
             torch, flush, lambda: torch._grouped_mm(xs, wl, offs=offs), dtype)
-        res["esmm"].append({
-            "shape": {**shape, "K": k_dim, "Nout": n_dim,
+        res["esmm"].append(_rates({
+            "shape": {**shape_of(lay, blk), "K": k_dim, "Nout": n_dim,
                       "transpose_rhs": trans, "bias": bias},
-            "dtype": dtype, "max_abs_err": err, "tolerance": tol,
+            "dtype": dtype, "kernel_route": route, "max_abs_err": err,
+            "tolerance": tol,
             "kernel_ms": time_ms(torch, lambda: esmm.esmm(*args, **kw), flush),
             "plain_ms": time_ms(torch, lambda: esmm.esmm_plain(*args, **kw),
                                 flush),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "library": lib_note})
+            "library": lib_note}, nbytes, flops))
         del w, b, xs, plain, kern
 
-    for dtype, empty in (("bfloat16", 0), ("float32", 0), ("bfloat16", 4)):
+    for i, (dtype, empty, d1, d2, blk, want) in enumerate(ESTMM_TRAIN_CASES):
         td = getattr(torch, dtype)
-        lay_x, lay = (x, ri) if not empty else _sorted_layout(
-            torch, n, empty_experts=empty, seed=6)[:2]
+        lay_x, lay = (x, layouts[blk]) if not empty else _sorted_layout(
+            torch, n, empty_experts=empty, seed=6, blk=blk)[:2]
         lpc, lbe = lay.padded_counts, lay.block_expert
-        x1 = gather_rows(lay_x.to(td), lay.row_token)
-        x2 = (torch.randn((x1.shape[0], f), generator=gen, device="cuda")
-              * (lay.row_gate != 0)[:, None]).to(td)
+        live = (lay.row_gate != 0)[:, None]
+        # D1 2048: the tokens' rows (dWg, dWu); D1 768: an h-like operand
+        x1 = (gather_rows(lay_x.to(td), lay.row_token) if d1 == d else
+              (torch.randn((live.shape[0], d1), generator=gen, device="cuda")
+               * live).to(td))
+        x2 = (torch.randn((x1.shape[0], d2), generator=gen, device="cuda")
+              * live).to(td)
         args = (x1, x2, lbe, lpc)
-        name = f"estmm {dtype} empty={empty}"
+        name = f"estmm {dtype} empty={empty} D1 {d1} D2 {d2} blk {blk}"
         plain = estmm.estmm_plain(*args)
-        kern = estmm.estmm(*args)
-        torch.cuda.synchronize()
+        kern, route = _routed(torch, lambda: estmm.estmm(*args), estmm.estmm)
+        if route != want:
+            raise AssertionError(f"{name}: took the {route} route, not {want}")
         err, tol = _check(name, kern, plain, GEMM_TOL[dtype])
         n_empty = int((lpc == 0).sum())
         if empty and (n_empty < empty
@@ -457,27 +635,49 @@ def train_kernel_cases(torch, flush):
                                          torch.zeros_like(kern[lpc == 0]))):
             raise AssertionError(f"{name}: {n_empty} empty experts, dW not "
                                  f"exactly 0")
-        rows = int(lpc.sum()) + (x1.shape[0] - int(lpc.sum())
-                                 if int(lpc[-1]) > 0 else 0)
+        if i == 0:      # the head case: faults a tile mapping makes
+            r0 = int(torch.cumsum(lpc, 0)[0])    # expert 1's run starts here
+            x1_cut = x1.clone()
+            x1_cut[r0:r0 + 64] = 0
+            res["negative_controls"].append({
+                "kernel": "estmm",
+                "fault": f"K step of rows [{r0}, {r0 + 64}) left out",
+                "err_over_tol": _must_fail(
+                    name + " without one K step",
+                    estmm.estmm_plain(x1_cut, x2, lbe, lpc), plain,
+                    GEMM_TOL[dtype])})
+            res["negative_controls"].append({
+                "kernel": "estmm",
+                "fault": "one block on its neighbour's expert",
+                "err_over_tol": _must_fail(
+                    name + " with a block's expert swapped",
+                    estmm.estmm_plain(x1, x2, _neighbour_swap(lbe), lpc),
+                    plain, GEMM_TOL[dtype])})
+            del x1_cut
+        rows = _rows_read(lpc, x1.shape[0])
         s_ = x1.element_size()
-        nbytes = rows * (d + f) * s_ + e * 4 + e * d * f * 4
-        b_ms, b_by = bound(nbytes, 2 * rows * d * f, dtype)
-        loffs = torch.cumsum(lpc, 0).to(torch.int32)
-        loffs[-1] = x1.shape[0]
+        nbytes = rows * (d1 + d2) * s_ + e * 4 + e * d1 * d2 * 4
+        flops = 2 * rows * d1 * d2
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        loffs = offsets(lay)
         lib_ms, lib_note = _library_ms(      # writes bf16, not f32
             torch, flush, lambda: torch._grouped_mm(x1.t(), x2, offs=loffs),
             dtype)
-        res["estmm"].append({
-            "shape": {**shape, "D1": d, "D2": f, "empty_experts": n_empty,
-                      "rows_read": rows},
-            "dtype": dtype, "max_abs_err": err, "tolerance": tol,
+        res["estmm"].append(_rates({
+            "shape": {**shape_of(lay, blk), "D1": d1, "D2": d2,
+                      "empty_experts": n_empty, "rows_read": rows},
+            "dtype": dtype, "kernel_route": route, "max_abs_err": err,
+            "tolerance": tol,
             "kernel_ms": time_ms(torch, lambda: estmm.estmm(*args), flush),
             "plain_ms": time_ms(torch, lambda: estmm.estmm_plain(*args),
                                 flush),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "library": lib_note})
+            "library": lib_note}, nbytes, flops))
         del x1, x2, plain, kern
 
+    be, np_rows, nblk = ri.block_expert, ri.row_token.numel(), \
+        ri.block_expert.numel()
+    experts = int((ri.padded_counts > 0).sum())
     td = torch.bfloat16
     ws = [(torch.randn(sh, generator=gen, device="cuda") * 0.02).to(td)
           for sh in ((e, d, f), (e, d, f), (e, f, d))]
@@ -493,8 +693,8 @@ def train_kernel_cases(torch, flush):
               + np_rows * d * 2)
     b_ms, b_by = bound(nbytes, 6 * live * d * f, "bfloat16")
     res["esffn_glu"].append({
-        "shape": {**shape, "live_rows": live}, "dtype": "bfloat16",
-        "max_abs_err": err, "tolerance": tol,
+        "shape": {**shape_of(ri, 128), "live_rows": live},
+        "dtype": "bfloat16", "max_abs_err": err, "tolerance": tol,
         "kernel_ms": time_ms(torch, lambda: esffn.esffn_glu(*args), flush),
         "plain_ms": time_ms(torch, lambda: esffn.esffn_glu_plain(*args),
                             flush),
@@ -605,6 +805,8 @@ def train_phase(torch):
     torch.cuda.reset_peak_memory_stats()
     for fn in (esffn.esffn_glu, esmm.esmm, estmm.estmm):
         fn.launches = 0
+    for fn in (esmm.esmm, estmm.estmm):
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
     times, log = [], []
     for step in range(1, TRAIN_STEPS + 1):
         m, dt = run(step)
@@ -615,6 +817,8 @@ def train_phase(torch):
               f"{m['grad_norm']:.6f} lr {m['lr']:.2e} ({dt:.3f}s)")
     launches = {"esffn_glu": esffn.esffn_glu.launches,
                 "esmm": esmm.esmm.launches, "estmm": estmm.estmm.launches}
+    routes = {"esmm": dict(esmm.esmm.launches_by_route),
+              "estmm": dict(estmm.estmm.launches_by_route)}
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in log):
@@ -623,13 +827,19 @@ def train_phase(torch):
     want = {k: v * TRAIN_DEPTH * TRAIN_STEPS for k, v in want.items()}
     if launches != want:
         raise AssertionError(f"train: launches {launches}, expected {want}")
+    # every expert GEMM of the bf16 LM step on the tensor cores
+    want_routes = {k: {"simt": 0, "wgmma": want[k]} for k in routes}
+    if routes != want_routes:
+        raise AssertionError(f"train: routes {routes}, expected "
+                             f"{want_routes}")
     med = statistics.median(times)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     print(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
           f"tokens: step median {med * 1e3:.1f}ms, {tokens / med:.1f} "
           f"tokens/s; peak allocated {peak / 1e9:.2f} GB; launches "
-          f"{launches}")
+          f"{launches}; routes {routes}")
     return launches, {"steps": log, "step_times_s": times,
+                      "launches_by_route": routes,
                       "step_median_ms": med * 1e3,
                       "tokens_per_s": tokens / med,
                       "peak_allocated_gb": peak / 1e9,
@@ -803,8 +1013,10 @@ def swin_kernel_cases(torch, flush):
                 kw = dict(transpose_rhs=trans)
                 name = f"esmm f32 stage {stage} {what}"
                 plain = esmm.esmm_plain(*args, **kw)
-                kern = esmm.esmm(*args, **kw)
-                torch.cuda.synchronize()
+                kern, route = _routed(torch, lambda: esmm.esmm(*args, **kw),
+                                      esmm.esmm)
+                if route != "simt":
+                    raise AssertionError(f"{name}: took the {route} route")
                 err, tol = _check(name, kern, plain, GEMM_TOL["float32"])
                 k_dim, n_dim = xa.shape[1], kern.shape[1]
                 nbytes = (np_rows * k_dim * 4 + experts * k_dim * n_dim * 4
@@ -816,7 +1028,8 @@ def swin_kernel_cases(torch, flush):
                     "shape": {**shape, "K": k_dim, "Nout": n_dim,
                               "transpose_rhs": trans, "bias": b is not None,
                               "product": what},
-                    "dtype": "float32", "max_abs_err": err, "tolerance": tol,
+                    "dtype": "float32", "kernel_route": route,
+                    "max_abs_err": err, "tolerance": tol,
                     "kernel_ms": time_ms(torch, lambda: esmm.esmm(*args, **kw),
                                          flush),
                     "plain_ms": time_ms(torch, lambda: esmm.esmm_plain(
@@ -929,11 +1142,20 @@ def swin_train_phase(torch):
         torch.cuda.synchronize()
         return m, time.perf_counter() - t
 
+    def reset():
+        for fn in kernels.values():
+            fn.launches = 0
+        for fn in (esmm.esmm, estmm.estmm):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+
+    def routes():
+        return {"esmm": dict(esmm.esmm.launches_by_route),
+                "estmm": dict(estmm.estmm.launches_by_route)}
+
     m, dt = run(0)                        # warm-up, unmeasured
     print(f"[swin] warm-up step: loss {m['loss']:.4f} ({dt:.2f}s)")
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
+    reset()
     times, log = [], []
     for step in range(1, SWIN_STEPS + 1):
         m, dt = run(step)
@@ -943,6 +1165,7 @@ def swin_train_phase(torch):
               f"{m['aux_loss']:.6f} grad norm {m['grad_norm']:.6f} lr "
               f"{m['lr']:.2e} ({dt:.3f}s)")
     launches = {k: fn.launches for k, fn in kernels.items()}
+    train_routes = routes()
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in log):
@@ -952,10 +1175,15 @@ def swin_train_phase(torch):
     if launches != want:
         raise AssertionError(f"swin train: launches {launches}, expected "
                              f"{want}")
+    # the f32 Swin step keeps the f32 FMA route
+    if train_routes != {"esmm": {"simt": want["esmm"], "wgmma": 0},
+                        "estmm": {"simt": 0, "wgmma": 0}}:
+        raise AssertionError(f"swin train: routes {train_routes}")
     med = statistics.median(times)
     print(f"[swin] {SWIN_STEPS} steps of {SWIN_BATCH} images: step median "
           f"{med * 1e3:.1f}ms, {SWIN_BATCH / med:.1f} images/s; peak "
-          f"allocated {peak / 1e9:.2f} GB; launches {launches}")
+          f"allocated {peak / 1e9:.2f} GB; launches {launches}; routes "
+          f"{train_routes}")
 
     # Fig. 12 ablation: the same loss's grads, fused and unfused backward
     loss_fn = swin.make_loss_fn(cfg, pcfg)
@@ -963,16 +1191,22 @@ def swin_train_phase(torch):
     for fused in (True, False):
         ops.set_fused_backward(fused)
         try:
-            for fn in kernels.values():
-                fn.launches = 0
+            reset()
             loss, grads = _swin_grads(torch, params, loss_fn, *batches[0])
             torch.cuda.synchronize()
         finally:
             ops.set_fused_backward(True)
         ablation[fused] = (loss, grads,
-                           {k: fn.launches for k, fn in kernels.items()})
+                           {k: fn.launches for k, fn in kernels.items()},
+                           routes())
         del grads
-    (lf, gf, cf), (lu, gu, cu) = ablation[True], ablation[False]
+    (lf, gf, cf, rf), (lu, gu, cu, ru) = ablation[True], ablation[False]
+    if (rf, ru) != ({"esmm": {"simt": 30, "wgmma": 0},
+                     "estmm": {"simt": 0, "wgmma": 0}},
+                    {"esmm": {"simt": 30, "wgmma": 0},
+                     "estmm": {"simt": 20, "wgmma": 0}}):
+        raise AssertionError(f"swin backward: routes {rf} fused, {ru} "
+                             f"unfused")
     if cf != {"esffn_mlp": 10, "esmm": 30, "esfk": 20, "ess": 0, "estmm": 0}:
         raise AssertionError(f"swin fused backward: launches {cf}")
     if cu != {"esffn_mlp": 10, "esmm": 30, "esfk": 0, "ess": 20, "estmm": 20}:
@@ -985,6 +1219,8 @@ def swin_train_phase(torch):
           f"the fused (ESFK) backward")
     launches_by_path = {"swin_train": launches, "swin_unfused_backward": cu}
     return launches_by_path, {
+        "launches_by_route": {"swin_train": train_routes,
+                              "swin_unfused_backward": ru},
         "config": cfg.name, "params": n_params, "moe_params": n_moe,
         "batch": SWIN_BATCH, "steps": log, "step_times_s": times,
         "step_median_ms": med * 1e3, "images_per_s": SWIN_BATCH / med,
@@ -1259,8 +1495,11 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     train_res = train_kernel_cases(torch, flush)
-    for c in sum(train_res.values(), []):
+    for c in train_res["esmm"] + train_res["estmm"] + train_res["esffn_glu"]:
         print(f"[kernel-train] {json.dumps(c)}")
+    for c in train_res["negative_controls"]:
+        print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
+              f"{c['err_over_tol']:.3g} x the limit")
     del flush
     torch.cuda.empty_cache()
     train_ref = train_reference_phase(torch)
@@ -1295,6 +1534,24 @@ def main() -> int:
             if n:
                 by_path.setdefault(name, {})[path] = n
 
+    route_paths = {"qwen_train": train_out["launches_by_route"],
+                   **swin_out["launches_by_route"]}
+
+    def by_route(name, cases):
+        """Each route of a two-route kernel: its launches on each path and
+        its first (head) case."""
+        out = {}
+        for route in ("wgmma", "simt"):
+            head = next(c for c in cases if c["kernel_route"] == route)
+            out[route] = {
+                "launches_by_path": {p: r[name][route] for p, r in
+                                     route_paths.items() if r[name][route]},
+                "ms": head["kernel_ms"], "bound_ms": head["bound_ms"],
+                "library_ms": head.get("library_ms"),
+                "max_abs_err": head["max_abs_err"], "shape": head["shape"],
+                "dtype": head["dtype"]}
+        return out
+
     def entry(name, source, replaces, cases, **extra):
         head = cases[0]
         return {"name": name, "route": "cuda", "source": source,
@@ -1317,9 +1574,16 @@ def main() -> int:
               "src/repro/kernels/paged_attention.py:295", attn_res),
         entry("esmm", "src/repro_torch/csrc/esmm.cu",
               "src/repro/kernels/esmm.py:80",
-              train_res["esmm"] + swin_res["esmm"]),
+              train_res["esmm"] + swin_res["esmm"],
+              kernel_routes=by_route("esmm", train_res["esmm"]),
+              negative_controls=[c for c in train_res["negative_controls"]
+                                 if c["kernel"] == "esmm"]),
         entry("estmm", "src/repro_torch/csrc/estmm.cu",
-              "src/repro/kernels/estmm.py:43", train_res["estmm"]),
+              "src/repro/kernels/estmm.py:43", train_res["estmm"],
+              kernel_routes=by_route("estmm", train_res["estmm"]),
+              negative_controls=[c for c in train_res["negative_controls"]
+                                 if c["kernel"] == "estmm"],
+              small_width_checks=train_res["checks"]),
         entry("esffn_mlp", "src/repro_torch/csrc/esffn.cu",
               "src/repro/kernels/esffn.py:339", swin_res["esffn_mlp"]),
         entry("esfk", "src/repro_torch/csrc/esfk.cu",

@@ -9,29 +9,57 @@
 // (or 0; the bias is read as f32 whatever T is, as the TPU kernel casts it)
 // and the output is rounded once to T, as the TPU kernel does.
 //
-// What bounds it on this card: at training shapes (Np ~ 49k rows, K 2048,
-// N 768, or K 768, N 2048) it is a dense GEMM of 2 Np K N FLOPs against
-// (Np K + E K N + Np N) elements: some 150 FLOP/byte, so the operations
-// bound it, at the f32 FMA rate this kernel uses (tensor cores come later).
-// The design therefore keeps the FMA units fed from shared memory:
+// What bounds it on this card: a dense grouped GEMM. At the LM train head
+// case (Np 49,024 rows, K 2048, N 768, blk 128: 154.2 GFLOP, about 680 MB
+// of xs, the W of the experts with rows, and ys) the bytes take 0.203 ms
+// at 3.35 TB/s and the operations 0.156 ms at 989 TFLOP/s, so only the
+// tensor cores come near the bound. Two routes, chosen by the wrapper
+// (kernels/esmm.py::_route) before the launch and passed in `route`:
 //
+// wgmma (route 1: bf16, blk % 64 == 0, K and N % 8 == 0):
+//  * A CTA owns one BLK block's rows (BM = blk: two consumer warpgroups of
+//    64 rows at blk 128, one at blk 64) and a 128-column N tile, so it
+//    reads one expert's W. A producer warp keeps a ring of TMA loads in
+//    flight (3 stages at blk 128, 4 at blk 64; K steps of 64, 128-byte
+//    swizzle): the BM x 64 xs tile (K-major A) and the 64 x 128 W tile,
+//    K-major B with transpose_rhs (one 128 x 64 box of W (E, N, K)) or
+//    MN-major B without it (two 64-column boxes of W (E, K, N); the
+//    wgmma transpose bit reads it, the weights are not transposed in
+//    memory). W is a 3-D tensor map with the expert as its outer
+//    coordinate, so a tile past K or N reads zeros, never the next
+//    expert's rows.
+//  * Each consumer warpgroup runs four m64n128k16 wgmma per stage into 64
+//    f32 registers a thread, started from the f32 bias, keeps one wgmma
+//    group in flight and releases a stage when the group before it is
+//    done. The epilogue rounds once to bf16 and stores bf16 pairs.
+//  * CTA order: the N tiles of one block are neighbours, and neighbouring
+//    blocks share their expert (the layout is sorted), so the CTAs in
+//    flight read each xs block once from device memory and each W[e] tile
+//    about once, then from L2. Two CTAs an SM (97 KB of shared memory
+//    each), so one's epilogue overlaps the other's loads.
+//
+// simt (route 0: float32, the Swin slice's path; bf16 at blk 8..32 or at
+// widths not % 8, which TMA's 16-byte strides refuse): TF32 would move the f32 results off the f32 reference, and the
+// tensor cores take no f32, so it stays plain f32 FMA from shared memory:
 //  * A CTA owns a BM x 64 output tile (BM = 64 at BLK 128, else the largest
 //    of 32, 16, 8 that divides BLK), so its rows lie in one BLK block and
-//    the CTA reads one expert's weight slice; the TPU kernel's BlockSpec
-//    index map on block_expert becomes one load of block_expert in the CTA.
+//    the CTA reads one expert's weight slice.
 //  * The K loop stages a BM x 16 tile of xs and a 16 x 64 tile of W[e] in
 //    shared memory as f32 (bf16 converted once on the way in); each of the
 //    256 threads keeps a (BM/16) x 4 register tile of sums, columns strided
 //    by 16 so the shared-memory reads of a warp hit distinct banks.
 //  * The TPU kernel carries its f32 accumulator across the sequential K
 //    grid axis in VMEM; here the K loop runs inside the CTA, so nothing
-//    carries between CTAs and no atomics are needed.
+//    carries between CTAs and no atomics are needed (both routes).
 //
-// Plain C interface for ctypes: esmm_launch returns cudaGetLastError().
+// Plain C interface for ctypes: esmm_launch returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a route the operands cannot take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -150,17 +178,188 @@ int launch(const void* xs, const void* w, const void* b,
   return launch_bm<T, 8>(xs, w, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
 }
 
+
+// ---- wgmma route --------------------------------------------------------
+
+constexpr int kWgBN = 128;   // output columns of a CTA
+
+template <int NC>            // consumer warpgroups: BM = 64 NC rows
+struct WgCfg {
+  static constexpr int kBM = 64 * NC;
+  static constexpr int kStages = NC == 2 ? 3 : 4;
+  static constexpr int kABytes = kBM * 128;        // kBM rows x 64 K
+  static constexpr int kBBytes = kWgBN * 128;      // 128 columns x 64 K
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kThreads = NC * 128 + 32;   // + one producer warp
+  static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
+};
+
+template <int NC, bool kTrans>
+__global__ void __launch_bounds__(WgCfg<NC>::kThreads, 2)
+esmm_wgmma_kernel(__grid_constant__ const CUtensorMap xs_map,
+                  __grid_constant__ const CUtensorMap w_map,
+                  const float* __restrict__ b,
+                  const int* __restrict__ block_expert,
+                  __nv_bfloat16* __restrict__ ys, int k, int n, int n_tiles) {
+  using C = WgCfg<NC>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kStages * C::kStageBytes);
+  uint64_t* empty = full + C::kStages;
+
+  const int blk_m = blockIdx.x / n_tiles;
+  const int n0 = (blockIdx.x % n_tiles) * kWgBN;
+  const int m0 = blk_m * C::kBM;
+  const int e = block_expert[blk_m];
+  const int nk = (k + hopper::kTileK - 1) / hopper::kTileK;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], NC * 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == NC * 4) {                 // producer warp: one lane loads
+    if (threadIdx.x % 32 == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % C::kStages;
+        if (kt >= C::kStages) hopper::mbar_wait(&empty[s], ((kt / C::kStages) - 1) & 1);
+        uint8_t* a = smem + s * C::kStageBytes;
+        uint8_t* bt = a + C::kABytes;
+        hopper::mbar_arrive_expect_tx(&full[s], C::kStageBytes);
+        const int k0 = kt * hopper::kTileK;
+        hopper::tma_load_2d(a, &xs_map, &full[s], k0, m0);
+        if constexpr (kTrans) {
+          hopper::tma_load_3d(bt, &w_map, &full[s], k0, n0, e);
+        } else {
+          hopper::tma_load_3d(bt, &w_map, &full[s], n0, k0, e);
+          hopper::tma_load_3d(bt + hopper::kBoxBytes64, &w_map, &full[s],
+                              n0 + 64, k0, e);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int t = threadIdx.x % 128;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int col = n0 + hopper::frag_col(t, i);
+    acc[i] = (b != nullptr && col < n) ? b[(size_t)e * n + col] : 0.0f;
+  }
+  int prev = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % C::kStages;
+    hopper::mbar_wait(&full[s], (kt / C::kStages) & 1);
+    const uint8_t* a = smem + s * C::kStageBytes + wg * hopper::kBoxBytes64;
+    const uint8_t* bt = smem + s * C::kStageBytes + C::kABytes;
+    hopper::fence_acc(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hopper::make_desc(a + kk * 32, 16, 1024);
+      if constexpr (kTrans) {
+        hopper::wgmma_m64n128k16<0, 0>(acc, da,
+                                       hopper::make_desc(bt + kk * 32, 16, 1024));
+      } else {
+        hopper::wgmma_m64n128k16<0, 1>(
+            acc, da, hopper::make_desc(bt + kk * 2048, hopper::kBoxBytes64, 1024));
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::fence_acc(acc);
+    hopper::wgmma_wait<1>();            // the group before this one is done
+    if (kt > 0) hopper::mbar_arrive(&empty[prev]);
+    prev = s;
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_acc(acc);
+
+  const size_t row0 = (size_t)m0 + 64 * wg;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int col = n0 + hopper::frag_col(t, i);
+    if (col < n)
+      *reinterpret_cast<__nv_bfloat162*>(
+          &ys[(row0 + hopper::frag_row(t, i)) * n + col]) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
+template <int NC, bool kTrans>
+int launch_wgmma(const void* xs, const void* w, const void* b,
+                 const void* block_expert, void* ys, int np_rows, int k, int n,
+                 int num_experts, cudaStream_t stream) {
+  using C = WgCfg<NC>;
+  // xs (Np, K): boxes of 64 K x BM rows. W (E, K, N) or (E, N, K) as a 3-D
+  // map, so a tile past K or N reads zeros, never the next expert's rows.
+  CUtensorMap xs_map, w_map;
+  const uint64_t xs_dims[2] = {(uint64_t)k, (uint64_t)np_rows};
+  const uint64_t xs_strides[1] = {(uint64_t)k * 2};
+  const uint32_t xs_box[2] = {64, (uint32_t)C::kBM};
+  const uint64_t inner = kTrans ? k : n, outer = kTrans ? n : k;
+  const uint64_t w_dims[3] = {inner, outer, (uint64_t)num_experts};
+  const uint64_t w_strides[2] = {inner * 2, inner * outer * 2};
+  const uint32_t w_box[3] = {64, kTrans ? (uint32_t)kWgBN : 64u, 1};
+  if (!hopper::encode_bf16_map(&xs_map, xs, 2, xs_dims, xs_strides, xs_box) ||
+      !hopper::encode_bf16_map(&w_map, w, 3, w_dims, w_strides, w_box))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = esmm_wgmma_kernel<NC, kTrans>;
+  static bool configured = false;       // one attribute set per instance
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int n_tiles = (n + kWgBN - 1) / kWgBN;
+  kernel<<<(np_rows / C::kBM) * n_tiles, C::kThreads, C::kSmem, stream>>>(
+      xs_map, w_map, (const float*)b, (const int*)block_expert,
+      (__nv_bfloat16*)ys, k, n, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+int launch_wgmma_route(const void* xs, const void* w, const void* b,
+                       const void* block_expert, void* ys, int np_rows, int k,
+                       int n, int blk, int transpose, int num_experts,
+                       cudaStream_t stream) {
+  // The wrapper's _route decides; refuse what the tiles cannot take.
+  if ((blk != 64 && blk != 128) || k % 8 || n % 8 || np_rows % blk ||
+      num_experts < 1 || ((uintptr_t)xs | (uintptr_t)w) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (blk == 128)
+    return transpose ? launch_wgmma<2, true>(xs, w, b, block_expert, ys, np_rows, k, n, num_experts, stream)
+                     : launch_wgmma<2, false>(xs, w, b, block_expert, ys, np_rows, k, n, num_experts, stream);
+  return transpose ? launch_wgmma<1, true>(xs, w, b, block_expert, ys, np_rows, k, n, num_experts, stream)
+                   : launch_wgmma<1, false>(xs, w, b, block_expert, ys, np_rows, k, n, num_experts, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (xs, w and ys alike). xs (Np, K);
 // w (E, K, N), or (E, N, K) when transpose != 0; b (E, N) f32 or null;
 // block_expert (Np / blk,); ys (Np, N). Requires blk % 8 == 0 and
-// Np % blk == 0 (the wrapper checks).
+// Np % blk == 0 (the wrapper checks). route: 0 = simt, 1 = wgmma (bf16,
+// blk 64 or 128, K and N % 8 == 0, xs and w 16-byte aligned; anything
+// else is refused). num_experts = E, the extent of w's tensor map.
 extern "C" int esmm_launch(const void* xs, const void* w, const void* b,
                            const void* block_expert, void* ys, int np_rows,
                            int k, int n, int blk, int transpose, int dtype,
-                           void* stream) {
+                           int route, int num_experts, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_wgmma_route(xs, w, b, block_expert, ys, np_rows, k, n, blk,
+                              transpose, num_experts, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return launch<__nv_bfloat16>(xs, w, b, block_expert, ys, np_rows, k, n,
                                  blk, transpose, s);

@@ -6,7 +6,8 @@ import: the first call of a kernel's wrapper builds its library, and
 ``build()`` builds several at once (one ``nvcc`` process per source, all
 started together). Libraries go to ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``); a library's name carries a hash of its
-source and flags, so an edited kernel rebuilds and an unchanged one loads.
+source, of every shared header ``csrc/*.cuh`` and of the flags, so an
+edited kernel or header rebuilds and an unchanged one loads.
 """
 from __future__ import annotations
 
@@ -41,8 +42,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

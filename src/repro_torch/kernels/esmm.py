@@ -7,9 +7,12 @@ belongs to the one expert ``block_expert[block]``; with ``transpose_rhs``
 and ``dy @ Wd^T`` orientation).
 
 * ``esmm`` — the wrapper. On a CUDA tensor it launches the hand-written
-  kernel of ``csrc/esmm.cu`` (see its source note for the design) and
-  counts the launch in ``esmm.launches``; on a CPU tensor it runs
-  ``esmm_plain``. There is no other path.
+  kernel of ``csrc/esmm.cu`` (see its source note for the design) on the
+  route ``_route`` picks from the dtype and shapes alone, before the
+  launch: ``"wgmma"`` (bf16 on the tensor cores, fed by TMA) or
+  ``"simt"`` (f32 FMA), and counts the launch in ``esmm.launches`` and
+  ``esmm.launches_by_route``; on a CPU tensor it runs ``esmm_plain``.
+  There is no other path, and no route gives way to another.
 * ``esmm_plain`` — the plain PyTorch version: a batched matmul against the
   per-block weight tiles ``W[block_expert]`` (``ops._blocked_esmm`` of the
   JAX package), accumulated in f32 from the bias and rounded once to
@@ -29,7 +32,19 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_VP] * 5 + [_I] * 6 + [_VP]
+_ARGTYPES = [_VP] * 5 + [_I] * 8 + [_VP]
+_ROUTES = {"simt": 0, "wgmma": 1}
+
+
+def _route(dtype, blk: int, k: int, n: int) -> str:
+    """The kernel route for these operands, of esmm (K, N) and estmm
+    (D1, D2) alike: ``"wgmma"`` for bf16 with ``blk % 64 == 0`` and both
+    widths multiples of 8 (TMA takes 16-byte global strides), else
+    ``"simt"`` (f32, or bf16 at blk 8..32)."""
+    if dtype == torch.bfloat16 and blk % 64 == 0 and k % 8 == 0 \
+            and n % 8 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def esmm_plain(xs, w, b, block_expert, *, transpose_rhs: bool = False):
@@ -79,6 +94,10 @@ def _check_cuda_args(xs, w, b, block_expert, transpose_rhs):
         raise ValueError("esmm operands lie on different devices")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("esmm operands must be contiguous")
+    if _route(xs.dtype, blk, k, n) == "wgmma" and (
+            xs.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("esmm's wgmma route loads xs and w with TMA, "
+                         "which needs 16-byte aligned base addresses")
     return np_rows, k, n, blk
 
 
@@ -98,6 +117,7 @@ def esmm(xs, w, b, block_expert, *, w_scales=None,
         raise ValueError(f"esmm runs on CUDA or CPU, not {xs.device}")
     np_rows, k, n, blk = _check_cuda_args(xs, w, b, block_expert,
                                           transpose_rhs)
+    route = _route(xs.dtype, blk, k, n)
     launch = build.load("esmm", "esmm_launch", _ARGTYPES)
     if b is not None:
         b = b.float()                     # the kernel reads the bias in f32
@@ -107,11 +127,15 @@ def esmm(xs, w, b, block_expert, *, w_scales=None,
         err = launch(xs.data_ptr(), w.data_ptr(),
                      None if b is None else b.data_ptr(),
                      block_expert.data_ptr(), ys.data_ptr(), np_rows, k, n,
-                     blk, int(transpose_rhs), _DTYPES[xs.dtype], stream)
+                     blk, int(transpose_rhs), _DTYPES[xs.dtype],
+                     _ROUTES[route], w.shape[0], stream)
     if err:
-        raise RuntimeError(f"esmm kernel launch failed (CUDA error {err})")
+        raise RuntimeError(f"esmm kernel launch failed on the {route} route "
+                           f"(CUDA error {err})")
     esmm.launches += 1
+    esmm.launches_by_route[route] += 1
     return ys
 
 
 esmm.launches = 0
+esmm.launches_by_route = dict.fromkeys(_ROUTES, 0)

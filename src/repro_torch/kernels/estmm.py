@@ -9,9 +9,12 @@ computes its weight gradients with it (experts without biases need no
 biased MLP expert FFN's unfused backward (beside ESS for ``db``).
 
 * ``estmm`` — the wrapper. On a CUDA tensor it launches the hand-written
-  kernel of ``csrc/estmm.cu`` (see its source note for the design) and
-  counts the launch in ``estmm.launches``; on a CPU tensor it runs
-  ``estmm_plain``. There is no other path.
+  kernel of ``csrc/estmm.cu`` (see its source note for the design) on the
+  route ``_route`` picks from the dtype and shapes alone, before the
+  launch: ``"wgmma"`` (bf16 on the tensor cores, fed by TMA) or
+  ``"simt"`` (f32 FMA), and counts the launch in ``estmm.launches`` and
+  ``estmm.launches_by_route``; on a CPU tensor it runs ``estmm_plain``.
+  There is no other path, and no route gives way to another.
 * ``estmm_plain`` — the plain PyTorch version: per-block f32 products
   ``x1_b^T x2_b`` added into their expert's slot with ``index_add_``
   (``ops._blocked_estmm`` of the JAX package), then the count mask.
@@ -23,10 +26,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+# One route rule for both kernels: _route(dtype, blk, d1, d2) here.
+from repro_torch.kernels.esmm import _ROUTES, _route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_VP] * 4 + [_I] * 5 + [_VP]
+_ARGTYPES = [_VP] * 4 + [_I] * 7 + [_VP]
 
 
 def estmm_plain(x1, x2, block_expert, counts) -> torch.Tensor:
@@ -65,6 +70,12 @@ def _check_cuda_args(x1, x2, block_expert, counts, name: str = "estmm"):
         raise ValueError(f"{name} operands lie on different devices")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} operands must be contiguous")
+    # esfk shares these checks but has no wgmma route
+    if name == "estmm" and _route(x1.dtype, blk, x1.shape[1],
+                                  x2.shape[1]) == "wgmma" and (
+            x1.data_ptr() % 16 or x2.data_ptr() % 16):
+        raise ValueError("estmm's wgmma route loads x1 and x2 with TMA, "
+                         "which needs 16-byte aligned base addresses")
     return np_rows, x1.shape[1], x2.shape[1], counts.shape[0]
 
 
@@ -80,17 +91,22 @@ def estmm(x1, x2, block_expert, counts) -> torch.Tensor:
     if x1.device.type != "cuda":
         raise ValueError(f"estmm runs on CUDA or CPU, not {x1.device}")
     np_rows, d1, d2, e = _check_cuda_args(x1, x2, block_expert, counts)
+    blk = np_rows // block_expert.shape[0]
+    route = _route(x1.dtype, blk, d1, d2)
     launch = build.load("estmm", "estmm_launch", _ARGTYPES)
     out = torch.empty((e, d1, d2), dtype=torch.float32, device=x1.device)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(x1.data_ptr(), x2.data_ptr(), counts.data_ptr(),
                      out.data_ptr(), np_rows, d1, d2, e, _DTYPES[x1.dtype],
-                     stream)
+                     _ROUTES[route], blk, stream)
     if err:
-        raise RuntimeError(f"estmm kernel launch failed (CUDA error {err})")
+        raise RuntimeError(f"estmm kernel launch failed on the {route} "
+                           f"route (CUDA error {err})")
     estmm.launches += 1
+    estmm.launches_by_route[route] += 1
     return out
 
 
 estmm.launches = 0
+estmm.launches_by_route = dict.fromkeys(_ROUTES, 0)

@@ -214,3 +214,105 @@ def test_bias_grads_belong_to_the_mlp_expert_slice():
     y = tops.esmm(x1, w, b.detach(), be, pc)
     y.sum().backward()
     assert w.grad.shape == w.shape
+
+
+# The route rule of both kernels: the tensor-core (wgmma) route for bf16
+# at blk 64 or 128 with both widths multiples of 8 (TMA's 16-byte global
+# strides), the f32-FMA (simt) route for everything else.
+ROUTE_GRID = [
+    # (dtype, blk, k, n, route)
+    (torch.bfloat16, 128, 2048, 768, "wgmma"),
+    (torch.bfloat16, 128, 768, 2048, "wgmma"),
+    (torch.bfloat16, 64, 2048, 768, "wgmma"),
+    (torch.bfloat16, 64, 8, 8, "wgmma"),
+    (torch.bfloat16, 128, 136, 200, "wgmma"),
+    (torch.float32, 128, 2048, 768, "simt"),
+    (torch.float32, 64, 384, 1536, "simt"),
+    (torch.bfloat16, 32, 2048, 768, "simt"),
+    (torch.bfloat16, 16, 2048, 768, "simt"),
+    (torch.bfloat16, 8, 2048, 768, "simt"),
+    (torch.bfloat16, 128, 2044, 768, "simt"),
+    (torch.bfloat16, 128, 2048, 770, "simt"),
+    (torch.bfloat16, 64, 12, 16, "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype,blk,k,n,route", ROUTE_GRID)
+def test_route_rule(dtype, blk, k, n, route):
+    assert tesmm._route(dtype, blk, k, n) == route
+    assert testmm._route(dtype, blk, k, n) == route
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor whose base address is 2 bytes past a 16-byte
+    boundary."""
+    flat = torch.zeros(int(np.prod(shape)) + 8, dtype=dtype)
+    assert flat.data_ptr() % 16 == 0
+    return flat[1:1 + int(np.prod(shape))].view(shape)
+
+
+def test_esmm_wgmma_alignment_check():
+    """TMA needs 16-byte aligned xs and w: on the wgmma route a misaligned
+    operand raises before any launch; the simt route takes it."""
+    be = torch.zeros(2, dtype=torch.int32)
+    for dt in (torch.bfloat16, torch.float32):
+        xs, w = torch.zeros((128, 16), dtype=dt), torch.zeros((3, 16, 8),
+                                                              dtype=dt)
+        assert tesmm._check_cuda_args(xs, w, None, be, False) == \
+            (128, 16, 8, 64)
+        bad_xs, bad_w = _misaligned((128, 16), dt), _misaligned((3, 16, 8),
+                                                                dt)
+        for args in ((bad_xs, w), (xs, bad_w)):
+            if dt == torch.bfloat16:
+                with pytest.raises(ValueError, match="16-byte aligned"):
+                    tesmm._check_cuda_args(*args, None, be, False)
+            else:
+                assert tesmm._check_cuda_args(*args, None, be, False) == \
+                    (128, 16, 8, 64)
+    # bf16 at blk 32 takes the simt route, which needs no alignment
+    assert tesmm._check_cuda_args(
+        _misaligned((128, 16), torch.bfloat16),
+        torch.zeros((3, 16, 8), dtype=torch.bfloat16), None,
+        torch.zeros(4, dtype=torch.int32), False)[-1] == 32
+
+
+def test_estmm_wgmma_alignment_check():
+    be, pc = torch.zeros(2, dtype=torch.int32), torch.zeros(
+        3, dtype=torch.int32)
+    for dt in (torch.bfloat16, torch.float32):
+        x1, x2 = torch.zeros((128, 16), dtype=dt), torch.zeros((128, 24),
+                                                               dtype=dt)
+        assert testmm._check_cuda_args(x1, x2, be, pc) == (128, 16, 24, 3)
+        for args in ((_misaligned((128, 16), dt), x2),
+                     (x1, _misaligned((128, 24), dt))):
+            if dt == torch.bfloat16:
+                with pytest.raises(ValueError, match="16-byte aligned"):
+                    testmm._check_cuda_args(*args, be, pc)
+            else:
+                assert testmm._check_cuda_args(*args, be, pc) == \
+                    (128, 16, 24, 3)
+
+
+def test_route_counts_start_at_zero():
+    """Each wrapper counts its launches per route beside the total."""
+    for fn in (tesmm.esmm, testmm.estmm):
+        assert set(fn.launches_by_route) == {"simt", "wgmma"}
+        assert all(isinstance(v, int) for v in fn.launches_by_route.values())
+
+
+def test_cpu_tensors_take_the_plain_version_on_either_route():
+    """On a CPU tensor the wrapper runs the plain version whatever route
+    the shapes would take on the card, and counts no launch."""
+    jr, tr = _layout(64, 2, 4, 64)
+    before = (dict(tesmm.esmm.launches_by_route),
+              dict(testmm.estmm.launches_by_route))
+    xs = torch.randn((jr.num_rows, 16)).bfloat16()
+    w = torch.randn((4, 16, 8)).bfloat16()
+    assert tesmm._route(xs.dtype, 64, 16, 8) == "wgmma"
+    assert torch.equal(tesmm.esmm(xs, w, None, tr.block_expert),
+                       tesmm.esmm_plain(xs, w, None, tr.block_expert))
+    assert torch.equal(
+        testmm.estmm(xs, xs, tr.block_expert, tr.padded_counts),
+        testmm.estmm_plain(xs, xs, tr.block_expert, tr.padded_counts))
+    assert (dict(tesmm.esmm.launches_by_route),
+            dict(testmm.estmm.launches_by_route)) == before
