@@ -18,14 +18,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    over ragged lengths (one of them 0) and a page two slots share, with and
    without a window and softcap. Times are medians of CUDA-event-timed
    launches after warm-up, with the L2 cache flushed before each.
+   Q1. The 8-bit branches against their plain versions (which dequantize,
+   then run the unquantized plain function), timed the same way with
+   their bounds from the 8-bit bytes: ``esffn_glu`` with int8 and fp8
+   experts at the decode (N 8) and prefill-chunk (N 16) shapes,
+   ``paged_attention`` over int8 pools at the lengths above, ``esmm``
+   int8/fp8 at the LM expert shapes in both orientations (every call on
+   the simt route), ``esffn_mlp`` int8/fp8 at Swin-MoE-Small's stage 2.
+   The weights' 128 x 128 tiles differ in magnitude, and per branch a
+   negative control (the plain output with a scale grid read on the wrong
+   axes) must fail the limit.
 4. Reference phase: a 2-layer model at qwen3-moe-30b-a3b's full width in
    float32 served on the GPU (the kernels) and on the CPU (the plain
    versions) from the same weights must give the same greedy tokens.
+   Q2. The same with int8 experts and an int8 KV cache (greedy tokens
+   equal); one loss forward and backward of it with the experts frozen
+   (loss and every float grad leaf as phase 7; 5 int8 ``esmm`` launches a
+   layer in the backward); one Swin-MoE-Small forward at full width and
+   depth, 8 images, with int8 MoE experts (logits within
+   ``SWIN_KERNEL_TOL``; one int8 ``esffn_mlp`` a MoE block).
 5. Serve phase: qwen3-moe-30b-a3b at full width and depth (48 layers, about
    61 GB of bf16 weights from a seeded generator) serves 16 greedy requests
    (8-token prompts, 16 new tokens) through ``PagedServer`` with 8 slots and
    16-token pages. The kernels' launch counts are set to 0 just before and
    read just after; both must be positive.
+   Q3. The same serve with int8 expert weights (drawn and quantized layer
+   by layer, about 32 GB) and int8 KV pages, then 4 requests with fp8
+   experts: the 8-bit launch counts, set to 0 just before, must be one
+   ``esffn_glu`` a layer per prefill chunk and decode step and one
+   ``paged_attention`` a layer per decode step; the peak memory must stay
+   under 3/4 of phase 5's.
 
 The serve phase's weights are then freed, and the training slice runs:
 
@@ -53,6 +75,11 @@ The serve phase's weights are then freed, and the training slice runs:
    kernels) and on the CPU (the plain versions) from the same weights and
    batch: the losses must agree within ``TRAIN_LOSS_RTOL`` and every grad
    leaf within ``TRAIN_GRAD_TOL`` x its max |grad|.
+   7b. The same in bf16 at blk 128, where every ``esmm`` and ``estmm``
+   launch takes the wgmma route (read from ``launches_by_route``): the
+   losses within ``BF16_REF_LOSS_RTOL`` and each grad leaf within
+   ``BF16_REF_GRAD_TOL`` of its Frobenius norm; tokens whose router
+   picks differ between the two runs are counted.
 8. Train phase: qwen3-moe-30b-a3b at full width and 4 layers in bf16,
    AdamW with f32 masters, ``remat="block"``, the synthetic token stream
    at global batch 4 x 1024 tokens, blk 128: one warm-up step, then 3
@@ -107,7 +134,8 @@ path of either package calls it, so its public entry point is its path):
    shape and at hd 256, and S that leaves partial tiles) against the plain
    version.
 
-It then prints the kernels' JSON line, and last
+It then prints the kernels' JSON line (the 8-bit branches as entries of
+their own), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -169,6 +197,24 @@ FLASH_CASES = (
     ("gemma-2b heads (MQA)", 4, 1024, 8, 1, 256, "bfloat16", True),
     ("qwen3 width, f32, full", 1, 1024, 32, 4, 128, "float32", False),
 )
+# The quantized slice (phases Q1-Q3). The 8-bit branches compute the f32
+# products of the dequantized weights (and KV rows) that their plain
+# versions compute, in another order, so Q1 holds them to the unquantized
+# kernels' limits (ESFFN_TOL, ATTN_TOL, GEMM_TOL, SWIN_KERNEL_TOL) and Q2
+# to phase 7's (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL) and the Swin kernels'.
+QUANT_SWIN_BATCH = 8
+QUANT_FP8_REQUESTS = 4
+# Phase 7b (bf16, blk 128: the wgmma route, GPU vs CPU), set before its
+# first run. bf16 rounds every activation to 8 mantissa bits (2^-8) at
+# other places on the two sides, and a token whose router top-k picks
+# differ sends its grads to another expert: some 1/sqrt(1024) of a leaf's
+# norm a pick (1,024 token-expert pairs a layer). So the total loss
+# within 5e-3 relative, and each grad leaf within 0.1 of its Frobenius
+# norm: a 64-wide K step left out of a GEMM moves a leaf by about
+# 1/sqrt(32) = 0.18 (phase 6's negative control), a wrong expert tile by
+# about 1.
+BF16_REF_LOSS_RTOL = 5e-3
+BF16_REF_GRAD_TOL = 0.1                           # x |grad| (Frobenius)
 FLASH_CHECK_CASES = (                  # (B, S, Hq, Hkv, hd, dtype, causal)
     (4, 1024, 32, 4, 128, "float32", True),
     (2, 2048, 16, 8, 256, "float32", True),
@@ -1333,6 +1379,642 @@ def flash_cases(torch, flush):
     return launches, cases
 
 
+# ---------------------------------------------------------------------------
+# the quantized serving slice: int8/fp8 expert weights, int8 KV pages
+# ---------------------------------------------------------------------------
+
+_NO_LIBRARY_Q = ("none: torch._scaled_mm takes fp8 operands with one "
+                 "per-tensor or row-wise scale and no expert index; no one "
+                 "PyTorch call computes it")
+
+
+def _tiled_weights(torch, gen, shape, tile=128):
+    """Random expert weights whose 128 x 128 tiles differ in magnitude
+    (2^-2 .. 2^2 of 0.02): a scale read from another tile then shows."""
+    e, a, b = shape
+    w = torch.randn(shape, generator=gen, device="cuda") * 0.02
+    f = torch.exp2(torch.rand((e, -(-a // tile), -(-b // tile)),
+                              generator=gen, device="cuda") * 4 - 2)
+    return w * f.repeat_interleave(tile, 1)[:, :a].repeat_interleave(
+        tile, 2)[:, :, :b]
+
+
+def _scale_transposed(s):
+    """A block-scale grid read on the wrong axes: its transpose, reshaped
+    back to its shape (the negative control of every 8-bit branch)."""
+    return s.transpose(1, 2).reshape(s.shape).contiguous()
+
+
+def _quant_counts(*fns):
+    return {fn.__name__: dict(fn.launches_quant) for fn in fns}
+
+
+def _reset_quant(*fns):
+    for fn in fns:
+        fn.launches_quant = dict.fromkeys(fn.launches_quant, 0)
+
+
+def quant_kernel_cases(torch, flush):
+    """Phase Q1: each 8-bit branch against its plain version on the card:
+    esffn_glu int8/fp8 at the serve decode and prefill-chunk shapes,
+    paged_attention over int8 pools at the serve phase's lengths, esmm
+    int8/fp8 in both orientations at the LM expert shapes (simt route),
+    esffn_mlp int8 at Swin-MoE-Small's stage 2; and per branch a negative
+    control: the plain output with a scale grid read on the wrong axes
+    must fail the limit."""
+    from repro_torch.core.reindex import build_reindex, gather_rows
+    from repro_torch.core.routing import route
+    from repro_torch.kernels import esffn, esmm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.quant.core import quantize_blockwise, quantize_rows
+
+    res = {"esffn_glu": [], "paged_attention": [], "esmm": [],
+           "esffn_mlp": [], "negative_controls": []}
+
+    def neg(kernel, fault, name, wrong, plain, tol_rel):
+        res["negative_controls"].append({
+            "kernel": kernel, "fault": fault,
+            "err_over_tol": _must_fail(name, wrong, plain, tol_rel)})
+
+    # esffn_glu: qwen3-moe-30b-a3b's experts, top-8, blk 16 (as served)
+    d, e, f, k = 2048, 128, 768, 8
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    w32 = [_tiled_weights(torch, gen, s) for s in ((e, d, f), (e, d, f),
+                                                   (e, f, d))]
+    router = torch.randn((d, e), generator=gen, device="cuda") * 0.02
+    for i, (n, blk, dtype, mode) in enumerate((
+            (8, 16, "bfloat16", "int8"), (8, 16, "bfloat16", "fp8"),
+            (16, 16, "bfloat16", "int8"), (16, 16, "bfloat16", "fp8"),
+            (8, 16, "float32", "int8"))):
+        td = getattr(torch, dtype)
+        qs = [quantize_blockwise(w, mode=mode) for w in w32]
+        wq, sc = [q for q, _ in qs], tuple(s for _, s in qs)
+        x = torch.randn((n, d), generator=gen, device="cuda").to(td)
+        r = route(x, router, k)
+        ri = build_reindex(r.expert_idx, r.gates, e, blk)
+        args = (x, ri.row_token, ri.row_gate, ri.block_expert, *wq)
+        name = f"esffn_glu {mode} N={n} blk={blk} {dtype}"
+        plain = esffn.esffn_glu_plain(*args, w_scales=sc)
+        before = dict(esffn.esffn_glu.launches_quant)
+        kern = esffn.esffn_glu(*args, w_scales=sc)
+        if esffn.esffn_glu.launches_quant[mode] != before[mode] + 1:
+            raise AssertionError(f"{name}: not counted as an {mode} launch")
+        err, tol = _check(name, kern, plain, ESFFN_TOL[dtype])
+        if i == 0:
+            neg("esffn_glu", "w_down's scale grid transposed",
+                name + " with sd transposed", esffn.esffn_glu_plain(
+                    *args, w_scales=sc[:2] + (_scale_transposed(sc[2]),)),
+                plain, ESFFN_TOL[dtype])
+        live = (ri.row_gate.reshape(-1, blk) != 0).any(dim=1)
+        experts = torch.unique(ri.block_expert[live]).numel()
+        s_, np_rows = x.element_size(), ri.row_token.numel()
+        nbytes = (n * d * s_ + experts * 3 * d * f
+                  + experts * sum(s[0].numel() for s in sc) * 4
+                  + np_rows * 8 + ri.block_expert.numel() * 4
+                  + np_rows * d * s_)
+        flops = 6 * int((ri.row_gate != 0).sum()) * d * f
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        res["esffn_glu"].append({
+            "shape": {"N": n, "D": d, "E": e, "F": f, "top_k": k, "blk": blk,
+                      "Np": np_rows, "live_blocks": int(live.sum()),
+                      "experts_read": experts},
+            "dtype": dtype, "weights": mode, "max_abs_err": err,
+            "tolerance": tol,
+            "kernel_ms": time_ms(torch, lambda: esffn.esffn_glu(
+                *args, w_scales=sc), flush),
+            "plain_ms": time_ms(torch, lambda: esffn.esffn_glu_plain(
+                *args, w_scales=sc), flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": _NO_LIBRARY_Q})
+        del qs, wq, sc, plain, kern
+    del w32
+
+    # paged_attention: phase 3's slots, lengths and shared page, int8 rows
+    # whose magnitudes differ by row and head (2^-2 .. 2^2)
+    b, hq, hkv, hd, page = 8, 32, 4, 128, 16
+    lengths_l = [0, 1, 9, 16, 17, 24, 100, 250]
+    maxp = 16
+    need = [-(-n // page) for n in lengths_l]
+    npages = 1 + sum(need)
+    perm = torch.randperm(npages - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros((b, maxp), dtype=torch.int32, device="cuda")
+    at = 0
+    for i, c in enumerate(need):
+        table[i, :c] = perm[at:at + c]
+        at += c
+    table[2, 0] = table[3, 0]
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device="cuda")
+
+    def rows():
+        mag = torch.exp2(torch.rand((npages, page, hkv, 1), generator=gen,
+                                    device="cuda") * 4 - 2)
+        return quantize_rows(torch.randn((npages, page, hkv, hd),
+                                         generator=gen, device="cuda") * mag)
+
+    (kq, ks), (vq, vs) = rows(), rows()
+    for i, dtype in enumerate(("bfloat16", "float32")):
+        q = torch.randn((b, 1, hq, hd), generator=gen,
+                        device="cuda").to(getattr(torch, dtype))
+        for window, softcap in ((None, 0.0), (32, 30.0)):
+            kw = dict(k_scale=ks, v_scale=vs, window=window, softcap=softcap)
+            args = (q, kq, vq, table, lengths)
+            name = f"paged_attention int8 {dtype} window={window}"
+            plain = pa.paged_attention_ref(*args, **kw)
+            kern = pa.paged_attention(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(kern[0], torch.zeros_like(kern[0])):
+                raise AssertionError(f"{name}: empty slot not zero")
+            err, tol = _check(name, kern, plain, ATTN_TOL[dtype])
+            if i == 0 and window is None:
+                neg("paged_attention", "the kv heads' scales swapped",
+                    name + " with the heads' scales rolled",
+                    pa.paged_attention_ref(
+                        *args, **{**kw, "k_scale": ks.roll(1, 2),
+                                  "v_scale": vs.roll(1, 2)}),
+                    plain, ATTN_TOL[dtype])
+            pages_run, tokens = 0, 0
+            for n in lengths_l:
+                lo = 0 if window is None else max(n - window, 0)
+                tokens += n - lo
+                pages_run += sum(1 for j in range(-(-n // page))
+                                 if (j + 1) * page > lo)
+            nbytes = (2 * q.numel() * q.element_size() + table.numel() * 4
+                      + b * 4 + 2 * pages_run * page * hkv * (hd + 4))
+            b_ms, b_by = bound(nbytes, 4 * tokens * hq * hd, dtype)
+            res["paged_attention"].append({
+                "shape": {"B": b, "Hq": hq, "Hkv": hkv, "hd": hd,
+                          "page": page, "maxp": maxp, "lengths": lengths_l,
+                          "window": window, "softcap": softcap},
+                "dtype": dtype, "kv": "int8", "max_abs_err": err,
+                "tolerance": tol,
+                "kernel_ms": time_ms(torch, lambda: pa.paged_attention(
+                    *args, **kw), flush),
+                "plain_ms": time_ms(torch, lambda: pa.paged_attention_ref(
+                    *args, **kw), flush),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "library": "none: no one call takes the paged int8 layout"})
+
+    # esmm: the LM expert GEMMs of the quantized backward (4 x 1024 tokens,
+    # top-8, blk 128): g/u (K 2048 -> N 768), t = dys Wd^T (the same,
+    # transposed) and dX = dg Wg^T (K 768 -> N 2048, transposed)
+    n = TRAIN_BATCH * TRAIN_SEQ
+    x, ri, _ = _sorted_layout(torch, n)
+    np_rows, nblk = ri.row_token.numel(), ri.block_expert.numel()
+    experts = int((ri.padded_counts > 0).sum())
+    on = (ri.row_gate != 0)[:, None]
+    wg = _tiled_weights(torch, gen, (e, d, f))
+    wd = _tiled_weights(torch, gen, (e, f, d))
+    for i, (dtype, mode, trans, w, k_dim, n_dim) in enumerate((
+            ("bfloat16", "int8", False, wg, d, f),
+            ("bfloat16", "int8", True, wd, d, f),
+            ("bfloat16", "int8", True, wg, f, d),
+            ("bfloat16", "fp8", False, wg, d, f),
+            ("float32", "int8", False, wg, d, f),
+            ("float32", "int8", True, wg, f, d))):
+        td = getattr(torch, dtype)
+        wq, sw = quantize_blockwise(w, mode=mode)
+        xs = (gather_rows(x.to(td), ri.row_token) if k_dim == d else
+              (torch.randn((np_rows, k_dim), generator=gen, device="cuda")
+               * on).to(td))
+        args, kw = (xs, wq, None, ri.block_expert), dict(
+            w_scales=sw, transpose_rhs=trans)
+        name = f"esmm {mode} {dtype} trans={trans} K {k_dim} N {n_dim}"
+        plain = esmm.esmm_plain(*args, **kw)
+        kern, route = _routed(torch, lambda: esmm.esmm(*args, **kw),
+                              esmm.esmm)
+        if route != "simt":
+            raise AssertionError(f"{name}: took the {route} route, not simt")
+        err, tol = _check(name, kern, plain, GEMM_TOL[dtype])
+        if i == 0:
+            neg("esmm", "W's scale grid transposed",
+                name + " with the scale grid transposed",
+                esmm.esmm_plain(*args, w_scales=_scale_transposed(sw),
+                                transpose_rhs=trans), plain, GEMM_TOL[dtype])
+        s_ = xs.element_size()
+        nbytes = (np_rows * k_dim * s_ + experts * k_dim * n_dim
+                  + experts * sw[0].numel() * 4 + nblk * 4
+                  + np_rows * n_dim * s_)
+        flops = 2 * np_rows * k_dim * n_dim
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        res["esmm"].append(_rates({
+            "shape": {"N": n, "D": d, "E": e, "F": f, "top_k": 8, "blk": 128,
+                      "Np": np_rows, "experts_with_rows": experts,
+                      "K": k_dim, "Nout": n_dim, "transpose_rhs": trans},
+            "dtype": dtype, "weights": mode, "kernel_route": route,
+            "max_abs_err": err, "tolerance": tol,
+            "kernel_ms": time_ms(torch, lambda: esmm.esmm(*args, **kw),
+                                 flush),
+            "plain_ms": time_ms(torch, lambda: esmm.esmm_plain(*args, **kw),
+                                flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": _NO_LIBRARY_Q}, nbytes, flops))
+        del wq, sw, xs, plain, kern
+    del x, ri, wg, wd
+
+    # esffn_mlp: Swin-MoE-Small stage 2 at batch 128 (N 25,088, D 384,
+    # F 1536, 8 experts top-1, blk 128), f32, both biases
+    n, d2 = SWIN_BATCH * 196, 384
+    f2 = 4 * d2
+    x, ri, g2 = _swin_layout(torch, n, d2, seed=10)
+    np_rows, nblk = ri.row_token.numel(), ri.block_expert.numel()
+    experts = int((ri.padded_counts > 0).sum())
+    live = int((ri.row_gate != 0).sum())
+    w1, w2 = (_tiled_weights(torch, g2, s) for s in ((8, d2, f2),
+                                                     (8, f2, d2)))
+    b1 = torch.randn((8, f2), generator=g2, device="cuda") * 0.1
+    b2 = torch.randn((8, d2), generator=g2, device="cuda") * 0.1
+    for i, mode in enumerate(("int8", "fp8")):
+        (q1, s1), (q2, s2) = (quantize_blockwise(w, mode=mode)
+                              for w in (w1, w2))
+        args = (x, ri.row_token, ri.row_gate, ri.block_expert, q1, b1, q2, b2)
+        kw = dict(w_scales=(s1, s2))
+        name = f"esffn_mlp {mode} stage 2 float32"
+        plain = esffn.esffn_mlp_plain(*args, **kw)
+        kern = esffn.esffn_mlp(*args, **kw)
+        err, tol = _check(name, kern, plain, SWIN_KERNEL_TOL)
+        if i == 0:
+            neg("esffn_mlp", "W1's scale grid transposed",
+                name + " with s1 transposed", esffn.esffn_mlp_plain(
+                    *args, w_scales=(_scale_transposed(s1), s2)),
+                plain, SWIN_KERNEL_TOL)
+        nbytes = (n * d2 * 4 + experts * 2 * d2 * f2
+                  + experts * (s1[0].numel() + s2[0].numel() + d2 + f2) * 4
+                  + np_rows * 8 + nblk * 4 + np_rows * d2 * 4)
+        b_ms, b_by = bound(nbytes, 4 * live * d2 * f2, "float32")
+        res["esffn_mlp"].append({
+            "shape": {"stage": 2, "N": n, "D": d2, "F": f2, "E": 8,
+                      "top_k": 1, "blk": 128, "Np": np_rows,
+                      "live_rows": live},
+            "dtype": "float32", "weights": mode, "max_abs_err": err,
+            "tolerance": tol,
+            "kernel_ms": time_ms(torch, lambda: esffn.esffn_mlp(*args, **kw),
+                                 flush),
+            "plain_ms": time_ms(torch, lambda: esffn.esffn_mlp_plain(
+                *args, **kw), flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": _NO_LIBRARY_Q})
+        del plain, kern
+    return res
+
+
+def quant_reference_phase(torch):
+    """Phase Q2: the quantized paths on the GPU against the CPU plain
+    versions: a 2-layer full-width qwen3-moe-30b-a3b in f32 with int8
+    experts and an int8 KV cache (greedy tokens equal); one loss forward
+    and backward of it with the experts frozen (dX reaches the embeddings
+    and routers through the 8-bit esmm backward); one Swin-MoE-Small
+    forward at full width and depth with int8 MoE experts. The launches of
+    each path are counted from 0."""
+    import numpy as np
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.configs import swin_moe_small
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.kernels import esffn, esmm, paged_attention
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import lm, swin
+    from repro_torch.parallel.sharding import ParallelConfig
+    from repro_torch.quant.core import quantize_ffn
+
+    out = {"launches": {}}
+    kernels = (esffn.esffn_glu, esffn.esffn_mlp, esmm.esmm,
+               paged_attention.paged_attention)
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=2, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    params = lm.init_params(cfg, generator=gen, device="cuda", quant="int8")
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
+               for _ in range(3)]
+    streams = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(device), params)
+        server = serve.PagedServer(
+            cfg, ParallelConfig(blk=16), num_slots=2, page_size=16,
+            num_pages=9, max_pages_per_slot=4, params=p, kv_quant="int8",
+            device=device)
+        for i, pr in enumerate(prompts):
+            server.submit(serve.Request(rid=i, prompt=pr, max_new=4))
+        _reset_quant(*kernels)
+        streams[device] = {r.rid: r.out for r in server.run()}
+        if device == "cuda":
+            out["launches"]["reference_serve"] = _quant_counts(*kernels)
+        del p, server
+    if streams["cuda"] != streams["cpu"] or len(streams["cuda"]) != 3:
+        raise AssertionError(f"quant reference: GPU tokens {streams['cuda']}"
+                             f" != CPU tokens {streams['cpu']}")
+    served = out["launches"]["reference_serve"]
+    if served["esffn_glu"]["int8"] <= 0 or \
+            served["paged_attention"]["int8"] <= 0:
+        raise AssertionError(f"quant reference: launches {served}")
+    print(f"[quant-reference] 2-layer full-width f32, int8 experts + int8 "
+          f"KV: GPU == CPU greedy tokens {streams['cuda']}; launches "
+          f"{served}")
+
+    # one loss forward + backward, experts frozen: grads of every float
+    # leaf but the scales (embeddings, attention, norms, routers, head)
+    batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
+                                   vocab_size=cfg.vocab_size,
+                                   seed=25)).batch(0)
+    loss_fn = steps.make_loss_fn(cfg, ParallelConfig(blk=16))
+    res = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.detach().to(device), params)
+        named = [(n, t) for n, t in _named_leaves(p)
+                 if t.dtype == torch.float32 and not n.endswith("_scale")]
+        leaves = [t for _, t in named]
+        for t in leaves:
+            t.requires_grad_(True)
+        _reset_quant(*kernels)
+        total, metrics = loss_fn(p, batch_to(batch, device))
+        grads = torch.autograd.grad(total, leaves)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            out["launches"]["reference_backward"] = _quant_counts(*kernels)
+        res[device] = (float(total.detach()), [g.cpu() for g in grads],
+                       [n for n, _ in named])
+        del p, leaves, grads
+    (tg, gg, leaf_names), (tc, gc, _) = res["cuda"], res["cpu"]
+    back = out["launches"]["reference_backward"]
+    # a layer: esffn_glu in the forward and again in remat's recompute,
+    # esmm for g, u, t and the two dX products of the backward
+    want = {"esffn_glu": 2 * cfg.num_layers, "esmm": 5 * cfg.num_layers}
+    if {k: back[k]["int8"] for k in want} != want:
+        raise AssertionError(f"quant reference backward: launches {back}, "
+                             f"expected {want} int8")
+    if not abs(tg - tc) <= TRAIN_LOSS_RTOL * abs(tc):
+        raise AssertionError(f"quant reference: GPU loss {tg} vs CPU {tc}")
+    worst = _grad_err(gg, gc, TRAIN_GRAD_TOL, "quant reference")
+    print(f"[quant-reference] loss + grads, 2 x 64 tokens, int8 experts "
+          f"frozen: total GPU {tg!r} CPU {tc!r} (rel diff "
+          f"{abs(tg - tc) / abs(tc):.3e}); {len(gc)} grad leaves (incl. "
+          f"{sum(n.endswith('router') for n in leaf_names)} routers), worst "
+          f"max |diff| / max |grad| {worst:.3e}; launches "
+          f"{back}")
+    out.update(loss_gpu=tg, loss_cpu=tc, loss_rel_diff=abs(tg - tc) / abs(tc),
+               worst_grad_rel=worst)
+    del params
+
+    # Swin-MoE-Small, full width and depth, int8 MoE experts: one forward
+    scfg = swin_moe_small.CONFIG
+    sgen = torch.Generator(device="cuda").manual_seed(26)
+    sp = swin.init_swin(scfg, generator=sgen, device="cuda")
+    for stage in sp["stages"]:
+        for blk in stage["blocks"]:
+            if "moe" in blk:
+                blk["moe"] = quantize_ffn(blk["moe"], mode="int8")
+    images, _ = swin.synthetic_batch(scfg, QUANT_SWIN_BATCH, generator=sgen,
+                                     device="cuda")
+    spcfg = ParallelConfig(blk=128)
+    logits = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(device), sp)
+        _reset_quant(*kernels)
+        with torch.no_grad():
+            logits[device] = swin.swin_forward(p, images.to(device), scfg,
+                                               spcfg)[0].float().cpu()
+        if device == "cuda":
+            out["launches"]["reference_swin"] = _quant_counts(*kernels)
+        del p
+    n_moe = sum("moe" in blk for st in sp["stages"] for blk in st["blocks"])
+    sw = out["launches"]["reference_swin"]
+    if sw["esffn_mlp"]["int8"] != n_moe:
+        raise AssertionError(f"quant swin: launches {sw}, expected {n_moe} "
+                             f"int8 esffn_mlp")
+    err, tol = _check("quant swin forward", logits["cuda"], logits["cpu"],
+                      SWIN_KERNEL_TOL)
+    print(f"[quant-reference] Swin-MoE-Small full width and depth, int8 MoE "
+          f"experts, {QUANT_SWIN_BATCH} images: logits max |diff| {err:.3e} "
+          f"(limit {tol:.3e}); launches {sw}")
+    out.update(swin_logits_err=err, swin_tolerance=tol)
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted name, leaf) of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+
+def quant_serve_phase(torch, bf16_peak_gb):
+    """Phase Q3: PagedServer on qwen3-moe-30b-a3b at full width and depth
+    with int8 expert weights (quantized layer by layer as drawn) and int8
+    KV pages, the serve phase's slots, pages and requests; then a few
+    requests with fp8 expert weights. The 8-bit branches of esffn_glu and
+    paged_attention must launch on every layer."""
+    import numpy as np
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves
+    from repro_torch.kernels import esffn, paged_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    cfg = cfglib.get_config("qwen3-moe-30b-a3b")
+    slots, page, max_seq = 8, 16, 128
+    maxp = max_seq // page
+    pcfg = ParallelConfig(blk=16)
+    glu, pa = esffn.esffn_glu, paged_attention.paged_attention
+    out = {}
+
+    def make_server(params):
+        return serve.PagedServer(
+            cfg, pcfg, num_slots=slots, page_size=page,
+            num_pages=slots * maxp // 2 + 1, max_pages_per_slot=maxp,
+            params=params, prefill_chunk=16, kv_quant="int8", device="cuda")
+
+    for mode, n_req in (("int8", 16), ("fp8", QUANT_FP8_REQUESTS)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = lm.init_params(cfg, generator=gen, device="cuda", quant=mode)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+        warm = make_server(params)      # allocator warm-up, unmeasured
+        warm.submit(serve.Request(rid=-1, prompt=np.arange(8, dtype=np.int32),
+                                  max_new=2))
+        warm.run()
+        del warm
+        server = make_server(params)
+        rng = np.random.default_rng(0)
+        reqs = [serve.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size, size=8).astype(
+                np.int32), max_new=16) for i in range(n_req)]
+        for r in reqs:
+            server.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_quant(glu, pa)
+        t0 = time.perf_counter()
+        done = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _quant_counts(glu, pa)
+        peak = torch.cuda.max_memory_allocated()
+        tokens = sum(len(r.out) for r in done)
+        steps = server.decode_times_s
+        if len(done) != n_req or any(len(r.out) != 16 for r in done):
+            raise AssertionError(f"quant serve {mode}: not every request "
+                                 f"finished with 16 tokens")
+        if not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
+            raise AssertionError(f"quant serve {mode}: token out of the "
+                                 f"vocabulary")
+        st = server.stats()
+        if st["free_pages"] != st["num_pages"] - 1 or st["in_use_pages"]:
+            raise AssertionError(f"quant serve {mode}: page pool leaked: "
+                                 f"{st}")
+        server.pool.assert_consistent()
+        # every layer of every prefill chunk (one per 8-token prompt) and
+        # decode step runs the 8-bit esffn_glu; every decode step's layers
+        # read the int8 pages through paged_attention
+        want = {"esffn_glu": cfg.num_layers * (n_req + len(steps)),
+                "paged_attention": cfg.num_layers * len(steps)}
+        got = {"esffn_glu": launches["esffn_glu"][mode],
+               "paged_attention": launches["paged_attention"]["int8"]}
+        if got != want:
+            raise AssertionError(f"quant serve {mode}: 8-bit launches {got}, "
+                                 f"expected {want}")
+        ttft = sorted(server.ttft_s.values())
+        res = {"weights": mode, "kv": "int8", "requests": len(done),
+               "tokens": tokens, "wall_s": wall,
+               "decode_step_median_ms": statistics.median(steps) * 1e3,
+               "decode_steps": len(steps),
+               "tokens_per_s": tokens / wall,
+               "ttft_median_ms": statistics.median(ttft) * 1e3,
+               "peak_allocated_gb": peak / 1e9,
+               "init_peak_allocated_gb": init_peak / 1e9,
+               "bf16_serve_peak_allocated_gb": bf16_peak_gb,
+               "weights_gb": n_bytes / 1e9, "init_s": init_s,
+               "page_bytes": server.page_bytes,
+               "bf16_page_bytes": lm.paged_kv_page_bytes(cfg, page),
+               "launches": got, "layers": cfg.num_layers}
+        print(f"[quant-serve] {mode} experts + int8 KV, {cfg.num_layers} "
+              f"layers at full width: {n_bytes / 1e9:.2f} GB of weights "
+              f"(drawn and quantized layer by layer in {init_s:.1f}s, peak "
+              f"{init_peak / 1e9:.2f} GB); {len(done)} requests, {tokens} "
+              f"tokens in {wall:.3f}s ({tokens / wall:.1f} tok/s); decode "
+              f"step median {res['decode_step_median_ms']:.2f}ms over "
+              f"{len(steps)} steps; TTFT median {res['ttft_median_ms']:.1f}"
+              f"ms; peak allocated {peak / 1e9:.2f} GB (bf16 serve phase: "
+              f"{bf16_peak_gb:.2f} GB); page {server.page_bytes} B (bf16: "
+              f"{res['bf16_page_bytes']} B); 8-bit launches {got}")
+        print(f"  req 0: {done[0].out}")
+        if not peak < bf16_peak_gb * 1e9 * 0.75:
+            raise AssertionError(f"quant serve {mode}: peak {peak / 1e9} GB "
+                                 f"is not well under the bf16 serve's "
+                                 f"{bf16_peak_gb} GB")
+        out[mode] = res
+        del params, server, done
+    return out
+
+
+def train_reference_bf16_phase(torch):
+    """Phase 7b: phase 7 in the working dtype: one loss_fn forward and
+    backward of a 2-layer full-width model in bf16 at blk 128 (2 x 64
+    tokens) on the GPU, where every esmm and estmm launch takes the wgmma
+    route, and on the CPU (the plain versions). The routers' top-k picks
+    of both runs are recorded: a pick that differs sends a token's grads to
+    another expert, which the limits below allow for."""
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.core import espec
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.kernels import esmm, estmm
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=2)
+    pcfg = ParallelConfig(blk=128)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = lm.init_params(cfg, generator=gen, device="cuda")
+    batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
+                                   vocab_size=cfg.vocab_size,
+                                   seed=7)).batch(0)
+    loss_fn = steps.make_loss_fn(cfg, pcfg)
+    picks = {}
+    route = espec.route
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            sink = picks.setdefault(device, [])
+
+            def recording(*a, sink=sink, **kw):
+                r = route(*a, **kw)
+                sink.append(torch.sort(r.expert_idx, dim=-1)[0].cpu())
+                return r
+
+            espec.route = recording
+            before = {fn.__name__: dict(fn.launches_by_route)
+                      for fn in (esmm.esmm, estmm.estmm)}
+            p = tree_map(lambda t: t.detach().to(device).requires_grad_(),
+                         params)
+            total, metrics = loss_fn(p, batch_to(batch, device))
+            grads = torch.autograd.grad(total, tree_leaves(p))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                routes = {fn.__name__: {r: fn.launches_by_route[r]
+                                        - before[fn.__name__][r]
+                                        for r in fn.launches_by_route}
+                          for fn in (esmm.esmm, estmm.estmm)}
+            out[device] = (float(metrics["loss"].detach()),
+                           float(total.detach()),
+                           [g.float().cpu() for g in grads])
+            del p, grads
+    finally:
+        espec.route = route
+    want = {"esmm": {"simt": 0, "wgmma": 5 * cfg.num_layers},
+            "estmm": {"simt": 0, "wgmma": 3 * cfg.num_layers}}
+    if routes != want:
+        raise AssertionError(f"bf16 train reference: routes {routes}, "
+                             f"expected {want}")
+    flips = [int((a != b).any(dim=-1).sum())
+             for a, b in zip(picks["cuda"], picks["cpu"])]
+    (lg, tg, gg), (lc, tc, gc) = out["cuda"], out["cpu"]
+    rel = abs(tg - tc) / abs(tc)
+    worst_f, worst_max, worst_leaf = 0.0, 0.0, None
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        norm = b.norm().item()
+        f_rel = (a - b).norm().item() / norm if norm else 0.0
+        m_rel = ((a - b).abs().max() / b.abs().max()).item() if norm else 0.0
+        if f_rel > worst_f:
+            worst_f, worst_leaf = f_rel, (i, tuple(b.shape))
+        worst_max = max(worst_max, m_rel)
+    print(f"[train-reference-bf16] 2-layer full-width bf16, blk 128, 2 x 64 "
+          f"tokens: loss GPU {lg!r} CPU {lc!r}, total GPU {tg!r} CPU {tc!r} "
+          f"(rel diff {rel:.3e}, limit {BF16_REF_LOSS_RTOL}); {len(gc)} grad "
+          f"leaves, worst |diff| / |grad| (Frobenius) {worst_f:.3e} at leaf "
+          f"{worst_leaf} (limit {BF16_REF_GRAD_TOL}), worst max |diff| / max "
+          f"|grad| {worst_max:.3e} (not a limit); tokens whose top-k picks "
+          f"differ, per layer: {flips}; routes {routes}")
+    res = {"loss_gpu": lg, "loss_cpu": lc, "total_rel_diff": rel,
+           "worst_grad_frobenius_rel": worst_f, "worst_leaf": worst_leaf,
+           "worst_grad_max_rel": worst_max, "routing_flips": flips,
+           "routes": routes}
+    if not rel <= BF16_REF_LOSS_RTOL:
+        raise AssertionError(f"bf16 train reference: GPU total {tg} vs CPU "
+                             f"{tc} (rel {rel})")
+    if not worst_f <= BF16_REF_GRAD_TOL:
+        raise AssertionError(f"bf16 train reference: grad leaf {worst_leaf}"
+                             f" |diff| / |grad| {worst_f} > "
+                             f"{BF16_REF_GRAD_TOL}")
+    return res
+
+
 def reference_phase(torch):
     """2 layers at full width in f32: GPU (kernels) vs CPU (plain versions)
     from the same weights must give the same greedy tokens."""
@@ -1482,13 +2164,25 @@ def main() -> int:
     attn_res = paged_attention_cases(torch, flush)
     for c in esffn_res + attn_res:
         print(f"[kernel] {json.dumps(c)}")
+    quant_res = quant_kernel_cases(torch, flush)
+    for k in ("esffn_glu", "paged_attention", "esmm", "esffn_mlp"):
+        for c in quant_res[k]:
+            print(f"[kernel-quant] {k} {json.dumps(c)}")
+    for c in quant_res["negative_controls"]:
+        print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
+              f"{c['err_over_tol']:.3g} x the limit")
     del flush
     torch.cuda.empty_cache()
 
     reference_phase(torch)
     torch.cuda.empty_cache()
+    quant_ref = quant_reference_phase(torch)
+    torch.cuda.empty_cache()
     launches, serve_res = serve_phase(torch)
     print(f"[serve] {json.dumps(serve_res)}")
+    torch.cuda.empty_cache()           # the serve phase's weights are gone
+    quant_serve = quant_serve_phase(torch, serve_res["peak_allocated_gb"])
+    print(f"[quant-serve] {json.dumps(quant_serve)}")
 
     torch.cuda.empty_cache()           # the serve phase's weights are gone
     print(f"[train] device memory allocated before training: "
@@ -1504,8 +2198,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_ref = train_reference_phase(torch)
     torch.cuda.empty_cache()
+    bf16_ref = train_reference_bf16_phase(torch)
+    torch.cuda.empty_cache()
     train_launches, train_out = train_phase(torch)
-    print(f"[train] {json.dumps({**train_out, 'reference': train_ref})}")
+    print(f"[train] {json.dumps({**train_out, 'reference': train_ref, 'reference_bf16': bf16_ref})}")
     torch.cuda.empty_cache()               # the qwen training state is gone
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     swin_res = swin_kernel_cases(torch, flush)
@@ -1566,6 +2262,30 @@ def main() -> int:
                 "shape": head["shape"], "dtype": head["dtype"],
                 "tolerance": head["tolerance"], "cases": cases, **extra}
 
+    # The 8-bit branches' launches on the paths that ran them: the int8
+    # and fp8 serve runs (phase Q3) and the reference paths (phase Q2:
+    # serve, the frozen-expert backward, the Swin forward).
+    qpaths = {**{f"quant_serve_{m}": {"esffn_glu": {m: r["launches"][
+        "esffn_glu"]}, "paged_attention": {"int8": r["launches"][
+            "paged_attention"]}} for m, r in quant_serve.items()},
+        **{f"quant_{p}": c for p, c in quant_ref["launches"].items()}}
+
+    def qentry(kernel, source, replaces, branch, cases, **extra):
+        by = {p: sum(c.get(kernel, {}).values()) for p, c in qpaths.items()}
+        by = {p: n for p, n in by.items() if n}
+        head = cases[0]
+        return {"name": f"{kernel} ({branch})", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": sum(by.values()), "launches_by_path": by,
+                "max_abs_err": head["max_abs_err"], "ms": head["kernel_ms"],
+                "kernel_ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": None, "library": head["library"],
+                "shape": head["shape"], "dtype": head["dtype"],
+                "tolerance": head["tolerance"], "cases": cases,
+                "negative_controls": [c for c in quant_res["negative_controls"]
+                                      if c["kernel"] == kernel], **extra}
+
     print(json.dumps({"kernels": [
         entry("esffn_glu", "src/repro_torch/csrc/esffn.cu",
               "src/repro/kernels/esffn.py:280",
@@ -1596,6 +2316,25 @@ def main() -> int:
                  "src/repro/kernels/flash_attention.py:80", flash_res),
          "launches": flash_launches,
          "launches_from": "phase 12, the public entry point"},
+        qentry("esffn_glu", "src/repro_torch/csrc/esffn.cu",
+               "src/repro/kernels/esffn.py:280", "int8/fp8 weights",
+               quant_res["esffn_glu"],
+               tpu_branch="w_scales: _wtile, src/repro/kernels/esffn.py:118"),
+        qentry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
+               "src/repro/kernels/paged_attention.py:295", "int8 KV",
+               quant_res["paged_attention"],
+               tpu_branch="k_scale/v_scale: the quantized branch of "
+                          "_paged_kernel, src/repro/kernels/"
+                          "paged_attention.py:218"),
+        qentry("esmm", "src/repro_torch/csrc/esmm.cu",
+               "src/repro/kernels/esmm.py:80", "int8/fp8 weights",
+               quant_res["esmm"],
+               tpu_branch="w_scales: has_scale, src/repro/kernels/esmm.py:61"),
+        qentry("esffn_mlp", "src/repro_torch/csrc/esffn.cu",
+               "src/repro/kernels/esffn.py:339", "int8/fp8 weights",
+               quant_res["esffn_mlp"],
+               tpu_branch="w_scales=(s1, s2): _wtile, "
+                          "src/repro/kernels/esffn.py:118"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,13 @@
 """Where a decode step of the PyTorch port's paged engine spends its time,
 on one NVIDIA GPU.
 
-    python3 scripts/torch_serve_profile.py [--layers 48] [--steps 8]
+    python3 scripts/torch_serve_profile.py [--layers 48] [--steps 8] \
+        [--quant none|int8|fp8] [--kv-quant none|int8]
 
 Builds qwen3-moe-30b-a3b at full width (``--layers`` cuts depth), fills all
-8 slots with 8-token prompts, times ``--steps`` decode macro-steps on the
+8 slots with 8-token prompts (with ``--quant``/``--kv-quant``: 8-bit
+expert weights, quantized layer by layer as drawn, and int8 KV pages),
+times ``--steps`` decode macro-steps on the
 host clock, then runs as many again under ``torch.profiler`` and prints, as
 JSON lines: the step's wall time (unprofiled), the device time summed over
 the device's own events (kernels and copies: busy) and the idle share
@@ -39,6 +42,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=48)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--quant", default="none", choices=["none", "int8", "fp8"])
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -51,12 +56,12 @@ def main(argv=None) -> int:
                               num_layers=args.layers)
     params = lm.init_params(
         cfg, generator=torch.Generator(device="cuda").manual_seed(0),
-        device="cuda")
+        device="cuda", quant=args.quant)
     slots, page = 8, 16
     server = serve.PagedServer(
         cfg, ParallelConfig(blk=16), num_slots=slots, page_size=page,
         num_pages=1 + slots * 8, max_pages_per_slot=8, params=params,
-        device="cuda")
+        kv_quant=args.kv_quant, device="cuda")
     rng = np.random.default_rng(0)
     for i in range(slots):
         server.submit(serve.Request(
@@ -95,6 +100,7 @@ def main(argv=None) -> int:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(json.dumps({"layers": cfg.num_layers, "slots": slots,
+                      "quant": args.quant, "kv_quant": args.kv_quant,
                       "decode_step_wall_ms": wall * 1e3,
                       "device_busy_ms": busy,
                       "device_idle_share": 1 - busy / (wall * 1e3),

@@ -19,11 +19,17 @@ from repro_torch.models.lm import check_supported
 from repro_torch.models.swin import SwinConfig
 
 
+#: ml_dtypes' numpy types, which ``torch.from_numpy`` refuses: carried as
+#: an unsigned view of the same width, reinterpreted on the torch side.
+_VIEWED = {"bfloat16": (np.uint16, torch.bfloat16),
+           "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def _to_tensor(a, device) -> torch.Tensor:
     arr = np.array(a)                    # an owned, writable copy
-    if arr.dtype.name == "bfloat16":     # ml_dtypes' numpy bfloat16
-        return torch.from_numpy(arr.view(np.uint16)).view(
-            torch.bfloat16).to(device)
+    if arr.dtype.name in _VIEWED:
+        raw, dtype = _VIEWED[arr.dtype.name]
+        return torch.from_numpy(arr.view(raw)).view(dtype).to(device)
     return torch.from_numpy(arr).to(device)
 
 
@@ -39,7 +45,8 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
     """The port's parameters from the value tree of
     ``split_tree(repro.models.lm.init_params(...))[0]`` (leaves as numpy
     arrays, or anything ``np.asarray`` takes), on ``device`` (the GPU
-    unless given)."""
+    unless given). A tree from ``repro.quant.quantize_lm_params`` carries
+    over with its int8/fp8 payloads and ``<name>_scale`` leaves."""
     check_supported(cfg)
     return _unstack(tree, cfg, resolve_device(device))
 

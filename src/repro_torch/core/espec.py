@@ -11,6 +11,10 @@ backward:
 
 * ``moe_mlp`` — the paper's 2-MLP expert with biases (Swin-MoE);
 * ``moe_glu`` — gate/up/down GLU experts (Mixtral / Qwen3).
+
+Quantized expert weights (int8/fp8 payloads with ``<name>_scale`` block
+scales, ``quant.core.quantize_ffn``) pass their scales to the same ops,
+fused or staged, and are frozen in the backward.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.common import ACTIVATIONS, QUANT_NOT_PORTED
+from repro_torch.common import ACTIVATIONS
 from repro_torch.core.reindex import (
     ReIndex,
     build_reindex,
@@ -33,18 +37,18 @@ from repro_torch.kernels import ops
 def moe_mlp(x: torch.Tensor, ri: ReIndex, w1, b1, w2, b2, *, scales=None,
             act: str = "gelu", fused: bool = True) -> torch.Tensor:
     """Paper-form 2-MLP expert FFN y = act(x W1 + b1) W2 + b2, routed per
-    token, over a flat token batch x: (N, D); b1/b2 may be None."""
+    token, over a flat token batch x: (N, D); b1/b2 may be None.
+    ``scales``: (s1, s2) of int8/fp8 w1 and w2."""
     if fused:
         ys = ops.esffn_mlp(x, ri.row_token, ri.row_gate, ri.block_expert,
                            ri.padded_counts, w1, b1, w2, b2, scales=scales,
                            act=act)
         return scatter_rows(ys, ri.row_token, x.shape[0])
-    if scales is not None:
-        raise NotImplementedError(QUANT_NOT_PORTED)
+    s1, s2 = scales if scales is not None else (None, None)
     xs = gather_sorted(x, ri)
-    h = ops.esmm(xs, w1, b1, ri.block_expert, ri.padded_counts)
+    h = ops.esmm(xs, w1, b1, ri.block_expert, ri.padded_counts, w_scales=s1)
     h = ACTIVATIONS[act](h)
-    ys = ops.esmm(h, w2, b2, ri.block_expert, ri.padded_counts)
+    ys = ops.esmm(h, w2, b2, ri.block_expert, ri.padded_counts, w_scales=s2)
     return combine_scatter(ys, ri, x.shape[0])
 
 
@@ -52,19 +56,22 @@ def moe_glu(x: torch.Tensor, ri: ReIndex, w_gate, w_up, w_down, *,
             scales=None, act: str = "silu",
             fused: bool = True) -> torch.Tensor:
     """GLU expert FFN y = (act(x Wg) * (x Wu)) Wd, routed per token, over a
-    flat token batch x: (N, D)."""
+    flat token batch x: (N, D). ``scales``: (sg, su, sd) of int8/fp8
+    weights."""
     if fused:
         ys = ops.esffn_glu(x, ri.row_token, ri.row_gate, ri.block_expert,
                            ri.padded_counts, w_gate, w_up, w_down,
                            scales=scales, act=act)
         return scatter_rows(ys, ri.row_token, x.shape[0])
-    if scales is not None:
-        raise NotImplementedError(QUANT_NOT_PORTED)
+    sg, su, sd = scales if scales is not None else (None,) * 3
     xs = gather_sorted(x, ri)
-    g = ops.esmm(xs, w_gate, None, ri.block_expert, ri.padded_counts)
-    u = ops.esmm(xs, w_up, None, ri.block_expert, ri.padded_counts)
+    g = ops.esmm(xs, w_gate, None, ri.block_expert, ri.padded_counts,
+                 w_scales=sg)
+    u = ops.esmm(xs, w_up, None, ri.block_expert, ri.padded_counts,
+                 w_scales=su)
     h = ACTIVATIONS[act](g) * u
-    ys = ops.esmm(h, w_down, None, ri.block_expert, ri.padded_counts)
+    ys = ops.esmm(h, w_down, None, ri.block_expert, ri.padded_counts,
+                  w_scales=sd)
     return combine_scatter(ys, ri, x.shape[0])
 
 
@@ -82,16 +89,22 @@ def hexa_moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int,
     """Complete Hexa-MoE FFN: routing + expert-specific computation.
     x: (N, D); params holds 'router' (D, E) plus either 'w_gate', 'w_up',
     'w_down' (glu) or 'w1', 'b1', 'w2', 'b2' (mlp; the biases may be
-    absent). Quantized expert weights ('<name>_scale' entries) raise."""
-    if any(k.endswith("_scale") for k in params):
-        raise NotImplementedError(QUANT_NOT_PORTED)
+    absent). Quantized expert weights carry their block scales as
+    '<name>_scale' entries (``quant.core.quantize_ffn``), detected here."""
     r = route(x, params["router"], top_k, norm_topk=norm_topk,
               softmax_after_topk=softmax_after_topk)
     ri = build_reindex(r.expert_idx, r.gates, num_experts, blk)
     if glu:
+        scales = None
+        if "w_gate_scale" in params:
+            scales = (params["w_gate_scale"], params["w_up_scale"],
+                      params["w_down_scale"])
         y = moe_glu(x, ri, params["w_gate"], params["w_up"],
-                    params["w_down"], act=act)
+                    params["w_down"], scales=scales, act=act)
     else:
+        scales = None
+        if "w1_scale" in params:
+            scales = (params["w1_scale"], params["w2_scale"])
         y = moe_mlp(x, ri, params["w1"], params.get("b1"), params["w2"],
-                    params.get("b2"), act=act)
+                    params.get("b2"), scales=scales, act=act)
     return MoEOutput(y=y, aux_loss=r.aux_loss, z_loss=r.z_loss, router=r)

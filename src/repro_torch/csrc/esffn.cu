@@ -67,12 +67,30 @@
 //  * Rows whose gate is 0 (padding) are staged as 0, never read from x or
 //    h, and written as 0; a tile with no live row reads no weight.
 //
-// Plain C interface for ctypes: esffn_glu_launch and esffn_mlp_launch return
-// cudaGetLastError().
+// === 8-bit weights ===
+//
+// Replaces the quantized branch of both TPU kernels (w_scales; _wtile /
+// quant.core.dequant_tile): the expert weights are int8 or fp8 e4m3
+// payloads with f32 block scales s (E, rows / ta, cols / tb) on each
+// weight's own two axes, (ta, tb) = block_tiles' 128 clamped to the dim.
+// Every weight element is dequantized where it is read, float(q) *
+// s[e][row / ta][col / tb], and enters the same f32 FMA; the activations
+// stay in T, so only the 8-bit bytes (and the scales) cross HBM. Rounding
+// is the TPU kernel's: its f32 dequantized tile meets x promoted to f32.
+// The same kernels run, instantiated for W = int8_t or __nv_fp8_e4m3.
+// What bounds it: the weight bytes, now half of bf16's (decode reads
+// 3 * D * F bytes an expert: 4.7 MB at qwen3 width).
+//
+// Plain C interface for ctypes: esffn_glu_launch, esffn_mlp_launch and
+// their 8-bit forms esffn_glu_q_launch and esffn_mlp_q_launch return
+// cudaGetLastError(), or cudaErrorInvalidValue for operands they refuse.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -87,6 +105,27 @@ constexpr int kDownFTile = 256;               // h columns staged per step
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) { return float(v); }
+
+// Block scales of an 8-bit expert weight W (E, rows, cols): f32 s (E,
+// rows / ta, cols / tb), s[e][r / ta][c / tb] scaling element (r, c) of
+// W[e]. Unused (s null) when W is stored in the activation dtype.
+struct Scales {
+  const float* s;
+  int rows, cols, ta, tb;
+  __device__ __forceinline__ float at(int e, int r, int c) const {
+    return block(e, r / ta, c / tb);
+  }
+  // the scale of block (rb, cb) of W[e]
+  __device__ __forceinline__ float block(int e, int rb, int cb) const {
+    return s[((size_t)e * (rows / ta) + rb) * (cols / tb) + cb];
+  }
+};
+
+// W is an 8-bit payload (dequantized on read) rather than T itself.
+template <typename T, typename W>
+constexpr bool kQuant = !std::is_same<T, W>::value;
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -138,13 +177,13 @@ __device__ void collect_live(const float* __restrict__ row_gate,
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
 esffn_up_kernel(const T* __restrict__ x, const int* __restrict__ row_token,
                 const float* __restrict__ row_gate,
-                const int* __restrict__ block_expert, const T* __restrict__ wg,
-                const T* __restrict__ wu, T* __restrict__ h, int n, int d,
-                int f, int blk, int act) {
+                const int* __restrict__ block_expert, const W* __restrict__ wg,
+                const W* __restrict__ wu, Scales sg, Scales su,
+                T* __restrict__ h, int n, int d, int f, int blk, int act) {
   __shared__ int live[kMaxBlk], tok[kMaxBlk], warp_cnt[kMaxBlk / 32], nlive_s;
   __shared__ unsigned char flag[kMaxBlk];
   // x tile [kRows][kUpDTile] during the D loop, then the partial sums
@@ -183,20 +222,36 @@ esffn_up_kernel(const T* __restrict__ x, const int* __restrict__ row_token,
       __syncthreads();
       if (col_ok) {
         const int lo = part * kSlice, hi = min(lo + kSlice, dt);
-        const T* pg = wg + wbase + (size_t)d0 * f;
-        const T* pu = wu + wbase + (size_t)d0 * f;
+        const W* pg = wg + wbase + (size_t)d0 * f;
+        const W* pu = wu + wbase + (size_t)d0 * f;
+        // rows [lo, hi) in runs that share one block scale (8-bit weights;
+        // one run otherwise), so a scale is read once a run
+        for (int s0 = lo; s0 < hi;) {
+          int s1 = hi;
+          float gs = 1.0f, us = 1.0f;
+          if constexpr (kQuant<T, W>) {
+            s1 = min(hi, s0 + sg.ta - (d0 + s0) % sg.ta);
+            gs = sg.at(e, d0 + s0, f0 + col);
+            us = su.at(e, d0 + s0, f0 + col);
+          }
 #pragma unroll 4
-        for (int dd = lo; dd < hi; ++dd) {
-          const float a = to_f(pg[(size_t)dd * f]);
-          const float b = to_f(pu[(size_t)dd * f]);
+          for (int dd = s0; dd < s1; ++dd) {
+            float a = to_f(pg[(size_t)dd * f]);
+            float b = to_f(pu[(size_t)dd * f]);
+            if constexpr (kQuant<T, W>) {
+              a *= gs;
+              b *= us;
+            }
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            if (i < nr) {
-              const float xv = xs[i * kUpDTile + dd];
-              g[i] = fmaf(xv, a, g[i]);
-              u[i] = fmaf(xv, b, u[i]);
+            for (int i = 0; i < kRows; ++i) {
+              if (i < nr) {
+                const float xv = xs[i * kUpDTile + dd];
+                g[i] = fmaf(xv, a, g[i]);
+                u[i] = fmaf(xv, b, u[i]);
+              }
             }
           }
+          s0 = s1;
         }
       }
     }
@@ -223,13 +278,13 @@ esffn_up_kernel(const T* __restrict__ x, const int* __restrict__ row_token,
   }
 }
 
-template <typename T>
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
 esffn_down_kernel(const T* __restrict__ h, const int* __restrict__ row_token,
                   const float* __restrict__ row_gate,
                   const int* __restrict__ block_expert,
-                  const T* __restrict__ wd, T* __restrict__ out, int n, int d,
-                  int f, int blk) {
+                  const W* __restrict__ wd, Scales sd, T* __restrict__ out,
+                  int n, int d, int f, int blk) {
   __shared__ int live[kMaxBlk], tok[kMaxBlk], warp_cnt[kMaxBlk / 32], nlive_s;
   __shared__ unsigned char flag[kMaxBlk];
   __shared__ float hs[kRows * kDownFTile];
@@ -248,7 +303,7 @@ esffn_down_kernel(const T* __restrict__ h, const int* __restrict__ row_token,
   if (nlive == 0) return;
 
   const int e = block_expert[m];
-  const T* pw = wd + (size_t)e * f * d + dcol;
+  const W* pw = wd + (size_t)e * f * d + dcol;
   for (int r0 = 0; r0 < nlive; r0 += kRows) {
     const int nr = min(kRows, nlive - r0);
     float acc[kRows];
@@ -264,12 +319,23 @@ esffn_down_kernel(const T* __restrict__ h, const int* __restrict__ row_token,
       }
       __syncthreads();
       if (col_ok) {
+        // rows [0, ft) in runs that share one block scale, as above
+        for (int s0 = 0; s0 < ft;) {
+          int s1 = ft;
+          float ws = 1.0f;
+          if constexpr (kQuant<T, W>) {
+            s1 = min(ft, s0 + sd.ta - (f0 + s0) % sd.ta);
+            ws = sd.at(e, f0 + s0, dcol);
+          }
 #pragma unroll 4
-        for (int ff = 0; ff < ft; ++ff) {
-          const float w = to_f(pw[(size_t)(f0 + ff) * d]);
+          for (int ff = s0; ff < s1; ++ff) {
+            float w = to_f(pw[(size_t)(f0 + ff) * d]);
+            if constexpr (kQuant<T, W>) w *= ws;
 #pragma unroll
-          for (int i = 0; i < kRows; ++i)
-            if (i < nr) acc[i] = fmaf(hs[i * kDownFTile + ff], w, acc[i]);
+            for (int i = 0; i < kRows; ++i)
+              if (i < nr) acc[i] = fmaf(hs[i * kDownFTile + ff], w, acc[i]);
+          }
+          s0 = s1;
         }
       }
     }
@@ -285,23 +351,24 @@ esffn_down_kernel(const T* __restrict__ h, const int* __restrict__ row_token,
   }
 }
 
-template <typename T>
+template <typename T, typename W>
 int launch(const void* x, const void* row_token, const void* row_gate,
            const void* block_expert, const void* wg, const void* wu,
-           const void* wd, void* h, void* out, int n, int d, int f,
-           int np_rows, int blk, int act, cudaStream_t stream) {
+           const void* wd, Scales sg, Scales su, Scales sd, void* h, void* out,
+           int n, int d, int f, int np_rows, int blk, int act,
+           cudaStream_t stream) {
   const int nblk = np_rows / blk;
   const dim3 up_grid(nblk, (f + kUpCols - 1) / kUpCols);
   const dim3 down_grid(nblk, (d + kDownCols - 1) / kDownCols);
-  esffn_up_kernel<T><<<up_grid, kThreads, 0, stream>>>(
+  esffn_up_kernel<T, W><<<up_grid, kThreads, 0, stream>>>(
       (const T*)x, (const int*)row_token, (const float*)row_gate,
-      (const int*)block_expert, (const T*)wg, (const T*)wu, (T*)h, n, d, f,
-      blk, act);
+      (const int*)block_expert, (const W*)wg, (const W*)wu, sg, su, (T*)h, n,
+      d, f, blk, act);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  esffn_down_kernel<T><<<down_grid, kThreads, 0, stream>>>(
+  esffn_down_kernel<T, W><<<down_grid, kThreads, 0, stream>>>(
       (const T*)h, (const int*)row_token, (const float*)row_gate,
-      (const int*)block_expert, (const T*)wd, (T*)out, n, d, f, blk);
+      (const int*)block_expert, (const W*)wd, sd, (T*)out, n, d, f, blk);
   return (int)cudaGetLastError();
 }
 
@@ -317,19 +384,22 @@ constexpr int kMlpTN = 4;   // columns of a thread, strided by 16
 // the tile's block. kUp: a = x (N, K = D) gathered through row_token, w =
 // W1 (E, D, F), out = h (Np, F) on live rows. !kUp: a = h (Np, K = F), w =
 // W2 (E, F, D), out (Np, D) on every row.
-template <typename T, int BM, bool kUp>
+template <typename T, typename W, int BM, bool kUp>
 __global__ void __launch_bounds__(kThreads)
 esffn_mlp_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
                  const float* __restrict__ row_gate,
-                 const int* __restrict__ block_expert, const T* __restrict__ w,
-                 const float* __restrict__ bias, T* __restrict__ out, int n,
-                 int k, int ncols, int blk, int act) {
+                 const int* __restrict__ block_expert, const W* __restrict__ w,
+                 Scales sw, const float* __restrict__ bias, T* __restrict__ out,
+                 int n, int k, int ncols, int blk, int act) {
   constexpr int TM = BM >= 16 ? BM / 16 : 1;
   constexpr int kRowThreads = BM / TM;  // 16, or 8 at BM 8
   __shared__ float as[kMlpBK][BM + 4];  // A tile, K-major
   __shared__ float bs[kMlpBK][kMlpBN + 4];
   __shared__ int src[BM];               // row of `a` feeding each tile row; -1: dead
   __shared__ float gate[BM];
+  // 8-bit W: the block-scale index of each column of the tile and of each
+  // K row of the step, so staging an element divides nothing
+  __shared__ int sn[kMlpBN], sk[kMlpBK];
 
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * kMlpBN;
@@ -358,7 +428,10 @@ esffn_mlp_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
   }
 
   const int e = block_expert[m0 / blk];
-  const T* we = w + (size_t)e * k * ncols;
+  const W* we = w + (size_t)e * k * ncols;
+  if constexpr (kQuant<T, W>) {
+    for (int c = tid; c < kMlpBN; c += kThreads) sn[c] = (n0 + c) / sw.tb;
+  }
   float acc[TM][kMlpTN];
 #pragma unroll
   for (int j = 0; j < kMlpTN; ++j) {
@@ -370,6 +443,10 @@ esffn_mlp_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
   }
 
   for (int k0 = 0; k0 < k; k0 += kMlpBK) {
+    if constexpr (kQuant<T, W>) {
+      if (tid < kMlpBK) sk[tid] = (k0 + tid) / sw.ta;
+      __syncthreads();
+    }
     for (int idx = tid; idx < BM * kMlpBK; idx += kThreads) {
       const int r = idx / kMlpBK, kk = idx % kMlpBK;
       const int s = src[r];
@@ -377,8 +454,12 @@ esffn_mlp_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
     }
     for (int idx = tid; idx < kMlpBK * kMlpBN; idx += kThreads) {
       const int kk = idx / kMlpBN, c = idx % kMlpBN;
-      bs[kk][c] = (k0 + kk < k && n0 + c < ncols)
-                      ? to_f(we[(size_t)(k0 + kk) * ncols + n0 + c]) : 0.0f;
+      float v = 0.0f;
+      if (k0 + kk < k && n0 + c < ncols) {
+        v = to_f(we[(size_t)(k0 + kk) * ncols + n0 + c]);
+        if constexpr (kQuant<T, W>) v *= sw.block(e, sk[kk], sn[c]);
+      }
+      bs[kk][c] = v;
     }
     __syncthreads();
     if (active) {
@@ -419,42 +500,63 @@ esffn_mlp_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
   }
 }
 
-template <typename T, int BM>
+template <typename T, typename W, int BM>
 int mlp_launch_bm(const void* x, const void* row_token, const void* row_gate,
-                  const void* block_expert, const void* w1, const void* b1,
-                  const void* w2, const void* b2, void* h, void* out, int n,
-                  int d, int f, int np_rows, int blk, int act,
-                  cudaStream_t stream) {
+                  const void* block_expert, const void* w1, Scales s1,
+                  const void* b1, const void* w2, Scales s2, const void* b2,
+                  void* h, void* out, int n, int d, int f, int np_rows,
+                  int blk, int act, cudaStream_t stream) {
   const dim3 up_grid(np_rows / BM, (f + kMlpBN - 1) / kMlpBN);
-  esffn_mlp_kernel<T, BM, true><<<up_grid, kThreads, 0, stream>>>(
+  esffn_mlp_kernel<T, W, BM, true><<<up_grid, kThreads, 0, stream>>>(
       (const T*)x, (const int*)row_token, (const float*)row_gate,
-      (const int*)block_expert, (const T*)w1, (const float*)b1, (T*)h, n, d,
-      f, blk, act);
+      (const int*)block_expert, (const W*)w1, s1, (const float*)b1, (T*)h, n,
+      d, f, blk, act);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 down_grid(np_rows / BM, (d + kMlpBN - 1) / kMlpBN);
-  esffn_mlp_kernel<T, BM, false><<<down_grid, kThreads, 0, stream>>>(
+  esffn_mlp_kernel<T, W, BM, false><<<down_grid, kThreads, 0, stream>>>(
       (const T*)h, (const int*)row_token, (const float*)row_gate,
-      (const int*)block_expert, (const T*)w2, (const float*)b2, (T*)out, n,
-      f, d, blk, act);
+      (const int*)block_expert, (const W*)w2, s2, (const float*)b2, (T*)out,
+      n, f, d, blk, act);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename W>
 int mlp_launch(const void* x, const void* row_token, const void* row_gate,
-               const void* block_expert, const void* w1, const void* b1,
-               const void* w2, const void* b2, void* h, void* out, int n,
-               int d, int f, int np_rows, int blk, int act,
-               cudaStream_t stream) {
+               const void* block_expert, const void* w1, Scales s1,
+               const void* b1, const void* w2, Scales s2, const void* b2,
+               void* h, void* out, int n, int d, int f, int np_rows, int blk,
+               int act, cudaStream_t stream) {
 #define ESFFN_MLP_BM(BM)                                                      \
-  return mlp_launch_bm<T, BM>(x, row_token, row_gate, block_expert, w1, b1,  \
-                              w2, b2, h, out, n, d, f, np_rows, blk, act,     \
-                              stream)
+  return mlp_launch_bm<T, W, BM>(x, row_token, row_gate, block_expert, w1,   \
+                                 s1, b1, w2, s2, b2, h, out, n, d, f,         \
+                                 np_rows, blk, act, stream)
   if (blk % 64 == 0) ESFFN_MLP_BM(64);
   if (blk % 32 == 0) ESFFN_MLP_BM(32);
   if (blk % 16 == 0) ESFFN_MLP_BM(16);
   ESFFN_MLP_BM(8);
 #undef ESFFN_MLP_BM
+}
+
+// Returns CALL(T, W) for the activation dtype (0 = float32, 1 = bfloat16)
+// and the weight storage (wdtype 0 = T itself, 1 = int8, 2 = fp8 e4m3);
+// refuses anything else.
+#define ESFFN_DISPATCH(dtype, wdtype, CALL)                                 \
+  do {                                                                      \
+    if ((dtype) == 1) {                                                     \
+      if ((wdtype) == 0) return CALL(__nv_bfloat16, __nv_bfloat16);         \
+      if ((wdtype) == 1) return CALL(__nv_bfloat16, int8_t);                \
+      if ((wdtype) == 2) return CALL(__nv_bfloat16, __nv_fp8_e4m3);         \
+    } else if ((dtype) == 0) {                                              \
+      if ((wdtype) == 0) return CALL(float, float);                         \
+      if ((wdtype) == 1) return CALL(float, int8_t);                        \
+      if ((wdtype) == 2) return CALL(float, __nv_fp8_e4m3);                 \
+    }                                                                       \
+    return (int)cudaErrorInvalidValue;                                      \
+  } while (0)
+
+bool tiles_ok(int rows, int cols, int ta, int tb) {
+  return ta > 0 && tb > 0 && rows % ta == 0 && cols % tb == 0;
 }
 
 }  // namespace
@@ -468,11 +570,38 @@ extern "C" int esffn_glu_launch(const void* x, const void* row_token,
                                 int np_rows, int blk, int dtype, int act,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, row_token, row_gate, block_expert, wg, wu,
-                                 wd, h, out, n, d, f, np_rows, blk, act, s);
-  return launch<float>(x, row_token, row_gate, block_expert, wg, wu, wd, h,
-                       out, n, d, f, np_rows, blk, act, s);
+#define GLU(T, W)                                                            \
+  launch<T, W>(x, row_token, row_gate, block_expert, wg, wu, wd, Scales{},    \
+               Scales{}, Scales{}, h, out, n, d, f, np_rows, blk, act, s)
+  ESFFN_DISPATCH(dtype, 0, GLU);
+#undef GLU
+}
+
+// The GLU form with 8-bit weights: wdtype 1 = int8, 2 = fp8 e4m3 (wg, wu,
+// wd alike); sg, su (E, D / ta_up, F / tb_up) and sd (E, F / ta_dn,
+// D / tb_dn) their f32 block scales. x, h and out as esffn_glu_launch.
+extern "C" int esffn_glu_q_launch(const void* x, const void* row_token,
+                                  const void* row_gate,
+                                  const void* block_expert, const void* wg,
+                                  const void* wu, const void* wd,
+                                  const void* sg, const void* su,
+                                  const void* sd, void* h, void* out, int n,
+                                  int d, int f, int np_rows, int blk,
+                                  int dtype, int wdtype, int act, int ta_up,
+                                  int tb_up, int ta_dn, int tb_dn,
+                                  void* stream) {
+  if (wdtype == 0 || !tiles_ok(d, f, ta_up, tb_up) ||
+      !tiles_ok(f, d, ta_dn, tb_dn) || !sg || !su || !sd)
+    return (int)cudaErrorInvalidValue;
+  const Scales g{(const float*)sg, d, f, ta_up, tb_up};
+  const Scales u{(const float*)su, d, f, ta_up, tb_up};
+  const Scales dn{(const float*)sd, f, d, ta_dn, tb_dn};
+  cudaStream_t s = (cudaStream_t)stream;
+#define GLU(T, W)                                                            \
+  launch<T, W>(x, row_token, row_gate, block_expert, wg, wu, wd, g, u, dn, h, \
+               out, n, d, f, np_rows, blk, act, s)
+  ESFFN_DISPATCH(dtype, wdtype, GLU);
+#undef GLU
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w1, w2, h and out). b1 (E, F) and b2
@@ -485,10 +614,34 @@ extern "C" int esffn_mlp_launch(const void* x, const void* row_token,
                                 int d, int f, int np_rows, int blk, int dtype,
                                 int act, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return mlp_launch<__nv_bfloat16>(x, row_token, row_gate, block_expert, w1,
-                                     b1, w2, b2, h, out, n, d, f, np_rows, blk,
-                                     act, s);
-  return mlp_launch<float>(x, row_token, row_gate, block_expert, w1, b1, w2,
-                           b2, h, out, n, d, f, np_rows, blk, act, s);
+#define MLP(T, W)                                                            \
+  mlp_launch<T, W>(x, row_token, row_gate, block_expert, w1, Scales{}, b1,    \
+                   w2, Scales{}, b2, h, out, n, d, f, np_rows, blk, act, s)
+  ESFFN_DISPATCH(dtype, 0, MLP);
+#undef MLP
+}
+
+// The 2-MLP form with 8-bit weights: wdtype 1 = int8, 2 = fp8 e4m3 (w1 and
+// w2 alike); s1 (E, D / ta1, F / tb1) and s2 (E, F / ta2, D / tb2) their
+// f32 block scales. The biases stay f32 (or null).
+extern "C" int esffn_mlp_q_launch(const void* x, const void* row_token,
+                                  const void* row_gate,
+                                  const void* block_expert, const void* w1,
+                                  const void* s1, const void* b1,
+                                  const void* w2, const void* s2,
+                                  const void* b2, void* h, void* out, int n,
+                                  int d, int f, int np_rows, int blk,
+                                  int dtype, int wdtype, int act, int ta1,
+                                  int tb1, int ta2, int tb2, void* stream) {
+  if (wdtype == 0 || !tiles_ok(d, f, ta1, tb1) || !tiles_ok(f, d, ta2, tb2) ||
+      !s1 || !s2)
+    return (int)cudaErrorInvalidValue;
+  const Scales q1{(const float*)s1, d, f, ta1, tb1};
+  const Scales q2{(const float*)s2, f, d, ta2, tb2};
+  cudaStream_t s = (cudaStream_t)stream;
+#define MLP(T, W)                                                            \
+  mlp_launch<T, W>(x, row_token, row_gate, block_expert, w1, q1, b1, w2, q2,  \
+                   b2, h, out, n, d, f, np_rows, blk, act, s)
+  ESFFN_DISPATCH(dtype, wdtype, MLP);
+#undef MLP
 }

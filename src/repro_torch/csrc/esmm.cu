@@ -52,12 +52,25 @@
 //    grid axis in VMEM; here the K loop runs inside the CTA, so nothing
 //    carries between CTAs and no atomics are needed (both routes).
 //
-// Plain C interface for ctypes: esmm_launch returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a route the operands cannot take.
+// 8-bit weights (esmm_q_launch; the has_scale branch of the TPU kernel,
+// quant.core.dequant_tile): W is an int8 or fp8 e4m3 payload with f32
+// block scales s on W's own two axes, (E, K / ta, N / tb), or (E, N / ta,
+// K / tb) with transpose_rhs. The simt kernel dequantizes each W element
+// as it is staged into shared memory, float(q) * s[e][row / ta][col / tb],
+// so only the 8-bit bytes cross HBM and the products are the f32 ones of
+// the TPU kernel's dequantized tile. Only the simt route takes them: a TMA
+// box of int8 and a dequant stage before wgmma are later work.
+//
+// Plain C interface for ctypes: esmm_launch and esmm_q_launch return
+// cudaGetLastError(), or cudaErrorInvalidValue for a route or operands
+// they refuse.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -70,6 +83,20 @@ constexpr int kTN = 4;    // columns of a thread, strided by 16
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) { return float(v); }
+
+// Block scales of an 8-bit W (E, rows, cols) on its own axes: f32 s (E,
+// rows / ta, cols / tb), s[e][r / ta][c / tb] scaling element (r, c) of
+// W[e]. Unused (s null) when W is stored in the activation dtype.
+struct Scales {
+  const float* s;
+  int rows, cols, ta, tb;
+  // the scale of block (rb, cb) of W[e]
+  __device__ __forceinline__ float block(int e, int rb, int cb) const {
+    return s[((size_t)e * (rows / ta) + rb) * (cols / tb) + cb];
+  }
+};
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -77,15 +104,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-template <typename T, int BM, bool kTrans>
+template <typename T, typename W, int BM, bool kTrans>
 __global__ void __launch_bounds__(kThreads)
-esmm_kernel(const T* __restrict__ xs, const T* __restrict__ w,
+esmm_kernel(const T* __restrict__ xs, const W* __restrict__ w, Scales sw,
             const float* __restrict__ b, const int* __restrict__ block_expert,
             T* __restrict__ ys, int k, int n, int blk) {
+  constexpr bool kQuant = !std::is_same<T, W>::value;
   constexpr int TM = BM >= 16 ? BM / 16 : 1;
   constexpr int kRowThreads = BM / TM;  // 16, or 8 at BM 8
   __shared__ float as[kBK][BM + 4];     // xs tile, K-major
   __shared__ float bs[kBK][kBN + 4];    // W[e] tile, K-major
+  // 8-bit W: the block-scale index of each N column of the tile and of
+  // each K row of the step, so staging an element divides nothing
+  __shared__ int sn[kBN], sk[kBK];
 
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * kBN;
@@ -93,7 +124,10 @@ esmm_kernel(const T* __restrict__ xs, const T* __restrict__ w,
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const bool active = ty < kRowThreads;
-  const T* we = w + (size_t)e * k * n;
+  const W* we = w + (size_t)e * k * n;
+  if constexpr (kQuant) {
+    for (int c = tid; c < kBN; c += kThreads) sn[c] = (n0 + c) / (kTrans ? sw.ta : sw.tb);
+  }
 
   float acc[TM][kTN];
 #pragma unroll
@@ -105,6 +139,10 @@ esmm_kernel(const T* __restrict__ xs, const T* __restrict__ w,
   }
 
   for (int k0 = 0; k0 < k; k0 += kBK) {
+    if constexpr (kQuant) {
+      if (tid < kBK) sk[tid] = (k0 + tid) / (kTrans ? sw.tb : sw.ta);
+      __syncthreads();
+    }
     for (int idx = tid; idx < BM * kBK; idx += kThreads) {
       const int r = idx / kBK, kk = idx % kBK;
       as[kk][r] = k0 + kk < k ? to_f(xs[(size_t)(m0 + r) * k + k0 + kk]) : 0.0f;
@@ -114,9 +152,14 @@ esmm_kernel(const T* __restrict__ xs, const T* __restrict__ w,
       const int kk = kTrans ? idx % kBK : idx / kBN;
       const int c = kTrans ? idx / kBK : idx % kBN;
       float v = 0.0f;
-      if (k0 + kk < k && n0 + c < n)
-        v = kTrans ? to_f(we[(size_t)(n0 + c) * k + k0 + kk])
-                   : to_f(we[(size_t)(k0 + kk) * n + n0 + c]);
+      if (k0 + kk < k && n0 + c < n) {
+        // element (r, c) of W[e]: (n0 + c, k0 + kk) with transpose_rhs
+        const int wr = kTrans ? n0 + c : k0 + kk;
+        const int wc = kTrans ? k0 + kk : n0 + c;
+        v = to_f(we[(size_t)wr * (kTrans ? k : n) + wc]);
+        if constexpr (kQuant)
+          v *= kTrans ? sw.block(e, sn[c], sk[kk]) : sw.block(e, sk[kk], sn[c]);
+      }
       bs[kk][c] = v;
     }
     __syncthreads();
@@ -149,33 +192,44 @@ esmm_kernel(const T* __restrict__ xs, const T* __restrict__ w,
   }
 }
 
-template <typename T, int BM>
-int launch_bm(const void* xs, const void* w, const void* b,
+template <typename T, typename W, int BM>
+int launch_bm(const void* xs, const void* w, Scales sw, const void* b,
               const void* block_expert, void* ys, int np_rows, int k, int n,
               int blk, int transpose, cudaStream_t stream) {
   const dim3 grid(np_rows / BM, (n + kBN - 1) / kBN);
   if (transpose)
-    esmm_kernel<T, BM, true><<<grid, kThreads, 0, stream>>>(
-        (const T*)xs, (const T*)w, (const float*)b, (const int*)block_expert,
-        (T*)ys, k, n, blk);
+    esmm_kernel<T, W, BM, true><<<grid, kThreads, 0, stream>>>(
+        (const T*)xs, (const W*)w, sw, (const float*)b,
+        (const int*)block_expert, (T*)ys, k, n, blk);
   else
-    esmm_kernel<T, BM, false><<<grid, kThreads, 0, stream>>>(
-        (const T*)xs, (const T*)w, (const float*)b, (const int*)block_expert,
-        (T*)ys, k, n, blk);
+    esmm_kernel<T, W, BM, false><<<grid, kThreads, 0, stream>>>(
+        (const T*)xs, (const W*)w, sw, (const float*)b,
+        (const int*)block_expert, (T*)ys, k, n, blk);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* xs, const void* w, const void* b,
+template <typename T, typename W>
+int launch(const void* xs, const void* w, Scales sw, const void* b,
            const void* block_expert, void* ys, int np_rows, int k, int n,
            int blk, int transpose, cudaStream_t stream) {
   if (blk % 64 == 0)
-    return launch_bm<T, 64>(xs, w, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
+    return launch_bm<T, W, 64>(xs, w, sw, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
   if (blk % 32 == 0)
-    return launch_bm<T, 32>(xs, w, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
+    return launch_bm<T, W, 32>(xs, w, sw, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
   if (blk % 16 == 0)
-    return launch_bm<T, 16>(xs, w, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
-  return launch_bm<T, 8>(xs, w, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
+    return launch_bm<T, W, 16>(xs, w, sw, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
+  return launch_bm<T, W, 8>(xs, w, sw, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
+}
+
+template <typename T>
+int launch_q(const void* xs, const void* w, Scales sw, const void* b,
+             const void* block_expert, void* ys, int np_rows, int k, int n,
+             int blk, int transpose, int wdtype, cudaStream_t stream) {
+  if (wdtype == 1)
+    return launch<T, int8_t>(xs, w, sw, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
+  if (wdtype == 2)
+    return launch<T, __nv_fp8_e4m3>(xs, w, sw, b, block_expert, ys, np_rows, k, n, blk, transpose, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 
@@ -361,8 +415,32 @@ extern "C" int esmm_launch(const void* xs, const void* w, const void* b,
   }
   if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(xs, w, b, block_expert, ys, np_rows, k, n,
-                                 blk, transpose, s);
-  return launch<float>(xs, w, b, block_expert, ys, np_rows, k, n, blk,
-                       transpose, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(xs, w, Scales{}, b,
+                                                 block_expert, ys, np_rows, k,
+                                                 n, blk, transpose, s);
+  return launch<float, float>(xs, w, Scales{}, b, block_expert, ys, np_rows,
+                              k, n, blk, transpose, s);
+}
+
+// esmm with an 8-bit W on the simt route: wdtype 1 = int8, 2 = fp8 e4m3;
+// sw the f32 block scales on W's own axes, (E, K / ta, N / tb), or (E,
+// N / ta, K / tb) when transpose != 0. dtype (0 = float32, 1 = bfloat16)
+// is that of xs and ys; everything else as esmm_launch.
+extern "C" int esmm_q_launch(const void* xs, const void* w, const void* sw,
+                             const void* b, const void* block_expert,
+                             void* ys, int np_rows, int k, int n, int blk,
+                             int transpose, int dtype, int wdtype, int ta,
+                             int tb, void* stream) {
+  const int rows = transpose ? n : k, cols = transpose ? k : n;
+  if (sw == nullptr || ta <= 0 || tb <= 0 || rows % ta || cols % tb)
+    return (int)cudaErrorInvalidValue;
+  const Scales sc{(const float*)sw, rows, cols, ta, tb};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return launch_q<__nv_bfloat16>(xs, w, sc, b, block_expert, ys, np_rows,
+                                   k, n, blk, transpose, wdtype, s);
+  if (dtype == 0)
+    return launch_q<float>(xs, w, sc, b, block_expert, ys, np_rows, k, n, blk,
+                           transpose, wdtype, s);
+  return (int)cudaErrorInvalidValue;
 }

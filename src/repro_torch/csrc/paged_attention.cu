@@ -20,12 +20,23 @@
 // CTAs in flight (B * Hkv = 32 at 8 slots of qwen3, each a few pages long
 // at serving lengths, so at these sizes launch latency dominates).
 //
-// Plain C interface for ctypes: paged_attention_launch returns
-// cudaGetLastError().
+// int8 pools (paged_attention_q_launch; the quantized branch of
+// _paged_kernel): K and V pages hold int8 rows, each (row, kv head) with
+// its own f32 scale in k_scale / v_scale pools (npages, page, Hkv) paged
+// through the same table. A CTA reads a page's int8 rows and their scales
+// and multiplies as they land in the f32 k_s / v_s tiles, as the TPU
+// kernel dequantizes its gathered page in VMEM; everything after is the
+// same code. A live token then costs 2 * (hd + 4) bytes a kv head instead
+// of 2 * 2 * hd.
+//
+// Plain C interface for ctypes: paged_attention_launch and
+// paged_attention_q_launch return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -34,6 +45,7 @@ constexpr float kNegInf = -2.0e38f;  // NEG_INF of the reference
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -51,10 +63,14 @@ __host__ __device__ inline int smem_floats(int g, int hd, int page) {
          + 3 * g;          // m, l, per-page rescale
 }
 
-template <typename T>
+// KV: the pools' storage, T or int8_t; with int8_t the f32 k_scale /
+// v_scale pools (npages, page, Hkv) scale each row (null otherwise).
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
+paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
+                       const KV* __restrict__ v_pool,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int* __restrict__ page_table,
                        const int* __restrict__ lengths, T* __restrict__ out,
                        int hq, int hkv, int hd, int page, int maxp, int window,
@@ -90,9 +106,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     __syncthreads();  // the previous page is fully consumed
     for (int idx = tid; idx < page * hd; idx += kThreads) {
       const int t = idx / hd, dd = idx % hd;
-      const size_t src = ((phys * page + t) * hkv + h) * hd + dd;
-      k_s[t * (hd + 1) + dd] = to_f(k_pool[src]);
-      v_s[idx] = to_f(v_pool[src]);
+      const size_t row = (phys * page + t) * hkv + h;
+      const size_t src = row * hd + dd;
+      float kv = to_f(k_pool[src]), vv = to_f(v_pool[src]);
+      if constexpr (std::is_same<KV, int8_t>::value) {
+        kv *= k_scale[row];
+        vv *= v_scale[row];
+      }
+      k_s[t * (hd + 1) + dd] = kv;
+      v_s[idx] = vv;
     }
     __syncthreads();
     for (int idx = tid; idx < g * page; idx += kThreads) {
@@ -137,20 +159,22 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* page_table, const void* lengths, void* out, int b,
-           int hq, int hkv, int hd, int page, int maxp, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           const void* k_scale, const void* v_scale, const void* page_table,
+           const void* lengths, void* out, int b, int hq, int hkv, int hd,
+           int page, int maxp, int window, float softcap, float scale,
+           cudaStream_t stream) {
   const size_t bytes = sizeof(float) * (size_t)smem_floats(hq / hkv, hd, page);
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        paged_attention_kernel<T, KV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  paged_attention_kernel<T><<<dim3(b, hkv), kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int*)page_table,
+  paged_attention_kernel<T, KV><<<dim3(b, hkv), kThreads, bytes, stream>>>(
+      (const T*)q, (const KV*)k_pool, (const KV*)v_pool,
+      (const float*)k_scale, (const float*)v_scale, (const int*)page_table,
       (const int*)lengths, (T*)out, hq, hkv, hd, page, maxp, window, softcap,
       scale);
   return (int)cudaGetLastError();
@@ -170,9 +194,36 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, lengths, out,
-                                 b, hq, hkv, hd, page, maxp, window, softcap,
-                                 scale, s);
-  return launch<float>(q, k_pool, v_pool, page_table, lengths, out, b, hq,
-                       hkv, hd, page, maxp, window, softcap, scale, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pool, v_pool, nullptr, nullptr, page_table, lengths, out, b, hq,
+        hkv, hd, page, maxp, window, softcap, scale, s);
+  return launch<float, float>(q, k_pool, v_pool, nullptr, nullptr, page_table,
+                              lengths, out, b, hq, hkv, hd, page, maxp,
+                              window, softcap, scale, s);
+}
+
+// The int8 pools: k_pool / v_pool (npages, page, Hkv, hd) int8 and
+// k_scale / v_scale (npages, page, Hkv) f32; q and out in dtype (0 =
+// float32, 1 = bfloat16); everything else as paged_attention_launch.
+extern "C" int paged_attention_q_launch(const void* q, const void* k_pool,
+                                        const void* v_pool,
+                                        const void* k_scale,
+                                        const void* v_scale,
+                                        const void* page_table,
+                                        const void* lengths, void* out, int b,
+                                        int hq, int hkv, int hd, int page,
+                                        int maxp, int window, float softcap,
+                                        float scale, int dtype, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t>(q, k_pool, v_pool, k_scale, v_scale,
+                                         page_table, lengths, out, b, hq, hkv,
+                                         hd, page, maxp, window, softcap,
+                                         scale, s);
+  if (dtype == 0)
+    return launch<float, int8_t>(q, k_pool, v_pool, k_scale, v_scale,
+                                 page_table, lengths, out, b, hq, hkv, hd,
+                                 page, maxp, window, softcap, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

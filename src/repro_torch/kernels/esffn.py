@@ -22,8 +22,15 @@ where the kernels round: g and u (GLU) or z after ``+ b1`` (MLP) to
 x.dtype, h in x.dtype, the down product in f32 (from b2), the output
 ``(acc * gate)`` to x.dtype.
 
-Quantized weights (``w_scales``) belong to the quantization slice and
-raise here.
+Quantized weights (``w_scales``): int8 or fp8 e4m3 payloads with f32
+block scales on each weight's own two axes (``quant.core``). On a CUDA
+tensor the same kernels run on the 8-bit payload and dequantize each
+weight element where they read it (``esffn_glu_q_launch``,
+``esffn_mlp_q_launch``), counted in ``<wrapper>.launches`` and in
+``<wrapper>.launches_quant`` by format; on a CPU tensor the plain version
+dequantizes the whole weight (``dequantize_blockwise``, f32) first and
+multiplies x promoted to f32, as the TPU kernel's f32 dequantized tile
+meets its x.
 """
 from __future__ import annotations
 
@@ -31,28 +38,58 @@ import ctypes
 
 import torch
 
-from repro_torch.common import ACT_IDS, ACTIVATIONS, QUANT_NOT_PORTED
+from repro_torch.common import ACT_IDS, ACTIVATIONS
 from repro_torch.core.reindex import gather_rows
 from repro_torch.kernels import build
+from repro_torch.quant.core import (QUANT_MODES, check_scales,
+                                    dequantize_blockwise)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: 8-bit weight storage -> the C entry points' wdtype.
+_WDTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_VP] * 9 + [_I] * 7 + [_VP]
 _MLP_ARGTYPES = [_VP] * 10 + [_I] * 7 + [_VP]
+_Q_ARGTYPES = [_VP] * 12 + [_I] * 12 + [_VP]
+#: The TPU kernels' hidden-dim block (``bf``): the quant tiles must divide
+#: their weight blocks (``scale_block_dims``), and the wrappers refuse what
+#: the TPU kernels refuse.
+_TPU_BF = 128
+
+
+def _dequantized(weights, w_scales):
+    """The f32 weights of 8-bit payloads (``w_scales``), or the weights
+    themselves."""
+    if w_scales is None:
+        return weights
+    return [dequantize_blockwise(w, s) for w, s in zip(weights, w_scales)]
+
+
+def _tpu_blocks(d, f, up_down):
+    """The TPU kernels' weight blocks: (D, bf) for an up weight (E, D, F),
+    (bf, D) for a down weight (E, F, D)."""
+    bf = min(_TPU_BF, f)
+    return [(d, bf) if up else (bf, d) for up in up_down]
 
 
 def esffn_glu_plain(x, row_token, row_gate, block_expert, w_gate, w_up,
-                    w_down, *, act: str = "silu") -> torch.Tensor:
+                    w_down, *, w_scales=None, act: str = "silu") -> torch.Tensor:
     """Plain PyTorch fused GLU expert FFN: (N, D) tokens -> (Np, D)
     gate-weighted sorted rows. Sentinel rows gather zeros (the kernels
-    clamp them to row N-1); either way their zero gate makes them 0."""
+    clamp them to row N-1); either way their zero gate makes them 0.
+    8-bit weights (``w_scales``) are dequantized to f32, and the up
+    products taken in x promoted to the weights' dtype (as JAX promotes a
+    bf16 x against the TPU kernel's f32 dequantized tile) before g and u
+    round to x.dtype."""
     np_rows = row_token.shape[0]
     nblk = block_expert.shape[0]
     blk = np_rows // nblk
-    xb = gather_rows(x, row_token).reshape(nblk, blk, -1)
+    w_gate, w_up, w_down = _dequantized((w_gate, w_up, w_down), w_scales)
+    wdt = torch.promote_types(x.dtype, w_gate.dtype)
+    xb = gather_rows(x, row_token).reshape(nblk, blk, -1).to(wdt)
     be = block_expert.long()
-    g = torch.bmm(xb, w_gate[be].to(x.dtype))
-    u = torch.bmm(xb, w_up[be].to(x.dtype))
+    g = torch.bmm(xb, w_gate[be].to(wdt)).to(x.dtype)
+    u = torch.bmm(xb, w_up[be].to(wdt)).to(x.dtype)
     h = ACTIVATIONS[act](g) * u
     acc = torch.bmm(h.float(), w_down[be].float())
     out = acc * row_gate.reshape(nblk, blk, 1).float()
@@ -84,20 +121,24 @@ def _check_layout(name, x, row_token, row_gate, block_expert, act,
 
 
 def _check_cuda_args(x, row_token, row_gate, block_expert, w_gate, w_up,
-                     w_down, act):
+                     w_down, act, w_scales=None):
     n, d = x.shape
     e, dw, f = w_gate.shape
     if dw != d or w_up.shape != (e, d, f) or w_down.shape != (e, f, d):
         raise ValueError(f"weight shapes {tuple(w_gate.shape)}, "
                          f"{tuple(w_up.shape)}, {tuple(w_down.shape)} do not "
                          f"match x {tuple(x.shape)}")
-    if x.dtype not in _DTYPES or any(w.dtype != x.dtype
-                                     for w in (w_gate, w_up, w_down)):
+    weights = (w_gate, w_up, w_down)
+    if w_scales is not None:
+        check_scales("esffn_glu", weights, w_scales,
+                     _tpu_blocks(d, f, (True, True, False)))
+    if x.dtype not in _DTYPES or (w_scales is None and any(
+            w.dtype != x.dtype for w in weights)):
         raise TypeError(f"esffn_glu takes float32 or bfloat16 x and weights "
                         f"of the same dtype, got {x.dtype}, {w_gate.dtype}")
     np_rows, blk = _check_layout(
         "esffn_glu", x, row_token, row_gate, block_expert, act,
-        (x, row_token, row_gate, block_expert, w_gate, w_up, w_down))
+        (x, row_token, row_gate, block_expert, *weights, *(w_scales or ())))
     return n, d, f, np_rows, blk
 
 
@@ -106,40 +147,57 @@ def esffn_glu(x, row_token, row_gate, block_expert, w_gate, w_up, w_down, *,
     """Fused GLU expert FFN: (N, D) unsorted tokens -> (Np, D) gate-weighted
     sorted output. x: (N, D); row_token/row_gate: (Np,) int32/f32 and
     block_expert: (Np // blk,) int32 from ``core.reindex.build_reindex``;
-    w_gate/w_up: (E, D, F); w_down: (E, F, D)."""
+    w_gate/w_up: (E, D, F); w_down: (E, F, D). ``w_scales``: (sg, su, sd),
+    the f32 block scales of int8/fp8 weights."""
     if w_scales is not None:
-        raise NotImplementedError(QUANT_NOT_PORTED)
+        w_scales = tuple(w_scales)
+        tiles = check_scales("esffn_glu", (w_gate, w_up, w_down), w_scales)
     if x.device.type == "cpu":
         return esffn_glu_plain(x, row_token, row_gate, block_expert,
-                               w_gate, w_up, w_down, act=act)
+                               w_gate, w_up, w_down, w_scales=w_scales,
+                               act=act)
     if x.device.type != "cuda":
         raise ValueError(f"esffn_glu runs on CUDA or CPU, not {x.device}")
     n, d, f, np_rows, blk = _check_cuda_args(
-        x, row_token, row_gate, block_expert, w_gate, w_up, w_down, act)
-    launch = build.load("esffn", "esffn_glu_launch", _ARGTYPES)
+        x, row_token, row_gate, block_expert, w_gate, w_up, w_down, act,
+        w_scales)
     out = torch.empty((np_rows, d), dtype=x.dtype, device=x.device)
     h = torch.empty((np_rows, f), dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), row_token.data_ptr(), row_gate.data_ptr(),
+            block_expert.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(x.data_ptr(), row_token.data_ptr(), row_gate.data_ptr(),
-                     block_expert.data_ptr(), w_gate.data_ptr(),
-                     w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(),
-                     out.data_ptr(), n, d, f, np_rows, blk, _DTYPES[x.dtype],
-                     ACT_IDS[act], stream)
+        if w_scales is None:
+            launch = build.load("esffn", "esffn_glu_launch", _ARGTYPES)
+            err = launch(*ptrs, h.data_ptr(), out.data_ptr(), n, d, f,
+                         np_rows, blk, _DTYPES[x.dtype], ACT_IDS[act], stream)
+        else:
+            (ta_up, tb_up), _, (ta_dn, tb_dn) = tiles
+            launch = build.load("esffn", "esffn_glu_q_launch", _Q_ARGTYPES)
+            err = launch(*ptrs, *(s.data_ptr() for s in w_scales),
+                         h.data_ptr(), out.data_ptr(), n, d, f, np_rows, blk,
+                         _DTYPES[x.dtype], _WDTYPES[w_gate.dtype],
+                         ACT_IDS[act], ta_up, tb_up, ta_dn, tb_dn, stream)
     if err:
         raise RuntimeError(f"esffn_glu kernel launch failed (CUDA error {err})")
     esffn_glu.launches += 1
+    if w_scales is not None:
+        esffn_glu.launches_quant[QUANT_MODES[w_gate.dtype]] += 1
     return out
 
 
 esffn_glu.launches = 0
+esffn_glu.launches_quant = dict.fromkeys(QUANT_MODES.values(), 0)
 
 
 def esffn_mlp_plain(x, row_token, row_gate, block_expert, w1, b1, w2, b2, *,
-                    act: str = "gelu") -> torch.Tensor:
+                    w_scales=None, act: str = "gelu") -> torch.Tensor:
     """Plain PyTorch fused 2-MLP expert FFN: (N, D) tokens -> (Np, D)
     gate-weighted sorted rows. z sums in f32 and takes b1 in f32 before it
-    is rounded to x.dtype; the down product sums in f32 from b2."""
+    is rounded to x.dtype; the down product sums in f32 from b2. 8-bit
+    weights (``w_scales``) are dequantized to f32 first."""
+    w1, w2 = _dequantized((w1, w2), w_scales)
     np_rows = row_token.shape[0]
     nblk = block_expert.shape[0]
     blk = np_rows // nblk
@@ -157,7 +215,7 @@ def esffn_mlp_plain(x, row_token, row_gate, block_expert, w1, b1, w2, b2, *,
 
 
 def _check_mlp_cuda_args(x, row_token, row_gate, block_expert, w1, b1, w2,
-                         b2, act):
+                         b2, act, w_scales=None):
     n, d = x.shape
     e, dw, f = w1.shape
     if dw != d or w2.shape != (e, f, d):
@@ -167,14 +225,18 @@ def _check_mlp_cuda_args(x, row_token, row_gate, block_expert, w1, b1, w2,
         if b is not None and (b.shape != want or not b.is_floating_point()):
             raise ValueError(f"{name} {tuple(b.shape)} {b.dtype} is not a "
                              f"float (E, {want[1]}) bias")
-    if x.dtype not in _DTYPES or w1.dtype != x.dtype or w2.dtype != x.dtype:
+    if w_scales is not None:
+        check_scales("esffn_mlp", (w1, w2), w_scales,
+                     _tpu_blocks(d, f, (True, False)))
+    if x.dtype not in _DTYPES or (w_scales is None and (
+            w1.dtype != x.dtype or w2.dtype != x.dtype)):
         raise TypeError(f"esffn_mlp takes float32 or bfloat16 x and weights "
                         f"of the same dtype, got {x.dtype}, {w1.dtype}, "
                         f"{w2.dtype}")
     np_rows, blk = _check_layout(
         "esffn_mlp", x, row_token, row_gate, block_expert, act,
-        [t for t in (x, row_token, row_gate, block_expert, w1, b1, w2, b2)
-         if t is not None])
+        [t for t in (x, row_token, row_gate, block_expert, w1, b1, w2, b2,
+                     *(w_scales or ())) if t is not None])
     return n, d, f, np_rows, blk
 
 
@@ -183,32 +245,49 @@ def esffn_mlp(x, row_token, row_gate, block_expert, w1, b1, w2, b2, *,
     """Fused 2-MLP expert FFN: (N, D) unsorted tokens -> (Np, D)
     gate-weighted sorted output ``(act(x W1 + b1) W2 + b2) * gate``.
     w1: (E, D, F); w2: (E, F, D) in x.dtype; b1: (E, F) and b2: (E, D) or
-    None, added in f32; row maps as for ``esffn_glu``."""
+    None, added in f32; row maps as for ``esffn_glu``. ``w_scales``: (s1,
+    s2), the f32 block scales of int8/fp8 w1 and w2 (the biases stay full
+    precision)."""
     if w_scales is not None:
-        raise NotImplementedError(QUANT_NOT_PORTED)
+        w_scales = tuple(w_scales)
+        tiles = check_scales("esffn_mlp", (w1, w2), w_scales)
     if x.device.type == "cpu":
         return esffn_mlp_plain(x, row_token, row_gate, block_expert, w1, b1,
-                               w2, b2, act=act)
+                               w2, b2, w_scales=w_scales, act=act)
     if x.device.type != "cuda":
         raise ValueError(f"esffn_mlp runs on CUDA or CPU, not {x.device}")
     n, d, f, np_rows, blk = _check_mlp_cuda_args(
-        x, row_token, row_gate, block_expert, w1, b1, w2, b2, act)
-    launch = build.load("esffn", "esffn_mlp_launch", _MLP_ARGTYPES)
+        x, row_token, row_gate, block_expert, w1, b1, w2, b2, act, w_scales)
     b1, b2 = (None if b is None else b.float() for b in (b1, b2))
     out = torch.empty((np_rows, d), dtype=x.dtype, device=x.device)
     h = torch.empty((np_rows, f), dtype=x.dtype, device=x.device)
+    b1p = None if b1 is None else b1.data_ptr()
+    b2p = None if b2 is None else b2.data_ptr()
+    head = (x.data_ptr(), row_token.data_ptr(), row_gate.data_ptr(),
+            block_expert.data_ptr())
+    tail = (h.data_ptr(), out.data_ptr(), n, d, f, np_rows, blk,
+            _DTYPES[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(x.data_ptr(), row_token.data_ptr(), row_gate.data_ptr(),
-                     block_expert.data_ptr(), w1.data_ptr(),
-                     None if b1 is None else b1.data_ptr(), w2.data_ptr(),
-                     None if b2 is None else b2.data_ptr(), h.data_ptr(),
-                     out.data_ptr(), n, d, f, np_rows, blk, _DTYPES[x.dtype],
-                     ACT_IDS[act], stream)
+        if w_scales is None:
+            launch = build.load("esffn", "esffn_mlp_launch", _MLP_ARGTYPES)
+            err = launch(*head, w1.data_ptr(), b1p, w2.data_ptr(), b2p,
+                         *tail, ACT_IDS[act], stream)
+        else:
+            (ta1, tb1), (ta2, tb2) = tiles
+            s1, s2 = w_scales
+            launch = build.load("esffn", "esffn_mlp_q_launch", _Q_ARGTYPES)
+            err = launch(*head, w1.data_ptr(), s1.data_ptr(), b1p,
+                         w2.data_ptr(), s2.data_ptr(), b2p, *tail,
+                         _WDTYPES[w1.dtype], ACT_IDS[act], ta1, tb1, ta2,
+                         tb2, stream)
     if err:
         raise RuntimeError(f"esffn_mlp kernel launch failed (CUDA error {err})")
     esffn_mlp.launches += 1
+    if w_scales is not None:
+        esffn_mlp.launches_quant[QUANT_MODES[w1.dtype]] += 1
     return out
 
 
 esffn_mlp.launches = 0
+esffn_mlp.launches_quant = dict.fromkeys(QUANT_MODES.values(), 0)

@@ -18,8 +18,13 @@ and ``dy @ Wd^T`` orientation).
   JAX package), accumulated in f32 from the bias and rounded once to
   ``xs.dtype``, as the kernels round.
 
-Quantized weights (``w_scales``) belong to the quantization slice and
-raise here.
+Quantized weights (``w_scales``): W an int8 or fp8 e4m3 payload with f32
+block scales on its own two axes (``quant.core``; (E, K/ta, N/tb), or
+(E, N/ta, K/tb) with ``transpose_rhs``). On a CUDA tensor they go to the
+simt kernel, which dequantizes each W element as it stages it
+(``esmm_q_launch``), counted in ``launches_by_route["simt"]`` and in
+``esmm.launches_quant`` by format; on a CPU tensor ``esmm_plain``
+dequantizes W to f32 first.
 """
 from __future__ import annotations
 
@@ -27,28 +32,40 @@ import ctypes
 
 import torch
 
-from repro_torch.common import QUANT_NOT_PORTED
 from repro_torch.kernels import build
+from repro_torch.quant.core import (QUANT_MODES, check_scales,
+                                    dequantize_blockwise)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: 8-bit weight storage -> esmm_q_launch's wdtype.
+_WDTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_VP] * 5 + [_I] * 8 + [_VP]
+_Q_ARGTYPES = [_VP] * 6 + [_I] * 9 + [_VP]
 _ROUTES = {"simt": 0, "wgmma": 1}
+#: The TPU kernel's K and N blocks: the quant tiles must divide them
+#: (``scale_block_dims``), as ``esmm_pallas`` asserts.
+_TPU_BLOCK = 128
 
 
-def _route(dtype, blk: int, k: int, n: int) -> str:
+def _route(dtype, blk: int, k: int, n: int, quantized: bool = False) -> str:
     """The kernel route for these operands, of esmm (K, N) and estmm
-    (D1, D2) alike: ``"wgmma"`` for bf16 with ``blk % 64 == 0`` and both
-    widths multiples of 8 (TMA takes 16-byte global strides), else
-    ``"simt"`` (f32, or bf16 at blk 8..32)."""
-    if dtype == torch.bfloat16 and blk % 64 == 0 and k % 8 == 0 \
-            and n % 8 == 0:
+    (D1, D2) alike: ``"wgmma"`` for bf16 full-precision weights with
+    ``blk % 64 == 0`` and both widths multiples of 8 (TMA takes 16-byte
+    global strides), else ``"simt"`` (f32, bf16 at blk 8..32, and every
+    call with 8-bit weights)."""
+    if dtype == torch.bfloat16 and not quantized and blk % 64 == 0 \
+            and k % 8 == 0 and n % 8 == 0:
         return "wgmma"
     return "simt"
 
 
-def esmm_plain(xs, w, b, block_expert, *, transpose_rhs: bool = False):
-    """Plain PyTorch grouped matmul on the sorted layout: (Np, K) -> (Np, N)."""
+def esmm_plain(xs, w, b, block_expert, *, w_scales=None,
+               transpose_rhs: bool = False):
+    """Plain PyTorch grouped matmul on the sorted layout: (Np, K) -> (Np, N).
+    An 8-bit W (``w_scales``) is dequantized to f32 first."""
+    if w_scales is not None:
+        w = dequantize_blockwise(w, w_scales)
     np_rows = xs.shape[0]
     nblk = block_expert.shape[0]
     be = block_expert.long()
@@ -61,7 +78,7 @@ def esmm_plain(xs, w, b, block_expert, *, transpose_rhs: bool = False):
     return acc.to(xs.dtype).reshape(np_rows, -1)
 
 
-def _check_cuda_args(xs, w, b, block_expert, transpose_rhs):
+def _check_cuda_args(xs, w, b, block_expert, transpose_rhs, w_scales=None):
     if xs.ndim != 2 or w.ndim != 3:
         raise ValueError(f"esmm takes xs (Np, K) and w (E, K, N), got "
                          f"{tuple(xs.shape)}, {tuple(w.shape)}")
@@ -74,8 +91,12 @@ def _check_cuda_args(xs, w, b, block_expert, transpose_rhs):
                          f"{tuple(xs.shape)}")
     if b is not None and b.shape != (e, n):
         raise ValueError(f"bias {tuple(b.shape)} is not (E, N) = ({e}, {n})")
-    if xs.dtype not in _DTYPES or w.dtype != xs.dtype or (
-            b is not None and b.dtype not in (xs.dtype, torch.float32)):
+    if w_scales is not None:
+        bk, bn = min(_TPU_BLOCK, k), min(_TPU_BLOCK, n)
+        check_scales("esmm", (w,), (w_scales,),
+                     [(bn, bk) if transpose_rhs else (bk, bn)])
+    if xs.dtype not in _DTYPES or (w_scales is None and w.dtype != xs.dtype) \
+            or (b is not None and b.dtype not in (xs.dtype, torch.float32)):
         raise TypeError(f"esmm takes float32 or bfloat16 xs and w of one "
                         f"dtype and a bias of that dtype or float32, got "
                         f"{xs.dtype}, {w.dtype}, "
@@ -89,12 +110,12 @@ def _check_cuda_args(xs, w, b, block_expert, transpose_rhs):
     if blk % 8 or not 8 <= blk <= 128:
         raise ValueError(f"blk {blk}: the kernel takes multiples of 8 up "
                          f"to 128")
-    tensors = [t for t in (xs, w, b, block_expert) if t is not None]
+    tensors = [t for t in (xs, w, b, block_expert, w_scales) if t is not None]
     if any(t.device != xs.device for t in tensors):
         raise ValueError("esmm operands lie on different devices")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("esmm operands must be contiguous")
-    if _route(xs.dtype, blk, k, n) == "wgmma" and (
+    if _route(xs.dtype, blk, k, n, w_scales is not None) == "wgmma" and (
             xs.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("esmm's wgmma route loads xs and w with TMA, "
                          "which needs 16-byte aligned base addresses")
@@ -107,35 +128,47 @@ def esmm(xs, w, b, block_expert, *, w_scales=None,
 
     xs: (Np, K); w: (E, K, N), or (E, N, K) with ``transpose_rhs``;
     b: (E, N) or None, in xs.dtype or f32 (added in f32, as the TPU
-    kernel adds it); block_expert: (Np // blk,) int32. Returns (Np, N) in
+    kernel adds it); block_expert: (Np // blk,) int32; ``w_scales``: the
+    f32 block scales of an int8/fp8 W, on W's own axes. Returns (Np, N) in
     ``xs.dtype``, accumulated in f32."""
     if w_scales is not None:
-        raise NotImplementedError(QUANT_NOT_PORTED)
+        ((ta, tb),) = check_scales("esmm", (w,), (w_scales,))
     if xs.device.type == "cpu":
-        return esmm_plain(xs, w, b, block_expert, transpose_rhs=transpose_rhs)
+        return esmm_plain(xs, w, b, block_expert, w_scales=w_scales,
+                          transpose_rhs=transpose_rhs)
     if xs.device.type != "cuda":
         raise ValueError(f"esmm runs on CUDA or CPU, not {xs.device}")
     np_rows, k, n, blk = _check_cuda_args(xs, w, b, block_expert,
-                                          transpose_rhs)
-    route = _route(xs.dtype, blk, k, n)
-    launch = build.load("esmm", "esmm_launch", _ARGTYPES)
+                                          transpose_rhs, w_scales)
+    route = _route(xs.dtype, blk, k, n, w_scales is not None)
     if b is not None:
         b = b.float()                     # the kernel reads the bias in f32
     ys = torch.empty((np_rows, n), dtype=xs.dtype, device=xs.device)
+    bp = None if b is None else b.data_ptr()
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(xs.data_ptr(), w.data_ptr(),
-                     None if b is None else b.data_ptr(),
-                     block_expert.data_ptr(), ys.data_ptr(), np_rows, k, n,
-                     blk, int(transpose_rhs), _DTYPES[xs.dtype],
-                     _ROUTES[route], w.shape[0], stream)
+        if w_scales is None:
+            launch = build.load("esmm", "esmm_launch", _ARGTYPES)
+            err = launch(xs.data_ptr(), w.data_ptr(), bp,
+                         block_expert.data_ptr(), ys.data_ptr(), np_rows, k,
+                         n, blk, int(transpose_rhs), _DTYPES[xs.dtype],
+                         _ROUTES[route], w.shape[0], stream)
+        else:
+            launch = build.load("esmm", "esmm_q_launch", _Q_ARGTYPES)
+            err = launch(xs.data_ptr(), w.data_ptr(), w_scales.data_ptr(), bp,
+                         block_expert.data_ptr(), ys.data_ptr(), np_rows, k,
+                         n, blk, int(transpose_rhs), _DTYPES[xs.dtype],
+                         _WDTYPES[w.dtype], ta, tb, stream)
     if err:
         raise RuntimeError(f"esmm kernel launch failed on the {route} route "
                            f"(CUDA error {err})")
     esmm.launches += 1
     esmm.launches_by_route[route] += 1
+    if w_scales is not None:
+        esmm.launches_quant[QUANT_MODES[w.dtype]] += 1
     return ys
 
 
 esmm.launches = 0
 esmm.launches_by_route = dict.fromkeys(_ROUTES, 0)
+esmm.launches_quant = dict.fromkeys(QUANT_MODES.values(), 0)

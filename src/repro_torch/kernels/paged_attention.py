@@ -10,8 +10,13 @@
   ``paged_attention_ref``): gather each slot's pages to a dense
   (B, maxp*page) view and run masked softmax attention.
 
-int8 pools (``k_scale``/``v_scale``) belong to the quantization slice and
-raise here.
+int8 pools (``k_scale``/``v_scale``, one f32 scale per (row, kv head),
+``quant.core.quantize_rows``): on a CUDA tensor the same kernel reads the
+int8 rows and their scales and dequantizes them as they land in shared
+memory (``paged_attention_q_launch``), counted in ``launches`` and in
+``paged_attention.launches_quant["int8"]``; on a CPU tensor
+``paged_attention_ref`` dequantizes the gathered pages to q's dtype first,
+as the JAX reference does.
 """
 from __future__ import annotations
 
@@ -21,12 +26,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.quant.core import dequantize_rows
 
 NEG_INF = -2.0e38
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_VP] * 6 + [_I] * 7 + [_F, _F, _I, _VP]
+_Q_ARGTYPES = [_VP] * 8 + [_I] * 7 + [_F, _F, _I, _VP]
 
 
 def paged_attention_ref(
@@ -36,13 +43,16 @@ def paged_attention_ref(
     page_table: torch.Tensor,  # (B, maxp) int32
     lengths: torch.Tensor,     # (B,) int32, live tokens incl. the current one
     *,
+    k_scale: Optional[torch.Tensor] = None,   # (npages, page, Hkv) f32
+    v_scale: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     softcap: float = 0.0,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Gather-dense paged decode attention: f32 logits, masked softmax,
     probabilities rounded to the pool dtype before the value product (as
-    the JAX reference does), an empty slot gives zeros."""
+    the JAX reference does), an empty slot gives zeros. int8 pools are
+    dequantized page by gathered page to q's dtype."""
     b, _, hq, hd = q.shape
     _, page, hkv, _ = k_pool.shape
     maxp = page_table.shape[1]
@@ -50,8 +60,15 @@ def paged_attention_ref(
     scale = hd ** -0.5 if scale is None else scale
     s = maxp * page
     pt = page_table.long()
-    k_v = k_pool[pt].reshape(b, s, hkv, hd)
-    v_v = v_pool[pt].reshape(b, s, hkv, hd)
+
+    def view(pool, sc):
+        gathered = pool[pt]                   # (B, maxp, page, Hkv, hd)
+        if sc is not None:
+            gathered = dequantize_rows(gathered, sc[pt], dtype=q.dtype)
+        return gathered.reshape(b, s, hkv, hd)
+
+    k_v = view(k_pool, k_scale)
+    v_v = view(v_pool, v_scale)
     qg = q.reshape(b, hkv, g, hd)
     logits = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_v.float()) * scale
     if softcap:
@@ -68,23 +85,44 @@ def paged_attention_ref(
     return out.reshape(b, 1, hq, hd).to(q.dtype)
 
 
-def _check_cuda_args(q, k_pool, v_pool, page_table, lengths):
+def _check_scales(k_pool, v_pool, k_scale, v_scale):
+    """int8 pools go with f32 per-(row, kv head) scale pools."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    if k_scale is None:
+        return
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise TypeError(f"scaled pools are int8, got {k_pool.dtype}, "
+                        f"{v_pool.dtype}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError("k_scale and v_scale must be float32")
+    if k_scale.shape != k_pool.shape[:3] or v_scale.shape != v_pool.shape[:3]:
+        raise ValueError(f"scale pools {tuple(k_scale.shape)}, "
+                         f"{tuple(v_scale.shape)} are not (npages, page, "
+                         f"Hkv) of pools {tuple(k_pool.shape)}")
+
+
+def _check_cuda_args(q, k_pool, v_pool, page_table, lengths, k_scale=None,
+                     v_scale=None):
     b, one, hq, hd = q.shape
     _, page, hkv, hd_k = k_pool.shape
     if one != 1 or hd_k != hd or v_pool.shape != k_pool.shape or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit pools "
                          f"{tuple(k_pool.shape)}")
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
+    _check_scales(k_pool, v_pool, k_scale, v_scale)
+    pool_dtype = q.dtype if k_scale is None else torch.int8
+    if q.dtype not in _DTYPES or k_pool.dtype != pool_dtype \
+            or v_pool.dtype != pool_dtype:
         raise TypeError(f"paged_attention takes float32 or bfloat16 q and "
-                        f"pools of the same dtype, got {q.dtype}, "
-                        f"{k_pool.dtype}")
+                        f"pools of the same dtype (or int8 with scales), got "
+                        f"{q.dtype}, {k_pool.dtype}")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_table and lengths must be int32")
     if page_table.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match {b} slots")
-    tensors = (q, k_pool, v_pool, page_table, lengths)
+    tensors = [t for t in (q, k_pool, v_pool, page_table, lengths, k_scale,
+                           v_scale) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_attention operands lie on different devices")
     if any(not t.is_contiguous() for t in tensors):
@@ -106,32 +144,42 @@ def paged_attention(
 ) -> torch.Tensor:
     """One query row per slot against its K/V pages: q (B, 1, Hq, hd),
     pools (npages, page, Hkv, hd), page_table (B, maxp) int32, lengths (B,)
-    int32 -> (B, 1, Hq, hd)."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV pools (k_scale/v_scale) are not ported yet "
-            "(ROADMAP.md: quantization slice)")
+    int32 -> (B, 1, Hq, hd). int8 pools take their f32 scale pools
+    ``k_scale``/``v_scale`` (npages, page, Hkv)."""
+    _check_scales(k_pool, v_pool, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
+                                   k_scale=k_scale, v_scale=v_scale,
                                    window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on CUDA or CPU, not {q.device}")
     b, hq, hkv, hd, page, maxp = _check_cuda_args(
-        q, k_pool, v_pool, page_table, lengths)
-    launch = build.load("paged_attention", "paged_attention_launch", _ARGTYPES)
+        q, k_pool, v_pool, page_table, lengths, k_scale, v_scale)
     out = torch.empty_like(q)
+    tail = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hq,
+            hkv, hd, page, maxp, int(window or 0), float(softcap or 0.0),
+            float(hd ** -0.5), _DTYPES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                     page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                     b, hq, hkv, hd, page, maxp, int(window or 0),
-                     float(softcap or 0.0), float(hd ** -0.5),
-                     _DTYPES[q.dtype], stream)
+        if k_scale is None:
+            launch = build.load("paged_attention", "paged_attention_launch",
+                                _ARGTYPES)
+            err = launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                         *tail, stream)
+        else:
+            launch = build.load("paged_attention", "paged_attention_q_launch",
+                                _Q_ARGTYPES)
+            err = launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                         k_scale.data_ptr(), v_scale.data_ptr(), *tail,
+                         stream)
     if err:
         raise RuntimeError(
             f"paged_attention kernel launch failed (CUDA error {err})")
     paged_attention.launches += 1
+    if k_scale is not None:
+        paged_attention.launches_quant["int8"] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_quant = {"int8": 0}

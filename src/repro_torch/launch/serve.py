@@ -6,7 +6,10 @@ shared KV page pool; admission is by free-page budget (worst-case pages
 reserved up front, so FIFO decode never starves the pool mid-request);
 prompts prefill in batch-1 chunks interleaved with the decode steps, with
 pages granted a chunk's worth at a time and on demand at decode page
-boundaries. Greedy decoding only.
+boundaries. Greedy decoding only. ``--quant int8|fp8`` serves block-wise
+8-bit expert weights (quantized layer by layer as the model is drawn) and
+``--kv-quant int8`` int8 KV pages with per-row scales, each through the
+kernels' 8-bit branches.
 
 Not in this slice (ROADMAP.md): the dense ``BatchedServer``, sampled
 decoding, hetero page shares, prefix cache, disaggregation, speculative
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs as cfglib
-from repro_torch.common import cdiv, resolve_device
+from repro_torch.common import cdiv, resolve_device, torch_dtype, tree_leaves
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
 from repro_torch.parallel.cache import PagePool
@@ -84,11 +87,13 @@ class PagedServer:
     stacks pages wholly behind the window return to the pool mid-request.
     The K/V pools and lengths live on ``device`` (the GPU unless
     ``device="cpu"``); tables and the schedule live on the host.
+    ``kv_quant="int8"``: the pools hold int8 rows with per-(row, kv head)
+    f32 scales, and admission budgets in the smaller int8 page bytes.
     """
 
     def __init__(self, cfg, pcfg, *, num_slots: int, page_size: int,
                  num_pages: int, max_pages_per_slot: int, params,
-                 prefill_chunk: int = 16, device=None):
+                 prefill_chunk: int = 16, kv_quant=None, device=None):
         self.cfg, self.pcfg = cfg, pcfg
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -99,9 +104,11 @@ class PagedServer:
         self.max_pages_per_slot = max_pages_per_slot
         self.prefill_chunk = prefill_chunk
         self.params = params
+        self.kv_quant = None if kv_quant in (None, "none") else kv_quant
         self.cache = lm.init_paged_cache(cfg, num_slots, num_pages, page_size,
-                                         self.device)
-        self.page_bytes = lm.paged_kv_page_bytes(cfg, page_size)
+                                         self.device, kv_quant=self.kv_quant)
+        self.page_bytes = lm.paged_kv_page_bytes(cfg, page_size,
+                                                 kv_quant=self.kv_quant)
         self.pool = PagePool(num_pages, page_bytes=self.page_bytes)
         # Window page reclamation: when EVERY attention layer is windowed,
         # a page wholly behind the window is dead and returns to the pool.
@@ -266,6 +273,23 @@ class PagedServer:
 # CLI
 # ---------------------------------------------------------------------------
 
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _unquantized_bytes(params: dict, dtype: torch.dtype) -> int:
+    """The bytes ``params`` would take with its 8-bit expert payloads in
+    ``dtype`` and no scales: the full-precision tree's."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    total = _tree_bytes(params)
+    for layer in params["layers"]:
+        for name, t in layer["ffn"].items():
+            if name.endswith("_scale"):
+                payload = layer["ffn"][name[:-len("_scale")]]
+                total += payload.numel() * (itemsize - 1) - \
+                    t.numel() * t.element_size()
+    return total
+
 def main(argv=None):
     """CLI entry point: paged continuous batching of random prompts
     through a seeded random-weight model."""
@@ -288,7 +312,16 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "int8", "fp8"],
+                    help="serve block-wise int8/fp8 expert weights through "
+                         "the kernels' 8-bit branches")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
+                    help="store paged-KV pages as int8 rows + per-row "
+                         "scales (--paged only)")
     args = ap.parse_args(argv)
+    if args.kv_quant != "none" and not args.paged:
+        ap.error("--kv-quant requires --paged")
     if not args.paged:
         raise NotImplementedError(
             "dense BatchedServer not yet ported; run with --paged "
@@ -298,14 +331,25 @@ def main(argv=None):
            else cfglib.get_config(args.arch))
     pcfg = ParallelConfig(blk=16)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = lm.init_params(cfg, generator=gen, device=device)
+    if args.quant != "none":
+        # quantized layer by layer as drawn: the full-precision tree (61 GB
+        # at qwen3-moe-30b-a3b's width) never sits beside its int8 copy
+        params = lm.init_params(cfg, generator=gen, device=device,
+                                quant=args.quant)
+        before = _unquantized_bytes(params, torch_dtype(cfg.dtype))
+        print(f"[serve] expert weights -> {args.quant}: params "
+              f"{before / 1e6:.1f}MB -> "
+              f"{_tree_bytes(params) / 1e6:.1f}MB")
+    else:
+        params = lm.init_params(cfg, generator=gen, device=device)
     pages = args.pages or (
         args.slots * cdiv(args.max_seq, args.page_size) // 2 + 1)
     server = PagedServer(
         cfg, pcfg, num_slots=args.slots, page_size=args.page_size,
         num_pages=pages,
         max_pages_per_slot=cdiv(args.max_seq, args.page_size),
-        params=params, prefill_chunk=args.prefill_chunk, device=device)
+        params=params, prefill_chunk=args.prefill_chunk,
+        kv_quant=args.kv_quant, device=device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         server.submit(Request(
@@ -325,7 +369,8 @@ def main(argv=None):
               f"{np.percentile(ts, 90) * 1e3:.1f}ms over {len(ts)} steps")
     st = server.stats()
     print(f"[serve] page pool: {st['peak_in_use_pages']} peak pages "
-          f"({st['peak_in_use_bytes'] / 1024:.1f} KiB KV resident) of "
+          f"({st['peak_in_use_bytes'] / 1024:.1f} KiB KV resident, "
+          f"{server.page_bytes} B a {server.kv_quant or cfg.dtype} page) of "
           f"{st['num_pages'] - 1} allocatable; {st['total_allocs']} allocs, "
           f"leak-free={st['free_pages'] == st['num_pages'] - 1}")
     for r in done[:3]:

@@ -19,6 +19,7 @@ from repro_torch.common import torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.parallel.sharding import ParallelConfig, normal_init
+from repro_torch.quant.core import quantize_ffn
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -53,18 +54,26 @@ def init_block(cfg: ModelConfig, dtype, generator, device) -> dict:
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
-                device) -> dict:
+                device, quant: Optional[str] = None) -> dict:
     """Full parameter tree, drawn from ``generator`` (on ``device``): the
-    JAX package's shapes and its 0.02-std normal, not its numbers."""
+    JAX package's shapes and its 0.02-std normal, not its numbers.
+    ``quant`` ("int8" | "fp8"): each MoE layer's expert weights are
+    quantized (``quant.core.quantize_ffn``) as soon as the layer is drawn,
+    so the full-precision tree never exists; the weights equal
+    ``quantize_lm_params`` of the tree drawn without it."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     p = {
         "embed": normal_init((cfg.vocab_size, cfg.d_model), dtype, generator,
                              device),
         "final_norm": tfm.init_norm(cfg, device),
-        "layers": [init_block(cfg, dtype, generator, device)
-                   for _ in range(cfg.num_layers)],
+        "layers": [],
     }
+    for i in range(cfg.num_layers):
+        block = init_block(cfg, dtype, generator, device)
+        if quant not in (None, "none") and cfg.is_moe_layer(i):
+            block["ffn"] = quantize_ffn(block["ffn"], mode=quant)
+        p["layers"].append(block)
     if not cfg.tie_embeddings:
         p["head"] = normal_init((cfg.d_model, cfg.vocab_size), dtype,
                                 generator, device)
@@ -75,33 +84,52 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 # paged serving cache
 # ---------------------------------------------------------------------------
 
+def _check_kv_quant(kv_quant: Optional[str]) -> bool:
+    if kv_quant not in (None, "none", "int8"):
+        raise ValueError(f"unsupported kv_quant {kv_quant!r}")
+    return kv_quant == "int8"
+
+
 def paged_cache_spec(cfg: ModelConfig, num_slots: int, num_pages: int,
-                     page_size: int) -> dict:
+                     page_size: int, kv_quant: Optional[str] = None) -> dict:
     """Shapes and dtypes of the paged decode cache: per attention layer a
     SHARED pool of ``num_pages`` pages, ``(num_pages, page_size, Hkv, hd)``
     for K and for V (physical page 0 is the write sink for inactive slots),
-    and the per-slot resident length."""
-    pool = ((num_pages, page_size, cfg.num_kv_heads, cfg.hd),
-            torch_dtype(cfg.dtype))
-    return {"layers": [{"k": pool, "v": pool} for _ in range(cfg.num_layers)],
+    and the per-slot resident length. ``kv_quant="int8"``: int8 pools plus
+    f32 ``k_scale``/``v_scale`` pools ``(num_pages, page_size, Hkv)`` of
+    per-(row, kv head) scales."""
+    quant = _check_kv_quant(kv_quant)
+    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.hd)
+    pool = (shape, torch.int8 if quant else torch_dtype(cfg.dtype))
+    entry = {"k": pool, "v": pool}
+    if quant:
+        entry["k_scale"] = entry["v_scale"] = (shape[:3], torch.float32)
+    return {"layers": [dict(entry) for _ in range(cfg.num_layers)],
             "len": ((num_slots,), torch.int32)}
 
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
-                     page_size: int, device) -> dict:
-    spec = paged_cache_spec(cfg, num_slots, num_pages, page_size)
+                     page_size: int, device,
+                     kv_quant: Optional[str] = None) -> dict:
+    spec = paged_cache_spec(cfg, num_slots, num_pages, page_size, kv_quant)
     zeros = lambda sd: torch.zeros(sd[0], dtype=sd[1], device=device)  # noqa: E731
     return {"layers": [{k: zeros(sd) for k, sd in layer.items()}
                        for layer in spec["layers"]],
             "len": zeros(spec["len"])}
 
 
-def paged_kv_page_bytes(cfg: ModelConfig, page_size: int) -> int:
+def paged_kv_page_bytes(cfg: ModelConfig, page_size: int,
+                        kv_quant: Optional[str] = None) -> int:
     """Device bytes ONE physical page costs across every attention layer —
-    the unit ``parallel.cache.PagePool`` budgets admission in."""
+    the unit ``parallel.cache.PagePool`` budgets admission in. With
+    ``kv_quant="int8"`` a K or V row costs ``Hkv * (hd + 4)`` bytes: the
+    int8 payload and one f32 scale per kv head."""
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
     itemsize = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
-    return n_attn * 2 * page_size * cfg.num_kv_heads * cfg.hd * itemsize
+    row = cfg.num_kv_heads * cfg.hd * itemsize
+    if _check_kv_quant(kv_quant):
+        row = cfg.num_kv_heads * (cfg.hd + 4)
+    return n_attn * 2 * page_size * row
 
 
 def reset_slot(cfg: ModelConfig, cache: dict, slot: int,

@@ -18,6 +18,7 @@ from repro_torch.kernels.paged_attention import NEG_INF, paged_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.parallel.moe_parallel import MoEStatic, moe_layer
 from repro_torch.parallel.sharding import ParallelConfig, normal_init
+from repro_torch.quant.core import dequantize_rows, quantize_rows
 
 
 @dataclasses.dataclass
@@ -125,7 +126,11 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
     to the sink page 0) and the read runs ``kernels.paged_attention``.
     prefill: a chunk continuing at ``cache_len``; its rows are scattered
     into the granted pages (rows past the valid count go to the sink) and
-    the chunk attends causally over the gathered logical view."""
+    the chunk attends causally over the gathered logical view.
+    int8 pools (a cache with ``k_scale``/``v_scale``): each written row is
+    quantized with its own per-(row, kv head) scale (``quantize_rows``);
+    decode hands the scale pools to ``paged_attention``, prefill reads a
+    view dequantized to q's dtype."""
     cfg = ctx.cfg
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -152,7 +157,21 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
     table = ctx.paged["table"]                        # (B, maxp) int32
     maxp = table.shape[1]
     k_pool, v_pool = cache["k"], cache["v"]
+    k_sc, v_sc = cache.get("k_scale"), cache.get("v_scale")
     rows = torch.arange(b, device=x.device)
+
+    def write(idx, k_rows, v_rows):
+        """K/V rows into the pools at ``idx`` (in place), quantized with
+        their own scales where the pools are int8."""
+        if k_sc is None:
+            k_pool[idx] = k_rows.to(k_pool.dtype)
+            v_pool[idx] = v_rows.to(v_pool.dtype)
+            return
+        kq, ks = quantize_rows(k_rows)
+        vq, vs = quantize_rows(v_rows)
+        k_pool[idx], k_sc[idx] = kq, ks
+        v_pool[idx], v_sc[idx] = vq, vs
+
     # Indices past the table clamp, as JAX's gathers do; the rows they
     # address are inactive and redirected to the sink page.
     if ctx.mode == "decode":
@@ -164,11 +183,11 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
         logical = (length // page).clamp(max=maxp - 1).long()
         phys = torch.where(active, table[rows, logical], 0).long()
         off = (length % page).long()
-        k_pool[phys, off] = k[:, 0].to(k_pool.dtype)
-        v_pool[phys, off] = v[:, 0].to(v_pool.dtype)
+        write((phys, off), k[:, 0], v[:, 0])
         lengths = (length + active.int()).to(torch.int32)
         out = paged_attention(q, k_pool, v_pool, table, lengths,
-                              window=window, softcap=cfg.logit_softcap)
+                              k_scale=k_sc, v_scale=v_sc, window=window,
+                              softcap=cfg.logit_softcap)
     elif ctx.mode == "prefill":
         active = ctx.decode_active                     # (B, S) valid rows
         if active is None:
@@ -178,15 +197,19 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
         logical = (pos_abs // page).clamp(max=maxp - 1)
         phys = torch.where(active, table[rows[:, None], logical], 0).long()
         off = pos_abs % page
-        k_pool[phys.reshape(-1), off.reshape(-1)] = \
-            k.reshape(b * s, hkv, hd).to(k_pool.dtype)
-        v_pool[phys.reshape(-1), off.reshape(-1)] = \
-            v.reshape(b * s, hkv, hd).to(v_pool.dtype)
+        write((phys.reshape(-1), off.reshape(-1)), k.reshape(b * s, hkv, hd),
+              v.reshape(b * s, hkv, hd))
 
         s_all = maxp * page
         pt = table.long()
-        k_view = k_pool[pt].reshape(b, s_all, hkv, hd)
-        v_view = v_pool[pt].reshape(b, s_all, hkv, hd)
+
+        def view(pool, sc):
+            if sc is None:
+                return pool[pt].reshape(b, s_all, hkv, hd)
+            return dequantize_rows(pool[pt], sc[pt], dtype=q.dtype).reshape(
+                b, s_all, hkv, hd)
+
+        k_view, v_view = view(k_pool, k_sc), view(v_pool, v_sc)
         g = hq // hkv
         qg = q.reshape(b, s, hkv, g, hd)
         logits = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(),

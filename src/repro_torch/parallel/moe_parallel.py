@@ -5,9 +5,13 @@ flattens (B, S, D) to tokens and runs the local body of
 ``hexa_moe_island`` — ``espec.hexa_moe_ffn``: route, expert-sorted
 re-index, fused expert FFN (GLU, or 2-MLP with biases), combine. The
 layer's parameters are a dict: 'router' plus 'w_gate'/'w_up'/'w_down'
-(``MoEStatic.glu``) or 'w1'/'b1'/'w2'/'b2' (the JAX ``MoEParams`` fields).
-The mesh islands (model-/data-centric dispatch, hetero masking, EP) belong
-to a later slice.
+(``MoEStatic.glu``) or 'w1'/'b1'/'w2'/'b2' (the JAX ``MoEParams`` fields),
+and for true-quantized experts (int8/fp8 payloads) their '<name>_scale'
+block scales beside them, which the island passes through whole: with no
+mesh every expert weight is whole on the device, which is what the JAX
+island requires of them (no fsdp/tp over expert weights). The mesh islands
+(model-/data-centric dispatch, hetero masking, EP) belong to a later
+slice.
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ class MoEStatic(NamedTuple):
 
 def hexa_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
                     cfg: ParallelConfig):
-    """Local tokens x (N, D) -> (y, aux_loss, z_loss)."""
+    """Local tokens x (N, D) -> (y, aux_loss, z_loss). Scale leaves of
+    quantized experts in ``p`` go with their payloads to
+    ``espec.hexa_moe_ffn``."""
     out = espec.hexa_moe_ffn(
         x, p, num_experts=ms.num_experts, top_k=ms.top_k, act=ms.act,
         glu=ms.glu, blk=cfg.blk, norm_topk=ms.norm_topk,

@@ -190,5 +190,8 @@ def test_kernel_argument_checks():
             tesffn._check_cuda_args(*bad, "silu")
     with pytest.raises(ValueError):
         tesffn._check_cuda_args(*_args(), "swish")
-    with pytest.raises(NotImplementedError):
-        tesffn.esffn_glu(*_args(), w_scales=(1, 2, 3))
+    # block scales go with 8-bit payloads (tests/test_torch_quant.py holds
+    # the quantized branch itself)
+    with pytest.raises(TypeError, match="int8"):
+        tesffn.esffn_glu(*_args(), w_scales=tuple(
+            torch.ones((E, 1, 1)) for _ in range(3)))

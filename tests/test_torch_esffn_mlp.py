@@ -277,11 +277,17 @@ def test_top1_gates_are_one_and_router_learns_from_aux_alone():
 
 
 def test_quantized_mlp_experts_raise():
+    """Quantized MLP experts run (tests/test_torch_quant.py holds them to
+    JAX); what raises is a half-quantized dict (no ``w2_scale``, as the
+    JAX layer's lookup fails) and scales beside full-precision weights."""
     w = {k: _to(v) for k, v in _weights().items()}
     w["w1_scale"] = torch.ones((E, 1, 1))
-    with pytest.raises(NotImplementedError, match="quantization"):
-        tespec.hexa_moe_ffn(_to(np.zeros((N, D))), w, num_experts=E,
-                            top_k=K, act="gelu", glu=False, blk=8)
+    kw = dict(num_experts=E, top_k=K, act="gelu", glu=False, blk=8)
+    with pytest.raises(KeyError, match="w2_scale"):
+        tespec.hexa_moe_ffn(_to(np.zeros((N, D))), w, **kw)
+    w["w2_scale"] = torch.ones((E, 1, 1))
+    with pytest.raises(TypeError, match="int8"):
+        tespec.hexa_moe_ffn(_to(np.zeros((N, D))), w, **kw)
 
 
 def _mlp_args(np_rows=32, nblk=4, dtype=torch.float32, biases=True):
@@ -325,8 +331,8 @@ def test_esffn_mlp_argument_checks():
         with pytest.raises(err):
             check(*args)
     a = _mlp_args()
-    with pytest.raises(NotImplementedError, match="quantization"):
-        tesffn.esffn_mlp(*a[:8], w_scales=(1, 1))
+    with pytest.raises(TypeError, match="int8"):   # scales, f32 weights
+        tesffn.esffn_mlp(*a[:8], w_scales=(torch.ones((E, 1, 1)),) * 2)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tesffn.esffn_mlp(*[t.to("meta") if isinstance(t, torch.Tensor)
                            else t for t in a[:8]])

@@ -168,7 +168,7 @@ def test_esmm_argument_checks():
     for args, err in bad:
         with pytest.raises(err):
             tesmm._check_cuda_args(*args)
-    with pytest.raises(NotImplementedError, match="quantization"):
+    with pytest.raises(TypeError, match="int8"):   # scales, f32 weights
         tesmm.esmm(xs, w, b, be, w_scales=torch.ones(3, 1, 1))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tesmm.esmm(xs.to("meta"), w.to("meta"), None, be.to("meta"))

@@ -94,6 +94,6 @@ def test_kernel_argument_checks():
         tpa._check_cuda_args(q, kp, vp[:, :, :1], table, lengths)
     with pytest.raises(ValueError):
         tpa._check_cuda_args(q, kp, vp, table, lengths[:2])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="int8"):   # scales, float pools
         tpa.paged_attention(q, kp, vp, table, lengths, k_scale=kp[..., 0],
                             v_scale=vp[..., 0])
