@@ -17,7 +17,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    blk 128 once; ``paged_attention`` at B 8, Hq 32, Hkv 4, hd 128, page 16
    over ragged lengths (one of them 0) and a page two slots share, with and
    without a window and softcap. Times are medians of CUDA-event-timed
-   launches after warm-up, with the L2 cache flushed before each.
+   launches after warm-up, with the L2 cache flushed before each. Then
+   untimed ``esffn_glu`` checks against the plain version: the wgmma
+   route at blk 128 and 64 over ragged D x F (``ESFFN_CHECK_WIDTHS``),
+   and the stream route at mixtral-8x7b's expert widths (``ESFFN_WIDE``)
+   in bf16, f32 and int8.
    Q1. The 8-bit branches against their plain versions (which dequantize,
    then run the unquantized plain function), timed the same way with
    their bounds from the 8-bit bytes: ``esffn_glu`` with int8 and fp8
@@ -123,16 +127,19 @@ path of either package calls it, so its public entry point is its path):
 12. ``flash_attention`` at the ``FLASH_CASES`` (qwen3-moe-30b-a3b's
    attention width at the LM train batch, the head case, and at S 4096;
    gemma3-12b, musicgen-large and gemma-2b heads; one f32 full case): each
-   case through the entry point once with the launch count set to 0 before
-   and read after, then against ``flash_attention_plain`` (bf16 element by
+   case through the entry point once with the launch counts set to 0 before
+   and read after (bf16 on the ``wgmma`` route, f32 on ``simt``), then
+   against ``flash_attention_plain`` (bf16 element by
    element within one output ulp, ``FLASH_BF16_RTOL`` and
    ``FLASH_BF16_ATOL``; f32 within ``FLASH_F32_TOL`` x max|plain|; the head
    case also against the port's ``chunked_attention``), timed as phase 3,
    with ``scaled_dot_product_attention`` as the library yardstick (the
    backend that ran is recorded, and its output is read by the same
-   check); then the untimed ``FLASH_CHECK_CASES`` (f32 causal at the head
-   shape and at hd 256, and S that leaves partial tiles) against the plain
-   version.
+   check); the head case's plain output with p rounded to bf16 before
+   P V must fail that check (the negative control of the kernel's split
+   P V); then the untimed ``FLASH_CHECK_CASES`` (f32 causal at the head
+   shape and at hd 256, and S that leaves partial tiles on both routes
+   at hd 64, 128 and 256) against the plain version.
 
 It then prints the kernels' JSON line (the 8-bit branches as entries of
 their own), and last
@@ -223,6 +230,9 @@ FLASH_CHECK_CASES = (                  # (B, S, Hq, Hkv, hd, dtype, causal)
     (2, 200, 8, 2, 128, "float32", False),
     (1, 96, 4, 1, 256, "bfloat16", True),
     (1, 80, 4, 4, 64, "float32", True),
+    (2, 200, 8, 2, 128, "bfloat16", True),
+    (2, 200, 8, 2, 128, "bfloat16", False),
+    (1, 80, 4, 4, 64, "bfloat16", True),
 )
 
 
@@ -280,8 +290,12 @@ def esffn_cases(torch, flush):
         ri = build_reindex(r.expert_idx, r.gates, e, blk)
         args = (x, ri.row_token, ri.row_gate, ri.block_expert, *ws)
         plain = esffn.esffn_glu_plain(*args)
-        kern = esffn.esffn_glu(*args)
-        torch.cuda.synchronize()
+        kern, kroute = _routed(torch, lambda: esffn.esffn_glu(*args),
+                               esffn.esffn_glu)
+        want = "wgmma" if blk == 128 and dtype == "bfloat16" else "stream"
+        if kroute != want:
+            raise AssertionError(f"esffn_glu N={n} blk={blk} {dtype}: took "
+                                 f"the {kroute} route, not {want}")
         if not torch.isfinite(kern).all():
             raise AssertionError(f"esffn_glu N={n} blk={blk} {dtype}: non-finite")
         err = (kern.float() - plain.float()).abs().max().item()
@@ -302,7 +316,8 @@ def esffn_cases(torch, flush):
             "shape": {"N": n, "D": d, "E": e, "F": f, "top_k": k, "blk": blk,
                       "Np": np_rows, "live_blocks": int(live.sum()),
                       "experts_read": experts},
-            "dtype": dtype, "max_abs_err": err, "tolerance": tol,
+            "dtype": dtype, "kernel_route": kroute, "max_abs_err": err,
+            "tolerance": tol,
             "kernel_ms": time_ms(torch, lambda: esffn.esffn_glu(*args), flush),
             "plain_ms": time_ms(torch, lambda: esffn.esffn_glu_plain(*args),
                                 flush),
@@ -558,6 +573,80 @@ def gemm_check_cases(torch):
     return {"cases": n_cases, "worst_err_over_tol": worst}
 
 
+# Untimed esffn_glu checks against esffn_glu_plain: (D, F) on the wgmma
+# route at blk 128 and 64 (one and two consumer warpgroups) over a top-2
+# layout of 8 experts, two of them empty, with the dead rows of every
+# group's last block; 24 x 40 and 200 x 136 leave partial D steps and F
+# tiles. And the stream route at mixtral-8x7b's expert widths (D 4096,
+# F 14336, 8 experts, top-2, blk 16 as served) in bf16, f32 and int8.
+ESFFN_CHECK_WIDTHS = ((24, 40), (200, 136), (2048, 768))
+ESFFN_WIDE = (4096, 14336, 8, 2)
+
+
+def esffn_check_cases(torch):
+    """Phase 3, untimed: esffn_glu at ESFFN_CHECK_WIDTHS on the wgmma
+    route and at ESFFN_WIDE on the stream route, each route read from the
+    per-route counts, within ESFFN_TOL of the plain version."""
+    from repro_torch.core.reindex import build_reindex
+    from repro_torch.core.routing import route
+    from repro_torch.kernels import esffn
+    from repro_torch.quant.core import quantize_blockwise
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst, names = 0.0, []
+
+    def check(name, want, args, **kw):
+        nonlocal worst
+        kern, kroute = _routed(torch, lambda: esffn.esffn_glu(*args, **kw),
+                               esffn.esffn_glu)
+        if kroute != want:
+            raise AssertionError(f"{name}: took the {kroute} route, not "
+                                 f"{want}")
+        dtype = str(args[0].dtype).removeprefix("torch.")
+        err, tol = _check(name, kern, esffn.esffn_glu_plain(*args, **kw),
+                          ESFFN_TOL[dtype])
+        worst = max(worst, err / tol)
+        names.append(name)
+
+    e = 8
+    for blk in (128, 64):
+        idx = torch.randint(2, e, (300, 2), generator=gen, device="cuda")
+        lay = build_reindex(idx.int(), torch.rand((300, 2), generator=gen,
+                                                  device="cuda"), e, blk)
+        for d, f in ESFFN_CHECK_WIDTHS:
+            x = torch.randn((300, d), generator=gen, device="cuda").bfloat16()
+            ws = [(torch.randn(sh, generator=gen, device="cuda")
+                   / sh[1] ** 0.5).bfloat16()
+                  for sh in ((e, d, f), (e, d, f), (e, f, d))]
+            check(f"esffn_glu check blk {blk} D {d} F {f}", "wgmma",
+                  (x, lay.row_token, lay.row_gate, lay.block_expert, *ws))
+            del x, ws
+
+    d, f, e, k = ESFFN_WIDE
+    w32 = [_tiled_weights(torch, gen, sh) for sh in ((e, d, f), (e, d, f),
+                                                    (e, f, d))]
+    router = torch.randn((d, e), generator=gen, device="cuda") * 0.02
+    x = torch.randn((8, d), generator=gen, device="cuda")
+    r = route(x, router, k)
+    lay = build_reindex(r.expert_idx, r.gates, e, 16)
+    maps = (lay.row_token, lay.row_gate, lay.block_expert)
+    for dtype in ("bfloat16", "float32"):
+        td = getattr(torch, dtype)
+        check(f"esffn_glu check mixtral width {dtype}", "stream",
+              (x.to(td), *maps, *(w.to(td) for w in w32)))
+    qs = [quantize_blockwise(w, mode="int8") for w in w32]
+    del w32
+    check("esffn_glu check mixtral width int8 bfloat16", "stream",
+          (x.bfloat16(), *maps, *(q for q, _ in qs)),
+          w_scales=tuple(s for _, s in qs))
+    del qs
+    torch.cuda.empty_cache()
+    print(f"[kernel] {len(names)} untimed esffn_glu checks (wgmma at "
+          f"{ESFFN_CHECK_WIDTHS}, blk 128 and 64; stream at mixtral's "
+          f"D {d} F {f}): worst err {worst:.3f} x the limit")
+    return {"cases": len(names), "worst_err_over_tol": worst}
+
+
 def _neighbour_swap(be):
     """block_expert with the first block whose neighbour belongs to
     another expert moved to that expert."""
@@ -729,18 +818,39 @@ def train_kernel_cases(torch, flush):
           for sh in ((e, d, f), (e, d, f), (e, f, d))]
     xb = x.to(td)
     args = (xb, ri.row_token, ri.row_gate, be, *ws)
+    name = "esffn_glu N 4096 blk 128"
     plain = esffn.esffn_glu_plain(*args)
-    kern = esffn.esffn_glu(*args)
-    torch.cuda.synchronize()
-    err, tol = _check("esffn_glu N 4096 blk 128", kern, plain,
-                      ESFFN_TOL["bfloat16"])
+    kern, kroute = _routed(torch, lambda: esffn.esffn_glu(*args),
+                           esffn.esffn_glu)
+    if kroute != "wgmma":
+        raise AssertionError(f"{name}: took the {kroute} route, not wgmma")
+    err, tol = _check(name, kern, plain, ESFFN_TOL["bfloat16"])
+    # faults a tile mapping of the wgmma route makes, on the plain side
+    k0 = 1024
+    x_cut = xb.clone()
+    x_cut[:, k0:k0 + 64] = 0
+    res["negative_controls"].append({
+        "kernel": "esffn_glu", "fault": f"D step [{k0}, {k0 + 64}) left out",
+        "err_over_tol": _must_fail(
+            name + " without one D step",
+            esffn.esffn_glu_plain(x_cut, *args[1:]), plain,
+            ESFFN_TOL["bfloat16"])})
+    res["negative_controls"].append({
+        "kernel": "esffn_glu", "fault": "one block on its neighbour's expert",
+        "err_over_tol": _must_fail(
+            name + " with a block's expert swapped",
+            esffn.esffn_glu_plain(xb, ri.row_token, ri.row_gate,
+                                  _neighbour_swap(be), *ws), plain,
+            ESFFN_TOL["bfloat16"])})
+    del x_cut
     live = int((ri.row_gate != 0).sum())
     nbytes = (n * d * 2 + experts * 3 * d * f * 2 + np_rows * 8 + nblk * 4
               + np_rows * d * 2)
     b_ms, b_by = bound(nbytes, 6 * live * d * f, "bfloat16")
     res["esffn_glu"].append({
         "shape": {**shape_of(ri, 128), "live_rows": live},
-        "dtype": "bfloat16", "max_abs_err": err, "tolerance": tol,
+        "dtype": "bfloat16", "kernel_route": kroute, "max_abs_err": err,
+        "tolerance": tol,
         "kernel_ms": time_ms(torch, lambda: esffn.esffn_glu(*args), flush),
         "plain_ms": time_ms(torch, lambda: esffn.esffn_glu_plain(*args),
                             flush),
@@ -851,7 +961,7 @@ def train_phase(torch):
     torch.cuda.reset_peak_memory_stats()
     for fn in (esffn.esffn_glu, esmm.esmm, estmm.estmm):
         fn.launches = 0
-    for fn in (esmm.esmm, estmm.estmm):
+    for fn in (esffn.esffn_glu, esmm.esmm, estmm.estmm):
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
     times, log = [], []
     for step in range(1, TRAIN_STEPS + 1):
@@ -863,7 +973,8 @@ def train_phase(torch):
               f"{m['grad_norm']:.6f} lr {m['lr']:.2e} ({dt:.3f}s)")
     launches = {"esffn_glu": esffn.esffn_glu.launches,
                 "esmm": esmm.esmm.launches, "estmm": estmm.estmm.launches}
-    routes = {"esmm": dict(esmm.esmm.launches_by_route),
+    routes = {"esffn_glu": dict(esffn.esffn_glu.launches_by_route),
+              "esmm": dict(esmm.esmm.launches_by_route),
               "estmm": dict(estmm.estmm.launches_by_route)}
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
@@ -873,8 +984,9 @@ def train_phase(torch):
     want = {k: v * TRAIN_DEPTH * TRAIN_STEPS for k, v in want.items()}
     if launches != want:
         raise AssertionError(f"train: launches {launches}, expected {want}")
-    # every expert GEMM of the bf16 LM step on the tensor cores
-    want_routes = {k: {"simt": 0, "wgmma": want[k]} for k in routes}
+    # every expert GEMM and FFN of the bf16 LM step on the tensor cores
+    want_routes = {k: {"simt" if k != "esffn_glu" else "stream": 0,
+                       "wgmma": want[k]} for k in routes}
     if routes != want_routes:
         raise AssertionError(f"train: routes {routes}, expected "
                              f"{want_routes}")
@@ -1301,35 +1413,80 @@ def _sdpa_ms(torch, flush, q, k, v, causal):
     raise AssertionError("scaled_dot_product_attention: no backend ran")
 
 
+def _flash_route(dtype):
+    """The route phase 12 expects: bf16 on the tensor cores, f32 on FMA."""
+    return "wgmma" if dtype == "bfloat16" else "simt"
+
+
+def _flash_p_bf16(torch, q, k, v, causal):
+    """The negative control of the split P V: softmax attention with f32
+    logits, m and l, but p rounded to bf16 before P V (no lo term)."""
+    from repro_torch.kernels.flash_attention import NEG_INF
+
+    s, hd = q.shape[1], q.shape[3]
+    g = q.shape[2] // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf, vf = (t.float().repeat_interleave(g, 2).transpose(1, 2)
+              for t in (k, v))
+    logits = qf @ kf.transpose(-1, -2) * hd ** -0.5
+    if causal:
+        logits.masked_fill_(torch.ones((s, s), dtype=torch.bool,
+                                       device=q.device).triu(1), NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    del logits
+    return ((p.bfloat16().float() @ vf) / l).to(q.dtype).transpose(1, 2)
+
+
 def flash_cases(torch, flush):
     """Phase 12: flash_attention at full attention widths. Its public entry
     point is its path (no model path runs it): each case goes through it
-    once with the launch count set to 0 before and read after; then each
-    output is held against the plain version, and timed."""
+    once with the launch counts set to 0 before and read after (bf16 on
+    the wgmma route, f32 on simt); then each output is held against the
+    plain version, and timed; the head case's plain output with p in bf16
+    (no lo term) must fail the check the kernel meets."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import chunked_attention
 
     gen = torch.Generator(device="cuda").manual_seed(12)
+    fn = fa.flash_attention
 
     def inputs(b, s, hq, hkv, hd, dtype):
         td = getattr(torch, dtype)
         return [torch.randn((b, s, h, hd), generator=gen, device="cuda")
                 .to(td) for h in (hq, hkv, hkv)]
 
+    def check_route(what, dtype, route):
+        if route != _flash_route(dtype):
+            raise AssertionError(f"{what}: took the {route} route, not "
+                                 f"{_flash_route(dtype)}")
+
     args = [inputs(*c[1:7]) for c in FLASH_CASES]
-    fa.flash_attention.launches = 0
-    outs = [fa.flash_attention(*a, causal=c[7])
-            for a, c in zip(args, FLASH_CASES)]
+    fn.launches = 0
+    fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+    outs, case_routes = [], []
+    for a, c in zip(args, FLASH_CASES):
+        before = dict(fn.launches_by_route)
+        outs.append(fn(*a, causal=c[7]))
+        case_routes.append(next(r for r in before
+                                if fn.launches_by_route[r] != before[r]))
     torch.cuda.synchronize()
-    launches = fa.flash_attention.launches
+    launches, routes = fn.launches, dict(fn.launches_by_route)
     if launches != len(FLASH_CASES):
         raise AssertionError(f"flash_attention: {launches} launches for "
                              f"{len(FLASH_CASES)} calls")
+    want = {r: sum(_flash_route(c[6]) == r for c in FLASH_CASES)
+            for r in routes}
+    if routes != want:
+        raise AssertionError(f"flash_attention: routes {routes}, expected "
+                             f"{want}")
+    negative = []
 
     cases = []
     for i, ((name, b, s, hq, hkv, hd, dtype, causal), (q, k, v), kern) in \
             enumerate(zip(FLASH_CASES, args, outs)):
         what = f"flash_attention {name}"
+        check_route(what, dtype, case_routes[i])
         plain = fa.flash_attention_plain(q, k, v, causal=causal)
         err, ratio, lim = _check_flash(what, kern, plain, dtype)
         extra = {}
@@ -1339,7 +1496,15 @@ def flash_cases(torch, flush):
             extra["chunked_attention_err"], extra[
                 "chunked_attention_err_over_tol"], _ = _check_flash(
                     what + " vs chunked_attention", kern, chunked, dtype)
-            del chunked
+            wrong = _flash_p_bf16(torch, q, k, v, causal)
+            neg_err, neg_ratio, _ = _flash_err(wrong, plain, dtype)
+            if not neg_ratio > 1.0:
+                raise AssertionError(f"negative control {what} with p in "
+                                     f"bf16 passed the limit ({neg_ratio})")
+            negative.append({"kernel": "flash_attention",
+                             "fault": "p rounded to bf16 before P V (no lo "
+                                      "term)", "err_over_tol": neg_ratio})
+            del chunked, wrong
         lib, lib_ms, backend = _sdpa_ms(torch, flush, q, k, v, causal)
         # SDPA read by the same check, for the record (it is no port)
         extra["library_max_abs_err"], extra["library_err_over_tol"], _ = \
@@ -1351,8 +1516,8 @@ def flash_cases(torch, flush):
         cases.append({
             "shape": {"case": name, "B": b, "S": s, "Hq": hq, "Hkv": hkv,
                       "hd": hd, "causal": causal},
-            "dtype": dtype, "max_abs_err": err, "err_over_tol": ratio,
-            "tolerance": lim,
+            "dtype": dtype, "kernel_route": case_routes[i],
+            "max_abs_err": err, "err_over_tol": ratio, "tolerance": lim,
             "kernel_ms": time_ms(torch, lambda: fa.flash_attention(
                 q, k, v, causal=causal), flush),
             "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
@@ -1365,18 +1530,22 @@ def flash_cases(torch, flush):
         del plain, lib
 
     # untimed: f32 causal at the head shape and at hd 256 (each kernel
-    # instance of hd 256 runs), and S not a multiple of the kernel's
-    # 64-row q blocks or of its kv tiles
+    # instance of hd 256 runs), and S not a multiple of the kernels' q
+    # blocks or kv tiles, on both routes and every head dim
     for b, s, hq, hkv, hd, dtype, causal in FLASH_CHECK_CASES:
         q, k, v = inputs(b, s, hq, hkv, hd, dtype)
+        what = f"flash_attention B {b} S {s} hd {hd} {dtype} causal={causal}"
+        kern, route = _routed(torch, lambda: fa.flash_attention(
+            q, k, v, causal=causal), fn)
+        check_route(what, dtype, route)
         err, ratio, _ = _check_flash(
-            f"flash_attention B {b} S {s} hd {hd} {dtype} causal={causal}",
-            fa.flash_attention(q, k, v, causal=causal),
-            fa.flash_attention_plain(q, k, v, causal=causal), dtype)
+            what, kern, fa.flash_attention_plain(q, k, v, causal=causal),
+            dtype)
         print(f"[flash] B {b} S {s} {hq}/{hkv} heads hd {hd} {dtype} "
-              f"causal={causal}: err {err:.3g} ({ratio:.3f} x limit)")
+              f"causal={causal}, {route}: err {err:.3g} ({ratio:.3f} x "
+              f"limit)")
         del q, k, v
-    return launches, cases
+    return launches, routes, cases, negative
 
 
 # ---------------------------------------------------------------------------
@@ -1456,9 +1625,12 @@ def quant_kernel_cases(torch, flush):
         name = f"esffn_glu {mode} N={n} blk={blk} {dtype}"
         plain = esffn.esffn_glu_plain(*args, w_scales=sc)
         before = dict(esffn.esffn_glu.launches_quant)
-        kern = esffn.esffn_glu(*args, w_scales=sc)
+        kern, kroute = _routed(torch, lambda: esffn.esffn_glu(
+            *args, w_scales=sc), esffn.esffn_glu)
         if esffn.esffn_glu.launches_quant[mode] != before[mode] + 1:
             raise AssertionError(f"{name}: not counted as an {mode} launch")
+        if kroute != "stream":
+            raise AssertionError(f"{name}: took the {kroute} route")
         err, tol = _check(name, kern, plain, ESFFN_TOL[dtype])
         if i == 0:
             neg("esffn_glu", "w_down's scale grid transposed",
@@ -1478,8 +1650,8 @@ def quant_kernel_cases(torch, flush):
             "shape": {"N": n, "D": d, "E": e, "F": f, "top_k": k, "blk": blk,
                       "Np": np_rows, "live_blocks": int(live.sum()),
                       "experts_read": experts},
-            "dtype": dtype, "weights": mode, "max_abs_err": err,
-            "tolerance": tol,
+            "dtype": dtype, "weights": mode, "kernel_route": kroute,
+            "max_abs_err": err, "tolerance": tol,
             "kernel_ms": time_ms(torch, lambda: esffn.esffn_glu(
                 *args, w_scales=sc), flush),
             "plain_ms": time_ms(torch, lambda: esffn.esffn_glu_plain(
@@ -1857,6 +2029,7 @@ def quant_serve_phase(torch, bf16_peak_gb):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_quant(glu, pa)
+        glu.launches_by_route = dict.fromkeys(glu.launches_by_route, 0)
         t0 = time.perf_counter()
         done = server.run()
         torch.cuda.synchronize()
@@ -1886,6 +2059,10 @@ def quant_serve_phase(torch, bf16_peak_gb):
         if got != want:
             raise AssertionError(f"quant serve {mode}: 8-bit launches {got}, "
                                  f"expected {want}")
+        routes = {"esffn_glu": dict(glu.launches_by_route)}
+        if routes["esffn_glu"] != {"stream": want["esffn_glu"], "wgmma": 0}:
+            raise AssertionError(f"quant serve {mode}: esffn_glu routes "
+                                 f"{routes}")
         ttft = sorted(server.ttft_s.values())
         res = {"weights": mode, "kv": "int8", "requests": len(done),
                "tokens": tokens, "wall_s": wall,
@@ -1899,7 +2076,8 @@ def quant_serve_phase(torch, bf16_peak_gb):
                "weights_gb": n_bytes / 1e9, "init_s": init_s,
                "page_bytes": server.page_bytes,
                "bf16_page_bytes": lm.paged_kv_page_bytes(cfg, page),
-               "launches": got, "layers": cfg.num_layers}
+               "launches": got, "launches_by_route": routes,
+               "layers": cfg.num_layers}
         print(f"[quant-serve] {mode} experts + int8 KV, {cfg.num_layers} "
               f"layers at full width: {n_bytes / 1e9:.2f} GB of weights "
               f"(drawn and quantized layer by layer in {init_s:.1f}s, peak "
@@ -1931,7 +2109,7 @@ def train_reference_bf16_phase(torch):
     from repro_torch.common import tree_leaves, tree_map
     from repro_torch.core import espec
     from repro_torch.data.pipeline import DataConfig, TokenSource
-    from repro_torch.kernels import esmm, estmm
+    from repro_torch.kernels import esffn, esmm, estmm
     from repro_torch.launch import steps
     from repro_torch.launch.train import batch_to
     from repro_torch.models import lm
@@ -1940,6 +2118,7 @@ def train_reference_bf16_phase(torch):
     cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
                               num_layers=2)
     pcfg = ParallelConfig(blk=128)
+    routed = (esffn.esffn_glu, esmm.esmm, estmm.estmm)
     gen = torch.Generator(device="cuda").manual_seed(7)
     params = lm.init_params(cfg, generator=gen, device="cuda")
     batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
@@ -1960,7 +2139,7 @@ def train_reference_bf16_phase(torch):
 
             espec.route = recording
             before = {fn.__name__: dict(fn.launches_by_route)
-                      for fn in (esmm.esmm, estmm.estmm)}
+                      for fn in routed}
             p = tree_map(lambda t: t.detach().to(device).requires_grad_(),
                          params)
             total, metrics = loss_fn(p, batch_to(batch, device))
@@ -1970,14 +2149,17 @@ def train_reference_bf16_phase(torch):
                 routes = {fn.__name__: {r: fn.launches_by_route[r]
                                         - before[fn.__name__][r]
                                         for r in fn.launches_by_route}
-                          for fn in (esmm.esmm, estmm.estmm)}
+                          for fn in routed}
             out[device] = (float(metrics["loss"].detach()),
                            float(total.detach()),
                            [g.float().cpu() for g in grads])
             del p, grads
     finally:
         espec.route = route
-    want = {"esmm": {"simt": 0, "wgmma": 5 * cfg.num_layers},
+    # esffn_glu: once a layer in the forward and again in remat's
+    # recompute, every launch on wgmma
+    want = {"esffn_glu": {"stream": 0, "wgmma": 2 * cfg.num_layers},
+            "esmm": {"simt": 0, "wgmma": 5 * cfg.num_layers},
             "estmm": {"simt": 0, "wgmma": 3 * cfg.num_layers}}
     if routes != want:
         raise AssertionError(f"bf16 train reference: routes {routes}, "
@@ -2098,6 +2280,8 @@ def serve_phase(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     esffn.esffn_glu.launches = 0
+    esffn.esffn_glu.launches_by_route = dict.fromkeys(
+        esffn.esffn_glu.launches_by_route, 0)
     paged_attention.paged_attention.launches = 0
     t0 = time.perf_counter()
     done = server.run()
@@ -2105,6 +2289,10 @@ def serve_phase(torch):
     wall = time.perf_counter() - t0
     launches = {"esffn_glu": esffn.esffn_glu.launches,
                 "paged_attention": paged_attention.paged_attention.launches}
+    routes = {"esffn_glu": dict(esffn.esffn_glu.launches_by_route)}
+    # blk 16: every expert FFN of the serve streams its weights
+    if routes["esffn_glu"] != {"stream": launches["esffn_glu"], "wgmma": 0}:
+        raise AssertionError(f"serve: esffn_glu routes {routes}")
     peak = torch.cuda.max_memory_allocated()
 
     tokens = sum(len(r.out) for r in done)
@@ -2124,14 +2312,15 @@ def serve_phase(torch):
           f"({tokens / wall:.1f} tok/s); decode step median "
           f"{statistics.median(steps) * 1e3:.2f}ms over {len(steps)} steps; "
           f"TTFT median {statistics.median(ttft) * 1e3:.1f}ms; peak allocated "
-          f"{peak / 1e9:.2f} GB; launches {launches}; pool peak "
-          f"{st['peak_in_use_pages']} pages, leak-free")
+          f"{peak / 1e9:.2f} GB; launches {launches}; routes {routes}; pool "
+          f"peak {st['peak_in_use_pages']} pages, leak-free")
     print(f"  req 0: {done[0].out}")
     return launches, {"requests": len(done), "tokens": tokens, "wall_s": wall,
                       "decode_step_median_ms": statistics.median(steps) * 1e3,
                       "decode_steps": len(steps),
                       "ttft_median_ms": statistics.median(ttft) * 1e3,
                       "peak_allocated_gb": peak / 1e9,
+                      "launches_by_route": routes,
                       "layers": cfg.num_layers}
 
 
@@ -2161,6 +2350,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     esffn_res = esffn_cases(torch, flush)
+    esffn_checks = esffn_check_cases(torch)
     attn_res = paged_attention_cases(torch, flush)
     for c in esffn_res + attn_res:
         print(f"[kernel] {json.dumps(c)}")
@@ -2215,9 +2405,13 @@ def main() -> int:
     print(f"[swin] {json.dumps({**swin_out, 'reference': swin_ref})}")
     torch.cuda.empty_cache()               # the Swin training state is gone
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    flash_launches, flash_res = flash_cases(torch, flush)
+    flash_launches, flash_routes, flash_res, flash_neg = flash_cases(
+        torch, flush)
     for c in flash_res:
         print(f"[kernel-flash] {json.dumps(c)}")
+    for c in flash_neg:
+        print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
+              f"{c['err_over_tol']:.3g} x the limit")
     del flush
 
     # Each kernel's launches on the main paths that ran it: the serve run
@@ -2230,18 +2424,20 @@ def main() -> int:
             if n:
                 by_path.setdefault(name, {})[path] = n
 
-    route_paths = {"qwen_train": train_out["launches_by_route"],
+    route_paths = {"serve": serve_res["launches_by_route"],
+                   "qwen_train": train_out["launches_by_route"],
                    **swin_out["launches_by_route"]}
 
-    def by_route(name, cases):
+    def by_route(name, cases, routes=("wgmma", "simt"), paths=route_paths):
         """Each route of a two-route kernel: its launches on each path and
         its first (head) case."""
         out = {}
-        for route in ("wgmma", "simt"):
+        for route in routes:
             head = next(c for c in cases if c["kernel_route"] == route)
             out[route] = {
-                "launches_by_path": {p: r[name][route] for p, r in
-                                     route_paths.items() if r[name][route]},
+                "launches_by_path": {
+                    p: r[name][route] for p, r in paths.items()
+                    if r.get(name, {}).get(route)},
                 "ms": head["kernel_ms"], "bound_ms": head["bound_ms"],
                 "library_ms": head.get("library_ms"),
                 "max_abs_err": head["max_abs_err"], "shape": head["shape"],
@@ -2289,7 +2485,13 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("esffn_glu", "src/repro_torch/csrc/esffn.cu",
               "src/repro/kernels/esffn.py:280",
-              esffn_res + train_res["esffn_glu"]),
+              esffn_res + train_res["esffn_glu"],
+              kernel_routes=by_route(
+                  "esffn_glu", train_res["esffn_glu"] + esffn_res,
+                  ("wgmma", "stream")),
+              negative_controls=[c for c in train_res["negative_controls"]
+                                 if c["kernel"] == "esffn_glu"],
+              small_width_checks=esffn_checks),
         entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:295", attn_res),
         entry("esmm", "src/repro_torch/csrc/esmm.cu",
@@ -2313,7 +2515,11 @@ def main() -> int:
         # no model path runs it (launches_by_path is empty): its path is
         # its own entry point, driven once a case in phase 12
         {**entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-                 "src/repro/kernels/flash_attention.py:80", flash_res),
+                 "src/repro/kernels/flash_attention.py:80", flash_res,
+                 kernel_routes=by_route(
+                     "flash_attention", flash_res, ("wgmma", "simt"),
+                     {"phase_12": {"flash_attention": flash_routes}}),
+                 negative_controls=flash_neg),
          "launches": flash_launches,
          "launches_from": "phase 12, the public entry point"},
         qentry("esffn_glu", "src/repro_torch/csrc/esffn.cu",

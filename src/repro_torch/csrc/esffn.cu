@@ -1,5 +1,6 @@
 // Fused expert FFNs over the expert-sorted layout, for Hopper (sm_90a): the
-// GLU form (esffn_glu_launch) and the biased 2-MLP form (esffn_mlp_launch).
+// GLU form (esffn_glu_launch, esffn_glu_wgmma_launch) and the biased 2-MLP
+// form (esffn_mlp_launch).
 //
 // === GLU form ===
 //
@@ -14,28 +15,56 @@
 // h = act(g) * u is rounded to T, the down product accumulates in f32 and
 // the output is (acc * gate) rounded to T.
 //
-// What bounds it on this card: at serving shapes the expert weight tiles.
-// Decode with 8 slots routes 64 token copies over 128 experts, so at most
-// 64 blocks are live and each reads its expert's 3 * D * F weights (9.4 MB in
-// bf16 at qwen3 width) for one or two real rows: some 0.6 GB a layer,
-// 6 FLOP per weight element and row, far below the 295 FLOP/byte where the
-// tensor cores would become the limit. The design therefore aims at moving
-// each needed weight byte once and nothing else:
+// Both routes write rows whose gate is 0 (the sentinel padding rows, 15 of
+// 16 rows of a block at decode) as 0 and never compute them (the TPU kernel
+// writes acc * 0, the same value for every finite acc), and a block with
+// no live row (all tail blocks) reads no weight at all. Two launches, up
+// and down, pass h (Np, F, T; live rows only) through device memory; the
+// (Np, D) f32 accumulator never exists. The wrapper
+// (kernels/esffn.py::_route) picks the route from the dtype and shapes:
 //
-//  * Rows whose gate is 0 (the sentinel padding rows, which are 15 of 16
-//    rows of a block at decode) are written as 0 and never computed. The TPU
-//    kernel writes acc * 0, which is the same value for every finite acc.
-//    A block with no live row (all tail blocks) reads no weight tile at all.
-//  * Two launches split the work so that enough CTAs stream weights at
-//    once: esffn_up_kernel on a (block, 64-column F tile) grid computes h
-//    for the live rows, each CTA reading its D x 64 slices of Wg and Wu
-//    once; esffn_down_kernel on a (block, 256-column D tile) grid reads its
-//    F x 256 slice of Wd once. h (live rows x F, at most N*k*F elements:
-//    98 KB at decode) passes between the two through device memory, where
-//    it stays in the 50 MB L2; the (Np, D) f32 accumulator never exists.
-//  * Plain FMA in f32, not tensor cores: with one or two live rows a block
-//    the products are matrix-vector shaped and the FLOPs are small beside
-//    the bytes (wgmma/TMA pipelines come in a later change).
+// wgmma (bf16 x and weights, blk 64 or 128, D and F % 8 == 0;
+// esffn_glu_wgmma_launch): the LM train path at blk 128, where every row
+// of a block but its group's last is live and the FFN is two dense GEMMs
+// (6 Np D F flops against about E 3 D F + Np (D + F) bf16 elements: far
+// above the 295 flops a byte where the tensor cores bound it).
+//  * Up: a CTA owns one block (BM = blk rows: one consumer warpgroup of 64
+//    rows per 64) and 128 F columns. Hopper's TMA cannot gather rows, so
+//    the producer warp gathers the block's x rows straight from the
+//    unsorted x through row_token with 16-byte cp.async into the 128-byte
+//    swizzled layout wgmma's descriptor reads (chunk c of row r at
+//    c ^ (r & 7); dead rows zero-filled), and brings the 64 x 128 Wg[e]
+//    and Wu[e] tiles by TMA, MN-major (the transpose bit; the weights are
+//    not transposed in memory), through a 4-stage mbarrier ring. Two f32
+//    accumulators (g and u, 64 registers each) take two m64n128k16 wgmma
+//    per 16-deep step; the epilogue rounds g and u, applies act, rounds
+//    and writes h for the live rows.
+//  * Down: esmm's mainloop (hopper.cuh, SortedGemm) over h (TMA) and
+//    Wd[e], with an epilogue that multiplies by row_gate and writes zeros
+//    on dead rows.
+//
+// stream (everything else: the serve path at blk 16, 8-bit weights, f32;
+// esffn_glu_launch, esffn_glu_q_launch): at serving shapes the weight
+// bytes bound it. Decode with 8 slots routes 64 token copies over 128
+// experts, so at most 64 blocks are live and each reads its expert's
+// 3 * D * F weights (9.4 MB in bf16 at qwen3 width) for one or two live
+// rows: 6 flops per weight element and row, far below the tensor cores'
+// line. So each needed weight byte moves once, at the memory's rate:
+//  * A CTA owns one block and a 128-byte column slice of the weights (64
+//    bf16, 128 int8/fp8 or 32 f32 columns: 12, 6 or 24 CTAs a block for
+//    Wg/Wu at F 768, 32, 16 or 64 for Wd at D 2048), so 50 live experts
+//    give 300-1,600 CTAs.
+//  * Weight rows stream through a 4-stage cp.async ring of 64-row stages
+//    (16-byte copies; 64 KB in flight a CTA up, 32 KB down, two or more
+//    CTAs an SM). Each stage also brings the same 64 contraction elements
+//    of up to 4 live rows, so shared memory stays under 70 KB at any D
+//    and F (mixtral-8x7b's F 14336 included); each thread sums an
+//    8-column group over a lane of the stage's rows, and the lanes are
+//    summed by shuffles and once through shared memory at the end.
+//  * 8-bit weights convert exactly without I2F, which runs at a quarter
+//    of the FMA rate (int8: a byte permute and one add; fp8: the
+//    hardware's pairwise convert), and take one block scale per run of
+//    rows that share it, looked up without a division per element.
 //
 // === 2-MLP form ===
 //
@@ -74,7 +103,8 @@
 // payloads with f32 block scales s (E, rows / ta, cols / tb) on each
 // weight's own two axes, (ta, tb) = block_tiles' 128 clamped to the dim.
 // Every weight element is dequantized where it is read, float(q) *
-// s[e][row / ta][col / tb], and enters the same f32 FMA; the activations
+// s[e][row / ta][col / tb], and enters the same f32 FMA (the GLU form on
+// its stream route, the 2-MLP form on its tiled kernel); the activations
 // stay in T, so only the 8-bit bytes (and the scales) cross HBM. Rounding
 // is the TPU kernel's: its f32 dequantized tile meets x promoted to f32.
 // The same kernels run, instantiated for W = int8_t or __nv_fp8_e4m3.
@@ -86,22 +116,19 @@
 // cudaGetLastError(), or cudaErrorInvalidValue for operands they refuse.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 16;                     // live rows per pass (registers)
 constexpr int kMaxBlk = 128;                  // largest accepted BLK
-constexpr int kUpCols = 64;                   // F columns of one up-kernel CTA
-constexpr int kUpSplit = kThreads / kUpCols;  // D reduction split 4 ways
-constexpr int kUpDTile = 256;                 // x columns staged per step
-constexpr int kDownCols = kThreads;           // D columns of one down CTA
-constexpr int kDownFTile = 256;               // h columns staged per step
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -177,178 +204,274 @@ __device__ void collect_live(const float* __restrict__ row_gate,
   __syncthreads();
 }
 
-template <typename T, typename W>
+// ---- GLU form, stream route --------------------------------------------------
+
+constexpr int kStreamR = 4;           // live rows of a pass
+constexpr int kStreamDT = 64;         // contraction rows of a stage
+
+// A stage of the ring: kStreamDT rows of a kLine-byte column slice of each
+// weight, and the same kStreamDT contraction elements of the pass's live
+// rows of a.
+template <typename T, typename W, bool kUp>
+struct StreamCfg {
+  static constexpr int kLine = 128;                     // bytes of a weight row
+  static constexpr int kStages = 4;
+  static constexpr int kNMat = kUp ? 2 : 1;
+  static constexpr int kCols = kLine / (int)sizeof(W);  // 64 bf16, 128 8-bit, 32 f32
+  static constexpr int kChunks = kLine / 16;            // 16-byte copies a row
+  static constexpr int kCG = kCols / 8;                 // 8-column groups
+  static constexpr int kRL = kThreads / kCG;            // row lanes
+  static constexpr int kMatBytes = kStreamDT * kLine;   // a matrix's stage
+  static constexpr int kActChunks = kStreamDT * (int)sizeof(T) / 16;
+  static constexpr int kStageBytes = kNMat * kMatBytes + kStreamR * kActChunks * 16;
+  static constexpr int kSmem = kStages * kStageBytes;
+  static_assert(kStreamDT % kRL == 0, "a stage is whole rows of row lanes");
+  static_assert(kStreamR * kActChunks <= kThreads, "one activation copy a thread");
+  static_assert(kThreads / 32 * kNMat * kStreamR * kCols * 4 <= kSmem,
+                "the row-lane sums fit in the ring");
+};
+
+// The 8 weights of a thread's column group, as f32 (exact conversions).
+__device__ __forceinline__ void load_w8(const uint8_t* p, float (&w)[8], float) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 16);
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+}
+__device__ __forceinline__ void load_w8(const uint8_t* p, float (&w)[8], __nv_bfloat16) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    w[2 * i] = f.x;
+    w[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load_w8(const uint8_t* p, float (&w)[8], int8_t) {
+  // float(q) = (2^23 + (q ^ 0x80)) - (2^23 + 128), exactly, per byte
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const uint32_t words[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = __uint_as_float(__byte_perm(words[i / 4], 0x4B000000u, 0x7440 | (i % 4))) -
+           8388736.0f;
+}
+__device__ __forceinline__ void load_w8(const uint8_t* p, float (&w)[8], __nv_fp8_e4m3) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const uint32_t words[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(words[i / 2] >> (16 * (i % 2))), __NV_E4M3);
+    const float2 f = __half22float2(__half2(h));
+    w[2 * i] = f.x;
+    w[2 * i + 1] = f.y;
+  }
+}
+
+// One CTA streams a kLine-byte column slice of its block's expert weights:
+// kUp: g = a Wg[e], u = a Wu[e] with a the block's live token rows of x
+// (N, K = D), and writes h = round(act(round(g))) * round(u) (Np, ncols =
+// F) for them; !kUp: acc = a Wd[e] with a the live rows of h (Np, K = F),
+// and writes out (Np, ncols = D) = round(acc * gate), 0 on dead rows. The
+// weight rows move through a kStages-deep cp.async ring of kStreamDT-row
+// stages (16-byte copies, 32 KB or 64 KB in flight a CTA); each stage also
+// brings the same kStreamDT elements of kStreamR live rows of a, so shared
+// memory does not grow with K. Each thread sums one 8-column group over a
+// row lane of the stage's rows.
+template <typename T, typename W, bool kUp>
 __global__ void __launch_bounds__(kThreads)
-esffn_up_kernel(const T* __restrict__ x, const int* __restrict__ row_token,
-                const float* __restrict__ row_gate,
-                const int* __restrict__ block_expert, const W* __restrict__ wg,
-                const W* __restrict__ wu, Scales sg, Scales su,
-                T* __restrict__ h, int n, int d, int f, int blk, int act) {
+esffn_stream_kernel(const T* __restrict__ a_src,
+                    const int* __restrict__ row_token,
+                    const float* __restrict__ row_gate,
+                    const int* __restrict__ block_expert,
+                    const W* __restrict__ w0, const W* __restrict__ w1,
+                    Scales s0, Scales s1, T* __restrict__ dst, int n, int k,
+                    int ncols, int blk, int act) {
+  using C = StreamCfg<T, W, kUp>;
+  constexpr int NMAT = C::kNMat;
+  constexpr int R = kStreamR;
   __shared__ int live[kMaxBlk], tok[kMaxBlk], warp_cnt[kMaxBlk / 32], nlive_s;
   __shared__ unsigned char flag[kMaxBlk];
-  // x tile [kRows][kUpDTile] during the D loop, then the partial sums
-  // [2][kUpSplit][kRows][kUpCols] of g and u.
-  __shared__ float smem[2 * kUpSplit * kRows * kUpCols];
+  extern __shared__ __align__(16) uint8_t wbuf[];
 
   const int m = blockIdx.x;
   const int base = m * blk;
+  const int c0 = blockIdx.y * C::kCols;
   collect_live(row_gate, row_token, base, blk, n, live, tok, flag, warp_cnt, &nlive_s);
   const int nlive = nlive_s;
+  if constexpr (!kUp) {
+    for (int idx = threadIdx.x; idx < blk * C::kCols; idx += kThreads) {
+      const int r = idx / C::kCols, c = c0 + idx % C::kCols;
+      if (!flag[r] && c < ncols) dst[(size_t)(base + r) * ncols + c] = from_f<T>(0.0f);
+    }
+  }
   if (nlive == 0) return;  // padding block: no weight is read
 
   const int e = block_expert[m];
-  const int col = threadIdx.x % kUpCols;
-  const int part = threadIdx.x / kUpCols;
-  const int f0 = blockIdx.y * kUpCols;
-  const bool col_ok = f0 + col < f;
-  const size_t wbase = (size_t)e * d * f + f0 + col;
-  float* xs = smem;
-  float* red = smem;
-  constexpr int kSlice = kUpDTile / kUpSplit;
+  const int nsteps = (k + kStreamDT - 1) / kStreamDT;
+  const W* we[2] = {w0 + (size_t)e * k * ncols, kUp ? w1 + (size_t)e * k * ncols : nullptr};
+  const int cg = threadIdx.x % C::kCG, rl = threadIdx.x / C::kCG;
+  const int col_blk = kQuant<T, W> ? (c0 + cg * 8) / s0.tb : 0;
+  // this thread's activation copy of every stage: live row ai of the pass,
+  // 16 bytes at element ak of the stage
+  const int ai = threadIdx.x / C::kActChunks;
+  const int ak = threadIdx.x % C::kActChunks * (16 / (int)sizeof(T));
 
-  for (int r0 = 0; r0 < nlive; r0 += kRows) {
-    const int nr = min(kRows, nlive - r0);
-    float g[kRows], u[kRows];
+  // stage `step`: the weight rows, and from `arow` (the pass's live row of
+  // a this thread copies, or -1) its activation elements
+  auto issue = [&](int step, int arow) {
+    uint8_t* buf = wbuf + (step % C::kStages) * C::kStageBytes;
+    for (int idx = threadIdx.x; idx < NMAT * kStreamDT * C::kChunks; idx += kThreads) {
+      const int mat = idx / (kStreamDT * C::kChunks), rem = idx % (kStreamDT * C::kChunks);
+      const int row = rem / C::kChunks, ch = rem % C::kChunks;
+      const int kk = step * kStreamDT + row;
+      const int col = c0 + ch * (16 / (int)sizeof(W));
+      const bool valid = kk < k && col < ncols;
+      const W* src = valid ? we[mat] + (size_t)kk * ncols + col : we[0];
+      hopper::cp_async16(buf + (mat * kStreamDT + row) * C::kLine + ch * 16, src, valid);
+    }
+    if (ai < R) {
+      const int kk = step * kStreamDT + ak;
+      const bool valid = arow >= 0 && kk < k;
+      hopper::cp_async16(buf + NMAT * C::kMatBytes + (ai * kStreamDT + ak) * (int)sizeof(T),
+                         valid ? a_src + (size_t)arow * k + kk : a_src, valid);
+    }
+  };
+
+  for (int r0 = 0; r0 < nlive; r0 += R) {
+    const int nr = min(R, nlive - r0);
+    const int arow = ai >= nr ? -1 : kUp ? tok[r0 + ai] : base + live[r0 + ai];
+    __syncthreads();  // the previous pass is done with the ring
+    for (int step = 0; step < C::kStages - 1; ++step) {
+      if (step < nsteps) issue(step, arow);
+      hopper::cp_async_commit();
+    }
+
+    float acc[NMAT][R][8];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) { g[i] = 0.0f; u[i] = 0.0f; }
+    for (int mat = 0; mat < NMAT; ++mat)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int v = 0; v < 8; ++v) acc[mat][i][v] = 0.0f;
+    // 8-bit weights: the block scales of the rows in hand, read again only
+    // where a run of rows sharing them ends
+    int scale_end = -1;
+    float sc[NMAT];
+#pragma unroll
+    for (int mat = 0; mat < NMAT; ++mat) sc[mat] = 1.0f;
 
-    for (int d0 = 0; d0 < d; d0 += kUpDTile) {
-      const int dt = min(kUpDTile, d - d0);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < nr * kUpDTile; idx += kThreads) {
-        const int i = idx / kUpDTile, dd = idx % kUpDTile;
-        xs[idx] = dd < dt ? to_f(x[(size_t)tok[r0 + i] * d + d0 + dd]) : 0.0f;
-      }
-      __syncthreads();
-      if (col_ok) {
-        const int lo = part * kSlice, hi = min(lo + kSlice, dt);
-        const W* pg = wg + wbase + (size_t)d0 * f;
-        const W* pu = wu + wbase + (size_t)d0 * f;
-        // rows [lo, hi) in runs that share one block scale (8-bit weights;
-        // one run otherwise), so a scale is read once a run
-        for (int s0 = lo; s0 < hi;) {
-          int s1 = hi;
-          float gs = 1.0f, us = 1.0f;
+    for (int step = 0; step < nsteps; ++step) {
+      hopper::cp_async_wait<C::kStages - 2>();
+      __syncthreads();  // stage `step` landed; stage step - 1 is consumed
+      if (step + C::kStages - 1 < nsteps) issue(step + C::kStages - 1, arow);
+      hopper::cp_async_commit();
+      const uint8_t* buf = wbuf + (step % C::kStages) * C::kStageBytes;
+      const T* as = reinterpret_cast<const T*>(buf + NMAT * C::kMatBytes);
+#pragma unroll
+      for (int j = 0; j < kStreamDT / C::kRL; ++j) {
+        const int row = rl + C::kRL * j;
+        const int kk = step * kStreamDT + row;
+        if (kk >= k) break;
+        if constexpr (kQuant<T, W>) {
+          if (kk >= scale_end) {
+            const int rb = kk / s0.ta;
+            scale_end = (rb + 1) * s0.ta;
+            sc[0] = s0.block(e, rb, col_blk);
+            if constexpr (kUp) sc[NMAT - 1] = s1.block(e, rb, col_blk);
+          }
+        }
+        float xv[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) xv[i] = to_f(as[i * kStreamDT + row]);
+#pragma unroll
+        for (int mat = 0; mat < NMAT; ++mat) {
+          float w[8];
+          load_w8(buf + (mat * kStreamDT + row) * C::kLine + cg * 8 * (int)sizeof(W), w, W());
           if constexpr (kQuant<T, W>) {
-            s1 = min(hi, s0 + sg.ta - (d0 + s0) % sg.ta);
-            gs = sg.at(e, d0 + s0, f0 + col);
-            us = su.at(e, d0 + s0, f0 + col);
-          }
-#pragma unroll 4
-          for (int dd = s0; dd < s1; ++dd) {
-            float a = to_f(pg[(size_t)dd * f]);
-            float b = to_f(pu[(size_t)dd * f]);
-            if constexpr (kQuant<T, W>) {
-              a *= gs;
-              b *= us;
-            }
 #pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-              if (i < nr) {
-                const float xv = xs[i * kUpDTile + dd];
-                g[i] = fmaf(xv, a, g[i]);
-                u[i] = fmaf(xv, b, u[i]);
-              }
+            for (int v = 0; v < 8; ++v) w[v] *= sc[mat];
+          }
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            if (i < nr) {
+#pragma unroll
+              for (int v = 0; v < 8; ++v) acc[mat][i][v] = fmaf(xv[i], w[v], acc[mat][i][v]);
             }
           }
-          s0 = s1;
         }
       }
     }
 
-    __syncthreads();  // every thread is done reading the x tile
+    // sum the row lanes: across a warp's lanes of one column group, then
+    // across the 8 warps in shared memory (the ring is free by now)
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      red[((0 * kUpSplit + part) * kRows + i) * kUpCols + col] = g[i];
-      red[((1 * kUpSplit + part) * kRows + i) * kUpCols + col] = u[i];
+    for (int mat = 0; mat < NMAT; ++mat)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int v = 0; v < 8; ++v)
+#pragma unroll
+          for (int off = C::kCG; off < 32; off <<= 1)
+            acc[mat][i][v] += __shfl_xor_sync(0xffffffffu, acc[mat][i][v], off);
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(wbuf);  // [warp][mat][i][kCols]
+    const int warp = threadIdx.x / 32;
+    if (threadIdx.x % 32 < C::kCG) {
+#pragma unroll
+      for (int mat = 0; mat < NMAT; ++mat)
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int v = 0; v < 8; ++v)
+            red[((warp * NMAT + mat) * R + i) * C::kCols + cg * 8 + v] = acc[mat][i][v];
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < nr * kUpCols; idx += kThreads) {
-      const int i = idx / kUpCols, c = idx % kUpCols;
-      if (f0 + c >= f) continue;
-      float gs = 0.0f, us = 0.0f;
-      for (int p = 0; p < kUpSplit; ++p) {
-        gs += red[((0 * kUpSplit + p) * kRows + i) * kUpCols + c];
-        us += red[((1 * kUpSplit + p) * kRows + i) * kUpCols + c];
+    for (int idx = threadIdx.x; idx < nr * C::kCols; idx += kThreads) {
+      const int i = idx / C::kCols, c = idx % C::kCols;
+      if (c0 + c >= ncols) continue;
+      float sum[NMAT];
+#pragma unroll
+      for (int mat = 0; mat < NMAT; ++mat) {
+        sum[mat] = 0.0f;
+        for (int w = 0; w < kThreads / 32; ++w)
+          sum[mat] += red[((w * NMAT + mat) * R + i) * C::kCols + c];
       }
-      const float gr = round_t<T>(gs), ur = round_t<T>(us);
-      const float hv = round_t<T>(act_fn(act, gr)) * ur;
-      h[(size_t)(base + live[r0 + i]) * f + f0 + c] = from_f<T>(hv);
+      const int r = base + live[r0 + i];
+      if constexpr (kUp) {
+        const float gr = round_t<T>(sum[0]), ur = round_t<T>(sum[NMAT - 1]);
+        dst[(size_t)r * ncols + c0 + c] = from_f<T>(round_t<T>(act_fn(act, gr)) * ur);
+      } else {
+        dst[(size_t)r * ncols + c0 + c] = from_f<T>(sum[0] * row_gate[r]);
+      }
     }
   }
 }
 
-template <typename T, typename W>
-__global__ void __launch_bounds__(kThreads)
-esffn_down_kernel(const T* __restrict__ h, const int* __restrict__ row_token,
-                  const float* __restrict__ row_gate,
-                  const int* __restrict__ block_expert,
-                  const W* __restrict__ wd, Scales sd, T* __restrict__ out,
-                  int n, int d, int f, int blk) {
-  __shared__ int live[kMaxBlk], tok[kMaxBlk], warp_cnt[kMaxBlk / 32], nlive_s;
-  __shared__ unsigned char flag[kMaxBlk];
-  __shared__ float hs[kRows * kDownFTile];
-
-  const int m = blockIdx.x;
-  const int base = m * blk;
-  const int dcol = blockIdx.y * kDownCols + threadIdx.x;
-  const bool col_ok = dcol < d;
-  collect_live(row_gate, row_token, base, blk, n, live, tok, flag, warp_cnt, &nlive_s);
-  const int nlive = nlive_s;
-
-  if (col_ok) {
-    for (int r = 0; r < blk; ++r)
-      if (!flag[r]) out[(size_t)(base + r) * d + dcol] = from_f<T>(0.0f);
+template <typename T, typename W, bool kUp>
+int launch_stream_kernel(const void* a_src, const void* row_token,
+                         const void* row_gate, const void* block_expert,
+                         const void* w0, const void* w1, Scales s0, Scales s1,
+                         void* dst, int n, int k, int ncols, int nblk, int blk,
+                         int act, cudaStream_t stream) {
+  using C = StreamCfg<T, W, kUp>;
+  auto kernel = esffn_stream_kernel<T, W, kUp>;
+  static bool configured = false;       // one attribute set per instance
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
   }
-  if (nlive == 0) return;
-
-  const int e = block_expert[m];
-  const W* pw = wd + (size_t)e * f * d + dcol;
-  for (int r0 = 0; r0 < nlive; r0 += kRows) {
-    const int nr = min(kRows, nlive - r0);
-    float acc[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
-
-    for (int f0 = 0; f0 < f; f0 += kDownFTile) {
-      const int ft = min(kDownFTile, f - f0);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < nr * kDownFTile; idx += kThreads) {
-        const int i = idx / kDownFTile, ff = idx % kDownFTile;
-        hs[idx] = ff < ft ? to_f(h[(size_t)(base + live[r0 + i]) * f + f0 + ff]) : 0.0f;
-      }
-      __syncthreads();
-      if (col_ok) {
-        // rows [0, ft) in runs that share one block scale, as above
-        for (int s0 = 0; s0 < ft;) {
-          int s1 = ft;
-          float ws = 1.0f;
-          if constexpr (kQuant<T, W>) {
-            s1 = min(ft, s0 + sd.ta - (f0 + s0) % sd.ta);
-            ws = sd.at(e, f0 + s0, dcol);
-          }
-#pragma unroll 4
-          for (int ff = s0; ff < s1; ++ff) {
-            float w = to_f(pw[(size_t)(f0 + ff) * d]);
-            if constexpr (kQuant<T, W>) w *= ws;
-#pragma unroll
-            for (int i = 0; i < kRows; ++i)
-              if (i < nr) acc[i] = fmaf(hs[i * kDownFTile + ff], w, acc[i]);
-          }
-          s0 = s1;
-        }
-      }
-    }
-    if (col_ok) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        if (i < nr) {
-          const int r = base + live[r0 + i];
-          out[(size_t)r * d + dcol] = from_f<T>(acc[i] * row_gate[r]);
-        }
-      }
-    }
-  }
+  const dim3 grid(nblk, (ncols + C::kCols - 1) / C::kCols);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(
+      (const T*)a_src, (const int*)row_token, (const float*)row_gate,
+      (const int*)block_expert, (const W*)w0, (const W*)w1, s0, s1, (T*)dst,
+      n, k, ncols, blk, act);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename W>
@@ -357,18 +480,276 @@ int launch(const void* x, const void* row_token, const void* row_gate,
            const void* wd, Scales sg, Scales su, Scales sd, void* h, void* out,
            int n, int d, int f, int np_rows, int blk, int act,
            cudaStream_t stream) {
+  // 16-byte copies: rows of the weights, x and h start on 16 bytes when
+  // D and F are multiples of 16 (and the bases are aligned); an 8-bit
+  // thread's 8 columns share one block scale when tb % 8 == 0.
+  if (d % 16 || f % 16 || blk < 1 || blk > kMaxBlk || np_rows % blk ||
+      ((uintptr_t)x | (uintptr_t)wg | (uintptr_t)wu | (uintptr_t)wd |
+       (uintptr_t)h) % 16 ||
+      (kQuant<T, W> && (sg.tb % 8 || sd.tb % 8)))
+    return (int)cudaErrorInvalidValue;
   const int nblk = np_rows / blk;
-  const dim3 up_grid(nblk, (f + kUpCols - 1) / kUpCols);
-  const dim3 down_grid(nblk, (d + kDownCols - 1) / kDownCols);
-  esffn_up_kernel<T, W><<<up_grid, kThreads, 0, stream>>>(
-      (const T*)x, (const int*)row_token, (const float*)row_gate,
-      (const int*)block_expert, (const W*)wg, (const W*)wu, sg, su, (T*)h, n,
-      d, f, blk, act);
-  cudaError_t err = cudaGetLastError();
+  const int err = launch_stream_kernel<T, W, true>(
+      x, row_token, row_gate, block_expert, wg, wu, sg, su, h, n, d, f, nblk,
+      blk, act, stream);
+  if (err) return err;
+  return launch_stream_kernel<T, W, false>(
+      h, row_token, row_gate, block_expert, wd, nullptr, sd, Scales{}, out,
+      n, f, d, nblk, blk, act, stream);
+}
+
+// ---- GLU form, wgmma route ----------------------------------------------------
+
+constexpr int kUpFT = 128;     // F columns of a wgmma up CTA
+
+template <int NC>              // consumer warpgroups: BM = 64 NC rows
+struct GluUp {
+  static constexpr int kBM = 64 * NC;
+  static constexpr int kStages = 4;
+  static constexpr int kABytes = kBM * 128;                  // kBM rows x 64 D
+  static constexpr int kWBytes = 2 * hopper::kBoxBytes64;    // 64 D x 128 F
+  static constexpr int kStageBytes = kABytes + 2 * kWBytes;  // x, Wg, Wu
+  static constexpr int kProducers = 64;                      // two warps
+  static constexpr int kLag = 2;        // gathered stages in flight
+  static constexpr int kThreads = NC * 128 + kProducers;
+  static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
+};
+
+// h = round(act(round(x Wg[e]))) * round(x Wu[e]) for the live rows of one
+// BM-row tile (one block, expert e) and 128 F columns. The producer warp
+// gathers x rows through row_token with 16-byte cp.async into the 128-byte
+// swizzled layout TMA would give (chunk c of row r at c ^ (r & 7); dead
+// rows zeros) and brings the Wg and Wu tiles by TMA, MN-major.
+template <int NC>
+__global__ void __launch_bounds__(GluUp<NC>::kThreads, 1)
+esffn_up_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                      const int* __restrict__ row_token,
+                      const float* __restrict__ row_gate,
+                      const int* __restrict__ block_expert,
+                      __grid_constant__ const CUtensorMap wg_map,
+                      __grid_constant__ const CUtensorMap wu_map,
+                      __nv_bfloat16* __restrict__ h, int n, int d, int f,
+                      int f_tiles, int act) {
+  using C = GluUp<NC>;
+  __shared__ int src_row[C::kBM];       // token of each tile row; -1: dead
+  extern __shared__ uint8_t smem_raw[];
+  const int m_blk = blockIdx.x / f_tiles;
+  const int f0 = (blockIdx.x % f_tiles) * kUpFT;
+  const int m0 = m_blk * C::kBM;
+  bool on = false;
+  if (threadIdx.x < C::kBM) {
+    on = row_gate[m0 + threadIdx.x] != 0.0f;
+    src_row[threadIdx.x] = on ? min(row_token[m0 + threadIdx.x], n - 1) : -1;
+  }
+  if (!__syncthreads_or(on)) return;    // a block with no live row reads nothing
+
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kStages * C::kStageBytes);
+  uint64_t* empty = full + C::kStages;
+  const int e = block_expert[m_blk];
+  const int nk = (d + hopper::kTileK - 1) / hopper::kTileK;
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hopper::mbar_init(&full[s], C::kProducers + 1);  // + the TMA arrival
+      hopper::mbar_init(&empty[s], NC * 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= NC * 4) {                 // producer warps
+    const int pt = threadIdx.x - NC * 128;  // 0 .. kProducers - 1
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % C::kStages;
+      if (kt >= C::kStages) hopper::mbar_wait(&empty[s], ((kt / C::kStages) - 1) & 1);
+      uint8_t* a = smem + s * C::kStageBytes;
+      uint8_t* wgt = a + C::kABytes;
+      uint8_t* wut = wgt + C::kWBytes;
+      const int k0 = kt * hopper::kTileK;
+      if (pt == 0) {
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * C::kWBytes);
+        hopper::tma_load_3d(wgt, &wg_map, &full[s], f0, k0, e);
+        hopper::tma_load_3d(wgt + hopper::kBoxBytes64, &wg_map, &full[s], f0 + 64, k0, e);
+        hopper::tma_load_3d(wut, &wu_map, &full[s], f0, k0, e);
+        hopper::tma_load_3d(wut + hopper::kBoxBytes64, &wu_map, &full[s], f0 + 64, k0, e);
+      }
+      for (int idx = pt; idx < C::kBM * 8; idx += C::kProducers) {
+        const int r = idx / 8, c = idx % 8;
+        const int tok_r = src_row[r], col = k0 + 8 * c;
+        const bool valid = tok_r >= 0 && col < d;
+        hopper::cp_async16(a + r * 128 + ((c ^ (r & 7)) << 4),
+                           valid ? x + (size_t)tok_r * d + col : x, valid);
+      }
+      hopper::cp_async_commit();
+      // the gather of stage kt - kLag has landed: publish it (kLag stages
+      // of gathers stay in flight; kLag <= kStages - 2, or the ring stalls)
+      if (kt >= C::kLag) {
+        hopper::cp_async_wait<C::kLag>();
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(&full[(kt - C::kLag) % C::kStages]);
+      }
+    }
+    hopper::cp_async_wait<0>();
+    hopper::fence_proxy_async();
+    for (int kt = nk > C::kLag ? nk - C::kLag : 0; kt < nk; ++kt)
+      hopper::mbar_arrive(&full[kt % C::kStages]);
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int t = threadIdx.x % 128;
+  float ag[64], au[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    ag[i] = 0.0f;
+    au[i] = 0.0f;
+  }
+  int prev = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % C::kStages;
+    hopper::mbar_wait(&full[s], (kt / C::kStages) & 1);
+    const uint8_t* a = smem + s * C::kStageBytes + wg * hopper::kBoxBytes64;
+    const uint8_t* wgt = smem + s * C::kStageBytes + C::kABytes;
+    const uint8_t* wut = wgt + C::kWBytes;
+    hopper::fence_acc(ag);
+    hopper::fence_acc(au);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hopper::make_desc(a + kk * 32, 16, 1024);
+      hopper::Wgmma<128, 0, 1>::ss(
+          ag, da, hopper::make_desc(wgt + kk * 2048, hopper::kBoxBytes64, 1024), 1);
+      hopper::Wgmma<128, 0, 1>::ss(
+          au, da, hopper::make_desc(wut + kk * 2048, hopper::kBoxBytes64, 1024), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::fence_acc(ag);
+    hopper::fence_acc(au);
+    hopper::wgmma_wait<1>();            // the group before this one is done
+    if (kt > 0) hopper::mbar_arrive(&empty[prev]);
+    prev = s;
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_acc(ag);
+  hopper::fence_acc(au);
+
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = 64 * wg + hopper::frag_row(t, i);
+    const int col = f0 + hopper::frag_col(t, i);
+    if (src_row[r] < 0 || col >= f) continue;  // h of a dead row is never read
+    float hv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float gr = round_t<__nv_bfloat16>(ag[i + u]);
+      const float ur = round_t<__nv_bfloat16>(au[i + u]);
+      hv[u] = round_t<__nv_bfloat16>(act_fn(act, gr)) * ur;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(&h[(size_t)(m0 + r) * f + col]) =
+        __floats2bfloat162_rn(hv[0], hv[1]);
+  }
+}
+
+// out = round((h Wd[e]) * gate) on the sorted layout: hopper::SortedGemm's
+// mainloop over h (TMA) and Wd[e] (MN-major), rows whose gate is 0
+// written as 0, and a block with no live row writing zeros and reading
+// nothing.
+template <int NC>
+__global__ void __launch_bounds__(hopper::SortedGemm<NC, false>::kThreads, 2)
+esffn_down_wgmma_kernel(__grid_constant__ const CUtensorMap h_map,
+                        __grid_constant__ const CUtensorMap wd_map,
+                        const float* __restrict__ row_gate,
+                        const int* __restrict__ block_expert,
+                        __nv_bfloat16* __restrict__ out, int d, int f,
+                        int n_tiles) {
+  using G = hopper::SortedGemm<NC, false>;
+  const int m_blk = blockIdx.x / n_tiles;
+  const int n0 = (blockIdx.x % n_tiles) * G::kBN;
+  const int m0 = m_blk * G::kBM;
+  const bool on = threadIdx.x < G::kBM && row_gate[m0 + threadIdx.x] != 0.0f;
+  if (!__syncthreads_or(on)) {
+    for (int idx = threadIdx.x; idx < G::kBM * G::kBN; idx += G::kThreads) {
+      const int col = n0 + idx % G::kBN;
+      if (col < d) out[(size_t)(m0 + idx / G::kBN) * d + col] = __float2bfloat16(0.0f);
+    }
+    return;
+  }
+  extern __shared__ uint8_t smem_raw[];
+  uint64_t *full, *empty;
+  uint8_t* smem = G::setup(smem_raw, full, empty);
+  const int e = block_expert[m_blk];
+  const int nk = (f + hopper::kTileK - 1) / hopper::kTileK;
+  const int warp = threadIdx.x / 32;
+  if (warp == G::kProducerWarp) {
+    G::produce(smem, full, empty, &h_map, &wd_map, m0, n0, e, nk);
+    return;
+  }
+  const int wg = warp / 4;
+  const int t = threadIdx.x % 128;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  G::consume(smem, full, empty, wg, nk, acc);
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int row = m0 + 64 * wg + hopper::frag_row(t, i);
+    const int col = n0 + hopper::frag_col(t, i);
+    if (col >= d) continue;
+    const float gate = row_gate[row];
+    *reinterpret_cast<__nv_bfloat162*>(&out[(size_t)row * d + col]) =
+        gate != 0.0f ? __floats2bfloat162_rn(acc[i] * gate, acc[i + 1] * gate)
+                     : __floats2bfloat162_rn(0.0f, 0.0f);
+  }
+}
+
+template <int NC>
+int launch_wgmma_nc(const void* x, const void* row_token, const void* row_gate,
+                    const void* block_expert, const void* wg, const void* wu,
+                    const void* wd, void* h, void* out, int n, int d, int f,
+                    int np_rows, int num_experts, int act,
+                    cudaStream_t stream) {
+  using U = GluUp<NC>;
+  using G = hopper::SortedGemm<NC, false>;
+  // Wg, Wu (E, D, F) and Wd (E, F, D): 3-D maps, the expert outermost, in
+  // 64 x 64 boxes; h (Np, F): 64 F x BM rows.
+  CUtensorMap wg_map, wu_map, wd_map, h_map;
+  const uint64_t up_dims[3] = {(uint64_t)f, (uint64_t)d, (uint64_t)num_experts};
+  const uint64_t up_strides[2] = {(uint64_t)f * 2, (uint64_t)f * d * 2};
+  const uint64_t dn_dims[3] = {(uint64_t)d, (uint64_t)f, (uint64_t)num_experts};
+  const uint64_t dn_strides[2] = {(uint64_t)d * 2, (uint64_t)f * d * 2};
+  const uint32_t w_box[3] = {64, 64, 1};
+  const uint64_t h_dims[2] = {(uint64_t)f, (uint64_t)np_rows};
+  const uint64_t h_strides[1] = {(uint64_t)f * 2};
+  const uint32_t h_box[2] = {64, (uint32_t)G::kBM};
+  if (!hopper::encode_bf16_map(&wg_map, wg, 3, up_dims, up_strides, w_box) ||
+      !hopper::encode_bf16_map(&wu_map, wu, 3, up_dims, up_strides, w_box) ||
+      !hopper::encode_bf16_map(&wd_map, wd, 3, dn_dims, dn_strides, w_box) ||
+      !hopper::encode_bf16_map(&h_map, h, 2, h_dims, h_strides, h_box))
+    return (int)cudaErrorInvalidValue;
+  static bool configured = false;       // one attribute set per instance
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        esffn_up_wgmma_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, U::kSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(esffn_down_wgmma_kernel<NC>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int nblk = np_rows / U::kBM;
+  const int f_tiles = (f + kUpFT - 1) / kUpFT;
+  esffn_up_wgmma_kernel<NC><<<nblk * f_tiles, U::kThreads, U::kSmem, stream>>>(
+      (const __nv_bfloat16*)x, (const int*)row_token, (const float*)row_gate,
+      (const int*)block_expert, wg_map, wu_map, (__nv_bfloat16*)h, n, d, f,
+      f_tiles, act);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  esffn_down_kernel<T, W><<<down_grid, kThreads, 0, stream>>>(
-      (const T*)h, (const int*)row_token, (const float*)row_gate,
-      (const int*)block_expert, (const W*)wd, sd, (T*)out, n, d, f, blk);
+  const int n_tiles = (d + G::kBN - 1) / G::kBN;
+  esffn_down_wgmma_kernel<NC><<<nblk * n_tiles, G::kThreads, G::kSmem, stream>>>(
+      h_map, wd_map, (const float*)row_gate, (const int*)block_expert,
+      (__nv_bfloat16*)out, d, f, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -561,8 +942,10 @@ bool tiles_ok(int rows, int cols, int ta, int tb) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. act: ACT_IDS. h: (Np, F) scratch of
-// dtype T; out: (Np, D). Requires 8 <= blk <= 128 (the wrapper checks).
+// The GLU form on the stream route. dtype: 0 = float32, 1 = bfloat16. act:
+// ACT_IDS. h: (Np, F) scratch of dtype T; out: (Np, D). Requires 8 <= blk
+// <= 128, D and F multiples of 16 and 16-byte aligned weights (anything
+// else is refused).
 extern "C" int esffn_glu_launch(const void* x, const void* row_token,
                                 const void* row_gate, const void* block_expert,
                                 const void* wg, const void* wu, const void* wd,
@@ -577,9 +960,34 @@ extern "C" int esffn_glu_launch(const void* x, const void* row_token,
 #undef GLU
 }
 
-// The GLU form with 8-bit weights: wdtype 1 = int8, 2 = fp8 e4m3 (wg, wu,
-// wd alike); sg, su (E, D / ta_up, F / tb_up) and sd (E, F / ta_dn,
-// D / tb_dn) their f32 block scales. x, h and out as esffn_glu_launch.
+// The GLU form on the wgmma route: bf16 x, weights, h and out; blk 64 or
+// 128, D and F multiples of 8, x, the weights and h 16-byte aligned
+// (anything else is refused). num_experts = E, the extent of the weights'
+// tensor maps; the other arguments as esffn_glu_launch.
+extern "C" int esffn_glu_wgmma_launch(const void* x, const void* row_token,
+                                      const void* row_gate,
+                                      const void* block_expert, const void* wg,
+                                      const void* wu, const void* wd, void* h,
+                                      void* out, int n, int d, int f,
+                                      int np_rows, int blk, int act,
+                                      int num_experts, void* stream) {
+  if ((blk != 64 && blk != 128) || d % 8 || f % 8 || np_rows % blk ||
+      num_experts < 1 || n < 1 ||
+      ((uintptr_t)x | (uintptr_t)wg | (uintptr_t)wu | (uintptr_t)wd |
+       (uintptr_t)h) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (blk == 128)
+    return launch_wgmma_nc<2>(x, row_token, row_gate, block_expert, wg, wu, wd,
+                              h, out, n, d, f, np_rows, num_experts, act, s);
+  return launch_wgmma_nc<1>(x, row_token, row_gate, block_expert, wg, wu, wd,
+                            h, out, n, d, f, np_rows, num_experts, act, s);
+}
+
+// The GLU form with 8-bit weights, on the stream route: wdtype 1 = int8,
+// 2 = fp8 e4m3 (wg, wu, wd alike); sg, su (E, D / ta_up, F / tb_up) and
+// sd (E, F / ta_dn, D / tb_dn) their f32 block scales, tb_up and tb_dn
+// multiples of 8. x, h and out as esffn_glu_launch.
 extern "C" int esffn_glu_q_launch(const void* x, const void* row_token,
                                   const void* row_gate,
                                   const void* block_expert, const void* wg,

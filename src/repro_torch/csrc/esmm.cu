@@ -31,7 +31,9 @@
 //  * Each consumer warpgroup runs four m64n128k16 wgmma per stage into 64
 //    f32 registers a thread, started from the f32 bias, keeps one wgmma
 //    group in flight and releases a stage when the group before it is
-//    done. The epilogue rounds once to bf16 and stores bf16 pairs.
+//    done. The epilogue rounds once to bf16 and stores bf16 pairs. This
+//    mainloop is hopper.cuh's SortedGemm, which esffn.cu's down product
+//    shares.
 //  * CTA order: the N tiles of one block are neighbours, and neighbouring
 //    blocks share their expert (the layout is sorted), so the CTAs in
 //    flight read each xs block once from device memory and each W[e] tile
@@ -235,68 +237,27 @@ int launch_q(const void* xs, const void* w, Scales sw, const void* b,
 
 // ---- wgmma route --------------------------------------------------------
 
-constexpr int kWgBN = 128;   // output columns of a CTA
-
-template <int NC>            // consumer warpgroups: BM = 64 NC rows
-struct WgCfg {
-  static constexpr int kBM = 64 * NC;
-  static constexpr int kStages = NC == 2 ? 3 : 4;
-  static constexpr int kABytes = kBM * 128;        // kBM rows x 64 K
-  static constexpr int kBBytes = kWgBN * 128;      // 128 columns x 64 K
-  static constexpr int kStageBytes = kABytes + kBBytes;
-  static constexpr int kThreads = NC * 128 + 32;   // + one producer warp
-  static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
-};
-
 template <int NC, bool kTrans>
-__global__ void __launch_bounds__(WgCfg<NC>::kThreads, 2)
+__global__ void __launch_bounds__(hopper::SortedGemm<NC, kTrans>::kThreads, 2)
 esmm_wgmma_kernel(__grid_constant__ const CUtensorMap xs_map,
                   __grid_constant__ const CUtensorMap w_map,
                   const float* __restrict__ b,
                   const int* __restrict__ block_expert,
                   __nv_bfloat16* __restrict__ ys, int k, int n, int n_tiles) {
-  using C = WgCfg<NC>;
+  using G = hopper::SortedGemm<NC, kTrans>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kStages * C::kStageBytes);
-  uint64_t* empty = full + C::kStages;
+  uint64_t *full, *empty;
+  uint8_t* smem = G::setup(smem_raw, full, empty);
 
   const int blk_m = blockIdx.x / n_tiles;
-  const int n0 = (blockIdx.x % n_tiles) * kWgBN;
-  const int m0 = blk_m * C::kBM;
+  const int n0 = (blockIdx.x % n_tiles) * G::kBN;
+  const int m0 = blk_m * G::kBM;
   const int e = block_expert[blk_m];
   const int nk = (k + hopper::kTileK - 1) / hopper::kTileK;
   const int warp = threadIdx.x / 32;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], NC * 128);
-    }
-    hopper::mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp == NC * 4) {                 // producer warp: one lane loads
-    if (threadIdx.x % 32 == 0) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % C::kStages;
-        if (kt >= C::kStages) hopper::mbar_wait(&empty[s], ((kt / C::kStages) - 1) & 1);
-        uint8_t* a = smem + s * C::kStageBytes;
-        uint8_t* bt = a + C::kABytes;
-        hopper::mbar_arrive_expect_tx(&full[s], C::kStageBytes);
-        const int k0 = kt * hopper::kTileK;
-        hopper::tma_load_2d(a, &xs_map, &full[s], k0, m0);
-        if constexpr (kTrans) {
-          hopper::tma_load_3d(bt, &w_map, &full[s], k0, n0, e);
-        } else {
-          hopper::tma_load_3d(bt, &w_map, &full[s], n0, k0, e);
-          hopper::tma_load_3d(bt + hopper::kBoxBytes64, &w_map, &full[s],
-                              n0 + 64, k0, e);
-        }
-      }
-    }
+  if (warp == G::kProducerWarp) {
+    G::produce(smem, full, empty, &xs_map, &w_map, m0, n0, e, nk);
     return;
   }
 
@@ -308,33 +269,7 @@ esmm_wgmma_kernel(__grid_constant__ const CUtensorMap xs_map,
     const int col = n0 + hopper::frag_col(t, i);
     acc[i] = (b != nullptr && col < n) ? b[(size_t)e * n + col] : 0.0f;
   }
-  int prev = 0;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % C::kStages;
-    hopper::mbar_wait(&full[s], (kt / C::kStages) & 1);
-    const uint8_t* a = smem + s * C::kStageBytes + wg * hopper::kBoxBytes64;
-    const uint8_t* bt = smem + s * C::kStageBytes + C::kABytes;
-    hopper::fence_acc(acc);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t da = hopper::make_desc(a + kk * 32, 16, 1024);
-      if constexpr (kTrans) {
-        hopper::wgmma_m64n128k16<0, 0>(acc, da,
-                                       hopper::make_desc(bt + kk * 32, 16, 1024));
-      } else {
-        hopper::wgmma_m64n128k16<0, 1>(
-            acc, da, hopper::make_desc(bt + kk * 2048, hopper::kBoxBytes64, 1024));
-      }
-    }
-    hopper::wgmma_commit();
-    hopper::fence_acc(acc);
-    hopper::wgmma_wait<1>();            // the group before this one is done
-    if (kt > 0) hopper::mbar_arrive(&empty[prev]);
-    prev = s;
-  }
-  hopper::wgmma_wait<0>();
-  hopper::fence_acc(acc);
+  G::consume(smem, full, empty, wg, nk, acc);
 
   const size_t row0 = (size_t)m0 + 64 * wg;
 #pragma unroll
@@ -351,7 +286,7 @@ template <int NC, bool kTrans>
 int launch_wgmma(const void* xs, const void* w, const void* b,
                  const void* block_expert, void* ys, int np_rows, int k, int n,
                  int num_experts, cudaStream_t stream) {
-  using C = WgCfg<NC>;
+  using C = hopper::SortedGemm<NC, kTrans>;
   // xs (Np, K): boxes of 64 K x BM rows. W (E, K, N) or (E, N, K) as a 3-D
   // map, so a tile past K or N reads zeros, never the next expert's rows.
   CUtensorMap xs_map, w_map;
@@ -361,7 +296,7 @@ int launch_wgmma(const void* xs, const void* w, const void* b,
   const uint64_t inner = kTrans ? k : n, outer = kTrans ? n : k;
   const uint64_t w_dims[3] = {inner, outer, (uint64_t)num_experts};
   const uint64_t w_strides[2] = {inner * 2, inner * outer * 2};
-  const uint32_t w_box[3] = {64, kTrans ? (uint32_t)kWgBN : 64u, 1};
+  const uint32_t w_box[3] = {64, kTrans ? (uint32_t)C::kBN : 64u, 1};
   if (!hopper::encode_bf16_map(&xs_map, xs, 2, xs_dims, xs_strides, xs_box) ||
       !hopper::encode_bf16_map(&w_map, w, 3, w_dims, w_strides, w_box))
     return (int)cudaErrorInvalidValue;
@@ -373,7 +308,7 @@ int launch_wgmma(const void* xs, const void* w, const void* b,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const int n_tiles = (n + kWgBN - 1) / kWgBN;
+  const int n_tiles = (n + C::kBN - 1) / C::kBN;
   kernel<<<(np_rows / C::kBM) * n_tiles, C::kThreads, C::kSmem, stream>>>(
       xs_map, w_map, (const float*)b, (const int*)block_expert,
       (__nv_bfloat16*)ys, k, n, n_tiles);

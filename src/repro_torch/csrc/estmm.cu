@@ -226,9 +226,9 @@ estmm_wgmma_kernel(__grid_constant__ const CUtensorMap x1_map,
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          hopper::wgmma_m64n128k16<1, 1>(
+          hopper::Wgmma<128, 1, 1>::ss(
               acc, hopper::make_desc(a + kk * 2048, hopper::kBoxBytes64, 1024),
-              hopper::make_desc(b + kk * 2048, hopper::kBoxBytes64, 1024));
+              hopper::make_desc(b + kk * 2048, hopper::kBoxBytes64, 1024), 1);
         hopper::wgmma_commit();
         hopper::fence_acc(acc);
         hopper::wgmma_wait<1>();        // the group before this one is done

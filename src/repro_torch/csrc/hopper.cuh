@@ -1,6 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// esmm.cu and estmm.cu: mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and the m64n128k16 bf16 product, and host-side tensor maps.
+// esmm.cu, estmm.cu, esffn.cu and flash_attention.cu: mbarriers, TMA tile
+// loads, cp.async, wgmma shared-memory descriptors and the m64nNk16 bf16
+// products (N 64, 128 or 256; A from shared memory, SS, or from registers,
+// RS) with their fragment maps, the sorted-layout GEMM mainloop that esmm
+// and esffn's down product share, and host-side tensor maps.
 //
 // Every tile these kernels stage is a TMA box whose inner extent is 64
 // bf16 values (128 bytes) under the 128-byte swizzle, so one swizzle atom
@@ -88,6 +91,42 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                           uint64_t* bar, int c0, int c1,
+                                           int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// ---- cp.async ---------------------------------------------------------------
+
+// 16 bytes from global to shared memory; with `valid` false the 16 bytes
+// are zeros and nothing is read (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) before later async-proxy reads of it (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile.
@@ -109,11 +148,20 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// Pins the accumulators in registers across the asynchronous wgmma: the
-// compiler may not move or read them between issue and wait.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+// Pins the accumulators (or RS operand registers) in registers across the
+// asynchronous wgmma: the compiler may not move or read them between issue
+// and wait.
+template <int M>
+__device__ __forceinline__ void fence_acc(float (&d)[M]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
 template <int N>
@@ -121,27 +169,91 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// d (64 x 128, f32, the warpgroup's fragment) += A (64 x 16) B (16 x 128),
-// bf16 operands from shared memory. kTransA / kTransB: 0 for a K-major
-// operand, 1 for an MN-major one.
+// Wgmma<N, kTransA, kTransB>: d (64 x N, f32, the warpgroup's fragment of
+// N / 2 registers a thread) = A (64 x 16) B (16 x N) + (scale_d ? d : 0),
+// bf16 operands. B comes from shared memory (descriptor b); A either from
+// shared memory (ss: descriptor a) or from registers (rs: four registers
+// of bf16 pairs, a[j] holding (frag_row(t, 2j), frag_col(t, 2j)) and the
+// column after it, so registers 8 kk .. 8 kk + 7 of a 64 x 16n f32
+// accumulator, rounded in pairs, are the A operand of its K step kk).
+// kTransA / kTransB: 0 for a K-major operand, 1 for an MN-major one (rs
+// takes kTransB only).
+template <int N, int kTransA, int kTransB>
+struct Wgmma;
+
 template <int kTransA, int kTransB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
-                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %68, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %66, %67;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+struct Wgmma<64, kTransA, kTransB> {
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
+
+  __device__ __forceinline__ static void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(kTransB));
+  }
+};
+
+template <int kTransA, int kTransB>
+struct Wgmma<128, kTransA, kTransB> {
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -157,11 +269,115 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "n"(kTransA), "n"(kTransB), "r"(1));
-}
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
 
-// Element (row, col) of the 64 x 128 tile held in d[i] by thread `t` of
-// the warpgroup: row = 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2),
+  __device__ __forceinline__ static void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(kTransB));
+  }
+};
+
+template <int kTransA, int kTransB>
+struct Wgmma<256, kTransA, kTransB> {
+  __device__ __forceinline__ static void rs(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(kTransB));
+  }
+};
+
+// Element (row, col) of the 64 x N tile held in d[i] by thread `t` of
+// the warpgroup (any N): row = 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2),
 // col = 8 (i / 4) + 2 (t % 4) + i % 2.
 __device__ __forceinline__ int frag_row(int t, int i) {
   return 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2);
@@ -169,6 +385,110 @@ __device__ __forceinline__ int frag_row(int t, int i) {
 __device__ __forceinline__ int frag_col(int t, int i) {
   return 8 * (i / 4) + 2 * (t % 4) + (i % 2);
 }
+
+// ---- the sorted-layout GEMM mainloop ----------------------------------------
+
+// One CTA's tile of ys = A W[e] on the expert-sorted layout: BM = 64 NC rows
+// of A (Np, K) lying in one block, whose expert is e, by 128 columns of
+// W[e]. W is (E, K, N) read MN-major, or (E, N, K) read K-major with
+// kTrans; both through a 3-D tensor map with the expert as its outer
+// coordinate, so a tile past K or N reads zeros, never the next expert's
+// rows. A producer warp (warp 4 NC) keeps a ring of TMA loads in flight
+// (K steps of 64, 128-byte swizzle): the BM x 64 A tile (K-major) and the
+// 64 x 128 W tile (one 128 x 64 box with kTrans, two 64-column boxes
+// without). Each consumer warpgroup runs four m64n128k16 wgmma a stage
+// into 64 f32 registers a thread, keeps one wgmma group in flight and
+// releases a stage when the group before it is done. esmm (ys = xs W[e]
+// + b[e]) and esffn's down product (out = (h Wd[e]) gate) share it and
+// differ in their epilogues.
+template <int NC, bool kTrans>
+struct SortedGemm {
+  static constexpr int kBM = 64 * NC;
+  static constexpr int kBN = 128;
+  static constexpr int kStages = NC == 2 ? 3 : 4;
+  static constexpr int kABytes = kBM * 128;        // kBM rows x 64 K
+  static constexpr int kBBytes = kBN * 128;        // 128 columns x 64 K
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kThreads = NC * 128 + 32;   // + one producer warp
+  static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
+  static constexpr int kProducerWarp = NC * 4;
+
+  // Every thread calls it: the 1,024-byte aligned stage ring, with its
+  // full and empty barriers initialised.
+  __device__ static uint8_t* setup(uint8_t* raw, uint64_t*& full,
+                                   uint64_t*& empty) {
+    uint8_t* smem = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+    full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+    empty = full + kStages;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], NC * 128);
+      }
+      mbar_init_fence();
+    }
+    __syncthreads();
+    return smem;
+  }
+
+  // The producer warp: lane 0 loads the nk K steps of the tile at rows m0
+  // of A and columns n0 of W[e].
+  __device__ static void produce(uint8_t* smem, uint64_t* full,
+                                 uint64_t* empty, const CUtensorMap* a_map,
+                                 const CUtensorMap* w_map, int m0, int n0,
+                                 int e, int nk) {
+    if (threadIdx.x % 32 != 0) return;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kStages;
+      if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) - 1) & 1);
+      uint8_t* a = smem + s * kStageBytes;
+      uint8_t* bt = a + kABytes;
+      mbar_arrive_expect_tx(&full[s], kStageBytes);
+      const int k0 = kt * kTileK;
+      tma_load_2d(a, a_map, &full[s], k0, m0);
+      if constexpr (kTrans) {
+        tma_load_3d(bt, w_map, &full[s], k0, n0, e);
+      } else {
+        tma_load_3d(bt, w_map, &full[s], n0, k0, e);
+        tma_load_3d(bt + kBoxBytes64, w_map, &full[s], n0 + 64, k0, e);
+      }
+    }
+  }
+
+  // Consumer warpgroup wg: acc (its 64 rows x 128 columns, fragment map
+  // frag_row / frag_col) += the product over the nk K steps.
+  __device__ static void consume(const uint8_t* smem, uint64_t* full,
+                                 uint64_t* empty, int wg, int nk,
+                                 float (&acc)[64]) {
+    int prev = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(&full[s], (kt / kStages) & 1);
+      const uint8_t* a = smem + s * kStageBytes + wg * kBoxBytes64;
+      const uint8_t* bt = smem + s * kStageBytes + kABytes;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = make_desc(a + kk * 32, 16, 1024);
+        if constexpr (kTrans) {
+          Wgmma<128, 0, 0>::ss(acc, da, make_desc(bt + kk * 32, 16, 1024), 1);
+        } else {
+          Wgmma<128, 0, 1>::ss(
+              acc, da, make_desc(bt + kk * 2048, kBoxBytes64, 1024), 1);
+        }
+      }
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();                  // the group before this one is done
+      if (kt > 0) mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+  }
+};
 
 // ---- host: tensor maps ------------------------------------------------------
 
@@ -196,7 +516,7 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
       return false;
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
-  const cuuint32_t ones[3] = {1, 1, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                 const_cast<void*>(base), (const cuuint64_t*)dims,
                 (const cuuint64_t*)strides, (const cuuint32_t*)box, ones,

@@ -16,7 +16,12 @@ that ``core.reindex.scatter_rows`` combines. Two expert bodies:
 Each wrapper launches, on a CUDA tensor, the hand-written kernel of
 ``csrc/esffn.cu`` (see its source note for the design) and counts the
 launch in ``<wrapper>.launches``; on a CPU tensor it runs its plain
-version. There is no other path. The plain versions (``*_plain``) use
+version. There is no other path. ``esffn_glu`` has two routes, picked by
+``_route`` from the dtype and shapes alone before the launch and counted
+in ``esffn_glu.launches_by_route``: ``"wgmma"`` (bf16 on the tensor cores;
+the LM train path at blk 128) and ``"stream"`` (the weight-streaming
+kernels: the serve path at blk 16, 8-bit weights, f32). No route gives
+way to another. The plain versions (``*_plain``) use
 per-block weight tiles ``W[block_expert]`` and batched matmuls, rounding
 where the kernels round: g and u (GLU) or z after ``+ b1`` (MLP) to
 x.dtype, h in x.dtype, the down product in f32 (from b2), the output
@@ -49,6 +54,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WDTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_VP] * 9 + [_I] * 7 + [_VP]
+_ROUTES = ("stream", "wgmma")
 _MLP_ARGTYPES = [_VP] * 10 + [_I] * 7 + [_VP]
 _Q_ARGTYPES = [_VP] * 12 + [_I] * 12 + [_VP]
 #: The TPU kernels' hidden-dim block (``bf``): the quant tiles must divide
@@ -70,6 +76,17 @@ def _tpu_blocks(d, f, up_down):
     (bf, D) for a down weight (E, F, D)."""
     bf = min(_TPU_BF, f)
     return [(d, bf) if up else (bf, d) for up in up_down]
+
+
+def _route(dtype, blk: int, d: int, f: int, quantized: bool = False) -> str:
+    """The GLU kernel route for these operands: ``"wgmma"`` for bf16 x with
+    bf16 weights, ``blk % 64 == 0`` and D and F multiples of 8 (TMA takes
+    16-byte global strides), else ``"stream"`` (bf16 at blk 8..32, f32,
+    and every call with 8-bit weights)."""
+    if dtype == torch.bfloat16 and not quantized and blk % 64 == 0 \
+            and d % 8 == 0 and f % 8 == 0:
+        return "wgmma"
+    return "stream"
 
 
 def esffn_glu_plain(x, row_token, row_gate, block_expert, w_gate, w_up,
@@ -139,6 +156,21 @@ def _check_cuda_args(x, row_token, row_gate, block_expert, w_gate, w_up,
     np_rows, blk = _check_layout(
         "esffn_glu", x, row_token, row_gate, block_expert, act,
         (x, row_token, row_gate, block_expert, *weights, *(w_scales or ())))
+    route = _route(x.dtype, blk, d, f, w_scales is not None)
+    if route == "stream":
+        if d % 16 or f % 16:
+            raise ValueError(f"esffn_glu's stream route copies weight rows in "
+                             f"16-byte pieces: D {d} and F {f} must be "
+                             f"multiples of 16")
+        if w_scales is not None and any(
+                w.shape[2] // s.shape[2] % 8 for w, s in zip(weights,
+                                                             w_scales)):
+            raise ValueError("esffn_glu's stream route takes 8-bit weights "
+                             "whose column quant tiles are multiples of 8")
+    if any(t.data_ptr() % 16 for t in (x, *weights)):
+        raise ValueError(f"esffn_glu's {route} route copies x and the "
+                         f"weights in 16-byte pieces, which needs 16-byte "
+                         f"aligned base addresses")
     return n, d, f, np_rows, blk
 
 
@@ -161,6 +193,7 @@ def esffn_glu(x, row_token, row_gate, block_expert, w_gate, w_up, w_down, *,
     n, d, f, np_rows, blk = _check_cuda_args(
         x, row_token, row_gate, block_expert, w_gate, w_up, w_down, act,
         w_scales)
+    route = _route(x.dtype, blk, d, f, w_scales is not None)
     out = torch.empty((np_rows, d), dtype=x.dtype, device=x.device)
     h = torch.empty((np_rows, f), dtype=x.dtype, device=x.device)
     ptrs = (x.data_ptr(), row_token.data_ptr(), row_gate.data_ptr(),
@@ -168,7 +201,12 @@ def esffn_glu(x, row_token, row_gate, block_expert, w_gate, w_up, w_down, *,
             w_down.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if w_scales is None:
+        if route == "wgmma":
+            launch = build.load("esffn", "esffn_glu_wgmma_launch",
+                                _ARGTYPES)
+            err = launch(*ptrs, h.data_ptr(), out.data_ptr(), n, d, f,
+                         np_rows, blk, ACT_IDS[act], w_gate.shape[0], stream)
+        elif w_scales is None:
             launch = build.load("esffn", "esffn_glu_launch", _ARGTYPES)
             err = launch(*ptrs, h.data_ptr(), out.data_ptr(), n, d, f,
                          np_rows, blk, _DTYPES[x.dtype], ACT_IDS[act], stream)
@@ -180,14 +218,17 @@ def esffn_glu(x, row_token, row_gate, block_expert, w_gate, w_up, w_down, *,
                          _DTYPES[x.dtype], _WDTYPES[w_gate.dtype],
                          ACT_IDS[act], ta_up, tb_up, ta_dn, tb_dn, stream)
     if err:
-        raise RuntimeError(f"esffn_glu kernel launch failed (CUDA error {err})")
+        raise RuntimeError(f"esffn_glu kernel launch failed on the {route} "
+                           f"route (CUDA error {err})")
     esffn_glu.launches += 1
+    esffn_glu.launches_by_route[route] += 1
     if w_scales is not None:
         esffn_glu.launches_quant[QUANT_MODES[w_gate.dtype]] += 1
     return out
 
 
 esffn_glu.launches = 0
+esffn_glu.launches_by_route = dict.fromkeys(_ROUTES, 0)
 esffn_glu.launches_quant = dict.fromkeys(QUANT_MODES.values(), 0)
 
 

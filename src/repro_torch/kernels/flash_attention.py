@@ -9,9 +9,12 @@ is ``models.attention.chunked_attention``. Its entry point is the path.
   dtype, scale hd^-0.5, query head h reading kv head h // (Hq / Hkv) (what
   ``jnp.repeat(k, g, axis=2)`` gives). On a CUDA tensor it launches the
   hand-written kernel of ``csrc/flash_attention.cu`` (see its source note
-  for the design) and counts the launch in ``flash_attention.launches``;
-  on a CPU tensor it runs ``flash_attention_plain``. There is no other
-  path. ``bq`` and ``bk`` are the TPU kernel's block sizes: S must be a
+  for the design) on the route ``_route`` picks from the dtype alone:
+  ``"wgmma"`` (bf16 on the tensor cores, P V in split bf16) or ``"simt"``
+  (f32 FMA), and counts the launch in ``flash_attention.launches`` and
+  ``flash_attention.launches_by_route``; on a CPU tensor it runs
+  ``flash_attention_plain``. There is no other path, and no route gives
+  way to another. ``bq`` and ``bk`` are the TPU kernel's block sizes: S must be a
   multiple of ``min(bq, S)`` and of ``min(bk, S)`` (ValueError otherwise,
   where the TPU kernel asserts); the plain version walks those blocks,
   the CUDA kernel tiles by its own sizes.
@@ -35,6 +38,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)      # the kernel's instances
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_VP] * 4 + [_I] * 6 + [_F, _I, _VP]
+_WG_ARGTYPES = [_VP] * 4 + [_I] * 6 + [_F, _VP]
+_ROUTES = ("simt", "wgmma")
+
+
+def _route(dtype) -> str:
+    """The kernel route: ``"wgmma"`` for bf16 (every head dim the kernel
+    takes), ``"simt"`` for f32."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def _check_args(q, k, v, bq, bk):
@@ -121,19 +132,27 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 512,
         raise ValueError(f"flash_attention runs on CUDA or CPU, not "
                          f"{q.device}")
     b, s, hq, hkv, hd = _check_cuda_args(q, k, v, bq, bk)
-    launch = build.load("flash_attention", "flash_attention_launch",
-                        _ARGTYPES)
+    route = _route(q.dtype)
     out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            hq, hkv, hd, int(causal), float(hd ** -0.5))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, s, hq, hkv, hd, int(causal), float(hd ** -0.5),
-                     _DTYPES[q.dtype], stream)
+        if route == "wgmma":
+            launch = build.load("flash_attention",
+                                "flash_attention_wgmma_launch", _WG_ARGTYPES)
+            err = launch(*args, stream)
+        else:
+            launch = build.load("flash_attention", "flash_attention_launch",
+                                _ARGTYPES)
+            err = launch(*args, _DTYPES[q.dtype], stream)
     if err:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed (CUDA error {err})")
+        raise RuntimeError(f"flash_attention kernel launch failed on the "
+                           f"{route} route (CUDA error {err})")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(_ROUTES, 0)

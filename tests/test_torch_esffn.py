@@ -195,3 +195,84 @@ def test_kernel_argument_checks():
     with pytest.raises(TypeError, match="int8"):
         tesffn.esffn_glu(*_args(), w_scales=tuple(
             torch.ones((E, 1, 1)) for _ in range(3)))
+
+
+# The GLU route of every case chip_smoke.py runs (qwen3-moe-30b-a3b's
+# experts: D 2048, F 768), and the edges of the route rule:
+# (dtype, blk, D, F, 8-bit weights, route).
+GLU_ROUTES = [
+    (torch.bfloat16, 16, 2048, 768, False, "stream"),   # serve decode/prefill
+    (torch.float32, 16, 2048, 768, False, "stream"),    # f32 serve, phase 7
+    (torch.bfloat16, 16, 2048, 768, True, "stream"),    # 8-bit serve
+    (torch.float32, 16, 2048, 768, True, "stream"),
+    (torch.bfloat16, 128, 2048, 768, False, "wgmma"),   # LM train, N 4096
+    (torch.bfloat16, 128, 2048, 768, True, "stream"),   # 8-bit at blk 128
+    (torch.float32, 128, 2048, 768, False, "stream"),
+    (torch.bfloat16, 64, 2048, 768, False, "wgmma"),
+    (torch.bfloat16, 32, 2048, 768, False, "stream"),
+    (torch.bfloat16, 128, 2044, 768, False, "stream"),  # D not % 8
+    (torch.bfloat16, 128, 2048, 764, False, "stream"),  # F not % 8
+    (torch.bfloat16, 128, 24, 40, False, "wgmma"),
+]
+
+
+@pytest.mark.parametrize("dtype,blk,d,f,quantized,route", GLU_ROUTES)
+def test_glu_route_rule(dtype, blk, d, f, quantized, route):
+    assert tesffn._route(dtype, blk, d, f, quantized) == route
+
+
+def test_glu_route_counts_start_at_zero():
+    assert set(tesffn.esffn_glu.launches_by_route) == {"stream", "wgmma"}
+    assert all(isinstance(v, int)
+               for v in tesffn.esffn_glu.launches_by_route.values())
+
+
+def _glu_args(np_rows, nblk, d, f, dtype=torch.bfloat16):
+    x = torch.zeros((N, d), dtype=dtype)
+    return (x, torch.zeros(np_rows, dtype=torch.int32),
+            torch.zeros(np_rows, dtype=torch.float32),
+            torch.zeros(nblk, dtype=torch.int32),
+            torch.zeros((E, d, f), dtype=dtype),
+            torch.zeros((E, d, f), dtype=dtype),
+            torch.zeros((E, f, d), dtype=dtype))
+
+
+def _misaligned(t):
+    """t's values at a base address 2 bytes past a 16-byte boundary."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    return buf[1:].view(t.shape)
+
+
+def test_glu_route_refusals():
+    """What each route refuses before a launch: both copy x and weight
+    rows in 16-byte pieces (aligned base addresses); the stream route
+    takes D and F multiples of 16 and 8-bit column tiles of 8 or more,
+    the wgmma route D and F multiples of 8."""
+    check = tesffn._check_cuda_args
+    # wgmma at D 24, F 40 (multiples of 8, not of 16) is taken
+    assert check(*_glu_args(128, 1, 24, 40), "silu") == (N, 24, 40, 128, 128)
+    # the same widths on the stream route (blk 16) are refused
+    with pytest.raises(ValueError, match="multiples of 16"):
+        check(*_glu_args(32, 2, 24, 40), "silu")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        check(*_glu_args(32, 2, 32, 40, torch.float32), "silu")
+    # misaligned operands: the weights and x on both routes (stream, then
+    # wgmma)
+    for np_rows, nblk in ((32, 2), (128, 1)):
+        for i in (0, 4):
+            args = list(_glu_args(np_rows, nblk, 32, 48))
+            args[i] = _misaligned(args[i])
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                check(*args, "silu")
+    # 8-bit weights whose column quant tile is 4 wide are refused
+    x, rt, rg, be, *_ = _glu_args(32, 2, 32, 48)
+    ws = (torch.zeros((E, 32, 48), dtype=torch.int8),
+          torch.zeros((E, 32, 48), dtype=torch.int8),
+          torch.zeros((E, 48, 32), dtype=torch.int8))
+    good = (torch.ones((E, 2, 3)), torch.ones((E, 2, 3)),
+            torch.ones((E, 3, 2)))                   # tiles 16 x 16
+    assert check(x, rt, rg, be, *ws, "silu", good) == (N, 32, 48, 32, 16)
+    narrow = (torch.ones((E, 2, 12)), torch.ones((E, 2, 12)),
+              torch.ones((E, 3, 8)))                 # column tiles of 4
+    with pytest.raises(ValueError, match="multiples of 8"):
+        check(x, rt, rg, be, *ws, "silu", narrow)
