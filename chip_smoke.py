@@ -16,17 +16,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    F 768, top-8) for N = 8 (decode) and 16 (prefill chunk) at blk 16, and
    blk 128 once; ``paged_attention`` at B 8, Hq 32, Hkv 4, hd 128, page 16
    over ragged lengths (one of them 0) and a page two slots share, with and
-   without a window and softcap. Times are medians of CUDA-event-timed
-   launches after warm-up, with the L2 cache flushed before each. Then
-   untimed ``esffn_glu`` checks against the plain version: the wgmma
+   without a window and softcap, and at qwen3-moe-30b-a3b's 32,768-token
+   context (``PAGED_LONG``: maxp 2048, lengths up to 32,768, pages in
+   random order, 64 splits of 32 pages) in bf16, with no window and with a
+   4,096-token window and softcap 30. Every paged case is checked over the
+   whole output and slot by slot (``_check_slots``), empty slots exactly
+   0, and two calls must be bitwise equal; the long case's negative
+   control (the plain output with the longest slot's last split of pages
+   left out) must fail the slot-by-slot check. Times are medians of
+   CUDA-event-timed launches after warm-up, with the L2 cache flushed
+   before each. Then untimed checks against the plain version:
+   ``paged_attention`` at ``PAGED_CHECK_CASES`` (hd 64 with G 1, hd 256
+   with G 2, hd 128 with G 16, 8-token pages, f32, and a slot whose every
+   split but one lies behind the window), ``esffn_glu`` on the wgmma
    route at blk 128 and 64 over ragged D x F (``ESFFN_CHECK_WIDTHS``),
-   and the stream route at mixtral-8x7b's expert widths (``ESFFN_WIDE``)
-   in bf16, f32 and int8.
+   and on the stream route at mixtral-8x7b's expert widths
+   (``ESFFN_WIDE``) in bf16, f32 and int8.
    Q1. The 8-bit branches against their plain versions (which dequantize,
    then run the unquantized plain function), timed the same way with
    their bounds from the 8-bit bytes: ``esffn_glu`` with int8 and fp8
    experts at the decode (N 8) and prefill-chunk (N 16) shapes,
-   ``paged_attention`` over int8 pools at the lengths above, ``esmm``
+   ``paged_attention`` over int8 pools at the lengths above, at the long
+   context (with its negative control) and at the int8
+   ``PAGED_CHECK_CASES``, ``esmm``
    int8/fp8 at the LM expert shapes in both orientations (every call on
    the simt route), ``esffn_mlp`` int8/fp8 at Swin-MoE-Small's stage 2.
    The weights' 128 x 128 tiles differ in magnitude, and per branch a
@@ -105,6 +117,14 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    on the simt route;
    ``esffn_mlp`` once in bf16. Timed as phase 3, against the plain
    versions; ``torch.segment_reduce`` is the library yardstick for ``ess``.
+   ``esffn_mlp`` runs on the tensor cores: f32 on its ``mma_tf32x3``
+   route (its bound is 3 x the FLOPs at the TF32 peak, with the f32 FMA
+   bound beside it), bf16 on ``mma_bf16``, each call's route read from
+   ``launches_by_route``. Its negative control: the plain output with one
+   8-deep K step of x W1 left out must fail ``SWIN_KERNEL_TOL``. Then
+   untimed ``esffn_mlp`` checks at ragged D x F (``MLP_CHECK_WIDTHS``)
+   and blk 8, 16, 64 and 128 (``MLP_CHECK_BLKS``) in f32, bf16 and with
+   int8 weights.
 10. Swin reference: Swin-MoE-Small at full width, depth cut to (2, 2, 2, 2)
    (one MoE block each in stages 2 and 3), f32, 2 images: one
    ``make_train_step`` loss and its grads on the GPU (the kernels) and on
@@ -114,7 +134,8 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    ``SWIN_BATCH`` of seeded 224^2 images and labels, AdamW
    (``master_fp32=False``): one warm-up step, then ``SWIN_STEPS`` steps
    whose launch counts must be exactly 10 ``esffn_mlp``, 30 ``esmm``, 20
-   ``esfk`` and 0 ``ess`` a step, every ``esmm`` on the f32 simt route.
+   ``esfk`` and 0 ``ess`` a step, every ``esmm`` on the f32 simt route
+   and every ``esffn_mlp`` on ``mma_tf32x3``.
    Then one forward and backward of the same loss from the same state
    with ``set_fused_backward(True)`` and with ``(False)`` (the paper's
    Fig. 12 ablation: 0 ``esfk``, 20 ``estmm``, 20 ``ess``, all on the
@@ -162,7 +183,10 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense): the least-time bound of a kernel
 # is max(bytes / HBM rate, FLOPs / compute rate of its operand type).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+# A route's work in the operations of another peak: 3xTF32 does three TF32
+# products for each f32 one, on the tensor cores.
+ROUTE_PEAK = {"mma_tf32x3": ("tf32", 3)}
 
 ESFFN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # x max|plain|
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-5}    # x max|plain|
@@ -263,9 +287,13 @@ def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float, dtype: str):
+def bound(bytes_moved: float, flops: float, dtype: str, route=None):
+    """(least ms, what bounds it): the bytes at the memory's rate, or the
+    operations at the peak of the dtype (or of the route's units, as
+    ROUTE_PEAK says), whichever takes longer."""
+    peak, times = ROUTE_PEAK.get(route, (dtype, 1))
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = times * flops / PEAK_FLOPS[peak] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -326,13 +354,15 @@ def esffn_cases(torch, flush):
     return cases
 
 
-def paged_attention_cases(torch, flush):
-    from repro_torch.kernels import paged_attention as pa
+def _paged_inputs(torch, gen, b, hq, hkv, hd, page, lengths_l, maxp, dtype,
+                  kv=None):
+    """q, K/V pools and a page table for slots of the given lengths: each
+    slot's pages in random order, and (with 4 or more slots) slot 2's first
+    page shared with slot 3's. kv "int8": int8 pools with f32 row scales
+    whose magnitudes differ by row and head (2^-2 .. 2^2). Returns the
+    call's positional arguments and its scale keywords."""
+    from repro_torch.quant.core import quantize_rows
 
-    b, hq, hkv, hd, page = 8, 32, 4, 128, 16
-    lengths_l = [0, 1, 9, 16, 17, 24, 100, 250]
-    maxp = 16
-    gen = torch.Generator(device="cuda").manual_seed(2)
     need = [-(-n // page) for n in lengths_l]
     npages = 1 + sum(need)
     perm = torch.randperm(npages - 1, generator=gen, device="cuda") + 1
@@ -341,51 +371,250 @@ def paged_attention_cases(torch, flush):
     for i, c in enumerate(need):
         table[i, :c] = perm[at:at + c]
         at += c
-    table[2, 0] = table[3, 0]           # a page two slots share
+    if b > 3 and need[2] and need[3]:
+        table[2, 0] = table[3, 0]       # a page two slots share
     lengths = torch.tensor(lengths_l, dtype=torch.int32, device="cuda")
+    td = getattr(torch, dtype)
+    q = torch.randn((b, 1, hq, hd), generator=gen, device="cuda").to(td)
+    shape = (npages, page, hkv, hd)
+    if kv == "int8":
+        def rows():
+            mag = torch.exp2(torch.rand((npages, page, hkv, 1), generator=gen,
+                                        device="cuda") * 4 - 2)
+            return quantize_rows(torch.randn(shape, generator=gen,
+                                             device="cuda") * mag)
+        (kp, ks), (vp, vs) = rows(), rows()
+        return (q, kp, vp, table, lengths), {"k_scale": ks, "v_scale": vs}
+    kp = torch.randn(shape, generator=gen, device="cuda").to(td)
+    vp = torch.randn(shape, generator=gen, device="cuda").to(td)
+    return (q, kp, vp, table, lengths), {}
+
+
+def _paged_work(args, scaled, window):
+    """(bytes, FLOPs) that one call needs: q read and the output written,
+    the table and lengths, and the K/V rows (and, ``scaled``, the int8 row
+    scales) of the live tokens only (the kernel reads no other row)."""
+    q, kp, _, table, lengths = args
+    b, _, hq, hd = q.shape
+    hkv = kp.shape[2]
+    tokens = 0
+    for n in lengths.tolist():
+        tokens += n - (max(n - window, 0) if window else 0)
+    row = hd * kp.element_size() + (4 if scaled else 0)
+    nbytes = (2 * q.numel() * q.element_size() + table.numel() * 4 + b * 4
+              + 2 * tokens * hkv * row)
+    return nbytes, 4 * tokens * hq * hd
+
+
+def _check_slots(name, kern, plain, tol_rel):
+    """Each slot's output within ``tol_rel`` x that slot's own max|plain|
+    (an empty slot exactly 0): where slots' outputs differ in size by 100
+    x, as short and 32,768-token slots do, a check against the largest
+    cannot see a fault in the longest. Returns the worst err / limit."""
+    if not bool(kern.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite output")
+    worst = 0.0
+    for i in range(plain.shape[0]):
+        err = (kern[i].float() - plain[i].float()).abs().max().item()
+        lim = tol_rel * plain[i].float().abs().max().item()
+        if not err <= lim:
+            raise AssertionError(f"{name}: slot {i}: max abs err {err} > "
+                                 f"{lim}")
+        worst = max(worst, err / lim if lim else 0.0)
+    return worst
+
+
+def _last_split_left_out(lengths, maxp, page):
+    """The lengths with the longest slot's last split of pages left out:
+    the negative control of the kernel's split merge."""
+    from repro_torch.kernels.paged_attention import pages_per_split
+
+    pps = pages_per_split(maxp)
+    cut = lengths.clone()
+    i = int(lengths.argmax())
+    last_page = (int(lengths[i]) - 1) // page
+    cut[i] = last_page // pps * pps * page
+    return cut
+
+
+def _paged_check(torch, name, args, kw, dtype):
+    """The kernel against its plain version: ATTN_TOL over the whole
+    output and slot by slot, empty slots exactly 0, and two calls bitwise
+    equal. Returns (kernel output, plain output, max abs err, limit, worst
+    per-slot err / limit)."""
+    from repro_torch.kernels import paged_attention as pa
+
+    plain = pa.paged_attention_ref(*args, **kw)
+    kern = pa.paged_attention(*args, **kw)
+    again = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    for i, n in enumerate(args[4].tolist()):
+        if n == 0 and not torch.equal(kern[i], torch.zeros_like(kern[i])):
+            raise AssertionError(f"{name}: empty slot {i} not zero")
+    if not torch.equal(kern, again):
+        raise AssertionError(f"{name}: two calls differ")
+    err, tol = _check(name, kern, plain, ATTN_TOL[dtype])
+    worst = _check_slots(name, kern, plain, ATTN_TOL[dtype])
+    return kern, plain, err, tol, worst
+
+
+# phase 3 (kv None) and Q1 (kv "int8"), untimed: (name, B, Hq, Hkv, hd,
+# page, lengths, maxp, q dtype, kv, window, softcap). maxp 64 makes splits
+# of 4 pages; with a window of 60, slot 3's 1,024 tokens leave every split
+# but its last behind the window.
+PAGED_CHECK_LENGTHS = (0, 33, 700, 1000)
+PAGED_CHECK_CASES = (
+    ("hd 64, G 1", 4, 8, 8, 64, 16, PAGED_CHECK_LENGTHS, 64, "bfloat16",
+     None, None, 0.0),
+    ("hd 256, G 2", 4, 4, 2, 256, 16, PAGED_CHECK_LENGTHS, 64, "bfloat16",
+     None, None, 0.0),
+    ("hd 128, G 16", 4, 32, 2, 128, 16, PAGED_CHECK_LENGTHS, 64, "bfloat16",
+     None, None, 0.0),
+    ("page 8", 4, 32, 4, 128, 8, PAGED_CHECK_LENGTHS, 128, "bfloat16", None,
+     100, 30.0),
+    ("f32", 4, 32, 4, 128, 16, PAGED_CHECK_LENGTHS, 64, "float32", None,
+     None, 0.0),
+    ("f32, hd 256, G 2", 4, 4, 2, 256, 16, PAGED_CHECK_LENGTHS, 64,
+     "float32", None, 70, 0.0),
+    ("one live split, the rest behind the window", 4, 32, 4, 128, 16,
+     (0, 5, 1000, 1024), 64, "bfloat16", None, 60, 0.0),
+    ("int8", 4, 32, 4, 128, 16, PAGED_CHECK_LENGTHS, 64, "bfloat16", "int8",
+     None, 0.0),
+    ("int8, hd 64, G 1", 4, 8, 8, 64, 16, PAGED_CHECK_LENGTHS, 64,
+     "bfloat16", "int8", None, 0.0),
+    ("int8, f32 q, page 8", 4, 32, 4, 128, 8, PAGED_CHECK_LENGTHS, 128,
+     "float32", "int8", 100, 30.0),
+    ("int8, one live split", 4, 32, 4, 128, 16, (0, 5, 1000, 1024), 64,
+     "bfloat16", "int8", 60, 0.0),
+)
+# qwen3-moe-30b-a3b at its 32,768-token context: 8 slots, 16-token pages
+PAGED_LONG = dict(b=8, hq=32, hkv=4, hd=128, page=16, maxp=2048,
+                  lengths=(0, 1, 511, 2048, 4097, 8192, 16385, 32768))
+
+
+def paged_check_cases(torch, kv):
+    """The untimed PAGED_CHECK_CASES of one pool kind (None or "int8")."""
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for (name, b, hq, hkv, hd, page, lengths_l, maxp, dtype, kv_, window,
+         softcap) in PAGED_CHECK_CASES:
+        if kv_ != kv:
+            continue
+        args, scales = _paged_inputs(torch, gen, b, hq, hkv, hd, page,
+                                     lengths_l, maxp, dtype, kv)
+        kw = dict(scales, window=window, softcap=softcap)
+        _, _, err, tol, worst = _paged_check(
+            torch, f"paged_attention check {name}", args, kw, dtype)
+        out.append({"case": name, "B": b, "Hq": hq, "Hkv": hkv, "hd": hd,
+                    "page": page, "lengths": list(lengths_l), "maxp": maxp,
+                    "dtype": dtype, "kv": kv or dtype, "window": window,
+                    "softcap": softcap, "max_abs_err": err, "tolerance": tol,
+                    "worst_slot_err_over_tol": worst})
+        del args, scales
+    return out
+
+
+def paged_long_case(torch, flush, kv=None):
+    """The long-context case (PAGED_LONG), bf16 q, with no window and then
+    a 4,096-token window with softcap 30: checked slot by slot, two calls
+    bitwise equal, timed; and its negative control, the plain output with
+    the longest slot's last split of pages left out, must fail the
+    slot-by-slot check. Returns (cases, negative control)."""
+    from repro_torch.kernels import paged_attention as pa
+
+    c = PAGED_LONG
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    args, scales = _paged_inputs(torch, gen, c["b"], c["hq"], c["hkv"],
+                                 c["hd"], c["page"], c["lengths"], c["maxp"],
+                                 "bfloat16", kv)
+    cases, neg = [], None
+    for window, softcap in ((None, 0.0), (4096, 30.0)):
+        kw = dict(scales, window=window, softcap=softcap)
+        name = (f"paged_attention long context {kv or 'bfloat16'} "
+                f"window={window}")
+        _, plain, err, tol, worst = _paged_check(torch, name, args, kw,
+                                                 "bfloat16")
+        if window is None:
+            cut = _last_split_left_out(args[4], c["maxp"], c["page"])
+            wrong = pa.paged_attention_ref(*args[:4], cut, **kw)
+            try:
+                _check_slots(name + " last split left out", wrong, plain,
+                             ATTN_TOL["bfloat16"])
+            except AssertionError:
+                i = int(args[4].argmax())
+                lim = ATTN_TOL["bfloat16"] * plain[i].float().abs().max()
+                neg = {"kernel": "paged_attention",
+                       "fault": "the longest slot's last split of pages "
+                                "left out (checked slot by slot)",
+                       "err_over_tol": float((wrong[i].float() - plain[i]
+                                              .float()).abs().max() / lim)}
+            else:
+                raise AssertionError(f"negative control {name}: the plain "
+                                     f"output without the last split "
+                                     f"passed the limit")
+            del wrong
+        del plain
+        nbytes, flops = _paged_work(args, bool(scales), window)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        cases.append({
+            "case": "qwen3-moe-30b-a3b long context",
+            "shape": {"B": c["b"], "Hq": c["hq"], "Hkv": c["hkv"],
+                      "hd": c["hd"], "page": c["page"], "maxp": c["maxp"],
+                      "lengths": list(c["lengths"]), "window": window,
+                      "softcap": softcap,
+                      "splits": pa.num_splits(c["maxp"]),
+                      "pages_per_split": pa.pages_per_split(c["maxp"])},
+            "dtype": "bfloat16", "kv": kv or "bfloat16", "max_abs_err": err,
+            "tolerance": tol, "worst_slot_err_over_tol": worst,
+            "deterministic": True,
+            "kernel_ms": time_ms(torch, lambda: pa.paged_attention(
+                *args, **kw), flush),
+            "plain_ms": time_ms(torch, lambda: pa.paged_attention_ref(
+                *args, **kw), flush, iters=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "library_ms": None,
+            "library": "none: no one call takes the paged layout"})
+    del args, scales
+    torch.cuda.empty_cache()
+    return cases, neg
+
+
+def paged_attention_cases(torch, flush):
+    """Phase 3's paged attention: the serve lengths (timed; the head case
+    first), the long-context case and the untimed checks. Returns (timed
+    cases, checks, negative control)."""
+    from repro_torch.kernels import paged_attention as pa
+
+    b, hq, hkv, hd, page = 8, 32, 4, 128, 16
+    lengths_l = [0, 1, 9, 16, 17, 24, 100, 250]
+    maxp = 16
+    gen = torch.Generator(device="cuda").manual_seed(2)
     cases = []
     for dtype in ("bfloat16", "float32"):
-        td = getattr(torch, dtype)
-        q = torch.randn((b, 1, hq, hd), generator=gen, device="cuda").to(td)
-        kp = torch.randn((npages, page, hkv, hd), generator=gen,
-                         device="cuda").to(td)
-        vp = torch.randn((npages, page, hkv, hd), generator=gen,
-                         device="cuda").to(td)
+        args, _ = _paged_inputs(torch, gen, b, hq, hkv, hd, page, lengths_l,
+                                maxp, dtype)
         for window, softcap in ((None, 0.0), (32, 30.0)):
             kw = dict(window=window, softcap=softcap)
-            args = (q, kp, vp, table, lengths)
-            plain = pa.paged_attention_ref(*args, **kw)
-            kern = pa.paged_attention(*args, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(kern[0], torch.zeros_like(kern[0])):
-                raise AssertionError("paged_attention: empty slot not zero")
-            err = (kern.float() - plain.float()).abs().max().item()
-            tol = ATTN_TOL[dtype] * plain.float().abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"paged_attention {dtype} window={window}"
-                                     f": max abs err {err} > {tol}")
-            pages_run, tokens = 0, 0
-            for n in lengths_l:
-                lo = 0 if window is None else max(n - window, 0)
-                tokens += n - lo
-                pages_run += sum(1 for j in range(-(-n // page))
-                                 if (j + 1) * page > lo)
-            itemsize = q.element_size()
-            nbytes = (2 * q.numel() * itemsize + table.numel() * 4 + b * 4
-                      + 2 * pages_run * page * hkv * hd * itemsize)
-            flops = 4 * tokens * hq * hd
+            _, _, err, tol, worst = _paged_check(
+                torch, f"paged_attention {dtype} window={window}", args, kw,
+                dtype)
+            nbytes, flops = _paged_work(args, {}, window)
             b_ms, b_by = bound(nbytes, flops, dtype)
             cases.append({
+                "case": "serve lengths",
                 "shape": {"B": b, "Hq": hq, "Hkv": hkv, "hd": hd,
                           "page": page, "maxp": maxp, "lengths": lengths_l,
-                          "window": window, "softcap": softcap},
+                          "window": window, "softcap": softcap,
+                          "splits": pa.num_splits(maxp)},
                 "dtype": dtype, "max_abs_err": err, "tolerance": tol,
+                "worst_slot_err_over_tol": worst,
                 "kernel_ms": time_ms(torch, lambda: pa.paged_attention(
                     *args, **kw), flush),
                 "plain_ms": time_ms(torch, lambda: pa.paged_attention_ref(
                     *args, **kw), flush),
                 "bound_ms": b_ms, "bound_by": b_by})
-    return cases
+    long_cases, neg = paged_long_case(torch, flush)
+    return cases + long_cases, paged_check_cases(torch, None), neg
 
 
 def _sorted_layout(torch, n, empty_experts=0, seed=5, blk=128):
@@ -1033,7 +1262,8 @@ def swin_kernel_cases(torch, flush):
     from repro_torch.core.reindex import gather_rows
     from repro_torch.kernels import esffn, esfk, esmm, ess, estmm
 
-    res = {"esffn_mlp": [], "esfk": [], "ess": [], "esmm": []}
+    res = {"esffn_mlp": [], "esfk": [], "ess": [], "esmm": [],
+           "negative_controls": []}
     e = 8
     for stage, n, d in ((2, SWIN_BATCH * 196, 384), (3, SWIN_BATCH * 49, 768)):
         f = 4 * d
@@ -1064,22 +1294,44 @@ def swin_kernel_cases(torch, flush):
                         w2.to(td), b2)
                 name = f"esffn_mlp stage {stage} {dtype} empty={n_empty}"
                 plain = esffn.esffn_mlp_plain(*args)
-                kern = esffn.esffn_mlp(*args)
-                torch.cuda.synchronize()
+                kern, kroute = _routed(torch, lambda: esffn.esffn_mlp(*args),
+                                       esffn.esffn_mlp)
+                want = "mma_tf32x3" if dtype == "float32" else "mma_bf16"
+                if kroute != want:
+                    raise AssertionError(f"{name}: took the {kroute} route, "
+                                         f"not {want}")
                 tol_rel = SWIN_KERNEL_TOL if dtype == "float32" \
                     else ESFFN_TOL["bfloat16"]
                 err, tol = _check(name, kern, plain, tol_rel)
                 if not torch.equal(kern[rg == 0], torch.zeros_like(
                         kern[rg == 0])):
                     raise AssertionError(f"{name}: padding rows not 0")
+                if stage == 2 and not empty and dtype == "float32":
+                    # one 8-deep K step of x W1 (an mma k8 step) left out
+                    w1_cut = w1.clone()
+                    w1_cut[:, 8:16] = 0.0
+                    res["negative_controls"].append({
+                        "kernel": "esffn_mlp",
+                        "fault": "one 8-deep K step of x W1 left out",
+                        "err_over_tol": _must_fail(
+                            name + " without K 8..15", esffn.esffn_mlp_plain(
+                                args[0], *args[1:4], w1_cut, *args[5:]),
+                            plain, SWIN_KERNEL_TOL)})
+                    del w1_cut
                 s_ = x.to(td).element_size()
                 nbytes = (n * d * s_ + experts * 2 * d * f * s_
                           + experts * (d + f) * 4 + np_rows * 8 + nblk * 4
                           + np_rows * d * s_)
-                b_ms, b_by = bound(nbytes, 4 * live * d * f, dtype)
+                flops = 4 * live * d * f
+                b_ms, b_by = bound(nbytes, flops, dtype, kroute)
                 res["esffn_mlp"].append({
-                    "shape": shape, "dtype": dtype, "max_abs_err": err,
-                    "tolerance": tol,
+                    "shape": shape, "dtype": dtype, "kernel_route": kroute,
+                    "max_abs_err": err, "tolerance": tol,
+                    "bound_route": (
+                        "3 x FLOPs at 495 TFLOP/s (TF32 tensor cores)"
+                        if kroute == "mma_tf32x3" else
+                        "FLOPs at 989 TFLOP/s (bf16 tensor cores)"),
+                    "bound_fma_ms": bound(nbytes, flops, "float32")[0],
                     "kernel_ms": time_ms(torch, lambda: esffn.esffn_mlp(
                         *args), flush),
                     "plain_ms": time_ms(torch, lambda: esffn.esffn_mlp_plain(
@@ -1199,6 +1451,70 @@ def swin_kernel_cases(torch, flush):
     return res
 
 
+# phase 9, untimed: esffn_mlp at ragged D x F and every tile height
+MLP_CHECK_WIDTHS = ((24, 40), (200, 136))
+MLP_CHECK_BLKS = (8, 16, 64, 128)
+
+
+def esffn_mlp_check_cases(torch):
+    """esffn_mlp against its plain version at the ragged MLP_CHECK_WIDTHS
+    and blk 8, 16, 64 and 128 (an 8-row block in a 16-row tile, and 16-,
+    64- and 128-row tiles), in f32, bf16 and with int8 weights (quant tiles
+    of 8 where 128 does not divide a width), 320 tokens top-1 of 8
+    experts: each call on its route, padding rows exactly 0."""
+    from repro_torch.core.reindex import build_reindex
+    from repro_torch.core.routing import route
+    from repro_torch.kernels import esffn
+    from repro_torch.quant.core import quantize_blockwise
+
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    e, n = 8, 320
+    for d, f in MLP_CHECK_WIDTHS:
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+
+        x, router = randn(n, d), randn(d, e)
+        w1, w2 = randn(e, d, f, scale=0.05), randn(e, f, d, scale=0.05)
+        b1, b2 = randn(e, f, scale=0.1), randn(e, d, scale=0.1)
+        r = route(x, router, 1)
+        tile = 128 if all(w <= 128 or w % 128 == 0 for w in (d, f)) else 8
+        for blk in MLP_CHECK_BLKS:
+            ri = build_reindex(r.expert_idx, r.gates, e, blk)
+            rg = ri.row_gate
+            for dtype, mode in (("float32", None), ("bfloat16", None),
+                                ("float32", "int8")):
+                td = getattr(torch, dtype)
+                kw = {}
+                if mode is None:
+                    ws = (w1.to(td), w2.to(td))
+                else:
+                    (q1, s1), (q2, s2) = (quantize_blockwise(w, mode=mode,
+                                                             tile=tile)
+                                          for w in (w1, w2))
+                    ws, kw = (q1, q2), {"w_scales": (s1, s2)}
+                args = (x.to(td), ri.row_token, rg, ri.block_expert, ws[0],
+                        b1, ws[1], b2)
+                name = (f"esffn_mlp check D {d} F {f} blk {blk} {dtype} "
+                        f"weights {mode or dtype}")
+                plain = esffn.esffn_mlp_plain(*args, **kw)
+                kern, kroute = _routed(torch, lambda: esffn.esffn_mlp(
+                    *args, **kw), esffn.esffn_mlp)
+                want = "mma_bf16" if dtype == "bfloat16" else "mma_tf32x3"
+                if kroute != want:
+                    raise AssertionError(f"{name}: took the {kroute} route")
+                err, tol = _check(name, kern, plain, SWIN_KERNEL_TOL
+                                  if dtype == "float32"
+                                  else ESFFN_TOL["bfloat16"])
+                if not torch.equal(kern[rg == 0],
+                                   torch.zeros_like(kern[rg == 0])):
+                    raise AssertionError(f"{name}: padding rows not 0")
+                out.append({"D": d, "F": f, "blk": blk, "dtype": dtype,
+                            "weights": mode or dtype, "route": kroute,
+                            "max_abs_err": err, "tolerance": tol})
+    return out
+
+
 def _swin_grads(torch, params, loss_fn, images, labels):
     """(loss, grads of every leaf) of one forward and backward."""
     from repro_torch.common import tree_leaves, tree_map
@@ -1303,12 +1619,13 @@ def swin_train_phase(torch):
     def reset():
         for fn in kernels.values():
             fn.launches = 0
-        for fn in (esmm.esmm, estmm.estmm):
+        for fn in (esmm.esmm, estmm.estmm, esffn.esffn_mlp):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
     def routes():
         return {"esmm": dict(esmm.esmm.launches_by_route),
-                "estmm": dict(estmm.estmm.launches_by_route)}
+                "estmm": dict(estmm.estmm.launches_by_route),
+                "esffn_mlp": dict(esffn.esffn_mlp.launches_by_route)}
 
     m, dt = run(0)                        # warm-up, unmeasured
     print(f"[swin] warm-up step: loss {m['loss']:.4f} ({dt:.2f}s)")
@@ -1333,9 +1650,11 @@ def swin_train_phase(torch):
     if launches != want:
         raise AssertionError(f"swin train: launches {launches}, expected "
                              f"{want}")
-    # the f32 Swin step keeps the f32 FMA route
+    # the f32 Swin step: esmm on the f32 FMA route, esffn_mlp on 3xTF32
     if train_routes != {"esmm": {"simt": want["esmm"], "wgmma": 0},
-                        "estmm": {"simt": 0, "wgmma": 0}}:
+                        "estmm": {"simt": 0, "wgmma": 0},
+                        "esffn_mlp": {"mma_tf32x3": want["esffn_mlp"],
+                                      "mma_bf16": 0}}:
         raise AssertionError(f"swin train: routes {train_routes}")
     med = statistics.median(times)
     print(f"[swin] {SWIN_STEPS} steps of {SWIN_BATCH} images: step median "
@@ -1359,10 +1678,11 @@ def swin_train_phase(torch):
                            routes())
         del grads
     (lf, gf, cf, rf), (lu, gu, cu, ru) = ablation[True], ablation[False]
+    mlp = {"mma_tf32x3": 10, "mma_bf16": 0}
     if (rf, ru) != ({"esmm": {"simt": 30, "wgmma": 0},
-                     "estmm": {"simt": 0, "wgmma": 0}},
+                     "estmm": {"simt": 0, "wgmma": 0}, "esffn_mlp": mlp},
                     {"esmm": {"simt": 30, "wgmma": 0},
-                     "estmm": {"simt": 20, "wgmma": 0}}):
+                     "estmm": {"simt": 20, "wgmma": 0}, "esffn_mlp": mlp}):
         raise AssertionError(f"swin backward: routes {rf} fused, {ru} "
                              f"unfused")
     if cf != {"esffn_mlp": 10, "esmm": 30, "esfk": 20, "ess": 0, "estmm": 0}:
@@ -1595,7 +1915,7 @@ def quant_kernel_cases(torch, flush):
     from repro_torch.core.routing import route
     from repro_torch.kernels import esffn, esmm
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.quant.core import quantize_blockwise, quantize_rows
+    from repro_torch.quant.core import quantize_blockwise
 
     res = {"esffn_glu": [], "paged_attention": [], "esmm": [],
            "esffn_mlp": [], "negative_controls": []}
@@ -1666,37 +1986,15 @@ def quant_kernel_cases(torch, flush):
     b, hq, hkv, hd, page = 8, 32, 4, 128, 16
     lengths_l = [0, 1, 9, 16, 17, 24, 100, 250]
     maxp = 16
-    need = [-(-n // page) for n in lengths_l]
-    npages = 1 + sum(need)
-    perm = torch.randperm(npages - 1, generator=gen, device="cuda") + 1
-    table = torch.zeros((b, maxp), dtype=torch.int32, device="cuda")
-    at = 0
-    for i, c in enumerate(need):
-        table[i, :c] = perm[at:at + c]
-        at += c
-    table[2, 0] = table[3, 0]
-    lengths = torch.tensor(lengths_l, dtype=torch.int32, device="cuda")
-
-    def rows():
-        mag = torch.exp2(torch.rand((npages, page, hkv, 1), generator=gen,
-                                    device="cuda") * 4 - 2)
-        return quantize_rows(torch.randn((npages, page, hkv, hd),
-                                         generator=gen, device="cuda") * mag)
-
-    (kq, ks), (vq, vs) = rows(), rows()
     for i, dtype in enumerate(("bfloat16", "float32")):
-        q = torch.randn((b, 1, hq, hd), generator=gen,
-                        device="cuda").to(getattr(torch, dtype))
+        args, scales = _paged_inputs(torch, gen, b, hq, hkv, hd, page,
+                                     lengths_l, maxp, dtype, "int8")
+        ks, vs = scales["k_scale"], scales["v_scale"]
         for window, softcap in ((None, 0.0), (32, 30.0)):
-            kw = dict(k_scale=ks, v_scale=vs, window=window, softcap=softcap)
-            args = (q, kq, vq, table, lengths)
+            kw = dict(scales, window=window, softcap=softcap)
             name = f"paged_attention int8 {dtype} window={window}"
-            plain = pa.paged_attention_ref(*args, **kw)
-            kern = pa.paged_attention(*args, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(kern[0], torch.zeros_like(kern[0])):
-                raise AssertionError(f"{name}: empty slot not zero")
-            err, tol = _check(name, kern, plain, ATTN_TOL[dtype])
+            kern, plain, err, tol, worst = _paged_check(torch, name, args, kw,
+                                                        dtype)
             if i == 0 and window is None:
                 neg("paged_attention", "the kv heads' scales swapped",
                     name + " with the heads' scales rolled",
@@ -1704,27 +2002,26 @@ def quant_kernel_cases(torch, flush):
                         *args, **{**kw, "k_scale": ks.roll(1, 2),
                                   "v_scale": vs.roll(1, 2)}),
                     plain, ATTN_TOL[dtype])
-            pages_run, tokens = 0, 0
-            for n in lengths_l:
-                lo = 0 if window is None else max(n - window, 0)
-                tokens += n - lo
-                pages_run += sum(1 for j in range(-(-n // page))
-                                 if (j + 1) * page > lo)
-            nbytes = (2 * q.numel() * q.element_size() + table.numel() * 4
-                      + b * 4 + 2 * pages_run * page * hkv * (hd + 4))
-            b_ms, b_by = bound(nbytes, 4 * tokens * hq * hd, dtype)
+            nbytes, flops = _paged_work(args, True, window)
+            b_ms, b_by = bound(nbytes, flops, dtype)
             res["paged_attention"].append({
+                "case": "serve lengths",
                 "shape": {"B": b, "Hq": hq, "Hkv": hkv, "hd": hd,
                           "page": page, "maxp": maxp, "lengths": lengths_l,
                           "window": window, "softcap": softcap},
                 "dtype": dtype, "kv": "int8", "max_abs_err": err,
-                "tolerance": tol,
+                "tolerance": tol, "worst_slot_err_over_tol": worst,
                 "kernel_ms": time_ms(torch, lambda: pa.paged_attention(
                     *args, **kw), flush),
                 "plain_ms": time_ms(torch, lambda: pa.paged_attention_ref(
                     *args, **kw), flush),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "library": "none: no one call takes the paged int8 layout"})
+    del args, scales, ks, vs, kern, plain
+    long_cases, long_neg = paged_long_case(torch, flush, kv="int8")
+    res["paged_attention"] += long_cases
+    res["negative_controls"].append(long_neg)
+    res["paged_attention_checks"] = paged_check_cases(torch, "int8")
 
     # esmm: the LM expert GEMMs of the quantized backward (4 x 1024 tokens,
     # top-8, blk 128): g/u (K 2048 -> N 768), t = dys Wd^T (the same,
@@ -1802,7 +2099,10 @@ def quant_kernel_cases(torch, flush):
         kw = dict(w_scales=(s1, s2))
         name = f"esffn_mlp {mode} stage 2 float32"
         plain = esffn.esffn_mlp_plain(*args, **kw)
-        kern = esffn.esffn_mlp(*args, **kw)
+        kern, kroute = _routed(torch, lambda: esffn.esffn_mlp(*args, **kw),
+                               esffn.esffn_mlp)
+        if kroute != "mma_tf32x3":
+            raise AssertionError(f"{name}: took the {kroute} route")
         err, tol = _check(name, kern, plain, SWIN_KERNEL_TOL)
         if i == 0:
             neg("esffn_mlp", "W1's scale grid transposed",
@@ -1812,13 +2112,15 @@ def quant_kernel_cases(torch, flush):
         nbytes = (n * d2 * 4 + experts * 2 * d2 * f2
                   + experts * (s1[0].numel() + s2[0].numel() + d2 + f2) * 4
                   + np_rows * 8 + nblk * 4 + np_rows * d2 * 4)
-        b_ms, b_by = bound(nbytes, 4 * live * d2 * f2, "float32")
+        flops = 4 * live * d2 * f2
+        b_ms, b_by = bound(nbytes, flops, "float32", kroute)
         res["esffn_mlp"].append({
             "shape": {"stage": 2, "N": n, "D": d2, "F": f2, "E": 8,
                       "top_k": 1, "blk": 128, "Np": np_rows,
                       "live_rows": live},
-            "dtype": "float32", "weights": mode, "max_abs_err": err,
-            "tolerance": tol,
+            "dtype": "float32", "weights": mode, "kernel_route": kroute,
+            "max_abs_err": err, "tolerance": tol,
+            "bound_fma_ms": bound(nbytes, flops, "float32")[0],
             "kernel_ms": time_ms(torch, lambda: esffn.esffn_mlp(*args, **kw),
                                  flush),
             "plain_ms": time_ms(torch, lambda: esffn.esffn_mlp_plain(
@@ -2351,9 +2653,14 @@ def main() -> int:
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     esffn_res = esffn_cases(torch, flush)
     esffn_checks = esffn_check_cases(torch)
-    attn_res = paged_attention_cases(torch, flush)
+    attn_res, attn_checks, attn_neg = paged_attention_cases(torch, flush)
     for c in esffn_res + attn_res:
         print(f"[kernel] {json.dumps(c)}")
+    print(f"[check] paged_attention: {len(attn_checks)} cases, worst "
+          f"per-slot err / limit "
+          f"{max(c['worst_slot_err_over_tol'] for c in attn_checks):.3g}")
+    print(f"[negative-control] {attn_neg['kernel']} {attn_neg['fault']}: "
+          f"fails at {attn_neg['err_over_tol']:.3g} x the limit")
     quant_res = quant_kernel_cases(torch, flush)
     for k in ("esffn_glu", "paged_attention", "esmm", "esffn_mlp"):
         for c in quant_res[k]:
@@ -2361,6 +2668,9 @@ def main() -> int:
     for c in quant_res["negative_controls"]:
         print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
               f"{c['err_over_tol']:.3g} x the limit")
+    print(f"[check] paged_attention int8: "
+          f"{len(quant_res['paged_attention_checks'])} cases, worst per-slot "
+          f"err / limit {max(c['worst_slot_err_over_tol'] for c in quant_res['paged_attention_checks']):.3g}")
     del flush
     torch.cuda.empty_cache()
 
@@ -2395,8 +2705,15 @@ def main() -> int:
     torch.cuda.empty_cache()               # the qwen training state is gone
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     swin_res = swin_kernel_cases(torch, flush)
-    for c in sum(swin_res.values(), []):
-        print(f"[kernel-swin] {json.dumps(c)}")
+    for k in ("esffn_mlp", "esfk", "ess", "esmm"):
+        for c in swin_res[k]:
+            print(f"[kernel-swin] {json.dumps(c)}")
+    for c in swin_res["negative_controls"]:
+        print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
+              f"{c['err_over_tol']:.3g} x the limit")
+    mlp_checks = esffn_mlp_check_cases(torch)
+    print(f"[check] esffn_mlp: {len(mlp_checks)} cases, worst err / limit "
+          f"{max(c['max_abs_err'] / c['tolerance'] for c in mlp_checks):.3g}")
     del flush
     torch.cuda.empty_cache()
     swin_ref = swin_reference_phase(torch)
@@ -2493,7 +2810,8 @@ def main() -> int:
                                  if c["kernel"] == "esffn_glu"],
               small_width_checks=esffn_checks),
         entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
-              "src/repro/kernels/paged_attention.py:295", attn_res),
+              "src/repro/kernels/paged_attention.py:295", attn_res,
+              negative_controls=[attn_neg], checks=attn_checks),
         entry("esmm", "src/repro_torch/csrc/esmm.cu",
               "src/repro/kernels/esmm.py:80",
               train_res["esmm"] + swin_res["esmm"],
@@ -2507,7 +2825,13 @@ def main() -> int:
                                  if c["kernel"] == "estmm"],
               small_width_checks=train_res["checks"]),
         entry("esffn_mlp", "src/repro_torch/csrc/esffn.cu",
-              "src/repro/kernels/esffn.py:339", swin_res["esffn_mlp"]),
+              "src/repro/kernels/esffn.py:339", swin_res["esffn_mlp"],
+              kernel_routes=by_route("esffn_mlp", swin_res["esffn_mlp"],
+                                     ("mma_tf32x3", "mma_bf16")),
+              bound_route=swin_res["esffn_mlp"][0]["bound_route"],
+              bound_fma_ms=swin_res["esffn_mlp"][0]["bound_fma_ms"],
+              negative_controls=swin_res["negative_controls"],
+              small_width_checks=mlp_checks),
         entry("esfk", "src/repro_torch/csrc/esfk.cu",
               "src/repro/kernels/esfk.py:82", swin_res["esfk"]),
         entry("ess", "src/repro_torch/csrc/ess.cu",
@@ -2531,7 +2855,8 @@ def main() -> int:
                quant_res["paged_attention"],
                tpu_branch="k_scale/v_scale: the quantized branch of "
                           "_paged_kernel, src/repro/kernels/"
-                          "paged_attention.py:218"),
+                          "paged_attention.py:218",
+               checks=quant_res["paged_attention_checks"]),
         qentry("esmm", "src/repro_torch/csrc/esmm.cu",
                "src/repro/kernels/esmm.py:80", "int8/fp8 weights",
                quant_res["esmm"],

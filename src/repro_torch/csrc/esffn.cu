@@ -1,6 +1,6 @@
 // Fused expert FFNs over the expert-sorted layout, for Hopper (sm_90a): the
 // GLU form (esffn_glu_launch, esffn_glu_wgmma_launch) and the biased 2-MLP
-// form (esffn_mlp_launch).
+// form (esffn_mlp_launch, on the tensor cores through mma_sync.cuh).
 //
 // === GLU form ===
 //
@@ -79,22 +79,28 @@
 // of 0-3: Np 26,112 rows, D 384, F 1536, 8 experts; every row of a block
 // but the group's last is live) it is two dense GEMMs of 2 Np D F FLOPs each
 // against (Np D + E D F + Np F) elements, some 140 FLOP/byte in f32: the
-// operations bound it, at the f32 FMA rate this kernel uses. So the design
-// is the shared-memory-tiled GEMM of csrc/esmm.cu, twice:
+// operations bound it. So both launches run on the tensor cores through
+// mma_sync.cuh's mainloop: 3xTF32 for f32 operands (f32 accuracy at 3 x
+// the TF32 work; one TF32 pass would move f32 results off the reference),
+// one bf16 pass for bf16 operands (esffn_mlp_mma_kernel):
 //
-//  * The up launch (esffn_mlp_kernel<kUp>) runs on a (BM-row tile, 64-column
-//    F tile) grid, BM = 64 at BLK 128 (else the largest of 32, 16, 8 that
-//    divides BLK), so a tile lies in one block and reads one expert's W1.
-//    Its A rows are gathered straight from the UNSORTED x through
-//    row_token; its epilogue adds b1, rounds, applies act and writes h
-//    (Np x F, T) for the live rows only.
-//  * The down launch (esffn_mlp_kernel<!kUp>) runs on a (BM-row tile,
-//    64-column D tile) grid over h, its accumulators seeded with b2[e];
-//    the epilogue multiplies by the gate. The TPU kernel keeps the (BLK, D)
-//    f32 accumulator in VMEM across the sequential F axis; here each CTA
-//    loops over F itself, so nothing carries between CTAs.
+//  * The up launch (kUp) runs on a (BM-row tile, 128-column F tile) grid,
+//    BM = 128 at BLK 128 (else the largest of 64, 32, 16 that divides BLK;
+//    at BLK 8 a 16-row tile holds the block's 8 rows and zeros), so a tile
+//    lies in one block and reads one expert's W1. Its A rows are gathered
+//    straight from the UNSORTED x through row_token with 16-byte cp.async;
+//    its epilogue adds b1, rounds, applies act and writes h (Np x F, T)
+//    for the live rows only.
+//  * The down launch (!kUp) runs on a (BM-row tile, 128-column D tile)
+//    grid over h, its accumulators seeded with b2[e]; the epilogue
+//    multiplies by the gate. The TPU kernel keeps the (BLK, D) f32
+//    accumulator in VMEM across the sequential F axis; here each CTA loops
+//    over F itself, so nothing carries between CTAs.
 //  * Rows whose gate is 0 (padding) are staged as 0, never read from x or
 //    h, and written as 0; a tile with no live row reads no weight.
+//  * W tiles (f32) come by 16-byte cp.async through a 3-stage ring; bf16
+//    and 8-bit operands by 16- and 8-byte loads a stage ahead, converted
+//    to f32 as they are stored.
 //
 // === 8-bit weights ===
 //
@@ -103,11 +109,12 @@
 // payloads with f32 block scales s (E, rows / ta, cols / tb) on each
 // weight's own two axes, (ta, tb) = block_tiles' 128 clamped to the dim.
 // Every weight element is dequantized where it is read, float(q) *
-// s[e][row / ta][col / tb], and enters the same f32 FMA (the GLU form on
-// its stream route, the 2-MLP form on its tiled kernel); the activations
-// stay in T, so only the 8-bit bytes (and the scales) cross HBM. Rounding
-// is the TPU kernel's: its f32 dequantized tile meets x promoted to f32.
-// The same kernels run, instantiated for W = int8_t or __nv_fp8_e4m3.
+// s[e][row / ta][col / tb], and enters the same f32 products (the GLU
+// form's FMAs on its stream route, the 2-MLP form's 3xTF32 tiles); the
+// activations stay in T, so only the 8-bit bytes (and the scales) cross
+// HBM. Rounding is the TPU kernel's: its f32 dequantized tile meets x
+// promoted to f32. The same kernels run, instantiated for W = int8_t or
+// __nv_fp8_e4m3.
 // What bounds it: the weight bytes, now half of bf16's (decode reads
 // 3 * D * F bytes an expert: 4.7 MB at qwen3 width).
 //
@@ -124,6 +131,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -757,128 +765,265 @@ int launch_wgmma_nc(const void* x, const void* row_token, const void* row_gate,
 // 2-MLP form
 // ---------------------------------------------------------------------------
 
-constexpr int kMlpBN = 64;  // output columns of a CTA
-constexpr int kMlpBK = 16;  // contraction slice staged per step
-constexpr int kMlpTN = 4;   // columns of a thread, strided by 16
+// 8 weights of a staged chunk (16 bytes of bf16, 8 of int8 / fp8), as f32.
+__device__ __forceinline__ void cvt8(const uint4& raw, float (&w)[8], __nv_bfloat16) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    w[2 * i] = f.x;
+    w[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void cvt8(const uint4& raw, float (&w)[8], int8_t) {
+  const uint32_t words[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = __uint_as_float(__byte_perm(words[i / 4], 0x4B000000u, 0x7440 | (i % 4))) -
+           8388736.0f;
+}
+__device__ __forceinline__ void cvt8(const uint4& raw, float (&w)[8], __nv_fp8_e4m3) {
+  const uint32_t words[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(words[i / 2] >> (16 * (i % 2))), __NV_E4M3);
+    const float2 f = __half22float2(__half2(h));
+    w[2 * i] = f.x;
+    w[2 * i + 1] = f.y;
+  }
+}
 
-// One BM x 64 output tile of either product, on expert e = block_expert of
-// the tile's block. kUp: a = x (N, K = D) gathered through row_token, w =
-// W1 (E, D, F), out = h (Np, F) on live rows. !kUp: a = h (Np, K = F), w =
-// W2 (E, F, D), out (Np, D) on every row.
+// 8 contiguous elements from global memory (16 bytes of bf16, 8 of an
+// 8-bit type), raw.
+template <typename X>
+__device__ __forceinline__ uint4 ld8(const X* p) {
+  if constexpr (sizeof(X) == 2) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    return make_uint4(v.x, v.y, 0u, 0u);
+  }
+}
+
+// One BM x 128 output tile of either product, on the tensor cores
+// (mma_sync.cuh: 3xTF32, or one bf16 pass for bf16 x and weights), on
+// expert e = block_expert of the tile's block. The tile is `rows` <= BM
+// rows of one block (rows < BM only at blk 8, where the m16 tile's other 8
+// rows are zeros and never written). kUp: a = x (N, K = D) gathered through
+// row_token, w = W1 (E, D, F), out = h (Np, F) on live rows, b1 added in
+// f32 before z rounds to T. !kUp: a = h (Np, K = F), w = W2 (E, F, D), the
+// accumulators start from b2, out (Np, D) = (acc * gate) on every row of
+// the tile, 0 on dead rows.
+//
+// Staging: f32 x / h rows and f32 W rows come by 16-byte cp.async (dead
+// rows and rows past K zero-filled, nothing read); bf16 and 8-bit operands
+// by 16- or 8-byte loads into registers a stage ahead, converted (8-bit:
+// times their block scale, looked up once per 8-column chunk where the
+// chunk lies in one scale block) and stored as f32 after the stage's
+// products. Every operand lands in the f32 tiles the mainloop reads.
 template <typename T, typename W, int BM, bool kUp>
-__global__ void __launch_bounds__(kThreads)
-esffn_mlp_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
-                 const float* __restrict__ row_gate,
-                 const int* __restrict__ block_expert, const W* __restrict__ w,
-                 Scales sw, const float* __restrict__ bias, T* __restrict__ out,
-                 int n, int k, int ncols, int blk, int act) {
-  constexpr int TM = BM >= 16 ? BM / 16 : 1;
-  constexpr int kRowThreads = BM / TM;  // 16, or 8 at BM 8
-  __shared__ float as[kMlpBK][BM + 4];  // A tile, K-major
-  __shared__ float bs[kMlpBK][kMlpBN + 4];
-  __shared__ int src[BM];               // row of `a` feeding each tile row; -1: dead
+__global__ void __launch_bounds__(mma::kThreads, mma::kMinBlocks)
+esffn_mlp_mma_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
+                     const float* __restrict__ row_gate,
+                     const int* __restrict__ block_expert, const W* __restrict__ w,
+                     Scales sw, const float* __restrict__ bias, T* __restrict__ out,
+                     int n, int k, int ncols, int blk, int rows, int act) {
+  using Tl = mma::Tile<BM>;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value &&
+                         std::is_same<W, __nv_bfloat16>::value;
+  constexpr bool kAsyncA = std::is_same<T, float>::value;
+  constexpr bool kAsyncB = std::is_same<W, float>::value;
+  constexpr int BK = mma::kBK, BN = mma::kBN, NT = mma::kThreads, S = mma::kStages;
+  // register-staged 8-element chunks a thread a stage
+  constexpr int kARc = kAsyncA ? 1 : (BM * (BK / 8) + NT - 1) / NT;
+  constexpr int kBRc = kAsyncB ? 1 : BK * (BN / 8) / NT;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int srow[BM];   // row of `a` feeding each tile row; -1: dead
   __shared__ float gate[BM];
-  // 8-bit W: the block-scale index of each column of the tile and of each
-  // K row of the step, so staging an element divides nothing
-  __shared__ int sn[kMlpBN], sk[kMlpBK];
+  __shared__ int sn[BN];     // 8-bit W: the scale block of each tile column
 
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * kMlpBN;
   const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * rows;
+  const int n0 = blockIdx.y * BN;
   bool live = false;
   if (tid < BM) {
-    const float g = row_gate[m0 + tid];
+    const float g = tid < rows ? row_gate[m0 + tid] : 0.0f;
     live = g != 0.0f;
     gate[tid] = g;
-    src[tid] = !live ? -1 : (kUp ? min(row_token[m0 + tid], n - 1) : m0 + tid);
+    srow[tid] = !live ? -1 : (kUp ? min(row_token[m0 + tid], n - 1) : m0 + tid);
   }
-  const int ty = tid / 16, tx = tid % 16;
-  const bool active = ty < kRowThreads;
   if (!__syncthreads_or(live)) {  // padding tile: no weight is read
-    if (!kUp && active) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < kMlpTN; ++j) {
-          const int col = n0 + tx + 16 * j;
-          if (col < ncols)
-            out[(size_t)(m0 + ty + kRowThreads * i) * ncols + col] = from_f<T>(0.0f);
-        }
-    }
+    if (!kUp)
+      for (int idx = tid; idx < rows * BN; idx += NT) {
+        const int c = n0 + idx % BN;
+        if (c < ncols) out[(size_t)(m0 + idx / BN) * ncols + c] = from_f<T>(0.0f);
+      }
     return;
   }
-
   const int e = block_expert[m0 / blk];
   const W* we = w + (size_t)e * k * ncols;
   if constexpr (kQuant<T, W>) {
-    for (int c = tid; c < kMlpBN; c += kThreads) sn[c] = (n0 + c) / sw.tb;
-  }
-  float acc[TM][kMlpTN];
-#pragma unroll
-  for (int j = 0; j < kMlpTN; ++j) {
-    const int col = n0 + tx + 16 * j;
-    // b2 seeds the down accumulator once per row
-    const float bv = (!kUp && bias != nullptr && col < ncols) ? bias[(size_t)e * ncols + col] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) acc[i][j] = bv;
-  }
-
-  for (int k0 = 0; k0 < k; k0 += kMlpBK) {
-    if constexpr (kQuant<T, W>) {
-      if (tid < kMlpBK) sk[tid] = (k0 + tid) / sw.ta;
-      __syncthreads();
-    }
-    for (int idx = tid; idx < BM * kMlpBK; idx += kThreads) {
-      const int r = idx / kMlpBK, kk = idx % kMlpBK;
-      const int s = src[r];
-      as[kk][r] = (s >= 0 && k0 + kk < k) ? to_f(a[(size_t)s * k + k0 + kk]) : 0.0f;
-    }
-    for (int idx = tid; idx < kMlpBK * kMlpBN; idx += kThreads) {
-      const int kk = idx / kMlpBN, c = idx % kMlpBN;
-      float v = 0.0f;
-      if (k0 + kk < k && n0 + c < ncols) {
-        v = to_f(we[(size_t)(k0 + kk) * ncols + n0 + c]);
-        if constexpr (kQuant<T, W>) v *= sw.block(e, sk[kk], sn[c]);
-      }
-      bs[kk][c] = v;
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll
-      for (int kk = 0; kk < kMlpBK; ++kk) {
-        float av[TM], bv[kMlpTN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = as[kk][ty + kRowThreads * i];
-#pragma unroll
-        for (int j = 0; j < kMlpTN; ++j) bv[j] = bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < kMlpTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
+    for (int c = tid; c < BN; c += NT) sn[c] = min(n0 + c, ncols - 1) / sw.tb;
     __syncthreads();
   }
 
-  if (!active) return;
+  mma::Warp<BM, kBf16> wp;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + kRowThreads * i;
-    const size_t row = (size_t)(m0 + r);
-    const bool on = src[r] >= 0;
+  for (int nt = 0; nt < Tl::kNT; ++nt) {
+    // b2 seeds the down accumulators, once per row
+    const int c = n0 + wp.col(nt);
+    const bool seed = !kUp && bias != nullptr && c < ncols;
+    const float b0 = seed ? bias[(size_t)e * ncols + c] : 0.0f;
+    const float b1 = seed ? bias[(size_t)e * ncols + c + 1] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < kMlpTN; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col >= ncols) continue;
-      if (kUp) {
-        if (!on) continue;  // h of a dead row is never read
-        const float z = acc[i][j] + (bias != nullptr ? bias[(size_t)e * ncols + col] : 0.0f);
-        out[row * ncols + col] = from_f<T>(act_fn(act, round_t<T>(z)));
-      } else {
-        out[row * ncols + col] = on ? from_f<T>(acc[i][j] * gate[r]) : from_f<T>(0.0f);
-      }
+    for (int mt = 0; mt < Tl::kMT; ++mt) {
+      wp.acc[mt][nt][0] = wp.acc[mt][nt][2] = b0;
+      wp.acc[mt][nt][1] = wp.acc[mt][nt][3] = b1;
     }
   }
+
+  const int nk = (k + BK - 1) / BK;
+  uint4 ra[kARc], rb[kBRc];
+  auto stage_a = [&](int st) { return sm + st * Tl::kStageF; };
+  auto stage_b = [&](int st) { return sm + st * Tl::kStageF + Tl::kAF; };
+  // cp.async part of K slice kt (f32 operands)
+  auto load_async = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    if constexpr (kAsyncA) {
+      float* as = stage_a(st);
+      for (int idx = tid; idx < BM * (BK / 4); idx += NT) {
+        const int r = idx / (BK / 4), c = idx % (BK / 4) * 4;
+        const int s = srow[r];
+        const bool v = s >= 0 && k0 + c < k;
+        hopper::cp_async16(as + r * Tl::kAS + c, v ? a + (size_t)s * k + k0 + c : a, v);
+      }
+    }
+    if constexpr (kAsyncB) {
+      float* bs = stage_b(st);
+      for (int idx = tid; idx < BK * (BN / 4); idx += NT) {
+        const int r = idx / (BN / 4), c = idx % (BN / 4) * 4;
+        const bool v = k0 + r < k && n0 + c < ncols;
+        hopper::cp_async16(bs + r * Tl::kBS + c,
+                           v ? we + (size_t)(k0 + r) * ncols + n0 + c : we, v);
+      }
+    }
+  };
+  // register part of K slice kt (bf16 and 8-bit operands)
+  auto load_regs = [&](int kt) {
+    const int k0 = kt * BK;
+    if constexpr (!kAsyncA) {
+#pragma unroll
+      for (int i = 0; i < kARc; ++i) {
+        const int idx = tid + i * NT, r = idx / (BK / 8), c = idx % (BK / 8) * 8;
+        const int s = idx < BM * (BK / 8) ? srow[r] : -1;
+        ra[i] = (s >= 0 && k0 + c < k) ? ld8(a + (size_t)s * k + k0 + c) : make_uint4(0, 0, 0, 0);
+      }
+    }
+    if constexpr (!kAsyncB) {
+#pragma unroll
+      for (int i = 0; i < kBRc; ++i) {
+        const int idx = tid + i * NT, r = idx / (BN / 8), c = idx % (BN / 8) * 8;
+        rb[i] = (k0 + r < k && n0 + c < ncols) ? ld8(we + (size_t)(k0 + r) * ncols + n0 + c)
+                                               : make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+  auto store_regs = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    if constexpr (!kAsyncA) {
+      float* as = stage_a(st);
+#pragma unroll
+      for (int i = 0; i < kARc; ++i) {
+        const int idx = tid + i * NT, r = idx / (BK / 8), c = idx % (BK / 8) * 8;
+        if (idx >= BM * (BK / 8)) continue;
+        float v[8];
+        cvt8(ra[i], v, T());
+        *reinterpret_cast<float4*>(as + r * Tl::kAS + c) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(as + r * Tl::kAS + c + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+    if constexpr (!kAsyncB) {
+      float* bs = stage_b(st);
+#pragma unroll
+      for (int i = 0; i < kBRc; ++i) {
+        const int idx = tid + i * NT, r = idx / (BN / 8), c = idx % (BN / 8) * 8;
+        float v[8];
+        cvt8(rb[i], v, W());
+        if constexpr (kQuant<T, W>) {
+          if (k0 + r < k) {
+            const int rbk = (k0 + r) / sw.ta;
+            if (sn[c] == sn[c + 7]) {
+              const float s = sw.block(e, rbk, sn[c]);
+#pragma unroll
+              for (int j = 0; j < 8; ++j) v[j] *= s;
+            } else {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) v[j] *= sw.block(e, rbk, sn[c + j]);
+            }
+          }
+        }
+        *reinterpret_cast<float4*>(bs + r * Tl::kBS + c) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(bs + r * Tl::kBS + c + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) {
+      load_async(s, s);
+      load_regs(s);
+      store_regs(s, s);
+    }
+    hopper::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    hopper::cp_async_wait<S - 2>();
+    __syncthreads();  // slice kt is in; every warp is done with slice kt - 1
+    const int nx = kt + S - 1;
+    if (nx < nk) {
+      load_async(nx, nx % S);
+      load_regs(nx);
+    }
+    hopper::cp_async_commit();
+    wp.step(stage_a(kt % S), stage_b(kt % S));
+    if (nx < nk) store_regs(nx, nx % S);
+  }
+  hopper::cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < Tl::kMT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wp.row(mt, half);
+      if (r >= rows) continue;  // the next block's row (blk 8)
+      const size_t row = (size_t)(m0 + r);
+      const bool on = srow[r] >= 0;
+      if (kUp && !on) continue;  // h of a dead row is never read
+#pragma unroll
+      for (int nt = 0; nt < Tl::kNT; ++nt) {
+        const int c = n0 + wp.col(nt);
+        if (c >= ncols) continue;
+        float v0 = wp.acc[mt][nt][2 * half], v1 = wp.acc[mt][nt][2 * half + 1];
+        if (kUp) {
+          if (bias != nullptr) {
+            v0 += bias[(size_t)e * ncols + c];
+            v1 += bias[(size_t)e * ncols + c + 1];
+          }
+          v0 = act_fn(act, round_t<T>(v0));
+          v1 = act_fn(act, round_t<T>(v1));
+        } else {
+          v0 = on ? v0 * gate[r] : 0.0f;
+          v1 = on ? v1 * gate[r] : 0.0f;
+        }
+        if constexpr (std::is_same<T, float>::value) {
+          *reinterpret_cast<float2*>(out + row * ncols + c) = make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(out + row * ncols + c) = __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
 }
 
 template <typename T, typename W, int BM>
@@ -886,36 +1031,50 @@ int mlp_launch_bm(const void* x, const void* row_token, const void* row_gate,
                   const void* block_expert, const void* w1, Scales s1,
                   const void* b1, const void* w2, Scales s2, const void* b2,
                   void* h, void* out, int n, int d, int f, int np_rows,
-                  int blk, int act, cudaStream_t stream) {
-  const dim3 up_grid(np_rows / BM, (f + kMlpBN - 1) / kMlpBN);
-  esffn_mlp_kernel<T, W, BM, true><<<up_grid, kThreads, 0, stream>>>(
+                  int blk, int rows, int act, cudaStream_t stream) {
+  constexpr int smem = mma::Tile<BM>::kSmem;
+  auto up = esffn_mlp_mma_kernel<T, W, BM, true>;
+  auto down = esffn_mlp_mma_kernel<T, W, BM, false>;
+  cudaError_t err = cudaFuncSetAttribute(up, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(down, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 up_grid(np_rows / rows, (f + mma::kBN - 1) / mma::kBN);
+  up<<<up_grid, mma::kThreads, smem, stream>>>(
       (const T*)x, (const int*)row_token, (const float*)row_gate,
       (const int*)block_expert, (const W*)w1, s1, (const float*)b1, (T*)h, n,
-      d, f, blk, act);
-  cudaError_t err = cudaGetLastError();
+      d, f, blk, rows, act);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 down_grid(np_rows / BM, (d + kMlpBN - 1) / kMlpBN);
-  esffn_mlp_kernel<T, W, BM, false><<<down_grid, kThreads, 0, stream>>>(
+  const dim3 down_grid(np_rows / rows, (d + mma::kBN - 1) / mma::kBN);
+  down<<<down_grid, mma::kThreads, smem, stream>>>(
       (const T*)h, (const int*)row_token, (const float*)row_gate,
       (const int*)block_expert, (const W*)w2, s2, (const float*)b2, (T*)out,
-      n, f, d, blk, act);
+      n, f, d, blk, rows, act);
   return (int)cudaGetLastError();
 }
 
+// A tile is BM rows of one block, BM the largest of 128, 64, 32, 16 that
+// divides blk; at blk % 16 != 0 a 16-row tile holds one 8-row block.
 template <typename T, typename W>
 int mlp_launch(const void* x, const void* row_token, const void* row_gate,
                const void* block_expert, const void* w1, Scales s1,
                const void* b1, const void* w2, Scales s2, const void* b2,
                void* h, void* out, int n, int d, int f, int np_rows, int blk,
                int act, cudaStream_t stream) {
-#define ESFFN_MLP_BM(BM)                                                      \
+  if (blk % 8 || blk < 8 || blk > kMaxBlk || np_rows % blk || d % 8 || f % 8 ||
+      n < 1 ||
+      ((uintptr_t)x | (uintptr_t)w1 | (uintptr_t)w2 | (uintptr_t)h | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+#define ESFFN_MLP_BM(BM, ROWS)                                                \
   return mlp_launch_bm<T, W, BM>(x, row_token, row_gate, block_expert, w1,   \
                                  s1, b1, w2, s2, b2, h, out, n, d, f,         \
-                                 np_rows, blk, act, stream)
-  if (blk % 64 == 0) ESFFN_MLP_BM(64);
-  if (blk % 32 == 0) ESFFN_MLP_BM(32);
-  if (blk % 16 == 0) ESFFN_MLP_BM(16);
-  ESFFN_MLP_BM(8);
+                                 np_rows, blk, ROWS, act, stream)
+  if (blk % 128 == 0) ESFFN_MLP_BM(128, 128);
+  if (blk % 64 == 0) ESFFN_MLP_BM(64, 64);
+  if (blk % 32 == 0) ESFFN_MLP_BM(32, 32);
+  if (blk % 16 == 0) ESFFN_MLP_BM(16, 16);
+  ESFFN_MLP_BM(16, 8);
 #undef ESFFN_MLP_BM
 }
 
@@ -1014,7 +1173,9 @@ extern "C" int esffn_glu_q_launch(const void* x, const void* row_token,
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w1, w2, h and out). b1 (E, F) and b2
 // (E, D) are f32 or null. h: (Np, F) scratch of dtype T (live rows
-// written); out: (Np, D). Requires blk % 8 == 0 (the wrapper checks).
+// written); out: (Np, D). Requires 8 <= blk <= 128 a multiple of 8, D and
+// F multiples of 8 and 16-byte aligned x, weights, h and out (anything
+// else is refused).
 extern "C" int esffn_mlp_launch(const void* x, const void* row_token,
                                 const void* row_gate, const void* block_expert,
                                 const void* w1, const void* b1, const void* w2,

@@ -20,8 +20,13 @@ version. There is no other path. ``esffn_glu`` has two routes, picked by
 ``_route`` from the dtype and shapes alone before the launch and counted
 in ``esffn_glu.launches_by_route``: ``"wgmma"`` (bf16 on the tensor cores;
 the LM train path at blk 128) and ``"stream"`` (the weight-streaming
-kernels: the serve path at blk 16, 8-bit weights, f32). No route gives
-way to another. The plain versions (``*_plain``) use
+kernels: the serve path at blk 16, 8-bit weights, f32). ``esffn_mlp``
+runs on the tensor cores through ``mma.sync`` on two routes, picked by
+``_mlp_route`` and counted in ``esffn_mlp.launches_by_route``:
+``"mma_tf32x3"`` (f32 x, and every call with 8-bit weights: each f32
+operand split into two TF32 parts, three products summed in f32) and
+``"mma_bf16"`` (bf16 x and weights). No route gives way to another. The
+plain versions (``*_plain``) use
 per-block weight tiles ``W[block_expert]`` and batched matmuls, rounding
 where the kernels round: g and u (GLU) or z after ``+ b1`` (MLP) to
 x.dtype, h in x.dtype, the down product in f32 (from b2), the output
@@ -55,6 +60,7 @@ _WDTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_VP] * 9 + [_I] * 7 + [_VP]
 _ROUTES = ("stream", "wgmma")
+_MLP_ROUTES = ("mma_tf32x3", "mma_bf16")
 _MLP_ARGTYPES = [_VP] * 10 + [_I] * 7 + [_VP]
 _Q_ARGTYPES = [_VP] * 12 + [_I] * 12 + [_VP]
 #: The TPU kernels' hidden-dim block (``bf``): the quant tiles must divide
@@ -232,6 +238,13 @@ esffn_glu.launches_by_route = dict.fromkeys(_ROUTES, 0)
 esffn_glu.launches_quant = dict.fromkeys(QUANT_MODES.values(), 0)
 
 
+def _mlp_route(dtype, quantized: bool = False) -> str:
+    """The 2-MLP kernel route: ``"mma_bf16"`` for bf16 x with bf16 weights,
+    else ``"mma_tf32x3"`` (f32, and 8-bit weights dequantized to f32)."""
+    return "mma_bf16" if dtype == torch.bfloat16 and not quantized \
+        else "mma_tf32x3"
+
+
 def esffn_mlp_plain(x, row_token, row_gate, block_expert, w1, b1, w2, b2, *,
                     w_scales=None, act: str = "gelu") -> torch.Tensor:
     """Plain PyTorch fused 2-MLP expert FFN: (N, D) tokens -> (Np, D)
@@ -278,6 +291,13 @@ def _check_mlp_cuda_args(x, row_token, row_gate, block_expert, w1, b1, w2,
         "esffn_mlp", x, row_token, row_gate, block_expert, act,
         [t for t in (x, row_token, row_gate, block_expert, w1, b1, w2, b2,
                      *(w_scales or ())) if t is not None])
+    if d % 8 or f % 8:
+        raise ValueError(f"esffn_mlp's kernel stages rows in 8-element "
+                         f"pieces: D {d} and F {f} must be multiples of 8")
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError("esffn_mlp's kernel copies x and the weights in "
+                         "16-byte pieces, which needs 16-byte aligned base "
+                         "addresses")
     return n, d, f, np_rows, blk
 
 
@@ -322,13 +342,17 @@ def esffn_mlp(x, row_token, row_gate, block_expert, w1, b1, w2, b2, *,
                          w2.data_ptr(), s2.data_ptr(), b2p, *tail,
                          _WDTYPES[w1.dtype], ACT_IDS[act], ta1, tb1, ta2,
                          tb2, stream)
+    route = _mlp_route(x.dtype, w_scales is not None)
     if err:
-        raise RuntimeError(f"esffn_mlp kernel launch failed (CUDA error {err})")
+        raise RuntimeError(f"esffn_mlp kernel launch failed on the {route} "
+                           f"route (CUDA error {err})")
     esffn_mlp.launches += 1
+    esffn_mlp.launches_by_route[route] += 1
     if w_scales is not None:
         esffn_mlp.launches_quant[QUANT_MODES[w1.dtype]] += 1
     return out
 
 
 esffn_mlp.launches = 0
+esffn_mlp.launches_by_route = dict.fromkeys(_MLP_ROUTES, 0)
 esffn_mlp.launches_quant = dict.fromkeys(QUANT_MODES.values(), 0)

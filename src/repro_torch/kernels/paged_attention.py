@@ -10,10 +10,18 @@
   ``paged_attention_ref``): gather each slot's pages to a dense
   (B, maxp*page) view and run masked softmax attention.
 
+The kernel splits the pages of a slot across CTAs: ``pages_per_split``
+gives each split's run of logical pages from the table width ``maxp``
+alone (the lengths stay on the device), and with more than one split the
+partial softmax states go through a workspace that the wrapper keeps per
+device (``_workspace``), so a call allocates nothing after the first.
+Calls that share the workspace must not overlap: launch them on one
+stream of the device, as the port does.
+
 int8 pools (``k_scale``/``v_scale``, one f32 scale per (row, kv head),
 ``quant.core.quantize_rows``): on a CUDA tensor the same kernel reads the
-int8 rows and their scales and dequantizes them as they land in shared
-memory (``paged_attention_q_launch``), counted in ``launches`` and in
+int8 rows and their scales and dequantizes them as they land
+(``paged_attention_q_launch``), counted in ``launches`` and in
 ``paged_attention.launches_quant["int8"]``; on a CPU tensor
 ``paged_attention_ref`` dequantizes the gathered pages to q's dtype first,
 as the JAX reference does.
@@ -32,8 +40,42 @@ NEG_INF = -2.0e38
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_VP] * 6 + [_I] * 7 + [_F, _F, _I, _VP]
-_Q_ARGTYPES = [_VP] * 8 + [_I] * 7 + [_F, _F, _I, _VP]
+_ARGTYPES = [_VP] * 8 + [_I] * 8 + [_F, _F, _I, _VP]
+_Q_ARGTYPES = [_VP] * 10 + [_I] * 8 + [_F, _F, _I, _VP]
+#: What the kernel takes: hd a multiple of 16 up to 256, G = Hq / Hkv up
+#: to 16, pages of 4 to 32 tokens in multiples of 4, at most 64 splits.
+MAX_HD, MAX_G, MAX_PAGE, MAX_SPLITS = 256, 16, 32, 64
+_MIN_PAGES_PER_SPLIT = 4
+
+# device index -> (partials f32, tickets int32); tickets are 0 between calls
+_WORKSPACE = {}
+
+
+def pages_per_split(maxp: int) -> int:
+    """Logical pages of a split: at least 4, and few enough that a table
+    of ``maxp`` pages makes at most ``MAX_SPLITS`` splits (32 pages at
+    qwen3's 32,768-token context in 16-token pages; one split at the serve
+    path's 2-page tables)."""
+    return max(_MIN_PAGES_PER_SPLIT, -(-maxp // MAX_SPLITS))
+
+
+def num_splits(maxp: int) -> int:
+    """CTAs a (slot, kv head): ceil(maxp / pages_per_split(maxp))."""
+    return -(-maxp // pages_per_split(maxp))
+
+
+def _workspace(device, b, hkv, splits, g, hd):
+    """The kernel's partials (B, Hkv, splits, G*hd + 2G) f32 and tickets
+    (B, Hkv) int32, from buffers kept per device that only ever grow."""
+    floats, tickets = b * hkv * splits * (g * hd + 2 * g), b * hkv
+    have = _WORKSPACE.get(device.index)
+    if have is None or have[0].numel() < floats or have[1].numel() < tickets:
+        floats = max(floats, 0 if have is None else have[0].numel())
+        tickets = max(tickets, 0 if have is None else have[1].numel())
+        have = (torch.empty(floats, dtype=torch.float32, device=device),
+                torch.zeros(tickets, dtype=torch.int32, device=device))
+        _WORKSPACE[device.index] = have
+    return have
 
 
 def paged_attention_ref(
@@ -121,6 +163,13 @@ def _check_cuda_args(q, k_pool, v_pool, page_table, lengths, k_scale=None,
     if page_table.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match {b} slots")
+    if hd % 16 or hd > MAX_HD or hq // hkv > MAX_G or page % 4 \
+            or not 4 <= page <= MAX_PAGE:
+        raise ValueError(f"paged_attention's kernel takes hd a multiple of "
+                         f"16 up to {MAX_HD}, up to {MAX_G} query heads a kv "
+                         f"head and pages of 4 to {MAX_PAGE} tokens in "
+                         f"multiples of 4, not hd {hd}, G {hq // hkv}, page "
+                         f"{page}")
     tensors = [t for t in (q, k_pool, v_pool, page_table, lengths, k_scale,
                            v_scale) if t is not None]
     if any(t.device != q.device for t in tensors):
@@ -156,9 +205,15 @@ def paged_attention(
     b, hq, hkv, hd, page, maxp = _check_cuda_args(
         q, k_pool, v_pool, page_table, lengths, k_scale, v_scale)
     out = torch.empty_like(q)
-    tail = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, hq,
-            hkv, hd, page, maxp, int(window or 0), float(softcap or 0.0),
-            float(hd ** -0.5), _DTYPES[q.dtype])
+    pps = pages_per_split(maxp)
+    splits = num_splits(maxp)
+    parts = tickets = None
+    if splits > 1:
+        parts, tickets = (t.data_ptr() for t in _workspace(
+            q.device, b, hkv, splits, hq // hkv, hd))
+    tail = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), parts,
+            tickets, b, hq, hkv, hd, page, maxp, pps, int(window or 0),
+            float(softcap or 0.0), float(hd ** -0.5), _DTYPES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if k_scale is None:
