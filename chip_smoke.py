@@ -40,7 +40,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    context (with its negative control) and at the int8
    ``PAGED_CHECK_CASES``, ``esmm``
    int8/fp8 at the LM expert shapes in both orientations (every call on
-   the simt route), ``esffn_mlp`` int8/fp8 at Swin-MoE-Small's stage 2.
+   the ``mma_tf32x3`` route: two TF32 products with bf16 xs, three with
+   f32; with bf16 xs the bound is the bf16 one, since every product is
+   exact in bf16, and the two TF32 products' stand beside it),
+   ``esffn_mlp`` int8/fp8 at Swin-MoE-Small's stage 2.
    The weights' 128 x 128 tiles differ in magnitude, and per branch a
    negative control (the plain output with a scale grid read on the wrong
    axes) must fail the limit.
@@ -50,7 +53,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    Q2. The same with int8 experts and an int8 KV cache (greedy tokens
    equal); one loss forward and backward of it with the experts frozen
    (loss and every float grad leaf as phase 7; 5 int8 ``esmm`` launches a
-   layer in the backward); one Swin-MoE-Small forward at full width and
+   layer in the backward, all on ``mma_tf32x3``); one Swin-MoE-Small
+   forward at full width and
    depth, 8 images, with int8 MoE experts (logits within
    ``SWIN_KERNEL_TOL``; one int8 ``esffn_mlp`` a MoE block).
 5. Serve phase: qwen3-moe-30b-a3b at full width and depth (48 layers, about
@@ -69,8 +73,9 @@ The serve phase's weights are then freed, and the training slice runs:
 
 6. Kernel phase at training shapes (qwen3-moe-30b-a3b, 4 x 1024 tokens,
    top-8, blk 128: Np 49,024 sorted rows), every shape the LM layer
-   launches, on both kernel routes (``_route``: ``wgmma``, bf16 on the
-   tensor cores; ``simt``, f32 FMA): ``esmm`` (``ESMM_TRAIN_CASES``) in
+   launches, on the kernels' routes (``_route``: ``wgmma``, bf16 on the
+   tensor cores; ``mma_tf32x3``, esmm's f32 in 3xTF32 on the tensor cores;
+   ``simt``, f32 FMA): ``esmm`` (``ESMM_TRAIN_CASES``) in
    bf16 and f32 at (Np, 2048) x (128, 2048, 768), transposed at the same
    and at (Np, 768) x (128, 2048, 768)^T (the dX products), once with a
    bias, and in bf16 at blk 64 (wgmma) and blk 32 (simt); ``estmm``
@@ -111,20 +116,30 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    (N 25,088 tokens, D 384, F 1536: Np 26,112 sorted rows) and stage 3
    (N 6,272, D 768, F 3072: Np 7,296). ``esffn_mlp`` with both biases,
    ``esfk`` and ``ess`` at each (dW1/db1 and dW2/db2 operands), also on a
-   layout where 3 experts have no rows (their dW and db exactly 0), with
-   the time of the unfused ``estmm`` + ``ess`` pair beside ``esfk``'s, and
-   ``esmm`` in f32 with a bias (the z recompute) and transposed (t, dX),
-   on the simt route;
+   layout where 3 experts have no rows (their dW and db exactly 0; two
+   ``esfk`` calls give the same bits), with the time of the unfused
+   ``estmm`` + ``ess`` pair beside ``esfk``'s and of f32 ``estmm`` alone
+   (simt), and ``esmm`` in f32 with a bias (the z recompute) and
+   transposed (t, dX);
    ``esffn_mlp`` once in bf16. Timed as phase 3, against the plain
    versions; ``torch.segment_reduce`` is the library yardstick for ``ess``.
-   ``esffn_mlp`` runs on the tensor cores: f32 on its ``mma_tf32x3``
-   route (its bound is 3 x the FLOPs at the TF32 peak, with the f32 FMA
-   bound beside it), bf16 on ``mma_bf16``, each call's route read from
-   ``launches_by_route``. Its negative control: the plain output with one
-   8-deep K step of x W1 left out must fail ``SWIN_KERNEL_TOL``. Then
-   untimed ``esffn_mlp`` checks at ragged D x F (``MLP_CHECK_WIDTHS``)
-   and blk 8, 16, 64 and 128 (``MLP_CHECK_BLKS``) in f32, bf16 and with
-   int8 weights.
+   ``esffn_mlp``, ``esmm`` and ``esfk`` run on the tensor cores: f32 on
+   their ``mma_tf32x3`` routes (the bound is 3 x the FLOPs at the TF32
+   peak, with the f32 FMA bound beside it), bf16 ``esffn_mlp`` on
+   ``mma_bf16``, each call's route read from ``launches_by_route``.
+   Negative controls, each of which must fail its limit: the plain
+   ``esffn_mlp`` output with one 8-deep K step of x W1 left out
+   (``SWIN_KERNEL_TOL``), the plain transposed ``esmm`` output with one
+   8-deep K step left out (``GEMM_TOL``), the plain ``esfk`` dW with one
+   32-row step of one expert left out (``SWIN_KERNEL_TOL``). Then untimed
+   checks at ragged widths (``MLP_CHECK_WIDTHS``) and blk 8, 16, 64 and
+   128 (``MLP_CHECK_BLKS``): ``esffn_mlp`` in f32, bf16 and with int8
+   weights; ``esmm`` in both orientations in f32, bf16 and with int8
+   weights under f32 and bf16 xs, also at ``ODD_CHECK_WIDTHS`` (rows not
+   whole 16-byte copies: the simt kernel); ``esfk`` in f32 and bf16,
+   twice each, and again with ``ESFK_CHECK_SPLITS`` CTAs an expert's rows
+   (the merge through the workspace; twice, the same bits); ``esfk``
+   must refuse the odd widths.
 10. Swin reference: Swin-MoE-Small at full width, depth cut to (2, 2, 2, 2)
    (one MoE block each in stages 2 and 3), f32, 2 images: one
    ``make_train_step`` loss and its grads on the GPU (the kernels) and on
@@ -134,13 +149,12 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    ``SWIN_BATCH`` of seeded 224^2 images and labels, AdamW
    (``master_fp32=False``): one warm-up step, then ``SWIN_STEPS`` steps
    whose launch counts must be exactly 10 ``esffn_mlp``, 30 ``esmm``, 20
-   ``esfk`` and 0 ``ess`` a step, every ``esmm`` on the f32 simt route
-   and every ``esffn_mlp`` on ``mma_tf32x3``.
+   ``esfk`` and 0 ``ess`` a step, every ``esffn_mlp``, ``esmm`` and
+   ``esfk`` on ``mma_tf32x3``.
    Then one forward and backward of the same loss from the same state
    with ``set_fused_backward(True)`` and with ``(False)`` (the paper's
-   Fig. 12 ablation: 0 ``esfk``, 20 ``estmm``, 20 ``ess``, all on the
-   simt route): the grads must agree within
-   ``SWIN_ABLATION_TOL``.
+   Fig. 12 ablation: 0 ``esfk``, 20 ``estmm`` on the f32 simt route, 20
+   ``ess``): the grads must agree within ``SWIN_ABLATION_TOL``.
 
 The Swin state is then freed, and the flash-attention slice runs (no model
 path of either package calls it, so its public entry point is its path):
@@ -168,6 +182,7 @@ their own), and last
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import statistics
@@ -185,8 +200,10 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 # A route's work in the operations of another peak: 3xTF32 does three TF32
-# products for each f32 one, on the tensor cores.
-ROUTE_PEAK = {"mma_tf32x3": ("tf32", 3)}
+# products for each f32 one, on the tensor cores. (With bf16 activations
+# and 8-bit weights every product is exact in bf16, so such a case's bound
+# is the bf16 one, and its route's two TF32 products stand beside it.)
+ROUTE_PEAK = {"mma_tf32x3": ("tf32", 3), "mma_tf32x2": ("tf32", 2)}
 
 ESFFN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # x max|plain|
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-5}    # x max|plain|
@@ -205,9 +222,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
 SWIN_KERNEL_TOL = 1e-4
 SWIN_LOSS_RTOL = 1e-5
 SWIN_GRAD_TOL = 1e-4                              # x max|grad| of the leaf
-# fused vs unfused backward on the card: dW is the same sum in the same
-# order; db is summed in another (ESFK's rows vs ESS's 32 row lanes), and
-# the relative-position tables' grads take atomic adds in no fixed order.
+# fused vs unfused backward on the card: dW is no longer the same sum, ESFK
+# takes 3xTF32 products on the tensor cores where ESTMM takes f32 FMAs
+# (3xTF32 lands within a few f32 ulps of an FMA sum: 0.035 of this limit in
+# tests/test_torch_tf32x3.py's model at the stage-2 widths); db is summed in
+# another order (ESFK's two row lanes vs ESS's 32), and the relative-
+# position tables' grads take atomic adds in no fixed order.
 SWIN_ABLATION_TOL = 1e-5                          # x max|grad| of the leaf
 SWIN_BATCH, SWIN_STEPS = 128, 3
 SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
@@ -295,6 +315,14 @@ def bound(bytes_moved: float, flops: float, dtype: str, route=None):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = times * flops / PEAK_FLOPS[peak] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _fma_bound(route, nbytes, flops):
+    """On a 3xTF32 route, the f32 FMA bound to stand beside the route's own
+    (as {"bound_fma_ms": ms}); on any other route, nothing."""
+    if route != "mma_tf32x3":
+        return {}
+    return {"bound_fma_ms": bound(nbytes, flops, "float32")[0]}
 
 
 def esffn_cases(torch, flush):
@@ -721,19 +749,19 @@ def _rates(case, nbytes, flops):
 # Phase 6 cases (dtype, transpose_rhs, bias, K, N, blk, route): every
 # shape the LM layer launches (g/u at K 2048 -> N 768, t transposed at the
 # same, the two dX products transposed at K 768 -> N 2048), f32 on the
-# simt route, and the 64- and 32-row instances.
+# 3xTF32 tensor-core route, and the 64- and 32-row instances.
 ESMM_TRAIN_CASES = (
     ("bfloat16", False, False, 2048, 768, 128, "wgmma"),
-    ("float32", False, False, 2048, 768, 128, "simt"),
+    ("float32", False, False, 2048, 768, 128, "mma_tf32x3"),
     ("bfloat16", True, False, 2048, 768, 128, "wgmma"),
-    ("float32", True, False, 2048, 768, 128, "simt"),
+    ("float32", True, False, 2048, 768, 128, "mma_tf32x3"),
     ("bfloat16", False, True, 2048, 768, 128, "wgmma"),
     ("bfloat16", True, False, 768, 2048, 128, "wgmma"),
     ("bfloat16", False, False, 2048, 768, 64, "wgmma"),
     ("bfloat16", False, False, 2048, 768, 32, "simt"),
 )
 # (dtype, empty experts, D1, D2, blk, route): dWg/dWu at 2048 x 768, dWd
-# at 768 x 2048.
+# at 768 x 2048; f32 stays on f32 FMA (simt).
 ESTMM_TRAIN_CASES = (
     ("bfloat16", 0, 2048, 768, 128, "wgmma"),
     ("float32", 0, 2048, 768, 128, "simt"),
@@ -957,7 +985,7 @@ def train_kernel_cases(torch, flush):
                   + (experts * n_dim * s_ if bias else 0) + nblk * 4
                   + np_rows * n_dim * s_)
         flops = 2 * np_rows * k_dim * n_dim
-        b_ms, b_by = bound(nbytes, flops, dtype)
+        b_ms, b_by = bound(nbytes, flops, dtype, route)
         wl = w.transpose(1, 2) if trans else w
         offs = offsets(lay)
         lib_ms, lib_note = _library_ms(
@@ -970,7 +998,8 @@ def train_kernel_cases(torch, flush):
             "kernel_ms": time_ms(torch, lambda: esmm.esmm(*args, **kw), flush),
             "plain_ms": time_ms(torch, lambda: esmm.esmm_plain(*args, **kw),
                                 flush),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, **_fma_bound(
+                route, nbytes, flops), "library_ms": lib_ms,
             "library": lib_note}, nbytes, flops))
         del w, b, xs, plain, kern
 
@@ -1213,9 +1242,11 @@ def train_phase(torch):
     want = {k: v * TRAIN_DEPTH * TRAIN_STEPS for k, v in want.items()}
     if launches != want:
         raise AssertionError(f"train: launches {launches}, expected {want}")
-    # every expert GEMM and FFN of the bf16 LM step on the tensor cores
-    want_routes = {k: {"simt" if k != "esffn_glu" else "stream": 0,
-                       "wgmma": want[k]} for k in routes}
+    # every expert GEMM and FFN of the bf16 LM step on wgmma
+    idle = {"esffn_glu": ("stream",), "esmm": ("simt", "mma_tf32x3"),
+            "estmm": ("simt",)}
+    want_routes = {k: {**dict.fromkeys(idle[k], 0), "wgmma": want[k]}
+                   for k in routes}
     if routes != want_routes:
         raise AssertionError(f"train: routes {routes}, expected "
                              f"{want_routes}")
@@ -1262,7 +1293,7 @@ def swin_kernel_cases(torch, flush):
     from repro_torch.core.reindex import gather_rows
     from repro_torch.kernels import esffn, esfk, esmm, ess, estmm
 
-    res = {"esffn_mlp": [], "esfk": [], "ess": [], "esmm": [],
+    res = {"esffn_mlp": [], "esfk": [], "ess": [], "esmm": [], "estmm": [],
            "negative_controls": []}
     e = 8
     for stage, n, d in ((2, SWIN_BATCH * 196, 384), (3, SWIN_BATCH * 49, 768)):
@@ -1351,8 +1382,10 @@ def swin_kernel_cases(torch, flush):
                 args = (x1, x2, be, pc)
                 name = f"esfk stage {stage} {what} empty={n_empty}"
                 pw, pb = esfk.esfk_plain(*args)
-                kern_w, kern_b = esfk.esfk(*args)
-                torch.cuda.synchronize()
+                (kern_w, kern_b), kroute = _routed(
+                    torch, lambda: esfk.esfk(*args), esfk.esfk)
+                if kroute != "mma_tf32x3":
+                    raise AssertionError(f"{name}: took the {kroute} route")
                 err_w, tol_w = _check(name + " dW", kern_w, pw,
                                       SWIN_KERNEL_TOL)
                 err_b, tol_b = _check(name + " db", kern_b, pb,
@@ -1362,15 +1395,36 @@ def swin_kernel_cases(torch, flush):
                         and torch.equal(kern_b[z],
                                         torch.zeros_like(kern_b[z]))):
                     raise AssertionError(f"{name}: empty experts not 0")
+                again_w, again_b = esfk.esfk(*args)
+                torch.cuda.synchronize()
+                if not (torch.equal(again_w, kern_w)
+                        and torch.equal(again_b, kern_b)):
+                    raise AssertionError(f"{name}: two calls differ")
+                del again_w, again_b
+                if stage == 2 and not empty and what == "dW1,db1":
+                    # one 32-row step (a stage of the kernel's ring) of the
+                    # first expert with rows left out
+                    first = int((pc > 0).nonzero()[0])
+                    r0 = int(pc[:first].sum()) + 32
+                    x1_cut = x1.clone()
+                    x1_cut[r0:r0 + 32] = 0.0
+                    res["negative_controls"].append({
+                        "kernel": "esfk",
+                        "fault": "one 32-row step of one expert left out",
+                        "err_over_tol": _must_fail(
+                            name + " without 32 rows", esfk.esfk_plain(
+                                x1_cut, *args[1:])[0], pw, SWIN_KERNEL_TOL)})
+                    del x1_cut
                 d1, d2 = x1.shape[1], x2.shape[1]
                 nbytes = rows * (d1 + d2) * 4 + e * 4 + e * d1 * d2 * 4 \
                     + e * d2 * 4
-                b_ms, b_by = bound(nbytes, 2 * rows * d1 * d2 + rows * d2,
-                                   "float32")
+                flops = 2 * rows * d1 * d2 + rows * d2
+                b_ms, b_by = bound(nbytes, flops, "float32", kroute)
                 res["esfk"].append({
                     "shape": {**shape, "D1": d1, "D2": d2, "grads": what,
                               "rows_read": rows},
-                    "dtype": "float32", "max_abs_err": max(err_w, err_b),
+                    "dtype": "float32", "kernel_route": kroute,
+                    "max_abs_err": max(err_w, err_b),
                     "tolerance": min(tol_w, tol_b),
                     "kernel_ms": time_ms(torch, lambda: esfk.esfk(*args),
                                          flush),
@@ -1380,8 +1434,34 @@ def swin_kernel_cases(torch, flush):
                     # unfused pair the backward runs instead of ESFK
                     "unfused_estmm_ess_ms": time_ms(torch, lambda: (
                         estmm.estmm(*args), ess.ess(x2, be, pc)), flush),
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    **_fma_bound(kroute, nbytes, flops), "library_ms": None,
                     "library": "none: no one PyTorch call computes dW and db"})
+                if not empty:
+                    # the unfused backward's dW alone: f32 estmm on simt
+                    name = f"estmm f32 stage {stage} {what[:3]}"
+                    plain = estmm.estmm_plain(*args)
+                    kern, kroute = _routed(torch, lambda: estmm.estmm(*args),
+                                           estmm.estmm)
+                    if kroute != "simt":
+                        raise AssertionError(f"{name}: took the {kroute} "
+                                             f"route")
+                    err, tol = _check(name, kern, plain, GEMM_TOL["float32"])
+                    nbytes = rows * (d1 + d2) * 4 + e * 4 + e * d1 * d2 * 4
+                    b_ms, b_by = bound(nbytes, 2 * rows * d1 * d2, "float32")
+                    res["estmm"].append({
+                        "shape": {**shape, "D1": d1, "D2": d2,
+                                  "grads": what[:3], "rows_read": rows},
+                        "dtype": "float32", "kernel_route": kroute,
+                        "max_abs_err": err, "tolerance": tol,
+                        "kernel_ms": time_ms(torch, lambda: estmm.estmm(
+                            *args), flush),
+                        "plain_ms": time_ms(torch, lambda: estmm.estmm_plain(
+                            *args), flush),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None,
+                        "library": "none: torch._grouped_mm takes bf16 only"})
+                    del plain, kern
 
                 args = (x2, be, pc)
                 name = f"ess stage {stage} D {d2} empty={n_empty}"
@@ -1425,15 +1505,28 @@ def swin_kernel_cases(torch, flush):
                 plain = esmm.esmm_plain(*args, **kw)
                 kern, route = _routed(torch, lambda: esmm.esmm(*args, **kw),
                                       esmm.esmm)
-                if route != "simt":
+                if route != "mma_tf32x3":
                     raise AssertionError(f"{name}: took the {route} route")
                 err, tol = _check(name, kern, plain, GEMM_TOL["float32"])
+                if stage == 2 and what == "t":
+                    # one 8-deep K step (an mma k8 step) of W^T left out
+                    w_cut = w.clone()
+                    w_cut[:, :, 8:16] = 0.0
+                    res["negative_controls"].append({
+                        "kernel": "esmm",
+                        "fault": "one 8-deep K step of the transposed W "
+                                 "left out",
+                        "err_over_tol": _must_fail(
+                            name + " without K 8..15", esmm.esmm_plain(
+                                xa, w_cut, b, be, **kw), plain,
+                            GEMM_TOL["float32"])})
+                    del w_cut
                 k_dim, n_dim = xa.shape[1], kern.shape[1]
                 nbytes = (np_rows * k_dim * 4 + experts * k_dim * n_dim * 4
                           + (experts * n_dim * 4 if b is not None else 0)
                           + nblk * 4 + np_rows * n_dim * 4)
-                b_ms, b_by = bound(nbytes, 2 * np_rows * k_dim * n_dim,
-                                   "float32")
+                flops = 2 * np_rows * k_dim * n_dim
+                b_ms, b_by = bound(nbytes, flops, "float32", route)
                 res["esmm"].append({
                     "shape": {**shape, "K": k_dim, "Nout": n_dim,
                               "transpose_rhs": trans, "bias": b is not None,
@@ -1444,7 +1537,8 @@ def swin_kernel_cases(torch, flush):
                                          flush),
                     "plain_ms": time_ms(torch, lambda: esmm.esmm_plain(
                         *args, **kw), flush),
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    **_fma_bound(route, nbytes, flops), "library_ms": None,
                     "library": "none: torch._grouped_mm takes bf16 only"})
                 del plain, kern
             del x, xs, hs, dz, dys, w1, w2, b1, b2
@@ -1512,6 +1606,133 @@ def esffn_mlp_check_cases(torch):
                 out.append({"D": d, "F": f, "blk": blk, "dtype": dtype,
                             "weights": mode or dtype, "route": kroute,
                             "max_abs_err": err, "tolerance": tol})
+    return out
+
+
+# esmm's checks also take rows that are not whole 16-byte copies: they run
+# the simt kernel in f32, bf16 and with 8-bit weights; esfk refuses them.
+ODD_CHECK_WIDTHS = ((18, 30),)
+# esfk at the ragged widths with an expert's rows split over this many CTAs
+# (320 tokens give _plan 1), the merge through the workspace included
+ESFK_CHECK_SPLITS = 3
+
+
+def esmm_esfk_check_cases(torch):
+    """Phase 9, untimed: esmm and esfk against their plain versions at the
+    ragged MLP_CHECK_WIDTHS and ODD_CHECK_WIDTHS (as (K, N) and (D1, D2))
+    and blk 8, 16, 64 and 128, over 320 tokens top-1 of 8 experts: esmm in
+    both orientations with a bias, in f32 (mma_tf32x3; simt at the odd
+    widths), bf16 (wgmma at blk 64 and 128, else simt) and with int8
+    weights under f32 and bf16 xs (mma_tf32x3, simt at the odd widths;
+    quant tiles of 8 where 128 does not divide a width); esfk in f32
+    (mma_tf32x3) and bf16 (mma_bf16), twice each (the same bits), the
+    experts with no rows exactly 0, once more with ESFK_CHECK_SPLITS
+    splits (twice, the same bits), and refusing the odd widths. Each
+    call's route is read from its launch counts."""
+    from repro_torch.core.reindex import build_reindex, gather_rows
+    from repro_torch.core.routing import route
+    from repro_torch.kernels import esfk, esmm
+    from repro_torch.quant.core import quantize_blockwise
+
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    e, n = 8, 320
+    for k, nd in MLP_CHECK_WIDTHS + ODD_CHECK_WIDTHS:
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+
+        x, router = randn(n, k), randn(k, e)
+        w, wt = randn(e, k, nd, scale=0.05), randn(e, nd, k, scale=0.05)
+        b = randn(e, nd, scale=0.1)
+        r = route(x, router, 1)
+        tile = 128 if all(v <= 128 or v % 128 == 0 for v in (k, nd)) else 8
+        for blk in MLP_CHECK_BLKS:
+            ri = build_reindex(r.expert_idx, r.gates, e, blk)
+            be, pc = ri.block_expert, ri.padded_counts
+            xs = gather_rows(x, ri.row_token)
+            for dtype, mode in (("float32", None), ("bfloat16", None),
+                                ("float32", "int8"), ("bfloat16", "int8")):
+                td = getattr(torch, dtype)
+                for trans, wm in ((False, w), (True, wt)):
+                    kw = {"transpose_rhs": trans}
+                    if mode is None:
+                        wa = wm.to(td)
+                    else:
+                        wa, kw["w_scales"] = quantize_blockwise(
+                            wm, mode=mode, tile=tile)
+                    args = (xs.to(td), wa, b, be)
+                    name = (f"esmm check K {k} N {nd} blk {blk} {dtype} "
+                            f"weights {mode or dtype} trans={trans}")
+                    want = esmm._route(td, blk, k, nd, mode is not None)
+                    plain = esmm.esmm_plain(*args, **kw)
+                    kern, kroute = _routed(torch, lambda: esmm.esmm(
+                        *args, **kw), esmm.esmm)
+                    if kroute != want:
+                        raise AssertionError(f"{name}: took the {kroute} "
+                                             f"route, not {want}")
+                    err, tol = _check(name, kern, plain, GEMM_TOL[dtype])
+                    out.append({"kernel": "esmm", "K": k, "N": nd,
+                                "blk": blk, "dtype": dtype,
+                                "weights": mode or dtype,
+                                "transpose_rhs": trans, "route": kroute,
+                                "max_abs_err": err, "tolerance": tol})
+            x2 = randn(xs.shape[0], nd) * (ri.row_gate != 0)[:, None]
+            z = pc == 0
+            for dtype in ("float32", "bfloat16"):
+                td = getattr(torch, dtype)
+                args = (xs.to(td), x2.to(td), be, pc)
+                name = f"esfk check D1 {k} D2 {nd} blk {blk} {dtype}"
+                if (k, nd) in ODD_CHECK_WIDTHS:
+                    before = dict(esfk.esfk.launches_by_route)
+                    try:
+                        esfk.esfk(*args)
+                    except ValueError:
+                        pass
+                    else:
+                        raise AssertionError(f"{name}: not refused")
+                    if esfk.esfk.launches_by_route != before:
+                        raise AssertionError(f"{name}: refused, but counted")
+                    out.append({"kernel": "esfk", "D1": k, "D2": nd,
+                                "blk": blk, "dtype": dtype,
+                                "route": "refused"})
+                    continue
+                pw, pb = esfk.esfk_plain(*args)
+                (kw_, kb), kroute = _routed(torch, lambda: esfk.esfk(*args),
+                                            esfk.esfk)
+                want = "mma_tf32x3" if dtype == "float32" else "mma_bf16"
+                if kroute != want:
+                    raise AssertionError(f"{name}: took the {kroute} route")
+                err_w, tol_w = _check(name + " dW", kw_, pw, SWIN_KERNEL_TOL)
+                err_b, tol_b = _check(name + " db", kb, pb, SWIN_KERNEL_TOL)
+                again = esfk.esfk(*args)
+                torch.cuda.synchronize()
+                if not (torch.equal(again[0], kw_) and torch.equal(
+                        again[1], kb)):
+                    raise AssertionError(f"{name}: two calls differ")
+                if kw_[z].any() or kb[z].any():
+                    raise AssertionError(f"{name}: empty experts not 0")
+                # the same through the split-and-merge (a check: uncounted)
+                sp = ESFK_CHECK_SPLITS
+                sw, sb = esfk._launch(*args[:2], pc, kroute, sp)
+                err_sw, _ = _check(f"{name} {sp} splits dW", sw, pw,
+                                   SWIN_KERNEL_TOL)
+                err_sb, _ = _check(f"{name} {sp} splits db", sb, pb,
+                                   SWIN_KERNEL_TOL)
+                again = esfk._launch(*args[:2], pc, kroute, sp)
+                torch.cuda.synchronize()
+                if not (torch.equal(again[0], sw) and torch.equal(
+                        again[1], sb)):
+                    raise AssertionError(f"{name} {sp} splits: two calls "
+                                         f"differ")
+                if sw[z].any() or sb[z].any():
+                    raise AssertionError(f"{name} {sp} splits: empty "
+                                         f"experts not 0")
+                out.append({"kernel": "esfk", "D1": k, "D2": nd, "blk": blk,
+                            "dtype": dtype, "route": kroute,
+                            "empty_experts": int(z.sum()),
+                            "max_abs_err": max(err_w, err_b),
+                            "max_abs_err_splits": {sp: max(err_sw, err_sb)},
+                            "tolerance": min(tol_w, tol_b)})
     return out
 
 
@@ -1619,13 +1840,14 @@ def swin_train_phase(torch):
     def reset():
         for fn in kernels.values():
             fn.launches = 0
-        for fn in (esmm.esmm, estmm.estmm, esffn.esffn_mlp):
+        for fn in (esmm.esmm, estmm.estmm, esffn.esffn_mlp, esfk.esfk):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
     def routes():
         return {"esmm": dict(esmm.esmm.launches_by_route),
                 "estmm": dict(estmm.estmm.launches_by_route),
-                "esffn_mlp": dict(esffn.esffn_mlp.launches_by_route)}
+                "esffn_mlp": dict(esffn.esffn_mlp.launches_by_route),
+                "esfk": dict(esfk.esfk.launches_by_route)}
 
     m, dt = run(0)                        # warm-up, unmeasured
     print(f"[swin] warm-up step: loss {m['loss']:.4f} ({dt:.2f}s)")
@@ -1650,11 +1872,15 @@ def swin_train_phase(torch):
     if launches != want:
         raise AssertionError(f"swin train: launches {launches}, expected "
                              f"{want}")
-    # the f32 Swin step: esmm on the f32 FMA route, esffn_mlp on 3xTF32
-    if train_routes != {"esmm": {"simt": want["esmm"], "wgmma": 0},
-                        "estmm": {"simt": 0, "wgmma": 0},
-                        "esffn_mlp": {"mma_tf32x3": want["esffn_mlp"],
-                                      "mma_bf16": 0}}:
+    # the f32 Swin step: every expert kernel on the 3xTF32 tensor cores
+    def on_tf32x3(esmm_n, estmm_n, mlp_n, esfk_n):
+        return {"esmm": {"simt": 0, "wgmma": 0, "mma_tf32x3": esmm_n},
+                "estmm": {"simt": estmm_n, "wgmma": 0},
+                "esffn_mlp": {"mma_tf32x3": mlp_n, "mma_bf16": 0},
+                "esfk": {"mma_tf32x3": esfk_n, "mma_bf16": 0}}
+
+    if train_routes != on_tf32x3(want["esmm"], 0, want["esffn_mlp"],
+                                 want["esfk"]):
         raise AssertionError(f"swin train: routes {train_routes}")
     med = statistics.median(times)
     print(f"[swin] {SWIN_STEPS} steps of {SWIN_BATCH} images: step median "
@@ -1678,11 +1904,8 @@ def swin_train_phase(torch):
                            routes())
         del grads
     (lf, gf, cf, rf), (lu, gu, cu, ru) = ablation[True], ablation[False]
-    mlp = {"mma_tf32x3": 10, "mma_bf16": 0}
-    if (rf, ru) != ({"esmm": {"simt": 30, "wgmma": 0},
-                     "estmm": {"simt": 0, "wgmma": 0}, "esffn_mlp": mlp},
-                    {"esmm": {"simt": 30, "wgmma": 0},
-                     "estmm": {"simt": 20, "wgmma": 0}, "esffn_mlp": mlp}):
+    # unfused: estmm's 20 f32 dW launches stay on simt
+    if (rf, ru) != (on_tf32x3(30, 0, 10, 20), on_tf32x3(30, 20, 10, 0)):
         raise AssertionError(f"swin backward: routes {rf} fused, {ru} "
                              f"unfused")
     if cf != {"esffn_mlp": 10, "esmm": 30, "esfk": 20, "ess": 0, "estmm": 0}:
@@ -2051,8 +2274,9 @@ def quant_kernel_cases(torch, flush):
         plain = esmm.esmm_plain(*args, **kw)
         kern, route = _routed(torch, lambda: esmm.esmm(*args, **kw),
                               esmm.esmm)
-        if route != "simt":
-            raise AssertionError(f"{name}: took the {route} route, not simt")
+        if route != "mma_tf32x3":
+            raise AssertionError(f"{name}: took the {route} route, not "
+                                 f"mma_tf32x3")
         err, tol = _check(name, kern, plain, GEMM_TOL[dtype])
         if i == 0:
             neg("esmm", "W's scale grid transposed",
@@ -2064,18 +2288,31 @@ def quant_kernel_cases(torch, flush):
                   + experts * sw[0].numel() * 4 + nblk * 4
                   + np_rows * n_dim * s_)
         flops = 2 * np_rows * k_dim * n_dim
-        b_ms, b_by = bound(nbytes, flops, dtype)
+        # f32 xs: the route's 3xTF32 bound. bf16 xs: int8 / e4m3 and bf16
+        # values are exact in bf16, so one bf16 pass with f32 sums a scale
+        # block computes the function: its bound is the bf16 one, and the
+        # route's own work (lo(x) = 0: two TF32 products) stands beside it.
+        if dtype == "float32":
+            b_ms, b_by = bound(nbytes, flops, dtype, route)
+            beside = {}
+        else:
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            beside = {"bound_tf32x2_ms": bound(nbytes, flops, dtype,
+                                               "mma_tf32x2")[0]}
         res["esmm"].append(_rates({
             "shape": {"N": n, "D": d, "E": e, "F": f, "top_k": 8, "blk": 128,
                       "Np": np_rows, "experts_with_rows": experts,
                       "K": k_dim, "Nout": n_dim, "transpose_rhs": trans},
             "dtype": dtype, "weights": mode, "kernel_route": route,
+            "tf32_products": 3 if dtype == "float32" else 2,
             "max_abs_err": err, "tolerance": tol,
             "kernel_ms": time_ms(torch, lambda: esmm.esmm(*args, **kw),
                                  flush),
             "plain_ms": time_ms(torch, lambda: esmm.esmm_plain(*args, **kw),
                                 flush),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            **beside, **_fma_bound(route, nbytes, flops),
+            "library_ms": None,
             "library": _NO_LIBRARY_Q}, nbytes, flops))
         del wq, sw, xs, plain, kern
     del x, ri, wg, wd
@@ -2201,11 +2438,14 @@ def quant_reference_phase(torch):
         for t in leaves:
             t.requires_grad_(True)
         _reset_quant(*kernels)
+        esmm.esmm.launches_by_route = dict.fromkeys(
+            esmm.esmm.launches_by_route, 0)
         total, metrics = loss_fn(p, batch_to(batch, device))
         grads = torch.autograd.grad(total, leaves)
         if device == "cuda":
             torch.cuda.synchronize()
             out["launches"]["reference_backward"] = _quant_counts(*kernels)
+            esmm_routes = dict(esmm.esmm.launches_by_route)
         res[device] = (float(total.detach()), [g.cpu() for g in grads],
                        [n for n, _ in named])
         del p, leaves, grads
@@ -2217,6 +2457,11 @@ def quant_reference_phase(torch):
     if {k: back[k]["int8"] for k in want} != want:
         raise AssertionError(f"quant reference backward: launches {back}, "
                              f"expected {want} int8")
+    # every 8-bit esmm of the backward on the 3xTF32 tensor cores
+    if esmm_routes != {"simt": 0, "wgmma": 0, "mma_tf32x3": want["esmm"]}:
+        raise AssertionError(f"quant reference backward: esmm routes "
+                             f"{esmm_routes}")
+    out["esmm_routes_backward"] = esmm_routes
     if not abs(tg - tc) <= TRAIN_LOSS_RTOL * abs(tc):
         raise AssertionError(f"quant reference: GPU loss {tg} vs CPU {tc}")
     worst = _grad_err(gg, gc, TRAIN_GRAD_TOL, "quant reference")
@@ -2461,7 +2706,8 @@ def train_reference_bf16_phase(torch):
     # esffn_glu: once a layer in the forward and again in remat's
     # recompute, every launch on wgmma
     want = {"esffn_glu": {"stream": 0, "wgmma": 2 * cfg.num_layers},
-            "esmm": {"simt": 0, "wgmma": 5 * cfg.num_layers},
+            "esmm": {"simt": 0, "wgmma": 5 * cfg.num_layers,
+                     "mma_tf32x3": 0},
             "estmm": {"simt": 0, "wgmma": 3 * cfg.num_layers}}
     if routes != want:
         raise AssertionError(f"bf16 train reference: routes {routes}, "
@@ -2705,7 +2951,7 @@ def main() -> int:
     torch.cuda.empty_cache()               # the qwen training state is gone
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     swin_res = swin_kernel_cases(torch, flush)
-    for k in ("esffn_mlp", "esfk", "ess", "esmm"):
+    for k in ("esffn_mlp", "esfk", "ess", "esmm", "estmm"):
         for c in swin_res[k]:
             print(f"[kernel-swin] {json.dumps(c)}")
     for c in swin_res["negative_controls"]:
@@ -2714,6 +2960,16 @@ def main() -> int:
     mlp_checks = esffn_mlp_check_cases(torch)
     print(f"[check] esffn_mlp: {len(mlp_checks)} cases, worst err / limit "
           f"{max(c['max_abs_err'] / c['tolerance'] for c in mlp_checks):.3g}")
+    gemm_checks = esmm_esfk_check_cases(torch)
+    for k in ("esmm", "esfk"):
+        cs_ = [c for c in gemm_checks if c["kernel"] == k]
+        ran = [c for c in cs_ if c["route"] != "refused"]
+        worst = max(max([c["max_abs_err"],
+                         *c.get("max_abs_err_splits", {}).values()])
+                    / c["tolerance"] for c in ran)
+        routes = collections.Counter(c["route"] for c in cs_)
+        print(f"[check] {k}: {len(cs_)} cases {dict(routes)}, worst err / "
+              f"limit {worst:.3g}")
     del flush
     torch.cuda.empty_cache()
     swin_ref = swin_reference_phase(torch)
@@ -2745,20 +3001,20 @@ def main() -> int:
                    "qwen_train": train_out["launches_by_route"],
                    **swin_out["launches_by_route"]}
 
-    def by_route(name, cases, routes=("wgmma", "simt"), paths=route_paths):
-        """Each route of a two-route kernel: its launches on each path and
-        its first (head) case."""
+    def by_route(name, cases, routes, paths=route_paths):
+        """Each route of a kernel with several: its launches on each path
+        and its first (head) case (None where no case ran on it)."""
         out = {}
         for route in routes:
-            head = next(c for c in cases if c["kernel_route"] == route)
-            out[route] = {
-                "launches_by_path": {
-                    p: r[name][route] for p, r in paths.items()
-                    if r.get(name, {}).get(route)},
-                "ms": head["kernel_ms"], "bound_ms": head["bound_ms"],
-                "library_ms": head.get("library_ms"),
-                "max_abs_err": head["max_abs_err"], "shape": head["shape"],
-                "dtype": head["dtype"]}
+            head = next((c for c in cases if c["kernel_route"] == route),
+                        None)
+            out[route] = {"launches_by_path": {
+                p: r[name][route] for p, r in paths.items()
+                if r.get(name, {}).get(route)}, "head_case": head and {
+                    "ms": head["kernel_ms"], "bound_ms": head["bound_ms"],
+                    "library_ms": head.get("library_ms"),
+                    "max_abs_err": head["max_abs_err"],
+                    "shape": head["shape"], "dtype": head["dtype"]}}
         return out
 
     def entry(name, source, replaces, cases, **extra):
@@ -2793,6 +3049,8 @@ def main() -> int:
                 "max_abs_err": head["max_abs_err"], "ms": head["kernel_ms"],
                 "kernel_ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                **{k: head[k] for k in ("bound_tf32x2_ms", "bound_fma_ms")
+                   if k in head},
                 "library_ms": None, "library": head["library"],
                 "shape": head["shape"], "dtype": head["dtype"],
                 "tolerance": head["tolerance"], "cases": cases,
@@ -2815,12 +3073,19 @@ def main() -> int:
         entry("esmm", "src/repro_torch/csrc/esmm.cu",
               "src/repro/kernels/esmm.py:80",
               train_res["esmm"] + swin_res["esmm"],
-              kernel_routes=by_route("esmm", train_res["esmm"]),
-              negative_controls=[c for c in train_res["negative_controls"]
-                                 if c["kernel"] == "esmm"]),
+              kernel_routes=by_route(
+                  "esmm", train_res["esmm"] + swin_res["esmm"],
+                  ("wgmma", "mma_tf32x3", "simt")),
+              negative_controls=[
+                  c for c in train_res["negative_controls"]
+                  + swin_res["negative_controls"] if c["kernel"] == "esmm"],
+              small_width_checks=[c for c in gemm_checks
+                                  if c["kernel"] == "esmm"]),
         entry("estmm", "src/repro_torch/csrc/estmm.cu",
-              "src/repro/kernels/estmm.py:43", train_res["estmm"],
-              kernel_routes=by_route("estmm", train_res["estmm"]),
+              "src/repro/kernels/estmm.py:43",
+              train_res["estmm"] + swin_res["estmm"],
+              kernel_routes=by_route("estmm", train_res["estmm"],
+                                     ("wgmma", "simt")),
               negative_controls=[c for c in train_res["negative_controls"]
                                  if c["kernel"] == "estmm"],
               small_width_checks=train_res["checks"]),
@@ -2830,10 +3095,18 @@ def main() -> int:
                                      ("mma_tf32x3", "mma_bf16")),
               bound_route=swin_res["esffn_mlp"][0]["bound_route"],
               bound_fma_ms=swin_res["esffn_mlp"][0]["bound_fma_ms"],
-              negative_controls=swin_res["negative_controls"],
+              negative_controls=[c for c in swin_res["negative_controls"]
+                                 if c["kernel"] == "esffn_mlp"],
               small_width_checks=mlp_checks),
         entry("esfk", "src/repro_torch/csrc/esfk.cu",
-              "src/repro/kernels/esfk.py:82", swin_res["esfk"]),
+              "src/repro/kernels/esfk.py:82", swin_res["esfk"],
+              kernel_routes=by_route("esfk", swin_res["esfk"],
+                                     ("mma_tf32x3",)),
+              bound_fma_ms=swin_res["esfk"][0]["bound_fma_ms"],
+              negative_controls=[c for c in swin_res["negative_controls"]
+                                 if c["kernel"] == "esfk"],
+              small_width_checks=[c for c in gemm_checks
+                                  if c["kernel"] == "esfk"]),
         entry("ess", "src/repro_torch/csrc/ess.cu",
               "src/repro/kernels/ess.py:43", swin_res["ess"]),
         # no model path runs it (launches_by_path is empty): its path is

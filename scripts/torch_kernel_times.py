@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device time of ``paged_attention`` and ``esffn_mlp`` for one checkout of
-the port, on one NVIDIA GPU.
+"""Device time of ``paged_attention``, ``esffn_mlp``, ``esmm``, ``esfk`` and
+f32 ``estmm`` for one checkout of the port, on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_times.py [--root CHECKOUT]
 
@@ -17,7 +17,16 @@ same data:
   32,768), over bf16 and int8 pools;
 * ``esffn_mlp`` at Swin-MoE-Small's stage 2 (N 25,088, D 384, F 1536, 8
   experts top-1, blk 128) in f32, with int8 weights and in bf16, and at
-  stage 3 (N 6,272, D 768, F 3072) in f32.
+  stage 3 (N 6,272, D 768, F 3072) in f32;
+* the Swin backward's f32 expert GEMMs at stages 2 and 3, on phase 9's
+  operands: ``esmm`` z (with a bias), t and dX, ``esfk`` (dW1, db1) and
+  (dW2, db2) (with this checkout's ``esfk`` also at 1, 2, 3, 4, 6 and 8
+  CTAs an expert's rows, beside the count its ``_plan`` picks, and the
+  same counts with 64-row output tiles: its ``csrc/esfk.cu`` built once
+  more with ``-DESFK_TILE_M=64``), and
+  ``estmm`` alone on the same operands; and ``esmm``
+  with int8 weights and bf16 xs at the LM expert shape (Np 49,024, K
+  2048, N 768, blk 128), as phase Q1's head case.
 
 Each case is first held against its plain version at chip_smoke's limit.
 To compare two versions of the kernels, run it once per checkout, one
@@ -27,7 +36,9 @@ card's name and power limit, then one JSON line per case.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -110,6 +121,135 @@ def mlp_cases(flush, root):
         del x, ri, w1, w2, ws, args, kw
 
 
+def _timed(name, fn, plain, tol, flush, root, kernel, **extra):
+    """Hold ``fn``'s output (a tensor or a tuple) against ``plain``'s at
+    ``tol`` x max|plain|, then print its time and the route it took."""
+    outs, wants = fn(), plain()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    wants = wants if isinstance(wants, tuple) else (wants,)
+    worst = max(err / lim for err, lim in (
+        cs._check(name, o, w, tol) for o, w in zip(outs, wants)))
+    routes = dict(getattr(kernel, "launches_by_route", {}))
+    ms = cs.time_ms(torch, fn, flush)
+    moved = [r for r, n in getattr(kernel, "launches_by_route", {}).items()
+             if n != routes.get(r)]
+    print(json.dumps({"root": str(root), "kernel": kernel.__name__,
+                      "case": name, "route": moved[0] if moved else None,
+                      "err_over_tol": worst, "kernel_ms": ms, **extra}),
+          flush=True)
+
+
+def _esfk_tile64():
+    """``esfk_launch`` of this checkout's ``csrc/esfk.cu`` built with 64-row
+    output tiles, or None where the source has no such knob."""
+    from repro_torch.kernels import build, esfk
+
+    src = build.CSRC / "esfk.cu"
+    if "ESFK_TILE_M" not in src.read_text():
+        return None
+    lib = build.library_path("esfk")
+    lib = lib.with_name(f"{lib.stem}-m64.so")
+    if not lib.exists():
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DESFK_TILE_M=64",
+                        "-o", str(lib), str(src)], check=True,
+                       capture_output=True)
+    fn = ctypes.CDLL(str(lib)).esfk_launch
+    fn.argtypes, fn.restype = esfk._ARGTYPES, ctypes.c_int
+    return fn
+
+
+def _esfk_tile64_call(fn, x1, x2, pc, splits):
+    """A call of the 64-row build with ``splits`` CTAs an expert's rows,
+    its workspace made here, once (the kernel leaves the tickets 0)."""
+    from repro_torch.kernels import esfk
+
+    np_rows, d1 = x1.shape
+    d2, e = x2.shape[1], pc.shape[0]
+    m_tiles, n_tiles = -(-d1 // 64), -(-d2 // 128)
+    parts = torch.empty(m_tiles * n_tiles * e * splits * 64 * 128
+                        + e * n_tiles * splits * 128, device="cuda")
+    tickets = torch.zeros(m_tiles * n_tiles * e, dtype=torch.int32,
+                          device="cuda")
+
+    def call():
+        dw = torch.empty((e, d1, d2), device="cuda")
+        db = torch.empty((e, d2), device="cuda")
+        err = fn(x1.data_ptr(), x2.data_ptr(), pc.data_ptr(), dw.data_ptr(),
+                 db.data_ptr(), parts.data_ptr(), tickets.data_ptr(), np_rows,
+                 d1, d2, e, 0, esfk._ROUTES["mma_tf32x3"], splits,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"esfk 64-row tiles: CUDA error {err}")
+        return dw, db
+    return call
+
+
+def gemm_cases(flush, root):
+    from repro_torch.core.reindex import gather_rows
+    from repro_torch.kernels import esfk, esmm, estmm
+    from repro_torch.quant.core import quantize_blockwise
+
+    tile64 = _esfk_tile64()
+    for stage, n, d in ((2, 25088, 384), (3, 6272, 768)):
+        f = 4 * d
+        x, ri, gen = cs._swin_layout(torch, n, d, seed=8 + stage)
+        be, pc, np_rows = ri.block_expert, ri.padded_counts, \
+            ri.row_token.numel()
+        on = (ri.row_gate != 0)[:, None]
+
+        def randn(*sh, scale=1.0):
+            return torch.randn(sh, generator=gen, device="cuda") * scale
+
+        w1, w2 = randn(8, d, f, scale=0.02), randn(8, f, d, scale=0.02)
+        b1 = randn(8, f, scale=0.1)
+        randn(8, d)                      # b2, as phase 9 draws it
+        xs = gather_rows(x, ri.row_token)
+        hs, dz, dys = randn(np_rows, f) * on, randn(np_rows, f) * on, \
+            randn(np_rows, d) * on
+        for x1, x2, what in ((xs, dz, "dW1,db1"), (hs, dys, "dW2,db2")):
+            args = (x1, x2, be, pc)
+            _timed(f"esfk stage {stage} {what}", lambda: esfk.esfk(*args),
+                   lambda: esfk.esfk_plain(*args), cs.SWIN_KERNEL_TOL, flush,
+                   root, esfk.esfk, stage=stage)
+            for splits in (1, 2, 3, 4, 6, 8) if hasattr(esfk, "_plan") \
+                    else ():
+                _timed(f"esfk stage {stage} {what} splits {splits}",
+                       lambda: esfk._launch(x1, x2, pc, "mma_tf32x3", splits),
+                       lambda: esfk.esfk_plain(*args), cs.SWIN_KERNEL_TOL,
+                       flush, root, esfk.esfk, stage=stage, splits=splits)
+            for splits in (1, 2, 3, 4, 6, 8) if tile64 else ():
+                _timed(f"esfk stage {stage} {what} 64-row tiles splits "
+                       f"{splits}", _esfk_tile64_call(tile64, x1, x2, pc,
+                                                      splits),
+                       lambda: esfk.esfk_plain(*args), cs.SWIN_KERNEL_TOL,
+                       flush, root, esfk.esfk, stage=stage, splits=splits,
+                       tile_rows=64)
+            _timed(f"estmm f32 stage {stage} {what[:3]}",
+                   lambda: estmm.estmm(*args),
+                   lambda: estmm.estmm_plain(*args), cs.GEMM_TOL["float32"],
+                   flush, root, estmm.estmm, stage=stage)
+        for xa, w, b, trans, what in ((xs, w1, b1, False, "z"),
+                                      (dys, w2, None, True, "t"),
+                                      (dz, w1, None, True, "dX")):
+            _timed(f"esmm f32 stage {stage} {what}",
+                   lambda: esmm.esmm(xa, w, b, be, transpose_rhs=trans),
+                   lambda: esmm.esmm_plain(xa, w, b, be, transpose_rhs=trans),
+                   cs.GEMM_TOL["float32"], flush, root, esmm.esmm,
+                   stage=stage)
+        del x, xs, hs, dz, dys, w1, w2
+
+    x, ri, _ = cs._sorted_layout(torch, cs.TRAIN_BATCH * cs.TRAIN_SEQ)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    wq, sw = quantize_blockwise(cs._tiled_weights(torch, gen, (128, 2048,
+                                                               768)))
+    xs = gather_rows(x.bfloat16(), ri.row_token)
+    _timed("esmm int8 bf16 xs K 2048 N 768",
+           lambda: esmm.esmm(xs, wq, None, ri.block_expert, w_scales=sw),
+           lambda: esmm.esmm_plain(xs, wq, None, ri.block_expert,
+                                   w_scales=sw),
+           cs.GEMM_TOL["bfloat16"], flush, root, esmm.esmm)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=ROOT,
@@ -122,11 +262,12 @@ def main() -> int:
     from repro_torch.kernels import build
 
     print(cs.card_line())
-    build.build(("paged_attention", "esffn"))
+    build.build(("paged_attention", "esffn", "esmm", "esfk", "estmm"))
     torch.backends.cuda.matmul.allow_tf32 = False
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     paged_cases(flush, args.root)
     mlp_cases(flush, args.root)
+    gemm_cases(flush, args.root)
     return 0
 
 

@@ -765,47 +765,6 @@ int launch_wgmma_nc(const void* x, const void* row_token, const void* row_gate,
 // 2-MLP form
 // ---------------------------------------------------------------------------
 
-// 8 weights of a staged chunk (16 bytes of bf16, 8 of int8 / fp8), as f32.
-__device__ __forceinline__ void cvt8(const uint4& raw, float (&w)[8], __nv_bfloat16) {
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    w[2 * i] = f.x;
-    w[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void cvt8(const uint4& raw, float (&w)[8], int8_t) {
-  const uint32_t words[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    w[i] = __uint_as_float(__byte_perm(words[i / 4], 0x4B000000u, 0x7440 | (i % 4))) -
-           8388736.0f;
-}
-__device__ __forceinline__ void cvt8(const uint4& raw, float (&w)[8], __nv_fp8_e4m3) {
-  const uint32_t words[2] = {raw.x, raw.y};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-        (__nv_fp8x2_storage_t)(words[i / 2] >> (16 * (i % 2))), __NV_E4M3);
-    const float2 f = __half22float2(__half2(h));
-    w[2 * i] = f.x;
-    w[2 * i + 1] = f.y;
-  }
-}
-
-// 8 contiguous elements from global memory (16 bytes of bf16, 8 of an
-// 8-bit type), raw.
-template <typename X>
-__device__ __forceinline__ uint4 ld8(const X* p) {
-  if constexpr (sizeof(X) == 2) {
-    return *reinterpret_cast<const uint4*>(p);
-  } else {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    return make_uint4(v.x, v.y, 0u, 0u);
-  }
-}
-
 // One BM x 128 output tile of either product, on the tensor cores
 // (mma_sync.cuh: 3xTF32, or one bf16 pass for bf16 x and weights), on
 // expert e = block_expert of the tile's block. The tile is `rows` <= BM
@@ -917,14 +876,14 @@ esffn_mlp_mma_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
       for (int i = 0; i < kARc; ++i) {
         const int idx = tid + i * NT, r = idx / (BK / 8), c = idx % (BK / 8) * 8;
         const int s = idx < BM * (BK / 8) ? srow[r] : -1;
-        ra[i] = (s >= 0 && k0 + c < k) ? ld8(a + (size_t)s * k + k0 + c) : make_uint4(0, 0, 0, 0);
+        ra[i] = (s >= 0 && k0 + c < k) ? mma::ld8(a + (size_t)s * k + k0 + c) : make_uint4(0, 0, 0, 0);
       }
     }
     if constexpr (!kAsyncB) {
 #pragma unroll
       for (int i = 0; i < kBRc; ++i) {
         const int idx = tid + i * NT, r = idx / (BN / 8), c = idx % (BN / 8) * 8;
-        rb[i] = (k0 + r < k && n0 + c < ncols) ? ld8(we + (size_t)(k0 + r) * ncols + n0 + c)
+        rb[i] = (k0 + r < k && n0 + c < ncols) ? mma::ld8(we + (size_t)(k0 + r) * ncols + n0 + c)
                                                : make_uint4(0, 0, 0, 0);
       }
     }
@@ -938,7 +897,7 @@ esffn_mlp_mma_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
         const int idx = tid + i * NT, r = idx / (BK / 8), c = idx % (BK / 8) * 8;
         if (idx >= BM * (BK / 8)) continue;
         float v[8];
-        cvt8(ra[i], v, T());
+        mma::cvt8(ra[i], v, T());
         *reinterpret_cast<float4*>(as + r * Tl::kAS + c) = make_float4(v[0], v[1], v[2], v[3]);
         *reinterpret_cast<float4*>(as + r * Tl::kAS + c + 4) = make_float4(v[4], v[5], v[6], v[7]);
       }
@@ -949,7 +908,7 @@ esffn_mlp_mma_kernel(const T* __restrict__ a, const int* __restrict__ row_token,
       for (int i = 0; i < kBRc; ++i) {
         const int idx = tid + i * NT, r = idx / (BN / 8), c = idx % (BN / 8) * 8;
         float v[8];
-        cvt8(rb[i], v, W());
+        mma::cvt8(rb[i], v, W());
         if constexpr (kQuant<T, W>) {
           if (k0 + r < k) {
             const int rbk = (k0 + r) / sw.ta;

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// esmm.cu, estmm.cu, esffn.cu and flash_attention.cu: mbarriers, TMA tile
+// esmm.cu, estmm.cu, esffn.cu, esfk.cu and flash_attention.cu: mbarriers, TMA tile
 // loads, cp.async, wgmma shared-memory descriptors and the m64nNk16 bf16
 // products (N 64, 128 or 256; A from shared memory, SS, or from registers,
 // RS) with their fragment maps, the sorted-layout GEMM mainloop that esmm

@@ -8,11 +8,23 @@ and ``dy @ Wd^T`` orientation).
 
 * ``esmm`` — the wrapper. On a CUDA tensor it launches the hand-written
   kernel of ``csrc/esmm.cu`` (see its source note for the design) on the
-  route ``_route`` picks from the dtype and shapes alone, before the
-  launch: ``"wgmma"`` (bf16 on the tensor cores, fed by TMA) or
-  ``"simt"`` (f32 FMA), and counts the launch in ``esmm.launches`` and
-  ``esmm.launches_by_route``; on a CPU tensor it runs ``esmm_plain``.
-  There is no other path, and no route gives way to another.
+  route ``_route`` picks from the dtype, the shapes and the weights'
+  storage alone, before the launch, and counts the launch in
+  ``esmm.launches`` and ``esmm.launches_by_route``; on a CPU tensor it
+  runs ``esmm_plain``. There is no other path, and no route gives way to
+  another. The routes:
+
+  - ``"wgmma"``: bf16 xs and W at blk 64 or 128, K and N multiples of 8
+    (the LM path), on the tensor cores fed by TMA;
+  - ``"mma_tf32x3"``: f32 xs and W with K and N multiples of 4 (the Swin
+    path), and every 8-bit W with K and N multiples of 8, on the tensor
+    cores in 3xTF32 (``csrc/mma_sync.cuh``);
+  - ``"simt"`` (f32 FMA): only what those two refuse, bf16 at blk 8..32
+    and widths whose rows are not 16-byte multiples (8-byte for an 8-bit
+    W).
+
+  The two tensor-core routes load xs and W in 16-byte copies and need
+  16-byte aligned base addresses; the wrapper raises on others.
 * ``esmm_plain`` — the plain PyTorch version: a batched matmul against the
   per-block weight tiles ``W[block_expert]`` (``ops._blocked_esmm`` of the
   JAX package), accumulated in f32 from the bias and rounded once to
@@ -20,10 +32,10 @@ and ``dy @ Wd^T`` orientation).
 
 Quantized weights (``w_scales``): W an int8 or fp8 e4m3 payload with f32
 block scales on its own two axes (``quant.core``; (E, K/ta, N/tb), or
-(E, N/ta, K/tb) with ``transpose_rhs``). On a CUDA tensor they go to the
-simt kernel, which dequantizes each W element as it stages it
-(``esmm_q_launch``), counted in ``launches_by_route["simt"]`` and in
-``esmm.launches_quant`` by format; on a CPU tensor ``esmm_plain``
+(E, N/ta, K/tb) with ``transpose_rhs``). On a CUDA tensor the kernel
+dequantizes each W element as it stages it (``esmm_q_launch``, on
+``mma_tf32x3`` or ``simt`` as above), counted in ``launches_by_route``
+and in ``esmm.launches_quant`` by format; on a CPU tensor ``esmm_plain``
 dequantizes W to f32 first.
 """
 from __future__ import annotations
@@ -41,21 +53,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WDTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_VP] * 5 + [_I] * 8 + [_VP]
-_Q_ARGTYPES = [_VP] * 6 + [_I] * 9 + [_VP]
-_ROUTES = {"simt": 0, "wgmma": 1}
+_Q_ARGTYPES = [_VP] * 6 + [_I] * 10 + [_VP]
+_ROUTES = {"simt": 0, "wgmma": 1, "mma_tf32x3": 2}
 #: The TPU kernel's K and N blocks: the quant tiles must divide them
 #: (``scale_block_dims``), as ``esmm_pallas`` asserts.
 _TPU_BLOCK = 128
 
 
 def _route(dtype, blk: int, k: int, n: int, quantized: bool = False) -> str:
-    """The kernel route for these operands, of esmm (K, N) and estmm
-    (D1, D2) alike: ``"wgmma"`` for bf16 full-precision weights with
-    ``blk % 64 == 0`` and both widths multiples of 8 (TMA takes 16-byte
-    global strides), else ``"simt"`` (f32, bf16 at blk 8..32, and every
-    call with 8-bit weights)."""
-    if dtype == torch.bfloat16 and not quantized and blk % 64 == 0 \
-            and k % 8 == 0 and n % 8 == 0:
+    """The kernel route for these operands: ``"wgmma"`` for bf16 xs and W
+    with ``blk % 64 == 0`` and K and N multiples of 8 (TMA takes 16-byte
+    global strides); ``"mma_tf32x3"`` for f32 xs and W with K and N
+    multiples of 4, and for an 8-bit W (``quantized``) with K and N
+    multiples of 8 (rows of 16-byte copies of xs, 8-byte ones of W);
+    else ``"simt"`` (bf16 at blk 8..32, and the other widths)."""
+    if quantized:
+        return "mma_tf32x3" if k % 8 == 0 and n % 8 == 0 else "simt"
+    if dtype == torch.float32:
+        return "mma_tf32x3" if k % 4 == 0 and n % 4 == 0 else "simt"
+    if blk % 64 == 0 and k % 8 == 0 and n % 8 == 0:
         return "wgmma"
     return "simt"
 
@@ -115,10 +131,11 @@ def _check_cuda_args(xs, w, b, block_expert, transpose_rhs, w_scales=None):
         raise ValueError("esmm operands lie on different devices")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("esmm operands must be contiguous")
-    if _route(xs.dtype, blk, k, n, w_scales is not None) == "wgmma" and (
-            xs.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("esmm's wgmma route loads xs and w with TMA, "
-                         "which needs 16-byte aligned base addresses")
+    route = _route(xs.dtype, blk, k, n, w_scales is not None)
+    if route != "simt" and (xs.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError(f"esmm's {route} route loads xs and w in 16-byte "
+                         f"copies (TMA on wgmma), which need 16-byte "
+                         f"aligned base addresses")
     return np_rows, k, n, blk
 
 
@@ -158,7 +175,7 @@ def esmm(xs, w, b, block_expert, *, w_scales=None,
             err = launch(xs.data_ptr(), w.data_ptr(), w_scales.data_ptr(), bp,
                          block_expert.data_ptr(), ys.data_ptr(), np_rows, k,
                          n, blk, int(transpose_rhs), _DTYPES[xs.dtype],
-                         _WDTYPES[w.dtype], ta, tb, stream)
+                         _WDTYPES[w.dtype], ta, tb, _ROUTES[route], stream)
     if err:
         raise RuntimeError(f"esmm kernel launch failed on the {route} route "
                            f"(CUDA error {err})")

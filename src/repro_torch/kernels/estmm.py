@@ -12,9 +12,11 @@ biased MLP expert FFN's unfused backward (beside ESS for ``db``).
   kernel of ``csrc/estmm.cu`` (see its source note for the design) on the
   route ``_route`` picks from the dtype and shapes alone, before the
   launch: ``"wgmma"`` (bf16 on the tensor cores, fed by TMA) or
-  ``"simt"`` (f32 FMA), and counts the launch in ``estmm.launches`` and
-  ``estmm.launches_by_route``; on a CPU tensor it runs ``estmm_plain``.
-  There is no other path, and no route gives way to another.
+  ``"simt"`` (f32 FMA; f32 dW, which only the Fig. 12 unfused ablation
+  and the f32 LM reference take, stays there), and counts the launch in
+  ``estmm.launches`` and ``estmm.launches_by_route``; on a CPU tensor
+  it runs ``estmm_plain``. There is no other path, and no route gives
+  way to another.
 * ``estmm_plain`` — the plain PyTorch version: per-block f32 products
   ``x1_b^T x2_b`` added into their expert's slot with ``index_add_``
   (``ops._blocked_estmm`` of the JAX package), then the count mask.
@@ -26,12 +28,20 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-# One route rule for both kernels: _route(dtype, blk, d1, d2) here.
-from repro_torch.kernels.esmm import _ROUTES, _route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"simt": 0, "wgmma": 1}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_VP] * 4 + [_I] * 7 + [_VP]
+
+
+def _route(dtype, blk: int, d1: int, d2: int) -> str:
+    """``"wgmma"`` for bf16 at ``blk % 64 == 0`` with D1 and D2 multiples
+    of 8 (TMA takes 16-byte global strides), else ``"simt"``."""
+    if dtype == torch.bfloat16 and blk % 64 == 0 and d1 % 8 == 0 \
+            and d2 % 8 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def estmm_plain(x1, x2, block_expert, counts) -> torch.Tensor:

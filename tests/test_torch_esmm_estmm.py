@@ -216,31 +216,39 @@ def test_bias_grads_belong_to_the_mlp_expert_slice():
     assert w.grad.shape == w.shape
 
 
-# The route rule of both kernels: the tensor-core (wgmma) route for bf16
-# at blk 64 or 128 with both widths multiples of 8 (TMA's 16-byte global
-# strides), the f32-FMA (simt) route for everything else.
+# The route rules of the two kernels, which share the wgmma route: bf16 at
+# blk 64 or 128 with both widths multiples of 8 (TMA's 16-byte global
+# strides). esmm takes f32 with both widths multiples of 4 on the 3xTF32
+# tensor-core route (mma_tf32x3); estmm keeps f32 on f32 FMA (simt); each
+# puts everything else on simt.
 ROUTE_GRID = [
-    # (dtype, blk, k, n, route)
-    (torch.bfloat16, 128, 2048, 768, "wgmma"),
-    (torch.bfloat16, 128, 768, 2048, "wgmma"),
-    (torch.bfloat16, 64, 2048, 768, "wgmma"),
-    (torch.bfloat16, 64, 8, 8, "wgmma"),
-    (torch.bfloat16, 128, 136, 200, "wgmma"),
-    (torch.float32, 128, 2048, 768, "simt"),
-    (torch.float32, 64, 384, 1536, "simt"),
-    (torch.bfloat16, 32, 2048, 768, "simt"),
-    (torch.bfloat16, 16, 2048, 768, "simt"),
-    (torch.bfloat16, 8, 2048, 768, "simt"),
-    (torch.bfloat16, 128, 2044, 768, "simt"),
-    (torch.bfloat16, 128, 2048, 770, "simt"),
-    (torch.bfloat16, 64, 12, 16, "simt"),
+    # (dtype, blk, k, n, esmm route, estmm route)
+    (torch.bfloat16, 128, 2048, 768, "wgmma", "wgmma"),
+    (torch.bfloat16, 128, 768, 2048, "wgmma", "wgmma"),
+    (torch.bfloat16, 64, 2048, 768, "wgmma", "wgmma"),
+    (torch.bfloat16, 64, 8, 8, "wgmma", "wgmma"),
+    (torch.bfloat16, 128, 136, 200, "wgmma", "wgmma"),
+    (torch.float32, 128, 2048, 768, "mma_tf32x3", "simt"),
+    (torch.float32, 64, 384, 1536, "mma_tf32x3", "simt"),
+    (torch.bfloat16, 32, 2048, 768, "simt", "simt"),
+    (torch.bfloat16, 16, 2048, 768, "simt", "simt"),
+    (torch.bfloat16, 8, 2048, 768, "simt", "simt"),
+    (torch.bfloat16, 128, 2044, 768, "simt", "simt"),
+    (torch.bfloat16, 128, 2048, 770, "simt", "simt"),
+    (torch.bfloat16, 64, 12, 16, "simt", "simt"),
+    # the f32 route at the Swin widths, every blk, and rows of 4 floats
+    (torch.float32, 128, 1536, 384, "mma_tf32x3", "simt"),
+    (torch.float32, 8, 384, 1536, "mma_tf32x3", "simt"),
+    (torch.float32, 16, 12, 20, "mma_tf32x3", "simt"),
+    (torch.float32, 128, 2046, 768, "simt", "simt"),
+    (torch.float32, 32, 384, 1538, "simt", "simt"),
 ]
 
 
-@pytest.mark.parametrize("dtype,blk,k,n,route", ROUTE_GRID)
-def test_route_rule(dtype, blk, k, n, route):
+@pytest.mark.parametrize("dtype,blk,k,n,route,estmm_route", ROUTE_GRID)
+def test_route_rule(dtype, blk, k, n, route, estmm_route):
     assert tesmm._route(dtype, blk, k, n) == route
-    assert testmm._route(dtype, blk, k, n) == route
+    assert testmm._route(dtype, blk, k, n) == estmm_route
 
 
 def _misaligned(shape, dtype):
@@ -252,8 +260,9 @@ def _misaligned(shape, dtype):
 
 
 def test_esmm_wgmma_alignment_check():
-    """TMA needs 16-byte aligned xs and w: on the wgmma route a misaligned
-    operand raises before any launch; the simt route takes it."""
+    """Both tensor-core routes load xs and w in 16-byte copies (TMA on
+    wgmma, cp.async on mma_tf32x3): a misaligned operand raises before
+    any launch; the simt route takes it."""
     be = torch.zeros(2, dtype=torch.int32)
     for dt in (torch.bfloat16, torch.float32):
         xs, w = torch.zeros((128, 16), dtype=dt), torch.zeros((3, 16, 8),
@@ -262,13 +271,11 @@ def test_esmm_wgmma_alignment_check():
             (128, 16, 8, 64)
         bad_xs, bad_w = _misaligned((128, 16), dt), _misaligned((3, 16, 8),
                                                                 dt)
+        route = "wgmma" if dt == torch.bfloat16 else "mma_tf32x3"
         for args in ((bad_xs, w), (xs, bad_w)):
-            if dt == torch.bfloat16:
-                with pytest.raises(ValueError, match="16-byte aligned"):
-                    tesmm._check_cuda_args(*args, None, be, False)
-            else:
-                assert tesmm._check_cuda_args(*args, None, be, False) == \
-                    (128, 16, 8, 64)
+            with pytest.raises(ValueError, match=f"{route} route.*16-byte "
+                                                 f"aligned"):
+                tesmm._check_cuda_args(*args, None, be, False)
     # bf16 at blk 32 takes the simt route, which needs no alignment
     assert tesmm._check_cuda_args(
         _misaligned((128, 16), torch.bfloat16),
@@ -295,8 +302,9 @@ def test_estmm_wgmma_alignment_check():
 
 def test_route_counts_start_at_zero():
     """Each wrapper counts its launches per route beside the total."""
-    for fn in (tesmm.esmm, testmm.estmm):
-        assert set(fn.launches_by_route) == {"simt", "wgmma"}
+    for fn, routes in ((tesmm.esmm, {"simt", "wgmma", "mma_tf32x3"}),
+                       (testmm.estmm, {"simt", "wgmma"})):
+        assert set(fn.launches_by_route) == routes
         assert all(isinstance(v, int) for v in fn.launches_by_route.values())
 
 

@@ -588,9 +588,11 @@ def test_quantized_esmm_argument_checks_and_route(transpose):
     s = torch.ones((e,) + tuple(d // 16 for d in w.shape[1:]))
     assert tesmm._check_cuda_args(xs, w, None, be, transpose, s) == \
         (256, k, n, 128)
-    # bf16 at blk 128 takes wgmma, but never with 8-bit weights
+    # bf16 at blk 128 takes wgmma, but 8-bit weights take the 3xTF32
+    # tensor-core route (dequantized to f32 as they are staged)
     assert tesmm._route(torch.bfloat16, 128, k, n) == "wgmma"
-    assert tesmm._route(torch.bfloat16, 128, k, n, quantized=True) == "simt"
+    assert tesmm._route(torch.bfloat16, 128, k, n, quantized=True) == \
+        "mma_tf32x3"
     with pytest.raises(TypeError, match="int8"):
         tesmm._check_cuda_args(xs, w.bfloat16(), None, be, transpose, s)
     with pytest.raises(ValueError):
