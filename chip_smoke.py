@@ -74,8 +74,8 @@ The serve phase's weights are then freed, and the training slice runs:
 6. Kernel phase at training shapes (qwen3-moe-30b-a3b, 4 x 1024 tokens,
    top-8, blk 128: Np 49,024 sorted rows), every shape the LM layer
    launches, on the kernels' routes (``_route``: ``wgmma``, bf16 on the
-   tensor cores; ``mma_tf32x3``, esmm's f32 in 3xTF32 on the tensor cores;
-   ``simt``, f32 FMA): ``esmm`` (``ESMM_TRAIN_CASES``) in
+   tensor cores; ``mma_tf32x3``, f32 in 3xTF32 on the tensor cores;
+   ``simt``, FMA): ``esmm`` (``ESMM_TRAIN_CASES``) in
    bf16 and f32 at (Np, 2048) x (128, 2048, 768), transposed at the same
    and at (Np, 768) x (128, 2048, 768)^T (the dX products), once with a
    bias, and in bf16 at blk 64 (wgmma) and blk 32 (simt); ``estmm``
@@ -95,7 +95,9 @@ The serve phase's weights are then freed, and the training slice runs:
    model at full width in f32 (2 x 64 tokens, blk 16) on the GPU (the
    kernels) and on the CPU (the plain versions) from the same weights and
    batch: the losses must agree within ``TRAIN_LOSS_RTOL`` and every grad
-   leaf within ``TRAIN_GRAD_TOL`` x its max |grad|.
+   leaf within ``TRAIN_GRAD_TOL`` x its max |grad|; every ``esmm`` and
+   ``estmm`` launch of the GPU run on ``mma_tf32x3`` (read from the route
+   counts).
    7b. The same in bf16 at blk 128, where every ``esmm`` and ``estmm``
    launch takes the wgmma route (read from ``launches_by_route``): the
    losses within ``BF16_REF_LOSS_RTOL`` and each grad leaf within
@@ -119,8 +121,9 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    layout where 3 experts have no rows (their dW and db exactly 0; two
    ``esfk`` calls give the same bits), with the time of the unfused
    ``estmm`` + ``ess`` pair beside ``esfk``'s and of f32 ``estmm`` alone
-   (simt), and ``esmm`` in f32 with a bias (the z recompute) and
-   transposed (t, dX);
+   (``mma_tf32x3``: esfk's kernel without db, so its dW must be esfk's
+   bits, its empty experts 0, two calls equal), and ``esmm`` in f32 with
+   a bias (the z recompute) and transposed (t, dX);
    ``esffn_mlp`` once in bf16. Timed as phase 3, against the plain
    versions; ``torch.segment_reduce`` is the library yardstick for ``ess``.
    ``esffn_mlp``, ``esmm`` and ``esfk`` run on the tensor cores: f32 on
@@ -131,7 +134,8 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    ``esffn_mlp`` output with one 8-deep K step of x W1 left out
    (``SWIN_KERNEL_TOL``), the plain transposed ``esmm`` output with one
    8-deep K step left out (``GEMM_TOL``), the plain ``esfk`` dW with one
-   32-row step of one expert left out (``SWIN_KERNEL_TOL``). Then untimed
+   32-row step of one expert left out (``SWIN_KERNEL_TOL``), the plain
+   ``estmm`` dW without one expert's rows (``GEMM_TOL``). Then untimed
    checks at ragged widths (``MLP_CHECK_WIDTHS``) and blk 8, 16, 64 and
    128 (``MLP_CHECK_BLKS``): ``esffn_mlp`` in f32, bf16 and with int8
    weights; ``esmm`` in both orientations in f32, bf16 and with int8
@@ -139,7 +143,8 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    whole 16-byte copies: the simt kernel); ``esfk`` in f32 and bf16,
    twice each, and again with ``ESFK_CHECK_SPLITS`` CTAs an expert's rows
    (the merge through the workspace; twice, the same bits); ``esfk``
-   must refuse the odd widths.
+   must refuse the odd widths; f32 ``estmm`` at every width and blk
+   (``mma_tf32x3``, esfk's dW bits; ``simt`` at the odd widths).
 10. Swin reference: Swin-MoE-Small at full width, depth cut to (2, 2, 2, 2)
    (one MoE block each in stages 2 and 3), f32, 2 images: one
    ``make_train_step`` loss and its grads on the GPU (the kernels) and on
@@ -153,8 +158,26 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    ``esfk`` on ``mma_tf32x3``.
    Then one forward and backward of the same loss from the same state
    with ``set_fused_backward(True)`` and with ``(False)`` (the paper's
-   Fig. 12 ablation: 0 ``esfk``, 20 ``estmm`` on the f32 simt route, 20
-   ``ess``): the grads must agree within ``SWIN_ABLATION_TOL``.
+   Fig. 12 ablation: 0 ``esfk``, 20 ``estmm`` on ``mma_tf32x3``, 20
+   ``ess``): the grads must agree within ``SWIN_ABLATION_TOL``; then
+   ``SWIN_STEPS`` more train steps with the unfused backward, timed and
+   counted as the fused ones (the ablation a step).
+   T7/8. The paper's Tables 7/8: first one MoE layer at Swin stage 2
+   (batch ``T78_BATCH``, top-2, one fixed ``RouterOutput``), whose output
+   and grads through megablocks must match hexa's within
+   ``SWIN_KERNEL_TOL``, through tutel at an ample capacity megablocks' bit
+   for bit, and through tutel at a tight capacity megablocks' with the
+   dropped copies' gates 0; then Swin-MoE-Small and -Base at full width
+   and depth, f32, ``T78_EXPERTS`` experts, top-k in ``T78_TOP_K``, batch
+   ``T78_BATCH``, each through hexa, tutel (capacity factor 1.25) and
+   megablocks (``make_train_step(..., moe_impl=...)``): a fresh seeded
+   state a cell, one warm-up step (counting the rows the expert GEMMs
+   compute, the copies tutel drops and each MoE block's top-1 picks), then
+   ``T78_STEPS`` timed steps, with the predicted and the measured peak
+   memory; every loss finite, hexa's and megablocks' first losses within
+   ``T78_LOSS_RTOL``; hexa's speed-up over each baseline and its share of
+   their peaks; then tutel and megablocks on Small at top-1 with TF32
+   allowed in cuBLAS. The baselines launch no hand-written kernel.
 
 The Swin state is then freed, and the flash-attention slice runs (no model
 path of either package calls it, so its public entry point is its path):
@@ -222,15 +245,46 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
 SWIN_KERNEL_TOL = 1e-4
 SWIN_LOSS_RTOL = 1e-5
 SWIN_GRAD_TOL = 1e-4                              # x max|grad| of the leaf
-# fused vs unfused backward on the card: dW is no longer the same sum, ESFK
-# takes 3xTF32 products on the tensor cores where ESTMM takes f32 FMAs
-# (3xTF32 lands within a few f32 ulps of an FMA sum: 0.035 of this limit in
-# tests/test_torch_tf32x3.py's model at the stage-2 widths); db is summed in
-# another order (ESFK's two row lanes vs ESS's 32), and the relative-
-# position tables' grads take atomic adds in no fixed order.
+# fused vs unfused backward on the card: dW is the same sum (ESTMM's f32
+# route is ESFK's kernel without db, at the same splits: the same bits);
+# db is summed in another order (ESFK's two row lanes vs ESS's 32), and the
+# relative-position tables' grads take atomic adds in no fixed order. (With
+# ESTMM's f32 FMA kernel the dW gap was 0.035 of this limit in
+# tests/test_torch_tf32x3.py's model at the stage-2 widths.)
 SWIN_ABLATION_TOL = 1e-5                          # x max|grad| of the leaf
 SWIN_BATCH, SWIN_STEPS = 128, 3
 SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
+# Phase T7/8, the paper's Tables 7/8 on the card: Swin-MoE-Small and -Base
+# at full width and depth, f32, 8 experts, top-1 and top-2, blk 128, batch
+# 64 (every activation is kept, and megablocks' buffer of E N k rows a MoE
+# block adds about 229 MB (Small) or 305 MB (Base) x batch x k: 39 GB for
+# Base at top-2), hexa against tutel (capacity factor 1.25) and megablocks.
+T78_CONFIGS = ("swin_moe_small", "swin_moe_base")
+T78_TOP_K = (1, 2)
+T78_IMPLS = ("hexa", "tutel", "megablocks")
+T78_EXPERTS, T78_BATCH, T78_STEPS = 8, 64, 3
+# Predicted peak memory of a cell (GB): 16 bytes a parameter (weights,
+# grads, AdamW m and v), the activations outside the expert FFNs an image,
+# and each MoE block's expert rows x (2D + 2F) x 4 bytes (the dispatched
+# input and the output, the FFN's pre- and post-activation h): N k rows
+# for hexa, E C for the baselines. The per-image figure is Swin-MoE-
+# Small's peak at batch 128 on an H100 in phase 11 (27.82 GB) less its
+# state (2.51 GB) and its hexa MoE rows (3.66 GB), over 128 images; Base's
+# is that times its 4/3 wider channels.
+T78_ACT_GB_PER_IMAGE = {"swin-moe-small": 0.169, "swin-moe-base": 0.225}
+# Set before the first run. Layer level (Swin stage 2 at batch 64, top-2,
+# one fixed RouterOutput): megablocks vs hexa, output and every grad within
+# SWIN_KERNEL_TOL (the same products: cuBLAS f32 FMA against the 3xTF32
+# kernels); tutel at an ample capacity (C = N k) equal to megablocks bit
+# for bit (the same buffer, the same calls); tutel at a tight capacity
+# (factor 1.0, which drops) vs megablocks with the dropped copies' gates
+# set to 0 within SWIN_KERNEL_TOL (cuBLAS may sum the smaller buffer in
+# another order). Step level: every loss finite, and the first step's loss
+# of hexa and megablocks (the same weights and images) within
+# T78_LOSS_RTOL: they differ by summation order (about 1e-6) and by tokens
+# whose router pick flips on that noise, each of which moves one image's
+# loss by far less than 1/64 of this limit at these random-init logits.
+T78_LOSS_RTOL = 1e-4
 # flash attention: kernel and plain version both compute in f32 (in
 # another order: 6e-7 apart at most in f32 on an H100) and round once, so
 # in bf16 they differ by at most one output ulp (<= 2^-7 |plain|), element
@@ -761,10 +815,11 @@ ESMM_TRAIN_CASES = (
     ("bfloat16", False, False, 2048, 768, 32, "simt"),
 )
 # (dtype, empty experts, D1, D2, blk, route): dWg/dWu at 2048 x 768, dWd
-# at 768 x 2048; f32 stays on f32 FMA (simt).
+# at 768 x 2048; f32 on the 3xTF32 tensor-core route (esfk's kernel
+# without db).
 ESTMM_TRAIN_CASES = (
     ("bfloat16", 0, 2048, 768, 128, "wgmma"),
-    ("float32", 0, 2048, 768, 128, "simt"),
+    ("float32", 0, 2048, 768, 128, "mma_tf32x3"),
     ("bfloat16", 4, 2048, 768, 128, "wgmma"),
     ("bfloat16", 0, 768, 2048, 128, "wgmma"),
     ("bfloat16", 0, 2048, 768, 64, "wgmma"),
@@ -1051,7 +1106,7 @@ def train_kernel_cases(torch, flush):
         s_ = x1.element_size()
         nbytes = rows * (d1 + d2) * s_ + e * 4 + e * d1 * d2 * 4
         flops = 2 * rows * d1 * d2
-        b_ms, b_by = bound(nbytes, flops, dtype)
+        b_ms, b_by = bound(nbytes, flops, dtype, route)
         loffs = offsets(lay)
         lib_ms, lib_note = _library_ms(      # writes bf16, not f32
             torch, flush, lambda: torch._grouped_mm(x1.t(), x2, offs=loffs),
@@ -1064,7 +1119,8 @@ def train_kernel_cases(torch, flush):
             "kernel_ms": time_ms(torch, lambda: estmm.estmm(*args), flush),
             "plain_ms": time_ms(torch, lambda: estmm.estmm_plain(*args),
                                 flush),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            **_fma_bound(route, nbytes, flops), "library_ms": lib_ms,
             "library": lib_note}, nbytes, flops))
         del x1, x2, plain, kern
 
@@ -1119,10 +1175,12 @@ def train_kernel_cases(torch, flush):
 
 def train_reference_phase(torch):
     """Phase 7: one loss_fn forward + backward of a 2-layer full-width f32
-    model on the GPU (kernels) and the CPU (plain versions)."""
+    model on the GPU (kernels) and the CPU (plain versions); every f32
+    esmm and estmm launch of the GPU run on mma_tf32x3."""
     from repro_torch import configs as cfglib
     from repro_torch.common import tree_leaves, tree_map
     from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.kernels import esmm, estmm
     from repro_torch.launch import steps
     from repro_torch.launch.train import batch_to
     from repro_torch.models import lm
@@ -1138,13 +1196,28 @@ def train_reference_phase(torch):
                                    seed=7)).batch(0)
     loss_fn = steps.make_loss_fn(cfg, pcfg)
     out = {}
+    routed = (esmm.esmm, estmm.estmm)
     for device in ("cuda", "cpu"):
+        before = {fn.__name__: dict(fn.launches_by_route) for fn in routed}
         p = tree_map(lambda t: t.detach().to(device).requires_grad_(), params)
         total, metrics = loss_fn(p, batch_to(batch, device))
         grads = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            routes = {fn.__name__: {r: fn.launches_by_route[r]
+                                    - before[fn.__name__][r]
+                                    for r in fn.launches_by_route}
+                      for fn in routed}
         out[device] = (float(metrics["loss"].detach()), float(total.detach()),
                        [None if g is None else g.cpu() for g in grads])
         del p, grads
+    # 5 esmm and 3 estmm a layer (as phase 8 counts them), f32 on 3xTF32
+    want = {"esmm": {"simt": 0, "wgmma": 0, "mma_tf32x3": 5 * cfg.num_layers},
+            "estmm": {"simt": 0, "wgmma": 0,
+                      "mma_tf32x3": 3 * cfg.num_layers}}
+    if routes != want:
+        raise AssertionError(f"train reference: routes {routes}, expected "
+                             f"{want}")
     (lg, tg, gg), (lc, tc, gc) = out["cuda"], out["cpu"]
     if not abs(tg - tc) <= TRAIN_LOSS_RTOL * abs(tc):
         raise AssertionError(f"train reference: GPU loss {tg} vs CPU {tc}")
@@ -1164,9 +1237,9 @@ def train_reference_phase(torch):
     print(f"[train-reference] 2-layer full-width f32, 2 x 64 tokens: loss "
           f"GPU {lg!r} CPU {lc!r}, total GPU {tg!r} CPU {tc!r} (rel diff "
           f"{abs(tg - tc) / abs(tc):.3e}); {len(gc)} grad leaves, worst max "
-          f"|diff| / max |grad| {worst:.3e}")
+          f"|diff| / max |grad| {worst:.3e}; routes {routes}")
     return {"loss_gpu": lg, "loss_cpu": lc, "total_rel_diff":
-            abs(tg - tc) / abs(tc), "worst_grad_rel": worst}
+            abs(tg - tc) / abs(tc), "worst_grad_rel": worst, "routes": routes}
 
 
 def train_phase(torch):
@@ -1244,7 +1317,7 @@ def train_phase(torch):
         raise AssertionError(f"train: launches {launches}, expected {want}")
     # every expert GEMM and FFN of the bf16 LM step on wgmma
     idle = {"esffn_glu": ("stream",), "esmm": ("simt", "mma_tf32x3"),
-            "estmm": ("simt",)}
+            "estmm": ("simt", "mma_tf32x3")}
     want_routes = {k: {**dict.fromkeys(idle[k], 0), "wgmma": want[k]}
                    for k in routes}
     if routes != want_routes:
@@ -1437,31 +1510,56 @@ def swin_kernel_cases(torch, flush):
                     "bound_ms": b_ms, "bound_by": b_by,
                     **_fma_bound(kroute, nbytes, flops), "library_ms": None,
                     "library": "none: no one PyTorch call computes dW and db"})
+                # the unfused backward's dW alone: f32 estmm on mma_tf32x3,
+                # esfk's kernel without db at the same splits, so the same
+                # bits as esfk's dW; empty experts exactly 0, two calls equal
+                name = f"estmm f32 stage {stage} {what[:3]} empty={n_empty}"
+                kern, eroute = _routed(torch, lambda: estmm.estmm(*args),
+                                       estmm.estmm)
+                if eroute != "mma_tf32x3":
+                    raise AssertionError(f"{name}: took the {eroute} route")
+                err, tol = _check(name, kern, pw, GEMM_TOL["float32"])
+                again = estmm.estmm(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(again, kern):
+                    raise AssertionError(f"{name}: two calls differ")
+                if not torch.equal(kern, kern_w):
+                    raise AssertionError(f"{name}: dW not esfk's bits")
+                if not torch.equal(kern[z], torch.zeros_like(kern[z])):
+                    raise AssertionError(f"{name}: empty experts not 0")
+                del again
+                if stage == 2 and not empty and what == "dW1,db1":
+                    # one expert's rows left out of the plain dW
+                    first = int((pc > 0).nonzero()[0])
+                    r0 = int(pc[:first].sum())
+                    x1_cut = x1.clone()
+                    x1_cut[r0:r0 + int(pc[first])] = 0.0
+                    res["negative_controls"].append({
+                        "kernel": "estmm",
+                        "fault": "one expert's rows left out",
+                        "err_over_tol": _must_fail(
+                            name + " without one expert's rows",
+                            estmm.estmm_plain(x1_cut, *args[1:]), pw,
+                            GEMM_TOL["float32"])})
+                    del x1_cut
                 if not empty:
-                    # the unfused backward's dW alone: f32 estmm on simt
-                    name = f"estmm f32 stage {stage} {what[:3]}"
-                    plain = estmm.estmm_plain(*args)
-                    kern, kroute = _routed(torch, lambda: estmm.estmm(*args),
-                                           estmm.estmm)
-                    if kroute != "simt":
-                        raise AssertionError(f"{name}: took the {kroute} "
-                                             f"route")
-                    err, tol = _check(name, kern, plain, GEMM_TOL["float32"])
                     nbytes = rows * (d1 + d2) * 4 + e * 4 + e * d1 * d2 * 4
-                    b_ms, b_by = bound(nbytes, 2 * rows * d1 * d2, "float32")
+                    flops = 2 * rows * d1 * d2
+                    b_ms, b_by = bound(nbytes, flops, "float32", eroute)
                     res["estmm"].append({
                         "shape": {**shape, "D1": d1, "D2": d2,
                                   "grads": what[:3], "rows_read": rows},
-                        "dtype": "float32", "kernel_route": kroute,
+                        "dtype": "float32", "kernel_route": eroute,
                         "max_abs_err": err, "tolerance": tol,
                         "kernel_ms": time_ms(torch, lambda: estmm.estmm(
                             *args), flush),
                         "plain_ms": time_ms(torch, lambda: estmm.estmm_plain(
                             *args), flush),
                         "bound_ms": b_ms, "bound_by": b_by,
+                        **_fma_bound(eroute, nbytes, flops),
                         "library_ms": None,
                         "library": "none: torch._grouped_mm takes bf16 only"})
-                    del plain, kern
+                del kern
 
                 args = (x2, be, pc)
                 name = f"ess stage {stage} D {d2} empty={n_empty}"
@@ -1628,10 +1726,12 @@ def esmm_esfk_check_cases(torch):
     (mma_tf32x3) and bf16 (mma_bf16), twice each (the same bits), the
     experts with no rows exactly 0, once more with ESFK_CHECK_SPLITS
     splits (twice, the same bits), and refusing the odd widths. Each
-    call's route is read from its launch counts."""
+    call's route is read from its launch counts. f32 estmm runs once at
+    each width and blk (mma_tf32x3, whose dW must be esfk's bits; simt at
+    the odd widths), its empty experts exactly 0."""
     from repro_torch.core.reindex import build_reindex, gather_rows
     from repro_torch.core.routing import route
-    from repro_torch.kernels import esfk, esmm
+    from repro_torch.kernels import esfk, esmm, estmm
     from repro_torch.quant.core import quantize_blockwise
 
     out = []
@@ -1678,6 +1778,27 @@ def esmm_esfk_check_cases(torch):
                                 "max_abs_err": err, "tolerance": tol})
             x2 = randn(xs.shape[0], nd) * (ri.row_gate != 0)[:, None]
             z = pc == 0
+            # f32 estmm: mma_tf32x3 (esfk's kernel without db: esfk's dW
+            # bits), simt at the odd widths; empty experts exactly 0
+            args = (xs, x2, be, pc)
+            name = f"estmm check D1 {k} D2 {nd} blk {blk} float32"
+            plain = estmm.estmm_plain(*args)
+            kern, kroute = _routed(torch, lambda: estmm.estmm(*args),
+                                   estmm.estmm)
+            want = estmm._route(torch.float32, blk, k, nd)
+            if kroute != want:
+                raise AssertionError(f"{name}: took the {kroute} route, not "
+                                     f"{want}")
+            err, tol = _check(name, kern, plain, GEMM_TOL["float32"])
+            if kern[z].any():
+                raise AssertionError(f"{name}: empty experts not 0")
+            if kroute == "mma_tf32x3" and not torch.equal(
+                    kern, esfk.esfk(*args)[0]):
+                raise AssertionError(f"{name}: dW not esfk's bits")
+            out.append({"kernel": "estmm", "D1": k, "D2": nd, "blk": blk,
+                        "dtype": "float32", "route": kroute,
+                        "empty_experts": int(z.sum()), "max_abs_err": err,
+                        "tolerance": tol})
             for dtype in ("float32", "bfloat16"):
                 td = getattr(torch, dtype)
                 args = (xs.to(td), x2.to(td), be, pc)
@@ -1875,7 +1996,7 @@ def swin_train_phase(torch):
     # the f32 Swin step: every expert kernel on the 3xTF32 tensor cores
     def on_tf32x3(esmm_n, estmm_n, mlp_n, esfk_n):
         return {"esmm": {"simt": 0, "wgmma": 0, "mma_tf32x3": esmm_n},
-                "estmm": {"simt": estmm_n, "wgmma": 0},
+                "estmm": {"simt": 0, "wgmma": 0, "mma_tf32x3": estmm_n},
                 "esffn_mlp": {"mma_tf32x3": mlp_n, "mma_bf16": 0},
                 "esfk": {"mma_tf32x3": esfk_n, "mma_bf16": 0}}
 
@@ -1904,7 +2025,7 @@ def swin_train_phase(torch):
                            routes())
         del grads
     (lf, gf, cf, rf), (lu, gu, cu, ru) = ablation[True], ablation[False]
-    # unfused: estmm's 20 f32 dW launches stay on simt
+    # unfused: estmm's 20 f32 dW launches on mma_tf32x3 too
     if (rf, ru) != (on_tf32x3(30, 0, 10, 20), on_tf32x3(30, 20, 10, 0)):
         raise AssertionError(f"swin backward: routes {rf} fused, {ru} "
                              f"unfused")
@@ -1918,15 +2039,303 @@ def swin_train_phase(torch):
     print(f"[swin] unfused backward (ESTMM + ESS): launches {cu}; loss equal "
           f"({lf!r}); worst grad max |diff| / max |grad| {worst:.3e} against "
           f"the fused (ESFK) backward")
-    launches_by_path = {"swin_train": launches, "swin_unfused_backward": cu}
+
+    # the Fig. 12 ablation a step: SWIN_STEPS train steps more with the
+    # unfused backward, timed as the fused ones
+    ops.set_fused_backward(False)
+    try:
+        reset()
+        u_times, u_log = [], []
+        for step in range(1, SWIN_STEPS + 1):
+            m, dt = run(step)
+            u_times.append(dt)
+            u_log.append(m)
+    finally:
+        ops.set_fused_backward(True)
+    u_launches, u_routes = ({k: fn.launches for k, fn in kernels.items()},
+                            routes())
+    if not all(math.isfinite(m["loss"]) for m in u_log):
+        raise AssertionError(f"swin unfused train: non-finite loss {u_log}")
+    u_want = {k: v * SWIN_STEPS for k, v in cu.items()}
+    if u_launches != u_want or u_routes != on_tf32x3(
+            30 * SWIN_STEPS, 20 * SWIN_STEPS, 10 * SWIN_STEPS, 0):
+        raise AssertionError(f"swin unfused train: launches {u_launches}, "
+                             f"routes {u_routes}")
+    u_med = statistics.median(u_times)
+    print(f"[swin] {SWIN_STEPS} steps with the unfused backward: step median "
+          f"{u_med * 1e3:.1f}ms ({SWIN_BATCH / u_med:.1f} images/s) against "
+          f"the fused {med * 1e3:.1f}ms; launches {u_launches}")
+    launches_by_path = {"swin_train": launches, "swin_unfused_backward": cu,
+                        "swin_unfused_train": u_launches}
     return launches_by_path, {
         "launches_by_route": {"swin_train": train_routes,
-                              "swin_unfused_backward": ru},
+                              "swin_unfused_backward": ru,
+                              "swin_unfused_train": u_routes},
         "config": cfg.name, "params": n_params, "moe_params": n_moe,
         "batch": SWIN_BATCH, "steps": log, "step_times_s": times,
         "step_median_ms": med * 1e3, "images_per_s": SWIN_BATCH / med,
+        "unfused_step_times_s": u_times,
+        "unfused_step_median_ms": u_med * 1e3,
+        "unfused_images_per_s": SWIN_BATCH / u_med,
         "peak_allocated_gb": peak / 1e9,
         "ablation_worst_grad_rel": worst}
+
+
+def _t78_layer_checks(torch):
+    """Phase T7/8's layer check: one MoE layer's forward and backward at
+    Swin-MoE-Small's stage 2 (batch T78_BATCH, top-2 of 8, blk 128) from
+    one fixed RouterOutput, through hexa (``espec.moe_mlp``: the kernels),
+    megablocks and tutel (``core.baselines``: cuBLAS). Returns each
+    comparison's worst error over its limit."""
+    from repro_torch.common import ACTIVATIONS
+    from repro_torch.core import baselines, espec
+    from repro_torch.core.reindex import build_reindex
+    from repro_torch.core.routing import RouterOutput, route
+
+    n, d, e, k = T78_BATCH * 196, 384, T78_EXPERTS, 2
+    f = 4 * d
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x0 = randn(n, d)
+    r0 = route(x0, randn(d, e, scale=0.02), k)
+    ws0 = (randn(e, d, f, scale=0.02), randn(e, f, scale=0.1),
+           randn(e, f, d, scale=0.02), randn(e, d, scale=0.1))
+    cot = randn(n, d)
+    gelu = ACTIVATIONS["gelu"]
+    names = ("y", "dx", "dw1", "db1", "dw2", "db2", "dgates")
+
+    def run(impl, **kw):
+        """(y, grads of sum(y * cot) by x, w1, b1, w2, b2, gates)."""
+        x = x0.clone().requires_grad_()
+        ws = [w.clone().requires_grad_() for w in ws0]
+        gates = r0.gates.clone().requires_grad_()
+        if impl == "hexa":
+            ri = build_reindex(r0.expert_idx, gates, e, 128)
+            y = espec.moe_mlp(x, ri, *ws)
+        else:
+            g = gates * kw.pop("keep", 1.0)
+            r = RouterOutput(r0.expert_idx, g, None, None, None)
+            fn = (baselines.grouped_dense_moe if impl == "megablocks"
+                  else baselines.dispatch_combine_moe)
+            y = fn(x, r, *ws, act=gelu, **kw)
+        grads = torch.autograd.grad((y * cot).sum(), [x, *ws, gates])
+        torch.cuda.synchronize()
+        return [y.detach(), *grads]
+
+    def worst_of(what, got, want):
+        """The worst err / limit over the output and grads (raises past
+        the limit)."""
+        return max(err / tol for err, tol in (
+            _check(f"T7/8 layer {what} {nm}", b, a, SWIN_KERNEL_TOL)
+            for nm, a, b in zip(names, want, got)))
+
+    hexa, mega = run("hexa"), run("megablocks")
+    worst = {"megablocks_vs_hexa": worst_of("megablocks", mega, hexa)}
+    ample = run("tutel", capacity_factor=float(e))   # C = N k / E * E
+    for nm, a, b in zip(names, mega, ample):
+        if not torch.equal(a, b):
+            raise AssertionError(f"T7/8 layer: tutel at C = N k differs from "
+                                 f"megablocks in {nm}")
+    worst["tutel_ample_vs_megablocks"] = 0.0
+    cap = baselines.tutel_capacity(n, k, e, 1.0)
+    rank, _ = baselines._dispatch_ranks(r0.expert_idx, e)
+    keep = rank < cap
+    dropped = int((~keep).sum())
+    if not dropped:
+        raise AssertionError("T7/8 layer: the tight capacity dropped nothing")
+    tight = run("tutel", capacity=cap)
+    mega0 = run("megablocks", keep=keep.float())
+    worst["tutel_tight_vs_megablocks_gates_0"] = worst_of(
+        f"tutel C {cap}", tight, mega0)
+    print(f"[t78] layer checks at stage 2 (N {n}, D {d}, F {f}, top-{k} of "
+          f"{e}): worst err / limit {worst}; tutel at C {cap} drops "
+          f"{dropped} of {n * k} copies")
+    return {**worst, "tight_capacity": cap, "tight_dropped": dropped}
+
+
+def _t78_predicted_gb(cfg, impl, n_params):
+    """The cell's predicted peak (GB), as T78_ACT_GB_PER_IMAGE says."""
+    from repro_torch.core.baselines import tutel_capacity
+
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    moe = 0
+    for s, depth in enumerate(cfg.depths):
+        side = cfg.img_size // cfg.patch_size >> s
+        n, d = T78_BATCH * side * side, cfg.dims[s]
+        rows = {"hexa": n * k, "tutel": e * tutel_capacity(n, k, e, 1.25),
+                "megablocks": e * n * k}[impl]
+        moe += sum(cfg.is_moe_block(s, b) for b in range(depth)) * rows \
+            * (2 * d + 2 * int(cfg.mlp_ratio * d)) * 4
+    return (16 * n_params + moe) / 1e9 \
+        + T78_ACT_GB_PER_IMAGE[cfg.name] * T78_BATCH
+
+
+def _t78_cell(torch, cfg, impl):
+    """One cell: a fresh seeded state, one warm-up step with the counting
+    spies on (rows the expert GEMMs compute, the copies tutel drops, each
+    MoE block's top-1 picks), then T78_STEPS timed steps."""
+    import math
+    from repro_torch.common import tree_leaves
+    from repro_torch.core import baselines, espec
+    from repro_torch.models import swin
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pcfg = ParallelConfig(blk=128)
+    opt_cfg = adamw.OptimizerConfig(master_fp32=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = swin.init_swin(cfg, generator=gen, device="cuda")
+    opt_state = adamw.init_opt_state(params, opt_cfg)
+    batches = [swin.synthetic_batch(cfg, T78_BATCH, generator=gen,
+                                    device="cuda")
+               for _ in range(T78_STEPS + 1)]
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    predicted = _t78_predicted_gb(cfg, impl, n_params)
+    print(f"[t78] {cfg.name} top-{cfg.moe.top_k} {impl}"
+          f"{' (TF32 cuBLAS)' if torch.backends.cuda.matmul.allow_tf32 else ''}"
+          f": predicted peak {predicted:.2f} GB")
+    train_step = swin.make_train_step(cfg, pcfg, opt_cfg, moe_impl=impl)
+
+    def run(i):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = train_step(params, opt_state, *batches[i])
+        m = {key: float(v) for key, v in m.items()}
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    count = {"rows": 0, "dropped": 0, "picks": []}
+    real = (espec.route, swin.route, espec.build_reindex,
+            baselines.dispatch_combine_moe)
+
+    def picking(*a, **kw):
+        r = real[0](*a, **kw)
+        count["picks"].append(r.expert_idx[:, 0].cpu())
+        return r
+
+    def reindexing(*a, **kw):
+        ri = real[2](*a, **kw)
+        count["rows"] += int(ri.padded_counts.sum())
+        return ri
+
+    def dispatching(x, r, w1, *a, capacity=None, capacity_factor=1.25,
+                    **kw):
+        n, k = r.expert_idx.shape
+        e = w1.shape[0]
+        cap = capacity or baselines.tutel_capacity(n, k, e, capacity_factor)
+        rank, _ = baselines._dispatch_ranks(r.expert_idx, e)
+        count["rows"] += e * cap
+        count["dropped"] += int((rank >= cap).sum())
+        return real[3](x, r, w1, *a, capacity=cap, **kw)
+
+    espec.route = swin.route = picking
+    espec.build_reindex = reindexing
+    baselines.dispatch_combine_moe = dispatching
+    try:
+        first, _ = run(0)                 # warm-up, counted, untimed
+    finally:
+        (espec.route, swin.route, espec.build_reindex,
+         baselines.dispatch_combine_moe) = real
+    times, log = [], [first]
+    for i in range(1, T78_STEPS + 1):
+        m, dt = run(i)
+        times.append(dt)
+        log.append(m)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(m["loss"]) for m in log):
+        raise AssertionError(f"T7/8 {cfg.name} top-{cfg.moe.top_k} {impl}: "
+                             f"non-finite loss {log}")
+    med = statistics.median(times)
+    del params, opt_state, batches
+    return {"config": cfg.name, "top_k": cfg.moe.top_k, "impl": impl,
+            "tf32": torch.backends.cuda.matmul.allow_tf32,
+            "batch": T78_BATCH, "params": n_params,
+            "step_median_ms": med * 1e3, "step_times_s": times,
+            "images_per_s": T78_BATCH / med, "peak_allocated_gb": peak,
+            "predicted_peak_gb": predicted,
+            "expert_rows_per_step": count["rows"],
+            "dropped_copies_per_step": count["dropped"],
+            "first_loss": first["loss"], "losses": [m["loss"] for m in log],
+            "picks": count["picks"]}
+
+
+def tables78_phase(torch):
+    """Phase T7/8: the paper's Tables 7/8 (peak memory and step time of
+    hexa against tutel and megablocks) on the card: Swin-MoE-Small and
+    -Base at full width and depth, f32, T78_EXPERTS experts, top-k in
+    T78_TOP_K, batch T78_BATCH; every cell one warm-up and T78_STEPS timed
+    steps; then tutel and megablocks on Small at top-1 once more with TF32
+    allowed in cuBLAS. The layer checks run first."""
+    from repro_torch.configs import swin_moe_base, swin_moe_small
+
+    t0 = time.perf_counter()
+    layer = _t78_layer_checks(torch)
+    torch.cuda.empty_cache()
+    models = {"swin_moe_small": swin_moe_small.CONFIG,
+              "swin_moe_base": swin_moe_base.CONFIG}
+    cells, summary = [], []
+    for key in T78_CONFIGS:
+        for k in T78_TOP_K:
+            cfg = swin_moe_small.with_experts(models[key], T78_EXPERTS, k)
+            row = {}
+            for impl in T78_IMPLS:
+                c = _t78_cell(torch, cfg, impl)
+                row[impl] = c
+                print(f"[t78] {cfg.name} top-{k} {impl}: step "
+                      f"{c['step_median_ms']:.1f} ms, "
+                      f"{c['images_per_s']:.1f} images/s, peak "
+                      f"{c['peak_allocated_gb']:.2f} GB (predicted "
+                      f"{c['predicted_peak_gb']:.2f}), expert rows a step "
+                      f"{c['expert_rows_per_step']}, dropped copies "
+                      f"{c['dropped_copies_per_step']}, first loss "
+                      f"{c['first_loss']!r}")
+            h, mb = row["hexa"], row["megablocks"]
+            rel = abs(h["first_loss"] - mb["first_loss"]) \
+                / abs(mb["first_loss"])
+            flips = [int((a != b).sum()) for a, b in zip(h["picks"],
+                                                          mb["picks"])]
+            if len(h["picks"]) != len(mb["picks"]) or not rel <= T78_LOSS_RTOL:
+                raise AssertionError(f"T7/8 {cfg.name} top-{k}: first loss "
+                                     f"hexa {h['first_loss']} vs megablocks "
+                                     f"{mb['first_loss']} (rel {rel})")
+            s_ = {"config": cfg.name, "top_k": k,
+                  "first_loss_rel_diff_hexa_megablocks": rel,
+                  "top1_flips_per_moe_block": flips}
+            for b in ("tutel", "megablocks"):
+                s_[f"speedup_vs_{b}"] = (row[b]["step_median_ms"]
+                                         / h["step_median_ms"])
+                s_[f"memory_share_of_{b}"] = (h["peak_allocated_gb"]
+                                              / row[b]["peak_allocated_gb"])
+            print(f"[t78] {cfg.name} top-{k}: hexa {s_['speedup_vs_tutel']:.3f}"
+                  f" x tutel's speed and {s_['speedup_vs_megablocks']:.3f} x "
+                  f"megablocks'; {s_['memory_share_of_tutel']:.3f} and "
+                  f"{s_['memory_share_of_megablocks']:.3f} of their peaks; "
+                  f"first losses {rel:.3e} apart; tokens whose top-1 pick "
+                  f"differs (hexa vs megablocks) a MoE block: {flips}")
+            summary.append(s_)
+            cells += row.values()
+    small1 = swin_moe_small.with_experts(models["swin_moe_small"],
+                                         T78_EXPERTS, 1)
+    tf32_prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for impl in ("tutel", "megablocks"):
+            c = _t78_cell(torch, small1, impl)
+            cells.append(c)
+            print(f"[t78] {small1.name} top-1 {impl} with TF32 cuBLAS: step "
+                  f"{c['step_median_ms']:.1f} ms, {c['images_per_s']:.1f} "
+                  f"images/s, peak {c['peak_allocated_gb']:.2f} GB")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_prev
+    for c in cells:
+        del c["picks"]
+    print(f"[t78] {len(cells)} cells in {time.perf_counter() - t0:.1f}s")
+    return {"layer_checks": layer, "cells": cells, "summary": summary}
 
 
 def _sdpa_ms(torch, flush, q, k, v, causal):
@@ -2708,7 +3117,8 @@ def train_reference_bf16_phase(torch):
     want = {"esffn_glu": {"stream": 0, "wgmma": 2 * cfg.num_layers},
             "esmm": {"simt": 0, "wgmma": 5 * cfg.num_layers,
                      "mma_tf32x3": 0},
-            "estmm": {"simt": 0, "wgmma": 3 * cfg.num_layers}}
+            "estmm": {"simt": 0, "wgmma": 3 * cfg.num_layers,
+                      "mma_tf32x3": 0}}
     if routes != want:
         raise AssertionError(f"bf16 train reference: routes {routes}, "
                              f"expected {want}")
@@ -2886,7 +3296,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     print(card_line())
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = build.build()
     print(f"[build] {sorted(build.KERNELS)} in {time.perf_counter() - t0:.1f}s")
     for name, log in sorted(logs.items()):
@@ -2961,7 +3371,7 @@ def main() -> int:
     print(f"[check] esffn_mlp: {len(mlp_checks)} cases, worst err / limit "
           f"{max(c['max_abs_err'] / c['tolerance'] for c in mlp_checks):.3g}")
     gemm_checks = esmm_esfk_check_cases(torch)
-    for k in ("esmm", "esfk"):
+    for k in ("esmm", "esfk", "estmm"):
         cs_ = [c for c in gemm_checks if c["kernel"] == k]
         ran = [c for c in cs_ if c["route"] != "refused"]
         worst = max(max([c["max_abs_err"],
@@ -2977,6 +3387,9 @@ def main() -> int:
     swin_launches, swin_out = swin_train_phase(torch)
     print(f"[swin] {json.dumps({**swin_out, 'reference': swin_ref})}")
     torch.cuda.empty_cache()               # the Swin training state is gone
+    t78 = tables78_phase(torch)
+    print(f"[t78] {json.dumps(t78)}")
+    torch.cuda.empty_cache()
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flash_launches, flash_routes, flash_res, flash_neg = flash_cases(
         torch, flush)
@@ -2986,6 +3399,7 @@ def main() -> int:
         print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
               f"{c['err_over_tol']:.3g} x the limit")
     del flush
+    print(f"[done] every phase in {time.perf_counter() - t_start:.1f}s")
 
     # Each kernel's launches on the main paths that ran it: the serve run
     # (phase 5), the qwen train steps (phase 8), the Swin train steps and
@@ -3084,11 +3498,18 @@ def main() -> int:
         entry("estmm", "src/repro_torch/csrc/estmm.cu",
               "src/repro/kernels/estmm.py:43",
               train_res["estmm"] + swin_res["estmm"],
-              kernel_routes=by_route("estmm", train_res["estmm"],
-                                     ("wgmma", "simt")),
-              negative_controls=[c for c in train_res["negative_controls"]
-                                 if c["kernel"] == "estmm"],
-              small_width_checks=train_res["checks"]),
+              kernel_routes=by_route(
+                  "estmm", train_res["estmm"] + swin_res["estmm"],
+                  ("wgmma", "mma_tf32x3", "simt")),
+              route_sources={"mma_tf32x3": "src/repro_torch/csrc/esfk.cu "
+                                           "(esfk_dw_launch)"},
+              negative_controls=[
+                  c for c in train_res["negative_controls"]
+                  + swin_res["negative_controls"] if c["kernel"] == "estmm"],
+              small_width_checks={
+                  "wgmma": train_res["checks"],
+                  "float32": [c for c in gemm_checks
+                              if c["kernel"] == "estmm"]}),
         entry("esffn_mlp", "src/repro_torch/csrc/esffn.cu",
               "src/repro/kernels/esffn.py:339", swin_res["esffn_mlp"],
               kernel_routes=by_route("esffn_mlp", swin_res["esffn_mlp"],

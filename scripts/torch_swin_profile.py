@@ -3,10 +3,16 @@
 one NVIDIA GPU.
 
     python3 scripts/torch_swin_profile.py [--batch 128] [--steps 3]
+        [--config small|base] [--moe-impl hexa|tutel|megablocks]
+        [--top-k K] [--unfused]
 
-Builds Swin-MoE-Small (``configs/swin_moe_small.py``: 8 experts top-1,
-f32) at full width and depth with AdamW (``master_fp32=False``, as the
-JAX package's ``benchmarks/memory_table.py`` step), takes one warm-up
+Builds Swin-MoE-Small or -Base (``configs/swin_moe_small.py``,
+``configs/swin_moe_base.py``: 8 experts, top-1 unless ``--top-k``, f32)
+at full width and depth with AdamW (``master_fp32=False``, as the JAX
+package's ``benchmarks/memory_table.py`` step), its MoE blocks through
+``--moe-impl`` (the paper's method, or the Tutel or MegaBlocks baseline),
+with the unfused expert backward (ESTMM + ESS, the Fig. 12 ablation)
+under ``--unfused``; takes one warm-up
 step on seeded 224^2 images and labels (blk 128), times ``--steps`` train
 steps on the host clock, then runs as many again under ``torch.profiler``
 and prints, as JSON lines (``scripts/torch_train_profile.report``): the
@@ -29,8 +35,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import swin_moe_small  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.configs import swin_moe_base, swin_moe_small  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.models import swin  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.sharding import ParallelConfig  # noqa: E402
@@ -43,7 +49,8 @@ KINDS = (
     ("ess_kernel", "ess (expert db, unfused backward)"),
     ("estmm", "estmm (expert dW, unfused backward)"),
     ("esmm", "esmm (expert z recompute, t, dX)"),
-    ("gemm", "cuBLAS matmuls (attention, dense MLPs, patch, merge, head)"),
+    ("gemm", "cuBLAS matmuls (attention, dense MLPs, patch, merge, head;"
+             " the baselines' expert GEMMs)"),
     ("gemv", "cuBLAS matmuls (attention, dense MLPs, patch, merge, head)"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
@@ -63,6 +70,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--config", choices=("small", "base"), default="small")
+    ap.add_argument("--moe-impl", choices=("hexa", "tutel", "megablocks"),
+                    default="hexa")
+    ap.add_argument("--top-k", type=int, default=1)
+    ap.add_argument("--unfused", action="store_true",
+                    help="the unfused expert backward (ESTMM + ESS)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -71,7 +84,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     build.build()
-    cfg = swin_moe_small.CONFIG
+    base = {"small": swin_moe_small, "base": swin_moe_base}[args.config]
+    cfg = swin_moe_small.with_experts(base.CONFIG, 8, args.top_k)
     pcfg = ParallelConfig(blk=128)
     opt_cfg = adamw.OptimizerConfig(master_fp32=False)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -80,7 +94,9 @@ def main(argv=None) -> int:
     batches = [swin.synthetic_batch(cfg, args.batch, generator=gen,
                                     device="cuda")
                for _ in range(2 * args.steps + 1)]
-    train_step = swin.make_train_step(cfg, pcfg, opt_cfg)
+    train_step = swin.make_train_step(cfg, pcfg, opt_cfg,
+                                      moe_impl=args.moe_impl)
+    ops.set_fused_backward(not args.unfused)
 
     def run(i):
         _, _, m = train_step(params, opt_state, *batches[i])
@@ -101,7 +117,9 @@ def main(argv=None) -> int:
             run(i)
         torch.cuda.synchronize()
     return report(prof, args.steps, wall, KINDS,
-                  {"config": cfg.name, "images": args.batch,
+                  {"config": cfg.name, "top_k": args.top_k,
+                   "moe_impl": args.moe_impl,
+                   "fused_backward": not args.unfused, "images": args.batch,
                    "train_step_wall_ms": wall * 1e3,
                    "images_per_s": args.batch / wall})
 

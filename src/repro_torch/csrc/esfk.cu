@@ -8,7 +8,10 @@
 // both in f32; an expert with padded_counts[e] == 0 gets exactly 0 (the TPU
 // wrapper's mask, esfk.py:161). The biased MLP expert FFN's backward
 // computes (dW2, db2) (x1 = h, x2 = dys) and (dW1, db1) (x1 = xs, x2 = dz)
-// with it.
+// with it. Its kernel without db (a compile-time switch: no db sums,
+// partials or merge) is estmm's f32 route, esfk_dw_launch below: the same
+// mainloop and merge, so at the same splits (both wrappers take
+// kernels/esfk.py::_plan's) ESTMM's dW is the same bits as ESFK's.
 //
 // What bounds it on this card: at training shapes (Swin-MoE-Small, stage 2
 // of 0-3: Np 26,112 rows, D1 384, D2 1536) it reads (D1 + D2) Np elements
@@ -101,10 +104,12 @@ constexpr int kMmaFlags = mma::kAMajorM | mma::kPromote;
 #endif
 constexpr int kMmaBM = ESFK_TILE_M;
 
-// One (expert, kMmaBM x 128) tile of dW (and of db on D1 tile 0) over split
-// `sp` of the expert's rows, on the tensor cores; with splits > 1 the last
-// CTA of the tile merges the splits' partials (see the note).
-template <typename T>
+// One (expert, kMmaBM x 128) tile of dW (and, with kDb, of db on D1 tile
+// 0) over split `sp` of the expert's rows, on the tensor cores; with
+// splits > 1 the last CTA of the tile merges the splits' partials (see the
+// note). Without kDb (estmm's f32 route) db is null and untouched, and
+// the dW sums are the same bits as with it.
+template <typename T, bool kDb>
 __global__ void __launch_bounds__(mma::kThreads, mma::kMinBlocks)
 esfk_mma_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
                 const int* __restrict__ padded_counts, float* __restrict__ dw,
@@ -123,14 +128,14 @@ esfk_mma_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   static_assert(NT % BN == 0 && BK % kHalves == 0, "db row lanes");
   extern __shared__ __align__(16) float sm[];
   __shared__ int run[2];
-  __shared__ float dbs[kHalves][BN];
+  __shared__ float dbs[kDb ? kHalves : 1][BN];
   __shared__ int last;
 
   const int tid = threadIdx.x;
   const int n_tiles = gridDim.x, m_tiles = gridDim.y;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int e = blockIdx.z / splits, sp = blockIdx.z % splits;
-  const bool sums_db = blockIdx.y == 0;  // uniform across the CTA
+  const bool sums_db = kDb && blockIdx.y == 0;  // uniform across the CTA
   expert_run(padded_counts, e, np_rows, num_experts, run);
   if (run[0] == run[1]) {  // an empty expert: zeros, nothing read
     if (sp != 0) return;
@@ -310,19 +315,19 @@ esfk_mma_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   if (splits > 1 && tid == 0) tickets[tile] = 0;  // ready for the next call
 }
 
-template <typename T>
+template <typename T, bool kDb>
 int launch_mma(const void* x1, const void* x2, const void* padded_counts,
                void* dw, void* db, void* partials, void* tickets, int np_rows,
                int d1, int d2, int num_experts, int splits,
                cudaStream_t stream) {
   constexpr int kAlign = 16 / sizeof(T);
-  if (splits < 1 || d1 % kAlign || d2 % kAlign ||
+  if (splits < 1 || d1 % kAlign || d2 % kAlign || (kDb && db == nullptr) ||
       ((uintptr_t)x1 | (uintptr_t)x2) % 16 ||
       (splits > 1 && (partials == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = mma::Tile<kMmaBM, std::is_same<T, __nv_bfloat16>::value,
                                  kMmaFlags>::kSmem;
-  auto kernel = esfk_mma_kernel<T>;
+  auto kernel = esfk_mma_kernel<T, kDb>;
   static bool configured = false;       // one attribute set per instance
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -358,11 +363,28 @@ extern "C" int esfk_launch(const void* x1, const void* x2,
                            int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (route == 1 && dtype == 0)
-    return launch_mma<float>(x1, x2, padded_counts, dw, db, partials,
-                             tickets, np_rows, d1, d2, num_experts, splits, s);
+    return launch_mma<float, true>(x1, x2, padded_counts, dw, db, partials,
+                                   tickets, np_rows, d1, d2, num_experts,
+                                   splits, s);
   if (route == 2 && dtype == 1)
-    return launch_mma<__nv_bfloat16>(x1, x2, padded_counts, dw, db, partials,
-                                     tickets, np_rows, d1, d2, num_experts,
-                                     splits, s);
+    return launch_mma<__nv_bfloat16, true>(x1, x2, padded_counts, dw, db,
+                                           partials, tickets, np_rows, d1, d2,
+                                           num_experts, splits, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// estmm's mma_tf32x3 route (kernels/estmm.py): dW alone, f32 x1 and x2, on
+// the same kernel without db. The operands as esfk_launch's; partials need
+// only the dW part (ceil(D1 / BM) * ceil(D2 / 128) * E * splits * BM * 128
+// f32 with splits > 1) and the tickets are shared with esfk's calls on the
+// same stream (each call leaves them 0).
+extern "C" int esfk_dw_launch(const void* x1, const void* x2,
+                              const void* padded_counts, void* dw,
+                              void* partials, void* tickets, int np_rows,
+                              int d1, int d2, int num_experts, int splits,
+                              void* stream) {
+  return launch_mma<float, false>(x1, x2, padded_counts, dw, nullptr,
+                                  partials, tickets, np_rows, d1, d2,
+                                  num_experts, splits,
+                                  (cudaStream_t)stream);
 }

@@ -22,8 +22,16 @@
 // What bounds it on this card: at the LM train head case (Np 49,024 rows,
 // D1 2048, D2 768: 154 GFLOP) it reads 276 MB of x1 and x2 but writes
 // 805 MB of f32 dW, so the bytes bound it at 0.323 ms (the store alone
-// 0.24 ms), and each expert's run is only about 383 rows. Two routes,
-// chosen by the wrapper (kernels/estmm.py::_route) before the launch:
+// 0.24 ms), and each expert's run is only about 383 rows. In f32 the same
+// shape reads 552 MB and is bound by its operations: 2.30 ms at the f32
+// FMA rate, 0.935 ms as 3xTF32. Three routes, chosen by the wrapper
+// (kernels/estmm.py::_route) before the launch; this file holds two, and
+// f32 with whole 16-byte rows (D1 and D2 % 4 == 0) runs on the third,
+// mma_tf32x3: esfk.cu's tensor-core kernel without db (esfk_dw_launch),
+// 3xTF32 products promoted into f32 accumulators each k step, an
+// expert's rows split over CTAs as kernels/esfk.py::_plan says and merged
+// in split order, so repeated calls give the same bits and the unfused
+// backward's dW (ESTMM + ESS) is the fused one's (ESFK) bit for bit.
 //
 // wgmma (route 1: bf16, blk % 64 == 0, D1 and D2 % 8 == 0):
 //  * Persistent CTAs, two an SM, walk the tile list (128 D1 x 128 D2
@@ -38,11 +46,10 @@
 //    keep one wgmma group in flight, and store the tile with 8-byte f32
 //    pair stores.
 //
-// simt (route 0: float32, the Swin slice's unfused backward, or bf16 at
-// blk 8..32): TF32 would move the f32 results off the f32 reference, so it
-// stays plain f32 FMA: a CTA owns one (expert, 64 x 64) tile, stages 16
-// rows of the x1 and x2 tiles in shared memory as f32, and each of the
-// 256 threads keeps a 4 x 4 register tile of sums, rows and columns
+// simt (route 0: f32 rows that are not whole 16-byte copies, and bf16
+// off the wgmma route): plain FMA, f32 sums: a CTA owns one (expert, 64 x 64) tile,
+// stages 16 rows of the x1 and x2 tiles in shared memory as f32, and each
+// of the 256 threads keeps a 4 x 4 register tile of sums, rows and columns
 // strided by 16 so a warp's shared-memory reads hit distinct banks or
 // broadcast.
 //

@@ -18,8 +18,8 @@ backward computes (dW1, db1) and (dW2, db2) with it.
   An expert's rows may be split over several CTAs of one output tile
   (``_plan``, from the shapes and the SM count), whose partials the last
   of them sums in a fixed order through a workspace kept per device
-  (``_workspace``): calls that share it must not overlap, so launch them
-  on one stream.
+  (``_workspace``, which ``estmm``'s f32 route shares): calls that share
+  it must not overlap, so launch them on one stream.
 * ``esfk_plain`` — the plain PyTorch version: ``estmm_plain`` for dW and
   ``ess_plain`` for db (the JAX package's unfused pair).
 """
@@ -74,6 +74,20 @@ def _workspace(device, floats: int, tickets: int):
     return have
 
 
+def _split_workspace(device, d1: int, d2: int, e: int, splits: int,
+                     with_db: bool = True):
+    """(partials, tickets) pointers for a launch with ``splits`` CTAs an
+    expert's rows, as ``csrc/esfk.cu`` lays them out (dW partials, then
+    db's when ``with_db``); (None, None) for one split."""
+    if splits == 1:
+        return None, None
+    tiles = -(-d1 // _TILE) * -(-d2 // _TILE) * e
+    floats = tiles * splits * _TILE * _TILE
+    if with_db:
+        floats += e * -(-d2 // _TILE) * splits * _TILE
+    return tuple(t.data_ptr() for t in _workspace(device, floats, tiles))
+
+
 def esfk_plain(x1, x2, block_expert, counts):
     """Plain PyTorch ESFK: (Np, D1), (Np, D2) -> ((E, D1, D2), (E, D2)) f32."""
     return (estmm_plain(x1, x2, block_expert, counts),
@@ -87,12 +101,7 @@ def _launch(x1, x2, counts, route: str, splits: int):
     d2, e = x2.shape[1], counts.shape[0]
     dw = torch.empty((e, d1, d2), dtype=torch.float32, device=x1.device)
     db = torch.empty((e, d2), dtype=torch.float32, device=x1.device)
-    parts = tickets = None
-    if splits > 1:
-        m_tiles, n_tiles = -(-d1 // _TILE), -(-d2 // _TILE)
-        parts, tickets = (t.data_ptr() for t in _workspace(
-            x1.device, m_tiles * n_tiles * e * splits * _TILE * _TILE
-            + e * n_tiles * splits * _TILE, m_tiles * n_tiles * e))
+    parts, tickets = _split_workspace(x1.device, d1, d2, e, splits)
     launch = build.load("esfk", "esfk_launch", _ARGTYPES)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream

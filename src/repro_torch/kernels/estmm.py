@@ -8,15 +8,20 @@ computes its weight gradients with it (experts without biases need no
 ``db``, so the fused ESFK kernel is not on that path), and so does the
 biased MLP expert FFN's unfused backward (beside ESS for ``db``).
 
-* ``estmm`` — the wrapper. On a CUDA tensor it launches the hand-written
-  kernel of ``csrc/estmm.cu`` (see its source note for the design) on the
-  route ``_route`` picks from the dtype and shapes alone, before the
-  launch: ``"wgmma"`` (bf16 on the tensor cores, fed by TMA) or
-  ``"simt"`` (f32 FMA; f32 dW, which only the Fig. 12 unfused ablation
-  and the f32 LM reference take, stays there), and counts the launch in
-  ``estmm.launches`` and ``estmm.launches_by_route``; on a CPU tensor
-  it runs ``estmm_plain``. There is no other path, and no route gives
-  way to another.
+* ``estmm`` — the wrapper. On a CUDA tensor it launches a hand-written
+  kernel on the route ``_route`` picks from the dtype and shapes alone,
+  before the launch: ``"wgmma"`` (bf16 on the tensor cores, fed by TMA;
+  ``csrc/estmm.cu``), ``"mma_tf32x3"`` (f32 in 3xTF32 on the tensor
+  cores: ``csrc/esfk.cu``'s kernel without db, ``esfk_dw_launch``, the f32
+  dW of the Fig. 12 unfused backward and of the f32 LM reference) or
+  ``"simt"`` (f32 FMA, ``csrc/estmm.cu``: f32 rows that are not whole
+  16-byte copies, bf16 off the wgmma route), and counts the launch in
+  ``estmm.launches`` and ``estmm.launches_by_route``; on a CPU tensor it
+  runs ``estmm_plain``. There is no other path, and no route gives way to
+  another: both tensor-core routes refuse x1 and x2 that are not 16-byte
+  aligned. ``mma_tf32x3`` splits an expert's rows over CTAs as
+  ``esfk._plan`` says and merges them through ``esfk._workspace``, which
+  ``esfk`` shares: calls must not overlap, so launch them on one stream.
 * ``estmm_plain`` — the plain PyTorch version: per-block f32 products
   ``x1_b^T x2_b`` added into their expert's slot with ``index_add_``
   (``ops._blocked_estmm`` of the JAX package), then the count mask.
@@ -30,17 +35,23 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = {"simt": 0, "wgmma": 1}
+#: csrc/estmm.cu's route numbers; mma_tf32x3 is esfk.cu's esfk_dw_launch
+_ROUTES = {"simt": 0, "wgmma": 1, "mma_tf32x3": None}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_VP] * 4 + [_I] * 7 + [_VP]
+_DW_ARGTYPES = [_VP] * 6 + [_I] * 5 + [_VP]
 
 
 def _route(dtype, blk: int, d1: int, d2: int) -> str:
     """``"wgmma"`` for bf16 at ``blk % 64 == 0`` with D1 and D2 multiples
-    of 8 (TMA takes 16-byte global strides), else ``"simt"``."""
+    of 8 (TMA takes 16-byte global strides), ``"mma_tf32x3"`` for f32 with
+    D1 and D2 multiples of 4 (rows of whole 16-byte ``cp.async`` copies),
+    else ``"simt"``."""
     if dtype == torch.bfloat16 and blk % 64 == 0 and d1 % 8 == 0 \
             and d2 % 8 == 0:
         return "wgmma"
+    if dtype == torch.float32 and d1 % 4 == 0 and d2 % 4 == 0:
+        return "mma_tf32x3"
     return "simt"
 
 
@@ -80,13 +91,32 @@ def _check_cuda_args(x1, x2, block_expert, counts, name: str = "estmm"):
         raise ValueError(f"{name} operands lie on different devices")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} operands must be contiguous")
-    # esfk shares these checks but has no wgmma route
-    if name == "estmm" and _route(x1.dtype, blk, x1.shape[1],
-                                  x2.shape[1]) == "wgmma" and (
-            x1.data_ptr() % 16 or x2.data_ptr() % 16):
-        raise ValueError("estmm's wgmma route loads x1 and x2 with TMA, "
-                         "which needs 16-byte aligned base addresses")
+    # esfk shares these checks and makes its own route's
+    if name == "estmm":
+        route = _route(x1.dtype, blk, x1.shape[1], x2.shape[1])
+        if route != "simt" and (x1.data_ptr() % 16 or x2.data_ptr() % 16):
+            raise ValueError(f"estmm's {route} route loads x1 and x2 in "
+                             f"16-byte copies (TMA or cp.async), which need "
+                             f"16-byte aligned base addresses")
     return np_rows, x1.shape[1], x2.shape[1], counts.shape[0]
+
+
+def _launch_tf32x3(x1, x2, counts, out, stream):
+    """The mma_tf32x3 route: esfk.cu's kernel without db, its rows split
+    as ``esfk._plan`` says and merged through ``esfk._workspace``."""
+    # imported here: esfk imports this module for its checks and plain dW
+    from repro_torch.kernels import esfk
+
+    np_rows, d1 = x1.shape
+    d2, e = x2.shape[1], counts.shape[0]
+    sms = torch.cuda.get_device_properties(x1.device).multi_processor_count
+    splits = esfk._plan(np_rows, d1, d2, e, sms)
+    parts, tickets = esfk._split_workspace(x1.device, d1, d2, e, splits,
+                                           with_db=False)
+    launch = build.load("esfk", "esfk_dw_launch", _DW_ARGTYPES)
+    return launch(x1.data_ptr(), x2.data_ptr(), counts.data_ptr(),
+                  out.data_ptr(), parts, tickets, np_rows, d1, d2, e, splits,
+                  stream)
 
 
 def estmm(x1, x2, block_expert, counts) -> torch.Tensor:
@@ -103,13 +133,16 @@ def estmm(x1, x2, block_expert, counts) -> torch.Tensor:
     np_rows, d1, d2, e = _check_cuda_args(x1, x2, block_expert, counts)
     blk = np_rows // block_expert.shape[0]
     route = _route(x1.dtype, blk, d1, d2)
-    launch = build.load("estmm", "estmm_launch", _ARGTYPES)
     out = torch.empty((e, d1, d2), dtype=torch.float32, device=x1.device)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(x1.data_ptr(), x2.data_ptr(), counts.data_ptr(),
-                     out.data_ptr(), np_rows, d1, d2, e, _DTYPES[x1.dtype],
-                     _ROUTES[route], blk, stream)
+        if route == "mma_tf32x3":
+            err = _launch_tf32x3(x1, x2, counts, out, stream)
+        else:
+            launch = build.load("estmm", "estmm_launch", _ARGTYPES)
+            err = launch(x1.data_ptr(), x2.data_ptr(), counts.data_ptr(),
+                         out.data_ptr(), np_rows, d1, d2, e,
+                         _DTYPES[x1.dtype], _ROUTES[route], blk, stream)
     if err:
         raise RuntimeError(f"estmm kernel launch failed on the {route} "
                            f"route (CUDA error {err})")

@@ -3,11 +3,20 @@ counterpart of ``repro.models.swin``).
 
 Hierarchical windowed-attention vision transformer with the FFN of
 alternating blocks in the last two stages replaced by an MoE FFN of the
-paper's 2-MLP expert form (GeLU between, with biases), run through the
-expert-specific ops (``moe_impl="hexa"``: ``parallel.moe_parallel.
-moe_layer`` -> ``core.espec.moe_mlp`` -> ``kernels.ops.esffn_mlp``). The
-capacity-factor baselines (``"tutel"``, ``"megablocks"``,
-``core/baselines.py``) are not ported and raise.
+paper's 2-MLP expert form (GeLU between, with biases), through any of the
+paper's execution paths (``moe_impl``):
+
+  "hexa"        the expert-specific ops (the paper's method):
+                ``parallel.moe_parallel.moe_layer`` -> ``core.espec.
+                moe_mlp`` -> ``kernels.ops.esffn_mlp``
+  "tutel"       dispatch/combine into a capacity buffer of
+                ``ParallelConfig.capacity_factor`` (``core.baselines.
+                dispatch_combine_moe``: pads and drops)
+  "megablocks"  the worst-case-capacity grouped dense GEMM
+                (``core.baselines.grouped_dense_moe``: pads, never drops)
+
+The baselines route the flat tokens with ``core.routing.route`` as the
+hexa path does, so all three see the same ``RouterOutput``.
 
 As in the JAX package, shifted windows roll without the cross-window
 attention mask, and the window is clamped to the feature map (a 7 x 7 map
@@ -36,6 +45,8 @@ from repro_torch.common import (
     tree_map,
 )
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import baselines
+from repro_torch.core.routing import route
 from repro_torch.optim import adamw
 from repro_torch.parallel.moe_parallel import MoEStatic, moe_layer
 from repro_torch.parallel.sharding import ParallelConfig, normal_init
@@ -193,26 +204,41 @@ def _window_attention(p, x, heads, window):
     return out.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
 
 
-def _apply_moe_ffn(p, x_tokens, cfg: SwinConfig, pcfg: ParallelConfig):
-    """x_tokens: (B, L, C) -> (y, aux, z) through the expert-specific ops."""
+def _apply_moe_ffn(p, x_tokens, cfg: SwinConfig, pcfg: ParallelConfig,
+                   moe_impl: str):
+    """x_tokens: (B, L, C) -> (y, aux, z) through ``moe_impl``'s path."""
     m = cfg.moe
-    ms = MoEStatic(num_experts=m.num_experts, top_k=m.top_k, act="gelu",
-                   glu=False, norm_topk=m.norm_topk,
-                   softmax_after_topk=m.softmax_after_topk)
-    return moe_layer(x_tokens, p, ms, pcfg)
+    if moe_impl == "hexa":
+        ms = MoEStatic(num_experts=m.num_experts, top_k=m.top_k, act="gelu",
+                       glu=False, norm_topk=m.norm_topk,
+                       softmax_after_topk=m.softmax_after_topk)
+        return moe_layer(x_tokens, p, ms, pcfg)
+    bsz, seq, c = x_tokens.shape
+    xf = x_tokens.reshape(bsz * seq, c)
+    r = route(xf, p["router"], m.top_k, norm_topk=m.norm_topk,
+              softmax_after_topk=m.softmax_after_topk)
+    gelu = ACTIVATIONS["gelu"]           # tanh form, as jax.nn.gelu
+    if moe_impl == "tutel":
+        y = baselines.dispatch_combine_moe(
+            xf, r, p["w1"], p["b1"], p["w2"], p["b2"], act=gelu,
+            capacity_factor=pcfg.capacity_factor)
+    elif moe_impl == "megablocks":
+        y = baselines.grouped_dense_moe(xf, r, p["w1"], p["b1"], p["w2"],
+                                        p["b2"], act=gelu)
+    else:
+        raise ValueError(f"moe_impl {moe_impl!r}: hexa | tutel | megablocks")
+    return y.reshape(bsz, seq, c), r.aux_loss, r.z_loss
 
 
 def swin_forward(params, images: torch.Tensor, cfg: SwinConfig,
                  pcfg: ParallelConfig, mesh=None, *, moe_impl: str = "hexa"):
     """images: (B, H, W, 3) -> (logits (B, classes) f32, aux, z), the MoE
-    losses averaged over the MoE blocks."""
+    losses averaged over the MoE blocks; ``moe_impl`` is "hexa", "tutel"
+    or "megablocks" (any other raises ``ValueError`` at the first MoE
+    block)."""
     if mesh is not None:
         raise NotImplementedError("mesh islands are not ported yet "
                                   "(ROADMAP.md)")
-    if moe_impl != "hexa":
-        raise NotImplementedError(
-            f"moe_impl={moe_impl!r}: the tutel/megablocks baselines "
-            f"(core/baselines.py) are not ported yet (ROADMAP.md A.7)")
     dtype = torch_dtype(cfg.dtype)
     # The stride-p, p x p VALID patch convolution as one matmul over the
     # flattened (kh, kw, c) patches, in the HWIO weight's order.
@@ -248,7 +274,7 @@ def swin_forward(params, images: torch.Tensor, cfg: SwinConfig,
             if "moe" in blk:
                 y, aux, z = _apply_moe_ffn(blk["moe"],
                                            h.reshape(bb, hh * ww, cc), cfg,
-                                           pcfg)
+                                           pcfg, moe_impl)
                 y = y.reshape(bb, hh, ww, cc)
                 aux_total = aux_total + aux
                 z_total = z_total + z
@@ -277,12 +303,15 @@ def swin_forward(params, images: torch.Tensor, cfg: SwinConfig,
 # training
 # ---------------------------------------------------------------------------
 
-def make_loss_fn(cfg: SwinConfig, pcfg: ParallelConfig):
+def make_loss_fn(cfg: SwinConfig, pcfg: ParallelConfig, *,
+                 moe_impl: str = "hexa"):
     """``loss_fn(params, images, labels) -> (ce + 0.01 aux, metrics)``:
-    mean cross entropy of the f32 logits; the z loss is reported only."""
+    mean cross entropy of the f32 logits; the z loss is reported only.
+    ``moe_impl`` as ``swin_forward``'s."""
 
     def loss_fn(params, images, labels):
-        logits, aux, z = swin_forward(params, images, cfg, pcfg)
+        logits, aux, z = swin_forward(params, images, cfg, pcfg,
+                                      moe_impl=moe_impl)
         logp = torch.log_softmax(logits, dim=-1)
         ce = -logp.gather(-1, labels.long()[:, None]).mean()
         return ce + AUX_WEIGHT * aux, {"ce": ce, "aux_loss": aux,
@@ -292,15 +321,17 @@ def make_loss_fn(cfg: SwinConfig, pcfg: ParallelConfig):
 
 
 def make_train_step(cfg: SwinConfig, pcfg: ParallelConfig,
-                    opt_cfg: adamw.OptimizerConfig):
+                    opt_cfg: adamw.OptimizerConfig, *,
+                    moe_impl: str = "hexa"):
     """One AdamW step of Swin-MoE (``benchmarks/memory_table.py``'s
-    ``make_train_fn``, which uses ``OptimizerConfig(master_fp32=False)``).
+    ``make_train_fn``, which uses ``OptimizerConfig(master_fp32=False)``
+    and takes ``moe_impl`` the same way).
     ``train_step(params, opt_state, images, labels) -> (params, opt_state,
     metrics)``; params and opt_state are updated in place
     (``adamw.apply_updates``) and metrics are 0-d tensors on the device
     ("loss" is ce + 0.01 aux). The update runs under the profiler range
     ``train_step.adamw``."""
-    loss_fn = make_loss_fn(cfg, pcfg)
+    loss_fn = make_loss_fn(cfg, pcfg, moe_impl=moe_impl)
 
     def train_step(params, opt_state, images, labels):
         leaves = tree_leaves(params)

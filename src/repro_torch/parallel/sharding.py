@@ -1,7 +1,8 @@
 """Parallel configuration and initializers (counterpart of the parts of
 ``repro.parallel.sharding`` the ported slices need). The port runs on one
-device, so only the expert-sorted layout's block size and the training
-forward's rematerialisation are configurable."""
+device, so only the expert-sorted layout's block size, the training
+forward's rematerialisation and the Tutel baseline's capacity factor are
+configurable."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,9 +15,13 @@ class ParallelConfig:
     """blk: rows per single-expert block of the expert-sorted layout.
     remat: "block" recomputes each block's forward in the training
     backward (``torch.utils.checkpoint``; only the block inputs are
-    saved), "none" saves every activation. Serving forwards ignore it."""
+    saved), "none" saves every activation. Serving forwards ignore it.
+    capacity_factor: the capacity of ``moe_impl="tutel"``
+    (``core.baselines.dispatch_combine_moe``); the Hexa-MoE path has no
+    capacity and ignores it."""
     blk: int = 128
     remat: str = "block"          # none | block
+    capacity_factor: float = 1.25
 
     def __post_init__(self):
         if self.remat not in ("none", "block"):

@@ -218,9 +218,9 @@ def test_bias_grads_belong_to_the_mlp_expert_slice():
 
 # The route rules of the two kernels, which share the wgmma route: bf16 at
 # blk 64 or 128 with both widths multiples of 8 (TMA's 16-byte global
-# strides). esmm takes f32 with both widths multiples of 4 on the 3xTF32
-# tensor-core route (mma_tf32x3); estmm keeps f32 on f32 FMA (simt); each
-# puts everything else on simt.
+# strides), and the 3xTF32 tensor-core route (mma_tf32x3) for f32 with
+# both widths multiples of 4 (rows of whole 16-byte copies); each puts
+# everything else on simt.
 ROUTE_GRID = [
     # (dtype, blk, k, n, esmm route, estmm route)
     (torch.bfloat16, 128, 2048, 768, "wgmma", "wgmma"),
@@ -228,8 +228,8 @@ ROUTE_GRID = [
     (torch.bfloat16, 64, 2048, 768, "wgmma", "wgmma"),
     (torch.bfloat16, 64, 8, 8, "wgmma", "wgmma"),
     (torch.bfloat16, 128, 136, 200, "wgmma", "wgmma"),
-    (torch.float32, 128, 2048, 768, "mma_tf32x3", "simt"),
-    (torch.float32, 64, 384, 1536, "mma_tf32x3", "simt"),
+    (torch.float32, 128, 2048, 768, "mma_tf32x3", "mma_tf32x3"),
+    (torch.float32, 64, 384, 1536, "mma_tf32x3", "mma_tf32x3"),
     (torch.bfloat16, 32, 2048, 768, "simt", "simt"),
     (torch.bfloat16, 16, 2048, 768, "simt", "simt"),
     (torch.bfloat16, 8, 2048, 768, "simt", "simt"),
@@ -237,9 +237,9 @@ ROUTE_GRID = [
     (torch.bfloat16, 128, 2048, 770, "simt", "simt"),
     (torch.bfloat16, 64, 12, 16, "simt", "simt"),
     # the f32 route at the Swin widths, every blk, and rows of 4 floats
-    (torch.float32, 128, 1536, 384, "mma_tf32x3", "simt"),
-    (torch.float32, 8, 384, 1536, "mma_tf32x3", "simt"),
-    (torch.float32, 16, 12, 20, "mma_tf32x3", "simt"),
+    (torch.float32, 128, 1536, 384, "mma_tf32x3", "mma_tf32x3"),
+    (torch.float32, 8, 384, 1536, "mma_tf32x3", "mma_tf32x3"),
+    (torch.float32, 16, 12, 20, "mma_tf32x3", "mma_tf32x3"),
     (torch.float32, 128, 2046, 768, "simt", "simt"),
     (torch.float32, 32, 384, 1538, "simt", "simt"),
 ]
@@ -284,26 +284,31 @@ def test_esmm_wgmma_alignment_check():
 
 
 def test_estmm_wgmma_alignment_check():
+    """Both tensor-core routes (wgmma for bf16, mma_tf32x3 for f32) load
+    x1 and x2 in 16-byte copies: a misaligned operand raises before any
+    launch; the simt route (f32 rows not of whole 16-byte copies) takes
+    it."""
     be, pc = torch.zeros(2, dtype=torch.int32), torch.zeros(
         3, dtype=torch.int32)
     for dt in (torch.bfloat16, torch.float32):
         x1, x2 = torch.zeros((128, 16), dtype=dt), torch.zeros((128, 24),
                                                                dtype=dt)
         assert testmm._check_cuda_args(x1, x2, be, pc) == (128, 16, 24, 3)
+        route = "wgmma" if dt == torch.bfloat16 else "mma_tf32x3"
         for args in ((_misaligned((128, 16), dt), x2),
                      (x1, _misaligned((128, 24), dt))):
-            if dt == torch.bfloat16:
-                with pytest.raises(ValueError, match="16-byte aligned"):
-                    testmm._check_cuda_args(*args, be, pc)
-            else:
-                assert testmm._check_cuda_args(*args, be, pc) == \
-                    (128, 16, 24, 3)
+            with pytest.raises(ValueError, match=f"{route} route.*16-byte "
+                                                 f"aligned"):
+                testmm._check_cuda_args(*args, be, pc)
+    assert testmm._check_cuda_args(
+        _misaligned((128, 18), torch.float32), torch.zeros((128, 24)), be,
+        pc) == (128, 18, 24, 3)
 
 
 def test_route_counts_start_at_zero():
     """Each wrapper counts its launches per route beside the total."""
     for fn, routes in ((tesmm.esmm, {"simt", "wgmma", "mma_tf32x3"}),
-                       (testmm.estmm, {"simt", "wgmma"})):
+                       (testmm.estmm, {"simt", "wgmma", "mma_tf32x3"})):
         assert set(fn.launches_by_route) == routes
         assert all(isinstance(v, int) for v in fn.launches_by_route.values())
 

@@ -383,9 +383,8 @@ def test_entry_points_default_to_the_gpu_and_refuse_what_is_not_ported(
     cfg = tss.SMOKE_CONFIG
     params = tswin.init_swin(cfg, generator=torch.Generator(), device="cpu")
     x = torch.zeros((1, 32, 32, 3))
-    for impl in ("tutel", "megablocks"):
-        with pytest.raises(NotImplementedError, match="baselines"):
-            tswin.swin_forward(params, x, cfg, TPCFG, moe_impl=impl)
+    with pytest.raises(ValueError, match="moe_impl 'deepspeed'"):
+        tswin.swin_forward(params, x, cfg, TPCFG, moe_impl="deepspeed")
     with pytest.raises(NotImplementedError, match="mesh"):
         tswin.swin_forward(params, x, cfg, TPCFG, mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

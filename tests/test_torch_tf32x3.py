@@ -22,10 +22,11 @@ two TF32 values is exact in f32).
   within ``GEMM_TOL["float32"]`` and ``SWIN_KERNEL_TOL``: ``esmm`` in both
   weight orientations at the Swin stage-2 and the LM expert widths;
   ``esfk`` with its row split, its fixed-order merge and its db summation
-  order. With bf16 xs (8-bit weights), lo(x) = 0 and the route takes two
-  products, not three: the same bits. The gap between ``esfk`` in 3xTF32
-  and ``estmm``'s f32 FMA (the Fig. 12 ablation of ``chip_smoke.py``
-  phase 11) is predicted as a share of ``SWIN_ABLATION_TOL``. What the
+  order, and its no-db form, ``estmm``'s f32 route. With bf16 xs (8-bit weights), lo(x) = 0 and the route takes two
+  products, not three: the same bits. The Fig. 12 ablation of
+  ``chip_smoke.py`` phase 11 runs both dW on the same kernel; the gap
+  between ``esfk`` in 3xTF32 and ``estmm``'s f32 FMA (its simt route) is
+  predicted as a share of ``SWIN_ABLATION_TOL``. What the
   models leave out: the tensor core's own rounding inside one k step's
   products, which the promotion keeps to one step's partial sum."""
 import importlib.util
@@ -37,7 +38,7 @@ import torch
 
 from repro_torch.common import ACTIVATIONS
 from repro_torch.core.reindex import build_reindex, gather_rows
-from repro_torch.kernels import esffn, esfk, esmm
+from repro_torch.kernels import esffn, esfk, esmm, estmm
 from repro_torch.quant.core import dequantize_blockwise, quantize_blockwise
 
 torch.set_num_threads(1)
@@ -246,13 +247,14 @@ def test_esmm_8bit_bf16_xs_two_products_equal_three(mode, transpose_rhs):
     assert two.dtype == plain.dtype == torch.bfloat16
 
 
-def esfk_model(x1, x2, counts, splits, bk=32):
+def esfk_model(x1, x2, counts, splits, bk=32, with_db=True):
     """esfk's tensor-core kernel: each expert's run of rows (the tail past
     the counts to the last expert) cut into ``splits`` runs of whole
     32-row slices; each run's dW by promoted 3xTF32 steps from 0, its db
     as two row lanes (rows 0-15 and 16-31 of every slice, each summed in
     row order) added in order; then the runs summed in run order. An
-    expert with no rows gets exact zeros."""
+    expert with no rows gets exact zeros. ``with_db=False`` is estmm's
+    mma_tf32x3 route, the same kernel without db: dW alone."""
     np_rows, e = x1.shape[0], counts.shape[0]
     dw = torch.zeros((e, x1.shape[1], x2.shape[1]))
     db = torch.zeros((e, x2.shape[1]))
@@ -275,7 +277,7 @@ def esfk_model(x1, x2, counts, splits, bk=32):
         dw[i], db[i] = parts_w[0], parts_b[0]
         for pw, pb in zip(parts_w[1:], parts_b[1:]):
             dw[i], db[i] = dw[i] + pw, db[i] + pb
-    return dw, db
+    return (dw, db) if with_db else dw
 
 
 @pytest.mark.parametrize("splits", [1, 3])
@@ -299,6 +301,30 @@ def test_esfk_tf32x3_within_the_swin_kernel_limit(splits):
     assert not mw[1].any() and not mb[1].any()
 
 
+@pytest.mark.parametrize("splits", [1, 3])
+def test_estmm_tf32x3_no_db_within_the_f32_gemm_limit(splits):
+    """estmm's mma_tf32x3 route (esfk's kernel without db) at a small
+    ragged layout: blk 8, runs of 24, 0 and 40 rows plus a tail block of
+    the last expert, D1 12 and D2 20 (three whole 16-byte copies and a
+    partial tile): within GEMM_TOL["float32"] of estmm_plain, the empty
+    expert exactly 0, and dW the same bits as esfk's."""
+    cs = _load_chip_smoke()
+    be = torch.tensor([0, 0, 0, 2, 2, 2, 2, 2, 2], dtype=torch.int32)
+    counts = torch.tensor([24, 0, 40], dtype=torch.int32)
+    g = torch.Generator().manual_seed(8)
+    x1 = torch.randn((72, 12), generator=g)
+    x2 = torch.randn((72, 20), generator=g)
+    assert estmm._route(torch.float32, 8, 12, 20) == "mma_tf32x3"
+    want = estmm.estmm_plain(x1, x2, be, counts)
+    got = esfk_model(x1, x2, counts, splits, with_db=False)
+    ratio = (got - want).abs().max().item() / (
+        cs.GEMM_TOL["float32"] * want.abs().max().item())
+    print(f"estmm 3xTF32 splits {splits}: {ratio:.3g} x GEMM_TOL")
+    assert ratio <= 0.25
+    assert not got[1].any()
+    assert torch.equal(got, esfk_model(x1, x2, counts, splits)[0])
+
+
 def estmm_simt_model(x1, x2):
     """estmm's f32 simt kernel for one expert: each output summed over the
     rows in row order, in f32 (a multiply and an add rounded apart here,
@@ -310,12 +336,16 @@ def estmm_simt_model(x1, x2):
 
 
 def test_esfk_fused_vs_unfused_gap_is_inside_the_ablation_limit():
-    """The prediction for phase 11's ablation: the fused backward's dW
-    (esfk, 3xTF32, 6 splits as at stage 2) against the unfused one's
-    (estmm's f32 simt sum in row order) over one expert of 3,264 rows (the
-    stage-2 mean) at D1 384, as a share of SWIN_ABLATION_TOL x max|dW|:
-    0.24 on the CPU, almost all of it the row-order f32 sum's own error
-    (3xTF32 against f64: 0.02)."""
+    """The prediction for phase 11's ablation, over one expert of 3,264
+    rows (the stage-2 mean) at D1 384, 6 splits as at stage 2: the
+    unfused backward's dW (estmm's mma_tf32x3 route, esfk's kernel without
+    db at the same splits) is the fused one's (esfk) bit for bit, so on
+    the card only db's summation order (ESS against esfk's row lanes) and
+    the grads' atomic adds are left to move the grads. Rows that are not
+    whole 16-byte copies would take estmm's f32 simt sum in row order: that
+    gap, as a share of SWIN_ABLATION_TOL x max|dW|, is 0.24 on the CPU,
+    almost all of it the row-order f32 sum's own error (3xTF32 against
+    f64: 0.02)."""
     cs = _load_chip_smoke()
     be, counts, g = _blocks([26], 1, seed=6)
     counts[0] = 3264
@@ -323,6 +353,8 @@ def test_esfk_fused_vs_unfused_gap_is_inside_the_ablation_limit():
     x2 = torch.randn((3328, 384), generator=g)
     x1[3264:] = 0.0
     fused = esfk_model(x1, x2, counts, splits=6)[0][0]
+    assert torch.equal(fused, esfk_model(x1, x2, counts, splits=6,
+                                         with_db=False)[0])
     unfused = estmm_simt_model(x1[:3264], x2[:3264])
     exact = x1.double().t() @ x2.double()
     lim = cs.SWIN_ABLATION_TOL * unfused.abs().max().item()
@@ -380,6 +412,25 @@ def test_esfk_split_plan(np_rows, d1, d2, splits):
     """Six waves' worth of CTAs on an H100's 132 SMs, at least 512 rows a
     split of an expert's mean run, at least one split."""
     assert esfk._plan(np_rows, d1, d2, 8, 132) == splits
+
+
+@pytest.mark.parametrize("with_db", [True, False])
+def test_split_workspace_holds_the_kernel_layout(with_db):
+    """esfk.cu's split partials: (tiles, splits, 128 x 128) f32 of dW,
+    then (E, D2 tiles, splits, 128) of db unless the launch is estmm's
+    (no db); one ticket a tile; nothing for one split."""
+    esfk._WORKSPACE.clear()
+    try:
+        dev = torch.device("cpu")
+        assert esfk._split_workspace(dev, 384, 1536, 8, 1) == (None, None)
+        esfk._split_workspace(dev, 384, 1536, 8, 6, with_db=with_db)
+        parts, tickets = esfk._WORKSPACE[dev.index]
+        tiles = 3 * 12 * 8
+        assert tickets.numel() == tiles and not tickets.any()
+        assert parts.numel() == tiles * 6 * 128 * 128 + (
+            8 * 12 * 6 * 128 if with_db else 0)
+    finally:
+        esfk._WORKSPACE.clear()
 
 
 def test_esfk_tensor_core_routes_refuse_misaligned_operands():
