@@ -48,8 +48,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    negative control (the plain output with a scale grid read on the wrong
    axes) must fail the limit.
 4. Reference phase: a 2-layer model at qwen3-moe-30b-a3b's full width in
-   float32 served on the GPU (the kernels) and on the CPU (the plain
-   versions) from the same weights must give the same greedy tokens.
+   float32 serves 3 prompts through the dense ``BatchedServer`` on the GPU
+   (the kernels); its greedy tokens must equal those of ``PagedServer`` and
+   of the batch-1 ``reference_stream``, each on the GPU and on the CPU (the
+   plain versions), from the same weights.
    Q2. The same with int8 experts and an int8 KV cache (greedy tokens
    equal); one loss forward and backward of it with the experts frozen
    (loss and every float grad leaf as phase 7; 5 int8 ``esmm`` launches a
@@ -61,7 +63,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    61 GB of bf16 weights from a seeded generator) serves 16 greedy requests
    (8-token prompts, 16 new tokens) through ``PagedServer`` with 8 slots and
    16-token pages. The kernels' launch counts are set to 0 just before and
-   read just after; both must be positive.
+   read just after; both must be positive. Then the same 16 requests run
+   through the dense ``BatchedServer`` (8 slots, ``max_seq`` 128) on the
+   same weights, ``esffn_glu``'s counts set to 0 just before: positive
+   after, every launch on the stream route, 16 in-vocabulary tokens a
+   request, and the dense KV rectangle's bytes larger than the page pool's.
+   Its macro-step median, tok/s, TTFT and peak are printed, and how many
+   of its bf16 streams equal the paged engine's (48 bf16 layers round the
+   two attention paths differently, so equality is asserted in phase 4).
    Q3. The same serve with int8 expert weights (drawn and quantized layer
    by layer, about 32 GB) and int8 KV pages, then 4 requests with fp8
    experts: the 8-bit launch counts, set to 0 just before, must be one
@@ -167,17 +176,24 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    and grads through megablocks must match hexa's within
    ``SWIN_KERNEL_TOL``, through tutel at an ample capacity megablocks' bit
    for bit, and through tutel at a tight capacity megablocks' with the
-   dropped copies' gates 0; then Swin-MoE-Small and -Base at full width
-   and depth, f32, ``T78_EXPERTS`` experts, top-k in ``T78_TOP_K``, batch
-   ``T78_BATCH``, each through hexa, tutel (capacity factor 1.25) and
-   megablocks (``make_train_step(..., moe_impl=...)``): a fresh seeded
-   state a cell, one warm-up step (counting the rows the expert GEMMs
-   compute, the copies tutel drops and each MoE block's top-1 picks), then
-   ``T78_STEPS`` timed steps, with the predicted and the measured peak
-   memory; every loss finite, hexa's and megablocks' first losses within
+   dropped copies' gates 0 (the bytes each forward keeps for its backward
+   are recorded); then Swin-MoE-Small and -Base at full width and depth,
+   f32, at every point of ``T78_AXES`` (8 experts, top-1/2, batch
+   64; Table 8's 4 experts at top-k 1-4, batch 32, and at top-1, batch
+   16-128; Table 7's 8 experts at top-k 1, 2, 4, 8, batch 16), each
+   through hexa, tutel (capacity factor 1.25) and megablocks
+   (``make_train_step(..., moe_impl=...)``): a fresh seeded state a cell
+   and its peak predicted (a cell predicted past ``T78_PEAK_LIMIT_GB`` is
+   listed as not run), one warm-up step (counting the rows the expert
+   GEMMs compute, the copies tutel drops, each MoE block's top-1 picks and
+   the bytes allocated at the end of its forward), then ``T78_STEPS``
+   timed steps, with the measured peak and the allocator's peaks; every
+   loss finite, hexa's and megablocks' first losses within
    ``T78_LOSS_RTOL``; hexa's speed-up over each baseline and its share of
-   their peaks; then tutel and megablocks on Small at top-1 with TF32
-   allowed in cuBLAS. The baselines launch no hand-written kernel.
+   their peaks at each point, and along each axis how they grow from the
+   first point to the last; then tutel and megablocks on Small at top-1
+   with TF32 allowed in cuBLAS. The baselines launch no hand-written
+   kernel.
 
 The Swin state is then freed, and the flash-attention slice runs (no model
 path of either package calls it, so its public entry point is its path):
@@ -255,23 +271,47 @@ SWIN_ABLATION_TOL = 1e-5                          # x max|grad| of the leaf
 SWIN_BATCH, SWIN_STEPS = 128, 3
 SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
 # Phase T7/8, the paper's Tables 7/8 on the card: Swin-MoE-Small and -Base
-# at full width and depth, f32, 8 experts, top-1 and top-2, blk 128, batch
-# 64 (every activation is kept, and megablocks' buffer of E N k rows a MoE
-# block adds about 229 MB (Small) or 305 MB (Base) x batch x k: 39 GB for
-# Base at top-2), hexa against tutel (capacity factor 1.25) and megablocks.
+# at full width and depth, f32, blk 128, hexa against tutel (capacity
+# factor 1.25) and megablocks, along these axes, each a list of points
+# (config, experts, top-k, batch): the first grid (8 experts, top-1 and top-2,
+# batch 64: every activation is kept, and megablocks' buffer of E N k rows
+# a MoE block adds about 229 MB (Small) or 305 MB (Base) x batch x k);
+# Table 8's latency grid (benchmarks/latency_table.py: Small, 4 experts,
+# top-k 1-4, batch 32) and its batch axis (top-1 at batch 16, 32, 64 and
+# 128; the batch-32 point is the grid's cell); Table 7's memory against
+# top-k (benchmarks/memory_table.py: 8 experts, top-k 1, 2, 4, 8, batch 16).
 T78_CONFIGS = ("swin_moe_small", "swin_moe_base")
 T78_TOP_K = (1, 2)
 T78_IMPLS = ("hexa", "tutel", "megablocks")
 T78_EXPERTS, T78_BATCH, T78_STEPS = 8, 64, 3
-# Predicted peak memory of a cell (GB): 16 bytes a parameter (weights,
-# grads, AdamW m and v), the activations outside the expert FFNs an image,
-# and each MoE block's expert rows x (2D + 2F) x 4 bytes (the dispatched
-# input and the output, the FFN's pre- and post-activation h): N k rows
-# for hexa, E C for the baselines. The per-image figure is Swin-MoE-
-# Small's peak at batch 128 on an H100 in phase 11 (27.82 GB) less its
-# state (2.51 GB) and its hexa MoE rows (3.66 GB), over 128 images; Base's
-# is that times its 4/3 wider channels.
-T78_ACT_GB_PER_IMAGE = {"swin-moe-small": 0.169, "swin-moe-base": 0.225}
+T78_AXES = {
+    **{f"table7_batch64_{c[9:]}": [(c, T78_EXPERTS, k, T78_BATCH)
+                                   for k in T78_TOP_K] for c in T78_CONFIGS},
+    "table8_topk": [("swin_moe_small", 4, k, 32) for k in (1, 2, 3, 4)],
+    "table8_batch": [("swin_moe_small", 4, 1, b) for b in (16, 32, 64, 128)],
+    **{f"table7_topk_{c[9:]}": [(c, 8, k, 16) for k in (1, 2, 4, 8)]
+       for c in T78_CONFIGS},
+}
+# A cell whose predicted peak passes this is not run (the card holds 80 GB):
+# it is printed and listed as "not run", the analogue of an out-of-memory
+# entry in the paper's tables.
+T78_PEAK_LIMIT_GB = 72.0
+# Predicted peak memory of a cell (GB), from what each path keeps for its
+# backward: 16 bytes a parameter (weights, grads, AdamW m and v); the
+# activations outside the expert FFNs, an image; each MoE block's kept
+# expert rows: hexa none (its fused FFN saves x, the router's input, which
+# is kept anyway, and the row maps; z and h are recomputed in the
+# backward), tutel and megablocks E C (D + 2F) x 4 bytes (the dispatch
+# buffer, the pre- and post-activation h) + N k D x 4 (the combine's
+# gathered copies); and the largest MoE block's backward transient: hexa
+# N k (2D + 4F) x 4 (xs, dxs, z, h, t, dz), the baselines E C F x 4 (their
+# backward frees each kept tensor as it makes the grad that replaces it).
+# The per-image figure is Swin-MoE-Small's peak at batch 128 on an H100 in
+# phase 11 (27.82 GB) less its state (2.51 GB) and its hexa transient
+# (0.69 GB), over 128 images; Base's is that times its 4/3 wider channels.
+# (An earlier form charged hexa N k (2D + 2F) x 4 a MoE block as well, and
+# took that charge out of the per-image figure: PERF.md §7.)
+T78_ACT_GB_PER_IMAGE = {"swin-moe-small": 0.1923, "swin-moe-base": 0.2564}
 # Set before the first run. Layer level (Swin stage 2 at batch 64, top-2,
 # one fixed RouterOutput): megablocks vs hexa, output and every grad within
 # SWIN_KERNEL_TOL (the same products: cuBLAS f32 FMA against the 3xTF32
@@ -2107,11 +2147,17 @@ def _t78_layer_checks(torch):
     gelu = ACTIVATIONS["gelu"]
     names = ("y", "dx", "dw1", "db1", "dw2", "db2", "dgates")
 
+    kept = {}
+
     def run(impl, **kw):
-        """(y, grads of sum(y * cot) by x, w1, b1, w2, b2, gates)."""
+        """(y, grads of sum(y * cot) by x, w1, b1, w2, b2, gates). The
+        first call of each impl records the bytes its forward leaves
+        allocated besides y: what the layer keeps for its backward."""
         x = x0.clone().requires_grad_()
         ws = [w.clone().requires_grad_() for w in ws0]
         gates = r0.gates.clone().requires_grad_()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
         if impl == "hexa":
             ri = build_reindex(r0.expert_idx, gates, e, 128)
             y = espec.moe_mlp(x, ri, *ws)
@@ -2121,6 +2167,9 @@ def _t78_layer_checks(torch):
             fn = (baselines.grouped_dense_moe if impl == "megablocks"
                   else baselines.dispatch_combine_moe)
             y = fn(x, r, *ws, act=gelu, **kw)
+        torch.cuda.synchronize()
+        kept.setdefault(impl, torch.cuda.memory_allocated() - before
+                        - y.numel() * y.element_size())
         grads = torch.autograd.grad((y * cot).sum(), [x, *ws, gates])
         torch.cuda.synchronize()
         return [y.detach(), *grads]
@@ -2150,33 +2199,52 @@ def _t78_layer_checks(torch):
     mega0 = run("megablocks", keep=keep.float())
     worst["tutel_tight_vs_megablocks_gates_0"] = worst_of(
         f"tutel C {cap}", tight, mega0)
+    # T78_ACT_GB_PER_IMAGE's kept bytes at this layer: hexa none, the
+    # baselines E C (D + 2F) + N k D floats (tutel at C = N k, as megablocks)
+    formula = {"hexa": 0, "megablocks": (e * n * k * (d + 2 * f)
+                                         + n * k * d) * 4}
+    formula["tutel"] = formula["megablocks"]
     print(f"[t78] layer checks at stage 2 (N {n}, D {d}, F {f}, top-{k} of "
           f"{e}): worst err / limit {worst}; tutel at C {cap} drops "
-          f"{dropped} of {n * k} copies")
-    return {**worst, "tight_capacity": cap, "tight_dropped": dropped}
+          f"{dropped} of {n * k} copies; bytes the forward keeps for the "
+          f"backward (measured / formula, MB): "
+          + ", ".join(f"{i} {kept[i] / 1e6:.1f} / {formula[i] / 1e6:.1f}"
+                      for i in ("hexa", "tutel", "megablocks")))
+    return {**worst, "tight_capacity": cap, "tight_dropped": dropped,
+            "kept_bytes": kept, "kept_bytes_formula": formula}
 
 
-def _t78_predicted_gb(cfg, impl, n_params):
+def _t78_predicted_gb(cfg, impl, n_params, batch):
     """The cell's predicted peak (GB), as T78_ACT_GB_PER_IMAGE says."""
     from repro_torch.core.baselines import tutel_capacity
 
     e, k = cfg.moe.num_experts, cfg.moe.top_k
-    moe = 0
+    kept = transient = 0
     for s, depth in enumerate(cfg.depths):
+        blocks = sum(cfg.is_moe_block(s, b) for b in range(depth))
+        if not blocks:
+            continue
         side = cfg.img_size // cfg.patch_size >> s
-        n, d = T78_BATCH * side * side, cfg.dims[s]
-        rows = {"hexa": n * k, "tutel": e * tutel_capacity(n, k, e, 1.25),
-                "megablocks": e * n * k}[impl]
-        moe += sum(cfg.is_moe_block(s, b) for b in range(depth)) * rows \
-            * (2 * d + 2 * int(cfg.mlp_ratio * d)) * 4
-    return (16 * n_params + moe) / 1e9 \
-        + T78_ACT_GB_PER_IMAGE[cfg.name] * T78_BATCH
+        n, d = batch * side * side, cfg.dims[s]
+        f = int(cfg.mlp_ratio * d)
+        if impl == "hexa":
+            transient = max(transient, n * k * (2 * d + 4 * f) * 4)
+            continue
+        cap = n * k if impl == "megablocks" else tutel_capacity(n, k, e,
+                                                                 1.25)
+        kept += blocks * (e * cap * (d + 2 * f) + n * k * d) * 4
+        transient = max(transient, e * cap * f * 4)
+    return (16 * n_params + kept + transient) / 1e9 \
+        + T78_ACT_GB_PER_IMAGE[cfg.name] * batch
 
 
-def _t78_cell(torch, cfg, impl):
-    """One cell: a fresh seeded state, one warm-up step with the counting
-    spies on (rows the expert GEMMs compute, the copies tutel drops, each
-    MoE block's top-1 picks), then T78_STEPS timed steps."""
+def _t78_cell(torch, cfg, impl, batch):
+    """One cell: a fresh seeded state and its predicted peak (a cell
+    predicted past T78_PEAK_LIMIT_GB is not run); one warm-up step with the
+    counting spies on (rows the expert GEMMs compute, the copies tutel
+    drops, each MoE block's top-1 picks, the bytes allocated before the
+    step and at the end of its forward), then T78_STEPS timed steps; the
+    allocator's peaks (``torch.cuda.memory_stats``) at the end."""
     import math
     from repro_torch.common import tree_leaves
     from repro_torch.core import baselines, espec
@@ -2190,16 +2258,43 @@ def _t78_cell(torch, cfg, impl):
     opt_cfg = adamw.OptimizerConfig(master_fp32=False)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = swin.init_swin(cfg, generator=gen, device="cuda")
-    opt_state = adamw.init_opt_state(params, opt_cfg)
-    batches = [swin.synthetic_batch(cfg, T78_BATCH, generator=gen,
-                                    device="cuda")
-               for _ in range(T78_STEPS + 1)]
     n_params = sum(t.numel() for t in tree_leaves(params))
-    predicted = _t78_predicted_gb(cfg, impl, n_params)
-    print(f"[t78] {cfg.name} top-{cfg.moe.top_k} {impl}"
-          f"{' (TF32 cuBLAS)' if torch.backends.cuda.matmul.allow_tf32 else ''}"
-          f": predicted peak {predicted:.2f} GB")
-    train_step = swin.make_train_step(cfg, pcfg, opt_cfg, moe_impl=impl)
+    predicted = _t78_predicted_gb(cfg, impl, n_params, batch)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    tag = (f"{cfg.name} {cfg.moe.num_experts} experts top-{cfg.moe.top_k} "
+           f"batch {batch} {impl}{' (TF32 cuBLAS)' if tf32 else ''}")
+    cell = {"config": cfg.name, "experts": cfg.moe.num_experts,
+            "top_k": cfg.moe.top_k, "impl": impl, "tf32": tf32,
+            "batch": batch, "params": n_params,
+            "predicted_peak_gb": predicted}
+    if predicted > T78_PEAK_LIMIT_GB:
+        print(f"[t78] {tag}: not run: predicted {predicted:.2f} GB")
+        return {**cell, "not_run": f"predicted {predicted:.2f} GB"}
+    print(f"[t78] {tag}: predicted peak {predicted:.2f} GB")
+    opt_state = adamw.init_opt_state(params, opt_cfg)
+    batches = [swin.synthetic_batch(cfg, batch, generator=gen, device="cuda")
+               for _ in range(T78_STEPS + 1)]
+    anatomy = {}
+    real_loss = swin.make_loss_fn
+
+    def make_loss_fn(*a, **kw):
+        fn = real_loss(*a, **kw)
+
+        def loss_fn(*a, **kw):
+            out = fn(*a, **kw)
+            if "saved_gb" not in anatomy:          # the warm-up's forward
+                torch.cuda.synchronize()
+                anatomy["saved_gb"] = (torch.cuda.memory_allocated() / 1e9
+                                       - anatomy["state_gb"])
+            return out
+
+        return loss_fn
+
+    swin.make_loss_fn = make_loss_fn
+    try:
+        train_step = swin.make_train_step(cfg, pcfg, opt_cfg, moe_impl=impl)
+    finally:
+        swin.make_loss_fn = real_loss
 
     def run(i):
         torch.cuda.synchronize()
@@ -2237,7 +2332,10 @@ def _t78_cell(torch, cfg, impl):
     espec.build_reindex = reindexing
     baselines.dispatch_combine_moe = dispatching
     try:
+        torch.cuda.synchronize()
+        anatomy["state_gb"] = torch.cuda.memory_allocated() / 1e9
         first, _ = run(0)                 # warm-up, counted, untimed
+        anatomy["warmup_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     finally:
         (espec.route, swin.route, espec.build_reindex,
          baselines.dispatch_combine_moe) = real
@@ -2247,30 +2345,102 @@ def _t78_cell(torch, cfg, impl):
         times.append(dt)
         log.append(m)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    stats = torch.cuda.memory_stats()
+    anatomy.update({f"{key.split('_bytes')[0]}_peak_gb":
+                    stats.get(f"{key}.all.peak", 0) / 1e9 for key in (
+                        "allocated_bytes", "requested_bytes",
+                        "reserved_bytes", "inactive_split_bytes")})
+    anatomy["alloc_retries"] = stats.get("num_alloc_retries", 0)
     if not all(math.isfinite(m["loss"]) for m in log):
-        raise AssertionError(f"T7/8 {cfg.name} top-{cfg.moe.top_k} {impl}: "
-                             f"non-finite loss {log}")
+        raise AssertionError(f"T7/8 {tag}: non-finite loss {log}")
     med = statistics.median(times)
     del params, opt_state, batches
-    return {"config": cfg.name, "top_k": cfg.moe.top_k, "impl": impl,
-            "tf32": torch.backends.cuda.matmul.allow_tf32,
-            "batch": T78_BATCH, "params": n_params,
-            "step_median_ms": med * 1e3, "step_times_s": times,
-            "images_per_s": T78_BATCH / med, "peak_allocated_gb": peak,
-            "predicted_peak_gb": predicted,
+    return {**cell, "step_median_ms": med * 1e3, "step_times_s": times,
+            "images_per_s": batch / med, "peak_allocated_gb": peak,
+            "memory": anatomy,
             "expert_rows_per_step": count["rows"],
             "dropped_copies_per_step": count["dropped"],
             "first_loss": first["loss"], "losses": [m["loss"] for m in log],
             "picks": count["picks"]}
 
 
+def _t78_point(torch, cfg, batch):
+    """One grid point through the three implementations: their cells, and
+    hexa's speed-up over and memory share of each baseline that ran; hexa's
+    and megablocks' first losses (the same weights and images) within
+    T78_LOSS_RTOL where both ran."""
+    row = {}
+    for impl in T78_IMPLS:
+        c = row[impl] = _t78_cell(torch, cfg, impl, batch)
+        if "not_run" not in c:
+            print(f"[t78] {cfg.name} top-{cfg.moe.top_k} batch {batch} "
+                  f"{impl}: step {c['step_median_ms']:.1f} ms, "
+                  f"{c['images_per_s']:.1f} images/s, peak "
+                  f"{c['peak_allocated_gb']:.2f} GB (predicted "
+                  f"{c['predicted_peak_gb']:.2f}; state "
+                  f"{c['memory']['state_gb']:.2f}, kept by the forward "
+                  f"{c['memory']['saved_gb']:.2f}), expert rows a step "
+                  f"{c['expert_rows_per_step']}, dropped copies "
+                  f"{c['dropped_copies_per_step']}, first loss "
+                  f"{c['first_loss']!r}")
+    h, mb = row["hexa"], row["megablocks"]
+    s_ = {"config": cfg.name, "experts": cfg.moe.num_experts,
+          "top_k": cfg.moe.top_k, "batch": batch,
+          "not_run": [i for i, c in row.items() if "not_run" in c]}
+    if "not_run" not in h and "not_run" not in mb:
+        rel = abs(h["first_loss"] - mb["first_loss"]) / abs(mb["first_loss"])
+        if len(h["picks"]) != len(mb["picks"]) or not rel <= T78_LOSS_RTOL:
+            raise AssertionError(f"T7/8 {cfg.name} top-{cfg.moe.top_k} batch "
+                                 f"{batch}: first loss hexa "
+                                 f"{h['first_loss']} vs megablocks "
+                                 f"{mb['first_loss']} (rel {rel})")
+        s_["first_loss_rel_diff_hexa_megablocks"] = rel
+        s_["top1_flips_per_moe_block"] = [
+            int((a != b).sum()) for a, b in zip(h["picks"], mb["picks"])]
+    for b in ("tutel", "megablocks"):
+        if "not_run" in h or "not_run" in row[b]:
+            continue
+        s_[f"speedup_vs_{b}"] = (row[b]["step_median_ms"]
+                                 / h["step_median_ms"])
+        s_[f"memory_share_of_{b}"] = (h["peak_allocated_gb"]
+                                      / row[b]["peak_allocated_gb"])
+    parts = [f"hexa {s_[f'speedup_vs_{b}']:.3f} x {b}'s speed and "
+             f"{s_[f'memory_share_of_{b}']:.3f} of its peak"
+             for b in ("tutel", "megablocks") if f"speedup_vs_{b}" in s_]
+    if "top1_flips_per_moe_block" in s_:
+        parts.append(f"first losses "
+                     f"{s_['first_loss_rel_diff_hexa_megablocks']:.3e} apart,"
+                     f" tokens whose top-1 pick differs a MoE block "
+                     f"{s_['top1_flips_per_moe_block']}")
+    if s_["not_run"]:
+        parts.append(f"not run: {s_['not_run']}")
+    print(f"[t78] {cfg.name} {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.top_k} batch {batch}: " + "; ".join(parts))
+    return row, s_
+
+
+def _t78_axis(points):
+    """An axis's hexa-vs-baseline ratios at each point, and each ratio's
+    growth from the first to the last point that has it."""
+    out = {}
+    for key in ("speedup_vs_tutel", "speedup_vs_megablocks",
+                "memory_share_of_tutel", "memory_share_of_megablocks"):
+        vals = [p.get(key) for p in points]
+        have = [v for v in vals if v is not None]
+        out[key] = vals
+        out[f"{key}_last_over_first"] = (have[-1] / have[0]
+                                         if len(have) > 1 else None)
+    return out
+
+
 def tables78_phase(torch):
     """Phase T7/8: the paper's Tables 7/8 (peak memory and step time of
     hexa against tutel and megablocks) on the card: Swin-MoE-Small and
-    -Base at full width and depth, f32, T78_EXPERTS experts, top-k in
-    T78_TOP_K, batch T78_BATCH; every cell one warm-up and T78_STEPS timed
-    steps; then tutel and megablocks on Small at top-1 once more with TF32
-    allowed in cuBLAS. The layer checks run first."""
+    -Base at full width and depth, f32, at every point of T78_AXES (a
+    point shared by two axes runs once); every cell one warm-up and
+    T78_STEPS timed steps; then tutel and megablocks on Small at 8 experts,
+    top-1, batch 64 once more with TF32 allowed in cuBLAS. The layer checks
+    run first."""
     from repro_torch.configs import swin_moe_base, swin_moe_small
 
     t0 = time.perf_counter()
@@ -2278,64 +2448,46 @@ def tables78_phase(torch):
     torch.cuda.empty_cache()
     models = {"swin_moe_small": swin_moe_small.CONFIG,
               "swin_moe_base": swin_moe_base.CONFIG}
-    cells, summary = [], []
-    for key in T78_CONFIGS:
-        for k in T78_TOP_K:
-            cfg = swin_moe_small.with_experts(models[key], T78_EXPERTS, k)
-            row = {}
-            for impl in T78_IMPLS:
-                c = _t78_cell(torch, cfg, impl)
-                row[impl] = c
-                print(f"[t78] {cfg.name} top-{k} {impl}: step "
-                      f"{c['step_median_ms']:.1f} ms, "
-                      f"{c['images_per_s']:.1f} images/s, peak "
-                      f"{c['peak_allocated_gb']:.2f} GB (predicted "
-                      f"{c['predicted_peak_gb']:.2f}), expert rows a step "
-                      f"{c['expert_rows_per_step']}, dropped copies "
-                      f"{c['dropped_copies_per_step']}, first loss "
-                      f"{c['first_loss']!r}")
-            h, mb = row["hexa"], row["megablocks"]
-            rel = abs(h["first_loss"] - mb["first_loss"]) \
-                / abs(mb["first_loss"])
-            flips = [int((a != b).sum()) for a, b in zip(h["picks"],
-                                                          mb["picks"])]
-            if len(h["picks"]) != len(mb["picks"]) or not rel <= T78_LOSS_RTOL:
-                raise AssertionError(f"T7/8 {cfg.name} top-{k}: first loss "
-                                     f"hexa {h['first_loss']} vs megablocks "
-                                     f"{mb['first_loss']} (rel {rel})")
-            s_ = {"config": cfg.name, "top_k": k,
-                  "first_loss_rel_diff_hexa_megablocks": rel,
-                  "top1_flips_per_moe_block": flips}
-            for b in ("tutel", "megablocks"):
-                s_[f"speedup_vs_{b}"] = (row[b]["step_median_ms"]
-                                         / h["step_median_ms"])
-                s_[f"memory_share_of_{b}"] = (h["peak_allocated_gb"]
-                                              / row[b]["peak_allocated_gb"])
-            print(f"[t78] {cfg.name} top-{k}: hexa {s_['speedup_vs_tutel']:.3f}"
-                  f" x tutel's speed and {s_['speedup_vs_megablocks']:.3f} x "
-                  f"megablocks'; {s_['memory_share_of_tutel']:.3f} and "
-                  f"{s_['memory_share_of_megablocks']:.3f} of their peaks; "
-                  f"first losses {rel:.3e} apart; tokens whose top-1 pick "
-                  f"differs (hexa vs megablocks) a MoE block: {flips}")
-            summary.append(s_)
-            cells += row.values()
+    points, cells, axes = {}, [], {}
+    for axis, grid in T78_AXES.items():
+        for key, e, k, batch in grid:
+            if (key, e, k, batch) not in points:
+                cfg = swin_moe_small.with_experts(models[key], e, k)
+                row, s_ = _t78_point(torch, cfg, batch)
+                points[key, e, k, batch] = s_
+                cells += row.values()
+        axes[axis] = _t78_axis([points[p] for p in grid])
+        print(f"[t78] axis {axis} {[p[1:] for p in grid]} (experts, top-k, "
+              f"batch): " + "; ".join(
+                  f"{key} {[v and round(v, 3) for v in axes[axis][key]]} "
+                  f"(last / first {axes[axis][f'{key}_last_over_first']:.3f})"
+                  for key in ("speedup_vs_tutel", "speedup_vs_megablocks",
+                              "memory_share_of_tutel",
+                              "memory_share_of_megablocks")
+                  if axes[axis][f"{key}_last_over_first"] is not None))
     small1 = swin_moe_small.with_experts(models["swin_moe_small"],
                                          T78_EXPERTS, 1)
     tf32_prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         for impl in ("tutel", "megablocks"):
-            c = _t78_cell(torch, small1, impl)
+            c = _t78_cell(torch, small1, impl, T78_BATCH)
             cells.append(c)
-            print(f"[t78] {small1.name} top-1 {impl} with TF32 cuBLAS: step "
-                  f"{c['step_median_ms']:.1f} ms, {c['images_per_s']:.1f} "
-                  f"images/s, peak {c['peak_allocated_gb']:.2f} GB")
+            if "not_run" not in c:
+                print(f"[t78] {small1.name} top-1 {impl} with TF32 cuBLAS: step "
+                      f"{c['step_median_ms']:.1f} ms, "
+                      f"{c['images_per_s']:.1f} images/s, peak "
+                      f"{c['peak_allocated_gb']:.2f} GB")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32_prev
     for c in cells:
-        del c["picks"]
-    print(f"[t78] {len(cells)} cells in {time.perf_counter() - t0:.1f}s")
-    return {"layer_checks": layer, "cells": cells, "summary": summary}
+        c.pop("picks", None)
+    ran = [c for c in cells if "not_run" not in c]
+    print(f"[t78] {len(ran)} cells run, {len(cells) - len(ran)} not run "
+          f"(predicted past {T78_PEAK_LIMIT_GB} GB), in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return {"layer_checks": layer, "cells": cells,
+            "summary": list(points.values()), "axes": axes}
 
 
 def _sdpa_ms(torch, flush, q, k, v, causal):
@@ -3156,8 +3308,11 @@ def train_reference_bf16_phase(torch):
 
 
 def reference_phase(torch):
-    """2 layers at full width in f32: GPU (kernels) vs CPU (plain versions)
-    from the same weights must give the same greedy tokens."""
+    """2 layers at full width in f32: the dense ``BatchedServer`` on the GPU
+    must give the same greedy tokens as ``PagedServer`` and the batch-1
+    ``reference_stream``, each on the GPU (kernels) and on the CPU (plain
+    versions), from the same weights. Returns the tokens and each run's
+    wall time."""
     import numpy as np
     from repro_torch import configs as cfglib
     from repro_torch.common import tree_map
@@ -3167,25 +3322,54 @@ def reference_phase(torch):
 
     cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
                               num_layers=2, dtype="float32")
+    pcfg = ParallelConfig(blk=16)
     gen = torch.Generator(device="cuda").manual_seed(3)
     params = lm.init_params(cfg, generator=gen, device="cuda")
     cpu_params = tree_map(lambda t: t.cpu(), params)
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
                for _ in range(3)]
-    streams = {}
-    for device, p in (("cuda", params), ("cpu", cpu_params)):
-        server = serve.PagedServer(
-            cfg, ParallelConfig(blk=16), num_slots=2, page_size=16,
-            num_pages=9, max_pages_per_slot=4, params=p, device=device)
-        for i, pr in enumerate(prompts):
-            server.submit(serve.Request(rid=i, prompt=pr, max_new=4))
-        streams[device] = {r.rid: r.out for r in server.run()}
-    if streams["cuda"] != streams["cpu"] or len(streams["cuda"]) != 3:
-        raise AssertionError(f"reference phase: GPU tokens {streams['cuda']} "
-                             f"!= CPU tokens {streams['cpu']}")
-    print(f"[reference] 2-layer full-width f32: GPU == CPU greedy tokens "
-          f"{streams['cuda']}")
+    max_new, max_seq = 4, 64
+
+    def engine(kind, device, p):
+        if kind == "dense":
+            return serve.BatchedServer(cfg, pcfg, num_slots=2,
+                                       max_seq=max_seq, params=p,
+                                       device=device)
+        return serve.PagedServer(
+            cfg, pcfg, num_slots=2, page_size=16, num_pages=9,
+            max_pages_per_slot=4, params=p, device=device)
+
+    streams, wall = {}, {}
+    for kind, device, p in (("dense", "cuda", params),
+                            ("paged", "cuda", params),
+                            ("paged", "cpu", cpu_params),
+                            ("reference_stream", "cuda", params),
+                            ("reference_stream", "cpu", cpu_params)):
+        t0 = time.perf_counter()
+        reqs = [serve.Request(rid=i, prompt=pr, max_new=max_new)
+                for i, pr in enumerate(prompts)]
+        if kind == "reference_stream":
+            out = {r.rid: serve.reference_stream(cfg, pcfg, p, r,
+                                                 max_seq=max_seq)
+                   for r in reqs}
+        else:
+            server = engine(kind, device, p)
+            for r in reqs:
+                server.submit(r)
+            out = {r.rid: r.out for r in server.run()}
+        streams[f"{kind} {device}"] = out
+        wall[f"{kind} {device}"] = time.perf_counter() - t0
+    want = streams["dense cuda"]
+    if len(want) != 3 or any(len(o) != max_new for o in want.values()) \
+            or any(st != want for st in streams.values()):
+        raise AssertionError(f"reference phase: greedy tokens differ: "
+                             f"{streams}")
+    print(f"[reference] 2-layer full-width f32: dense BatchedServer (GPU) == "
+          f"PagedServer (GPU, CPU) == reference_stream (GPU, CPU) greedy "
+          f"tokens {want}; wall s {json.dumps(wall)}")
+    return {"tokens": {str(k): v for k, v in want.items()},
+            "engines": sorted(streams), "wall_s": wall}
 
 
 def serve_phase(torch):
@@ -3266,6 +3450,7 @@ def serve_phase(torch):
     if min(launches.values()) <= 0:
         raise AssertionError(f"serve: a kernel never launched: {launches}")
     ttft = sorted(server.ttft_s.values())
+    pool_bytes = server.pool.num_pages * server.page_bytes
     print(f"[serve] {len(done)} requests, {tokens} tokens in {wall:.3f}s "
           f"({tokens / wall:.1f} tok/s); decode step median "
           f"{statistics.median(steps) * 1e3:.2f}ms over {len(steps)} steps; "
@@ -3273,13 +3458,99 @@ def serve_phase(torch):
           f"{peak / 1e9:.2f} GB; launches {launches}; routes {routes}; pool "
           f"peak {st['peak_in_use_pages']} pages, leak-free")
     print(f"  req 0: {done[0].out}")
-    return launches, {"requests": len(done), "tokens": tokens, "wall_s": wall,
-                      "decode_step_median_ms": statistics.median(steps) * 1e3,
-                      "decode_steps": len(steps),
-                      "ttft_median_ms": statistics.median(ttft) * 1e3,
-                      "peak_allocated_gb": peak / 1e9,
-                      "launches_by_route": routes,
-                      "layers": cfg.num_layers}
+    paged_out = {r.rid: r.out for r in done}
+    dense_launches, dense = _dense_serve(
+        torch, cfg, pcfg, params, [r.prompt for r in reqs], paged_out,
+        slots, max_seq, pool_bytes)
+    return {"serve": launches, "serve_dense": dense_launches}, {
+        "requests": len(done), "tokens": tokens, "wall_s": wall,
+        "decode_step_median_ms": statistics.median(steps) * 1e3,
+        "decode_steps": len(steps),
+        "ttft_median_ms": statistics.median(ttft) * 1e3,
+        "peak_allocated_gb": peak / 1e9,
+        "launches_by_route": routes, "layers": cfg.num_layers,
+        "pool_bytes": pool_bytes,
+        "pool_peak_in_use_bytes": st["peak_in_use_bytes"], "dense": dense}
+
+
+def _dense_serve(torch, cfg, pcfg, params, prompts, paged_out, slots,
+                 max_seq, pool_bytes):
+    """Phase 5's dense run: the same requests through ``BatchedServer``
+    (``slots`` x ``max_seq`` KV rectangle) on the same weights, after one
+    unmeasured warm-up request. Returns (launches, result)."""
+    import numpy as np
+    from repro_torch.kernels import esffn
+    from repro_torch.launch import serve
+
+    def make_server():
+        return serve.BatchedServer(cfg, pcfg, num_slots=slots,
+                                   max_seq=max_seq, params=params,
+                                   device="cuda")
+
+    warm = make_server()
+    warm.submit(serve.Request(rid=-1, prompt=np.arange(8, dtype=np.int32),
+                              max_new=2))
+    warm.run()
+    del warm
+    server = make_server()
+    for i, pr in enumerate(prompts):
+        server.submit(serve.Request(rid=i, prompt=pr, max_new=16))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    esffn.esffn_glu.launches = 0
+    esffn.esffn_glu.launches_by_route = dict.fromkeys(
+        esffn.esffn_glu.launches_by_route, 0)
+    t0 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"esffn_glu": esffn.esffn_glu.launches}
+    routes = {"esffn_glu": dict(esffn.esffn_glu.launches_by_route)}
+    peak = torch.cuda.max_memory_allocated()
+    if launches["esffn_glu"] <= 0 or routes["esffn_glu"] != {
+            "stream": launches["esffn_glu"], "wgmma": 0}:
+        raise AssertionError(f"serve (dense): esffn_glu launches {launches}, "
+                             f"routes {routes}")
+    if len(done) != len(prompts) or any(len(r.out) != 16 for r in done):
+        raise AssertionError("serve (dense): not every request finished "
+                             "with 16 tokens")
+    if not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
+        raise AssertionError("serve (dense): token out of the vocabulary")
+    kv = server.kv_bytes()
+    if not kv > pool_bytes:
+        raise AssertionError(f"serve (dense): the KV rectangle ({kv} B) is "
+                             f"not larger than the page pool ({pool_bytes} B)")
+    # bf16 at 48 layers: the two attention paths round differently, so the
+    # streams may part; equal tokens are asserted in f32 (phase 4)
+    first_diff = {}
+    for r in done:
+        want = paged_out[r.rid]
+        if r.out != want:
+            first_diff[r.rid] = next(i for i, (a, b) in
+                                     enumerate(zip(r.out, want)) if a != b)
+    steps = server.decode_times_s
+    ttft = sorted(server.ttft_s.values())
+    tokens = sum(len(r.out) for r in done)
+    res = {"requests": len(done), "tokens": tokens, "wall_s": wall,
+           "tok_per_s": tokens / wall,
+           "decode_step_median_ms": statistics.median(steps) * 1e3,
+           "decode_steps": len(steps),
+           "ttft_median_ms": statistics.median(ttft) * 1e3,
+           "peak_allocated_gb": peak / 1e9, "kv_bytes": kv,
+           "pool_bytes": pool_bytes, "slots": slots, "max_seq": max_seq,
+           "launches_by_route": routes,
+           "streams_equal_to_paged": len(done) - len(first_diff),
+           "first_diff_position": first_diff}
+    print(f"[serve-dense] {len(done)} requests, {tokens} tokens in "
+          f"{wall:.3f}s ({tokens / wall:.1f} tok/s); macro-step median "
+          f"{res['decode_step_median_ms']:.2f}ms over {len(steps)} steps; "
+          f"TTFT median {res['ttft_median_ms']:.1f}ms; peak allocated "
+          f"{peak / 1e9:.2f} GB; KV rectangle {kv / 1e6:.1f} MB ({slots} x "
+          f"{max_seq}) vs the page pool's {pool_bytes / 1e6:.1f} MB; "
+          f"launches {launches}, routes {routes}; {res['streams_equal_to_paged']}"
+          f" of {len(done)} bf16 streams equal the paged engine's, the others "
+          f"part at positions {first_diff}")
+    return launches, res
 
 
 def main() -> int:
@@ -3330,12 +3601,12 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
 
-    reference_phase(torch)
+    serve_ref = reference_phase(torch)
     torch.cuda.empty_cache()
     quant_ref = quant_reference_phase(torch)
     torch.cuda.empty_cache()
-    launches, serve_res = serve_phase(torch)
-    print(f"[serve] {json.dumps(serve_res)}")
+    serve_launches, serve_res = serve_phase(torch)
+    print(f"[serve] {json.dumps({**serve_res, 'reference': serve_ref})}")
     torch.cuda.empty_cache()           # the serve phase's weights are gone
     quant_serve = quant_serve_phase(torch, serve_res["peak_allocated_gb"])
     print(f"[quant-serve] {json.dumps(quant_serve)}")
@@ -3401,10 +3672,10 @@ def main() -> int:
     del flush
     print(f"[done] every phase in {time.perf_counter() - t_start:.1f}s")
 
-    # Each kernel's launches on the main paths that ran it: the serve run
-    # (phase 5), the qwen train steps (phase 8), the Swin train steps and
-    # the unfused-backward pass (phase 11).
-    paths = {"serve": launches, "qwen_train": train_launches, **swin_launches}
+    # Each kernel's launches on the main paths that ran it: the paged and
+    # the dense serve runs (phase 5), the qwen train steps (phase 8), the
+    # Swin train steps and the unfused-backward pass (phase 11).
+    paths = {**serve_launches, "qwen_train": train_launches, **swin_launches}
     by_path = {}
     for path, counts in paths.items():
         for name, n in counts.items():
@@ -3412,6 +3683,7 @@ def main() -> int:
                 by_path.setdefault(name, {})[path] = n
 
     route_paths = {"serve": serve_res["launches_by_route"],
+                   "serve_dense": serve_res["dense"]["launches_by_route"],
                    "qwen_train": train_out["launches_by_route"],
                    **swin_out["launches_by_route"]}
 

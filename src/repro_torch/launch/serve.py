@@ -1,19 +1,24 @@
-"""Paged continuous-batching serving engine (counterpart of
-``repro.launch.serve``'s ``PagedServer`` and its CLI).
+"""Continuous-batching serving engines (counterpart of
+``repro.launch.serve``'s ``BatchedServer``, ``PagedServer``,
+``reference_stream`` and their CLI).
 
-Every occupied slot advances one token per decode macro-step over the
-shared KV page pool; admission is by free-page budget (worst-case pages
-reserved up front, so FIFO decode never starves the pool mid-request);
-prompts prefill in batch-1 chunks interleaved with the decode steps, with
-pages granted a chunk's worth at a time and on demand at decode page
-boundaries. Greedy decoding only. ``--quant int8|fp8`` serves block-wise
-8-bit expert weights (quantized layer by layer as the model is drawn) and
-``--kv-quant int8`` int8 KV pages with per-row scales, each through the
-kernels' 8-bit branches.
+``BatchedServer`` (the CLI's default) holds the dense KV rectangle
+``(slots, max_seq)`` and spends one full-batch macro-step on every prompt
+token; ``reference_stream`` is its batch-1 ground truth. ``PagedServer``
+(``--paged``): every occupied slot advances one token per decode
+macro-step over the shared KV page pool; admission is by free-page budget
+(worst-case pages reserved up front, so FIFO decode never starves the pool
+mid-request); prompts prefill in batch-1 chunks interleaved with the
+decode steps, with pages granted a chunk's worth at a time and on demand
+at decode page boundaries. Greedy decoding only. ``--quant int8|fp8``
+serves block-wise 8-bit expert weights (quantized layer by layer as the
+model is drawn) on either engine, and ``--kv-quant int8`` int8 KV pages
+with per-row scales (``--paged`` only), each through the kernels' 8-bit
+branches.
 
-Not in this slice (ROADMAP.md): the dense ``BatchedServer``, sampled
-decoding, hetero page shares, prefix cache, disaggregation, speculative
-decoding, fault handling and observability.
+Not in this slice (ROADMAP.md): sampled decoding, hetero slot and page
+shares, prefix cache, disaggregation, speculative decoding, fault handling
+and observability.
 """
 from __future__ import annotations
 
@@ -64,6 +69,158 @@ def next_token(logits_row, req: Request) -> int:
         raise NotImplementedError(_SAMPLED)
     return argmax_token(logits_row)
 
+
+def reference_stream(cfg, pcfg, params, req: Request, *, max_seq: int,
+                     step=None) -> list[int]:
+    """One-request-at-a-time dense-cache reference stream: batch-1 prefill
+    (token by token) then decode through ``next_token``, on the device the
+    params lie on: the ground truth both batched servers are held to."""
+    device = params["embed"].device
+    if step is None:
+        step = steps_lib.make_serve_step(cfg, pcfg)
+    out: list[int] = []
+    cache = lm.init_cache(cfg, 1, max_seq, device)
+
+    def feed(tok):
+        nonlocal cache
+        logits, cache = step(
+            params, {"tokens": torch.tensor([[tok]], dtype=torch.int32,
+                                            device=device)}, cache)
+        return logits[0, -1]
+
+    for tok in req.prompt:
+        logits = feed(int(tok))
+    out.append(next_token(logits, req))
+    while len(out) < req.max_new:
+        out.append(next_token(feed(out[-1]), req))
+    return out
+
+
+def greedy_reference(cfg, pcfg, params, prompt, max_new, *, max_seq: int,
+                     step=None) -> list[int]:
+    """Greedy ``reference_stream`` of one prompt."""
+    return reference_stream(
+        cfg, pcfg, params,
+        Request(rid=-1, prompt=np.asarray(prompt), max_new=max_new),
+        max_seq=max_seq, step=step)
+
+
+def _check_request(req: Request):
+    if len(req.prompt) < 1 or req.max_new < 1:
+        raise ValueError(f"request {req.rid}: empty prompt or max_new")
+    if req.temperature > 0.0:
+        raise NotImplementedError(_SAMPLED)
+
+
+# ---------------------------------------------------------------------------
+# dense engine
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _Slot:
+    req: Request
+    pos: int = 0        # prompt tokens consumed
+
+
+class BatchedServer:
+    """Dense-cache continuous batching: the KV rectangle ``(num_slots,
+    max_seq)`` is allocated up front (the memory over-allocation the paged
+    engine exists to kill) and every prompt token of every request costs
+    one full-batch macro-step. Only ``valid_slots`` (default: all) are
+    schedulable. The cache and lengths live on ``device`` (the GPU unless
+    ``device="cpu"``); the schedule lives on the host."""
+
+    def __init__(self, cfg, pcfg, *, num_slots: int, max_seq: int, params,
+                 valid_slots: Optional[list] = None, device=None):
+        self.cfg, self.pcfg = cfg, pcfg
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params lie on {params['embed'].device}, the "
+                             f"server runs on {self.device}")
+        self.num_slots = num_slots
+        self.max_seq = max_seq
+        self.params = params
+        self.cache = lm.init_cache(cfg, num_slots, max_seq, self.device)
+        self.serve_step = steps_lib.make_serve_step(cfg, pcfg)
+        self.slots: list[Optional[_Slot]] = [None] * num_slots
+        self.queue: deque[Request] = deque()
+        self.free = sorted(valid_slots if valid_slots is not None
+                           else range(num_slots), reverse=True)
+        self.decode_times_s: list = []
+        self.ttft_s: dict = {}           # rid -> first-token latency
+        self.admissions = 0
+        self._run_t0 = 0.0
+
+    def kv_bytes(self) -> int:
+        """Device bytes of the dense KV rectangle."""
+        return lm.cache_bytes(self.cache)
+
+    def submit(self, req: Request):
+        _check_request(req)
+        if len(req.prompt) + req.max_new - 1 > self.max_seq:
+            raise ValueError(
+                f"request {req.rid} needs {len(req.prompt) + req.max_new - 1}"
+                f" cache rows > max_seq {self.max_seq}")
+        self.queue.append(req)
+
+    def _admit(self):
+        while self.free and self.queue:
+            slot = self.free.pop()
+            req = self.queue.popleft()
+            self.cache = lm.reset_slot(self.cfg, self.cache, slot)
+            self.slots[slot] = _Slot(req)
+            self.admissions += 1
+
+    def _macro_step(self) -> list[Request]:
+        tokens = np.zeros((self.num_slots, 1), np.int32)
+        active = np.zeros((self.num_slots,), bool)
+        for slot, st in enumerate(self.slots):
+            if st is None:
+                continue
+            active[slot] = True
+            tokens[slot, 0] = (st.req.prompt[st.pos]
+                               if st.pos < len(st.req.prompt)
+                               else st.req.out[-1])
+        t0 = time.perf_counter()
+        logits, self.cache = self.serve_step(
+            self.params,
+            {"tokens": torch.from_numpy(tokens).to(self.device),
+             "active": torch.from_numpy(active).to(self.device)},
+            self.cache)
+        nxt = logits[:, -1].float().cpu().numpy()
+        self.decode_times_s.append(time.perf_counter() - t0)
+        done = []
+        for slot, st in enumerate(self.slots):
+            if st is None:
+                continue
+            st.pos += 1
+            if st.pos >= len(st.req.prompt):
+                if not st.req.out:
+                    self.ttft_s[st.req.rid] = \
+                        time.perf_counter() - self._run_t0
+                st.req.out.append(next_token(nxt[slot], st.req))
+                if len(st.req.out) >= st.req.max_new:
+                    done.append(st.req)
+                    self.slots[slot] = None
+                    self.free.append(slot)
+        return done
+
+    def run(self, max_steps: int = 100000) -> list[Request]:
+        """Drive admission + macro-steps until every request has finished."""
+        done: list[Request] = []
+        steps = 0
+        self._run_t0 = time.perf_counter()
+        while (self.queue or any(s is not None for s in self.slots)) \
+                and steps < max_steps:
+            self._admit()
+            done.extend(self._macro_step())
+            steps += 1
+        return done
+
+
+# ---------------------------------------------------------------------------
+# paged engine
+# ---------------------------------------------------------------------------
 
 @dataclass
 class _PagedSlot:
@@ -138,10 +295,7 @@ class PagedServer:
         return cdiv(len(req.prompt) + req.max_new - 1, self.page_size)
 
     def submit(self, req: Request):
-        if len(req.prompt) < 1 or req.max_new < 1:
-            raise ValueError(f"request {req.rid}: empty prompt or max_new")
-        if req.temperature > 0.0:
-            raise NotImplementedError(_SAMPLED)
+        _check_request(req)
         need = self._need_pages(req)
         if need > min(self.max_pages_per_slot, self.pool.num_pages - 1):
             raise ValueError(
@@ -291,14 +445,15 @@ def _unquantized_bytes(params: dict, dtype: torch.dtype) -> int:
     return total
 
 def main(argv=None):
-    """CLI entry point: paged continuous batching of random prompts
-    through a seeded random-weight model."""
+    """CLI entry point: continuous batching of random prompts through a
+    seeded random-weight model, on the dense engine or (``--paged``) the
+    paged one."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--paged", action="store_true",
-                    help="serve from the paged KV pool (the only engine "
-                         "ported so far)")
+                    help="serve from the paged KV pool (default: the dense "
+                         "(slots, max_seq) cache of BatchedServer)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--page-size", type=int, default=16)
@@ -322,10 +477,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.kv_quant != "none" and not args.paged:
         ap.error("--kv-quant requires --paged")
-    if not args.paged:
-        raise NotImplementedError(
-            "dense BatchedServer not yet ported; run with --paged "
-            "(ROADMAP.md)")
     device = resolve_device(args.device)
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
@@ -342,14 +493,19 @@ def main(argv=None):
               f"{_tree_bytes(params) / 1e6:.1f}MB")
     else:
         params = lm.init_params(cfg, generator=gen, device=device)
-    pages = args.pages or (
-        args.slots * cdiv(args.max_seq, args.page_size) // 2 + 1)
-    server = PagedServer(
-        cfg, pcfg, num_slots=args.slots, page_size=args.page_size,
-        num_pages=pages,
-        max_pages_per_slot=cdiv(args.max_seq, args.page_size),
-        params=params, prefill_chunk=args.prefill_chunk,
-        kv_quant=args.kv_quant, device=device)
+    if args.paged:
+        pages = args.pages or (
+            args.slots * cdiv(args.max_seq, args.page_size) // 2 + 1)
+        server = PagedServer(
+            cfg, pcfg, num_slots=args.slots, page_size=args.page_size,
+            num_pages=pages,
+            max_pages_per_slot=cdiv(args.max_seq, args.page_size),
+            params=params, prefill_chunk=args.prefill_chunk,
+            kv_quant=args.kv_quant, device=device)
+    else:
+        server = BatchedServer(cfg, pcfg, num_slots=args.slots,
+                               max_seq=args.max_seq, params=params,
+                               device=device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         server.submit(Request(
@@ -367,12 +523,16 @@ def main(argv=None):
         print(f"[serve] measured decode step: median "
               f"{np.median(ts) * 1e3:.1f}ms p90 "
               f"{np.percentile(ts, 90) * 1e3:.1f}ms over {len(ts)} steps")
-    st = server.stats()
-    print(f"[serve] page pool: {st['peak_in_use_pages']} peak pages "
-          f"({st['peak_in_use_bytes'] / 1024:.1f} KiB KV resident, "
-          f"{server.page_bytes} B a {server.kv_quant or cfg.dtype} page) of "
-          f"{st['num_pages'] - 1} allocatable; {st['total_allocs']} allocs, "
-          f"leak-free={st['free_pages'] == st['num_pages'] - 1}")
+    if args.paged:
+        st = server.stats()
+        print(f"[serve] page pool: {st['peak_in_use_pages']} peak pages "
+              f"({st['peak_in_use_bytes'] / 1024:.1f} KiB KV resident, "
+              f"{server.page_bytes} B a {server.kv_quant or cfg.dtype} page) "
+              f"of {st['num_pages'] - 1} allocatable; {st['total_allocs']} "
+              f"allocs, leak-free={st['free_pages'] == st['num_pages'] - 1}")
+    else:
+        print(f"[serve] dense KV cache: {server.kv_bytes() / 1024:.1f} KiB "
+              f"({args.slots} slots, max_seq {args.max_seq})")
     for r in done[:3]:
         print(f"  req {r.rid}: {r.out[:8]}...")
     return done

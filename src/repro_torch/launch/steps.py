@@ -1,5 +1,6 @@
 """Step functions (counterpart of ``repro.launch.steps``): the training
-step (loss, grads, AdamW update) and the paged serving engine's steps.
+step (loss, grads, AdamW update) and the dense and paged serving engines'
+steps.
 PyTorch runs eagerly, so a step is a plain closure; the serving chunk's
 valid count and slot arrive as host ints. One device only: the JAX
 builders' ``mesh`` is None here.
@@ -101,6 +102,37 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                                    "total_loss": total.detach()}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig):
+    """Dense-cache prefill: one forward over the whole prompt batch (every
+    prompt of the same length S), writing its K/V rows into the ``(slots,
+    max_seq)`` cache and setting every slot's length to S.
+    ``prefill_step(params, inputs, cache) -> (logits (B, 1, V) f32 of the
+    last row, cache)``; ``inputs``: tokens (B, S)."""
+
+    def prefill_step(params, inputs, cache):
+        logits, new_cache, _, _ = lm.forward(
+            params, {"tokens": inputs["tokens"]}, cfg, pcfg, mode="prefill",
+            cache=cache)
+        return logits, new_cache
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, pcfg: ParallelConfig):
+    """Dense-cache decode macro-step: one token per occupied slot
+    (``active`` (B,) bool masks the rest; absent, every slot advances).
+    ``serve_step(params, inputs, cache) -> (logits (B, 1, V) f32, cache)``;
+    ``inputs``: tokens (B, 1) and optionally active."""
+
+    def serve_step(params, inputs, cache):
+        logits, new_cache, _, _ = lm.forward(
+            params, {"tokens": inputs["tokens"]}, cfg, pcfg, mode="decode",
+            cache=cache, active=inputs.get("active"))
+        return logits, new_cache
+
+    return serve_step
 
 
 def make_paged_serve_step(cfg: ModelConfig, pcfg: ParallelConfig,

@@ -1,12 +1,14 @@
 """Attention helpers (counterpart of ``repro.models.attention``): rotary
-embeddings and the chunked-causal GQA attention of training forwards.
+embeddings, the chunked-causal GQA attention of training forwards and
+dense prefill, and the single-step decode over a dense KV cache.
 
 ``chunked_attention`` is plain PyTorch, as the JAX package computes it in
 XLA outside any Pallas kernel: an unrolled loop over query chunks where
 chunk c reads only K/V[start : (c+1)*chunk], and within a chunk an
 online-softmax loop over KV blocks. Each chunk is recomputed in the
 backward (``torch.utils.checkpoint``), so per-chunk softmax residuals
-never pile up across chunks. The dense-cache decode path is not ported.
+never pile up across chunks. ``decode_attention`` is plain PyTorch for the
+same reason: the JAX package computes it as two einsums.
 """
 from __future__ import annotations
 
@@ -114,3 +116,28 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal, window, prefix_len, scale, softcap, use_reentrant=False))
     out = torch.cat(outs, dim=1)
     return out.reshape(b, s, hq, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     scale: Optional[float] = None,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """Single-step decode. q: (B, 1, Hq, hd); caches: (B, S, Hkv, hd).
+
+    Positions ``>= cache_len`` are masked. The logits accumulate in f32,
+    then softcap and softmax; p is cast to the cache dtype before the P V
+    product (accumulated in f32), and the output back to q's dtype."""
+    b, _, hq, hd = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg.float(),
+                          k_cache.float()) * scale
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    valid = torch.arange(s, device=q.device)[None] < cache_len[:, None]
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, 1, hq, hd).to(q.dtype)

@@ -1,9 +1,13 @@
 """LM assembly (counterpart of ``repro.models.lm``): parameter init, the
-paged KV cache, and the forward pass (training, and paged serving).
+dense and the paged KV caches, and the forward pass (training, and dense
+and paged serving).
 
 The layer stack is a Python list of per-layer parameter dicts and the
 forward an unrolled loop over it (the JAX package stacks layers per period
-for ``lax.scan``; ``convert.params_from_jax`` unstacks them). The ported
+for ``lax.scan``; ``convert.params_from_jax`` unstacks them). The caches
+are per-layer lists too: the JAX dense cache's leaf ``[pos][name][j]``
+(period position ``pos``, period ``j``) is layer ``j * period + pos``
+here. The ported
 stacks are decoder-only all-attention models with GLU-expert MoE FFNs on
 every FFN layer (qwen3-moe, mixtral); other configurations raise.
 """
@@ -81,6 +85,38 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
+# dense serving cache
+# ---------------------------------------------------------------------------
+
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """Shapes and dtypes of the dense decode cache: per attention layer K
+    and V ``(batch, S_cache, Hkv, hd)`` (``S_cache = min(seq_len, window)``
+    on windowed layers), and the per-slot filled length."""
+    dtype = torch_dtype(cfg.dtype)
+    return {"layers": [tfm.cache_spec_attention(cfg, i, batch, seq_len, dtype)
+                       for i in range(cfg.num_layers)],
+            "len": ((batch,), torch.int32)}
+
+
+def _zeros_like_spec(spec: dict, device) -> dict:
+    zeros = lambda sd: torch.zeros(sd[0], dtype=sd[1], device=device)  # noqa: E731
+    return {"layers": [{k: zeros(sd) for k, sd in layer.items()}
+                       for layer in spec["layers"]],
+            "len": zeros(spec["len"])}
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
+    """The dense ``(batch, seq_len)`` KV rectangle, zeroed, on ``device``."""
+    return _zeros_like_spec(cache_spec(cfg, batch, seq_len), device)
+
+
+def cache_bytes(cache: dict) -> int:
+    """Device bytes of a cache's K/V (and scale) tensors."""
+    return sum(t.numel() * t.element_size()
+               for layer in cache["layers"] for t in layer.values())
+
+
+# ---------------------------------------------------------------------------
 # paged serving cache
 # ---------------------------------------------------------------------------
 
@@ -111,11 +147,9 @@ def paged_cache_spec(cfg: ModelConfig, num_slots: int, num_pages: int,
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
                      page_size: int, device,
                      kv_quant: Optional[str] = None) -> dict:
-    spec = paged_cache_spec(cfg, num_slots, num_pages, page_size, kv_quant)
-    zeros = lambda sd: torch.zeros(sd[0], dtype=sd[1], device=device)  # noqa: E731
-    return {"layers": [{k: zeros(sd) for k, sd in layer.items()}
-                       for layer in spec["layers"]],
-            "len": zeros(spec["len"])}
+    return _zeros_like_spec(
+        paged_cache_spec(cfg, num_slots, num_pages, page_size, kv_quant),
+        device)
 
 
 def paged_kv_page_bytes(cfg: ModelConfig, page_size: int,
@@ -135,7 +169,8 @@ def paged_kv_page_bytes(cfg: ModelConfig, page_size: int,
 def reset_slot(cfg: ModelConfig, cache: dict, slot: int,
                length: int = 0) -> dict:
     """Reset one slot's length so a new request can reuse it. K/V needs no
-    scrub: freshly granted pages are masked by ``len``."""
+    scrub: the dense buffer and freshly granted pages are both masked by
+    ``len``."""
     cache["len"][slot] = length
     return cache
 
@@ -209,26 +244,34 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
 
     ``mode="train"``: the full sequence at positions ``arange(S)``, no
     cache (the returned cache is None).
-    ``mode="decode"``: one token per slot, ``active`` (B,) bool masks
-    slots that write nothing (sink page) and do not advance.
-    ``mode="prefill"``: a chunk continuing at each slot's resident length,
-    ``active`` (B, S) marks its valid rows; logits of the last row only.
-    ``paged`` (serving): ``{"table": (B, maxp) int32, "page_size": int}``."""
+    ``mode="decode"``: one token per slot at position ``len``, ``active``
+    (B,) bool masks slots that write nothing (paged: the sink page; dense:
+    the old row written back) and do not advance.
+    ``mode="prefill"`` with ``paged``: a chunk continuing at each slot's
+    resident length, ``active`` (B, S) marks its valid rows. Without
+    ``paged``: the whole prompt at positions ``arange(S)`` into the dense
+    cache (``init_cache``; None returns no cache), every slot's length set
+    to S. Prefill gives the logits of the last row only.
+    ``paged`` (serving): ``{"table": (B, maxp) int32, "page_size": int}``;
+    None means the dense cache."""
     if mode not in ("train", "decode", "prefill"):
-        raise NotImplementedError(
-            f"forward mode {mode!r}: only training and paged serving are "
-            f"ported")
+        raise ValueError(f"forward mode {mode!r}: train | prefill | decode")
     train = mode == "train"
+    dense_prefill = mode == "prefill" and paged is None
     if train and (cache is not None or paged is not None
                   or active is not None):
         raise ValueError("paged cache / active mask are serving-side only")
+    if dense_prefill and active is not None:
+        raise ValueError("the dense prefill takes whole prompts: no active "
+                         "mask")
     dtype = torch_dtype(cfg.dtype)
     x = _embed_in(params, inputs["tokens"], cfg, dtype)
     b, s, _ = x.shape
-    if train:
+    if train or dense_prefill:
         cache_len = None
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        cache_layers = [None] * len(params["layers"])
+        cache_layers = ([None] * len(params["layers"]) if cache is None
+                        else cache["layers"])
     else:
         cache_len = cache["len"]
         positions = cache_len.long()[:, None] + torch.arange(
@@ -248,14 +291,15 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
         logits = _logits_out(params, x, cfg)
 
     n_moe = max(sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers)), 1)
-    if train:
+    if cache is None:
         return logits, None, aux / n_moe, z / n_moe
-    if active is None:
-        adv = s
+    if dense_prefill:
+        new_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    elif active is None:
+        new_len = (cache_len + s).to(torch.int32)
     elif mode == "decode":
-        adv = active.int()
+        new_len = (cache_len + active.int()).to(torch.int32)
     else:
-        adv = active.int().sum(dim=1)
-    new_cache = {"layers": new_layers,
-                 "len": (cache_len + adv).to(torch.int32)}
+        new_len = (cache_len + active.int().sum(dim=1)).to(torch.int32)
+    new_cache = {"layers": new_layers, "len": new_len}
     return logits, new_cache, aux / n_moe, z / n_moe

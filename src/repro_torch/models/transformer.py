@@ -1,10 +1,11 @@
 """Transformer building blocks (counterpart of ``repro.models.transformer``):
-norms, GQA attention (full-sequence for training, over the paged KV cache
-for serving), and the MoE FFN.
+norms, GQA attention (full-sequence for training and dense prefill, over
+the dense or the paged KV cache for serving), and the MoE FFN.
 
-Parameters are plain dicts of tensors. The paged K/V pools are updated in
-place (the JAX version returns new pools): serving holds one pool and
-never needs the old one, so the port saves the copy.
+Parameters are plain dicts of tensors. The paged K/V pools and the dense
+cache's decode rows are updated in place (the JAX version returns new
+arrays): serving holds one cache and never needs the old one, so the port
+saves the copy.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ class Ctx:
     positions: torch.Tensor             # (B, S) absolute positions
     cache_len: Optional[torch.Tensor]   # (B,) filled length before this step
     paged: Optional[dict]               # {"table": (B, maxp) i32, "page_size"}
+    #   or None: the dense (B, S_cache) cache
     decode_active: Optional[torch.Tensor] = None  # (B,) decode / (B, S)
     #   prefill mask: inactive slots and rows write to the sink page only
 
@@ -97,7 +99,7 @@ def apply_moe_ffn(p: dict, x: torch.Tensor, ctx: Ctx):
 
 
 # ---------------------------------------------------------------------------
-# GQA attention over the paged KV cache
+# GQA attention over the dense or the paged KV cache
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg: ModelConfig, dtype, generator, device) -> dict:
@@ -120,7 +122,13 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
 
     train: the full sequence attends causally to itself
     (``attention.chunked_attention``); no cache.
-    Serving reads and writes the paged KV pools of ``cache`` in place.
+    Dense serving (``ctx.paged`` None; ``cache`` from ``cache_spec_attention``):
+    prefill attends as train does over the whole prompt and returns a new
+    cache of its K/V rows (``_dense_prefill_cache``); decode writes the new
+    row at ``len % S_cache`` in place (a rolling buffer on windowed layers;
+    an inactive slot writes its old row back) and reads the cache through
+    ``attention.decode_attention`` over ``min(len + active, S_cache)`` rows.
+    Paged serving reads and writes the paged KV pools of ``cache`` in place.
     decode: one token per slot; its K/V row goes to page
     ``table[slot, len // page]`` at offset ``len % page`` (inactive slots
     to the sink page 0) and the read runs ``kernels.paged_attention``.
@@ -147,11 +155,16 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
         q = attn_lib.rope(q, ctx.positions, cfg.rope_theta)
         k = attn_lib.rope(k, ctx.positions, cfg.rope_theta)
 
-    if ctx.mode == "train":
+    if ctx.mode == "train" or (ctx.mode == "prefill" and ctx.paged is None):
         out = attn_lib.chunked_attention(
             q, k, v, causal=True, window=window, prefix_len=cfg.prefix_len,
             softcap=cfg.logit_softcap, q_chunk=2048)
+        if cache is not None:
+            cache = _dense_prefill_cache(k, v, cache)
         return out.reshape(b, s, hq * hd) @ p["wo"], cache
+    if ctx.paged is None:
+        assert ctx.mode == "decode" and s == 1
+        return _dense_decode(q, k, v, ctx, cache, p["wo"])
 
     page = int(ctx.paged["page_size"])
     table = ctx.paged["table"]                        # (B, maxp) int32
@@ -225,9 +238,56 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
         out = torch.einsum("bqhgk,bkhd->bqhgd",
                            probs.to(v_view.dtype).float(), v_view.float())
         out = out.reshape(b, s, hq, hd).to(q.dtype)
-    else:
-        raise NotImplementedError(
-            f"attention mode {ctx.mode!r}: only training and paged "
-            f"prefill and decode are ported (ROADMAP.md)")
     y = out.reshape(b, s, hq * hd) @ p["wo"]
     return y, cache
+
+
+def _dense_prefill_cache(k: torch.Tensor, v: torch.Tensor,
+                         cache: dict) -> dict:
+    """The prompt's K/V rows as a new dense layer cache. Padded to
+    S_cache when the cache holds the whole prompt; otherwise (a windowed
+    layer) the tail ``k[:, s - S_cache:]`` rolled by ``s``, so that
+    absolute position p lives at row ``p % S_cache``, where decode writes."""
+    s, s_cache = k.shape[1], cache["k"].shape[1]
+
+    def rows(new, buf):
+        if s_cache >= s:
+            out = torch.zeros_like(buf)
+            out[:, :s] = new.to(buf.dtype)
+            return out
+        return torch.roll(new[:, s - s_cache:], s, dims=1).to(buf.dtype)
+
+    return {"k": rows(k, cache["k"]), "v": rows(v, cache["v"])}
+
+
+def _dense_decode(q, k, v, ctx: Ctx, cache: dict, wo: torch.Tensor):
+    """One decode token per slot over the dense cache (in place)."""
+    b, _, hq, hd = q.shape
+    k_cache, v_cache = cache["k"], cache["v"]
+    s_cache = k_cache.shape[1]
+    rows = torch.arange(b, device=q.device)
+    slot = (ctx.cache_len % s_cache).long()            # rolling (window)
+    active = ctx.decode_active
+    adv = (torch.ones(b, dtype=torch.int32, device=q.device)
+           if active is None else active.int())
+    for buf, new in ((k_cache, k[:, 0]), (v_cache, v[:, 0])):
+        new = new.to(buf.dtype)
+        if active is not None:
+            # a full window buffer still holds the OLDEST readable token at
+            # len % S_cache: an inactive slot writes it back unchanged
+            new = torch.where(active[:, None, None], new, buf[rows, slot])
+        buf[rows, slot] = new
+    valid = torch.clamp(ctx.cache_len + adv, max=s_cache)
+    out = attn_lib.decode_attention(q, k_cache, v_cache, valid,
+                                    softcap=ctx.cfg.logit_softcap)
+    return out.reshape(b, 1, hq * hd) @ wo, cache
+
+
+def cache_spec_attention(cfg: ModelConfig, layer_idx: int, batch: int,
+                         seq_len: int, dtype) -> dict:
+    """Shapes and dtypes of one attention layer's dense KV cache: a
+    windowed (``local``) layer holds ``min(seq_len, window)`` rows."""
+    local = cfg.attn_kind(layer_idx) == "local" and cfg.window > 0
+    s_cache = min(seq_len, cfg.window) if local else seq_len
+    shape = (batch, s_cache, cfg.num_kv_heads, cfg.hd)
+    return {"k": (shape, dtype), "v": (shape, dtype)}

@@ -19,7 +19,10 @@ the CPU:
   dropped copies' gates set to 0;
 * ``swin_forward`` and ``make_train_step`` with ``moe_impl="tutel"`` and
   ``"megablocks"`` on both smoke configurations against the JAX model,
-  weights carried over by ``swin_params_from_jax``.
+  weights carried over by ``swin_params_from_jax``; ``swin_forward``
+  also through ``"hexa"``, and through all three at the grid points of
+  the paper's Tables 7/8 past top-2 (4 experts top-3 and top-4, 8 experts
+  top-8), where tutel's capacity and megablocks' E N k rows grow with k.
 
 Tolerances: f32 outputs at 1e-5 x max|ref| (the same products, summed in
 another order), grads at 1e-5 x max|ref|; hexa against megablocks at
@@ -282,10 +285,23 @@ def _images(cfg, b, seed):
             rng.integers(0, cfg.num_classes, size=b).astype(np.int32))
 
 
-@pytest.mark.parametrize("which", ["small", "base"])
-@pytest.mark.parametrize("impl", ["tutel", "megablocks"])
-def test_swin_forward_baselines_match_jax(which, impl):
+# (impl, config, (experts, top-k) or None for the smoke config's 4 top-2);
+# the first four keep their ids from before the grid points were added
+SWIN_FORWARD_CASES = [
+    pytest.param(impl, which, None, id=f"{impl}-{which}")
+    for impl in ("tutel", "megablocks", "hexa")
+    for which in ("small", "base")] + [
+    pytest.param(impl, "small", (e, k), id=f"{impl}-small-e{e}-top{k}")
+    for e, k in ((4, 3), (4, 4), (8, 8))
+    for impl in ("hexa", "tutel", "megablocks")]
+
+
+@pytest.mark.parametrize("impl,which,point", SWIN_FORWARD_CASES)
+def test_swin_forward_baselines_match_jax(impl, which, point):
     cfg_j, cfg_t = CONFIGS[which]
+    if point is not None:
+        cfg_j, cfg_t = jss.with_experts(cfg_j, *point), \
+            tss.with_experts(cfg_t, *point)
     pj = _swin_params(cfg_t, seed=20)
     imgs, _ = _images(cfg_j, 4, seed=21)
     lj, aj, zj = jax.jit(functools.partial(

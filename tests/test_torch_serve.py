@@ -6,7 +6,8 @@ weights (carried over by ``params_from_jax``) on the f32 smoke configs,
 with more requests than slots so slots refill mid-run. Greedy streams must
 be token-identical, every chunk's prefill logits within 1e-4, and the page
 pool leak-free. One bf16 decode forward is compared on its own, and the
-CLI's contract (paged only, greedy only, GPU unless asked) is checked."""
+CLI's contract (the dense engine without ``--paged``, greedy only, GPU
+unless asked) is checked."""
 import dataclasses
 
 import jax
@@ -175,10 +176,13 @@ def test_cli_serves_paged_on_cpu(capsys):
     assert "leak-free=True" in capsys.readouterr().out
 
 
-def test_cli_and_engine_contract(monkeypatch):
-    with pytest.raises(NotImplementedError, match="BatchedServer"):
-        tserve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke",
-                     "--device", "cpu"])
+def test_cli_and_engine_contract(monkeypatch, capsys):
+    # without --paged the CLI serves through the dense BatchedServer
+    done = tserve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke",
+                        "--device", "cpu", "--slots", "2", "--requests", "3",
+                        "--max-new", "3", "--max-seq", "32"])
+    assert len(done) == 3 and all(len(r.out) == 3 for r in done)
+    assert "[serve] 3 requests, 9 tokens" in capsys.readouterr().out
     cfg_j, cfg_t = _configs("qwen3-moe-30b-a3b")
     _, pt = _params(cfg_j, cfg_t)
     server = tserve.PagedServer(cfg_t, TPC(blk=8), num_slots=2, page_size=4,
