@@ -47,11 +47,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    The weights' 128 x 128 tiles differ in magnitude, and per branch a
    negative control (the plain output with a scale grid read on the wrong
    axes) must fail the limit.
+   S. Sampling: ``launch.sampling.sample_rows`` on the card against the
+   same function on the CPU, on seeded f32 rows (8, 151,936) under seeds
+   that reach 2^31, 2^32 + 5 and -1: the keys, the random bits and the
+   uniforms bit for bit, the Gumbel draws within ``GUMBEL_ULP`` ulp of
+   max(|g|, 1), the tokens equal at temperature 0.8, 1.3 and a greedy /
+   sampled mix; the bits of a key off by one in ``fold_in``'s data must
+   differ (the negative control); then timed at B 1 and 8, sampled and
+   greedy, beside the bound of reading the rows once.
 4. Reference phase: a 2-layer model at qwen3-moe-30b-a3b's full width in
    float32 serves 3 prompts through the dense ``BatchedServer`` on the GPU
    (the kernels); its greedy tokens must equal those of ``PagedServer`` and
    of the batch-1 ``reference_stream``, each on the GPU and on the CPU (the
    plain versions), from the same weights.
+   4s. Speculative reference: the same model (other weights), 4 requests
+   of 8 prompt and 6 new tokens, odd rids sampled at 0.8 with seed 1000 +
+   rid, through ``PagedServer`` with ``SpecDecoder`` (k ``SPEC_K``): with
+   ``NGramDrafter`` the streams equal those without it and the batch-1
+   ``reference_stream``'s, on the card, and the CPU's speculative engine
+   (the plain versions) gives the same; a drafter wrong by construction
+   (``(true + 1) % V``) accepts no draft, rolls back every drafted row
+   and keeps the streams; ``ModelDrafter`` with the target's own config
+   and params accepts every draft of the greedy requests; the page pool
+   is checked after every tick and drained; temperature 0.8 moves a
+   stream off greedy.
    Q2. The same with int8 experts and an int8 KV cache (greedy tokens
    equal); one loss forward and backward of it with the experts frozen
    (loss and every float grad leaf as phase 7; 5 int8 ``esmm`` launches a
@@ -71,6 +90,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    Its macro-step median, tok/s, TTFT and peak are printed, and how many
    of its bf16 streams equal the paged engine's (48 bf16 layers round the
    two attention paths differently, so equality is asserted in phase 4).
+   5s. Speculative serve, on the same weights: ``SPEC_SERVE_REQUESTS`` of
+   the same prompts (8, not 16: one wave of the 8 slots, so the phase
+   adds about half a minute), odd rids sampled at 0.8, 16 new tokens,
+   through ``PagedServer`` without and with ``SpecDecoder``
+   (``NGramDrafter``, k ``SPEC_K``), in turn ``SPEC_SERVE_PAIRS`` times,
+   ``esffn_glu``'s counts set to 0 just before each run and read just
+   after: exactly one launch a layer a prefill chunk and a decode step or
+   verify round, all on ``stream``; every request finishes with 16
+   in-vocabulary tokens, the pool drains. Printed: tok/s, the decode-tick
+   median, the verify-round median (one slot), acceptance, rolled-back
+   rows, peak memory; bf16 streams with and without speculation are
+   compared, not asserted (phase 4s asserts them in f32).
    Q3. The same serve with int8 expert weights (drawn and quantized layer
    by layer, about 32 GB) and int8 KV pages, then 4 requests with fp8
    experts: the 8-bit launch counts, set to 0 just before, must be one
@@ -254,6 +285,18 @@ GEMM_TOL = {"bfloat16": 1e-2, "float32": 1e-5}    # x max|plain|
 TRAIN_LOSS_RTOL = 1e-6
 TRAIN_GRAD_TOL = 1e-4                             # x max|grad| of the leaf
 SERVE_DEPTH = 48
+# Sampled and speculative decoding (phases S, 4s, 5s). Gumbel draws on the
+# card and on the CPU: each of the two ``log``s agrees within 1 ulp, which
+# moves g by at most ulp(1) through the inner one and ulp(g) through the
+# outer, so 2 ulp of max(|g|, 1) (measured: 2.0 between XLA and torch on
+# the CPU, tests/test_torch_sampling.py).
+GUMBEL_ULP = 2
+SAMPLE_VOCAB = 151936
+SAMPLE_SEEDS = (1000, 1001, 1003, 2 ** 31 - 1, 2 ** 31, 2 ** 32 + 5, -1, 7)
+SAMPLE_STEPS = (0, 1, 5, 15, 300, 2, 9, 123)
+SPEC_K = 4
+SPEC_SERVE_REQUESTS = 8
+SPEC_SERVE_PAIRS = 2
 TRAIN_DEPTH = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
 # Swin: the f32 kernels sum in another order than the plain versions'
@@ -3462,7 +3505,10 @@ def serve_phase(torch):
     dense_launches, dense = _dense_serve(
         torch, cfg, pcfg, params, [r.prompt for r in reqs], paged_out,
         slots, max_seq, pool_bytes)
-    return {"serve": launches, "serve_dense": dense_launches}, {
+    spec_launches, spec_routes, spec_res = _spec_serve(
+        torch, cfg, params, [r.prompt for r in reqs], make_server)
+    return {"serve": launches, "serve_dense": dense_launches,
+            "serve_spec": {"esffn_glu": spec_launches}}, {
         "requests": len(done), "tokens": tokens, "wall_s": wall,
         "decode_step_median_ms": statistics.median(steps) * 1e3,
         "decode_steps": len(steps),
@@ -3470,7 +3516,8 @@ def serve_phase(torch):
         "peak_allocated_gb": peak / 1e9,
         "launches_by_route": routes, "layers": cfg.num_layers,
         "pool_bytes": pool_bytes,
-        "pool_peak_in_use_bytes": st["peak_in_use_bytes"], "dense": dense}
+        "pool_peak_in_use_bytes": st["peak_in_use_bytes"], "dense": dense,
+        "spec": spec_res, "spec_launches_by_route": {"esffn_glu": spec_routes}}
 
 
 def _dense_serve(torch, cfg, pcfg, params, prompts, paged_out, slots,
@@ -3553,6 +3600,316 @@ def _dense_serve(torch, cfg, pcfg, params, prompts, paged_out, slots,
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# sampled and speculative decoding (phases S, 4s, 5s)
+# ---------------------------------------------------------------------------
+
+def sampling_phase(torch, flush):
+    """Phase S: ``sample_rows`` on the card against the same function on
+    the CPU, on seeded f32 rows (8, 151,936): keys, bits and uniforms bit
+    for bit, Gumbel draws within ``GUMBEL_ULP`` ulp of max(|g|, 1), tokens
+    equal; a key off by one in ``fold_in``'s data must give other bits;
+    then timed at B 1 and 8 (sampled and greedy rows)."""
+    import numpy as np
+    from repro_torch.launch import sampling
+
+    seeds, steps = list(SAMPLE_SEEDS), list(SAMPLE_STEPS)
+    b, v = len(seeds), SAMPLE_VOCAB
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = torch.randn(b, v, generator=gen, device="cuda") * 2.0
+    cpu_rows = rows.cpu()
+
+    def keys(device, off=0):
+        return sampling.fold_in(sampling.prng_key(seeds, device),
+                                torch.tensor(steps, device=device) + off)
+
+    kg, kc = keys("cuda"), keys("cpu")
+    if not torch.equal(kg.cpu(), kc):
+        raise AssertionError("sampling: keys differ between card and CPU")
+    bits = sampling.random_bits(kc, v)
+    if not torch.equal(sampling.random_bits(kg, v).cpu(), bits):
+        raise AssertionError("sampling: random bits differ")
+    tiny = float(np.finfo(np.float32).tiny)
+    for lo, hi in ((0.0, 1.0), (tiny, 1.0)):
+        ug = sampling.uniform(kg, v, lo, hi).cpu()
+        if not torch.equal(ug.view(torch.int32),
+                           sampling.uniform(kc, v, lo, hi).view(torch.int32)):
+            raise AssertionError(f"sampling: uniforms on [{lo}, {hi}) differ")
+    gg = sampling.gumbel(kg, v).cpu().numpy()
+    gc = sampling.gumbel(kc, v).numpy()
+    ulp = np.spacing(np.maximum(np.abs(gc), np.float32(1.0)))
+    gumbel_ulps = float((np.abs(gg - gc) / ulp).max())
+    if not np.all(np.isfinite(gg)) or not gumbel_ulps <= GUMBEL_ULP:
+        raise AssertionError(f"sampling: gumbel {gumbel_ulps} ulp apart")
+    token_sets = {"t0.8": [0.8] * b, "t1.3": [1.3] * b,
+                  "mixed": [0.0, 0.8, 1.3, 0.0, 0.8, 2.0, 0.0, 0.8]}
+    tokens = {}
+    for name, temps in token_sets.items():
+        tg = sampling.sample_rows(rows, seeds, steps, temps).cpu()
+        tc = sampling.sample_rows(cpu_rows, seeds, steps, temps)
+        if not torch.equal(tg, tc):
+            raise AssertionError(f"sampling: {name} tokens differ: "
+                                 f"{tg.tolist()} vs {tc.tolist()}")
+        tokens[name] = tg.tolist()
+    # negative control: fold_in's data off by one must fail the bit check
+    wrong = sampling.random_bits(keys("cuda", off=1), v).cpu()
+    if torch.equal(wrong, bits):
+        raise AssertionError("sampling: the off-by-one key gave equal bits")
+    wrong_equal = float((wrong == bits).double().mean())
+    times = {}
+    for n in (1, b):
+        r = rows[:n]
+        for mode, temps in (("sampled", [0.8] * n), ("greedy", [0.0] * n)):
+            times[f"B{n} {mode}"] = time_ms(
+                torch, lambda: sampling.sample_rows(r, seeds[:n], steps[:n],
+                                                    temps), flush)
+        times[f"B{n} bound"] = n * v * 4 / HBM_BYTES_PER_S * 1e3
+    res = {"rows": [b, v], "seeds": seeds, "steps": steps,
+           "bits_equal": True, "uniforms_equal": True,
+           "gumbel_max_ulp": gumbel_ulps, "gumbel_limit_ulp": GUMBEL_ULP,
+           "tokens": tokens, "negative_control_equal_bits": wrong_equal,
+           "ms": times}
+    print(f"[sampling] (8, {v}) f32 rows: keys, bits and uniforms equal "
+          f"card and CPU bit for bit; gumbel {gumbel_ulps:.3g} ulp of "
+          f"max(|g|, 1) apart (limit {GUMBEL_ULP}); tokens equal "
+          f"{tokens}; negative control (fold_in data + 1): "
+          f"{wrong_equal:.2e} of the bits equal; ms (CUDA events, one "
+          f"call, L2 flushed) {json.dumps(times)}")
+    return res
+
+
+def _spec_mix(prompts, max_new):
+    """Greedy + seeded-temperature mix: odd rids sample at 0.8 with seed
+    1000 + rid (tests/test_serve_parity.py's speculative matrix)."""
+    return [dict(rid=i, prompt=p, max_new=max_new,
+                 **({"temperature": 0.8, "seed": 1000 + i} if i % 2 else {}))
+            for i, p in enumerate(prompts)]
+
+
+def _audited(server):
+    """``server`` with its page pool checked after every tick."""
+    for name in ("_prefill_tick", "_decode_tick"):
+        tick = getattr(server, name)
+
+        def checked(done, tick=tick):
+            out = tick(done)
+            server.pool.assert_consistent()
+            return out
+
+        setattr(server, name, checked)
+    return server
+
+
+def _drained(server, what):
+    st = server.stats()
+    if st["free_pages"] != st["num_pages"] - 1 or st["in_use_pages"] \
+            or st["reserved_pages"] or server.table.any():
+        raise AssertionError(f"{what}: page pool leaked: {st}")
+    server.pool.assert_consistent()
+
+
+class _WrongDrafter:
+    """Drafts ``(true + 1) % V``, ``true`` the non-speculative stream's
+    token at that position: wrong by construction."""
+
+    def __init__(self, mix, streams, vocab):
+        self.plen = {r["rid"]: len(r["prompt"]) for r in mix}
+        self.streams, self.vocab = streams, vocab
+
+    def draft(self, history, k, rid=-1):
+        pos = len(history) - self.plen[rid]
+        return [(t + 1) % self.vocab for t in self.streams[rid][pos:pos + k]]
+
+
+def spec_reference_phase(torch):
+    """Phase 4s: 2 layers at full width in f32, 4 requests (odd rids
+    sampled), ``max_new`` 6, k ``SPEC_K``, through ``PagedServer`` on the
+    card: speculation on (``NGramDrafter``) == off == ``reference_stream``;
+    a drafter wrong by construction accepts nothing and rolls back every
+    drafted row, same streams; ``ModelDrafter`` with the target's own
+    config and params accepts every greedy draft; the pool checked after
+    every tick and drained; temperature 0.8 moves a token off greedy; the
+    CPU's speculative engine (the plain versions) gives the card's
+    streams."""
+    import numpy as np
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_map
+    from repro_torch.launch import serve, spec
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=2, dtype="float32")
+    pcfg = ParallelConfig(blk=16)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = lm.init_params(cfg, generator=gen, device="cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(7)
+    mix = _spec_mix([rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
+                     for _ in range(4)], 6)
+    max_seq = 64
+
+    def run(what, p, device, reqs, drafter=None):
+        srv = _audited(serve.PagedServer(
+            cfg, pcfg, num_slots=2, page_size=16, num_pages=9,
+            max_pages_per_slot=4, params=p, device=device))
+        if drafter is not None:
+            spec.SpecDecoder(srv, drafter, k=SPEC_K)
+        for r in reqs:
+            srv.submit(serve.Request(**r))
+        t0 = time.perf_counter()
+        out = {r.rid: r.out for r in srv.run()}
+        wall[what] = time.perf_counter() - t0
+        _drained(srv, f"spec reference ({what})")
+        if len(out) != len(reqs):
+            raise AssertionError(f"spec reference ({what}): unfinished")
+        return srv, out
+
+    wall = {}
+    _, off = run("off", params, "cuda", mix)
+    ref = {r["rid"]: serve.reference_stream(cfg, pcfg, params,
+                                            serve.Request(**r),
+                                            max_seq=max_seq) for r in mix}
+    ngram, on = run("ngram", params, "cuda", mix, spec.NGramDrafter())
+    if not on == off == ref:
+        raise AssertionError(f"spec reference: streams differ: on {on}, "
+                             f"off {off}, reference_stream {ref}")
+    wrong, out = run("wrong", params, "cuda", mix,
+                     _WrongDrafter(mix, off, cfg.vocab_size))
+    sw = wrong.spec.stats()
+    if out != off or not sw["drafted"] or sw["accepted_drafts"] \
+            or sw["rollback_tokens"] != sw["drafted"] \
+            or not any(ev[0] == "rollback" for ev in wrong.trace):
+        raise AssertionError(f"spec reference: wrong drafter {sw}, streams "
+                             f"{out} vs {off}")
+    greedy = [r for r in mix if "temperature" not in r]
+    drafter = spec.ModelDrafter(cfg, pcfg, params, max_seq=max_seq,
+                                device="cuda")
+    self_srv, out = run("model_self", params, "cuda", greedy, drafter)
+    ss = self_srv.spec.stats()
+    if out != {r["rid"]: off[r["rid"]] for r in greedy} \
+            or not ss["drafted"] or ss["acceptance_rate"] != 1.0 \
+            or drafter._state:
+        raise AssertionError(f"spec reference: self-drafting {ss}")
+    moved = sum(serve.greedy_reference(cfg, pcfg, params, r["prompt"], 6,
+                                       max_seq=max_seq) != off[r["rid"]]
+                for r in mix if "temperature" in r)
+    if not moved:
+        raise AssertionError("spec reference: temperature 0.8 moved no "
+                             "stream off greedy")
+    _, cpu_on = run("ngram cpu", cpu_params, "cpu", mix, spec.NGramDrafter())
+    if cpu_on != off:
+        raise AssertionError(f"spec reference: CPU streams {cpu_on} vs the "
+                             f"card's {off}")
+    res = {"streams": {str(k): v for k, v in off.items()},
+           "ngram": ngram.spec.stats(), "wrong": sw, "model_self": ss,
+           "sampled_streams_off_greedy": moved, "wall_s": wall}
+    print(f"[spec-reference] 2-layer full-width f32, k {SPEC_K}: NGram "
+          f"speculation (card) == off == reference_stream == NGram on the "
+          f"CPU, streams {off}; NGram {res['ngram']}; wrong drafter {sw}; "
+          f"self-drafting ModelDrafter {ss}; {moved} of 2 sampled streams "
+          f"off greedy; pool checked every tick and drained; wall s "
+          f"{json.dumps(wall)}")
+    return res
+
+
+def _spec_serve(torch, cfg, params, prompts, make_server):
+    """Phase 5s: phase 5's weights, the first ``SPEC_SERVE_REQUESTS`` of its
+    prompts (8 of 16, one wave of the 8 slots: the 16 took 70 s), odd rids
+    sampled at 0.8, 16 new tokens, speculation off then on
+    (``NGramDrafter``, k ``SPEC_K``), ``SPEC_SERVE_PAIRS`` times in turn.
+    Each run's ``esffn_glu`` counts are set to 0 just before and read just
+    after: one launch a layer a prefill chunk and a decode step or verify
+    round, every one on ``stream``. Returns (launches of the last spec-on
+    run, its routes, the results)."""
+    from repro_torch.kernels import esffn
+    from repro_torch.launch import serve, spec
+
+    mix = _spec_mix(prompts[:SPEC_SERVE_REQUESTS], 16)
+    warm = make_server()                 # the score step's shapes, unmeasured
+    spec.SpecDecoder(warm, spec.NGramDrafter(), k=SPEC_K)
+    warm.submit(serve.Request(rid=-1, prompt=mix[0]["prompt"], max_new=3))
+    warm.run()
+    del warm
+    runs = []
+    for _ in range(SPEC_SERVE_PAIRS):
+        for mode in ("off", "on"):
+            srv = make_server()
+            if mode == "on":
+                spec.SpecDecoder(srv, spec.NGramDrafter(), k=SPEC_K)
+            for r in mix:
+                srv.submit(serve.Request(**r))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            esffn.esffn_glu.launches = 0
+            esffn.esffn_glu.launches_by_route = dict.fromkeys(
+                esffn.esffn_glu.launches_by_route, 0)
+            t0 = time.perf_counter()
+            done = srv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = esffn.esffn_glu.launches
+            routes = dict(esffn.esffn_glu.launches_by_route)
+            what = f"serve (spec {mode})"
+            if len(done) != len(mix) or any(len(r.out) != 16 for r in done):
+                raise AssertionError(f"{what}: not every request finished "
+                                     f"with 16 tokens")
+            if not all(0 <= t < cfg.vocab_size for r in done
+                       for t in r.out):
+                raise AssertionError(f"{what}: token out of the vocabulary")
+            _drained(srv, what)
+            sp = srv.spec.stats() if mode == "on" else None
+            forwards = len(mix) + (sp["rounds"] if sp
+                                   else len(srv.decode_times_s))
+            if launches != cfg.num_layers * forwards or routes != {
+                    "stream": launches, "wgmma": 0}:
+                raise AssertionError(f"{what}: esffn_glu launches {launches}"
+                                     f" ({routes}), expected "
+                                     f"{cfg.num_layers} x {forwards}")
+            tokens = sum(len(r.out) for r in done)
+            run = {"mode": mode, "wall_s": wall, "tok_per_s": tokens / wall,
+                   "decode_tick_median_ms": statistics.median(
+                       srv.decode_times_s) * 1e3,
+                   "decode_ticks": len(srv.decode_times_s),
+                   "peak_allocated_gb": torch.cuda.max_memory_allocated()
+                   / 1e9, "esffn_glu_launches": launches, "routes": routes,
+                   "pool_drained": True,
+                   "streams": {r.rid: r.out for r in done}}
+            if sp:
+                run.update(sp, verify_round_median_ms=statistics.median(
+                    srv.spec.round_times_s) * 1e3)
+            runs.append(run)
+            print(f"[serve-spec] {mode}: {len(done)} requests, {tokens} "
+                  f"tokens in {wall:.3f}s ({run['tok_per_s']:.1f} tok/s); "
+                  f"decode tick median {run['decode_tick_median_ms']:.2f}ms "
+                  f"over {run['decode_ticks']}"
+                  + (f"; verify round median "
+                     f"{run['verify_round_median_ms']:.2f}ms over "
+                     f"{sp['rounds']} rounds; acceptance "
+                     f"{sp['acceptance_rate']:.3f} ({sp['accepted_drafts']}"
+                     f"/{sp['drafted']}), {sp['rollback_tokens']} rows rolled"
+                     f" back" if sp else "")
+                  + f"; esffn_glu {routes}; peak "
+                  f"{run['peak_allocated_gb']:.2f} GB; pool drained")
+    offs = [r for r in runs if r["mode"] == "off"]
+    ons = [r for r in runs if r["mode"] == "on"]
+    # bf16 at 48 layers: not repeatable between runs (PERF.md §7), so the
+    # streams are compared, not asserted (phase 4s asserts them in f32)
+    same = [sum(a["streams"][k] == b["streams"][k] for k in a["streams"])
+            for a, b in zip(offs, ons)]
+    res = {"requests": len(mix), "pairs": SPEC_SERVE_PAIRS, "k": SPEC_K,
+           "runs": [{k: v for k, v in r.items() if k != "streams"}
+                    for r in runs],
+           "streams_equal_on_off": same,
+           "tok_per_s_on_over_off": [b["tok_per_s"] / a["tok_per_s"]
+                                     for a, b in zip(offs, ons)]}
+    print(f"[serve-spec] {len(mix)} of phase 5's {len(prompts)} requests "
+          f"(cut to one wave of the slots, to keep the script's time), k "
+          f"{SPEC_K}, {SPEC_SERVE_PAIRS} off/on pairs: tok/s on / off {res['tok_per_s_on_over_off']}; "
+          f"bf16 streams equal on and off {same} of {len(mix)}")
+    return ons[-1]["esffn_glu_launches"], ons[-1]["routes"], res
+
+
 def main() -> int:
     import torch
 
@@ -3598,15 +3955,18 @@ def main() -> int:
     print(f"[check] paged_attention int8: "
           f"{len(quant_res['paged_attention_checks'])} cases, worst per-slot "
           f"err / limit {max(c['worst_slot_err_over_tol'] for c in quant_res['paged_attention_checks']):.3g}")
+    sampling_res = sampling_phase(torch, flush)
     del flush
     torch.cuda.empty_cache()
 
     serve_ref = reference_phase(torch)
     torch.cuda.empty_cache()
+    spec_ref = spec_reference_phase(torch)
+    torch.cuda.empty_cache()
     quant_ref = quant_reference_phase(torch)
     torch.cuda.empty_cache()
     serve_launches, serve_res = serve_phase(torch)
-    print(f"[serve] {json.dumps({**serve_res, 'reference': serve_ref})}")
+    print(f"[serve] {json.dumps({**serve_res, 'reference': serve_ref, 'spec_reference': spec_ref, 'sampling': sampling_res})}")
     torch.cuda.empty_cache()           # the serve phase's weights are gone
     quant_serve = quant_serve_phase(torch, serve_res["peak_allocated_gb"])
     print(f"[quant-serve] {json.dumps(quant_serve)}")
@@ -3673,8 +4033,9 @@ def main() -> int:
     print(f"[done] every phase in {time.perf_counter() - t_start:.1f}s")
 
     # Each kernel's launches on the main paths that ran it: the paged and
-    # the dense serve runs (phase 5), the qwen train steps (phase 8), the
-    # Swin train steps and the unfused-backward pass (phase 11).
+    # the dense serve runs and the speculative one (phases 5, 5s), the qwen
+    # train steps (phase 8), the Swin train steps and the unfused-backward
+    # pass (phase 11).
     paths = {**serve_launches, "qwen_train": train_launches, **swin_launches}
     by_path = {}
     for path, counts in paths.items():
@@ -3684,6 +4045,7 @@ def main() -> int:
 
     route_paths = {"serve": serve_res["launches_by_route"],
                    "serve_dense": serve_res["dense"]["launches_by_route"],
+                   "serve_spec": serve_res["spec_launches_by_route"],
                    "qwen_train": train_out["launches_by_route"],
                    **swin_out["launches_by_route"]}
 

@@ -1,6 +1,7 @@
 """Continuous-batching serving engines (counterpart of
 ``repro.launch.serve``'s ``BatchedServer``, ``PagedServer``,
-``reference_stream`` and their CLI).
+``reference_stream`` and their CLI, with speculative decoding attached to
+the paged engine by ``launch.spec.SpecDecoder``).
 
 ``BatchedServer`` (the CLI's default) holds the dense KV rectangle
 ``(slots, max_seq)`` and spends one full-batch macro-step on every prompt
@@ -10,19 +11,26 @@ macro-step over the shared KV page pool; admission is by free-page budget
 (worst-case pages reserved up front, so FIFO decode never starves the pool
 mid-request); prompts prefill in batch-1 chunks interleaved with the
 decode steps, with pages granted a chunk's worth at a time and on demand
-at decode page boundaries. Greedy decoding only. ``--quant int8|fp8``
+at decode page boundaries. A request decodes greedily at ``temperature``
+0, else by seeded categorical sampling (``next_token``; keys from
+``(seed, len(out))`` only, drawn on the logits' device by
+``launch.sampling``), so its stream is the same on every engine.
+``--quant int8|fp8``
 serves block-wise 8-bit expert weights (quantized layer by layer as the
 model is drawn) on either engine, and ``--kv-quant int8`` int8 KV pages
 with per-row scales (``--paged`` only), each through the kernels' 8-bit
 branches.
 
-Not in this slice (ROADMAP.md): sampled decoding, hetero slot and page
-shares, prefix cache, disaggregation, speculative decoding, fault handling
-and observability.
+``--spec-ngram`` / ``--spec-draft ARCH`` (``--paged`` only) verify drafted
+tokens in one multi-token forward a slot (``launch.spec``).
+
+Not in this slice (ROADMAP.md): hetero slot and page shares, prefix cache,
+disaggregation, fault handling and observability.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -33,25 +41,24 @@ import torch
 
 from repro_torch import configs as cfglib
 from repro_torch.common import cdiv, resolve_device, torch_dtype, tree_leaves
+from repro_torch.launch import sampling
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
 from repro_torch.parallel.cache import PagePool
 from repro_torch.parallel.sharding import ParallelConfig
 
 
-_SAMPLED = ("sampled decoding (temperature > 0) is not ported yet "
-            "(ROADMAP.md: sampled decoding)")
-
-
 @dataclass
 class Request:
-    """One serving request: prompt tokens in, up to ``max_new`` greedy
-    tokens out."""
+    """One serving request: prompt tokens in, up to ``max_new`` tokens
+    out, chosen greedily at ``temperature`` 0 (the default) or drawn
+    categorically under the request's own ``seed``."""
     rid: int
     prompt: np.ndarray           # (S_prompt,)
     max_new: int
     out: list = field(default_factory=list)
-    temperature: float = 0.0     # only 0 (greedy) is ported
+    temperature: float = 0.0     # 0 = greedy argmax
+    seed: int = 0                # per-request sampling seed
 
 
 def argmax_token(logits_row) -> int:
@@ -63,22 +70,41 @@ def argmax_token(logits_row) -> int:
     return int(np.argmax(row))
 
 
+def sample_tokens(rows: torch.Tensor, reqs: list) -> np.ndarray:
+    """``next_token`` of every row of ``rows`` (B, V) at once, on the rows'
+    device, then one copy to the host: row ``i`` for ``reqs[i]`` at step
+    ``len(reqs[i].out)`` (a None entry's row is greedy and unused)."""
+    return sampling.sample_rows(
+        rows, [r.seed if r else 0 for r in reqs],
+        [len(r.out) if r else 0 for r in reqs],
+        [r.temperature if r else 0.0 for r in reqs]).cpu().numpy()
+
+
 def next_token(logits_row, req: Request) -> int:
-    """Greedy next-token selection."""
-    if req.temperature > 0.0:
-        raise NotImplementedError(_SAMPLED)
-    return argmax_token(logits_row)
+    """Engine-independent next-token selection: greedy at ``temperature
+    <= 0`` (``argmax_token``), else a categorical draw from ``row /
+    temperature`` at the key ``fold_in(PRNGKey(req.seed), len(req.out))``
+    (``launch.sampling``, ``jax.random``'s bits). Keys derive ONLY from
+    ``(seed, len(out))``, so a request's stream is a pure function of its
+    own logits and seed on every engine, the speculative verify included
+    (it appends each accepted token before drawing the next)."""
+    if req.temperature <= 0.0:
+        return argmax_token(logits_row)
+    row = (logits_row if isinstance(logits_row, torch.Tensor)
+           else torch.from_numpy(np.asarray(logits_row, np.float32)))
+    return int(sample_tokens(row.reshape(1, -1), [req])[0])
 
 
 def reference_stream(cfg, pcfg, params, req: Request, *, max_seq: int,
                      step=None) -> list[int]:
     """One-request-at-a-time dense-cache reference stream: batch-1 prefill
     (token by token) then decode through ``next_token``, on the device the
-    params lie on: the ground truth both batched servers are held to."""
+    params lie on: the ground truth both batched servers are held to, for
+    greedy and sampled requests."""
     device = params["embed"].device
     if step is None:
         step = steps_lib.make_serve_step(cfg, pcfg)
-    out: list[int] = []
+    ref = dataclasses.replace(req, out=[])   # keys follow len(ref.out)
     cache = lm.init_cache(cfg, 1, max_seq, device)
 
     def feed(tok):
@@ -88,12 +114,12 @@ def reference_stream(cfg, pcfg, params, req: Request, *, max_seq: int,
                                             device=device)}, cache)
         return logits[0, -1]
 
-    for tok in req.prompt:
+    for tok in ref.prompt:
         logits = feed(int(tok))
-    out.append(next_token(logits, req))
-    while len(out) < req.max_new:
-        out.append(next_token(feed(out[-1]), req))
-    return out
+    ref.out.append(next_token(logits, ref))
+    while len(ref.out) < ref.max_new:
+        ref.out.append(next_token(feed(ref.out[-1]), ref))
+    return ref.out
 
 
 def greedy_reference(cfg, pcfg, params, prompt, max_new, *, max_seq: int,
@@ -108,8 +134,6 @@ def greedy_reference(cfg, pcfg, params, prompt, max_new, *, max_seq: int,
 def _check_request(req: Request):
     if len(req.prompt) < 1 or req.max_new < 1:
         raise ValueError(f"request {req.rid}: empty prompt or max_new")
-    if req.temperature > 0.0:
-        raise NotImplementedError(_SAMPLED)
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +211,10 @@ class BatchedServer:
             {"tokens": torch.from_numpy(tokens).to(self.device),
              "active": torch.from_numpy(active).to(self.device)},
             self.cache)
-        nxt = logits[:, -1].float().cpu().numpy()
+        emit = [st.req if st is not None
+                and st.pos + 1 >= len(st.req.prompt) else None
+                for st in self.slots]
+        nxt = sample_tokens(logits[:, -1], emit)
         self.decode_times_s.append(time.perf_counter() - t0)
         done = []
         for slot, st in enumerate(self.slots):
@@ -198,7 +225,7 @@ class BatchedServer:
                 if not st.req.out:
                     self.ttft_s[st.req.rid] = \
                         time.perf_counter() - self._run_t0
-                st.req.out.append(next_token(nxt[slot], st.req))
+                st.req.out.append(int(nxt[slot]))
                 if len(st.req.out) >= st.req.max_new:
                     done.append(st.req)
                     self.slots[slot] = None
@@ -246,6 +273,9 @@ class PagedServer:
     ``device="cpu"``); tables and the schedule live on the host.
     ``kv_quant="int8"``: the pools hold int8 rows with per-(row, kv head)
     f32 scales, and admission budgets in the smaller int8 page bytes.
+    A ``launch.spec.SpecDecoder`` attaches itself as ``spec`` and then runs
+    every decode tick; ``trace`` records its ``("spec_verify", rid, slot,
+    n_valid, accepted)`` and ``("rollback", rid, slot, n)`` events.
     """
 
     def __init__(self, cfg, pcfg, *, num_slots: int, page_size: int,
@@ -283,6 +313,8 @@ class PagedServer:
         self.decode_times_s: list = []
         self.ttft_s: dict = {}           # rid -> first-token latency
         self.admissions = 0
+        self.spec = None                 # a SpecDecoder, when attached
+        self.trace: list[tuple] = []     # (name, *args) scheduler events
         self._order = 0
         self._run_t0 = 0.0
 
@@ -343,6 +375,40 @@ class PagedServer:
             self.table[slot, j] = 0
             st.reclaimed += 1
 
+    def _rollback(self, slot: int, n: int):
+        """Un-write the slot's last ``n`` speculative cache rows by
+        truncation only: shrink its device length (``lm.rollback_slot``;
+        attention masks every row past it), pop the tail pages that no
+        longer back a row back to the request's own reservation
+        (``PagePool.rollback``, never the free budget) and zero their
+        table entries. The sampling key needs no rewind: keys derive from
+        ``(seed, len(out))`` and rejected tokens were never appended."""
+        st = self.slots[slot]
+        if n <= 0:
+            return
+        new_len = st.length - n
+        assert new_len >= len(st.req.prompt), (new_len, len(st.req.prompt))
+        if self.reclaim_window is not None and st.reclaimed:
+            # reclamation only ever runs at committed lengths (the spec
+            # tick reclaims AFTER rollback), so no reclaimed page can
+            # re-enter the rolled-back window
+            assert st.reclaimed * self.page_size <= max(
+                new_len - self.reclaim_window, 0), \
+                "rollback would rewind into window-reclaimed pages"
+        keep = cdiv(new_len, self.page_size)
+        dropped = []
+        while len(st.pages) > keep:
+            p = st.pages.pop()
+            self.table[slot, len(st.pages)] = 0
+            if p != 0:
+                dropped.append(p)
+        if dropped:
+            self.pool.rollback(dropped)
+            st.allocated -= len(dropped)
+        self.cache = lm.rollback_slot(self.cfg, self.cache, slot, new_len)
+        st.length = new_len
+        self.trace.append(("rollback", st.req.rid, slot, n))
+
     def _finish(self, slot: int, st: _PagedSlot, done: list):
         done.append(st.req)
         self.pool.release([p for p in st.pages if p != 0],
@@ -350,6 +416,8 @@ class PagedServer:
         self.table[slot, :] = 0
         self.slots[slot] = None
         self.free.append(slot)
+        if self.spec is not None:
+            self.spec.forget(st.req.rid)
 
     def _prefill_tick(self, done: list) -> bool:
         """One chunk of the FIFO-oldest prefilling request."""
@@ -376,7 +444,10 @@ class PagedServer:
         return True
 
     def _decode_tick(self, done: list) -> bool:
-        """One decode macro-step over every slot past prefill."""
+        """One decode macro-step over every slot past prefill (with a
+        ``spec`` attached, one speculative verify round a slot)."""
+        if self.spec is not None:
+            return self.spec.decode_tick(done)
         dec = [(slot, st) for slot, st in enumerate(self.slots)
                if st is not None and st.pos >= len(st.req.prompt)]
         if not dec:
@@ -394,11 +465,14 @@ class PagedServer:
              "page_table": self._tensor(self.table),
              "active": self._tensor(active)},
             self.cache)
-        nxt = logits[:, -1].float().cpu().numpy()
+        emit = [None] * self.num_slots
+        for slot, st in dec:
+            emit[slot] = st.req
+        nxt = sample_tokens(logits[:, -1], emit)
         self.decode_times_s.append(time.perf_counter() - t0)
         for slot, st in dec:
             st.length += 1
-            st.req.out.append(next_token(nxt[slot], st.req))
+            st.req.out.append(int(nxt[slot]))
             self._reclaim(slot, st)
             if len(st.req.out) >= st.req.max_new:
                 self._finish(slot, st, done)
@@ -474,7 +548,26 @@ def main(argv=None):
     ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
                     help="store paged-KV pages as int8 rows + per-row "
                          "scales (--paged only)")
+    ap.add_argument("--spec-ngram", action="store_true",
+                    help="speculative decoding with self-speculative "
+                         "n-gram drafting from each request's own token "
+                         "history, no draft model (--paged only)")
+    ap.add_argument("--spec-draft", default=None, metavar="ARCH",
+                    help="speculative decoding with a draft model drawn "
+                         "from --seed + 1, resolved with the same --smoke "
+                         "switch as --arch (--paged only): an "
+                         "all-attention, non-windowed config the port "
+                         "serves (qwen3-moe-30b-a3b); gemma-2b raises "
+                         "NotImplementedError until dense FFN layers are "
+                         "ported")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft length per verify round: up to k drafted "
+                         "tokens + 1 correction commit per forward")
     args = ap.parse_args(argv)
+    if (args.spec_ngram or args.spec_draft) and not args.paged:
+        ap.error("--spec-ngram/--spec-draft require --paged")
+    if args.spec_ngram and args.spec_draft:
+        ap.error("--spec-ngram and --spec-draft are mutually exclusive")
     if args.kv_quant != "none" and not args.paged:
         ap.error("--kv-quant requires --paged")
     device = resolve_device(args.device)
@@ -502,6 +595,22 @@ def main(argv=None):
             max_pages_per_slot=cdiv(args.max_seq, args.page_size),
             params=params, prefill_chunk=args.prefill_chunk,
             kv_quant=args.kv_quant, device=device)
+        if args.spec_ngram or args.spec_draft:
+            # spec imports this module (the shared sampling convention),
+            # so it is imported here, never at module level
+            from repro_torch.launch import spec as spec_lib
+            if args.spec_draft:
+                dcfg = (cfglib.get_smoke_config(args.spec_draft)
+                        if args.smoke else cfglib.get_config(args.spec_draft))
+                dparams = lm.init_params(
+                    dcfg, device=device, generator=torch.Generator(
+                        device=device).manual_seed(args.seed + 1))
+                drafter = spec_lib.ModelDrafter(dcfg, pcfg, dparams,
+                                                max_seq=args.max_seq,
+                                                device=device)
+            else:
+                drafter = spec_lib.NGramDrafter()
+            spec_lib.SpecDecoder(server, drafter, k=args.spec_k)
     else:
         server = BatchedServer(cfg, pcfg, num_slots=args.slots,
                                max_seq=args.max_seq, params=params,
@@ -530,6 +639,12 @@ def main(argv=None):
               f"{server.page_bytes} B a {server.kv_quant or cfg.dtype} page) "
               f"of {st['num_pages'] - 1} allocatable; {st['total_allocs']} "
               f"allocs, leak-free={st['free_pages'] == st['num_pages'] - 1}")
+        if server.spec is not None:
+            sp = server.spec.stats()
+            print(f"[serve] speculative: {sp['rounds']} verify rounds, "
+                  f"{sp['accepted_drafts']}/{sp['drafted']} drafts "
+                  f"accepted ({sp['acceptance_rate']:.0%}), "
+                  f"{sp['rollback_tokens']} rows rolled back")
     else:
         print(f"[serve] dense KV cache: {server.kv_bytes() / 1024:.1f} KiB "
               f"({args.slots} slots, max_seq {args.max_seq})")

@@ -1,6 +1,6 @@
 """Step functions (counterpart of ``repro.launch.steps``): the training
-step (loss, grads, AdamW update) and the dense and paged serving engines'
-steps.
+step (loss, grads, AdamW update), the dense and paged serving engines'
+steps and the speculative verify's multi-token score step.
 PyTorch runs eagerly, so a step is a plain closure; the serving chunk's
 valid count and slot arrive as host ints. One device only: the JAX
 builders' ``mesh`` is None here.
@@ -201,3 +201,32 @@ def _make_paged_prefill_chunk(cfg: ModelConfig, pcfg: ParallelConfig,
         return logits.reshape(-1), new_cache
 
     return prefill_step
+
+
+def make_paged_score_step(cfg: ModelConfig, pcfg: ParallelConfig,
+                          page_size: int):
+    """Multi-token scoring step for speculative verification: the
+    chunk-extension paged forward of ``make_paged_prefill_step`` with
+    logits at EVERY chunk position. Signature ``(params, tokens (k,),
+    n_valid, slot, table_row (maxp,), cache) -> (logits (k, V) f32,
+    cache)``: row ``i`` is the next-token distribution after
+    ``tokens[:i+1]``, what a sequential decode would give having fed
+    ``tokens[i]``. The slot's length advances by ``n_valid``; rows at and
+    past ``n_valid`` write to the sink page and are to be ignored.
+    All-attention stacks only."""
+    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+        raise ValueError(
+            "speculative scoring requires an all-attention stack: recurrent "
+            "layers advance per-slot state token-wise, which page-table "
+            "truncation cannot rewind")
+    if cfg.num_codebooks > 1:
+        raise ValueError("score step does not support codebook heads")
+    fwd = _paged_chunk_forward(cfg, pcfg, page_size)
+
+    def score_step(params, tokens, n_valid: int, slot: int, table_row,
+                   cache):
+        hidden, new_cache = fwd(params, tokens, n_valid, slot, table_row,
+                                cache)
+        return lm.score_logits(params, hidden, cfg)[0], new_cache
+
+    return score_step

@@ -175,6 +175,24 @@ def reset_slot(cfg: ModelConfig, cache: dict, slot: int,
     return cache
 
 
+def rollback_slot(cfg: ModelConfig, cache: dict, slot: int,
+                  length: int) -> dict:
+    """Truncate one slot's resident length to ``length`` (in place), the
+    device half of speculative-decoding rollback. Rejected drafted rows
+    need no scrub: paged attention masks every position at and past the
+    length, as it masks a fresh page's tail. Only an all-attention stack
+    can rewind this way: a recurrent mixer's per-slot state advances token
+    by token and cannot be truncated."""
+    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+        raise ValueError(
+            "rollback (length truncation) requires an all-attention "
+            "stack: recurrent per-slot state cannot be rewound")
+    if length < 0:
+        raise ValueError(f"negative rollback length {length}")
+    cache["len"][slot] = length
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -231,6 +249,15 @@ def _logits_out(params: dict, x: torch.Tensor, cfg: ModelConfig):
     """Vocabulary logits in f32 (the JAX head's f32 accumulation)."""
     w = params["embed"].t() if cfg.tie_embeddings else params["head"]
     return x.float() @ w.float()
+
+
+def score_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig):
+    """Vocabulary logits (B, S, V) f32 at EVERY position of final-norm
+    ``hidden`` states: the multi-position head of the speculative verify
+    step, through the single-row head's ``_logits_out``."""
+    if cfg.num_codebooks > 1:
+        raise ValueError("score_logits does not support codebook heads")
+    return _logits_out(params, hidden, cfg)
 
 
 def forward(params: dict, inputs: dict, cfg: ModelConfig,

@@ -1,10 +1,11 @@
 """Serving page pool (counterpart of ``repro.parallel.cache.PagePool``).
 
 Host-side free list and residency accounting over the shared KV
-page pool of ``models.lm.init_paged_cache``. Per-group page shares (hetero
-plans, ``page_shares``), the copy-on-write half (``fork``/``cow``),
-speculative ``rollback`` and elastic ``reshare`` belong to later slices
-and are not ported: the port's pool is one budget.
+page pool of ``models.lm.init_paged_cache``, with the speculative
+decoding ``rollback``. Per-group page shares (hetero plans,
+``page_shares``), the copy-on-write half (``fork``/``cow``) and elastic
+``reshare`` belong to later slices and are not ported: the port's pool is
+one budget.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ class PagePool:
         self._live: Set[int] = set()      # allocated pages
         self.total_allocs = 0
         self.total_frees = 0
+        self.total_rollbacks = 0
         self.peak_in_use_pages = 0
 
     def try_reserve(self, n: int) -> bool:
@@ -77,6 +79,29 @@ class PagePool:
         self._reserved -= unused_reserved
         self._free += unused_reserved
 
+    def rollback(self, pages: Sequence[int]) -> None:
+        """Return decode-granted pages to the caller's **reservation**, the
+        speculative-decoding rollback path. A rolled-back request is still
+        live and must be able to re-grow to its admitted worst-case length,
+        so its truncated pages turn from in use back into reserved, never
+        into free budget another admission could claim. A bad page id, a
+        page not in use or one listed twice raises before any state
+        changes."""
+        if len(set(pages)) != len(pages):
+            raise ValueError(f"rollback lists a page twice: {list(pages)}")
+        for p in pages:
+            if not 1 <= p < self.num_pages:
+                raise ValueError(f"bad page id {p}")
+            if p not in self._live:
+                raise RuntimeError(f"rollback of page {p}, which is not in "
+                                   f"use")
+        for p in pages:
+            self._live.remove(p)
+            self._free_list.append(p)
+            self._reserved += 1
+            self.total_frees += 1
+            self.total_rollbacks += 1
+
     @property
     def free_pages(self) -> int:
         return self._free
@@ -112,4 +137,5 @@ class PagePool:
             "peak_in_use_bytes": self.peak_in_use_pages * self.page_bytes,
             "total_allocs": self.total_allocs,
             "total_frees": self.total_frees,
+            "total_rollbacks": self.total_rollbacks,
         }

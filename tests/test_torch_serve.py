@@ -6,8 +6,8 @@ weights (carried over by ``params_from_jax``) on the f32 smoke configs,
 with more requests than slots so slots refill mid-run. Greedy streams must
 be token-identical, every chunk's prefill logits within 1e-4, and the page
 pool leak-free. One bf16 decode forward is compared on its own, and the
-CLI's contract (the dense engine without ``--paged``, greedy only, GPU
-unless asked) is checked."""
+CLI's contract (the dense engine without ``--paged``, sampled requests
+served, GPU unless asked) is checked."""
 import dataclasses
 
 import jax
@@ -188,9 +188,12 @@ def test_cli_and_engine_contract(monkeypatch, capsys):
     server = tserve.PagedServer(cfg_t, TPC(blk=8), num_slots=2, page_size=4,
                                 num_pages=9, max_pages_per_slot=4, params=pt,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="sampled decoding"):
-        server.submit(tserve.Request(rid=0, prompt=np.arange(3), max_new=2,
-                                     temperature=0.7))
+    # a sampled request is served, its stream the batch-1 reference's
+    sampled = dict(rid=0, prompt=np.arange(3), max_new=2, temperature=0.7,
+                   seed=5)
+    server.submit(tserve.Request(**sampled))
+    assert [r.out for r in server.run()] == [tserve.reference_stream(
+        cfg_t, TPC(blk=8), pt, tserve.Request(**sampled), max_seq=16)]
     with pytest.raises(ValueError):
         server.submit(tserve.Request(rid=1, prompt=np.arange(20), max_new=2))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

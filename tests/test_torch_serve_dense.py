@@ -336,9 +336,12 @@ def test_batched_server_matches_jax(arch):
         tlm.init_cache(cfg_t, NUM_SLOTS, MAX_SEQ, "cpu"))
     with pytest.raises(ValueError, match="max_seq"):
         ts.submit(tserve.Request(rid=99, prompt=np.arange(30), max_new=4))
-    with pytest.raises(NotImplementedError, match="sampled decoding"):
-        ts.submit(tserve.Request(rid=98, prompt=np.arange(3), max_new=2,
-                                 temperature=0.7))
+    # a sampled request: JAX's reference stream, drawn on the dense engine
+    sampled = dict(rid=98, prompt=np.arange(3), max_new=3, temperature=0.7,
+                   seed=98)
+    ts.submit(tserve.Request(**sampled))
+    assert [r.out for r in ts.run()] == [jserve.reference_stream(
+        cfg_j, JPCFG, None, pj, jserve.Request(**sampled), max_seq=MAX_SEQ)]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
