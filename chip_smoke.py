@@ -71,6 +71,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    and params accepts every draft of the greedy requests; the page pool
    is checked after every tick and drained; temperature 0.8 moves a
    stream off greedy.
+   4p. Prefix sharing and robustness: the same model (other weights),
+   ``PREFIX_REF_REQUESTS`` requests of a ``PREFIX_SHARED``-token shared
+   prompt (four ``PREFIX_PAGE``-token pages) and 1-6 tokens of their own,
+   4 new tokens, through ``PagedServer`` with ``audit=True``
+   (``assert_page_invariants`` after every scheduler step), each run
+   drained after ``drop_prefix_cache``. Against the plain engine's
+   streams: ``prefix_cache=True`` (token-equal, at least the second
+   wave's 64 hit tokens a request, fewer prefill chunks);
+   ``disagg=True`` with half/half roles (token-equal, one transfer a
+   request); and one ``runtime.faults.FaultPlan`` each: NaN logits at
+   ``serve.logits`` with no retries (that request fails with the
+   watchdog's reason, its batchmates' streams stand), an engine-level
+   ``error`` at ``serve.decode`` (one recovery, token-equal), priority
+   preemption (two low-priority requests hold the whole pool; the victim
+   replays token-identically through the prefix cache) and a
+   ``device_drop`` under a (2, 1) plan (the requests carry across the
+   shrink, token-equal). Then ``steps.make_page_copy_step`` on bf16 and
+   int8 pools: the copied page equals its source in every layer and pool,
+   scale rows included, and no other page moves.
    Q2. The same with int8 experts and an int8 KV cache (greedy tokens
    equal); one loss forward and backward of it with the experts frozen
    (loss and every float grad leaf as phase 7; 5 int8 ``esmm`` launches a
@@ -102,6 +121,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    median, the verify-round median (one slot), acceptance, rolled-back
    rows, peak memory; bf16 streams with and without speculation are
    compared, not asserted (phase 4s asserts them in f32).
+   5p. Prefix-sharing serve, on the same weights:
+   ``PREFIX_SERVE_REQUESTS`` requests of a ``PREFIX_SHARED``-token shared
+   prompt and ``PREFIX_OWN`` tokens of their own, ``PREFIX_NEW`` new
+   tokens, 8 slots, 16-token pages and a pool that holds every slot's worst
+   case: without the prefix cache, with it, and with ``disagg=True``, the
+   kernels' counts set to 0 just before each run and read just after
+   (positive, every ``esffn_glu`` on ``stream``); every request finishes
+   with ``PREFIX_NEW`` in-vocabulary tokens, the pool drains, fewer
+   prefill chunks with the cache than without, one transfer a request
+   with roles. Printed: prefill chunks, hit rate, TTFT medians of the
+   first and the second wave, the decode-tick median, tok/s, peak pages
+   and peak memory, and how many bf16 streams equal the cache-off run's
+   (not asserted: bf16 serving is not repeatable between calls).
    Q3. The same serve with int8 expert weights (drawn and quantized layer
    by layer, about 32 GB) and int8 KV pages, then 4 requests with fp8
    experts: the 8-bit launch counts, set to 0 just before, must be one
@@ -138,6 +170,14 @@ The serve phase's weights are then freed, and the training slice runs:
    leaf within ``TRAIN_GRAD_TOL`` x its max |grad|; every ``esmm`` and
    ``estmm`` launch of the GPU run on ``mma_tf32x3`` (read from the route
    counts).
+   7q. Quantization-aware training at phase 7's size and seed: each
+   expert weight's int8 payload and scales on the card equal the CPU's
+   (``quantize_blockwise``; every level and scale counted); one
+   ``quant="int8"`` loss and its grads on the card and the CPU within
+   ``TRAIN_LOSS_RTOL`` and ``TRAIN_GRAD_TOL``; and on one layer the QAT
+   loss and grads equal, within the same limits, those of the plain loss
+   with each expert weight replaced by ``dequant(quant(w))`` computed
+   outside (the straight-through estimator).
    7b. The same in bf16 at blk 128, where every ``esmm`` and ``estmm``
    launch takes the wgmma route (read from ``launches_by_route``): the
    losses within ``BF16_REF_LOSS_RTOL`` and each grad leaf within
@@ -150,6 +190,12 @@ The serve phase's weights are then freed, and the training slice runs:
    before and read just after (per step: 2 ``esffn_glu``, 5 ``esmm`` and
    3 ``estmm`` a layer, every ``esmm`` and ``estmm`` on the wgmma route).
    Every loss must be finite.
+   8q. The same state trains quantization-aware, ``quant`` each of
+   ``QAT_MODES`` in turn (the expert weights through ``fake_quant`` in
+   each MoE layer, the round-tripped weights through the same kernels):
+   one warm-up step, then ``QAT_STEPS`` steps with the counts set to 0
+   just before and read just after, phase 8's launches exactly, all on
+   wgmma, every loss finite; each mode's step median beside phase 8's.
 
 The training state is then freed, and the Swin-MoE slice runs (Swin-MoE-
 Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
@@ -254,6 +300,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -297,6 +344,18 @@ SAMPLE_STEPS = (0, 1, 5, 15, 300, 2, 9, 123)
 SPEC_K = 4
 SPEC_SERVE_REQUESTS = 8
 SPEC_SERVE_PAIRS = 2
+# Phases 4p and 5p, the prefix-sharing paged engine: requests opening with
+# one PREFIX_SHARED-token prompt (four PREFIX_PAGE-token pages) and a tail
+# of their own; 4p in f32 at 2 layers (equalities asserted), 5p at phase
+# 5's 48 bf16 layers.
+PREFIX_PAGE, PREFIX_SHARED = 16, 64
+PREFIX_REF_REQUESTS, PREFIX_REF_SLOTS = 6, 3
+PREFIX_SERVE_REQUESTS, PREFIX_OWN, PREFIX_NEW = 16, 8, 16
+# Phase 8q: quantization-aware training on phase 8's state, one warm-up
+# and QAT_STEPS timed steps a mode; 7q holds it to the CPU at phase 7's
+# size with phase 7's limits.
+QAT_MODES = ("int8", "fp8")
+QAT_STEPS = 2
 TRAIN_DEPTH = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
 # Swin: the f32 kernels sum in another order than the plain versions'
@@ -1325,6 +1384,120 @@ def train_reference_phase(torch):
             abs(tg - tc) / abs(tc), "worst_grad_rel": worst, "routes": routes}
 
 
+def train_qat_reference_phase(torch):
+    """Phase 7q: phase 7's model (2 layers at full width, f32, 2 x 64
+    tokens, blk 16, seed 7) with ``quant="int8"``. Every expert weight's
+    int8 payload and scales on the card equal the CPU's; one QAT
+    ``loss_fn`` forward and backward on the card and on the CPU (plain
+    versions) agree within ``TRAIN_LOSS_RTOL`` and ``TRAIN_GRAD_TOL``;
+    and on one layer the QAT loss and grads equal those of the plain loss
+    with each expert weight replaced by ``dequant(quant(w))`` computed
+    outside (the straight-through estimator: the master weight's grad is
+    the dequantized weight's)."""
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+    from repro_torch.quant import core as qcore
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=2, dtype="float32")
+    pcfg = ParallelConfig(blk=16, remat="none", quant="int8")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = lm.init_params(cfg, generator=gen, device="cuda")
+    cpu = tree_map(lambda t: t.cpu(), params)
+    levels, blocks = 0, 0
+    for layer, clayer in zip(params["layers"], cpu["layers"]):
+        for name in qcore.EXPERT_WEIGHT_KEYS:
+            if name not in layer["ffn"]:
+                continue
+            qg, sg = qcore.quantize_blockwise(layer["ffn"][name], mode="int8")
+            qc, sc = qcore.quantize_blockwise(clayer["ffn"][name],
+                                              mode="int8")
+            levels += int((qg.cpu() != qc).sum())
+            blocks += int((sg.cpu() != sc).sum())
+            del qg, sg, qc, sc
+    if levels or blocks:
+        raise AssertionError(f"QAT reference: {levels} int8 levels and "
+                             f"{blocks} scales differ between card and CPU")
+    batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
+                                   vocab_size=cfg.vocab_size,
+                                   seed=7)).batch(0)
+    loss_fn = steps.make_loss_fn(cfg, pcfg)
+    out = {}
+    for device, p0 in (("cuda", params), ("cpu", cpu)):
+        p = tree_map(lambda t: t.detach().requires_grad_(), p0)
+        total, _ = loss_fn(p, batch_to(batch, device))
+        grads = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
+        out[device] = (float(total.detach()),
+                       [None if g is None else g.cpu() for g in grads])
+        del p, grads
+    (tg, gg), (tc, gc) = out["cuda"], out["cpu"]
+    if not abs(tg - tc) <= TRAIN_LOSS_RTOL * abs(tc):
+        raise AssertionError(f"QAT reference: GPU loss {tg} vs CPU {tc}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        if (a is None) != (b is None):
+            raise AssertionError(f"QAT reference: grad leaf {i} missing")
+        if a is None:
+            continue
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if not err <= TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"QAT reference: grad leaf {i} "
+                                 f"{tuple(b.shape)} err {err} > "
+                                 f"{TRAIN_GRAD_TOL} x {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    del out, gg, gc, cpu
+    # the straight-through estimator, on one layer
+    one = dataclasses.replace(cfg, num_layers=1)
+    params1 = {**params, "layers": params["layers"][:1]}
+    qat = tree_map(lambda t: t.detach().requires_grad_(), params1)
+    dq = tree_map(lambda t: t.detach(), params1)
+    ffn = dict(dq["layers"][0]["ffn"])
+    for name in qcore.EXPERT_WEIGHT_KEYS:
+        if name in ffn:
+            ffn[name] = qcore.dequantize_blockwise(
+                *qcore.quantize_blockwise(ffn[name], mode="int8"),
+                dtype=ffn[name].dtype)
+    dq["layers"] = [{**dq["layers"][0], "ffn": ffn}]
+    dq = tree_map(lambda t: t.requires_grad_(), dq)
+    cuda_batch = batch_to(batch, "cuda")
+    res = []
+    for p, c in ((qat, pcfg), (dq, dataclasses.replace(pcfg, quant="none"))):
+        total, _ = steps.make_loss_fn(one, c)(p, cuda_batch)
+        res.append((float(total.detach()), torch.autograd.grad(
+            total, tree_leaves(p), allow_unused=True)))
+    (lq, gq), (ld, gd) = res
+    if not abs(lq - ld) <= TRAIN_LOSS_RTOL * abs(ld):
+        raise AssertionError(f"QAT STE: loss {lq} vs {ld} on dequant(quant)")
+    ste_worst = 0.0
+    for i, (a, b) in enumerate(zip(gq, gd)):
+        if a is None or b is None:
+            continue
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if not err <= TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"QAT STE: grad leaf {i} {tuple(b.shape)} "
+                                 f"err {err} > {TRAIN_GRAD_TOL} x {scale}")
+        ste_worst = max(ste_worst, err / scale if scale else 0.0)
+    seconds = time.perf_counter() - t_phase
+    print(f"[qat-reference] 2-layer full-width f32, int8: payloads and "
+          f"scales card == CPU; loss GPU {tg!r} CPU {tc!r} (rel diff "
+          f"{abs(tg - tc) / abs(tc):.3e}), worst grad max |diff| / max "
+          f"|grad| {worst:.3e}; one layer, QAT == plain on dequant(quant(w)):"
+          f" loss {lq!r} vs {ld!r}, worst grad {ste_worst:.3e}; "
+          f"{seconds:.1f}s")
+    return {"loss_gpu": tg, "loss_cpu": tc, "total_rel_diff":
+            abs(tg - tc) / abs(tc), "worst_grad_rel": worst,
+            "flipped_levels": levels, "ste_loss": [lq, ld],
+            "ste_worst_grad_rel": ste_worst, "seconds": seconds}
+
+
 def train_phase(torch):
     """Phase 8: 4 full-width layers, bf16, AdamW, remat="block"."""
     import math
@@ -1361,11 +1534,11 @@ def train_phase(torch):
                                     vocab_size=cfg.vocab_size, seed=0))
     train_step = steps.make_train_step(cfg, pcfg, opt_cfg)
 
-    def run(step):
+    def run(step, fn=train_step):
         batch = batch_to(source.batch(step), "cuda")
         torch.cuda.synchronize()
         t = time.perf_counter()
-        _, _, m = train_step(params, opt_state, batch)
+        _, _, m = fn(params, opt_state, batch)
         m = {k: float(v) for k, v in m.items()}
         torch.cuda.synchronize()
         return m, time.perf_counter() - t
@@ -1412,13 +1585,76 @@ def train_phase(torch):
           f"tokens: step median {med * 1e3:.1f}ms, {tokens / med:.1f} "
           f"tokens/s; peak allocated {peak / 1e9:.2f} GB; launches "
           f"{launches}; routes {routes}")
+    qat = qat_train_phase(torch, cfg, pcfg, opt_cfg, run, TRAIN_STEPS + 1,
+                          med)
     return launches, {"steps": log, "step_times_s": times,
                       "launches_by_route": routes,
                       "step_median_ms": med * 1e3,
                       "tokens_per_s": tokens / med,
                       "peak_allocated_gb": peak / 1e9,
                       "layers": TRAIN_DEPTH, "params": n_params,
-                      "state_gb": state_gb}
+                      "state_gb": state_gb, "qat": qat}
+
+
+def qat_train_phase(torch, cfg, pcfg, opt_cfg, run, first_step, plain_med):
+    """Phase 8q: quantization-aware training on phase 8's state, each of
+    ``QAT_MODES`` in turn: the expert weights through block-wise
+    ``fake_quant`` inside each MoE layer (twice a step: ``remat="block"``
+    runs the forward again in the backward), the round-tripped weights
+    through the same kernels as phase 8. One warm-up step, then
+    ``QAT_STEPS`` timed steps with the launch counts set to 0 just before
+    and read just after: every loss finite, phase 8's 2 ``esffn_glu``, 5
+    ``esmm`` and 3 ``estmm`` a layer a step, all on wgmma."""
+    import math
+    from repro_torch.kernels import esffn, esmm, estmm
+    from repro_torch.launch import steps
+
+    fns = (esffn.esffn_glu, esmm.esmm, estmm.estmm)
+    want = {k: v * TRAIN_DEPTH * QAT_STEPS
+            for k, v in {"esffn_glu": 2, "esmm": 5, "estmm": 3}.items()}
+    idle = {"esffn_glu": ("stream",), "esmm": ("simt", "mma_tf32x3"),
+            "estmm": ("simt", "mma_tf32x3")}
+    step_no, out = first_step, {}
+    for mode in QAT_MODES:
+        qstep = steps.make_train_step(
+            cfg, dataclasses.replace(pcfg, quant=mode), opt_cfg)
+        m, dt = run(step_no, qstep)             # warm-up, unmeasured
+        step_no += 1
+        torch.cuda.reset_peak_memory_stats()
+        for fn in fns:
+            fn.launches = 0
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        times, log = [], []
+        for _ in range(QAT_STEPS):
+            m, dt = run(step_no, qstep)
+            step_no += 1
+            times.append(dt)
+            log.append(m)
+        launches = {fn.__name__: fn.launches for fn in fns}
+        routes = {fn.__name__: dict(fn.launches_by_route) for fn in fns}
+        if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                   for m in log):
+            raise AssertionError(f"QAT {mode}: non-finite loss {log}")
+        want_routes = {k: {**dict.fromkeys(idle[k], 0), "wgmma": want[k]}
+                       for k in routes}
+        if launches != want or routes != want_routes:
+            raise AssertionError(f"QAT {mode}: launches {launches}, routes "
+                                 f"{routes}, expected {want_routes}")
+        med = statistics.median(times)
+        out[mode] = {"steps": log, "step_times_s": times,
+                     "step_median_ms": med * 1e3,
+                     "over_plain_ms": (med - plain_med) * 1e3,
+                     "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+                     "peak_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": launches, "launches_by_route": routes}
+        print(f"[train-qat] {mode}: {QAT_STEPS} steps, losses "
+              f"{[round(m['loss'], 6) for m in log]}, step median "
+              f"{med * 1e3:.1f}ms against phase 8's {plain_med * 1e3:.1f}ms "
+              f"(+{(med - plain_med) * 1e3:.1f}); peak allocated "
+              f"{out[mode]['peak_allocated_gb']:.2f} GB; launches "
+              f"{launches}, every one on wgmma")
+    return out
 
 
 def _swin_layout(torch, n, d, empty_experts=0, seed=8):
@@ -3507,8 +3743,12 @@ def serve_phase(torch):
         slots, max_seq, pool_bytes)
     spec_launches, spec_routes, spec_res = _spec_serve(
         torch, cfg, params, [r.prompt for r in reqs], make_server)
+    prefix_launches, prefix_routes, prefix_res = _prefix_serve(
+        torch, cfg, params)
     return {"serve": launches, "serve_dense": dense_launches,
-            "serve_spec": {"esffn_glu": spec_launches}}, {
+            "serve_spec": {"esffn_glu": spec_launches},
+            **prefix_launches}, {
+        "prefix": prefix_res, "prefix_launches_by_route": prefix_routes,
         "requests": len(done), "tokens": tokens, "wall_s": wall,
         "decode_step_median_ms": statistics.median(steps) * 1e3,
         "decode_steps": len(steps),
@@ -3813,6 +4053,274 @@ def spec_reference_phase(torch):
     return res
 
 
+def _shared_prefix_prompts(rng, vocab, own_lengths):
+    """Prompts opening with one ``PREFIX_SHARED``-token prompt, each with a
+    tail of its own of each of ``own_lengths`` tokens."""
+    import numpy as np
+    shared = rng.integers(0, vocab, size=PREFIX_SHARED)
+    return [np.concatenate([shared, rng.integers(0, vocab, size=int(n))])
+            .astype(np.int32) for n in own_lengths]
+
+
+def prefix_reference_phase(torch):
+    """Phase 4p: 2 layers at full width in f32 through the robust,
+    prefix-sharing ``PagedServer`` on the card, every run audited after
+    every scheduler step (``assert_page_invariants``) and drained after
+    ``drop_prefix_cache``. Against the streams of the plain engine: the
+    prefix cache (second-wave hits), half/half prefill/decode roles (one
+    transfer a request), and one ``FaultPlan`` each for NaN logits (that
+    request fails, its batchmates' streams stand), an engine-level error
+    (one recovery), priority preemption (the victim replays) and a device
+    dropout (the requests carry across the shrink); then
+    ``make_page_copy_step`` on bf16 and int8 pools."""
+    import numpy as np
+    from types import SimpleNamespace
+    from repro_torch import configs as cfglib
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+    from repro_torch.runtime import faults
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=2, dtype="float32")
+    pcfg = ParallelConfig(blk=16)
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(23),
+        device="cuda")
+    rng = np.random.default_rng(24)
+    reqs = [dict(rid=i, prompt=p, max_new=4) for i, p in enumerate(
+        _shared_prefix_prompts(rng, cfg.vocab_size, rng.integers(
+            1, 7, size=PREFIX_REF_REQUESTS)))]
+    maxp = 128 // PREFIX_PAGE
+
+    def run(reqs, *, slots=PREFIX_REF_SLOTS, num_pages=None, fault=None,
+            **kw):
+        server = serve.PagedServer(
+            cfg, pcfg, num_slots=slots, page_size=PREFIX_PAGE,
+            num_pages=num_pages or 1 + slots * maxp, max_pages_per_slot=maxp,
+            params=params, prefill_chunk=PREFIX_PAGE, audit=True,
+            device="cuda", **kw)
+        for r in reqs:
+            server.submit(serve.Request(**r))
+        plan = faults.FaultPlan([faults.Fault(**fault)] if fault else [])
+        with faults.scope(plan):
+            done = server.run()
+        if fault and len(plan.fired) != 1:
+            raise AssertionError(f"prefix reference: {fault} fired "
+                                 f"{plan.fired}")
+        stats = server.stats()
+        server.drop_prefix_cache()
+        _drained(server, "prefix reference")
+        return server, stats, {r.rid: r.out for r in done}
+
+    def chunks(server):
+        return sum(e[0] == "prefill_chunk" for e in server.trace)
+
+    off, _, base = run(reqs)
+    if len(base) != len(reqs) or any(len(o) != 4 for o in base.values()):
+        raise AssertionError(f"prefix reference: plain engine {base}")
+    out = {}
+    on, st_on, streams = run(reqs, prefix_cache=True)
+    hits = st_on["prefix"]["hit_tokens"]
+    want_hits = PREFIX_SHARED * (len(reqs) - PREFIX_REF_SLOTS)
+    if streams != base or hits < want_hits or chunks(on) >= chunks(off):
+        raise AssertionError(f"prefix reference: cache on {streams} vs off "
+                             f"{base}; {hits} hit tokens (want >= "
+                             f"{want_hits}); chunks {chunks(on)} vs "
+                             f"{chunks(off)}")
+    out["prefix_cache"] = {"hit_tokens": hits, "prefill_chunks": chunks(on),
+                           "prefill_chunks_off": chunks(off)}
+    dis, _, streams = run(reqs, slots=4, disagg=True)
+    if streams != base or dis.transfers != len(reqs) \
+            or dis.roles != ["prefill", "prefill", "decode", "decode"]:
+        raise AssertionError(f"prefix reference: disagg {streams}, "
+                             f"{dis.transfers} transfers, roles {dis.roles}")
+    out["disagg_transfers"] = dis.transfers
+    nan, _, streams = run(reqs, max_retries=0, fault=dict(
+        site="serve.logits", kind="nan", at=1, payload={"slot": 0}))
+    if len(nan.failed) != 1:
+        raise AssertionError(f"prefix reference: NaN watchdog failed "
+                             f"{[(r.rid, r.error) for r in nan.failed]}")
+    bad = nan.failed[0]
+    if "non-finite decode logits" not in bad.error or bad.out \
+            or streams != {k: v for k, v in base.items() if k != bad.rid} \
+            or nan.engine_recoveries:
+        raise AssertionError(f"prefix reference: NaN watchdog {streams}, "
+                             f"failed {[(r.rid, r.error) for r in nan.failed]}")
+    out["nan_failed_rid"] = bad.rid
+    rec, _, streams = run(reqs, fault=dict(site="serve.decode",
+                                           kind="error", at=1))
+    if streams != base or rec.engine_recoveries != 1 or rec.aborts:
+        raise AssertionError(f"prefix reference: engine recovery {streams}, "
+                             f"{rec.engine_recoveries} recoveries")
+    # two low-priority requests reserve the whole pool (4 pages each); a
+    # higher-priority head preempts the younger once it decodes
+    low = [dict(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=40)
+                .astype(np.int32), max_new=20) for i in range(2)]
+    prio = low + [dict(rid=2, prompt=rng.integers(
+        0, cfg.vocab_size, size=10).astype(np.int32), max_new=4,
+        priority=5)]
+    _, _, prio_base = run(prio)
+    pre, st_pre, streams = run(prio, num_pages=1 + 8, prefix_cache=True)
+    victims = [e[1] for e in pre.trace if e[0] == "preempt"]
+    if streams != prio_base or pre.preemptions != 1 or pre.failed \
+            or len(victims) != 1 or pre.aborts \
+            or st_pre["prefix"]["hit_tokens"] < PREFIX_PAGE:
+        raise AssertionError(f"prefix reference: preemption {streams} vs "
+                             f"{prio_base}, victims {victims}")
+    out["preempted_rid"] = victims[0]
+    drop, _, streams = run(
+        reqs, slots=4, plan=SimpleNamespace(token_counts=(2, 1)),
+        prefix_cache=True, fault=dict(site="serve.decode",
+                                      kind="device_drop", at=2,
+                                      payload={"survivors": [0]}))
+    if streams != base or ("shrink", (0,)) not in drop.trace \
+            or drop.pool.shares != [4 * maxp] or drop.failed:
+        raise AssertionError(f"prefix reference: device dropout {streams}, "
+                             f"shares {drop.pool.shares}")
+    copies = {}
+    for kv in (None, "int8"):
+        bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+        cache = lm.init_paged_cache(bcfg, 2, 9, PREFIX_PAGE, "cuda",
+                                    kv_quant=kv)
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        for layer in cache["layers"]:
+            for t in layer.values():
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda")
+                        .mul_(40).clamp_(-127, 127))
+        before = [{k: t.clone() for k, t in layer.items()}
+                  for layer in cache["layers"]]
+        cache = steps.make_page_copy_step(bcfg)(cache, 3, 7)
+        for layer, was in zip(cache["layers"], before):
+            for k, t in layer.items():
+                keep = torch.ones(t.shape[0], dtype=torch.bool,
+                                  device="cuda")
+                keep[7] = False
+                if not torch.equal(t[7], was[k][3]) \
+                        or not torch.equal(t[keep], was[k][keep]):
+                    raise AssertionError(f"page copy {kv or 'bf16'} {k}")
+        copies[kv or "bfloat16"] = sorted(cache["layers"][0])
+    out.update(page_copy_pools=copies, streams={
+        str(k): v for k, v in base.items()},
+        seconds=time.perf_counter() - t_phase)
+    print(f"[prefix-reference] 2-layer full-width f32, {len(reqs)} requests "
+          f"on a {PREFIX_SHARED}-token shared prompt: prefix cache, disagg, "
+          f"NaN watchdog (rid {bad.rid} failed), engine recovery, priority "
+          f"preemption, device dropout all token-equal to the plain engine; "
+          f"{hits} hit tokens, prefill chunks {chunks(on)} vs {chunks(off)}; "
+          f"page copy exact on {copies}; {out['seconds']:.1f}s")
+    return out
+
+
+def _prefix_serve(torch, cfg, params):
+    """Phase 5p, on phase 5's 48-layer bf16 weights: ``PREFIX_SERVE_REQUESTS``
+    requests of the ``PREFIX_SHARED``-token shared prompt and
+    ``PREFIX_OWN`` tokens of their own, ``PREFIX_NEW`` new tokens, through
+    ``PagedServer`` (8 slots, a pool that holds every slot's worst case)
+    without and with the prefix cache, then with ``disagg=True``; the
+    kernels' counts set to 0 just before each run and read just after.
+    Returns (launches by path, esffn_glu routes by path, result)."""
+    import numpy as np
+    from repro_torch.kernels import esffn, paged_attention
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    t_phase = time.perf_counter()
+    pcfg = ParallelConfig(blk=16)
+    rng = np.random.default_rng(26)
+    prompts = _shared_prefix_prompts(rng, cfg.vocab_size,
+                                     [PREFIX_OWN] * PREFIX_SERVE_REQUESTS)
+    slots, maxp = 8, 128 // PREFIX_PAGE
+    launches, routes, res, streams = {}, {}, {}, {}
+    for path, kw in (("serve_prefix_off", {}),
+                     ("serve_prefix_on", {"prefix_cache": True}),
+                     ("serve_disagg", {"disagg": True})):
+        server = serve.PagedServer(
+            cfg, pcfg, num_slots=slots, page_size=PREFIX_PAGE,
+            num_pages=1 + slots * maxp, max_pages_per_slot=maxp,
+            params=params, prefill_chunk=PREFIX_PAGE, device="cuda", **kw)
+        for i, p in enumerate(prompts):
+            server.submit(serve.Request(rid=i, prompt=p, max_new=PREFIX_NEW))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        esffn.esffn_glu.launches = 0
+        esffn.esffn_glu.launches_by_route = dict.fromkeys(
+            esffn.esffn_glu.launches_by_route, 0)
+        paged_attention.paged_attention.launches = 0
+        t0 = time.perf_counter()
+        done = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = {
+            "esffn_glu": esffn.esffn_glu.launches,
+            "paged_attention": paged_attention.paged_attention.launches}
+        routes[path] = {"esffn_glu": dict(esffn.esffn_glu.launches_by_route)}
+        if routes[path]["esffn_glu"] != {
+                "stream": launches[path]["esffn_glu"], "wgmma": 0} \
+                or min(launches[path].values()) <= 0:
+            raise AssertionError(f"{path}: launches {launches[path]}, "
+                                 f"routes {routes[path]}")
+        if len(done) != len(prompts) or any(
+                len(r.out) != PREFIX_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in r.out) for r in done):
+            raise AssertionError(f"{path}: not every request finished with "
+                                 f"{PREFIX_NEW} in-vocabulary tokens")
+        st = server.stats()
+        server.drop_prefix_cache()
+        _drained(server, path)
+        streams[path] = {r.rid: r.out for r in done}
+        first = set(server.admission_log[:slots])
+        ttft = {w: [v * 1e3 for k, v in server.ttft_s.items()
+                    if (k in first) == (w == "first")]
+                for w in ("first", "second")}
+        tokens = sum(len(r.out) for r in done)
+        res[path] = {
+            "prefill_chunks": sum(e[0] == "prefill_chunk"
+                                  for e in server.trace),
+            "transfers": server.transfers, "wall_s": wall,
+            "tok_per_s": tokens / wall,
+            "decode_tick_median_ms": statistics.median(
+                server.decode_times_s) * 1e3,
+            "ttft_median_ms": {w: statistics.median(v)
+                               for w, v in ttft.items()},
+            "peak_pages": st["peak_in_use_pages"],
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches[path]}
+        if "prefix" in st:
+            pf = st["prefix"]
+            res[path]["hit_rate"] = pf["hit_tokens"] / pf["lookup_tokens"]
+            res[path]["hit_tokens"] = pf["hit_tokens"]
+    on, off = res["serve_prefix_on"], res["serve_prefix_off"]
+    if on["prefill_chunks"] >= off["prefill_chunks"]:
+        raise AssertionError(f"prefix serve: {on['prefill_chunks']} prefill "
+                             f"chunks with the cache, {off['prefill_chunks']} "
+                             f"without")
+    if res["serve_disagg"]["transfers"] != len(prompts):
+        raise AssertionError(f"prefix serve: {res['serve_disagg']} "
+                             f"transfers for {len(prompts)} requests")
+    same = {k: sum(streams[k][r] == streams["serve_prefix_off"][r]
+                   for r in streams[k])
+            for k in ("serve_prefix_on", "serve_disagg")}
+    res["bf16_streams_equal_to_cache_off"] = same
+    res["seconds"] = time.perf_counter() - t_phase
+    for path, r in res.items():
+        if isinstance(r, dict) and "prefill_chunks" in r:
+            print(f"[prefix-serve] {path}: {r['prefill_chunks']} prefill "
+                  f"chunks, hit rate {r.get('hit_rate', 0.0):.3f}, TTFT "
+                  f"median first/second wave "
+                  f"{r['ttft_median_ms']['first']:.1f}/"
+                  f"{r['ttft_median_ms']['second']:.1f}ms, decode tick "
+                  f"median {r['decode_tick_median_ms']:.2f}ms, "
+                  f"{r['tok_per_s']:.1f} tok/s, {r['transfers']} transfers, "
+                  f"peak {r['peak_pages']} pages, "
+                  f"{r['peak_allocated_gb']:.2f} GB; launches "
+                  f"{r['launches']}")
+    print(f"[prefix-serve] bf16 streams equal to the cache-off run's "
+          f"(not asserted): {same} of {len(prompts)}; {res['seconds']:.1f}s")
+    return launches, routes, res
+
+
 def _spec_serve(torch, cfg, params, prompts, make_server):
     """Phase 5s: phase 5's weights, the first ``SPEC_SERVE_REQUESTS`` of its
     prompts (8 of 16, one wave of the 8 slots: the 16 took 70 s), odd rids
@@ -3910,6 +4418,14 @@ def _spec_serve(torch, cfg, params, prompts, make_server):
     return ons[-1]["esffn_glu_launches"], ons[-1]["routes"], res
 
 
+def _release(torch):
+    """Free what the last phase left: its objects in reference cycles (a
+    ``SpecDecoder`` and its server point at each other, so their weights
+    wait for the cycle collector) and then the allocator's cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3957,21 +4473,23 @@ def main() -> int:
           f"err / limit {max(c['worst_slot_err_over_tol'] for c in quant_res['paged_attention_checks']):.3g}")
     sampling_res = sampling_phase(torch, flush)
     del flush
-    torch.cuda.empty_cache()
+    _release(torch)
 
     serve_ref = reference_phase(torch)
-    torch.cuda.empty_cache()
+    _release(torch)
     spec_ref = spec_reference_phase(torch)
-    torch.cuda.empty_cache()
+    _release(torch)
+    prefix_ref = prefix_reference_phase(torch)
+    _release(torch)
     quant_ref = quant_reference_phase(torch)
-    torch.cuda.empty_cache()
+    _release(torch)
     serve_launches, serve_res = serve_phase(torch)
-    print(f"[serve] {json.dumps({**serve_res, 'reference': serve_ref, 'spec_reference': spec_ref, 'sampling': sampling_res})}")
-    torch.cuda.empty_cache()           # the serve phase's weights are gone
+    print(f"[serve] {json.dumps({**serve_res, 'reference': serve_ref, 'spec_reference': spec_ref, 'prefix_reference': prefix_ref, 'sampling': sampling_res})}")
+    _release(torch)           # the serve phase's weights are gone
     quant_serve = quant_serve_phase(torch, serve_res["peak_allocated_gb"])
     print(f"[quant-serve] {json.dumps(quant_serve)}")
 
-    torch.cuda.empty_cache()           # the serve phase's weights are gone
+    _release(torch)           # the serve phase's weights are gone
     print(f"[train] device memory allocated before training: "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -3982,14 +4500,16 @@ def main() -> int:
         print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
               f"{c['err_over_tol']:.3g} x the limit")
     del flush
-    torch.cuda.empty_cache()
+    _release(torch)
     train_ref = train_reference_phase(torch)
-    torch.cuda.empty_cache()
+    _release(torch)
+    qat_ref = train_qat_reference_phase(torch)
+    _release(torch)
     bf16_ref = train_reference_bf16_phase(torch)
-    torch.cuda.empty_cache()
+    _release(torch)
     train_launches, train_out = train_phase(torch)
-    print(f"[train] {json.dumps({**train_out, 'reference': train_ref, 'reference_bf16': bf16_ref})}")
-    torch.cuda.empty_cache()               # the qwen training state is gone
+    print(f"[train] {json.dumps({**train_out, 'reference': train_ref, 'reference_qat': qat_ref, 'reference_bf16': bf16_ref})}")
+    _release(torch)               # the qwen training state is gone
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     swin_res = swin_kernel_cases(torch, flush)
     for k in ("esffn_mlp", "esfk", "ess", "esmm", "estmm"):
@@ -4012,15 +4532,15 @@ def main() -> int:
         print(f"[check] {k}: {len(cs_)} cases {dict(routes)}, worst err / "
               f"limit {worst:.3g}")
     del flush
-    torch.cuda.empty_cache()
+    _release(torch)
     swin_ref = swin_reference_phase(torch)
-    torch.cuda.empty_cache()
+    _release(torch)
     swin_launches, swin_out = swin_train_phase(torch)
     print(f"[swin] {json.dumps({**swin_out, 'reference': swin_ref})}")
-    torch.cuda.empty_cache()               # the Swin training state is gone
+    _release(torch)               # the Swin training state is gone
     t78 = tables78_phase(torch)
     print(f"[t78] {json.dumps(t78)}")
-    torch.cuda.empty_cache()
+    _release(torch)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flash_launches, flash_routes, flash_res, flash_neg = flash_cases(
         torch, flush)
@@ -4033,10 +4553,14 @@ def main() -> int:
     print(f"[done] every phase in {time.perf_counter() - t_start:.1f}s")
 
     # Each kernel's launches on the main paths that ran it: the paged and
-    # the dense serve runs and the speculative one (phases 5, 5s), the qwen
-    # train steps (phase 8), the Swin train steps and the unfused-backward
-    # pass (phase 11).
-    paths = {**serve_launches, "qwen_train": train_launches, **swin_launches}
+    # the dense serve runs, the speculative one and the prefix-sharing and
+    # disaggregated ones (phases 5, 5s, 5p), the qwen train steps and the
+    # QAT steps (phases 8, 8q), the Swin train steps and the
+    # unfused-backward pass (phase 11).
+    qat_paths = {f"qwen_qat_{m}": r["launches"]
+                 for m, r in train_out["qat"].items()}
+    paths = {**serve_launches, "qwen_train": train_launches, **qat_paths,
+             **swin_launches}
     by_path = {}
     for path, counts in paths.items():
         for name, n in counts.items():
@@ -4046,7 +4570,10 @@ def main() -> int:
     route_paths = {"serve": serve_res["launches_by_route"],
                    "serve_dense": serve_res["dense"]["launches_by_route"],
                    "serve_spec": serve_res["spec_launches_by_route"],
+                   **serve_res["prefix_launches_by_route"],
                    "qwen_train": train_out["launches_by_route"],
+                   **{f"qwen_qat_{m}": r["launches_by_route"]
+                      for m, r in train_out["qat"].items()},
                    **swin_out["launches_by_route"]}
 
     def by_route(name, cases, routes, paths=route_paths):

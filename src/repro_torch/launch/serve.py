@@ -24,8 +24,17 @@ branches.
 ``--spec-ngram`` / ``--spec-draft ARCH`` (``--paged`` only) verify drafted
 tokens in one multi-token forward a slot (``launch.spec``).
 
-Not in this slice (ROADMAP.md): hetero slot and page shares, prefix cache,
-disaggregation, fault handling and observability.
+The paged engine shares full prompt pages across requests through a
+copy-on-write radix index (``--prefix-cache``), splits its slots into
+prefill and decode roles that hand finished prompts over by page table
+(``--disagg``), and survives injected faults (``--fault-spec``, a
+``runtime.faults`` plan): request-level aborts with bounded retries, the
+NaN watchdog, engine recovery, priority preemption, deadlines and device
+dropout; ``--audit`` checks the page books after every scheduler step.
+
+Not in this slice (ROADMAP.md): hetero plans built from ``--hetero-*``
+latencies (``PagedServer(plan=)`` takes any object with ``token_counts``),
+the dense engine's hetero slot shares, the mesh flags, and observability.
 """
 from __future__ import annotations
 
@@ -44,21 +53,37 @@ from repro_torch.common import cdiv, resolve_device, torch_dtype, tree_leaves
 from repro_torch.launch import sampling
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
-from repro_torch.parallel.cache import PagePool
+from repro_torch.parallel.cache import PagePool, PrefixIndex, page_shares
 from repro_torch.parallel.sharding import ParallelConfig
+from repro_torch.runtime import faults as faults_lib
 
 
 @dataclass
 class Request:
     """One serving request: prompt tokens in, up to ``max_new`` tokens
     out, chosen greedily at ``temperature`` 0 (the default) or drawn
-    categorically under the request's own ``seed``."""
+    categorically under the request's own ``seed``.
+
+    Robustness fields (the paged engine): ``priority`` orders preemption
+    under page pressure (lower is preempted first); ``deadline_s`` bounds
+    the time from ``submit`` on the engine's clock; a faulted request
+    retries up to the engine's ``max_retries``, ``aborts`` and
+    ``preemptions`` counting the restarts. A retry clears ``out`` and
+    replays from the prompt: keys derive only from ``(seed, len(out))``,
+    so the replay is token-identical. A request that failed for good
+    carries the reason in ``error``."""
     rid: int
     prompt: np.ndarray           # (S_prompt,)
     max_new: int
     out: list = field(default_factory=list)
     temperature: float = 0.0     # 0 = greedy argmax
     seed: int = 0                # per-request sampling seed
+    priority: int = 0            # higher admits over lower under pressure
+    deadline_s: Optional[float] = None   # budget from submit (engine clock)
+    submit_t: float = 0.0        # stamped by submit()
+    aborts: int = 0              # fault / NaN retries consumed
+    preemptions: int = 0         # page-pressure evictions (not retries)
+    error: Optional[str] = None  # why the request failed for good
 
 
 def argmax_token(logits_row) -> int:
@@ -70,14 +95,20 @@ def argmax_token(logits_row) -> int:
     return int(np.argmax(row))
 
 
-def sample_tokens(rows: torch.Tensor, reqs: list) -> np.ndarray:
-    """``next_token`` of every row of ``rows`` (B, V) at once, on the rows'
-    device, then one copy to the host: row ``i`` for ``reqs[i]`` at step
-    ``len(reqs[i].out)`` (a None entry's row is greedy and unused)."""
-    return sampling.sample_rows(
-        rows, [r.seed if r else 0 for r in reqs],
-        [len(r.out) if r else 0 for r in reqs],
-        [r.temperature if r else 0.0 for r in reqs]).cpu().numpy()
+def draw_rows(rows: torch.Tensor, reqs: list, steps=None) -> tuple:
+    """``next_token`` of every row of ``rows`` (B, V), row ``i`` for
+    ``reqs[i]`` at step ``steps[i]`` (default ``len(reqs[i].out)``), and
+    whether the row is finite, both computed on the rows' device and
+    brought to the host in ONE copy: (tokens (B,) int64, finite (B,)
+    bool). A None entry of ``reqs`` is drawn greedily and unused."""
+    if steps is None:
+        steps = [len(r.out) if r else 0 for r in reqs]
+    drawn = sampling.sample_rows(
+        rows, [r.seed if r else 0 for r in reqs], steps,
+        [r.temperature if r else 0.0 for r in reqs])
+    host = torch.stack([drawn, torch.isfinite(rows).all(-1).long()])
+    host = host.cpu().numpy()
+    return host[0], host[1].astype(bool)
 
 
 def next_token(logits_row, req: Request) -> int:
@@ -92,7 +123,7 @@ def next_token(logits_row, req: Request) -> int:
         return argmax_token(logits_row)
     row = (logits_row if isinstance(logits_row, torch.Tensor)
            else torch.from_numpy(np.asarray(logits_row, np.float32)))
-    return int(sample_tokens(row.reshape(1, -1), [req])[0])
+    return int(draw_rows(row.reshape(1, -1), [req])[0][0])
 
 
 def reference_stream(cfg, pcfg, params, req: Request, *, max_seq: int,
@@ -214,7 +245,7 @@ class BatchedServer:
         emit = [st.req if st is not None
                 and st.pos + 1 >= len(st.req.prompt) else None
                 for st in self.slots]
-        nxt = sample_tokens(logits[:, -1], emit)
+        nxt, _ = draw_rows(logits[:, -1], emit)
         self.decode_times_s.append(time.perf_counter() - t0)
         done = []
         for slot, st in enumerate(self.slots):
@@ -252,40 +283,89 @@ class BatchedServer:
 @dataclass
 class _PagedSlot:
     req: Request
+    group: int           # page-pool group the slot's budget comes from
     order: int           # admission sequence (FIFO prefill priority)
-    reserved: int        # worst-case pages reserved from the pool
+    need: int            # worst-case pages for the request
+    reserved: int        # pages reserved from the pool at admission
     pages: list = field(default_factory=list)  # phys page per logical page
     pos: int = 0         # prompt tokens consumed
     length: int = 0      # tokens resident in the paged cache
     reclaimed: int = 0   # leading logical pages released behind the window
     allocated: int = 0   # pool.alloc calls (reservations consumed)
+    matched: int = 0     # prefix-cache pages mapped in at refcount + 1
+
+
+def derive_roles(token_counts) -> list:
+    """Disaggregated prefill/decode role per device class: the class(es)
+    with the largest Eq. 1 token share prefill, the rest decode. A uniform
+    (or single-class) plan gives ``"both"`` everywhere, which is the
+    single-loop engine."""
+    counts = list(token_counts)
+    if len(set(counts)) < 2:
+        return ["both"] * len(counts)
+    top = max(counts)
+    return ["prefill" if c == top else "decode" for c in counts]
 
 
 class PagedServer:
     """Continuous batching over the paged KV cache.
 
     A request is admitted only when its worst-case page count
-    ``ceil((prompt + max_new - 1) / page_size)`` can be reserved; prefill
-    grants a chunk's worth of pages before each ``prefill_chunk``-token
-    batch-1 chunk, decode one page per boundary crossing; on all-windowed
-    stacks pages wholly behind the window return to the pool mid-request.
-    The K/V pools and lengths live on ``device`` (the GPU unless
-    ``device="cpu"``); tables and the schedule live on the host.
-    ``kv_quant="int8"``: the pools hold int8 rows with per-(row, kv head)
-    f32 scales, and admission budgets in the smaller int8 page bytes.
+    ``ceil((prompt + max_new - 1) / page_size)`` can be reserved from its
+    slot's group; prefill grants a chunk's worth of pages before each
+    ``prefill_chunk``-token batch-1 chunk, decode one page per boundary
+    crossing; on all-windowed stacks pages wholly behind the window return
+    to the pool mid-request. The K/V pools and lengths live on ``device``
+    (the GPU unless ``device="cpu"``); tables and the schedule live on the
+    host. ``kv_quant="int8"``: int8 pools with per-(row, kv head) f32
+    scales, admission budgeted in the smaller int8 page bytes.
+
+    ``prefix_cache``: admission maps the longest cached run of full prompt
+    pages (``PrefixIndex``) into the slot at refcount + 1 and prefills only
+    the rest; a shared page about to be written is copied first
+    (``_cow_page``). ``plan`` (any object with ``token_counts``, a hetero
+    plan's Eq. 1 shares): per-group page budgets (``page_shares``), slot
+    ``s`` in group ``s * groups // num_slots``. ``disagg``: prefill-role
+    slots hand finished prompts to decode-role slots by moving the table
+    row and the length (``make_paged_handoff_step``), roles by
+    ``derive_roles`` under a plan, else half and half.
+
+    Robustness: a request has a ``priority`` (a higher head preempts the
+    youngest lower-priority decoding request under page pressure), a
+    ``deadline_s`` on ``clock`` and up to ``max_retries`` retries after a
+    request-level fault or non-finite logits (the NaN watchdog, folded
+    into the one device-to-host copy a step makes); failed requests land
+    in ``failed``. Injected faults (``runtime.faults``: ``serve.prefill``,
+    ``serve.prefill_logits``, ``serve.decode``, ``serve.logits``) abort
+    and retry a slot, rebuild the steps (``_recover_engine``) or, on a
+    device dropout, shrink the pool's groups (``_shrink``). ``audit``
+    checks ``assert_page_invariants`` after every scheduler step.
+
     A ``launch.spec.SpecDecoder`` attaches itself as ``spec`` and then runs
-    every decode tick; ``trace`` records its ``("spec_verify", rid, slot,
-    n_valid, accepted)`` and ``("rollback", rid, slot, n)`` events.
+    every decode tick. ``trace`` lists the scheduler's events as tuples:
+    ``("admit", rid, slot)``, ``("prefill_chunk", rid, slot, n)``,
+    ``("decode", slots)``, ``("transfer", rid, src, dst)``, ``("finish",
+    rid, slot)``, ``("abort", rid, slot, reason)``, ``("preempt", rid,
+    slot)``, ``("recover",)``, ``("shrink", survivors)``, ``("rollback",
+    rid, slot, n)``, ``("spec_verify", rid, slot, n_valid, accepted)`` and
+    ``("fail", rid, reason)``, as the JAX engine's ``trace`` yields them;
+    ``trace_t`` holds the engine clock at each.
     """
 
     def __init__(self, cfg, pcfg, *, num_slots: int, page_size: int,
                  num_pages: int, max_pages_per_slot: int, params,
-                 prefill_chunk: int = 16, kv_quant=None, device=None):
+                 prefill_chunk: int = 16, plan=None, kv_quant=None,
+                 prefix_cache: bool = False, disagg: bool = False,
+                 max_retries: int = 2, audit: bool = False,
+                 clock=time.perf_counter, device=None):
         self.cfg, self.pcfg = cfg, pcfg
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"server runs on {self.device}")
+        self.max_retries = max_retries
+        self.audit = audit
+        self.clock = clock
         self.num_slots = num_slots
         self.page_size = page_size
         self.max_pages_per_slot = max_pages_per_slot
@@ -296,27 +376,96 @@ class PagedServer:
                                          self.device, kv_quant=self.kv_quant)
         self.page_bytes = lm.paged_kv_page_bytes(cfg, page_size,
                                                  kv_quant=self.kv_quant)
-        self.pool = PagePool(num_pages, page_bytes=self.page_bytes)
+        # each class's Eq. 1 weight, kept so a device dropout can re-derive
+        # the shares and roles over the survivors
+        self.class_weights = (list(plan.token_counts)
+                              if plan is not None else [1])
+        shares = None
+        self.groups = [0] * num_slots
+        if plan is not None:
+            shares = page_shares(plan.token_counts, num_pages - 1)
+            n_g = len(shares)
+            if num_slots < n_g:
+                raise ValueError(
+                    f"{num_slots} slots cannot cover {n_g} device groups "
+                    f"(a group without slots could never admit)")
+            self.groups = [s * n_g // num_slots for s in range(num_slots)]
+        self.pool = PagePool(num_pages, page_bytes=self.page_bytes,
+                             shares=shares)
         # Window page reclamation: when EVERY attention layer is windowed,
         # a page wholly behind the window is dead and returns to the pool.
         self.reclaim_window = (
             cfg.window if cfg.window > 0 and all(
                 cfg.attn_kind(i) == "local" for i in range(cfg.num_layers))
             else None)
+        # the prefix cache skips prompt pages, which holds only where pages
+        # are a slot's whole state: every layer attention
+        self.index = None
+        if prefix_cache:
+            if any(cfg.layer_kind(i) != "attn"
+                   for i in range(cfg.num_layers)):
+                raise ValueError(
+                    "prefix_cache requires an all-attention stack: "
+                    "recurrent layers keep per-slot state outside the KV "
+                    "pages, so a shared prefix cannot be skipped")
+            self.index = PrefixIndex(page_size)
+        self.disagg = disagg
+        self.roles = ["both"] * num_slots
+        if disagg:
+            if plan is not None:
+                group_roles = derive_roles(plan.token_counts)
+                self.roles = [group_roles[self.groups[s]]
+                              for s in range(num_slots)]
+            else:
+                if num_slots < 2:
+                    raise ValueError("disagg needs >= 2 slots")
+                self.roles = ["prefill" if s < num_slots // 2 else "decode"
+                              for s in range(num_slots)]
+            if "prefill" in self.roles and "decode" not in self.roles:
+                raise ValueError(
+                    "disaggregated plan has prefill-only slots but no "
+                    "decode-capable slot — finished prefills could never "
+                    "hand off")
+        self.spec = None                 # a SpecDecoder, when attached
         self.table = np.zeros((num_slots, max_pages_per_slot), np.int32)
-        self.serve_step = steps_lib.make_paged_serve_step(cfg, pcfg, page_size)
-        self.prefill_step = steps_lib.make_paged_prefill_step(cfg, pcfg,
-                                                              page_size)
+        self._build_steps()
         self.slots: list[Optional[_PagedSlot]] = [None] * num_slots
         self.queue: deque[Request] = deque()
         self.free = sorted(range(num_slots), reverse=True)
         self.decode_times_s: list = []
         self.ttft_s: dict = {}           # rid -> first-token latency
         self.admissions = 0
-        self.spec = None                 # a SpecDecoder, when attached
+        self.admission_log: list = []    # rids, in admission order
         self.trace: list[tuple] = []     # (name, *args) scheduler events
+        self.trace_t: list = []          # the engine clock at each event
+        self.transfers = 0
+        self.failed: list[Request] = []  # permanently failed requests
+        self.aborts = 0                  # fault / NaN slot aborts
+        self.preemptions = 0             # page-pressure evictions
+        self.engine_recoveries = 0       # step rebuilds
         self._order = 0
         self._run_t0 = 0.0
+
+    def _build_steps(self):
+        """(Re)build the decode and prefill steps, at construction and in
+        ``_recover_engine``. The handoff and page-copy steps are built on
+        first use; an attached ``SpecDecoder`` rebuilds its score step."""
+        self.serve_step = steps_lib.make_paged_serve_step(
+            self.cfg, self.pcfg, self.page_size)
+        self.prefill_step = steps_lib.make_paged_prefill_step(
+            self.cfg, self.pcfg, self.page_size)
+        self._handoff_step = None
+        self._copy_step = None
+        if self.spec is not None:
+            self.spec.reset_steps()
+
+    def _event(self, name: str, *args):
+        """Record one scheduler event in ``trace``, and the engine clock at
+        it in ``trace_t`` (the clock is read once an event, as the JAX
+        engine reads it, so a deadline on a tick clock expires at the same
+        step in both)."""
+        self.trace_t.append(self.clock())
+        self.trace.append((name, *args))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -329,36 +478,108 @@ class PagedServer:
     def submit(self, req: Request):
         _check_request(req)
         need = self._need_pages(req)
-        if need > min(self.max_pages_per_slot, self.pool.num_pages - 1):
+        if need > self.max_pages_per_slot:
             raise ValueError(
-                f"request {req.rid} needs {need} pages > max_pages_per_slot "
-                f"{self.max_pages_per_slot} or the pool's "
-                f"{self.pool.num_pages - 1} allocatable pages")
+                f"request {req.rid} needs {need} pages "
+                f"> max_pages_per_slot {self.max_pages_per_slot}")
+        if need > max(self.pool.shares):
+            raise ValueError(
+                f"request {req.rid} needs {need} pages > largest group "
+                f"share {max(self.pool.shares)} — it could never admit "
+                f"(FIFO would deadlock behind it)")
+        req.submit_t = self.clock()
         self.queue.append(req)
 
     # -- scheduling ticks -----------------------------------------------------
 
+    def _try_reserve_evicting(self, n: int, group: int) -> bool:
+        """``try_reserve``, evicting LRU prefix-cache pages that only the
+        index still holds until the reservation fits or the index runs
+        dry."""
+        while not self.pool.try_reserve(n, group):
+            if self.index is None or not self.index.evict_lru(self.pool):
+                return False
+        return True
+
     def _admit(self):
-        """Strict FIFO: the queue head admits as soon as a slot is free and
-        its worst-case pages can be reserved; nothing overtakes it."""
+        """Strict FIFO: the queue head admits as soon as a free
+        prefill-capable slot's group can reserve its pages; nothing
+        overtakes it. With the prefix cache on, the head's prompt is first
+        matched against the index (at most ``(plen - 1) // page_size``
+        pages, so one suffix token always prefills and gives the
+        first-token logits), the matched pages forked (refcount + 1, no
+        budget) and only the rest reserved. When no group can reserve, a
+        strictly lower-priority decoding request is preempted and the head
+        tried again."""
         while self.queue and self.free:
             req = self.queue[0]
             need = self._need_pages(req)
-            if not self.pool.try_reserve(need):
+            matched: list = []
+            if self.index is not None:
+                matched = self.index.match(
+                    req.prompt, (len(req.prompt) - 1) // self.page_size)
+                if matched:
+                    self.pool.fork(matched)
+            reserve_n = need - len(matched)
+            slot = None
+            for s in reversed(self.free):        # lowest slot id first
+                if self.roles[s] == "decode":
+                    continue
+                if self._try_reserve_evicting(reserve_n, self.groups[s]):
+                    slot = s
+                    break
+            if slot is None:
+                if matched:
+                    self.pool.release(matched)   # undo the admission forks
+                if self._preempt_for(req):
+                    continue
                 return
             self.queue.popleft()
-            slot = self.free.pop()
-            self.cache = lm.reset_slot(self.cfg, self.cache, slot)
-            self.slots[slot] = _PagedSlot(req, self._order, reserved=need)
+            self.free.remove(slot)
+            m = len(matched) * self.page_size
+            self.cache = lm.reset_slot(self.cfg, self.cache, slot, length=m)
+            self.slots[slot] = _PagedSlot(
+                req, self.groups[slot], self._order, need,
+                reserved=reserve_n, pages=list(matched), pos=m, length=m,
+                matched=len(matched))
             self._order += 1
             self.admissions += 1
+            self.admission_log.append(req.rid)
             self.table[slot, :] = 0
+            self.table[slot, :len(matched)] = matched
+            self._event("admit", req.rid, slot)
+
+    def _cow_page(self, slot: int, st: _PagedSlot, j: int):
+        """Copy-on-write guard: logical page ``j`` is about to be written
+        but its physical page is shared. Reserve and allocate a private
+        page, copy the payload on the device, repoint the table and
+        surrender the shared reference. The engine's own writes land past
+        the shared full prompt pages, so this is the pool-level guarantee,
+        not a steady-state cost."""
+        if not self._try_reserve_evicting(1, st.group):
+            raise RuntimeError(
+                f"slot {slot}: cannot reserve a CoW page for logical "
+                f"page {j}")
+        st.reserved += 1
+        src = st.pages[j]
+        dst = self.pool.cow(src, st.group)
+        st.allocated += 1
+        if self._copy_step is None:
+            self._copy_step = steps_lib.make_page_copy_step(self.cfg)
+        self.cache = self._copy_step(self.cache, src, dst)
+        st.pages[j] = dst
+        self.table[slot, j] = dst
 
     def _ensure_pages(self, slot: int, st: _PagedSlot, length: int):
         """Back every position below ``length`` with a physical page drawn
-        from the request's admission reservation."""
+        from the request's admission reservation; the first page the coming
+        write touches is copied first if it is shared."""
+        j = st.length // self.page_size
+        if j < len(st.pages) and st.pages[j] != 0 \
+                and self.pool.refcount(st.pages[j]) > 1:
+            self._cow_page(slot, st, j)
         while (length - 1) // self.page_size >= len(st.pages):
-            st.pages.append(self.pool.alloc())
+            st.pages.append(self.pool.alloc(st.group))
             st.allocated += 1
             self.table[slot, len(st.pages) - 1] = st.pages[-1]
 
@@ -370,7 +591,7 @@ class PagedServer:
         dead = (st.length - self.reclaim_window) // self.page_size
         while st.reclaimed < dead:
             j = st.reclaimed
-            self.pool.release([st.pages[j]])
+            self.pool.release([st.pages[j]], st.group)
             st.pages[j] = 0
             self.table[slot, j] = 0
             st.reclaimed += 1
@@ -381,8 +602,10 @@ class PagedServer:
         attention masks every row past it), pop the tail pages that no
         longer back a row back to the request's own reservation
         (``PagePool.rollback``, never the free budget) and zero their
-        table entries. The sampling key needs no rewind: keys derive from
-        ``(seed, len(out))`` and rejected tokens were never appended."""
+        table entries. The popped pages lie past any prefix-matched prompt
+        page, so they are never shared; a shared one would make the pool
+        raise. The sampling key needs no rewind: keys derive from ``(seed,
+        len(out))`` and rejected tokens were never appended."""
         st = self.slots[slot]
         if n <= 0:
             return
@@ -403,15 +626,24 @@ class PagedServer:
             if p != 0:
                 dropped.append(p)
         if dropped:
-            self.pool.rollback(dropped)
+            self.pool.rollback(dropped, st.group)
             st.allocated -= len(dropped)
         self.cache = lm.rollback_slot(self.cfg, self.cache, slot, new_len)
         st.length = new_len
-        self.trace.append(("rollback", st.req.rid, slot, n))
+        self._event("rollback", st.req.rid, slot, n)
 
     def _finish(self, slot: int, st: _PagedSlot, done: list):
         done.append(st.req)
-        self.pool.release([p for p in st.pages if p != 0],
+        self._release_slot(slot, st)
+        self._event("finish", st.req.rid, slot)
+
+    # -- failure handling -----------------------------------------------------
+
+    def _release_slot(self, slot: int, st: _PagedSlot):
+        """Return everything a slot holds to the pool: one reference per
+        page still mapped (window-reclaimed entries are 0) and the
+        unconsumed rest of its reservation."""
+        self.pool.release([p for p in st.pages if p != 0], st.group,
                           unused_reserved=st.reserved - st.allocated)
         self.table[slot, :] = 0
         self.slots[slot] = None
@@ -419,12 +651,183 @@ class PagedServer:
         if self.spec is not None:
             self.spec.forget(st.req.rid)
 
+    def _fail_request(self, req: Request, reason: str):
+        req.error = reason
+        req.out.clear()
+        self.failed.append(req)
+        self._event("fail", req.rid, reason)
+
+    def _abort_slot(self, slot: int, *, reason: str, requeue_at: int = 0,
+                    count_retry: bool = True):
+        """Tear a live request out of its slot: release its pages and
+        reservation, clear its stream (keys derive from ``(seed,
+        len(out))``, so the replay is token-identical), and queue it at
+        ``requeue_at``, or fail it once its retries are spent. The retry
+        re-admits through the prefix cache, so it prefills only the
+        uncached rest."""
+        st = self.slots[slot]
+        req = st.req
+        self._release_slot(slot, st)
+        req.out.clear()
+        self._event("abort", req.rid, slot, reason)
+        if count_retry:
+            req.aborts += 1
+            self.aborts += 1
+            if req.aborts > self.max_retries:
+                self._fail_request(
+                    req, f"retries exhausted ({self.max_retries}) "
+                         f"after {reason}")
+                return
+        self.queue.insert(min(requeue_at, len(self.queue)), req)
+
+    def _preempt_for(self, head: Request) -> bool:
+        """Evict the lowest-priority (ties: youngest) decoding request
+        strictly below ``head``'s priority and queue it right behind the
+        head, with no retry charged; the strict inequality keeps
+        equal-priority traffic from thrashing. False when there is no
+        victim."""
+        victims = [(st.req.priority, -st.order, slot, st)
+                   for slot, st in enumerate(self.slots)
+                   if st is not None and st.pos >= len(st.req.prompt)
+                   and st.req.priority < head.priority]
+        if not victims:
+            return False
+        _, _, slot, st = min(victims)
+        st.req.preemptions += 1
+        self.preemptions += 1
+        self._event("preempt", st.req.rid, slot)
+        self._abort_slot(slot, reason="preempted", requeue_at=1,
+                         count_retry=False)
+        return True
+
+    def _expire_deadlines(self):
+        """Fail the requests past their deadline, queued and in flight."""
+        now = self.clock()
+
+        def expired(req):
+            return (req.deadline_s is not None
+                    and now - req.submit_t > req.deadline_s)
+
+        for req in [r for r in self.queue if expired(r)]:
+            self.queue.remove(req)
+            self._fail_request(req, "deadline exceeded in queue")
+        for slot, st in enumerate(self.slots):
+            if st is not None and expired(st.req):
+                req = st.req
+                self._release_slot(slot, st)
+                self._event("abort", req.rid, slot, "deadline")
+                self._fail_request(req, "deadline exceeded")
+
+    def _recover_engine(self):
+        """Engine-level recovery after a step failure: rebuild the steps
+        and resume from the surviving page tables. The port's steps write
+        the cache in place, so this is sound only because the fault sites
+        ``serve.prefill`` and ``serve.decode`` fire BEFORE a step grants a
+        page or writes a row: a tick that raised left the cache, the tables
+        and the pool at their pre-tick state, and retrying it is
+        idempotent."""
+        self.engine_recoveries += 1
+        self._build_steps()
+        self._event("recover")
+
+    def _on_fault(self, err: faults_lib.FaultError):
+        """Route an injected fault: a ``{"slot": k}`` payload on a live slot
+        aborts and retries that request; anything else recovers the
+        engine."""
+        payload = err.fault.payload if err.fault is not None else {}
+        slot = payload.get("slot")
+        if slot is not None and self.slots[slot] is not None:
+            self._abort_slot(slot, reason=f"injected fault: {err}")
+        else:
+            self._recover_engine()
+
+    def _shrink(self, survivors):
+        """Elastic shrink after a device dropout: abort every live slot back
+        to the queue in admission order (no retry charged), drain the
+        prefix index, rebind the pool's shares to the surviving classes'
+        weights and re-derive the slots' groups and roles. Queued requests
+        whose worst case fits no surviving share fail."""
+        survivors = sorted(survivors if survivors is not None
+                           else range(len(self.pool.shares) - 1))
+        if not survivors:
+            raise RuntimeError("device dropout left no survivors")
+        live = sorted((st.order, slot) for slot, st in enumerate(self.slots)
+                      if st is not None)
+        for i, (_, slot) in enumerate(live):
+            self._abort_slot(slot, reason="device dropout", requeue_at=i,
+                             count_retry=False)
+        if self.index is not None:
+            self.index.clear(self.pool)
+        weights = [self.class_weights[g] for g in survivors]
+        self.class_weights = weights
+        n_g = len(weights)
+        self.pool.reshare(page_shares(weights, self.pool.num_pages - 1)
+                          if n_g > 1 else [self.pool.num_pages - 1])
+        self.groups = [s * n_g // self.num_slots
+                       for s in range(self.num_slots)]
+        if self.disagg:
+            group_roles = derive_roles(weights)
+            self.roles = [group_roles[self.groups[s]]
+                          for s in range(self.num_slots)]
+        self._event("shrink", tuple(survivors))
+        for req in [r for r in self.queue
+                    if self._need_pages(r) > max(self.pool.shares)]:
+            self.queue.remove(req)
+            self._fail_request(
+                req, f"needs {self._need_pages(req)} pages > largest "
+                     f"surviving share {max(self.pool.shares)}")
+
+    def assert_page_invariants(self):
+        """Structural audit: on top of the pool's own books, every live
+        page's refcount equals its holders (slot table entries + prefix
+        trie nodes), and every group's reserved balance equals its live
+        slots' unconsumed reservations."""
+        self.pool.assert_consistent()
+        holders: dict = {}
+        for st in self.slots:
+            if st is None:
+                continue
+            for p in st.pages:
+                if p != 0:
+                    holders[p] = holders.get(p, 0) + 1
+        if self.index is not None:
+            for p in self.index.pages():
+                holders[p] = holders.get(p, 0) + 1
+        refs = {p: self.pool.refcount(p)
+                for p in range(1, self.pool.num_pages)
+                if self.pool.refcount(p) > 0}
+        if refs != holders:
+            raise AssertionError(f"refcount/holder mismatch (leak or "
+                                 f"dangler): {refs} vs {holders}")
+        per_group = [0] * len(self.pool.shares)
+        for st in self.slots:
+            if st is not None:
+                per_group[st.group] += st.reserved - st.allocated
+        for g, want in enumerate(per_group):
+            if self.pool._reserved[g] != want:
+                raise AssertionError((g, self.pool._reserved[g], want))
+
+    def _index_prompt(self, st: _PagedSlot):
+        """Insert the request's FULL prompt pages into the prefix index at
+        prefill completion. A window-reclaimed slot skips it: its leading
+        pages are gone."""
+        if self.index is None or st.reclaimed > 0:
+            return
+        full = len(st.req.prompt) // self.page_size
+        if full > 0:
+            self.index.insert(st.req.prompt, st.pages[:full], self.pool)
+
     def _prefill_tick(self, done: list) -> bool:
-        """One chunk of the FIFO-oldest prefilling request."""
+        """One chunk of the FIFO-oldest prefilling request on a
+        prefill-capable slot. At the prompt's end its first token is drawn
+        with the finiteness of its logits in one copy; non-finite logits
+        abort and retry the request."""
         cand = [(st.order, slot, st) for slot, st in enumerate(self.slots)
-                if st is not None and st.pos < len(st.req.prompt)]
+                if st is not None and st.pos < len(st.req.prompt)
+                and self.roles[slot] != "decode"]
         if not cand:
             return False
+        faults_lib.inject("serve.prefill")
         _, slot, st = min(cand)
         n = min(self.prefill_chunk, len(st.req.prompt) - st.pos)
         self._ensure_pages(slot, st, st.length + n)
@@ -436,22 +839,69 @@ class PagedServer:
         st.pos += n
         st.length += n
         self._reclaim(slot, st)
+        self._event("prefill_chunk", st.req.rid, slot, n)
         if st.pos == len(st.req.prompt):
-            st.req.out.append(next_token(last, st.req))
+            self._index_prompt(st)
+            rows = last.reshape(1, -1)
+            for f in faults_lib.inject("serve.prefill_logits"):
+                if f.kind == "nan":
+                    rows = torch.full_like(rows, float("nan"))
+            tok, finite = draw_rows(rows, [st.req])
+            if not finite[0]:
+                self._abort_slot(slot, reason="non-finite prefill logits")
+                return True
+            st.req.out.append(int(tok[0]))
             self.ttft_s[st.req.rid] = time.perf_counter() - self._run_t0
             if len(st.req.out) >= st.req.max_new:
                 self._finish(slot, st, done)
         return True
 
+    def _handoff(self, src: int, dst: int):
+        if self._handoff_step is None:
+            self._handoff_step = steps_lib.make_paged_handoff_step(self.cfg)
+        self.cache = self._handoff_step(self.cache, src, dst)
+
+    def _transfer_tick(self) -> bool:
+        """Disaggregated handoff: move every prefill-role slot that has
+        finished its prompt into a free decode-capable slot. The pages stay
+        put: the table row and the length move."""
+        if not self.disagg:
+            return False
+        ready = sorted(
+            (st.order, src, st) for src, st in enumerate(self.slots)
+            if st is not None and self.roles[src] == "prefill"
+            and st.pos >= len(st.req.prompt))
+        moved = False
+        for _, src, st in ready:
+            dst = next((s for s in sorted(self.free)
+                        if self.roles[s] != "prefill"), None)
+            if dst is None:
+                break
+            self.free.remove(dst)
+            self._handoff(src, dst)
+            self.table[dst, :] = self.table[src]
+            self.table[src, :] = 0
+            self.slots[dst] = st
+            self.slots[src] = None
+            self.free.append(src)
+            self.transfers += 1
+            self._event("transfer", st.req.rid, src, dst)
+            moved = True
+        return moved
+
     def _decode_tick(self, done: list) -> bool:
-        """One decode macro-step over every slot past prefill (with a
-        ``spec`` attached, one speculative verify round a slot)."""
+        """One decode macro-step over every decode-capable slot past
+        prefill (with a ``spec`` attached, one speculative verify round a
+        slot). The tokens and each row's finiteness reach the host in one
+        copy; a non-finite row aborts and retries its request only."""
         if self.spec is not None:
             return self.spec.decode_tick(done)
         dec = [(slot, st) for slot, st in enumerate(self.slots)
-               if st is not None and st.pos >= len(st.req.prompt)]
+               if st is not None and st.pos >= len(st.req.prompt)
+               and self.roles[slot] != "prefill"]
         if not dec:
             return False
+        faults_lib.inject("serve.decode")
         tokens = np.zeros((self.num_slots, 1), np.int32)
         active = np.zeros((self.num_slots,), bool)
         for slot, st in dec:
@@ -465,12 +915,20 @@ class PagedServer:
              "page_table": self._tensor(self.table),
              "active": self._tensor(active)},
             self.cache)
+        rows = logits[:, -1]
+        for f in faults_lib.inject("serve.logits"):
+            if f.kind == "nan":
+                rows[int(f.payload.get("slot", dec[0][0]))] = float("nan")
         emit = [None] * self.num_slots
         for slot, st in dec:
             emit[slot] = st.req
-        nxt = sample_tokens(logits[:, -1], emit)
+        nxt, finite = draw_rows(rows, emit)
         self.decode_times_s.append(time.perf_counter() - t0)
+        self._event("decode", tuple(slot for slot, _ in dec))
         for slot, st in dec:
+            if not finite[slot]:
+                self._abort_slot(slot, reason="non-finite decode logits")
+                continue
             st.length += 1
             st.req.out.append(int(nxt[slot]))
             self._reclaim(slot, st)
@@ -479,22 +937,49 @@ class PagedServer:
         return True
 
     def run(self, max_steps: int = 100000) -> list[Request]:
-        """Drive admission + ticks until every request has finished."""
+        """Drive admission and ticks until every request has finished or
+        failed. Injected faults go through ``_on_fault`` and ``_shrink``;
+        failed requests land in ``failed``, never in the return value."""
         done: list[Request] = []
         steps = 0
         self._run_t0 = time.perf_counter()
         while (self.queue or any(s is not None for s in self.slots)) \
                 and steps < max_steps:
-            self._admit()
-            advanced = self._prefill_tick(done)
-            advanced |= self._decode_tick(done)
+            try:
+                self._expire_deadlines()
+                self._admit()
+                advanced = self._transfer_tick()
+                advanced |= self._prefill_tick(done)
+                advanced |= self._decode_tick(done)
+            except faults_lib.DeviceLostError as e:
+                self._shrink(e.survivors)
+                advanced = True
+            except faults_lib.FaultError as e:
+                self._on_fault(e)
+                advanced = True
+            if self.audit:
+                self.assert_page_invariants()
             if not advanced and not self.queue:
                 break
             steps += 1
         return done
 
+    def drop_prefix_cache(self) -> int:
+        """Release every evictable page the prefix index holds (the leak
+        check's drain; an operator's cache flush)."""
+        if self.index is None:
+            return 0
+        return self.index.clear(self.pool)
+
     def stats(self) -> dict:
-        return {**self.pool.stats(), "admissions": self.admissions}
+        out = {**self.pool.stats(), "admissions": self.admissions,
+               "transfers": self.transfers, "aborts": self.aborts,
+               "preemptions": self.preemptions,
+               "engine_recoveries": self.engine_recoveries,
+               "failed": len(self.failed)}
+        if self.index is not None:
+            out["prefix"] = self.index.stats()
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -563,6 +1048,24 @@ def main(argv=None):
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft length per verify round: up to k drafted "
                          "tokens + 1 correction commit per forward")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share full prompt pages across requests through "
+                         "a copy-on-write radix index: repeated prefixes "
+                         "admit at refcount + 1 and prefill only their "
+                         "uncached rest (--paged only)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="split the slots into prefill and decode roles, "
+                         "half and half; finished prefills hand off by "
+                         "page-table transfer, no KV copy (--paged only)")
+    ap.add_argument("--fault-spec", default=None,
+                    help="fault plan, inline JSON or a JSON file ({'seed': "
+                         "0, 'faults': [{'site', 'kind', ...}]}, "
+                         "runtime.faults): deterministic injection into the "
+                         "paged engine's ticks (--paged only)")
+    ap.add_argument("--audit", action="store_true",
+                    help="check the page books (refcounts == slot holders + "
+                         "prefix-trie nodes) after every scheduler step "
+                         "(--paged only)")
     args = ap.parse_args(argv)
     if (args.spec_ngram or args.spec_draft) and not args.paged:
         ap.error("--spec-ngram/--spec-draft require --paged")
@@ -570,7 +1073,14 @@ def main(argv=None):
         ap.error("--spec-ngram and --spec-draft are mutually exclusive")
     if args.kv_quant != "none" and not args.paged:
         ap.error("--kv-quant requires --paged")
+    if (args.prefix_cache or args.disagg) and not args.paged:
+        ap.error("--prefix-cache/--disagg require --paged")
+    if (args.fault_spec or args.audit) and not args.paged:
+        ap.error("--fault-spec/--audit require --paged (the recovery "
+                 "machinery lives in the paged engine)")
     device = resolve_device(args.device)
+    if args.fault_spec:
+        faults_lib.install(faults_lib.load_plan(args.fault_spec))
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
     pcfg = ParallelConfig(blk=16)
@@ -594,7 +1104,8 @@ def main(argv=None):
             num_pages=pages,
             max_pages_per_slot=cdiv(args.max_seq, args.page_size),
             params=params, prefill_chunk=args.prefill_chunk,
-            kv_quant=args.kv_quant, device=device)
+            kv_quant=args.kv_quant, prefix_cache=args.prefix_cache,
+            disagg=args.disagg, audit=args.audit, device=device)
         if args.spec_ngram or args.spec_draft:
             # spec imports this module (the shared sampling convention),
             # so it is imported here, never at module level
@@ -622,7 +1133,10 @@ def main(argv=None):
             prompt=rng.integers(0, cfg.vocab_size, size=8).astype(np.int32),
             max_new=args.max_new))
     t0 = time.time()
-    done = server.run()
+    try:
+        done = server.run()
+    finally:
+        faults_lib.install(None)
     dt = time.time() - t0
     total_tokens = sum(len(r.out) for r in done)
     print(f"[serve] {len(done)} requests, {total_tokens} tokens "
@@ -634,11 +1148,28 @@ def main(argv=None):
               f"{np.percentile(ts, 90) * 1e3:.1f}ms over {len(ts)} steps")
     if args.paged:
         st = server.stats()
+        server.drop_prefix_cache()
         print(f"[serve] page pool: {st['peak_in_use_pages']} peak pages "
               f"({st['peak_in_use_bytes'] / 1024:.1f} KiB KV resident, "
               f"{server.page_bytes} B a {server.kv_quant or cfg.dtype} page) "
               f"of {st['num_pages'] - 1} allocatable; {st['total_allocs']} "
-              f"allocs, leak-free={st['free_pages'] == st['num_pages'] - 1}")
+              f"allocs, leak-free="
+              f"{server.pool.free_pages == st['num_pages'] - 1}")
+        if st["aborts"] or st["preemptions"] or st["engine_recoveries"] \
+                or st["failed"]:
+            print(f"[serve] recovery: {st['aborts']} aborts, "
+                  f"{st['preemptions']} preemptions, "
+                  f"{st['engine_recoveries']} engine recoveries, "
+                  f"{st['failed']} failed")
+        if "prefix" in st:
+            pf = st["prefix"]
+            hit = pf["hit_tokens"] / max(pf["lookup_tokens"], 1)
+            print(f"[serve] prefix cache: {hit:.0%} token hit-rate over "
+                  f"{pf['lookups']} lookups, {pf['cached_pages']} pages "
+                  f"held at the end, {pf['evictions']} LRU evictions")
+        if args.disagg:
+            print(f"[serve] disagg: roles {server.roles}, "
+                  f"{server.transfers} page-table handoffs")
         if server.spec is not None:
             sp = server.spec.stats()
             print(f"[serve] speculative: {sp['rounds']} verify rounds, "

@@ -23,10 +23,11 @@ no rewind because rejected tokens were never appended to ``out``.
 Recurrent stacks cannot rewind their token-wise state, so ``SpecDecoder``
 refuses them at construction (``make_paged_score_step`` raises).
 
-Not ported here (ROADMAP.md A.6): the metrics registry and trace spans,
-and fault injection. Non-finite verify logits raise ``RuntimeError``
-naming the slot (the JAX engine aborts and retries the slot; retries are
-not ported).
+A round takes the engine's fault sites (``serve.decode`` before it,
+``serve.logits`` after its forward) and NaN watchdog: non-finite verify
+logits abort the slot's request and retry it, as the plain decode tick
+does. Not ported here (ROADMAP.md A.6): the metrics registry and trace
+spans.
 """
 from __future__ import annotations
 
@@ -36,10 +37,10 @@ import numpy as np
 import torch
 
 from repro_torch.common import resolve_device
-from repro_torch.launch import sampling
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.serve import argmax_token
+from repro_torch.launch.serve import argmax_token, draw_rows
 from repro_torch.models import lm
+from repro_torch.runtime import faults as faults_lib
 
 
 class NGramDrafter:
@@ -174,10 +175,8 @@ class SpecDecoder:
     def __init__(self, server, drafter, k: int = 4):
         if k < 1:
             raise ValueError(f"draft length k must be >= 1, got {k}")
-        # refuses recurrent stacks and codebook heads
-        self._score_step = steps_lib.make_paged_score_step(
-            server.cfg, server.pcfg, server.page_size)
         self.server = server
+        self.reset_steps()      # refuses recurrent stacks and codebook heads
         self.drafter = drafter
         self.k = k
         self.chunk = k + 1
@@ -187,6 +186,12 @@ class SpecDecoder:
         self.rollback_tokens = 0    # speculative rows truncated away
         self.round_times_s: list = []
         server.spec = self
+
+    def reset_steps(self) -> None:
+        """(Re)build the score step (the engine's recovery path)."""
+        srv = self.server
+        self._score_step = steps_lib.make_paged_score_step(
+            srv.cfg, srv.pcfg, srv.page_size)
 
     def stats(self) -> dict:
         """Counters, and the fraction of drafted tokens accepted."""
@@ -199,13 +204,16 @@ class SpecDecoder:
         }
 
     def decode_tick(self, done: list) -> bool:
-        """One speculative round over every slot past prefill: the
-        replacement of ``PagedServer._decode_tick``'s macro-step."""
+        """One speculative round over every decode-capable slot past
+        prefill: the replacement of ``PagedServer._decode_tick``'s
+        macro-step, with its fault sites and NaN watchdog."""
         srv = self.server
         dec = [(slot, st) for slot, st in enumerate(srv.slots)
-               if st is not None and st.pos >= len(st.req.prompt)]
+               if st is not None and st.pos >= len(st.req.prompt)
+               and srv.roles[slot] != "prefill"]
         if not dec:
             return False
+        faults_lib.inject("serve.decode")
         t0 = time.perf_counter()
         for slot, st in dec:
             self._verify_round(slot, st, done)
@@ -240,16 +248,16 @@ class SpecDecoder:
             srv.params, srv._tensor(toks), n_valid, slot,
             srv._tensor(srv.table[slot]), srv.cache)
         st.length += n_valid
-        rows = logits[:n_valid]
-        n0 = len(req.out)
-        drawn = sampling.sample_rows(rows, [req.seed] * n_valid,
-                                     range(n0, n0 + n_valid),
-                                     [req.temperature] * n_valid)
-        host = torch.cat([drawn, torch.isfinite(rows).all().long()[None]])
-        host = host.cpu().numpy()
-        if not host[-1]:
-            raise RuntimeError(f"slot {slot} (request {req.rid}): "
-                               f"non-finite verify logits")
+        for f in faults_lib.inject("serve.logits"):
+            if f.kind == "nan" and int(f.payload.get("slot", slot)) == slot:
+                logits[:] = float("nan")
+        n0 = len(req.out)          # row i draws at step len(out) + i
+        host, finite = draw_rows(logits[:n_valid], [req] * n_valid,
+                                 range(n0, n0 + n_valid))
+        if not finite.all():
+            srv._abort_slot(slot, reason="non-finite verify logits")
+            self.round_times_s.append(time.perf_counter() - t0)
+            return 0
         accepted = 0
         finished = False
         for i in range(n_valid):
@@ -264,7 +272,7 @@ class SpecDecoder:
                         # past it was speculation
         self.rounds += 1
         self.accepted_drafts += accepted - 1
-        srv.trace.append(("spec_verify", req.rid, slot, n_valid, accepted))
+        srv._event("spec_verify", req.rid, slot, n_valid, accepted)
         if finished:
             srv._finish(slot, st, done)
         else:
@@ -280,7 +288,7 @@ class SpecDecoder:
 
     def forget(self, rid: int) -> None:
         """Drop per-request drafter state (called from
-        ``PagedServer._finish``)."""
+        ``PagedServer._release_slot``: finish, abort, preemption)."""
         drop = getattr(self.drafter, "drop", None)
         if drop is not None:
             drop(rid)

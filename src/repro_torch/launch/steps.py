@@ -1,6 +1,7 @@
 """Step functions (counterpart of ``repro.launch.steps``): the training
 step (loss, grads, AdamW update), the dense and paged serving engines'
-steps and the speculative verify's multi-token score step.
+steps, the speculative verify's multi-token score step, and the paged
+engine's slot handoff and page copy.
 PyTorch runs eagerly, so a step is a plain closure; the serving chunk's
 valid count and slot arrive as host ints. One device only: the JAX
 builders' ``mesh`` is None here.
@@ -152,6 +153,12 @@ def make_paged_serve_step(cfg: ModelConfig, pcfg: ParallelConfig,
     return serve_step
 
 
+def _attention_only(cfg: ModelConfig, what: str) -> None:
+    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+        raise NotImplementedError(
+            f"{what} of recurrent stacks is not ported (ROADMAP.md)")
+
+
 def make_paged_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
                             page_size: int):
     """Chunked prefill into the paged cache: one request's next ``chunk``
@@ -159,9 +166,7 @@ def make_paged_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
     (chunk,), n_valid, slot, table_row (maxp,), cache) -> (last_logits (V,)
     f32, cache)``; a short final chunk pads and masks. The scan form for
     recurrent stacks is not ported."""
-    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
-        raise NotImplementedError(
-            "chunked prefill of recurrent stacks is not ported (ROADMAP.md)")
+    _attention_only(cfg, "chunked prefill")
     return _make_paged_prefill_chunk(cfg, pcfg, page_size)
 
 
@@ -230,3 +235,38 @@ def make_paged_score_step(cfg: ModelConfig, pcfg: ParallelConfig,
         return lm.score_logits(params, hidden, cfg)[0], new_cache
 
     return score_step
+
+
+def make_paged_handoff_step(cfg: ModelConfig):
+    """Prefill-to-decode role handoff: move one finished-prefill sequence
+    from slot ``src`` to slot ``dst``. The K/V pages stay in the shared
+    pools and are reached through the host table row the scheduler moves,
+    so no K/V byte moves; on the device only the slot's ``len`` moves (the
+    JAX step also moves recurrent state rows, which the port's attention
+    stacks do not have). ``handoff(cache, src, dst) -> cache``, in place."""
+    _attention_only(cfg, "the paged handoff")
+
+    def handoff(cache, src: int, dst: int):
+        ln = cache["len"]
+        ln[dst] = ln[src]
+        ln[src] = 0
+        return cache
+
+    return handoff
+
+
+def make_page_copy_step(cfg: ModelConfig):
+    """Copy one physical page's K/V rows (and int8 scale rows) from ``src``
+    to ``dst`` in every attention pool: the device half of
+    ``parallel.cache.PagePool.cow``, which hands the writer ``dst`` so the
+    shared original is never written. ``copy_page(cache, src, dst) ->
+    cache``, in place."""
+    _attention_only(cfg, "the paged page copy")
+
+    def copy_page(cache, src: int, dst: int):
+        for layer in cache["layers"]:
+            for pool in layer.values():
+                pool[dst] = pool[src]
+        return cache
+
+    return copy_page

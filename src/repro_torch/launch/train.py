@@ -10,8 +10,11 @@ the expert kernels, AdamW) in a plain loop.
 It runs on the GPU unless ``--device cpu`` is given, and raises where no
 GPU is present. ``--layers`` cuts the configuration's depth: AdamW with
 f32 masters holds 16 bytes a parameter, so one 80 GB card trains 4 of
-qwen3-moe-30b-a3b's 48 full-width layers. The JAX trainer's mesh,
-hetero, quantization, topology, fault, observability, checkpoint and
+qwen3-moe-30b-a3b's 48 full-width layers. ``--quant int8|fp8`` trains
+quantization-aware: the expert weights pass through block-wise
+``fake_quant`` inside the MoE layer (straight-through grads) and the
+round-tripped weights go to the full-precision kernels. The JAX
+trainer's mesh, hetero, topology, fault, observability, checkpoint and
 resume flags belong to later slices and are absent here (ROADMAP.md); so
 is its fault-tolerant loop.
 """
@@ -65,6 +68,12 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "int8", "fp8"],
+                    help="QAT: expert weights pass through block-wise "
+                         "int8/fp8 fake-quant inside the MoE layers "
+                         "(straight-through grads; routers and the dense "
+                         "layers stay full precision)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -73,7 +82,8 @@ def main(argv=None):
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     lm.check_supported(cfg)
-    pcfg = ParallelConfig(blk=min(128, max(16, args.seq_len // 4)))
+    pcfg = ParallelConfig(blk=min(128, max(16, args.seq_len // 4)),
+                          quant=args.quant)
     opt_cfg = adamw.OptimizerConfig(
         peak_lr=args.lr, warmup_steps=args.warmup,
         decay_steps=max(args.steps, 2 * args.warmup), master_fp32=True)

@@ -1,130 +1,269 @@
-"""Serving page pool (counterpart of ``repro.parallel.cache.PagePool``).
+"""Serving page pool and radix prefix index (counterpart of
+``repro.parallel.cache``'s ``PagePool``, ``page_shares``, ``_TrieNode`` and
+``PrefixIndex``).
 
-Host-side free list and residency accounting over the shared KV
-page pool of ``models.lm.init_paged_cache``, with the speculative
-decoding ``rollback``. Per-group page shares (hetero plans,
-``page_shares``), the copy-on-write half (``fork``/``cow``) and elastic
-``reshare`` belong to later slices and are not ported: the port's pool is
-one budget.
+Host-side free list, copy-on-write refcounts and per-group residency
+accounting over the shared KV page pool of ``models.lm.init_paged_cache``,
+and the page-granular trie the paged engine's prefix cache matches prompts
+against. The mesh-side pipeline-shared cache (``PipelineSharedCache``,
+``gather_ffn_params``) belongs to a later slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Set
+from typing import Dict, Optional, Sequence
+
+import numpy as np
 
 
 class PagePool:
-    """Free-list allocator over ``num_pages`` physical pages.
+    """Free-list allocator + copy-on-write refcounts + residency accounting
+    over ``num_pages`` physical pages.
 
     Physical page 0 is the write sink for inactive slots and is never
-    allocated. Admission is two-phase: ``try_reserve(n)`` debits a
-    request's worst-case page count from the budget up front, so ``alloc()``
-    (a chunk's worth at prefill, one page at a decode boundary) can never
-    fail; ``release`` returns pages and any unconverted reservation.
-    Invariant (``assert_consistent``): ``free + reserved + in_use ==
-    num_pages - 1``.
+    allocated; ``num_pages - 1`` pages are allocatable. Admission is
+    two-phase:
+
+      * ``try_reserve(n, group)`` debits a request's WORST-CASE page count
+        from the group's free budget up front, so decode can never meet an
+        empty pool mid-request;
+      * ``alloc(group)`` turns one reserved page into a physical page id
+        (a chunk's worth at prefill, one at a decode page boundary);
+      * ``release(pages, group, unused_reserved)`` drops one reference per
+        page and returns the reservation the caller never converted.
+
+    Refcounts: ``alloc`` hands out a page at refcount 1 owned by its group;
+    ``fork`` maps it into another holder at refcount + 1 at no budget cost
+    (the prefix index and every borrowing slot hold one reference each);
+    ``release`` frees a page only at refcount 0, crediting its OWNER group;
+    ``cow`` is the write trigger: writing a refcount > 1 page surrenders
+    the shared reference and turns one reservation into a private page.
+    Releasing a free page raises.
+
+    ``shares`` split the allocatable pages into per-group budgets (a hetero
+    plan's ``page_shares``); pages stay fungible in one free list. A forked
+    page stays charged to the group that allocated it until its LAST
+    reference dies. Per-group invariant (``assert_consistent``): ``free +
+    reserved + in_use == share``.
     """
 
-    def __init__(self, num_pages: int, *, page_bytes: int = 0):
+    def __init__(self, num_pages: int, *, page_bytes: int = 0,
+                 shares: Optional[Sequence[int]] = None):
         if num_pages < 2:
             raise ValueError("need at least one allocatable page + the sink")
+        usable = num_pages - 1
         self.num_pages = num_pages
         self.page_bytes = page_bytes
+        self.shares = list(shares) if shares is not None else [usable]
+        if any(s < 0 for s in self.shares):
+            raise ValueError(f"negative page share: {self.shares}")
+        if sum(self.shares) > usable:
+            raise ValueError(
+                f"shares {self.shares} exceed {usable} allocatable pages")
         self._free_list = list(range(num_pages - 1, 0, -1))
-        self._free = num_pages - 1        # budget not yet reserved
-        self._reserved = 0                # reserved, not yet allocated
-        self._live: Set[int] = set()      # allocated pages
+        g = len(self.shares)
+        self._free = list(self.shares)
+        self._reserved = [0] * g
+        self._in_use = [0] * g
+        self._ref: Dict[int, int] = {}    # page -> live references
+        self._owner: Dict[int, int] = {}  # page -> group charged for it
         self.total_allocs = 0
         self.total_frees = 0
+        self.total_forks = 0
+        self.total_cow_copies = 0
         self.total_rollbacks = 0
         self.peak_in_use_pages = 0
 
-    def try_reserve(self, n: int) -> bool:
-        """Debit ``n`` worst-case pages from the budget. False leaves the
-        pool untouched."""
+    # -- admission / allocation ---------------------------------------------
+
+    def _live_ref(self, page: int) -> int:
+        """``page``'s refcount, after refusing an id outside the pool."""
+        if not 1 <= page < self.num_pages:
+            raise ValueError(f"bad page id {page}")
+        return self._ref.get(page, 0)
+
+    def try_reserve(self, n: int, group: int = 0) -> bool:
+        """Debit ``n`` worst-case pages from ``group``'s budget. False
+        leaves the pool untouched."""
         if n < 0:
             raise ValueError(n)
-        if self._free < n:
+        if self._free[group] < n:
             return False
-        self._free -= n
-        self._reserved += n
+        self._free[group] -= n
+        self._reserved[group] += n
         return True
 
-    def alloc(self) -> int:
-        """Turn one reserved page into a physical page id (>= 1)."""
-        if self._reserved <= 0:
-            raise RuntimeError("allocating beyond the reservation")
-        self._reserved -= 1
+    def alloc(self, group: int = 0) -> int:
+        """Turn one reserved page into a physical page id (>= 1) at
+        refcount 1, owned by ``group``."""
+        if self._reserved[group] <= 0:
+            raise RuntimeError(
+                f"group {group} allocating beyond its reservation")
+        self._reserved[group] -= 1
+        self._in_use[group] += 1
         self.total_allocs += 1
         page = self._free_list.pop()
-        self._live.add(page)
+        self._ref[page] = 1
+        self._owner[page] = group
         self.peak_in_use_pages = max(self.peak_in_use_pages,
                                      self.in_use_pages)
         return page
 
-    def release(self, pages: Sequence[int], unused_reserved: int = 0) -> None:
-        """Return pages to the free list, plus any reservation the caller
-        never converted. Releasing a free page raises."""
+    def fork(self, pages: Sequence[int]) -> None:
+        """One more reference on each live page (a borrowing slot or the
+        prefix index maps it without a copy); costs no budget. Forking a
+        free page or the sink raises."""
         for p in pages:
-            if not 1 <= p < self.num_pages:
-                raise ValueError(f"bad page id {p}")
-            if p not in self._live:
-                raise RuntimeError(f"double release of page {p}")
+            if self._live_ref(p) <= 0:
+                raise RuntimeError(f"fork of free page {p}")
         for p in pages:
-            self._live.remove(p)
-            self._free_list.append(p)
-            self._free += 1
-            self.total_frees += 1
-        if unused_reserved > self._reserved:
-            raise RuntimeError("over-released reservation")
-        self._reserved -= unused_reserved
-        self._free += unused_reserved
+            self._ref[p] += 1
+            self.total_forks += 1
 
-    def rollback(self, pages: Sequence[int]) -> None:
+    def refcount(self, page: int) -> int:
+        """Live references on ``page`` (0 = free)."""
+        return self._ref.get(page, 0)
+
+    def cow(self, page: int, group: int = 0) -> int:
+        """Write trigger: at refcount 1 the caller owns ``page`` and writes
+        in place (returned unchanged); above it the caller's reference is
+        surrendered and one of its ``group`` reservations becomes a fresh
+        page id. The caller copies the payload
+        (``launch.steps.make_page_copy_step``) and repoints its table."""
+        if self._ref.get(page, 0) <= 0:
+            raise RuntimeError(f"cow on free page {page}")
+        if self._ref[page] == 1:
+            return page
+        self._ref[page] -= 1
+        self.total_cow_copies += 1
+        return self.alloc(group)
+
+    def release(self, pages: Sequence[int], group: int = 0,
+                unused_reserved: int = 0) -> None:
+        """Drop one reference per page (0-refcount pages return to the free
+        list, credited to their owner group) plus ``group``'s reservation
+        the caller never converted. Releasing a free page raises before
+        anything changes."""
+        for p in pages:
+            if self._live_ref(p) <= 0:
+                raise RuntimeError(
+                    f"double release of page {p} (refcount already 0)")
+        for p in pages:
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                del self._ref[p]
+                owner = self._owner.pop(p)
+                self._free_list.append(p)
+                self._in_use[owner] -= 1
+                self._free[owner] += 1
+                self.total_frees += 1
+        self._reserved[group] -= unused_reserved
+        self._free[group] += unused_reserved
+        if self._reserved[group] < 0:
+            raise RuntimeError(f"group {group} over-released")
+
+    def rollback(self, pages: Sequence[int], group: int = 0) -> None:
         """Return decode-granted pages to the caller's **reservation**, the
-        speculative-decoding rollback path. A rolled-back request is still
-        live and must be able to re-grow to its admitted worst-case length,
-        so its truncated pages turn from in use back into reserved, never
-        into free budget another admission could claim. A bad page id, a
-        page not in use or one listed twice raises before any state
+        speculative-decoding rollback path: a rolled-back request is still
+        live and must be able to re-grow to its admitted worst case, so its
+        truncated pages turn from in use back into reserved, never into
+        free budget another admission could claim. Only exclusively held
+        (refcount 1) pages owned by ``group`` roll back: a shared page is
+        prefix content other holders still read. A bad id, a page listed
+        twice, a page not in use, shared or foreign raises before any state
         changes."""
         if len(set(pages)) != len(pages):
             raise ValueError(f"rollback lists a page twice: {list(pages)}")
         for p in pages:
-            if not 1 <= p < self.num_pages:
-                raise ValueError(f"bad page id {p}")
-            if p not in self._live:
+            r = self._live_ref(p)
+            if r == 0:
                 raise RuntimeError(f"rollback of page {p}, which is not in "
                                    f"use")
+            if r != 1:
+                raise RuntimeError(
+                    f"rollback of page {p} at refcount {r} (only "
+                    f"exclusively-held decode pages may roll back)")
+            if self._owner[p] != group:
+                raise RuntimeError(
+                    f"rollback of page {p} owned by group "
+                    f"{self._owner[p]}, not caller group {group}")
         for p in pages:
-            self._live.remove(p)
+            del self._ref[p]
+            del self._owner[p]
             self._free_list.append(p)
-            self._reserved += 1
+            self._in_use[group] -= 1
+            self._reserved[group] += 1
             self.total_frees += 1
             self.total_rollbacks += 1
 
+    # -- accounting -----------------------------------------------------------
+
     @property
     def free_pages(self) -> int:
-        return self._free
+        return sum(self._free)
 
     @property
     def in_use_pages(self) -> int:
-        return len(self._live)
+        return sum(self._in_use)
 
     @property
     def reserved_pages(self) -> int:
-        return self._reserved
+        return sum(self._reserved)
+
+    def group_free(self, group: int) -> int:
+        return self._free[group]
+
+    def reset_peak(self) -> None:
+        """Restart peak tracking from the current residency."""
+        self.peak_in_use_pages = self.in_use_pages
+
+    def reshare(self, shares: Sequence[int]) -> None:
+        """Rebind the per-group budgets (the elastic-shrink path: after a
+        device class drops out the engine re-derives ``page_shares`` over
+        the survivors). Legal only on a drained pool: live pages are
+        charged to their owner group, which a changed group set would
+        orphan."""
+        if self.in_use_pages or self.reserved_pages:
+            raise RuntimeError(
+                f"reshare on a non-drained pool ({self.in_use_pages} live, "
+                f"{self.reserved_pages} reserved pages)")
+        usable = self.num_pages - 1
+        shares = list(shares)
+        if any(s < 0 for s in shares):
+            raise ValueError(f"negative page share: {shares}")
+        if sum(shares) > usable:
+            raise ValueError(
+                f"shares {shares} exceed {usable} allocatable pages")
+        self.shares = shares
+        g = len(shares)
+        self._free = list(shares)
+        self._reserved = [0] * g
+        self._in_use = [0] * g
+        self._free_list = list(range(self.num_pages - 1, 0, -1))
+        self.assert_consistent()
 
     def assert_consistent(self) -> None:
-        usable = self.num_pages - 1
-        if self._free + self._reserved + self.in_use_pages != usable:
-            raise AssertionError((self._free, self._reserved,
-                                  self.in_use_pages, usable))
-        if len(self._free_list) != usable - self.in_use_pages:
+        for g, share in enumerate(self.shares):
+            total = self._free[g] + self._reserved[g] + self._in_use[g]
+            if total != share:
+                raise AssertionError((g, self._free[g], self._reserved[g],
+                                      self._in_use[g], share))
+        if len(self._free_list) != self.num_pages - 1 - self.in_use_pages:
             raise AssertionError("free list and in-use count disagree")
         if len(set(self._free_list)) != len(self._free_list):
             raise AssertionError("page on the free list twice")
-        if self._live & set(self._free_list):
+        if not all(r > 0 for r in self._ref.values()):
+            raise AssertionError(f"non-positive refcount: {self._ref}")
+        if set(self._ref) != set(self._owner):
+            raise AssertionError("refcounted pages and owners disagree")
+        if set(self._ref) & set(self._free_list):
             raise AssertionError("page both live and free")
+        if len(self._ref) != self.in_use_pages:
+            raise AssertionError("live pages and in-use count disagree")
+        for g in range(len(self.shares)):
+            if self._in_use[g] != sum(1 for o in self._owner.values()
+                                      if o == g):
+                raise AssertionError(f"group {g}'s in-use count and owners "
+                                     f"disagree")
 
     def stats(self) -> Dict[str, int]:
         return {
@@ -133,9 +272,170 @@ class PagePool:
             "free_pages": self.free_pages,
             "in_use_pages": self.in_use_pages,
             "reserved_pages": self.reserved_pages,
+            "shared_pages": sum(1 for r in self._ref.values() if r > 1),
             "peak_in_use_pages": self.peak_in_use_pages,
             "peak_in_use_bytes": self.peak_in_use_pages * self.page_bytes,
             "total_allocs": self.total_allocs,
             "total_frees": self.total_frees,
+            "total_forks": self.total_forks,
+            "total_cow_copies": self.total_cow_copies,
             "total_rollbacks": self.total_rollbacks,
+        }
+
+
+def page_shares(weights: Sequence[float], usable_pages: int) -> list:
+    """Largest-remainder split of the allocatable pages proportional to
+    ``weights`` (a hetero plan's Eq. 1 ``token_counts``). Ties in the
+    remainders go as numpy's default ``argsort`` orders them, as in the
+    JAX package: a stable sort would hand them out differently."""
+    w = np.asarray(weights, dtype=np.float64)
+    if np.any(w < 0) or w.sum() <= 0:
+        raise ValueError(f"bad share weights {weights}")
+    raw = w / w.sum() * usable_pages
+    base = np.floor(raw).astype(np.int64)
+    order = np.argsort(-(raw - base))
+    base[order[: usable_pages - int(base.sum())]] += 1
+    assert base.sum() == usable_pages
+    return [int(v) for v in base]
+
+
+# ---------------------------------------------------------------------------
+# radix prefix index
+# ---------------------------------------------------------------------------
+
+class _TrieNode:
+    """One page-granular edge of the prefix trie: ``key`` is the tuple of
+    ``page_size`` token ids the node's page holds, ``page`` the physical
+    page id the index keeps one ``PagePool`` reference on."""
+
+    __slots__ = ("key", "page", "children", "parent", "last_used")
+
+    def __init__(self, key, page, parent):
+        self.key = key
+        self.page = page
+        self.children: Dict[tuple, "_TrieNode"] = {}
+        self.parent = parent
+        self.last_used = 0
+
+
+class PrefixIndex:
+    """Radix prefix index keyed on token ids at page granularity: admission
+    matches the longest cached prefix of a prompt against whole pages
+    already resident in the pool and maps them into the new slot's page
+    table at refcount + 1 instead of prefilling them again.
+
+    Only FULL prompt pages are indexed, once the prompt that wrote them has
+    finished prefill, so cached content is immutable (decode writes land
+    past the prompt). K/V rows depend only on the token prefix and the
+    absolute position, so equal chunks at equal depths share bit for bit;
+    int8 pools share their scale rows through the same page id.
+
+    Every node holds ONE pool reference on its page. ``evict_lru`` frees
+    the least recently used leaf at refcount 1 (cached, borrowed by no
+    slot); interior nodes and borrowed pages are pinned.
+    """
+
+    def __init__(self, page_size: int):
+        if page_size < 1:
+            raise ValueError(page_size)
+        self.page_size = page_size
+        self.root = _TrieNode(None, 0, None)
+        self._clock = 0
+        self.lookups = 0
+        self.hit_tokens = 0
+        self.lookup_tokens = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        """Number of cached pages (trie nodes below the root)."""
+        return sum(1 for _ in self.pages())
+
+    def _chunks(self, tokens, max_pages: int) -> list:
+        p = self.page_size
+        limit = min(max_pages, len(tokens) // p)
+        return [tuple(int(t) for t in tokens[i * p:(i + 1) * p])
+                for i in range(limit)]
+
+    def match(self, tokens, max_pages: int) -> list:
+        """Physical page ids of the leading whole-page chunks of ``tokens``
+        in the trie, at most ``max_pages`` (the engine caps at ``(plen -
+        1) // page_size`` so one suffix token is always left to prefill).
+        Bumps the LRU clocks along the path; the caller forks the pages
+        before anything can evict them."""
+        self.lookups += 1
+        self.lookup_tokens += len(tokens)
+        node, pages = self.root, []
+        self._clock += 1
+        for key in self._chunks(tokens, max_pages):
+            child = node.children.get(key)
+            if child is None:
+                break
+            child.last_used = self._clock
+            pages.append(child.page)
+            node = child
+        self.hit_tokens += len(pages) * self.page_size
+        return pages
+
+    def insert(self, tokens, pages: Sequence[int], pool: PagePool) -> int:
+        """Index the leading ``len(pages)`` whole-page chunks of ``tokens``
+        under ``pages``, forking one pool reference per NEW node (chunks
+        already cached keep their page). Returns the pages newly indexed."""
+        node = self.root
+        self._clock += 1
+        added = 0
+        for key, page in zip(self._chunks(tokens, len(pages)), pages):
+            child = node.children.get(key)
+            if child is None:
+                pool.fork([page])
+                child = _TrieNode(key, page, node)
+                child.last_used = self._clock
+                node.children[key] = child
+                added += 1
+            node = child
+        return added
+
+    def evict_lru(self, pool: PagePool) -> bool:
+        """Release the least recently used evictable page (a refcount-1
+        leaf) to the pool. False when nothing is evictable."""
+        best = None
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            for child in node.children.values():
+                if not child.children and pool.refcount(child.page) == 1:
+                    if best is None or child.last_used < best.last_used:
+                        best = child
+                stack.append(child)
+        if best is None:
+            return False
+        pool.release([best.page])
+        del best.parent.children[best.key]
+        self.evictions += 1
+        return True
+
+    def pages(self):
+        """Yield the page id of every trie node, one pool reference each
+        (``PagedServer.assert_page_invariants`` counts them as holders)."""
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            for child in node.children.values():
+                yield child.page
+                stack.append(child)
+
+    def clear(self, pool: PagePool) -> int:
+        """Drop every evictable cached reference, leaves first; pages still
+        borrowed by live slots stay. Returns the pages dropped."""
+        dropped = 0
+        while self.evict_lru(pool):
+            dropped += 1
+        return dropped
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "cached_pages": len(self),
+            "lookups": self.lookups,
+            "hit_tokens": self.hit_tokens,
+            "lookup_tokens": self.lookup_tokens,
+            "evictions": self.evictions,
         }

@@ -1,7 +1,7 @@
 """Quantization (counterpart of ``repro.quant``): block-wise int8/fp8
-expert weights served through the quantized kernel branches, and int8
-paged-KV rows. ``quant.core`` is the one rounding and clipping
-convention."""
+expert weights served through the quantized kernel branches, int8
+paged-KV rows, and quantization-aware training (``fake_quant``).
+``quant.core`` is the one rounding and clipping convention."""
 from repro_torch.quant.core import (  # noqa: F401
     EXPERT_WEIGHT_KEYS,
     QUANT_DTYPES,
@@ -12,6 +12,7 @@ from repro_torch.quant.core import (  # noqa: F401
     dequant_tile,
     dequantize_blockwise,
     dequantize_rows,
+    fake_quant,
     ffn_scales,
     quant_bits,
     quantize_blockwise,

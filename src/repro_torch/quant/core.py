@@ -1,6 +1,6 @@
 """Block-wise expert-weight and KV-row quantization (counterpart of
-``repro.quant.core``; the serving half: no ``fake_quant``/QAT, no
-stochastic rounding, no gradient-compression helpers).
+``repro.quant.core``; the gradient-compression helpers wait for
+``optim/compression.py``).
 
 One rounding and clipping convention, bit for bit the JAX package's:
 
@@ -9,17 +9,29 @@ One rounding and clipping convention, bit for bit the JAX package's:
 symmetric, Q = 127 for int8 and 448 (the format's finite max) for fp8
 e4m3, where the round is the cast's round to nearest even. ``torch.round``
 rounds half to even as ``jnp.round`` does, the division is the same f32
-division, and the clip comes before the cast. Scales are float32:
+division (``_per``: on CUDA a tensor divided by a Python number is
+multiplied by its reciprocal, which rounds otherwise), and the clip comes
+before the cast. Scales are float32:
 
 * expert weights: one per ``(expert, tile_row, tile_col)`` block of the
   trailing two dims (128 x 128, clamped to the dim); leading dims are batch;
 * KV rows: one per written ``(token row, kv head)`` (``quantize_rows``).
+
+Training uses the straight-through estimator: ``fake_quant`` runs the real
+quantize-dequantize round trip forward and passes the gradient through
+unchanged, so the full-precision master weights train while the loss sees
+the quantized values. ``quantize_blockwise(..., rng=key)`` rounds
+stochastically, ``floor(x / scale + u)`` with ``u`` drawn as
+``jax.random.uniform(key, w.shape)`` draws it, bit for bit
+(``launch.sampling.uniform`` over the flat positions).
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.launch import sampling
 
 #: Quantized-weight formats -> (storage dtype, symmetric max).
 QUANT_FORMATS = {
@@ -60,6 +72,12 @@ def block_tiles(shape: Sequence[int], tile: int) -> tuple:
     return ta, tb
 
 
+def _per(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``x / q`` rounded once, as JAX divides, on every device: ``q`` goes
+    in as a 0-d tensor on ``x``'s device, never as a Python number."""
+    return x / torch.tensor(q, dtype=x.dtype, device=x.device)
+
+
 def _blocks(x: torch.Tensor, na: int, nb: int) -> torch.Tensor:
     """(..., A, B) viewed as (..., na, A/na, nb, B/nb) blocks."""
     *batch, a, b = x.shape
@@ -67,10 +85,14 @@ def _blocks(x: torch.Tensor, na: int, nb: int) -> torch.Tensor:
 
 
 def quantize_blockwise(w: torch.Tensor, *, mode: str = "int8",
-                       tile: int = 128) -> tuple:
+                       tile: int = 128,
+                       rng: Optional[torch.Tensor] = None) -> tuple:
     """Quantize ``w`` block-wise over its trailing two dims. Returns ``(q,
     scales)``: ``q`` int8/fp8-e4m3 shaped like ``w``, ``scales`` float32
-    ``(*batch, A/tile_a, B/tile_b)``."""
+    ``(*batch, A/tile_a, B/tile_b)``. ``rng``, a key of
+    ``launch.sampling.prng_key`` (int8 only), rounds stochastically:
+    ``floor(x / scale + u)``, ``u ~ U[0, 1)`` drawn over ``w``'s flat
+    positions, unbiased in expectation."""
     if mode not in QUANT_FORMATS:
         raise ValueError(f"unknown quant mode {mode!r}")
     dtype, qmax = QUANT_FORMATS[mode]
@@ -78,10 +100,16 @@ def quantize_blockwise(w: torch.Tensor, *, mode: str = "int8",
     a, b = w.shape[-2:]
     blocks = _blocks(w.float(), a // ta, b // tb)
     amax = blocks.abs().amax(dim=(-3, -1))
-    scales = amax.clamp_min(1e-30) / qmax
+    scales = _per(amax.clamp_min(1e-30), qmax)
     x = blocks / scales[..., :, None, :, None]
     if mode == "int8":
-        x = torch.round(x)
+        if rng is not None:
+            u = sampling.uniform(rng.to(w.device), w.numel())
+            x = torch.floor(x + u.reshape(x.shape))
+        else:
+            x = torch.round(x)
+    elif rng is not None:
+        raise ValueError("stochastic rounding is int8-only")
     q = x.clamp_(-qmax, qmax).to(dtype)
     return q.reshape(w.shape), scales
 
@@ -150,6 +178,33 @@ def check_scales(name: str, weights, scales, blocks=None) -> list:
 
 
 # ---------------------------------------------------------------------------
+# straight-through estimator (training / QAT)
+# ---------------------------------------------------------------------------
+
+class _FakeQuant(torch.autograd.Function):
+    """Forward: the block-wise round trip back to ``w.dtype``. Backward:
+    the identity (the straight-through estimator)."""
+
+    @staticmethod
+    def forward(ctx, w, mode, tile):
+        q, s = quantize_blockwise(w, mode=mode, tile=tile)
+        return dequantize_blockwise(q, s, dtype=w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def fake_quant(w: torch.Tensor, mode: str = "int8",
+               tile: int = 128) -> torch.Tensor:
+    """Quantize-dequantize with straight-through gradients: the forward
+    sees the deployed int8/fp8 values, the backward hands the cotangent to
+    the full-precision master weight unchanged. Routers and dense layers
+    never pass through it."""
+    return _FakeQuant.apply(w, mode, tile)
+
+
+# ---------------------------------------------------------------------------
 # KV-row quantization (paged cache payloads)
 # ---------------------------------------------------------------------------
 
@@ -158,7 +213,7 @@ def quantize_rows(x: torch.Tensor) -> tuple:
     rows, float32 scales shaped ``x.shape[:-1]``), one scale per written
     (token row, kv head), so resident pages never re-scale."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1).clamp_min(1e-30) / 127.0
+    scale = _per(xf.abs().amax(dim=-1).clamp_min(1e-30), 127.0)
     q = torch.round(xf / scale[..., None]).clamp_(-127, 127)
     return q.to(torch.int8), scale
 

@@ -116,7 +116,7 @@ def _audit(server):
         live += [p for p in st.pages if p != 0]
         assert st.length == int(server.cache["len"][slot])
         assert len(st.pages) == -(-st.length // server.page_size)
-    assert sorted(live) == sorted(server.pool._live)
+    assert sorted(live) == sorted(server.pool._ref)
 
 
 def _run_paged(cfg, params, reqs, drafter=None, k=SPEC_K):
@@ -347,14 +347,14 @@ def test_pool_rollback_refusals_change_nothing():
     pool = TPool(9, page_bytes=1)
     assert pool.try_reserve(3)
     a, b = pool.alloc(), pool.alloc()
-    before = (pool.stats(), list(pool._free_list), set(pool._live))
+    before = (pool.stats(), list(pool._free_list), dict(pool._ref))
     for pages, err, match in (([0], ValueError, "bad page"),
                               ([9], ValueError, "bad page"),
                               ([a, 8], RuntimeError, "not in use"),
                               ([a, a], ValueError, "twice")):
         with pytest.raises(err, match=match):
             pool.rollback(pages)
-        assert (pool.stats(), list(pool._free_list), set(pool._live)) == \
+        assert (pool.stats(), list(pool._free_list), dict(pool._ref)) == \
             before
         pool.assert_consistent()
     pool.rollback([b])
@@ -549,16 +549,25 @@ def test_verify_refuses_bad_drafts_and_non_finite_logits():
     server.submit(tserve.Request(**req))
     with pytest.raises(ValueError, match="vocabulary"):
         server.run()
+    # non-finite verify logits abort and retry the request, never raise;
+    # past its retries it fails with the reason, its pages returned
     server = tserve.PagedServer(cfg, TPCFG, num_slots=1, page_size=PAGE,
                                 num_pages=5, max_pages_per_slot=4,
-                                params=params, device="cpu")
+                                params=params, max_retries=1, audit=True,
+                                device="cpu")
     spec = tspec.SpecDecoder(server, tspec.NGramDrafter(), k=2)
     step = spec._score_step
     spec._score_step = lambda *a: (lambda r, c: (r * float("nan"), c))(
         *step(*a))
     server.submit(tserve.Request(**req))
-    with pytest.raises(RuntimeError, match="slot 0 .*non-finite"):
-        server.run()
+    assert server.run() == []
+    assert [r.rid for r in server.failed] == [0]
+    assert server.failed[0].error == ("retries exhausted (1) after "
+                                      "non-finite verify logits")
+    assert server.failed[0].out == [] and server.aborts == 2
+    assert [e for e in server.trace if e[0] == "abort"] == [
+        ("abort", 0, 0, "non-finite verify logits")] * 2
+    _assert_drained(server)
 
 
 # ---------------------------------------------------------------------------

@@ -425,7 +425,7 @@ def test_train_cli_contract(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--mesh", "2,2"], ["--mode", "auto"], ["--hetero-latencies", "1,2"],
-    ["--quant", "int8"], ["--topology", "1:1:1"], ["--fault-spec", "{}"],
+    ["--topology", "1:1:1"], ["--fault-spec", "{}"],
     ["--metrics", "m.prom"], ["--ckpt-dir", "ck"], ["--resume"],
     ["--impl", "pallas"]])
 def test_train_cli_later_slice_flags_absent(flag):
