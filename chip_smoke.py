@@ -55,6 +55,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    sampled mix; the bits of a key off by one in ``fold_in``'s data must
    differ (the negative control); then timed at B 1 and 8, sampled and
    greedy, beside the bound of reading the rows once.
+   J. The kernels at jamba-1.5-large-398b's shapes
+   (``jamba_kernel_cases``): ``esffn_glu``'s 8-bit stream route at D
+   8192, F 24,576, E 16, top-2, N 16 and 2, against the plain version at
+   ``ESFFN_TOL`` with a transposed-scale-grid negative control, timed;
+   ``paged_attention`` at B 8, Hq 64, Hkv 8, hd 128, page 16, checked as
+   above and timed.
 4. Reference phase: a 2-layer model at qwen3-moe-30b-a3b's full width in
    float32 serves 3 prompts through the dense ``BatchedServer`` on the GPU
    (the kernels); its greedy tokens must equal those of ``PagedServer`` and
@@ -97,6 +103,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    forward at full width and
    depth, 8 images, with int8 MoE experts (logits within
    ``SWIN_KERNEL_TOL``; one int8 ``esffn_mlp`` a MoE block).
+   4j. jamba-1.5-large-398b in f32, one period, d_model 8192, Din 16384,
+   64/8 heads, 16 experts top-2, vocab 65,536, its dense and expert FFNs
+   cut to ``HYBRID_REF_FFN`` (about 23.6 GB): ``HYBRID_REF_REQUESTS``
+   greedy requests of 8 prompt and ``HYBRID_REF_NEW`` new tokens through
+   ``BatchedServer``, ``PagedServer`` and ``reference_stream`` on the card
+   and ``PagedServer`` on the CPU (its first request: the host takes 2.2
+   s a forward), 2 slots: every stream equal; the paged card run's
+   launches exactly 4 ``esffn_glu`` (stream) and 1 ``paged_attention`` a
+   forward; ``steps.make_prefill_step`` (the chunked scans) within
+   ``ATTN_TOL`` of the token-wise path's last logits on the card and
+   within ``ESFFN_TOL`` of its own on the CPU. 4x. xlstm-350m in f32, all
+   24 layers: the same, every request on both CPU engines, the chunked
+   mLSTM within the JAX suite's 3e-3 (``HYBRID_CHUNK_TOL``).
 5. Serve phase: qwen3-moe-30b-a3b at full width and depth (48 layers, about
    61 GB of bf16 weights from a seeded generator) serves 16 greedy requests
    (8-token prompts, 16 new tokens) through ``PagedServer`` with 8 slots and
@@ -140,8 +159,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``esffn_glu`` a layer per prefill chunk and decode step and one
    ``paged_attention`` a layer per decode step; the peak memory must stay
    under 3/4 of phase 5's.
+   5j. jamba-1.5-large-398b, one 8-layer period (7 Mamba layers, 1
+   attention layer; MoE FFNs on the odd layers, dense GLU FFNs of F
+   24,576 on the even ones) at full width, bf16 with int8 experts drawn
+   and quantized expert matrix by expert matrix (``JAMBA_WEIGHT_GB``):
+   ``HYBRID_SERVE_REQUESTS`` greedy requests of 8 prompt and
+   ``HYBRID_SERVE_NEW`` new tokens through ``PagedServer`` (8 slots,
+   16-token pages, every slot's worst case in the pool; the prompt
+   prefills token by token) and then ``BatchedServer`` (8 x 128), the
+   counts set to 0 just before each run: exactly one ``esffn_glu`` a MoE
+   layer a forward, all on the 8-bit stream route, and on the paged engine
+   one bf16 ``paged_attention`` a forward; every stream full-length, in
+   the vocabulary; weight GB, peaks, decode tick, tok/s and TTFT printed,
+   the two engines' bf16 streams counted. 5x. xlstm-350m, 24 layers,
+   bf16, the same traffic on both engines (no kernel on its path).
 
-The serve phase's weights are then freed, and the training slice runs:
+The serve phases' weights are then freed, and the training slice runs:
 
 6. Kernel phase at training shapes (qwen3-moe-30b-a3b, 4 x 1024 tokens,
    top-8, blk 128: Np 49,024 sorted rows), every shape the LM layer
@@ -462,6 +495,32 @@ QUANT_FP8_REQUESTS = 4
 # about 1.
 BF16_REF_LOSS_RTOL = 5e-3
 BF16_REF_GRAD_TOL = 0.1                           # x |grad| (Frobenius)
+# Phases 4j/4x/5j/5x: the stacks with recurrent mixers and dense FFN
+# layers. jamba-1.5-large-398b is cut to one 8-layer period (its least
+# depth); 4j also cuts its dense and expert d_ff to HYBRID_REF_FFN (f32 at
+# full FFN width would be 180 GB). 4j/4x: card vs CPU last-token logits
+# within ESFFN_TOL["float32"] x max|CPU| (the f32 kernels' limit: the
+# same products summed in another order); the chunked prefill's against
+# the token-wise path's on the card within HYBRID_CHUNK_TOL x max: for
+# Jamba ATTN_TOL["float32"] (the selective scan's chunked and token-wise
+# forms are the same recurrence summed in another order), for xLSTM the
+# JAX suite's own bound for mLSTM's chunkwise form against its recurrent
+# one (tests/test_recurrent.py, 3e-3: another algorithm, whose stabiliser
+# m takes other values; 6.5e-5 x max at 24 layers on an H100). On the
+# CPU, 23.5 GB of f32 weights take an H100 machine's host 2.2 s a
+# forward (the whole mix on both CPU engines took 204 s there), so 4j's
+# CPU side is the paged engine on HYBRID_CPU's first request and the
+# chunked prefill; 4x runs every request on both CPU engines.
+JAMBA_DEPTH = 8
+HYBRID_REF_FFN = 1024
+HYBRID_REF_REQUESTS, HYBRID_REF_NEW = 4, 6
+HYBRID_CHUNK_TOL = {"jamba-1.5-large-398b": ATTN_TOL["float32"],
+                    "xlstm-350m": 3e-3}
+HYBRID_CPU = {"jamba-1.5-large-398b": (("paged",), 1),
+              "xlstm-350m": (("paged", "reference_stream"),
+                             HYBRID_REF_REQUESTS)}
+HYBRID_SERVE_REQUESTS, HYBRID_SERVE_NEW = 16, 16
+JAMBA_WEIGHT_GB = (51.4, 52.4)     # predicted 51.9 +- 0.5 (int8 experts)
 FLASH_CHECK_CASES = (                  # (B, S, Hq, Hkv, hd, dtype, causal)
     (4, 1024, 32, 4, 128, "float32", True),
     (2, 2048, 16, 8, 256, "float32", True),
@@ -4418,6 +4477,413 @@ def _spec_serve(torch, cfg, params, prompts, make_server):
     return ons[-1]["esffn_glu_launches"], ons[-1]["routes"], res
 
 
+# ---------------------------------------------------------------------------
+# recurrent mixers and dense FFN layers (phases 4j, 4x, 5j, 5x)
+# ---------------------------------------------------------------------------
+
+def jamba_kernel_cases(torch, flush):
+    """The two kernels at the shapes jamba-1.5-large-398b gives them: the
+    8-bit ``esffn_glu`` stream route at D 8192, F 24576, E 16, top-2, blk
+    16, for N 16 (a decode step of 8 slots) and N 2 (a paged prefill
+    token), int8 payloads with tile scales 2^-2 .. 2^2 apart, against the
+    plain version at ESFFN_TOL (negative control: w_down's scale grid
+    transposed), timed, with the bound from the bytes of the experts the
+    case touches; ``paged_attention`` at B 8, Hq 64, Hkv 8, hd 128, page
+    16 over the serve lengths, checked as phase 3 checks and timed."""
+    from repro_torch.core.reindex import build_reindex
+    from repro_torch.core.routing import route
+    from repro_torch.kernels import esffn
+    from repro_torch.kernels import paged_attention as pa
+
+    res = {"esffn_glu": [], "paged_attention": [], "negative_controls": []}
+    d, e, f, k, blk = 8192, 16, 24576, 2, 16
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def payload(shape):
+        q = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        tiles = (shape[0], shape[1] // 128, shape[2] // 128)
+        s = 0.02 / 127 * torch.exp2(torch.rand(
+            tiles, generator=gen, device="cuda") * 4 - 2)
+        return q, s
+
+    qs = [payload(s) for s in ((e, d, f), (e, d, f), (e, f, d))]
+    wq, sc = [q for q, _ in qs], tuple(s for _, s in qs)
+    router = torch.randn((d, e), generator=gen, device="cuda") * 0.02
+    for n in (16, 2):
+        x = torch.randn((n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        r = route(x, router, k)
+        ri = build_reindex(r.expert_idx, r.gates, e, blk)
+        args = (x, ri.row_token, ri.row_gate, ri.block_expert, *wq)
+        name = f"esffn_glu int8 jamba N={n} blk={blk} bfloat16"
+        plain = esffn.esffn_glu_plain(*args, w_scales=sc)
+        kern, kroute = _routed(torch, lambda: esffn.esffn_glu(
+            *args, w_scales=sc), esffn.esffn_glu)
+        if kroute != "stream":
+            raise AssertionError(f"{name}: took the {kroute} route")
+        err, tol = _check(name, kern, plain, ESFFN_TOL["bfloat16"])
+        if n == 16:
+            res["negative_controls"].append({
+                "kernel": "esffn_glu", "fault": "w_down's scale grid "
+                "transposed (jamba shape)", "err_over_tol": _must_fail(
+                    name + " with sd transposed", esffn.esffn_glu_plain(
+                        *args, w_scales=sc[:2] + (_scale_transposed(sc[2]),)),
+                    plain, ESFFN_TOL["bfloat16"])})
+        del plain
+        live = (ri.row_gate.reshape(-1, blk) != 0).any(dim=1)
+        experts = torch.unique(ri.block_expert[live]).numel()
+        np_rows = ri.row_token.numel()
+        nbytes = (n * d * 2 + experts * 3 * d * f
+                  + experts * sum(s[0].numel() for s in sc) * 4
+                  + np_rows * 8 + ri.block_expert.numel() * 4
+                  + np_rows * d * 2)
+        flops = 6 * int((ri.row_gate != 0).sum()) * d * f
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        res["esffn_glu"].append({
+            "case": "jamba-1.5-large-398b experts",
+            "shape": {"N": n, "D": d, "E": e, "F": f, "top_k": k, "blk": blk,
+                      "Np": np_rows, "live_blocks": int(live.sum()),
+                      "experts_read": experts},
+            "dtype": "bfloat16", "weights": "int8", "kernel_route": kroute,
+            "max_abs_err": err, "tolerance": tol,
+            "kernel_ms": time_ms(torch, lambda: esffn.esffn_glu(
+                *args, w_scales=sc), flush, iters=10),
+            "plain_ms": time_ms(torch, lambda: esffn.esffn_glu_plain(
+                *args, w_scales=sc), flush, iters=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": _NO_LIBRARY_Q})
+        del kern
+    del qs, wq, sc
+    torch.cuda.empty_cache()
+
+    b, hq, hkv, hd, page, maxp = 8, 64, 8, 128, 16, 16
+    lengths_l = [0, 1, 9, 16, 17, 24, 100, 250]
+    args, _ = _paged_inputs(torch, gen, b, hq, hkv, hd, page, lengths_l,
+                            maxp, "bfloat16")
+    _, _, err, tol, worst = _paged_check(
+        torch, "paged_attention jamba heads", args, {}, "bfloat16")
+    nbytes, flops = _paged_work(args, {}, None)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    res["paged_attention"].append({
+        "case": "jamba-1.5-large-398b heads, serve lengths",
+        "shape": {"B": b, "Hq": hq, "Hkv": hkv, "hd": hd, "page": page,
+                  "maxp": maxp, "lengths": lengths_l, "window": None,
+                  "softcap": 0.0, "splits": pa.num_splits(maxp)},
+        "dtype": "bfloat16", "max_abs_err": err, "tolerance": tol,
+        "worst_slot_err_over_tol": worst,
+        "kernel_ms": time_ms(torch, lambda: pa.paged_attention(*args),
+                             flush),
+        "plain_ms": time_ms(torch, lambda: pa.paged_attention_ref(*args),
+                            flush),
+        "bound_ms": b_ms, "bound_by": b_by})
+    return res
+
+
+def _hybrid_config(arch, dtype):
+    """jamba-1.5-large-398b cut to one period (JAMBA_DEPTH layers), 4j's
+    f32 also to HYBRID_REF_FFN-wide FFNs; xlstm-350m whole."""
+    from repro_torch import configs as cfglib
+
+    cfg = dataclasses.replace(cfglib.get_config(arch), dtype=dtype)
+    if arch == "jamba-1.5-large-398b":
+        cfg = dataclasses.replace(cfg, num_layers=JAMBA_DEPTH)
+        if dtype == "float32":
+            cfg = dataclasses.replace(
+                cfg, d_ff=HYBRID_REF_FFN, moe=dataclasses.replace(
+                    cfg.moe, d_ff=HYBRID_REF_FFN))
+    return cfg
+
+
+def _hybrid_launch_counts(cfg):
+    """(esffn_glu, paged_attention) launches of ONE forward of ``cfg``."""
+    n = cfg.num_layers
+    return (sum(cfg.is_moe_layer(i) for i in range(n)),
+            sum(cfg.layer_kind(i) == "attn" for i in range(n)))
+
+
+def _reset_counts():
+    from repro_torch.kernels import esffn, paged_attention
+
+    glu, pa = esffn.esffn_glu, paged_attention.paged_attention
+    glu.launches = pa.launches = 0
+    glu.launches_by_route = dict.fromkeys(glu.launches_by_route, 0)
+    _reset_quant(glu, pa)
+
+
+def _read_counts():
+    from repro_torch.kernels import esffn, paged_attention
+
+    glu, pa = esffn.esffn_glu, paged_attention.paged_attention
+    return {"esffn_glu": glu.launches, "paged_attention": pa.launches,
+            "esffn_glu_routes": dict(glu.launches_by_route),
+            "esffn_glu_quant": dict(glu.launches_quant),
+            "paged_attention_quant": dict(pa.launches_quant)}
+
+
+def hybrid_reference_phase(torch, arch, tag):
+    """Phase 4j (jamba-1.5-large-398b, one period, FFNs HYBRID_REF_FFN
+    wide) or 4x (xlstm-350m, whole), f32: ``HYBRID_REF_REQUESTS`` greedy
+    requests of 8 prompt and ``HYBRID_REF_NEW`` new tokens through the
+    dense ``BatchedServer``, ``PagedServer`` and ``reference_stream`` on
+    the card and the ``HYBRID_CPU`` engines on the CPU (on its first
+    requests), 2 slots so both engines refill a slot: every stream
+    equal. The paged card run's kernel launches, counted from 0, are
+    exactly one ``esffn_glu`` a MoE layer and one ``paged_attention`` an
+    attention layer a forward (one forward a prompt token, the token-wise
+    prefill, and one a decode step), all ``esffn_glu`` on ``stream``.
+    ``steps.make_prefill_step`` (the chunked scans) gives last logits
+    within HYBRID_CHUNK_TOL of the token-wise path's on the card and
+    within ESFFN_TOL of its own on the CPU."""
+    import numpy as np
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    t_phase = time.perf_counter()
+    cfg = _hybrid_config(arch, "float32")
+    pcfg = ParallelConfig(blk=16)
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(41), device="cuda")
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
+               for _ in range(HYBRID_REF_REQUESTS)]
+    max_seq = 64
+    per_fwd = _hybrid_launch_counts(cfg)
+
+    cpu_kinds, cpu_requests = HYBRID_CPU[arch]
+    streams, wall, counts = {}, {}, {}
+    for kind, device, p in (("dense", "cuda", params),
+                            ("paged", "cuda", params),
+                            ("reference_stream", "cuda", params),
+                            *((k, "cpu", cpu_params) for k in cpu_kinds)):
+        reqs = [serve.Request(rid=i, prompt=pr, max_new=HYBRID_REF_NEW)
+                for i, pr in enumerate(prompts)]
+        if device == "cpu":
+            reqs = reqs[:cpu_requests]
+        t0 = time.perf_counter()
+        _reset_counts()
+        if kind == "reference_stream":
+            out = {r.rid: serve.reference_stream(cfg, pcfg, p, r,
+                                                 max_seq=max_seq)
+                   for r in reqs}
+        else:
+            if kind == "dense":
+                server = serve.BatchedServer(cfg, pcfg, num_slots=2,
+                                             max_seq=max_seq, params=p,
+                                             device=device)
+            else:
+                server = serve.PagedServer(
+                    cfg, pcfg, num_slots=2, page_size=16, num_pages=9,
+                    max_pages_per_slot=4, params=p, device=device)
+            for r in reqs:
+                server.submit(r)
+            out = {r.rid: r.out for r in server.run()}
+        key = f"{kind} {device}"
+        streams[key], wall[key] = out, time.perf_counter() - t0
+        if key == "paged cuda":
+            counts = _read_counts()
+            fwds = sum(len(r.prompt) for r in reqs) + len(
+                server.decode_times_s)
+            want = {"esffn_glu": per_fwd[0] * fwds,
+                    "paged_attention": per_fwd[1] * fwds}
+            got = {k: counts[k] for k in want}
+            if got != want or counts["esffn_glu_routes"] != {
+                    "stream": want["esffn_glu"], "wgmma": 0}:
+                raise AssertionError(f"phase {tag}: launches {counts}, "
+                                     f"expected {want}")
+    want = streams["dense cuda"]
+    if len(want) != HYBRID_REF_REQUESTS or any(
+            len(o) != HYBRID_REF_NEW for o in want.values()) or any(
+            st != {rid: want[rid] for rid in range(
+                cpu_requests if key.endswith("cpu") else len(want))}
+            for key, st in streams.items()):
+        raise AssertionError(f"phase {tag}: greedy tokens differ: {streams}")
+
+    tokens = np.stack(prompts)
+    b = tokens.shape[0]
+    logits = {}
+    for device, p in (("cuda", params), ("cpu", cpu_params)):
+        t0 = time.perf_counter()
+        lg, _ = steps.make_prefill_step(cfg, pcfg)(
+            p, {"tokens": torch.from_numpy(tokens).to(device)},
+            lm.init_cache(cfg, b, max_seq, device))
+        logits[device] = lg[:, -1].float().cpu()
+        wall[f"make_prefill_step {device}"] = time.perf_counter() - t0
+    step = steps.make_serve_step(cfg, pcfg)
+    cache = lm.init_cache(cfg, b, max_seq, "cuda")
+    for t in range(tokens.shape[1]):
+        lg, cache = step(params, {"tokens": torch.from_numpy(
+            tokens[:, t:t + 1]).cuda()}, cache)
+    tokenwise = lg[:, -1].float().cpu()
+    err_tw, tol_tw = _check(f"phase {tag}: chunked vs token-wise logits",
+                            logits["cuda"], tokenwise, HYBRID_CHUNK_TOL[arch])
+    err_cpu, tol_cpu = _check(f"phase {tag}: card vs CPU logits",
+                              logits["cuda"], logits["cpu"],
+                              ESFFN_TOL["float32"])
+    res = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "moe_d_ff": cfg.moe.d_ff if cfg.moe else None,
+           "weights_gb": n_bytes / 1e9, "tokens": {str(k): v for k, v in
+                                                   want.items()},
+           "engines": sorted(streams), "cpu_requests": cpu_requests,
+           "launches": {
+               k: counts[k] for k in ("esffn_glu", "paged_attention")},
+           "launches_per_forward": {"esffn_glu": per_fwd[0],
+                                    "paged_attention": per_fwd[1]},
+           "launches_by_route": {"esffn_glu": counts["esffn_glu_routes"]},
+           "chunked_vs_tokenwise_err": err_tw,
+           "chunked_vs_tokenwise_tol": tol_tw,
+           "card_vs_cpu_logit_err": err_cpu, "card_vs_cpu_logit_tol": tol_cpu,
+           "wall_s": wall, "seconds": time.perf_counter() - t_phase}
+    print(f"[{tag}] {arch}, {cfg.num_layers} layers, f32, {n_bytes / 1e9:.2f}"
+          f" GB: greedy tokens {want} equal on {sorted(streams)} (the CPU "
+          f"engines on the first {cpu_requests} requests); launches "
+          f"{res['launches']} ({per_fwd} a forward); prefill logits chunked "
+          f"vs token-wise err {err_tw:.3g} (limit {tol_tw:.3g}), card vs "
+          f"CPU {err_cpu:.3g} (limit {tol_cpu:.3g}); in "
+          f"{res['seconds']:.1f}s, wall s {json.dumps(wall)}")
+    return res
+
+
+def hybrid_serve_phase(torch, arch, tag):
+    """Phase 5j (jamba-1.5-large-398b, one period at full width, bf16
+    with int8 experts drawn and quantized expert matrix by expert matrix)
+    or 5x (xlstm-350m, bf16, whole): ``HYBRID_SERVE_REQUESTS`` greedy
+    requests of 8 prompt and ``HYBRID_SERVE_NEW`` new tokens through
+    ``PagedServer`` (8 slots, 16-token pages, every slot's worst case in
+    the pool), then ``BatchedServer`` (8 x 128), each after an unmeasured
+    warm-up request, the kernel counts set to 0 just before each run and
+    read just after: one ``esffn_glu`` a MoE layer a forward, every one the
+    8-bit stream route, and on the paged engine one bf16
+    ``paged_attention`` an attention layer a forward. Every stream full
+    length and in the vocabulary; the bf16 streams of the two engines are
+    counted, not asserted."""
+    import numpy as np
+    from repro_torch.common import tree_leaves
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    t_phase = time.perf_counter()
+    cfg = _hybrid_config(arch, "bfloat16")
+    quant = "int8" if cfg.moe is not None else None
+    pcfg = ParallelConfig(blk=16)
+    slots, page, max_seq = 8, 16, 128
+    maxp = max_seq // page
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda", quant=quant)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    if quant and not JAMBA_WEIGHT_GB[0] <= n_bytes / 1e9 <= JAMBA_WEIGHT_GB[1]:
+        raise AssertionError(f"phase {tag}: {n_bytes / 1e9} GB of weights, "
+                             f"predicted {JAMBA_WEIGHT_GB}")
+    per_fwd = _hybrid_launch_counts(cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
+               for _ in range(HYBRID_SERVE_REQUESTS)]
+
+    def paged():
+        return serve.PagedServer(
+            cfg, pcfg, num_slots=slots, page_size=page,
+            num_pages=1 + slots * maxp, max_pages_per_slot=maxp,
+            params=params, prefill_chunk=16, device="cuda")
+
+    def dense():
+        return serve.BatchedServer(cfg, pcfg, num_slots=slots,
+                                   max_seq=max_seq, params=params,
+                                   device="cuda")
+
+    res = {"arch": arch, "layers": cfg.num_layers, "weights": quant or "bf16",
+           "weights_gb": n_bytes / 1e9, "init_s": init_s,
+           "init_peak_allocated_gb": init_peak / 1e9}
+    outs = {}
+    for kind, make in (("paged", paged), ("dense", dense)):
+        warm = make()
+        warm.submit(serve.Request(rid=-1, prompt=np.arange(8, dtype=np.int32),
+                                  max_new=2))
+        warm.run()
+        del warm
+        server = make()
+        for i, pr in enumerate(prompts):
+            server.submit(serve.Request(rid=i, prompt=pr,
+                                        max_new=HYBRID_SERVE_NEW))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        done = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = server.decode_times_s
+        if kind == "paged":
+            fwds = sum(len(pr) for pr in prompts) + len(steps)
+        else:
+            fwds = len(steps)
+        want = {"esffn_glu": per_fwd[0] * fwds,
+                "paged_attention": per_fwd[1] * fwds if kind == "paged"
+                else 0}
+        got = {k: counts[k] for k in want}
+        if got != want or counts["esffn_glu_routes"] != {
+                "stream": want["esffn_glu"], "wgmma": 0} \
+                or counts["esffn_glu_quant"].get("int8", 0) != (
+                    want["esffn_glu"] if quant else 0) \
+                or counts["paged_attention_quant"]["int8"]:
+            raise AssertionError(f"phase {tag} ({kind}): launches {counts}, "
+                                 f"expected {want}")
+        if len(done) != len(prompts) or any(
+                len(r.out) != HYBRID_SERVE_NEW for r in done):
+            raise AssertionError(f"phase {tag} ({kind}): not every request "
+                                 f"finished with {HYBRID_SERVE_NEW} tokens")
+        if not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
+            raise AssertionError(f"phase {tag} ({kind}): token out of the "
+                                 f"vocabulary")
+        if kind == "paged":
+            st = server.stats()
+            if st["free_pages"] != st["num_pages"] - 1 or st["in_use_pages"]:
+                raise AssertionError(f"phase {tag}: page pool leaked: {st}")
+            server.pool.assert_consistent()
+        tokens = sum(len(r.out) for r in done)
+        ttft = sorted(server.ttft_s.values())
+        outs[kind] = {r.rid: r.out for r in done}
+        res[kind] = {
+            "requests": len(done), "tokens": tokens, "wall_s": wall,
+            "tok_per_s": tokens / wall,
+            "decode_step_median_ms": statistics.median(steps) * 1e3,
+            "decode_steps": len(steps),
+            "ttft_median_ms": statistics.median(ttft) * 1e3,
+            "peak_allocated_gb": peak / 1e9,
+            "cache_bytes": lm.cache_bytes(server.cache),
+            "launches": got, "launches_by_route": {
+                "esffn_glu": counts["esffn_glu_routes"]},
+            "launches_quant": {"esffn_glu": counts["esffn_glu_quant"]}}
+        print(f"[{tag}] {kind}: {len(done)} requests, {tokens} tokens in "
+              f"{wall:.3f}s ({tokens / wall:.1f} tok/s); decode step median "
+              f"{res[kind]['decode_step_median_ms']:.2f}ms over {len(steps)} "
+              f"steps; TTFT median {res[kind]['ttft_median_ms']:.1f}ms; peak "
+              f"allocated {peak / 1e9:.2f} GB; launches {got}")
+        del server, done
+    equal = sum(outs["dense"][rid] == outs["paged"][rid] for rid in outs[
+        "paged"])
+    res["dense_streams_equal_to_paged"] = equal
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[{tag}] {arch}, {cfg.num_layers} layers at full width, bf16"
+          f"{' + int8 experts' if quant else ''}: {n_bytes / 1e9:.2f} GB of "
+          f"weights (drawn in {init_s:.1f}s, peak {init_peak / 1e9:.2f} GB);"
+          f" {equal} of {len(prompts)} dense streams equal the paged "
+          f"engine's; phase {res['seconds']:.1f}s")
+    del params
+    return res
+
+
 def _release(torch):
     """Free what the last phase left: its objects in reference cycles (a
     ``SpecDecoder`` and its server point at each other, so their weights
@@ -4471,6 +4937,13 @@ def main() -> int:
     print(f"[check] paged_attention int8: "
           f"{len(quant_res['paged_attention_checks'])} cases, worst per-slot "
           f"err / limit {max(c['worst_slot_err_over_tol'] for c in quant_res['paged_attention_checks']):.3g}")
+    jamba_res = jamba_kernel_cases(torch, flush)
+    for k in ("esffn_glu", "paged_attention"):
+        for c in jamba_res[k]:
+            print(f"[kernel-jamba] {k} {json.dumps(c)}")
+    for c in jamba_res["negative_controls"]:
+        print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
+              f"{c['err_over_tol']:.3g} x the limit")
     sampling_res = sampling_phase(torch, flush)
     del flush
     _release(torch)
@@ -4483,11 +4956,21 @@ def main() -> int:
     _release(torch)
     quant_ref = quant_reference_phase(torch)
     _release(torch)
+    hybrid_ref = {}
+    for tag, arch in (("4j", "jamba-1.5-large-398b"), ("4x", "xlstm-350m")):
+        hybrid_ref[tag] = hybrid_reference_phase(torch, arch, tag)
+        _release(torch)
     serve_launches, serve_res = serve_phase(torch)
     print(f"[serve] {json.dumps({**serve_res, 'reference': serve_ref, 'spec_reference': spec_ref, 'prefix_reference': prefix_ref, 'sampling': sampling_res})}")
     _release(torch)           # the serve phase's weights are gone
     quant_serve = quant_serve_phase(torch, serve_res["peak_allocated_gb"])
     print(f"[quant-serve] {json.dumps(quant_serve)}")
+    _release(torch)           # the quantized serve's weights are gone
+    hybrid_serve = {}
+    for tag, arch in (("5j", "jamba-1.5-large-398b"), ("5x", "xlstm-350m")):
+        hybrid_serve[tag] = hybrid_serve_phase(torch, arch, tag)
+        _release(torch)
+    print(f"[hybrid] {json.dumps({'reference': hybrid_ref, 'serve': hybrid_serve})}")
 
     _release(torch)           # the serve phase's weights are gone
     print(f"[train] device memory allocated before training: "
@@ -4559,8 +5042,13 @@ def main() -> int:
     # unfused-backward pass (phase 11).
     qat_paths = {f"qwen_qat_{m}": r["launches"]
                  for m, r in train_out["qat"].items()}
+    hybrid_paths = {f"hybrid_{tag}": r["launches"]
+                    for tag, r in hybrid_ref.items()}
+    hybrid_paths.update({f"hybrid_{tag}_{kind}": {
+        "paged_attention": r[kind]["launches"]["paged_attention"]}
+        for tag, r in hybrid_serve.items() for kind in ("paged", "dense")})
     paths = {**serve_launches, "qwen_train": train_launches, **qat_paths,
-             **swin_launches}
+             **swin_launches, **hybrid_paths}
     by_path = {}
     for path, counts in paths.items():
         for name, n in counts.items():
@@ -4574,7 +5062,9 @@ def main() -> int:
                    "qwen_train": train_out["launches_by_route"],
                    **{f"qwen_qat_{m}": r["launches_by_route"]
                       for m, r in train_out["qat"].items()},
-                   **swin_out["launches_by_route"]}
+                   **swin_out["launches_by_route"],
+                   **{f"hybrid_{tag}": r["launches_by_route"]
+                      for tag, r in hybrid_ref.items()}}
 
     def by_route(name, cases, routes, paths=route_paths):
         """Each route of a kernel with several: its launches on each path
@@ -4612,7 +5102,9 @@ def main() -> int:
     qpaths = {**{f"quant_serve_{m}": {"esffn_glu": {m: r["launches"][
         "esffn_glu"]}, "paged_attention": {"int8": r["launches"][
             "paged_attention"]}} for m, r in quant_serve.items()},
-        **{f"quant_{p}": c for p, c in quant_ref["launches"].items()}}
+        **{f"quant_{p}": c for p, c in quant_ref["launches"].items()},
+        **{f"hybrid_{tag}_{kind}": r[kind]["launches_quant"]
+           for tag, r in hybrid_serve.items() for kind in ("paged", "dense")}}
 
     def qentry(kernel, source, replaces, branch, cases, **extra):
         by = {p: sum(c.get(kernel, {}).values()) for p, c in qpaths.items()}
@@ -4629,8 +5121,10 @@ def main() -> int:
                 "library_ms": None, "library": head["library"],
                 "shape": head["shape"], "dtype": head["dtype"],
                 "tolerance": head["tolerance"], "cases": cases,
-                "negative_controls": [c for c in quant_res["negative_controls"]
-                                      if c["kernel"] == kernel], **extra}
+                "negative_controls": [
+                    c for c in quant_res["negative_controls"]
+                    + jamba_res["negative_controls"]
+                    if c["kernel"] == kernel], **extra}
 
     print(json.dumps({"kernels": [
         entry("esffn_glu", "src/repro_torch/csrc/esffn.cu",
@@ -4643,7 +5137,8 @@ def main() -> int:
                                  if c["kernel"] == "esffn_glu"],
               small_width_checks=esffn_checks),
         entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
-              "src/repro/kernels/paged_attention.py:295", attn_res,
+              "src/repro/kernels/paged_attention.py:295",
+              attn_res + jamba_res["paged_attention"],
               negative_controls=[attn_neg], checks=attn_checks),
         entry("esmm", "src/repro_torch/csrc/esmm.cu",
               "src/repro/kernels/esmm.py:80",
@@ -4703,7 +5198,7 @@ def main() -> int:
          "launches_from": "phase 12, the public entry point"},
         qentry("esffn_glu", "src/repro_torch/csrc/esffn.cu",
                "src/repro/kernels/esffn.py:280", "int8/fp8 weights",
-               quant_res["esffn_glu"],
+               quant_res["esffn_glu"] + jamba_res["esffn_glu"],
                tpu_branch="w_scales: _wtile, src/repro/kernels/esffn.py:118"),
         qentry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
                "src/repro/kernels/paged_attention.py:295", "int8 KV",

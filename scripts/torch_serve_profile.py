@@ -2,10 +2,13 @@
 """Where a decode step of the PyTorch port's paged engine spends its time,
 on one NVIDIA GPU.
 
-    python3 scripts/torch_serve_profile.py [--layers 48] [--steps 8] \
-        [--quant none|int8|fp8] [--kv-quant none|int8] [--spec-k K]
+    python3 scripts/torch_serve_profile.py [--arch ARCH] [--layers 48] \
+        [--steps 8] [--quant none|int8|fp8] [--kv-quant none|int8] \
+        [--spec-k K]
 
-Builds qwen3-moe-30b-a3b at full width (``--layers`` cuts depth), fills all
+Builds ``--arch`` (qwen3-moe-30b-a3b unless given; jamba-1.5-large-398b
+at ``--layers 8 --quant int8`` is one period with int8 experts) at full
+width (``--layers`` cuts depth, 0 keeps it), fills all
 8 slots with 8-token prompts (with ``--quant``/``--kv-quant``: 8-bit
 expert weights, quantized layer by layer as drawn, and int8 KV pages),
 times ``--steps`` decode macro-steps on the
@@ -15,8 +18,14 @@ the device's own events (kernels and copies: busy) and the idle share
 ``1 - busy / wall``, then device time by kernel name (top 25). With
 ``--spec-k K`` a ``SpecDecoder`` (``NGramDrafter``, k K) runs each decode
 step as one verify round a slot (batch-1 chunks of K + 1 tokens), and
-the step's tokens, rounds and acceptance are printed too. The card's
-name and power limit lead the output.
+the step's tokens, rounds and acceptance are printed too. Last, the
+profiled steps' time by part of a layer (``mixer.attn``, ``mixer.mamba``,
+``mixer.mlstm``, ``mixer.slstm``, ``ffn.moe``, ``ffn.dense``: profiler
+ranges put around the model's apply functions for the profiled steps
+only): the device time of the kernels each part launched, the host time
+spent inside it and the span it covers on the device's timeline, a
+step. The card's name and power limit lead the
+output.
 """
 from __future__ import annotations
 
@@ -41,8 +50,28 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.parallel.sharding import ParallelConfig  # noqa: E402
 
 
+def _ranged(fn, name):
+    def run(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+    return run
+
+
+def _range_layer_parts() -> None:
+    """Put a profiler range around each mixer's and FFN's apply function
+    (``lm.apply_block`` looks them up at call time)."""
+    from repro_torch.models import transformer as tfm
+
+    for kind, fn in list(lm._RECURRENT_APPLY.items()):
+        lm._RECURRENT_APPLY[kind] = _ranged(fn, f"mixer.{kind}")
+    tfm.apply_attention = _ranged(tfm.apply_attention, "mixer.attn")
+    tfm.apply_moe_ffn = _ranged(tfm.apply_moe_ffn, "ffn.moe")
+    tfm.apply_dense_ffn = _ranged(tfm.apply_dense_ffn, "ffn.dense")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-moe-30b-a3b")
     ap.add_argument("--layers", type=int, default=48)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--quant", default="none", choices=["none", "int8", "fp8"])
@@ -57,8 +86,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     build.build()
-    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
-                              num_layers=args.layers)
+    cfg = cfglib.get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     params = lm.init_params(
         cfg, generator=torch.Generator(device="cuda").manual_seed(0),
         device="cuda", quant=args.quant)
@@ -92,14 +122,29 @@ def main(argv=None) -> int:
         print("a request finished inside the timed steps", file=sys.stderr)
         return 1
 
+    _range_layer_parts()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(args.steps):
             server._decode_tick(done)
         torch.cuda.synchronize()
-    rows = []
+    rows, parts = [], {}
     for ev in prof.key_averages():
+        if ev.key.startswith(("mixer.", "ffn.")):
+            # the host range (its kernels' device time, its host time) and
+            # its mirror on the device's timeline (the span it covers there)
+            part = parts.setdefault(ev.key, {"part": ev.key})
+            dev_us = getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0))
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                part["device_span_ms_per_step"] = dev_us / args.steps / 1e3
+            else:
+                part.update({
+                    "device_ms_per_step": dev_us / args.steps / 1e3,
+                    "host_ms_per_step": ev.cpu_time_total / args.steps / 1e3,
+                    "calls_per_step": ev.count // args.steps})
+            continue
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue                     # host ops; their kernels are listed
         dev_us = getattr(ev, "self_device_time_total",
@@ -111,7 +156,8 @@ def main(argv=None) -> int:
         return 1
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(json.dumps({"layers": cfg.num_layers, "slots": slots,
+    print(json.dumps({"arch": cfg.name, "layers": cfg.num_layers,
+                      "slots": slots,
                       "quant": args.quant, "kv_quant": args.kv_quant,
                       "decode_step_wall_ms": wall * 1e3,
                       "device_busy_ms": busy,
@@ -124,6 +170,9 @@ def main(argv=None) -> int:
     for ms, n, name in rows[:25]:
         print(json.dumps({"kernel": name[:90], "ms_per_step": ms,
                           "launches_per_step": n}))
+    for part in sorted(parts.values(),
+                       key=lambda r: -r.get("host_ms_per_step", 0.0)):
+        print(json.dumps(part))
     return 0
 
 

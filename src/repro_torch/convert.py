@@ -3,7 +3,9 @@
 The two packages draw their random weights differently (threefry vs the
 torch generator), so comparisons carry one tree across instead of
 initialising twice. The JAX LM tree stacks each period position's leaves
-over periods (``lax.scan`` layout); the port keeps one dict per layer. The
+over periods (``lax.scan`` layout); the port keeps one dict per layer, in
+layer order, whatever each position holds (attention, Mamba, mLSTM or
+sLSTM mixers; MoE, dense or no FFN). The
 Swin tree (dicts and the ``stages``/``blocks`` lists) has the same
 structure and leaf layouts in both packages, so it carries over leaf for
 leaf.
@@ -15,7 +17,7 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import check_supported
+from repro_torch.models.lm import check_supported, check_trainable
 from repro_torch.models.swin import SwinConfig
 
 
@@ -57,7 +59,7 @@ def opt_state_from_jax(state: dict, cfg: ModelConfig, *, device=None) -> dict:
     ``master`` copies (None where a parameter is f32) unstacked as
     ``params_from_jax`` unstacks the parameters, and ``step`` as an int32
     0-d tensor, all on ``device`` (the GPU unless given)."""
-    check_supported(cfg)
+    check_trainable(cfg)
     device = resolve_device(device)
     out = {k: _unstack(state[k], cfg, device)
            for k in ("m", "v", "master") if k in state}

@@ -32,6 +32,12 @@ prefill and decode roles that hand finished prompts over by page table
 NaN watchdog, engine recovery, priority preemption, deadlines and device
 dropout; ``--audit`` checks the page books after every scheduler step.
 
+Every LM stack of the registry but the multimodal ones serves on both
+engines: MoE, dense and hybrid (Mamba + attention, jamba-1.5-large-398b)
+stacks and xLSTM (xlstm-350m); a slot's recurrent state is zeroed
+whenever the slot is reused (``lm.reset_slot``). Speculation and the
+prefix cache need an all-attention stack and refuse the others.
+
 Not in this slice (ROADMAP.md): hetero plans built from ``--hetero-*``
 latencies (``PagedServer(plan=)`` takes any object with ``token_counts``),
 the dense engine's hetero slot shares, the mesh flags, and observability.
@@ -394,9 +400,11 @@ class PagedServer:
                              shares=shares)
         # Window page reclamation: when EVERY attention layer is windowed,
         # a page wholly behind the window is dead and returns to the pool.
+        attn_idx = [i for i in range(cfg.num_layers)
+                    if cfg.layer_kind(i) == "attn"]
         self.reclaim_window = (
-            cfg.window if cfg.window > 0 and all(
-                cfg.attn_kind(i) == "local" for i in range(cfg.num_layers))
+            cfg.window if cfg.window > 0 and attn_idx and all(
+                cfg.attn_kind(i) == "local" for i in attn_idx)
             else None)
         # the prefix cache skips prompt pages, which holds only where pages
         # are a slot's whole state: every layer attention
@@ -996,7 +1004,7 @@ def _unquantized_bytes(params: dict, dtype: torch.dtype) -> int:
     itemsize = torch.empty((), dtype=dtype).element_size()
     total = _tree_bytes(params)
     for layer in params["layers"]:
-        for name, t in layer["ffn"].items():
+        for name, t in layer.get("ffn", {}).items():
             if name.endswith("_scale"):
                 payload = layer["ffn"][name[:-len("_scale")]]
                 total += payload.numel() * (itemsize - 1) - \
@@ -1041,10 +1049,8 @@ def main(argv=None):
                     help="speculative decoding with a draft model drawn "
                          "from --seed + 1, resolved with the same --smoke "
                          "switch as --arch (--paged only): an "
-                         "all-attention, non-windowed config the port "
-                         "serves (qwen3-moe-30b-a3b); gemma-2b raises "
-                         "NotImplementedError until dense FFN layers are "
-                         "ported")
+                         "all-attention, non-windowed config "
+                         "(qwen3-moe-30b-a3b, gemma-2b)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft length per verify round: up to k drafted "
                          "tokens + 1 correction commit per forward")

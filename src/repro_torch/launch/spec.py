@@ -91,9 +91,8 @@ class ModelDrafter:
     length back to the committed history so rejected draft rows vanish.
     Hence only all-attention, non-windowed configs: a rolling window
     buffer and recurrent state cannot rewind. The config must also be one
-    the port serves (``lm.check_supported``): dense FFN layers (gemma-2b)
-    raise ``NotImplementedError``. The caches live on ``device`` (the GPU
-    unless ``device="cpu"``)."""
+    the port serves (``lm.check_supported``). The caches live on
+    ``device`` (the GPU unless ``device="cpu"``)."""
 
     def __init__(self, cfg, pcfg, params, *, max_seq: int, device=None):
         if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
@@ -173,10 +172,21 @@ class SpecDecoder:
     the tokens on the host)."""
 
     def __init__(self, server, drafter, k: int = 4):
+        cfg = server.cfg
+        if lm.recurrent_layers(cfg):
+            raise ValueError(
+                "speculative decoding requires an all-attention stack: "
+                "recurrent layers advance per-slot state token-wise "
+                "(the scan prefill path), which page-table truncation "
+                "cannot rewind — rollback would silently decode from a "
+                "wrong state")
+        if cfg.num_codebooks > 1:
+            raise ValueError(
+                "speculative decoding does not support codebook heads")
         if k < 1:
             raise ValueError(f"draft length k must be >= 1, got {k}")
         self.server = server
-        self.reset_steps()      # refuses recurrent stacks and codebook heads
+        self.reset_steps()
         self.drafter = drafter
         self.k = k
         self.chunk = k + 1

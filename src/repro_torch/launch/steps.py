@@ -1,7 +1,9 @@
 """Step functions (counterpart of ``repro.launch.steps``): the training
 step (loss, grads, AdamW update), the dense and paged serving engines'
-steps, the speculative verify's multi-token score step, and the paged
-engine's slot handoff and page copy.
+steps (the paged prefill a chunk forward on all-attention stacks, a
+token-wise scan on stacks with recurrent mixers), the speculative
+verify's multi-token score step, and the paged engine's slot handoff and
+page copy.
 PyTorch runs eagerly, so a step is a plain closure; the serving chunk's
 valid count and slot arrive as host ints. One device only: the JAX
 builders' ``mesh`` is None here.
@@ -60,7 +62,10 @@ def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig):
     """Training loss closure: LM forward (hidden-state output) + chunked
     cross entropy + MoE aux/z losses, weighted per ``cfg.moe``. Routing
     takes no jitter. ``loss_fn(params, batch) -> (total, metrics)``;
-    batch holds tokens, labels (B, S) int and loss_mask (B, S) f32."""
+    batch holds tokens, labels (B, S) int and loss_mask (B, S) f32.
+    Stacks with recurrent mixers or dense FFN layers raise
+    (``lm.check_trainable``)."""
+    lm.check_trainable(cfg)
     aw = cfg.moe.aux_weight if cfg.moe else 0.0
     zw = cfg.moe.z_weight if cfg.moe else 0.0
 
@@ -153,28 +158,29 @@ def make_paged_serve_step(cfg: ModelConfig, pcfg: ParallelConfig,
     return serve_step
 
 
-def _attention_only(cfg: ModelConfig, what: str) -> None:
-    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
-        raise NotImplementedError(
-            f"{what} of recurrent stacks is not ported (ROADMAP.md)")
-
-
 def make_paged_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
                             page_size: int):
     """Chunked prefill into the paged cache: one request's next ``chunk``
-    prompt tokens in ONE batch-1 forward. Signature ``(params, tokens
-    (chunk,), n_valid, slot, table_row (maxp,), cache) -> (last_logits (V,)
-    f32, cache)``; a short final chunk pads and masks. The scan form for
-    recurrent stacks is not ported."""
-    _attention_only(cfg, "chunked prefill")
-    return _make_paged_prefill_chunk(cfg, pcfg, page_size)
+    prompt tokens. Signature ``(params, tokens (chunk,), n_valid, slot,
+    table_row (maxp,), cache) -> (last_logits (V,) f32, cache)``; a short
+    final chunk pads and masks. All-attention stacks run ONE batch-1
+    forward over the chunk; stacks with recurrent mixers a loop of
+    single-token decode forwards (their state advances token by token
+    mid-stream, so the chunk is a scheduling unit, not a compute one)."""
+    if not lm.recurrent_layers(cfg):
+        return _make_paged_prefill_chunk(cfg, pcfg, page_size)
+    return _make_paged_prefill_scan(cfg, pcfg, page_size)
 
 
 def _paged_chunk_forward(cfg: ModelConfig, pcfg: ParallelConfig,
                          page_size: int):
     """Shared body of the chunk-extension paged forward: final-norm hidden
     states at every chunk position and the cache with the slot's length
-    advanced by ``n_valid``."""
+    advanced by ``n_valid``. All-attention stacks only."""
+    if lm.recurrent_layers(cfg):
+        raise ValueError(
+            "chunk-extension paged forward requires an all-attention "
+            "stack (recurrent mixers advance token-wise)")
 
     def fwd(params, tokens, n_valid: int, slot: int, table_row, cache):
         chunk = tokens.shape[0]
@@ -218,12 +224,7 @@ def make_paged_score_step(cfg: ModelConfig, pcfg: ParallelConfig,
     ``tokens[:i+1]``, what a sequential decode would give having fed
     ``tokens[i]``. The slot's length advances by ``n_valid``; rows at and
     past ``n_valid`` write to the sink page and are to be ignored.
-    All-attention stacks only."""
-    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
-        raise ValueError(
-            "speculative scoring requires an all-attention stack: recurrent "
-            "layers advance per-slot state token-wise, which page-table "
-            "truncation cannot rewind")
+    All-attention stacks only (``_paged_chunk_forward`` raises)."""
     if cfg.num_codebooks > 1:
         raise ValueError("score step does not support codebook heads")
     fwd = _paged_chunk_forward(cfg, pcfg, page_size)
@@ -241,12 +242,17 @@ def make_paged_handoff_step(cfg: ModelConfig):
     """Prefill-to-decode role handoff: move one finished-prefill sequence
     from slot ``src`` to slot ``dst``. The K/V pages stay in the shared
     pools and are reached through the host table row the scheduler moves,
-    so no K/V byte moves; on the device only the slot's ``len`` moves (the
-    JAX step also moves recurrent state rows, which the port's attention
-    stacks do not have). ``handoff(cache, src, dst) -> cache``, in place."""
-    _attention_only(cfg, "the paged handoff")
+    so no K/V byte moves; on the device the slot's ``len`` and its
+    recurrent state rows (Mamba conv/ssm, xLSTM c/n/h/m) move, and
+    ``src``'s are zeroed. ``handoff(cache, src, dst) -> cache``, in
+    place."""
+    recurrent = lm.recurrent_layers(cfg)
 
     def handoff(cache, src: int, dst: int):
+        for i in recurrent:
+            for t in cache["layers"][i].values():
+                t[dst] = t[src]
+                t[src].zero_()
         ln = cache["len"]
         ln[dst] = ln[src]
         ln[src] = 0
@@ -259,14 +265,50 @@ def make_page_copy_step(cfg: ModelConfig):
     """Copy one physical page's K/V rows (and int8 scale rows) from ``src``
     to ``dst`` in every attention pool: the device half of
     ``parallel.cache.PagePool.cow``, which hands the writer ``dst`` so the
-    shared original is never written. ``copy_page(cache, src, dst) ->
-    cache``, in place."""
-    _attention_only(cfg, "the paged page copy")
+    shared original is never written. Recurrent layers' per-slot state is
+    not paged and stays. ``copy_page(cache, src, dst) -> cache``, in
+    place."""
+    recurrent = lm.recurrent_layers(cfg)
 
     def copy_page(cache, src: int, dst: int):
-        for layer in cache["layers"]:
-            for pool in layer.values():
-                pool[dst] = pool[src]
+        for i, layer in enumerate(cache["layers"]):
+            if i not in recurrent:
+                for pool in layer.values():
+                    pool[dst] = pool[src]
         return cache
 
     return copy_page
+
+
+def _make_paged_prefill_scan(cfg: ModelConfig, pcfg: ParallelConfig,
+                             page_size: int):
+    """The paged prefill of stacks with recurrent mixers: the slot's state
+    rows taken out, one batch-1 decode forward a valid chunk token, the
+    rows written back; the last one's logits are returned. The JAX scan
+    also runs the padding tokens past ``n_valid``, inactive (a sink-page
+    write, state and length kept), which changes nothing; here they are
+    skipped."""
+    serve_step = make_paged_serve_step(cfg, pcfg, page_size)
+    recurrent = lm.recurrent_layers(cfg)
+
+    def prefill_step(params, tokens, n_valid: int, slot: int, table_row,
+                     cache):
+        sub = {"layers": [
+            {k: t[slot:slot + 1] for k, t in layer.items()} if i in recurrent
+            else layer for i, layer in enumerate(cache["layers"])],
+            "len": cache["len"][slot:slot + 1]}
+        inputs = {"page_table": table_row[None],
+                  "active": torch.ones(1, dtype=torch.bool,
+                                       device=tokens.device)}
+        for t in range(n_valid):
+            logits, sub = serve_step(
+                params, {**inputs, "tokens": tokens[t].reshape(1, 1)}, sub)
+        for i in recurrent:
+            for k, t in cache["layers"][i].items():
+                t[slot:slot + 1] = sub["layers"][i][k]
+        new_len = cache["len"].clone()
+        new_len[slot] = sub["len"][0]
+        return logits.reshape(-1), {"layers": cache["layers"],
+                                    "len": new_len}
+
+    return prefill_step

@@ -81,7 +81,7 @@ def main(argv=None):
            else cfglib.get_config(args.arch))
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    lm.check_supported(cfg)
+    lm.check_trainable(cfg)
     pcfg = ParallelConfig(blk=min(128, max(16, args.seq_len // 4)),
                           quant=args.quant)
     opt_cfg = adamw.OptimizerConfig(

@@ -1,15 +1,19 @@
 """LM assembly (counterpart of ``repro.models.lm``): parameter init, the
-dense and the paged KV caches, and the forward pass (training, and dense
-and paged serving).
+dense and the paged serving caches, and the forward pass (training, and
+dense and paged serving).
 
 The layer stack is a Python list of per-layer parameter dicts and the
 forward an unrolled loop over it (the JAX package stacks layers per period
 for ``lax.scan``; ``convert.params_from_jax`` unstacks them). The caches
 are per-layer lists too: the JAX dense cache's leaf ``[pos][name][j]``
 (period position ``pos``, period ``j``) is layer ``j * period + pos``
-here. The ported
-stacks are decoder-only all-attention models with GLU-expert MoE FFNs on
-every FFN layer (qwen3-moe, mixtral); other configurations raise.
+here. A layer's mixer is attention, Mamba, mLSTM or sLSTM; its FFN a
+GLU-expert MoE, a dense GLU or MLP, an sLSTM block's small GLU, or none
+(mLSTM blocks). Recurrent layers keep per-slot state in both caches; only
+attention layers have K/V rows or pages. Serving takes every such stack
+(``check_supported``); training only all-attention stacks with MoE FFNs
+on every layer (``check_trainable``). Frontends, cross-attention,
+codebook heads, prefixes and MLP experts in an LM stack raise.
 """
 from __future__ import annotations
 
@@ -21,67 +25,118 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import torch_dtype
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer as tfm
+from repro_torch.models import mamba, transformer as tfm, xlstm
 from repro_torch.parallel.sharding import ParallelConfig, normal_init
-from repro_torch.quant.core import quantize_ffn
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration this slice does not port."""
+    """Raise for a configuration the port cannot serve."""
     missing = []
-    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
-        missing.append("recurrent mixers (mamba/xlstm)")
-    if cfg.moe is None or not cfg.glu or any(
-            not cfg.is_moe_layer(i) for i in range(cfg.num_layers)):
-        missing.append("dense or MLP-expert FFN layers")
     if cfg.cross_attn or cfg.frontend or cfg.num_codebooks > 1 \
             or cfg.prefix_len:
         missing.append("frontends, cross-attention, codebook heads, prefixes")
+    if cfg.moe is not None and not cfg.glu:
+        missing.append("MLP experts in an LM stack")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {'; '.join(missing)} are not ported yet "
-            f"(ROADMAP.md)")
+            f"(ROADMAP.md A.4)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a configuration the port serves but does not train yet:
+    any stack with a recurrent mixer or a layer without MoE experts."""
+    check_supported(cfg)
+    if any(cfg.layer_kind(i) != "attn" or not cfg.is_moe_layer(i)
+           for i in range(cfg.num_layers)):
+        raise NotImplementedError(
+            f"{cfg.name}: training stacks with recurrent mixers or dense "
+            f"FFN layers is not ported yet (ROADMAP.md A.4)")
+
+
+def recurrent_layers(cfg: ModelConfig) -> list:
+    """Indices of the layers whose mixer keeps per-slot recurrent state
+    (every layer but the attention ones); empty for an all-attention
+    stack."""
+    return [i for i in range(cfg.num_layers) if cfg.layer_kind(i) != "attn"]
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def init_block(cfg: ModelConfig, dtype, generator, device) -> dict:
-    """One block's parameters: attention mixer + MoE FFN."""
-    return {
-        "ln1": tfm.init_norm(cfg, device),
-        "mixer": tfm.init_attention(cfg, dtype, generator, device),
-        "ln2": tfm.init_norm(cfg, device),
-        "ffn": tfm.init_moe_ffn(cfg, dtype, generator, device),
-    }
+def _ffn_kind(cfg: ModelConfig, idx: int) -> Optional[str]:
+    kind = cfg.layer_kind(idx)
+    if kind == "slstm":
+        return "slstm_ffn"
+    if kind == "mlstm":
+        return None
+    if cfg.is_moe_layer(idx):
+        return "moe"
+    if cfg.d_ff > 0:
+        return "dense"
+    return None
+
+
+_MIXER_INIT = {"attn": tfm.init_attention, "mamba": mamba.init_mamba,
+               "mlstm": xlstm.init_mlstm, "slstm": xlstm.init_slstm}
+
+
+def init_block(cfg: ModelConfig, idx: int, dtype, generator, device,
+               quant: Optional[str] = None) -> dict:
+    """Layer ``idx``'s parameters: its mixer, then its FFN (none on mLSTM
+    layers; an sLSTM block's GLU of width ``ceil64(ffn_factor * d)``).
+    ``quant``: the MoE experts quantized as drawn (``init_moe_ffn``)."""
+    p = {"ln1": tfm.init_norm(cfg, device),
+         "mixer": _MIXER_INIT[cfg.layer_kind(idx)](cfg, dtype, generator,
+                                                   device)}
+    fk = _ffn_kind(cfg, idx)
+    if fk is not None:
+        p["ln2"] = tfm.init_norm(cfg, device)
+    if fk == "moe":
+        p["ffn"] = tfm.init_moe_ffn(cfg, dtype, generator, device,
+                                    quant=quant)
+    elif fk == "dense":
+        p["ffn"] = tfm.init_dense_ffn(cfg, dtype, generator, device)
+    elif fk == "slstm_ffn":
+        f = int(cfg.xlstm.ffn_factor * cfg.d_model)
+        p["ffn"] = tfm.init_dense_ffn(cfg, dtype, generator, device,
+                                      d_ff=(f + 63) // 64 * 64, glu=True)
+    return p
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device, quant: Optional[str] = None) -> dict:
     """Full parameter tree, drawn from ``generator`` (on ``device``): the
     JAX package's shapes and its 0.02-std normal, not its numbers.
-    ``quant`` ("int8" | "fp8"): each MoE layer's expert weights are
-    quantized (``quant.core.quantize_ffn``) as soon as the layer is drawn,
-    so the full-precision tree never exists; the weights equal
-    ``quantize_lm_params`` of the tree drawn without it."""
+    ``quant`` ("int8" | "fp8"): each expert matrix is quantized
+    (``quant.core.quantize_blockwise``, expert by expert) as soon as it is
+    drawn and its full-precision copy freed, so the full-precision tree
+    never exists; the weights equal ``quantize_lm_params`` of the tree
+    drawn without it."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     p = {
         "embed": normal_init((cfg.vocab_size, cfg.d_model), dtype, generator,
                              device),
         "final_norm": tfm.init_norm(cfg, device),
-        "layers": [],
+        "layers": [init_block(cfg, i, dtype, generator, device, quant=quant)
+                   for i in range(cfg.num_layers)],
     }
-    for i in range(cfg.num_layers):
-        block = init_block(cfg, dtype, generator, device)
-        if quant not in (None, "none") and cfg.is_moe_layer(i):
-            block["ffn"] = quantize_ffn(block["ffn"], mode=quant)
-        p["layers"].append(block)
     if not cfg.tie_embeddings:
         p["head"] = normal_init((cfg.d_model, cfg.vocab_size), dtype,
                                 generator, device)
     return p
+
+
+def _state_spec(cfg: ModelConfig, idx: int, batch: int, dtype) -> dict:
+    """Per-slot recurrent state of a non-attention layer."""
+    kind = cfg.layer_kind(idx)
+    if kind == "mamba":
+        return mamba.cache_spec_mamba(cfg, batch, dtype)
+    if kind == "mlstm":
+        return xlstm.cache_spec_mlstm(cfg, batch, dtype)
+    return xlstm.cache_spec_slstm(cfg, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -91,11 +146,15 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     """Shapes and dtypes of the dense decode cache: per attention layer K
     and V ``(batch, S_cache, Hkv, hd)`` (``S_cache = min(seq_len, window)``
-    on windowed layers), and the per-slot filled length."""
+    on windowed layers), per recurrent layer its state, and the per-slot
+    filled length."""
     dtype = torch_dtype(cfg.dtype)
-    return {"layers": [tfm.cache_spec_attention(cfg, i, batch, seq_len, dtype)
-                       for i in range(cfg.num_layers)],
-            "len": ((batch,), torch.int32)}
+    rec = recurrent_layers(cfg)
+    return {"layers": [
+        _state_spec(cfg, i, batch, dtype) if i in rec
+        else tfm.cache_spec_attention(cfg, i, batch, seq_len, dtype)
+        for i in range(cfg.num_layers)],
+        "len": ((batch,), torch.int32)}
 
 
 def _zeros_like_spec(spec: dict, device) -> dict:
@@ -111,7 +170,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
 
 
 def cache_bytes(cache: dict) -> int:
-    """Device bytes of a cache's K/V (and scale) tensors."""
+    """Device bytes of a cache's K/V (and scale) and recurrent-state
+    tensors."""
     return sum(t.numel() * t.element_size()
                for layer in cache["layers"] for t in layer.values())
 
@@ -133,15 +193,20 @@ def paged_cache_spec(cfg: ModelConfig, num_slots: int, num_pages: int,
     for K and for V (physical page 0 is the write sink for inactive slots),
     and the per-slot resident length. ``kv_quant="int8"``: int8 pools plus
     f32 ``k_scale``/``v_scale`` pools ``(num_pages, page_size, Hkv)`` of
-    per-(row, kv head) scales."""
+    per-(row, kv head) scales. Recurrent layers keep their per-slot state
+    ``(num_slots, ...)`` as in ``cache_spec``: there is nothing to page."""
     quant = _check_kv_quant(kv_quant)
+    dtype = torch_dtype(cfg.dtype)
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.hd)
-    pool = (shape, torch.int8 if quant else torch_dtype(cfg.dtype))
+    pool = (shape, torch.int8 if quant else dtype)
     entry = {"k": pool, "v": pool}
     if quant:
         entry["k_scale"] = entry["v_scale"] = (shape[:3], torch.float32)
-    return {"layers": [dict(entry) for _ in range(cfg.num_layers)],
-            "len": ((num_slots,), torch.int32)}
+    rec = recurrent_layers(cfg)
+    return {"layers": [
+        _state_spec(cfg, i, num_slots, dtype) if i in rec
+        else dict(entry) for i in range(cfg.num_layers)],
+        "len": ((num_slots,), torch.int32)}
 
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
@@ -168,9 +233,19 @@ def paged_kv_page_bytes(cfg: ModelConfig, page_size: int,
 
 def reset_slot(cfg: ModelConfig, cache: dict, slot: int,
                length: int = 0) -> dict:
-    """Reset one slot's length so a new request can reuse it. K/V needs no
+    """Reset one slot so a new request can reuse it (in place): its length
+    to ``length`` and its recurrent state rows to zero. K/V needs no
     scrub: the dense buffer and freshly granted pages are both masked by
-    ``len``."""
+    ``len``. ``length > 0`` (prefix-sharing admission) only on
+    all-attention stacks: recurrent state has no paged representation."""
+    recurrent = recurrent_layers(cfg)
+    if length and recurrent:
+        raise ValueError(
+            "prefix-sharing reset (length > 0) requires an all-attention "
+            "stack: recurrent per-slot state has no paged representation")
+    for i in recurrent:
+        for t in cache["layers"][i].values():
+            t[slot].zero_()
     cache["len"][slot] = length
     return cache
 
@@ -183,7 +258,7 @@ def rollback_slot(cfg: ModelConfig, cache: dict, slot: int,
     length, as it masks a fresh page's tail. Only an all-attention stack
     can rewind this way: a recurrent mixer's per-slot state advances token
     by token and cannot be truncated."""
-    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+    if recurrent_layers(cfg):
         raise ValueError(
             "rollback (length truncation) requires an all-attention "
             "stack: recurrent per-slot state cannot be rewound")
@@ -198,14 +273,37 @@ def rollback_slot(cfg: ModelConfig, cache: dict, slot: int,
 # ---------------------------------------------------------------------------
 
 def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
-                cache: dict):
-    """One block: attention + MoE FFN. Returns (x, cache, aux, z)."""
+                cache: Optional[dict]):
+    """One block: mixer, then the FFN where the layer has one. Returns
+    (x, cache, aux, z). In a decode macro-step with an ``active`` mask,
+    inactive slots keep their recurrent state (attention writes its own
+    sink row)."""
+    kind = ctx.cfg.layer_kind(idx)
     h = tfm.apply_norm(p["ln1"], x, ctx.cfg)
-    out, cache = tfm.apply_attention(p["mixer"], h, ctx, idx, cache)
+    if kind == "attn":
+        out, new_cache = tfm.apply_attention(p["mixer"], h, ctx, idx, cache)
+    else:
+        out, new_cache = _RECURRENT_APPLY[kind](p["mixer"], h, ctx, cache)
+        if (ctx.mode == "decode" and ctx.decode_active is not None
+                and cache is not None):
+            act = ctx.decode_active
+            new_cache = {k: torch.where(
+                act.reshape((-1,) + (1,) * (v.ndim - 1)), v, cache[k])
+                for k, v in new_cache.items()}
     x = x + out
-    h2 = tfm.apply_norm(p["ln2"], x, ctx.cfg)
-    y, aux, z = tfm.apply_moe_ffn(p["ffn"], h2, ctx)
-    return x + y, cache, aux, z
+    aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "ffn" in p:
+        h2 = tfm.apply_norm(p["ln2"], x, ctx.cfg)
+        if ctx.cfg.is_moe_layer(idx):
+            y, aux, z = tfm.apply_moe_ffn(p["ffn"], h2, ctx)
+        else:
+            y = tfm.apply_dense_ffn(p["ffn"], h2, ctx)
+        x = x + y
+    return x, new_cache, aux, z
+
+
+_RECURRENT_APPLY = {"mamba": mamba.apply_mamba, "mlstm": xlstm.apply_mlstm,
+                    "slstm": xlstm.apply_slstm}
 
 
 def _train_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int):

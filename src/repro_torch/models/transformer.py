@@ -1,6 +1,7 @@
 """Transformer building blocks (counterpart of ``repro.models.transformer``):
 norms, GQA attention (full-sequence for training and dense prefill, over
-the dense or the paged KV cache for serving), and the MoE FFN.
+the dense or the paged KV cache for serving), the dense FFN and the MoE
+FFN.
 
 Parameters are plain dicts of tensors. The paged K/V pools and the dense
 cache's decode rows are updated in place (the JAX version returns new
@@ -14,12 +15,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.common import ACTIVATIONS
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import NEG_INF, paged_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.parallel.moe_parallel import MoEStatic, moe_layer
 from repro_torch.parallel.sharding import ParallelConfig, normal_init
-from repro_torch.quant.core import dequantize_rows, quantize_rows
+from repro_torch.quant.core import (dequantize_rows, quantize_blockwise,
+                                    quantize_rows)
 
 
 @dataclasses.dataclass
@@ -75,18 +78,63 @@ def _head_rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# dense FFN
+# ---------------------------------------------------------------------------
+
+def init_dense_ffn(cfg: ModelConfig, dtype, generator, device,
+                   d_ff: Optional[int] = None,
+                   glu: Optional[bool] = None) -> dict:
+    """GLU (``w_gate``/``w_up``/``w_down``) or MLP (``w1``, ``b1``, ``w2``,
+    ``b2``) weights of hidden width ``d_ff`` (default ``cfg.d_ff``)."""
+    d = cfg.d_model
+    f = cfg.d_ff if d_ff is None else d_ff
+    if cfg.glu if glu is None else glu:
+        return {
+            "w_gate": normal_init((d, f), dtype, generator, device),
+            "w_up": normal_init((d, f), dtype, generator, device),
+            "w_down": normal_init((f, d), dtype, generator, device),
+        }
+    return {
+        "w1": normal_init((d, f), dtype, generator, device),
+        "b1": torch.zeros(f, dtype=torch.float32, device=device),
+        "w2": normal_init((f, d), dtype, generator, device),
+        "b2": torch.zeros(d, dtype=torch.float32, device=device),
+    }
+
+
+def apply_dense_ffn(p: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """Dense FFN in x's dtype: ``(act(x Wg) * (x Wu)) Wd``, or
+    ``act(x W1 + b1) W2 + b2`` with the biases cast to x's dtype. The JAX
+    layer runs these products outside any Pallas kernel, so they stay
+    ``torch.matmul`` here."""
+    act = ACTIVATIONS[ctx.cfg.act]
+    if "w_gate" in p:
+        return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    h = x @ p["w1"] + p["b1"].to(x.dtype)
+    return act(h) @ p["w2"] + p["b2"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # MoE FFN
 # ---------------------------------------------------------------------------
 
-def init_moe_ffn(cfg: ModelConfig, dtype, generator, device) -> dict:
+def init_moe_ffn(cfg: ModelConfig, dtype, generator, device,
+                 quant: Optional[str] = None) -> dict:
+    """Router and GLU expert weights. ``quant`` ("int8" | "fp8"): each
+    expert matrix is quantized (``quantize_blockwise``, expert by expert)
+    as soon as it is drawn and its full-precision copy dropped, so at most
+    one full-precision expert matrix exists; the draws are those of the
+    unquantized init, in the same order."""
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff, m.num_experts
-    return {
-        "router": normal_init((d, e), torch.float32, generator, device),
-        "w_gate": normal_init((e, d, f), dtype, generator, device),
-        "w_up": normal_init((e, d, f), dtype, generator, device),
-        "w_down": normal_init((e, f, d), dtype, generator, device),
-    }
+    p = {"router": normal_init((d, e), torch.float32, generator, device)}
+    for name, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)),
+                        ("w_down", (e, f, d))):
+        p[name] = normal_init(shape, dtype, generator, device)
+        if quant not in (None, "none"):
+            p[name], p[f"{name}_scale"] = quantize_blockwise(p[name],
+                                                             mode=quant)
+    return p
 
 
 def apply_moe_ffn(p: dict, x: torch.Tensor, ctx: Ctx):

@@ -1,0 +1,245 @@
+"""xLSTM layers (counterpart of ``repro.models.xlstm``): mLSTM (matrix
+memory, chunkwise-parallel) and sLSTM (scalar memory, sequential), the
+mixers of xlstm-350m.
+
+mLSTM prefills with the chunkwise form: inside a chunk the exponential
+gating is an attention-like ``(C, C)`` matrix per head, stabilised by a
+running max ``m``; across chunks a ``(hd, hd)`` matrix memory is carried.
+Decode is the O(hd^2) recurrent update. sLSTM has a true sequential
+dependency through its block-diagonal recurrent matrix, so it is a loop
+over time in both modes; the loop emits each step's ``h`` rounded to
+bf16, whatever the model's dtype, as the JAX scan does. Plain PyTorch.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.mamba import _chunk_len, causal_depthwise_conv
+from repro_torch.parallel.sharding import normal_init
+
+NEG = -1e30
+
+
+def _dims(cfg: ModelConfig):
+    d_in = int(cfg.xlstm.proj_factor * cfg.d_model)
+    nh = cfg.num_heads
+    return d_in, nh, d_in // nh
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def init_mlstm(cfg: ModelConfig, dtype, generator, device) -> dict:
+    d = cfg.d_model
+    d_in, nh, _ = _dims(cfg)
+    kconv = cfg.xlstm.conv_kernel
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "up": normal_init((d, 2 * d_in), dtype, generator, device),
+        "conv_w": normal_init((kconv, d_in), dtype, generator, device, 0.2),
+        "conv_b": torch.zeros(d_in, **f32),
+        "wq": normal_init((d_in, d_in), dtype, generator, device),
+        "wk": normal_init((d_in, d_in), dtype, generator, device),
+        "wv": normal_init((d_in, d_in), dtype, generator, device),
+        "w_if": normal_init((d_in, 2 * nh), dtype, generator, device),
+        "b_if": torch.cat([torch.zeros(nh, **f32),
+                           3.0 * torch.ones(nh, **f32)]),
+        "down": normal_init((d_in, d), dtype, generator, device),
+    }
+
+
+def _mlstm_chunked(q, k, v, log_i, log_f, chunk: int):
+    """q/k/v: (B, S, NH, HD) any dtype; log_i/log_f: (B, S, NH) f32.
+    Returns y (B, S, NH, HD) in v's dtype and the final (C, n, m) state.
+    f32 copies of q/k/v exist one chunk at a time."""
+    bsz, s, nh, hd = q.shape
+    chunk = _chunk_len(chunk, s)
+    dev = q.device
+    fcum_all = torch.cumsum(log_f.reshape(bsz, s // chunk, chunk, nh), dim=2)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
+    c_mat = torch.zeros((bsz, nh, hd, hd), dtype=torch.float32, device=dev)
+    n_vec = torch.zeros((bsz, nh, hd), dtype=torch.float32, device=dev)
+    m_run = torch.zeros((bsz, nh), dtype=torch.float32, device=dev)
+    ys = []
+    for ci in range(s // chunk):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        qc = q[:, sl].float()
+        kc = k[:, sl].float() / (hd ** 0.5)
+        vc = v[:, sl].float()
+        li = log_i[:, sl]
+        fc = fcum_all[:, ci]
+        ft = fc[:, -1]                                       # (B, NH)
+        # intra-chunk pair log-weights D[t,s] = fcum_t - fcum_s + i_s, s<=t
+        dmat = fc[:, :, None, :] - fc[:, None, :, :] + li[:, None, :, :]
+        dmat = torch.where(tri[None, :, :, None], dmat,
+                           torch.tensor(NEG, device=dev))    # (B,C,C,NH)
+        inter_log = fc + m_run[:, None, :]                   # (B,C,NH)
+        m_t = torch.maximum(dmat.amax(dim=2), inter_log)     # (B,C,NH)
+        w_pair = torch.exp(dmat - m_t[:, :, None, :])
+        w_inter = torch.exp(inter_log - m_t)
+        logits = torch.einsum("bthd,bshd->btsh", qc, kc)
+        num = (torch.einsum("btsh,bshd->bthd", logits * w_pair, vc)
+               + torch.einsum("bthd,bhde->bthe", qc, c_mat)
+               * w_inter[..., None])
+        n_t = (torch.einsum("btsh,bshd->bthd", w_pair, kc)
+               + w_inter[..., None] * n_vec[:, None])
+        den = torch.maximum(
+            torch.einsum("bthd,bthd->bth", qc, n_t).abs(), torch.exp(-m_t))
+        ys.append((num / den[..., None]).to(v.dtype))
+        # chunk-end state
+        end_log = ft[:, None, :] - fc + li                   # (B,C,NH)
+        m_end = torch.maximum(ft + m_run, end_log.amax(dim=1))
+        w_end = torch.exp(end_log - m_end[:, None, :])
+        decay = torch.exp(ft + m_run - m_end)                # (B, NH)
+        c_mat = decay[..., None, None] * c_mat + torch.einsum(
+            "bsh,bshd,bshe->bhde", w_end, kc, vc)
+        n_vec = decay[..., None] * n_vec + torch.einsum(
+            "bsh,bshd->bhd", w_end, kc)
+        m_run = m_end
+    return torch.cat(ys, dim=1), (c_mat, n_vec, m_run)
+
+
+def _mlstm_step(q, k, v, log_i, log_f, state):
+    """One decode step. q/k/v: (B, NH, HD) f32; gates: (B, NH)."""
+    c_mat, n_vec, m_run = state
+    k = k / (q.shape[-1] ** 0.5)
+    m_new = torch.maximum(log_f + m_run, log_i)
+    decay = torch.exp(log_f + m_run - m_new)
+    inw = torch.exp(log_i - m_new)
+    c_new = decay[..., None, None] * c_mat + inw[..., None, None] * (
+        k[..., :, None] * v[..., None, :])
+    n_new = decay[..., None] * n_vec + inw[..., None] * k
+    num = torch.einsum("bhd,bhde->bhe", q, c_new)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n_new).abs(),
+                        torch.exp(-m_new))
+    return num / den[..., None], (c_new, n_new, m_new)
+
+
+def apply_mlstm(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
+    """x: (B, S, D) -> (y, cache'). cache: {"c", "n", "m", "conv"}."""
+    cfg, mode = ctx.cfg, ctx.mode
+    bsz, s, _ = x.shape
+    d_in, nh, hd = _dims(cfg)
+    kconv = cfg.xlstm.conv_kernel
+    xz = x @ p["up"]
+    xm, z = xz[..., :d_in], xz[..., d_in:]
+
+    if mode == "decode":
+        conv_in = torch.cat([cache["conv"], xm.to(cache["conv"].dtype)],
+                            dim=1)
+        xc = torch.einsum("bkd,kd->bd", conv_in.float(),
+                          p["conv_w"].float()) + p["conv_b"]
+        xc = F.silu(xc)[:, None].to(x.dtype)
+        new_conv = conv_in[:, 1:]
+    else:
+        xc = F.silu(causal_depthwise_conv(xm, p["conv_w"], p["conv_b"]))
+        xc = xc.to(x.dtype)
+        new_conv = None
+        if cache is not None:
+            new_conv = F.pad(xm, (0, 0, kconv - 1, 0))[:, -(kconv - 1):]
+            new_conv = new_conv.to(cache["conv"].dtype)
+
+    q = (xc @ p["wq"]).reshape(bsz, s, nh, hd)
+    k = (xc @ p["wk"]).reshape(bsz, s, nh, hd)
+    v = (xm @ p["wv"]).reshape(bsz, s, nh, hd)
+    gif = (xc @ p["w_if"]).float() + p["b_if"]
+    log_i, f_pre = gif[..., :nh], gif[..., nh:]              # (B, S, NH)
+    log_f = F.logsigmoid(f_pre)
+
+    if mode == "decode":
+        y, new_state = _mlstm_step(
+            q[:, 0].float(), k[:, 0].float(), v[:, 0].float(), log_i[:, 0],
+            log_f[:, 0], (cache["c"], cache["n"], cache["m"]))
+        y = y[:, None]
+    else:
+        y, new_state = _mlstm_chunked(q, k, v, log_i, log_f, cfg.xlstm.chunk)
+
+    y = y.reshape(bsz, s, d_in).to(x.dtype)
+    out = (y * F.silu(z)) @ p["down"]
+    if cache is None:
+        return out, None
+    return out, {"c": new_state[0], "n": new_state[1], "m": new_state[2],
+                 "conv": new_conv}
+
+
+def cache_spec_mlstm(cfg: ModelConfig, batch: int, dtype) -> dict:
+    d_in, nh, hd = _dims(cfg)
+    kconv = cfg.xlstm.conv_kernel
+    return {"c": ((batch, nh, hd, hd), torch.float32),
+            "n": ((batch, nh, hd), torch.float32),
+            "m": ((batch, nh), torch.float32),
+            "conv": ((batch, kconv - 1, d_in), dtype)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def init_slstm(cfg: ModelConfig, dtype, generator, device) -> dict:
+    d = cfg.d_model
+    nh = cfg.num_heads
+    hd = d // nh
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        # input projections of the 4 gates (i, f, z, o)
+        "w_in": normal_init((d, 4 * d), dtype, generator, device),
+        # block-diagonal recurrent weights, per head
+        "r": normal_init((nh, hd, 4 * hd), dtype, generator, device),
+        "b": torch.cat([torch.zeros(d, **f32), 3.0 * torch.ones(d, **f32),
+                        torch.zeros(2 * d, **f32)]),
+    }
+
+
+def _slstm_scan(gates_in, r, b, nh: int, hd: int, state):
+    """gates_in: (B, S, 4D) precomputed input contributions; ``state``
+    (c, n, h, m), each (B, NH, HD) f32. Returns the bf16 hidden sequence
+    (B, S, NH, HD) and the final state."""
+    bsz, s, _ = gates_in.shape
+    c, n, h, m = state
+    rf = r.float()
+    bias = b.reshape(nh, 4, hd)[None]
+    hs = []
+    for t in range(s):
+        rec = torch.einsum("bhd,hdk->bhk", h, rf)            # (B, NH, 4HD)
+        g = (gates_in[:, t].float().reshape(bsz, nh, 4, hd)
+             + rec.reshape(bsz, nh, 4, hd) + bias)
+        i_pre, f_pre, z_pre, o_pre = (g[:, :, j] for j in range(4))
+        log_f = F.logsigmoid(f_pre)
+        m_new = torch.maximum(log_f + m, i_pre)
+        i_g = torch.exp(i_pre - m_new)
+        f_g = torch.exp(log_f + m - m_new)
+        c = f_g * c + i_g * torch.tanh(z_pre)
+        n = torch.clamp(f_g * n + i_g, min=1e-6)
+        h = torch.sigmoid(o_pre) * c / n
+        m = m_new
+        hs.append(h.to(torch.bfloat16))
+    return torch.stack(hs, dim=1), (c, n, h, m)
+
+
+def apply_slstm(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
+    cfg = ctx.cfg
+    bsz, s, d = x.shape
+    nh = cfg.num_heads
+    hd = d // nh
+    gates_in = x @ p["w_in"]                                 # (B, S, 4D)
+    if cache is not None and ctx.mode == "decode":
+        state = (cache["c"], cache["n"], cache["h"], cache["m"])
+    else:
+        zero = torch.zeros((bsz, nh, hd), dtype=torch.float32,
+                           device=x.device)
+        state = (zero, zero, zero, zero)
+    hs, new_state = _slstm_scan(gates_in, p["r"], p["b"], nh, hd, state)
+    y = hs.reshape(bsz, s, d).to(x.dtype)
+    if cache is None:
+        return y, None
+    return y, dict(zip(("c", "n", "h", "m"), new_state))
+
+
+def cache_spec_slstm(cfg: ModelConfig, batch: int) -> dict:
+    shp = (batch, cfg.num_heads, cfg.d_model // cfg.num_heads)
+    return {k: (shp, torch.float32) for k in ("c", "n", "h", "m")}

@@ -89,12 +89,31 @@ def quantize_blockwise(w: torch.Tensor, *, mode: str = "int8",
                        rng: Optional[torch.Tensor] = None) -> tuple:
     """Quantize ``w`` block-wise over its trailing two dims. Returns ``(q,
     scales)``: ``q`` int8/fp8-e4m3 shaped like ``w``, ``scales`` float32
-    ``(*batch, A/tile_a, B/tile_b)``. ``rng``, a key of
+    ``(*batch, A/tile_a, B/tile_b)``. A batched ``w`` (the experts of an
+    FFN) is quantized one leading slice at a time: blocks never cross it,
+    so the bits are those of the whole tensor at once, and no f32 copy of
+    the whole tensor exists. ``rng``, a key of
     ``launch.sampling.prng_key`` (int8 only), rounds stochastically:
     ``floor(x / scale + u)``, ``u ~ U[0, 1)`` drawn over ``w``'s flat
-    positions, unbiased in expectation."""
+    positions, unbiased in expectation; that draw is over the whole
+    tensor, and so is the quantization."""
     if mode not in QUANT_FORMATS:
         raise ValueError(f"unknown quant mode {mode!r}")
+    if w.ndim <= 2 or rng is not None:
+        return _quantize_whole(w, mode=mode, tile=tile, rng=rng)
+    ta, tb = block_tiles(w.shape, tile)
+    a, b = w.shape[-2:]
+    q = torch.empty(w.shape, dtype=QUANT_FORMATS[mode][0], device=w.device)
+    scales = torch.empty((*w.shape[:-2], a // ta, b // tb),
+                         dtype=torch.float32, device=w.device)
+    for e in range(w.shape[0]):
+        q[e], scales[e] = quantize_blockwise(w[e], mode=mode, tile=tile)
+    return q, scales
+
+
+def _quantize_whole(w: torch.Tensor, *, mode: str, tile: int,
+                    rng: Optional[torch.Tensor]) -> tuple:
+    """``quantize_blockwise`` over the whole tensor in one pass."""
     dtype, qmax = QUANT_FORMATS[mode]
     ta, tb = block_tiles(w.shape, tile)
     a, b = w.shape[-2:]
@@ -187,7 +206,9 @@ class _FakeQuant(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, w, mode, tile):
-        q, s = quantize_blockwise(w, mode=mode, tile=tile)
+        # one pass over the whole tensor: the same bits as the per-expert
+        # loop, in a handful of launches a training step
+        q, s = _quantize_whole(w, mode=mode, tile=tile, rng=None)
         return dequantize_blockwise(q, s, dtype=w.dtype)
 
     @staticmethod

@@ -68,17 +68,17 @@ MAXP = MAX_SEQ // PAGE
 _MODELS: dict = {}
 
 
-def _models(dtype="float32"):
+def _models(dtype="float32", arch=ARCH):
     """(cfg_j, cfg_t, params_j, params_t) from PRNGKey(0), built once."""
-    if dtype not in _MODELS:
-        cfg_j = dataclasses.replace(jcfglib.get_smoke_config(ARCH),
+    if (dtype, arch) not in _MODELS:
+        cfg_j = dataclasses.replace(jcfglib.get_smoke_config(arch),
                                     dtype=dtype)
-        cfg_t = dataclasses.replace(tcfglib.get_smoke_config(ARCH),
+        cfg_t = dataclasses.replace(tcfglib.get_smoke_config(arch),
                                     dtype=dtype)
         pj, _ = split_tree(jlm.init_params(jax.random.PRNGKey(0), cfg_j))
-        _MODELS[dtype] = (cfg_j, cfg_t, pj, params_from_jax(
+        _MODELS[dtype, arch] = (cfg_j, cfg_t, pj, params_from_jax(
             jax.tree.map(np.asarray, pj), cfg_t, device="cpu"))
-    return _MODELS[dtype]
+    return _MODELS[dtype, arch]
 
 
 def _shared_prefix_requests(vocab, n, seed, shared_len=12):
@@ -92,13 +92,13 @@ def _shared_prefix_requests(vocab, n, seed, shared_len=12):
         max_new=int(rng.integers(2, 6))) for i in range(n)]
 
 
-def _serve(pkg, reqs, *, dtype="float32", drafter=None, spec_k=3,
-           num_slots=NUM_SLOTS, num_pages=None, faults=(), **kw):
+def _serve(pkg, reqs, *, dtype="float32", arch=ARCH, drafter=None,
+           spec_k=3, num_slots=NUM_SLOTS, num_pages=None, faults=(), **kw):
     """Serve ``reqs`` (dicts) on the JAX (``pkg == "jax"``) or the port's
     engine, under a fault plan of that package built from ``faults``
     (``Fault`` field dicts; the plan is left as ``server.fault_plan``);
     returns (server, {rid: stream})."""
-    cfg_j, cfg_t, pj, pt = _models(dtype)
+    cfg_j, cfg_t, pj, pt = _models(dtype, arch)
     common = dict(num_slots=num_slots, page_size=PAGE,
                   num_pages=num_pages or 1 + num_slots * MAXP,
                   max_pages_per_slot=MAXP, prefill_chunk=CHUNK)
@@ -152,8 +152,8 @@ def _drained(srv):
     assert (srv.table == 0).all()
 
 
-def _references(reqs, dtype="float32"):
-    _, cfg_t, _, pt = _models(dtype)
+def _references(reqs, dtype="float32", arch=ARCH):
+    _, cfg_t, _, pt = _models(dtype, arch)
     step = tsteps.make_serve_step(cfg_t, TPCFG)
     return {r["rid"]: tserve.reference_stream(
         cfg_t, TPCFG, pt, tserve.Request(**r), max_seq=MAX_SEQ, step=step)

@@ -520,9 +520,14 @@ def test_model_drafter_refuses_unsafe_configs():
     windowed = tcfglib.get_smoke_config("mixtral-8x7b")
     with pytest.raises(ValueError, match="non-windowed"):
         tspec.ModelDrafter(windowed, TPCFG, {}, max_seq=32, device="cpu")
-    dense_ffn = tcfglib.get_smoke_config("gemma-2b")
-    with pytest.raises(NotImplementedError, match="dense"):
-        tspec.ModelDrafter(dense_ffn, TPCFG, {}, max_seq=32, device="cpu")
+    # a dense-FFN draft model (gemma-2b) builds and drafts what the JAX
+    # drafter drafts from the same weights
+    dcfg_j, dcfg_t, dpj, dpt = _params("gemma-2b")
+    dense = tspec.ModelDrafter(dcfg_t, TPCFG, dpt, max_seq=32, device="cpu")
+    jdense = jspec.ModelDrafter(dcfg_j, JPCFG, None, dpj, max_seq=32)
+    hist = np.array([3, 1, 4, 1, 5], np.int32)
+    drafted = dense.draft(hist, 3, rid=1)
+    assert drafted == jdense.draft(hist, 3, rid=1) and len(drafted) == 3
     _, cfg, _, params = _params("qwen3-moe-30b-a3b")
     server = tserve.PagedServer(cfg, TPCFG, num_slots=2, page_size=PAGE,
                                 num_pages=9, max_pages_per_slot=4,
@@ -589,5 +594,12 @@ def test_cli_spec_flags(capsys):
     out = capsys.readouterr().out
     assert len(done) == 3 and all(len(r.out) == 6 for r in done)
     assert "leak-free=True" in out and "[serve] speculative:" in out
-    with pytest.raises(NotImplementedError, match="dense"):
-        tserve.main(base + ["--paged", "--spec-draft", "gemma-2b"])
+    # a dense-FFN draft model: speculation keeps the plain engine's streams
+    args = ["--paged", "--slots", "2", "--requests", "3", "--max-new", "6",
+            "--max-seq", "32"]
+    plain = tserve.main(base + args)
+    drafted = tserve.main(base + args + ["--spec-draft", "gemma-2b"])
+    out = capsys.readouterr().out
+    assert [r.out for r in drafted] == [r.out for r in plain]
+    assert all(len(r.out) == 6 for r in drafted)
+    assert "[serve] speculative:" in out and "leak-free=True" in out
