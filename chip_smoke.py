@@ -196,6 +196,15 @@ The serve phases' weights are then freed, and the training slice runs:
    block's expert swapped for its neighbour's, must each fail the limit.
    Untimed, both kernels also run on the wgmma route at the small and
    ragged ``GEMM_CHECK_WIDTHS`` against their plain versions.
+   6j. The same three kernels at the shapes phase 8j gives them
+   (``jamba_train_kernel_cases``: Jamba's "train" cut width, D 4096,
+   F 2048, 16 experts top-2, 4 x 1024 tokens, blk 128), bf16, each on
+   wgmma: ``esffn_glu``, the five ``esmm`` products of its backward
+   (the recomputed g and u, t, the two dX) and the three ``estmm`` dW
+   products, each against its plain version on the same card inputs at
+   ``ESFFN_TOL``/``GEMM_TOL``, timed beside its bound and
+   ``torch._grouped_mm``; negative control: ``esffn_glu``'s plain output
+   with one block on its neighbour's expert must fail the limit.
 7. Training reference: one ``loss_fn`` forward and backward of a 2-layer
    model at full width in f32 (2 x 64 tokens, blk 16) on the GPU (the
    kernels) and on the CPU (the plain versions) from the same weights and
@@ -230,7 +239,58 @@ The serve phases' weights are then freed, and the training slice runs:
    just before and read just after, phase 8's launches exactly, all on
    wgmma, every loss finite; each mode's step median beside phase 8's.
 
-The training state is then freed, and the Swin-MoE slice runs (Swin-MoE-
+The qwen training state is then freed, and every other LM family trains
+(``train.frontend_batch`` builds each family's batches, as the train CLI
+does):
+
+7h. f32, card vs CPU (``_card_vs_cpu_loss``: one ``loss_fn`` forward and
+   backward from the same weights, phase 7's ``TRAIN_LOSS_RTOL`` and
+   ``TRAIN_GRAD_TOL`` on the total and every grad leaf), 2 x 64 tokens,
+   blk 16: jamba-1.5-large-398b's layout (one 8-layer period of 7 Mamba
+   and 1 attention layer, MoE FFNs of 16 experts top-2 on the odd layers,
+   dense GLU FFNs on the even ones) at its "reference" cut width
+   (``configs/jamba_1_5_large_398b.py::cut_config``: d_model 2048, 16/2
+   heads, Din 4096, dt_rank 128, both FFN widths 1,024: about 0.9 B
+   parameters), whose card run must
+   launch exactly 2 ``esffn_glu`` (the forward and remat's recompute, on
+   ``stream`` in f32), 5 ``esmm`` and 3 ``estmm`` a MoE layer, the latter
+   two on ``mma_tf32x3``: the expert kernels inside a hybrid backward,
+   between the Mamba layers' scans; then xlstm-350m whole (no kernel),
+   under ``HYBRID_TRAIN_GRAD_TOL``, at two seeds, and once more with the
+   sLSTM's bf16 rounding of h turned off on both sides
+   (``xlstm.SLSTM_H_DTYPE`` f32), where it must meet phase 7's
+   ``TRAIN_GRAD_TOL``: the witness that the rounding is the gap.
+7f. paligemma-3b and musicgen-large at full width, cut to
+   ``FRONTEND_REF_DEPTH`` layers, f32, card vs CPU: the loss and grads as
+   7h (paligemma: 2 rows of 256 SigLIP patches + 8 tokens, the prefix
+   bidirectional; musicgen: 2 x 64 EnCodec frames, 64 rows of T5
+   conditioning, 4 codebook heads), then a dense ``make_prefill_step``
+   (256 patches + ``FRONTEND_PREFILL`` tokens; ``FRONTEND_PREFILL``
+   frames + 64 conditioning rows) and ``FRONTEND_DECODES``
+   ``make_serve_step`` decodes (musicgen's cross-attention recomputes
+   its K/V from the conditioning each step): each step's logits within
+   ``ESFFN_TOL["float32"]`` x max|CPU| (4j's limit), the cache lengths
+   advancing by one a decode.
+8j. Jamba's layout at its "train" cut width (d_model 4096, 32/4 heads,
+   Din 8192, dt_rank 256, both FFN widths 2,048: 3.02 B parameters,
+   about 48 GB of bf16 weights, f32 masters and moments), bf16, AdamW,
+   ``remat="block"``, blk 128, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens: one
+   warm-up step, then ``TRAIN_STEPS`` steps with the counts set to 0 just
+   before and read just after: exactly 2 ``esffn_glu``, 5 ``esmm`` and 3
+   ``estmm`` a MoE layer a step, every one on wgmma; every loss and grad
+   norm finite; every leaf's f32 master (a strided sample of 4,096
+   elements) moved and every leaf's first moment non-zero somewhere (its
+   gradient reached it); step median, tokens/s and the peak.
+8x, 8p, 8m. The same for xlstm-350m (whole), paligemma-3b (256 patches +
+   768 tokens a row) and musicgen-large (1,024 frames, 64 conditioning
+   rows, 4 codebooks a row), at full width and depth, none launching an
+   expert kernel; in 8m ``embed`` and ``head`` alone have a zero
+   gradient, as in JAX (the inputs are frames and the 4 codebook heads
+   replace the head): their first moments must be exactly 0; 8p and 8m then run a dense prefill and
+   ``FRONTEND_DECODES`` decodes from the trained weights: logits finite,
+   the lengths advancing.
+
+The training states are then freed, and the Swin-MoE slice runs (Swin-MoE-
 Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
 
 9. Kernel phase at the Swin train shapes, global batch 128 at 224^2: stage 2
@@ -521,6 +581,31 @@ HYBRID_CPU = {"jamba-1.5-large-398b": (("paged",), 1),
                              HYBRID_REF_REQUESTS)}
 HYBRID_SERVE_REQUESTS, HYBRID_SERVE_NEW = 16, 16
 JAMBA_WEIGHT_GB = (51.4, 52.4)     # predicted 51.9 +- 0.5 (int8 experts)
+# Phases 7h/7f/8j/8x/8p/8m: training every LM family. jamba-1.5-large-398b
+# cannot train on one 80 GB card at full width (one period is 45.2 B
+# parameters, 16 bytes each with AdamW), so its layout runs at the cut
+# widths of ``configs/jamba_1_5_large_398b.py::CUT_WIDTHS``: 7h in f32 at
+# "reference" (about 0.9 B parameters), 6j and 8j in bf16 at "train"
+# (3.02 B, about 48 GB of weights, f32 masters and moments). 7f cuts
+# paligemma-3b and musicgen-large to FRONTEND_REF_DEPTH layers at full
+# width; its dense steps prefill FRONTEND_PREFILL tokens (after 256
+# patches) or frames and decode FRONTEND_DECODES times.
+# 7h's grads card vs CPU: phase 7's TRAIN_GRAD_TOL, but for xlstm-350m
+# one bf16 ulp (2^-8) x max|grad|: its sLSTM emits each step's h rounded
+# to bf16 whatever the model dtype (as the JAX scan does), so the f32
+# sides' summation-order differences flip some of those roundings by an
+# ulp, and the flips reach every leaf before and in the sLSTM layers
+# (measured 9.5e-4 on the embedding, H100, 700 W; the Jamba layout's
+# worst leaf 1.4e-5 against TRAIN_GRAD_TOL). 7h holds xlstm-350m at
+# HYBRID_TRAIN_SEEDS, and at the first once more with that rounding off
+# on both sides, under TRAIN_GRAD_TOL.
+HYBRID_TRAIN_GRAD_TOL = {"xlstm-350m": 2.0 ** -8}
+HYBRID_TRAIN_SEEDS = (7, 8)
+# 8j/8x/8p/8m: the leaves whose gradient is zero in JAX too (musicgen's
+# inputs are frames, and its codebook heads replace the head).
+ZERO_GRAD_LEAVES = {"musicgen-large": ("embed", "head")}
+FRONTEND_REF_DEPTH = 2
+FRONTEND_PREFILL, FRONTEND_DECODES = 8, 4
 FLASH_CHECK_CASES = (                  # (B, S, Hq, Hkv, hd, dtype, causal)
     (4, 1024, 32, 4, 128, "float32", True),
     (2, 2048, 16, 8, 256, "float32", True),
@@ -1169,6 +1254,14 @@ def _neighbour_swap(be):
     return wrong
 
 
+def _group_offsets(torch, lay):
+    """``torch._grouped_mm``'s row offsets for a sorted layout: the tail
+    blocks belong to expert E-1."""
+    offs = torch.cumsum(lay.padded_counts, 0).to(torch.int32)
+    offs[-1] = lay.row_token.numel()
+    return offs
+
+
 def train_kernel_cases(torch, flush):
     """Phase 6: esmm, estmm and esffn_glu at the train phase's shapes."""
     from repro_torch.core.reindex import gather_rows
@@ -1181,12 +1274,6 @@ def train_kernel_cases(torch, flush):
         layouts[blk] = _sorted_layout(torch, n, blk=blk)[1]
     res = {"esmm": [], "estmm": [], "esffn_glu": [], "negative_controls": [],
            "checks": gemm_check_cases(torch)}
-
-    def offsets(lay):
-        # offsets of the grouped library call: tail blocks belong to E-1
-        offs = torch.cumsum(lay.padded_counts, 0).to(torch.int32)
-        offs[-1] = lay.row_token.numel()
-        return offs
 
     def shape_of(lay, blk):
         return {"N": n, "D": d, "E": e, "F": f, "top_k": 8, "blk": blk,
@@ -1243,7 +1330,7 @@ def train_kernel_cases(torch, flush):
         flops = 2 * np_rows * k_dim * n_dim
         b_ms, b_by = bound(nbytes, flops, dtype, route)
         wl = w.transpose(1, 2) if trans else w
-        offs = offsets(lay)
+        offs = _group_offsets(torch, lay)
         lib_ms, lib_note = _library_ms(
             torch, flush, lambda: torch._grouped_mm(xs, wl, offs=offs), dtype)
         res["esmm"].append(_rates({
@@ -1308,7 +1395,7 @@ def train_kernel_cases(torch, flush):
         nbytes = rows * (d1 + d2) * s_ + e * 4 + e * d1 * d2 * 4
         flops = 2 * rows * d1 * d2
         b_ms, b_by = bound(nbytes, flops, dtype, route)
-        loffs = offsets(lay)
+        loffs = _group_offsets(torch, lay)
         lib_ms, lib_note = _library_ms(      # writes bf16, not f32
             torch, flush, lambda: torch._grouped_mm(x1.t(), x2, offs=loffs),
             dtype)
@@ -1374,73 +1461,179 @@ def train_kernel_cases(torch, flush):
     return res
 
 
+def jamba_train_kernel_cases(torch, flush):
+    """Phase 6j: ``esffn_glu``, ``esmm`` and ``estmm`` at the shapes phase
+    8j gives them: Jamba's "train" cut width (D 4096, F 2048, 16 experts
+    top-2), ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens routed by a random
+    router, blk 128, bf16, every call on wgmma. The forward
+    ``esffn_glu`` and each product of its backward (``kernels/ops.py``):
+    the recomputed g and u, t, the two dX (``esmm``) and dW_down, dW_gate,
+    dW_up (``estmm``), on operands zero on the padding rows as the
+    backward gives them, each against its plain version within
+    ESFFN_TOL/GEMM_TOL, timed beside its bound and ``torch._grouped_mm``.
+    Negative control: ``esffn_glu``'s plain output with one block on its
+    neighbour's expert."""
+    from repro_torch.configs import jamba_1_5_large_398b as jamba
+    from repro_torch.core.reindex import build_reindex, gather_rows
+    from repro_torch.core.routing import route
+    from repro_torch.kernels import esffn, esmm, estmm
+
+    cfg = jamba.cut_config("train", "bfloat16")
+    n, d, f = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.moe.d_ff
+    e, k, blk = cfg.moe.num_experts, cfg.moe.top_k, 128
+    td = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    router = torch.randn((d, e), generator=gen, device="cuda") * 0.02
+    x = torch.randn((n, d), generator=gen, device="cuda").to(td)
+    r = route(x, router, k)
+    lay = build_reindex(r.expert_idx, r.gates, e, blk)
+    be, pc = lay.block_expert, lay.padded_counts
+    np_rows, nblk = lay.row_token.numel(), be.numel()
+    experts = int((pc > 0).sum())
+    live = (lay.row_gate != 0)[:, None]
+    shape = {"N": n, "D": d, "E": e, "F": f, "top_k": k, "blk": blk,
+             "Np": np_rows, "experts_with_rows": experts,
+             "live_rows": int(live.sum())}
+    wg, wu, wd = [(torch.randn(sh, generator=gen, device="cuda") * 0.02)
+                  .to(td) for sh in ((e, d, f), (e, d, f), (e, f, d))]
+
+    def rows(width):
+        return (torch.randn((np_rows, width), generator=gen, device="cuda")
+                * live).to(td)
+
+    xs, dys, dg, du, h = gather_rows(x, lay.row_token), rows(d), rows(f), \
+        rows(f), rows(f)
+    offs = _group_offsets(torch, lay)
+    res = {"esffn_glu": [], "esmm": [], "estmm": [], "negative_controls": []}
+
+    def routed(name, fn, kernel):
+        out, kroute = _routed(torch, fn, kernel)
+        if kroute != "wgmma":
+            raise AssertionError(f"{name}: took the {kroute} route, not wgmma")
+        return out, kroute
+
+    args = (x, lay.row_token, lay.row_gate, be, wg, wu, wd)
+    name = f"esffn_glu jamba train N {n} blk {blk}"
+    plain = esffn.esffn_glu_plain(*args)
+    kern, kroute = routed(name, lambda: esffn.esffn_glu(*args),
+                          esffn.esffn_glu)
+    err, tol = _check(name, kern, plain, ESFFN_TOL["bfloat16"])
+    res["negative_controls"].append({
+        "kernel": "esffn_glu",
+        "fault": "one block on its neighbour's expert (jamba train shape)",
+        "err_over_tol": _must_fail(
+            name + " with a block's expert swapped",
+            esffn.esffn_glu_plain(x, lay.row_token, lay.row_gate,
+                                  _neighbour_swap(be), wg, wu, wd), plain,
+            ESFFN_TOL["bfloat16"])})
+    nbytes = (n * d * 2 + experts * 3 * d * f * 2 + np_rows * 8 + nblk * 4
+              + np_rows * d * 2)
+    b_ms, b_by = bound(nbytes, 6 * shape["live_rows"] * d * f, "bfloat16")
+    res["esffn_glu"].append({
+        "case": "jamba train forward", "shape": shape, "dtype": "bfloat16",
+        "kernel_route": kroute, "max_abs_err": err, "tolerance": tol,
+        "kernel_ms": time_ms(torch, lambda: esffn.esffn_glu(*args), flush),
+        "plain_ms": time_ms(torch, lambda: esffn.esffn_glu_plain(*args),
+                            flush),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no one PyTorch call computes it"})
+    del plain, kern
+
+    for case, lhs, w, trans in (("g = xs Wg", xs, wg, False),
+                                ("u = xs Wu", xs, wu, False),
+                                ("t = dys Wd^T", dys, wd, True),
+                                ("dX_g = dg Wg^T", dg, wg, True),
+                                ("dX_u = du Wu^T", du, wu, True)):
+        kw = dict(transpose_rhs=trans)
+        k_dim, m_dim = lhs.shape[1], w.shape[1] if trans else w.shape[2]
+        name = f"esmm jamba train {case}"
+        plain = esmm.esmm_plain(lhs, w, None, be, **kw)
+        kern, kroute = routed(name, lambda: esmm.esmm(lhs, w, None, be, **kw),
+                              esmm.esmm)
+        err, tol = _check(name, kern, plain, GEMM_TOL["bfloat16"])
+        nbytes = (np_rows * k_dim * 2 + experts * k_dim * m_dim * 2
+                  + nblk * 4 + np_rows * m_dim * 2)
+        flops = 2 * np_rows * k_dim * m_dim
+        b_ms, b_by = bound(nbytes, flops, "bfloat16", kroute)
+        wl = w.transpose(1, 2) if trans else w
+        lib_ms, lib_note = _library_ms(
+            torch, flush, lambda: torch._grouped_mm(lhs, wl, offs=offs),
+            "bfloat16")
+        res["esmm"].append(_rates({
+            "case": f"jamba train {case}",
+            "shape": {**shape, "K": k_dim, "Nout": m_dim,
+                      "transpose_rhs": trans, "bias": False},
+            "dtype": "bfloat16", "kernel_route": kroute, "max_abs_err": err,
+            "tolerance": tol,
+            "kernel_ms": time_ms(torch, lambda: esmm.esmm(
+                lhs, w, None, be, **kw), flush),
+            "plain_ms": time_ms(torch, lambda: esmm.esmm_plain(
+                lhs, w, None, be, **kw), flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library": lib_note}, nbytes, flops))
+        del plain, kern
+
+    rows_read = _rows_read(pc, np_rows)
+    for case, x1, x2 in (("dW_down = h^T dys", h, dys),
+                         ("dW_gate = xs^T dg", xs, dg),
+                         ("dW_up = xs^T du", xs, du)):
+        d1, d2 = x1.shape[1], x2.shape[1]
+        name = f"estmm jamba train {case}"
+        plain = estmm.estmm_plain(x1, x2, be, pc)
+        kern, kroute = routed(name, lambda: estmm.estmm(x1, x2, be, pc),
+                              estmm.estmm)
+        err, tol = _check(name, kern, plain, GEMM_TOL["bfloat16"])
+        nbytes = rows_read * (d1 + d2) * 2 + e * 4 + e * d1 * d2 * 4
+        flops = 2 * rows_read * d1 * d2
+        b_ms, b_by = bound(nbytes, flops, "bfloat16", kroute)
+        lib_ms, lib_note = _library_ms(      # writes bf16, not f32
+            torch, flush, lambda: torch._grouped_mm(x1.t(), x2, offs=offs),
+            "bfloat16")
+        res["estmm"].append(_rates({
+            "case": f"jamba train {case}",
+            "shape": {**shape, "D1": d1, "D2": d2, "rows_read": rows_read},
+            "dtype": "bfloat16", "kernel_route": kroute, "max_abs_err": err,
+            "tolerance": tol,
+            "kernel_ms": time_ms(torch, lambda: estmm.estmm(x1, x2, be, pc),
+                                 flush),
+            "plain_ms": time_ms(torch, lambda: estmm.estmm_plain(
+                x1, x2, be, pc), flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library": lib_note}, nbytes, flops))
+        del plain, kern
+    return res
+
+
 def train_reference_phase(torch):
     """Phase 7: one loss_fn forward + backward of a 2-layer full-width f32
-    model on the GPU (kernels) and the CPU (plain versions); every f32
-    esmm and estmm launch of the GPU run on mma_tf32x3."""
+    model on the GPU (kernels) and the CPU (plain versions)
+    (``_card_vs_cpu_loss``); the GPU run's expert kernels exactly
+    ``_f32_expert_routes``: every f32 esmm and estmm on mma_tf32x3."""
     from repro_torch import configs as cfglib
-    from repro_torch.common import tree_leaves, tree_map
     from repro_torch.data.pipeline import DataConfig, TokenSource
-    from repro_torch.kernels import esmm, estmm
-    from repro_torch.launch import steps
-    from repro_torch.launch.train import batch_to
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import ParallelConfig
 
     cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
                               num_layers=2, dtype="float32")
-    pcfg = ParallelConfig(blk=16)
     gen = torch.Generator(device="cuda").manual_seed(7)
     params = lm.init_params(cfg, generator=gen, device="cuda")
     batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
                                    vocab_size=cfg.vocab_size,
                                    seed=7)).batch(0)
-    loss_fn = steps.make_loss_fn(cfg, pcfg)
-    out = {}
-    routed = (esmm.esmm, estmm.estmm)
-    for device in ("cuda", "cpu"):
-        before = {fn.__name__: dict(fn.launches_by_route) for fn in routed}
-        p = tree_map(lambda t: t.detach().to(device).requires_grad_(), params)
-        total, metrics = loss_fn(p, batch_to(batch, device))
-        grads = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
-        if device == "cuda":
-            torch.cuda.synchronize()
-            routes = {fn.__name__: {r: fn.launches_by_route[r]
-                                    - before[fn.__name__][r]
-                                    for r in fn.launches_by_route}
-                      for fn in routed}
-        out[device] = (float(metrics["loss"].detach()), float(total.detach()),
-                       [None if g is None else g.cpu() for g in grads])
-        del p, grads
-    # 5 esmm and 3 estmm a layer (as phase 8 counts them), f32 on 3xTF32
-    want = {"esmm": {"simt": 0, "wgmma": 0, "mma_tf32x3": 5 * cfg.num_layers},
-            "estmm": {"simt": 0, "wgmma": 0,
-                      "mma_tf32x3": 3 * cfg.num_layers}}
-    if routes != want:
-        raise AssertionError(f"train reference: routes {routes}, expected "
-                             f"{want}")
-    (lg, tg, gg), (lc, tc, gc) = out["cuda"], out["cpu"]
-    if not abs(tg - tc) <= TRAIN_LOSS_RTOL * abs(tc):
-        raise AssertionError(f"train reference: GPU loss {tg} vs CPU {tc}")
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(gg, gc)):
-        if (a is None) != (b is None):
-            raise AssertionError(f"train reference: grad leaf {i} missing")
-        if a is None:
-            continue
-        scale = b.abs().max().item()
-        err = (a - b).abs().max().item()
-        if not err <= TRAIN_GRAD_TOL * scale:
-            raise AssertionError(f"train reference: grad leaf {i} "
-                                 f"{tuple(b.shape)} err {err} > "
-                                 f"{TRAIN_GRAD_TOL} x {scale}")
-        worst = max(worst, err / scale if scale else 0.0)
+    r = _card_vs_cpu_loss(torch, "7", cfg, ParallelConfig(blk=16), params,
+                          batch)
+    want = _f32_expert_routes(cfg.num_layers)
+    if r["launches_by_route"] != want:
+        raise AssertionError(f"train reference: routes "
+                             f"{r['launches_by_route']}, expected {want}")
     print(f"[train-reference] 2-layer full-width f32, 2 x 64 tokens: loss "
-          f"GPU {lg!r} CPU {lc!r}, total GPU {tg!r} CPU {tc!r} (rel diff "
-          f"{abs(tg - tc) / abs(tc):.3e}); {len(gc)} grad leaves, worst max "
-          f"|diff| / max |grad| {worst:.3e}; routes {routes}")
-    return {"loss_gpu": lg, "loss_cpu": lc, "total_rel_diff":
-            abs(tg - tc) / abs(tc), "worst_grad_rel": worst, "routes": routes}
+          f"GPU {r['loss_gpu']!r} CPU {r['loss_cpu']!r}, total GPU "
+          f"{r['total_gpu']!r} CPU {r['total_cpu']!r} (rel diff "
+          f"{r['total_rel_diff']:.3e}); {r['grad_leaves']} grad leaves, "
+          f"worst max |diff| / max |grad| {r['worst_grad_rel']:.3e}; routes "
+          f"{r['launches_by_route']}")
+    return r
 
 
 def train_qat_reference_phase(torch):
@@ -1713,6 +1906,428 @@ def qat_train_phase(torch, cfg, pcfg, opt_cfg, run, first_step, plain_med):
               f"(+{(med - plain_med) * 1e3:.1f}); peak allocated "
               f"{out[mode]['peak_allocated_gb']:.2f} GB; launches "
               f"{launches}, every one on wgmma")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 7h, 7f, 8j, 8x, 8p, 8m: training every LM family
+# ---------------------------------------------------------------------------
+
+def _family_batch(cfg, batch, seq, seed):
+    """The train CLI's batch of ``cfg`` (``train.frontend_batch``, numpy):
+    ``batch`` rows of ``seq`` tokens from the synthetic stream."""
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch.train import frontend_batch
+
+    src = TokenSource(DataConfig(seq_len=seq, global_batch=batch,
+                                 vocab_size=cfg.vocab_size, seed=seed))
+    return frontend_batch(cfg, src.batch(seed), seed)
+
+
+def _expert_fns():
+    from repro_torch.kernels import esffn, esmm, estmm
+
+    return (esffn.esffn_glu, esmm.esmm, estmm.estmm)
+
+
+def _reset_expert_counts():
+    for fn in _expert_fns():
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+
+
+def _expert_counts():
+    return ({fn.__name__: fn.launches for fn in _expert_fns()},
+            {fn.__name__: dict(fn.launches_by_route) for fn in _expert_fns()})
+
+
+def _card_vs_cpu_loss(torch, tag, cfg, pcfg, params, batch,
+                      grad_tol=TRAIN_GRAD_TOL):
+    """One ``loss_fn`` forward and backward from ``params`` (on the card)
+    and from their copy on the CPU (the plain versions) on ``batch``: the
+    totals within TRAIN_LOSS_RTOL and every grad leaf within ``grad_tol``
+    x its max |grad| (every leaf is measured before any is judged).
+    Returns the numbers and the expert kernels' launches and routes of the
+    card run, counted from 0."""
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to
+
+    loss_fn = steps.make_loss_fn(cfg, pcfg)
+    names = [n for n, _ in _named_leaves(params)]
+    out, wall = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = tree_map(lambda t: t.detach().to(device).requires_grad_(), params)
+        if device == "cuda":
+            _reset_expert_counts()
+        total, metrics = loss_fn(p, batch_to(batch, device))
+        grads = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches, routes = _expert_counts()
+        out[device] = (float(metrics["loss"].detach()), float(total.detach()),
+                       [None if g is None else g.cpu() for g in grads])
+        wall[device] = time.perf_counter() - t0
+        del p, grads
+    (lg, tg, gg), (lc, tc, gc) = out["cuda"], out["cpu"]
+    rel = abs(tg - tc) / abs(tc)
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"phase {tag}: GPU total {tg} vs CPU {tc} "
+                             f"(rel {rel})")
+    worst, worst_leaf, by_kind, bad = 0.0, None, {}, []
+    for name, a, b in zip(names, gg, gc):
+        if (a is None) != (b is None):
+            raise AssertionError(f"phase {tag}: grad {name} missing")
+        if a is None:
+            continue
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if not err <= grad_tol * scale:
+            bad.append(f"{name} {tuple(b.shape)} err {err} > {grad_tol} x "
+                       f"{scale}")
+        r = err / scale if scale else 0.0
+        kind = (".".join(name.split(".")[2:]) if name.startswith("layers.")
+                else name)
+        by_kind[kind] = max(by_kind.get(kind, 0.0), r)
+        if r > worst:
+            worst, worst_leaf = r, name
+    if bad:
+        raise AssertionError(f"phase {tag} {cfg.name}: {len(bad)} grad "
+                             f"leaves past the limit, worst {worst} at "
+                             f"{worst_leaf}: {bad[:4]}; by part "
+                             f"{json.dumps(by_kind)}")
+    return {"grad_tol": grad_tol, "loss_gpu": lg, "loss_cpu": lc, "total_gpu": tg, "total_cpu": tc,
+            "total_rel_diff": rel, "grad_leaves": len(gc),
+            "worst_grad_rel": worst, "worst_leaf": worst_leaf,
+            "worst_grad_rel_by_part": by_kind, "launches": launches,
+            "launches_by_route": routes, "wall_s": wall}
+
+
+def _moe_layers(cfg):
+    return sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+
+
+def _f32_expert_routes(n_moe):
+    """The expert kernels' launches by route in one f32 ``loss_fn``
+    forward and backward (``remat="block"``) over ``n_moe`` MoE layers: 2
+    ``esffn_glu`` a layer (the forward and remat's recompute) on
+    ``stream``, 5 ``esmm`` and 3 ``estmm`` on ``mma_tf32x3``."""
+    return {"esffn_glu": {"stream": 2 * n_moe, "wgmma": 0},
+            "esmm": {"simt": 0, "wgmma": 0, "mma_tf32x3": 5 * n_moe},
+            "estmm": {"simt": 0, "wgmma": 0, "mma_tf32x3": 3 * n_moe}}
+
+
+def hybrid_train_reference_phase(torch):
+    """Phase 7h: one ``loss_fn`` forward and backward in f32, card vs CPU
+    (``_card_vs_cpu_loss``, phase 7's limits), of Jamba's layout at its
+    "reference" cut width (about 0.9 B parameters) and of xlstm-350m
+    whole, 2 x 64 tokens, blk 16. Jamba's expert kernels on the card,
+    counted from 0: per MoE layer 2 ``esffn_glu`` (the forward and remat's
+    recompute; f32: ``stream``), 5 ``esmm`` and 3 ``estmm``, all on
+    ``mma_tf32x3``; xlstm-350m launches none. xlstm-350m runs at each of
+    ``HYBRID_TRAIN_SEEDS`` under ``HYBRID_TRAIN_GRAD_TOL``, then at the
+    first with ``xlstm.SLSTM_H_DTYPE`` f32 on both sides (no bf16
+    rounding of h) under ``TRAIN_GRAD_TOL``."""
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves
+    from repro_torch.configs import jamba_1_5_large_398b as jamba
+    from repro_torch.models import lm, xlstm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    xl = dataclasses.replace(cfglib.get_config("xlstm-350m"), dtype="float32")
+    runs = [("jamba-1.5-large-398b", jamba.cut_config("reference",
+                                                      "float32"), 7, True)]
+    runs += [("xlstm-350m", xl, seed, True) for seed in HYBRID_TRAIN_SEEDS]
+    runs += [("xlstm-350m", xl, HYBRID_TRAIN_SEEDS[0], False)]
+    res = {}
+    for arch, cfg, seed, h_bf16 in runs:
+        key = arch if not res.get(arch) else (
+            f"{arch} seed {seed}" if h_bf16 else f"{arch} h f32")
+        t0 = time.perf_counter()
+        pcfg = ParallelConfig(blk=16)
+        params = lm.init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(seed), device="cuda")
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        tol = (HYBRID_TRAIN_GRAD_TOL.get(arch, TRAIN_GRAD_TOL) if h_bf16
+               else TRAIN_GRAD_TOL)
+        xlstm.SLSTM_H_DTYPE = torch.bfloat16 if h_bf16 else torch.float32
+        try:
+            r = _card_vs_cpu_loss(torch, "7h", cfg, pcfg, params,
+                                  _family_batch(cfg, 2, 64, seed),
+                                  grad_tol=tol)
+        finally:
+            xlstm.SLSTM_H_DTYPE = torch.bfloat16
+        n = _moe_layers(cfg)
+        want = _f32_expert_routes(n)
+        if r["launches_by_route"] != want:
+            raise AssertionError(f"phase 7h {arch}: routes "
+                                 f"{r['launches_by_route']}, expected {want}")
+        r.update(arch=arch, seed=seed, slstm_h_bf16=h_bf16, params=n_params,
+                 moe_layers=n, d_model=cfg.d_model,
+                 seconds=time.perf_counter() - t0)
+        print(f"[7h] {key}, {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, f32, 2 x "
+              f"64 tokens, seed {seed}: total GPU {r['total_gpu']!r} CPU "
+              f"{r['total_cpu']!r} (rel {r['total_rel_diff']:.3e}); "
+              f"{r['grad_leaves']} grad leaves, worst max |diff| / max "
+              f"|grad| {r['worst_grad_rel']:.3e} at {r['worst_leaf']} "
+              f"(limit {r['grad_tol']:.3g}); by "
+              f"part {json.dumps(r['worst_grad_rel_by_part'])}; launches "
+              f"{r['launches']}; {r['seconds']:.1f}s")
+        res[key] = r
+        del params
+        _release(torch)
+    return res
+
+
+def _frontend_inputs(cfg, batch, rng, decode=False):
+    """Dense prefill (``FRONTEND_PREFILL``) or one-token decode inputs of
+    a frontend config, numpy: paligemma patches + tokens (decode:
+    tokens), musicgen frames + ``COND_ROWS`` rows of conditioning."""
+    import numpy as np
+    from repro_torch.launch.train import COND_ROWS
+
+    n = 1 if decode else FRONTEND_PREFILL
+    if cfg.frontend == "encodec":
+        return {"embeds": rng.normal(size=(batch, n, cfg.frontend_dim))
+                .astype(np.float32),
+                "cond": rng.normal(size=(batch, COND_ROWS, cfg.cross_d))
+                .astype(np.float32)}
+    tokens = rng.integers(0, cfg.vocab_size, size=(batch, n)).astype(np.int32)
+    if decode:
+        return {"tokens": tokens}
+    return {"patches": rng.normal(size=(batch, cfg.prefix_len,
+                                        cfg.frontend_dim)).astype(np.float32),
+            "tokens": tokens}
+
+
+def _frontend_serve(torch, cfg, pcfg, params, device, batch, seed):
+    """A dense ``make_prefill_step`` and ``FRONTEND_DECODES``
+    ``make_serve_step`` decodes (the same draws for every device):
+    each step's logits (CPU, f32) and the cache lengths after it."""
+    import numpy as np
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    rng = np.random.default_rng(seed)
+    to = lambda d: {k: torch.from_numpy(v).to(device)  # noqa: E731
+                    for k, v in d.items()}
+    prefill = _frontend_inputs(cfg, batch, rng)
+    total = sum(v.shape[1] for k, v in prefill.items()
+                if k in ("patches", "tokens", "embeds"))
+    cache = lm.init_cache(cfg, batch, total + FRONTEND_DECODES, device)
+    logits, cache = steps.make_prefill_step(cfg, pcfg)(params, to(prefill),
+                                                       cache)
+    out, lens = [logits.float().cpu()], [cache["len"].tolist()]
+    step = steps.make_serve_step(cfg, pcfg)
+    for _ in range(FRONTEND_DECODES):
+        d = _frontend_inputs(cfg, batch, rng, decode=True)
+        if "cond" in prefill:
+            d["cond"] = prefill["cond"]
+        logits, cache = step(params, to(d), cache)
+        out.append(logits.float().cpu())
+        lens.append(cache["len"].tolist())
+    if lens != [[total + i] * batch for i in range(FRONTEND_DECODES + 1)]:
+        raise AssertionError(f"{cfg.name}: cache lengths {lens}")
+    return out, total
+
+
+def frontend_reference_phase(torch):
+    """Phase 7f: paligemma-3b and musicgen-large at full width, cut to
+    ``FRONTEND_REF_DEPTH`` layers, f32, card vs CPU: one ``loss_fn``
+    forward and backward under phase 7's limits (paligemma: 2 rows of 256
+    patches + 8 tokens; musicgen: 2 x 64 frames, 64 conditioning rows, 4
+    codebooks), then a dense ``make_prefill_step`` (paligemma: 256 patches
+    + ``FRONTEND_PREFILL`` tokens; musicgen: ``FRONTEND_PREFILL`` frames +
+    64 conditioning rows) and ``FRONTEND_DECODES`` ``make_serve_step``
+    decodes: every step's logits within ESFFN_TOL["float32"] x max|CPU|
+    (4j's limit) and the cache lengths advancing by one a decode."""
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    res = {}
+    for arch in ("paligemma-3b", "musicgen-large"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(cfglib.get_config(arch),
+                                  num_layers=FRONTEND_REF_DEPTH,
+                                  dtype="float32")
+        pcfg = ParallelConfig(blk=16)
+        params = lm.init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(11), device="cuda")
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        seq = FRONTEND_PREFILL + cfg.prefix_len if cfg.prefix_len else 64
+        r = _card_vs_cpu_loss(torch, "7f", cfg, pcfg, params,
+                              _family_batch(cfg, 2, seq, 11))
+        if any(r["launches"].values()):
+            raise AssertionError(f"phase 7f {arch}: expert kernels launched "
+                                 f"{r['launches']}")
+        cpu = tree_map(lambda t: t.cpu(), params)
+        steps_out = {}
+        for device, p in (("cuda", params), ("cpu", cpu)):
+            steps_out[device], total = _frontend_serve(torch, cfg, pcfg, p,
+                                                    device, 2, 12)
+        errs = []
+        for i, (a, b) in enumerate(zip(steps_out["cuda"], steps_out["cpu"])):
+            err, tol = _check(f"phase 7f {arch}: step {i} logits", a, b,
+                              ESFFN_TOL["float32"])
+            errs.append(err / tol)
+        r.update(arch=arch, layers=FRONTEND_REF_DEPTH, params=n_params,
+                 prefill_rows=total, decodes=FRONTEND_DECODES,
+                 logits_shape=list(steps_out["cuda"][0].shape),
+                 worst_logit_err_over_tol=max(errs),
+                 seconds=time.perf_counter() - t0)
+        print(f"[7f] {arch}, {FRONTEND_REF_DEPTH} layers at full width, "
+              f"{n_params / 1e9:.3f} B parameters, f32: loss batch 2 x {seq}"
+              f" rows: total GPU {r['total_gpu']!r} CPU {r['total_cpu']!r} "
+              f"(rel {r['total_rel_diff']:.3e}); {r['grad_leaves']} grad "
+              f"leaves, worst {r['worst_grad_rel']:.3e} at "
+              f"{r['worst_leaf']}; dense prefill of {total} rows and "
+              f"{FRONTEND_DECODES} decodes, logits {r['logits_shape']}, worst"
+              f" err / limit {max(errs):.3g}; {r['seconds']:.1f}s")
+        res[arch] = r
+        del params, cpu
+        _release(torch)
+    return res
+
+
+def _family_train(torch, tag, cfg, batch, seq, *, expect=None,
+                  serve=False):
+    """Phases 8j/8x/8p/8m: ``cfg`` in bf16, AdamW with f32 masters,
+    ``remat="block"``, blk 128, the train CLI's batches of ``batch`` x
+    ``seq`` rows: one warm-up step, then TRAIN_STEPS steps with the expert
+    kernels' counts set to 0 just before and read just after (``expect``:
+    per-step launches of each, all on wgmma; else none). Every loss and
+    grad norm finite; every leaf's f32 master (the leaf itself where it is
+    f32; a strided sample of 4,096 elements) moved, and every leaf's first
+    moment is non-zero somewhere, but those ``ZERO_GRAD_LEAVES`` names,
+    whose first moments must be exactly 0. ``serve``: then a dense
+    prefill and FRONTEND_DECODES decodes from the trained weights, every
+    logit finite, the cache lengths advancing."""
+    import math
+    from repro_torch.common import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to, build_state
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    t_phase = time.perf_counter()
+    pcfg = ParallelConfig(blk=128, remat="block")
+    opt_cfg = adamw.OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                                    decay_steps=40, master_fp32=True)
+    params, opt_state = build_state(cfg, opt_cfg, 0, "cuda")
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   leaves + tree_leaves(opt_state) if t is not None) / 1e9
+    names = [n for n, _ in _named_leaves(params)]
+    masters = [m if m is not None else p for (_, m), p in zip(
+        _named_leaves(opt_state["master"]), leaves)]
+
+    def sample(t):
+        return t.detach().flatten()[::max(1, t.numel() // 4096)][
+            :4096].float().clone()
+
+    before = [sample(t) for t in masters]
+    train_step = steps.make_train_step(cfg, pcfg, opt_cfg)
+    batches = [_family_batch(cfg, batch, seq, i)
+               for i in range(TRAIN_STEPS + 1)]
+
+    def run(i):
+        b = batch_to(batches[i], "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = train_step(params, opt_state, b)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    m, warm = run(0)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_expert_counts()
+    times, log = [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        m, dt = run(i)
+        times.append(dt)
+        log.append(m)
+    launches, routes = _expert_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+               for x in log):
+        raise AssertionError(f"phase {tag}: non-finite loss {log}")
+    still = [n for n, b, t in zip(names, before, masters)
+             if torch.equal(b, sample(t))]
+    moved = len(leaves) - len(still)
+    no_grad = [n for n, (_, m) in zip(names, _named_leaves(opt_state["m"]))
+               if not bool((m != 0).any())]
+    zero_ok = list(ZERO_GRAD_LEAVES.get(cfg.name, ()))
+    if still or no_grad != zero_ok:
+        raise AssertionError(f"phase {tag}: masters not moved {still}; "
+                             f"leaves with no gradient {no_grad}, expected "
+                             f"{zero_ok}")
+    want = {k: (expect or {}).get(k, 0) * TRAIN_STEPS for k in launches}
+    idle = {"esffn_glu": ("stream",), "esmm": ("simt", "mma_tf32x3"),
+            "estmm": ("simt", "mma_tf32x3")}
+    want_routes = {k: {**dict.fromkeys(idle[k], 0), "wgmma": want[k]}
+                   for k in routes}
+    if launches != want or routes != want_routes:
+        raise AssertionError(f"phase {tag}: launches {launches} routes "
+                             f"{routes}, expected {want_routes}")
+    med = statistics.median(times)
+    res = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "params": n_params, "state_gb": state_gb,
+           "batch": batch, "seq": seq, "warmup_s": warm, "steps": log,
+           "step_times_s": times, "step_median_ms": med * 1e3,
+           "rows_per_s": batch * seq / med, "peak_allocated_gb": peak,
+           "launches": launches, "launches_by_route": routes,
+           "leaves_moved": moved, "leaves": len(leaves),
+           "zero_grad_leaves": no_grad}
+    print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, {state_gb:.2f}"
+          f" GB of state, bf16, {batch} x {seq} rows: losses "
+          f"{[round(x['loss'], 5) for x in log]}, step median "
+          f"{med * 1e3:.1f}ms ({batch * seq / med:.1f} rows/s; warm-up "
+          f"{warm:.2f}s), peak allocated {peak:.2f} GB; launches "
+          f"{launches}; {moved}/{len(leaves)} masters moved, zero-gradient "
+          f"leaves {no_grad}")
+    if serve:
+        outs, total = _frontend_serve(torch, cfg, pcfg, params, "cuda", batch,
+                                   13)
+        if not all(torch.isfinite(o).all() for o in outs):
+            raise AssertionError(f"phase {tag}: non-finite serve logits")
+        res.update(serve_prefill_rows=total, serve_decodes=FRONTEND_DECODES,
+                   serve_logits_shape=list(outs[0].shape))
+        print(f"[{tag}] dense prefill of {batch} x {total} rows and "
+              f"{FRONTEND_DECODES} decodes from the trained weights: logits "
+              f"{list(outs[0].shape)} finite, lengths advancing")
+    res["seconds"] = time.perf_counter() - t_phase
+    del params, opt_state, train_step
+    _release(torch)
+    return res
+
+
+def family_train_phase(torch):
+    """Phases 8j (Jamba's layout at its "train" cut width, 3.02 B
+    parameters: per step 2 ``esffn_glu``, 5 ``esmm`` and 3 ``estmm`` a MoE
+    layer, all on wgmma), 8x (xlstm-350m whole), 8p and 8m (paligemma-3b
+    and musicgen-large at full width and depth, then their dense serve
+    steps), each at TRAIN_BATCH x TRAIN_SEQ rows (``_family_train``)."""
+    from repro_torch import configs as cfglib
+
+    from repro_torch.configs import jamba_1_5_large_398b as jamba_cfg
+
+    jamba = jamba_cfg.cut_config("train", "bfloat16")
+    n = _moe_layers(jamba)
+    out = {"8j": _family_train(
+        torch, "8j", jamba, TRAIN_BATCH, TRAIN_SEQ,
+        expect={"esffn_glu": 2 * n, "esmm": 5 * n, "estmm": 3 * n})}
+    for tag, arch in (("8x", "xlstm-350m"), ("8p", "paligemma-3b"),
+                      ("8m", "musicgen-large")):
+        out[tag] = _family_train(torch, tag, cfglib.get_config(arch),
+                                 TRAIN_BATCH, TRAIN_SEQ,
+                                 serve=tag in ("8p", "8m"))
     return out
 
 
@@ -4979,7 +5594,11 @@ def main() -> int:
     train_res = train_kernel_cases(torch, flush)
     for c in train_res["esmm"] + train_res["estmm"] + train_res["esffn_glu"]:
         print(f"[kernel-train] {json.dumps(c)}")
-    for c in train_res["negative_controls"]:
+    jt_res = jamba_train_kernel_cases(torch, flush)
+    for k in ("esffn_glu", "esmm", "estmm"):
+        for c in jt_res[k]:
+            print(f"[kernel-jamba-train] {k} {json.dumps(c)}")
+    for c in train_res["negative_controls"] + jt_res["negative_controls"]:
         print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
               f"{c['err_over_tol']:.3g} x the limit")
     del flush
@@ -4993,6 +5612,11 @@ def main() -> int:
     train_launches, train_out = train_phase(torch)
     print(f"[train] {json.dumps({**train_out, 'reference': train_ref, 'reference_qat': qat_ref, 'reference_bf16': bf16_ref})}")
     _release(torch)               # the qwen training state is gone
+    family_ref = {"7h": hybrid_train_reference_phase(torch),
+                  "7f": frontend_reference_phase(torch)}
+    family_train = family_train_phase(torch)
+    print(f"[train-families] {json.dumps({'reference': family_ref, 'train': family_train})}")
+    _release(torch)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     swin_res = swin_kernel_cases(torch, flush)
     for k in ("esffn_mlp", "esfk", "ess", "esmm", "estmm"):
@@ -5039,7 +5663,8 @@ def main() -> int:
     # the dense serve runs, the speculative one and the prefix-sharing and
     # disaggregated ones (phases 5, 5s, 5p), the qwen train steps and the
     # QAT steps (phases 8, 8q), the Swin train steps and the
-    # unfused-backward pass (phase 11).
+    # unfused-backward pass (phase 11), the Jamba layout's training
+    # (phases 7h, 8j).
     qat_paths = {f"qwen_qat_{m}": r["launches"]
                  for m, r in train_out["qat"].items()}
     hybrid_paths = {f"hybrid_{tag}": r["launches"]
@@ -5047,8 +5672,11 @@ def main() -> int:
     hybrid_paths.update({f"hybrid_{tag}_{kind}": {
         "paged_attention": r[kind]["launches"]["paged_attention"]}
         for tag, r in hybrid_serve.items() for kind in ("paged", "dense")})
+    jamba_train = {"jamba_train_7h": family_ref["7h"]["jamba-1.5-large-398b"],
+                   "jamba_train_8j": family_train["8j"]}
     paths = {**serve_launches, "qwen_train": train_launches, **qat_paths,
-             **swin_launches, **hybrid_paths}
+             **swin_launches, **hybrid_paths,
+             **{p: r["launches"] for p, r in jamba_train.items()}}
     by_path = {}
     for path, counts in paths.items():
         for name, n in counts.items():
@@ -5064,7 +5692,9 @@ def main() -> int:
                       for m, r in train_out["qat"].items()},
                    **swin_out["launches_by_route"],
                    **{f"hybrid_{tag}": r["launches_by_route"]
-                      for tag, r in hybrid_ref.items()}}
+                      for tag, r in hybrid_ref.items()},
+                   **{p: r["launches_by_route"]
+                      for p, r in jamba_train.items()}}
 
     def by_route(name, cases, routes, paths=route_paths):
         """Each route of a kernel with several: its launches on each path
@@ -5129,12 +5759,13 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("esffn_glu", "src/repro_torch/csrc/esffn.cu",
               "src/repro/kernels/esffn.py:280",
-              esffn_res + train_res["esffn_glu"],
+              esffn_res + train_res["esffn_glu"] + jt_res["esffn_glu"],
               kernel_routes=by_route(
                   "esffn_glu", train_res["esffn_glu"] + esffn_res,
                   ("wgmma", "stream")),
-              negative_controls=[c for c in train_res["negative_controls"]
-                                 if c["kernel"] == "esffn_glu"],
+              negative_controls=[
+                  c for c in train_res["negative_controls"]
+                  + jt_res["negative_controls"] if c["kernel"] == "esffn_glu"],
               small_width_checks=esffn_checks),
         entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:295",
@@ -5142,7 +5773,7 @@ def main() -> int:
               negative_controls=[attn_neg], checks=attn_checks),
         entry("esmm", "src/repro_torch/csrc/esmm.cu",
               "src/repro/kernels/esmm.py:80",
-              train_res["esmm"] + swin_res["esmm"],
+              train_res["esmm"] + swin_res["esmm"] + jt_res["esmm"],
               kernel_routes=by_route(
                   "esmm", train_res["esmm"] + swin_res["esmm"],
                   ("wgmma", "mma_tf32x3", "simt")),
@@ -5153,7 +5784,7 @@ def main() -> int:
                                   if c["kernel"] == "esmm"]),
         entry("estmm", "src/repro_torch/csrc/estmm.cu",
               "src/repro/kernels/estmm.py:43",
-              train_res["estmm"] + swin_res["estmm"],
+              train_res["estmm"] + swin_res["estmm"] + jt_res["estmm"],
               kernel_routes=by_route(
                   "estmm", train_res["estmm"] + swin_res["estmm"],
                   ("wgmma", "mma_tf32x3", "simt")),

@@ -36,7 +36,12 @@ Every LM stack of the registry but the multimodal ones serves on both
 engines: MoE, dense and hybrid (Mamba + attention, jamba-1.5-large-398b)
 stacks and xLSTM (xlstm-350m); a slot's recurrent state is zeroed
 whenever the slot is reused (``lm.reset_slot``). Speculation and the
-prefix cache need an all-attention stack and refuse the others.
+prefix cache need an all-attention stack and refuse the others. The
+engines, ``reference_stream`` and the CLI take token prompts and one
+vocabulary head, as the JAX engines build their inputs: paligemma-3b
+(SigLIP patches) and musicgen-large (EnCodec frames, T5 conditioning, 4
+codebook heads) raise ``NotImplementedError`` (``lm.check_servable``);
+their dense prefill and decode steps are ``launch.steps``'.
 
 Not in this slice (ROADMAP.md): hetero plans built from ``--hetero-*``
 latencies (``PagedServer(plan=)`` takes any object with ``token_counts``),
@@ -138,6 +143,7 @@ def reference_stream(cfg, pcfg, params, req: Request, *, max_seq: int,
     (token by token) then decode through ``next_token``, on the device the
     params lie on: the ground truth both batched servers are held to, for
     greedy and sampled requests."""
+    lm.check_servable(cfg)
     device = params["embed"].device
     if step is None:
         step = steps_lib.make_serve_step(cfg, pcfg)
@@ -193,6 +199,7 @@ class BatchedServer:
 
     def __init__(self, cfg, pcfg, *, num_slots: int, max_seq: int, params,
                  valid_slots: Optional[list] = None, device=None):
+        lm.check_servable(cfg)
         self.cfg, self.pcfg = cfg, pcfg
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -364,6 +371,7 @@ class PagedServer:
                  prefix_cache: bool = False, disagg: bool = False,
                  max_retries: int = 2, audit: bool = False,
                  clock=time.perf_counter, device=None):
+        lm.check_servable(cfg)
         self.cfg, self.pcfg = cfg, pcfg
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -1089,6 +1097,7 @@ def main(argv=None):
         faults_lib.install(faults_lib.load_plan(args.fault_spec))
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
+    lm.check_servable(cfg)
     pcfg = ParallelConfig(blk=16)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if args.quant != "none":

@@ -21,22 +21,28 @@ from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import ParallelConfig
 
 
-def xent_loss(logits, labels, mask):
-    """Mean cross entropy over the masked positions. logits (B, S, V)."""
-    logits = logits.float()
+def _per_token_xent(logits, labels):
+    """Cross entropy a position: logits (B, S, [C,] V) f32 against labels
+    (B, S, [C]); codebook losses averaged over C."""
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    per_tok = lse - ll
+    if per_tok.ndim == 3:                  # (B, S, num_codebooks)
+        per_tok = per_tok.mean(-1)
+    return per_tok
+
+
+def xent_loss(logits, labels, mask):
+    """Mean cross entropy over the masked positions. logits (B, S, [C,] V),
+    labels (B, S, [C]), mask (B, S)."""
     denom = torch.clamp(torch.sum(mask), min=1.0)
-    return torch.sum((lse - ll) * mask) / denom
+    return torch.sum(_per_token_xent(logits.float(), labels) * mask) / denom
 
 
 def _chunk_loss(params, x_c, lbl_c, m_c, cfg):
-    lg = lm._logits_out(params, x_c, cfg)
-    mx = torch.amax(lg, dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(lg - mx), dim=-1)) + mx[..., 0]
-    ll = torch.gather(lg, -1, lbl_c.long()[..., None])[..., 0]
-    return torch.sum((lse - ll) * m_c)
+    return torch.sum(_per_token_xent(lm._logits_out(params, x_c, cfg),
+                                     lbl_c) * m_c)
 
 
 def chunked_xent(x, params, cfg: ModelConfig, labels, mask,
@@ -62,9 +68,12 @@ def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig):
     """Training loss closure: LM forward (hidden-state output) + chunked
     cross entropy + MoE aux/z losses, weighted per ``cfg.moe``. Routing
     takes no jitter. ``loss_fn(params, batch) -> (total, metrics)``;
-    batch holds tokens, labels (B, S) int and loss_mask (B, S) f32.
-    Stacks with recurrent mixers or dense FFN layers raise
-    (``lm.check_trainable``)."""
+    batch holds the forward's inputs (``lm.forward``: tokens, patches,
+    embeds, cond), labels (B, S) int ((B, S, C) with codebook heads) and
+    loss_mask (B, S) f32. A siglip forward longer than the labels drops
+    its first rows (the image prefix) before the loss; the CLI's batches
+    cut the tokens so that it is as long, and the loss covers every row,
+    as the JAX package's do."""
     lm.check_trainable(cfg)
     aw = cfg.moe.aux_weight if cfg.moe else 0.0
     zw = cfg.moe.z_weight if cfg.moe else 0.0
@@ -72,8 +81,12 @@ def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig):
     def loss_fn(params, batch):
         hidden, _, aux, z = lm.forward(params, batch, cfg, pcfg,
                                        mode="train", return_hidden=True)
-        loss = chunked_xent(hidden, params, cfg, batch["labels"],
-                            batch["loss_mask"])
+        labels = batch["labels"]
+        if cfg.frontend == "siglip":
+            n_img = hidden.shape[1] - labels.shape[1]
+            if n_img > 0:
+                hidden = hidden[:, n_img:]
+        loss = chunked_xent(hidden, params, cfg, labels, batch["loss_mask"])
         total = loss + aw * aux + zw * z
         return total, {"loss": loss, "aux_loss": aux, "z_loss": z}
 
@@ -114,13 +127,13 @@ def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig):
     """Dense-cache prefill: one forward over the whole prompt batch (every
     prompt of the same length S), writing its K/V rows into the ``(slots,
     max_seq)`` cache and setting every slot's length to S.
-    ``prefill_step(params, inputs, cache) -> (logits (B, 1, V) f32 of the
-    last row, cache)``; ``inputs``: tokens (B, S)."""
+    ``prefill_step(params, inputs, cache) -> (logits (B, 1, [C,] V) f32 of
+    the last row, cache)``; ``inputs``: the forward's (tokens (B, S);
+    siglip patches before them, S their sum; encodec embeds; cond)."""
 
     def prefill_step(params, inputs, cache):
         logits, new_cache, _, _ = lm.forward(
-            params, {"tokens": inputs["tokens"]}, cfg, pcfg, mode="prefill",
-            cache=cache)
+            params, inputs, cfg, pcfg, mode="prefill", cache=cache)
         return logits, new_cache
 
     return prefill_step
@@ -129,13 +142,16 @@ def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig):
 def make_serve_step(cfg: ModelConfig, pcfg: ParallelConfig):
     """Dense-cache decode macro-step: one token per occupied slot
     (``active`` (B,) bool masks the rest; absent, every slot advances).
-    ``serve_step(params, inputs, cache) -> (logits (B, 1, V) f32, cache)``;
-    ``inputs``: tokens (B, 1) and optionally active."""
+    ``serve_step(params, inputs, cache) -> (logits (B, 1, [C,] V) f32,
+    cache)``; ``inputs``: tokens (B, 1) (encodec: embeds (B, 1,
+    frontend_dim)), cond where the config cross-attends, and optionally
+    active."""
 
     def serve_step(params, inputs, cache):
+        fwd_in = {k: v for k, v in inputs.items() if k != "active"}
         logits, new_cache, _, _ = lm.forward(
-            params, {"tokens": inputs["tokens"]}, cfg, pcfg, mode="decode",
-            cache=cache, active=inputs.get("active"))
+            params, fwd_in, cfg, pcfg, mode="decode", cache=cache,
+            active=inputs.get("active"))
         return logits, new_cache
 
     return serve_step

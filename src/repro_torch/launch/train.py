@@ -1,10 +1,16 @@
 """Trainer of one device (counterpart of ``repro.launch.train``):
 synthetic token stream -> train step (forward, autograd backward through
-the expert kernels, AdamW) in a plain loop.
+the expert kernels, AdamW) in a plain loop, for every LM configuration
+of the registry: MoE, dense, hybrid (Mamba + attention + MoE) and
+recurrent (xLSTM) stacks, and the frontend families, whose batches are
+made as the JAX trainer makes them (``frontend_batch``: seeded SigLIP
+patches before the cut token rows for paligemma-3b; seeded EnCodec
+frames, 64 rows of T5 conditioning and the labels repeated over the
+codebooks for musicgen-large).
 
     python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
         --layers 4 --steps 3 --global-batch 4 --seq-len 1024   # one GPU
-    python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
+    python -m repro_torch.launch.train --arch musicgen-large \\
         --smoke --steps 3 --global-batch 4 --seq-len 64 --device cpu
 
 It runs on the GPU unless ``--device cpu`` is given, and raises where no
@@ -25,6 +31,7 @@ import dataclasses
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs as cfglib
@@ -44,8 +51,49 @@ def build_state(cfg, opt_cfg, seed: int, device):
 
 
 def batch_to(batch: dict, device) -> dict:
-    """A ``TokenSource`` batch as tensors on ``device``."""
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    """A batch of numpy arrays (``TokenSource``'s, or ``frontend_batch``'s)
+    as tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+#: The LM configurations of the registry (the Swin ones train through
+#: ``models.swin``).
+LM_ARCHS = [a for a in cfglib.ALIASES if not a.startswith("swin")]
+#: Rows of T5 conditioning in an encodec batch, as the JAX trainer's.
+COND_ROWS = 64
+
+
+def frontend_batch(cfg, batch: dict, step: int) -> dict:
+    """A ``TokenSource`` batch (numpy) turned into the inputs of ``cfg``'s
+    frontend, as the JAX trainer turns it (``np.random.default_rng(step)``
+    draws the features, then f32): encodec: ``embeds`` (B, S,
+    frontend_dim), ``cond`` (B, COND_ROWS, cross_d), the labels repeated
+    over the codebooks; siglip: ``patches`` (B, prefix_len,
+    frontend_dim) and the tokens cut to S - prefix_len, so that the
+    forward is S rows long, as the labels are. Other configs: unchanged."""
+    if cfg.frontend not in ("encodec", "siglip"):
+        return batch
+    rng = np.random.default_rng(step)
+    b, s = batch["tokens"].shape
+    if cfg.frontend == "encodec":
+        return {
+            "embeds": rng.normal(size=(b, s, cfg.frontend_dim)).astype(
+                np.float32),
+            "cond": rng.normal(size=(b, COND_ROWS, cfg.cross_d)).astype(
+                np.float32),
+            "labels": np.repeat(batch["labels"][..., None],
+                                cfg.num_codebooks, -1),
+            "loss_mask": batch["loss_mask"],
+        }
+    npatch = cfg.prefix_len
+    return {
+        "patches": rng.normal(size=(b, npatch, cfg.frontend_dim)).astype(
+            np.float32),
+        "tokens": batch["tokens"][:, :s - npatch],
+        "labels": batch["labels"],
+        "loss_mask": batch["loss_mask"],
+    }
 
 
 def main(argv=None):
@@ -53,7 +101,7 @@ def main(argv=None):
     # no abbreviations: a later slice's flag must not pass as a prefix of
     # a ported one (--metrics would otherwise mean --metrics-out)
     ap = argparse.ArgumentParser(allow_abbrev=False)
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=LM_ARCHS)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
     ap.add_argument("--layers", type=int, default=0,
@@ -96,7 +144,8 @@ def main(argv=None):
     metrics_log = []
     t_last = time.perf_counter()
     for step in range(args.steps):
-        batch = batch_to(source.batch(step), device)
+        batch = batch_to(frontend_batch(cfg, source.batch(step), step),
+                         device)
         params, opt_state, m = train_step(params, opt_state, batch)
         m = {k: float(v) for k, v in m.items()}   # waits for the step
         now = time.perf_counter()

@@ -9,11 +9,16 @@ are per-layer lists too: the JAX dense cache's leaf ``[pos][name][j]``
 (period position ``pos``, period ``j``) is layer ``j * period + pos``
 here. A layer's mixer is attention, Mamba, mLSTM or sLSTM; its FFN a
 GLU-expert MoE, a dense GLU or MLP, an sLSTM block's small GLU, or none
-(mLSTM blocks). Recurrent layers keep per-slot state in both caches; only
-attention layers have K/V rows or pages. Serving takes every such stack
-(``check_supported``); training only all-attention stacks with MoE FFNs
-on every layer (``check_trainable``). Frontends, cross-attention,
-codebook heads, prefixes and MLP experts in an LM stack raise.
+(mLSTM blocks). Attention layers of a ``cross_attn`` config also attend
+to a conditioning sequence (``inputs["cond"]``) after the mixer.
+Recurrent layers keep per-slot state in both caches; only attention
+layers have K/V rows or pages. The input is token embeddings, SigLIP
+patches projected and put before them (``inputs["patches"]``), or
+projected EnCodec frames (``inputs["embeds"]``); the head is the
+vocabulary projection or, with ``num_codebooks > 1``, one per codebook.
+Every LM configuration trains and takes the dense steps
+(``check_supported``); the serving engines take token prompts and one
+head only (``check_servable``). MLP experts in an LM stack raise.
 """
 from __future__ import annotations
 
@@ -25,33 +30,36 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import torch_dtype
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba, transformer as tfm, xlstm
+from repro_torch.models import frontends, mamba, transformer as tfm, xlstm
 from repro_torch.parallel.sharding import ParallelConfig, normal_init
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port cannot serve."""
-    missing = []
-    if cfg.cross_attn or cfg.frontend or cfg.num_codebooks > 1 \
-            or cfg.prefix_len:
-        missing.append("frontends, cross-attention, codebook heads, prefixes")
+    """Raise for a configuration the port cannot run: MLP experts in an
+    LM stack (the Swin graft)."""
     if cfg.moe is not None and not cfg.glu:
-        missing.append("MLP experts in an LM stack")
-    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {'; '.join(missing)} are not ported yet "
+            f"{cfg.name}: MLP experts in an LM stack are not ported yet "
             f"(ROADMAP.md A.4)")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port serves but does not train yet:
-    any stack with a recurrent mixer or a layer without MoE experts."""
+    """Raise for a configuration the port does not train: what
+    ``check_supported`` refuses."""
     check_supported(cfg)
-    if any(cfg.layer_kind(i) != "attn" or not cfg.is_moe_layer(i)
-           for i in range(cfg.num_layers)):
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise for a configuration the serving engines do not take: besides
+    ``check_supported``'s, a frontend (their prompts are token ids) or
+    codebook heads (their sampler draws one token a row). The dense steps
+    (``make_prefill_step``/``make_serve_step``) take both."""
+    check_supported(cfg)
+    if cfg.frontend or cfg.num_codebooks > 1:
         raise NotImplementedError(
-            f"{cfg.name}: training stacks with recurrent mixers or dense "
-            f"FFN layers is not ported yet (ROADMAP.md A.4)")
+            f"{cfg.name}: the serving engines take token prompts and one "
+            f"vocabulary head; frontend inputs and codebook heads are not "
+            f"served yet (ROADMAP.md A.4)")
 
 
 def recurrent_layers(cfg: ModelConfig) -> list:
@@ -84,12 +92,16 @@ _MIXER_INIT = {"attn": tfm.init_attention, "mamba": mamba.init_mamba,
 
 def init_block(cfg: ModelConfig, idx: int, dtype, generator, device,
                quant: Optional[str] = None) -> dict:
-    """Layer ``idx``'s parameters: its mixer, then its FFN (none on mLSTM
+    """Layer ``idx``'s parameters: its mixer, its cross-attention (attention
+    layers of a ``cross_attn`` config), then its FFN (none on mLSTM
     layers; an sLSTM block's GLU of width ``ceil64(ffn_factor * d)``).
     ``quant``: the MoE experts quantized as drawn (``init_moe_ffn``)."""
+    kind = cfg.layer_kind(idx)
     p = {"ln1": tfm.init_norm(cfg, device),
-         "mixer": _MIXER_INIT[cfg.layer_kind(idx)](cfg, dtype, generator,
-                                                   device)}
+         "mixer": _MIXER_INIT[kind](cfg, dtype, generator, device)}
+    if cfg.cross_attn and kind == "attn":
+        p["ln_x"] = tfm.init_norm(cfg, device)
+        p["xattn"] = tfm.init_cross_attention(cfg, dtype, generator, device)
     fk = _ffn_kind(cfg, idx)
     if fk is not None:
         p["ln2"] = tfm.init_norm(cfg, device)
@@ -126,6 +138,12 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     if not cfg.tie_embeddings:
         p["head"] = normal_init((cfg.d_model, cfg.vocab_size), dtype,
                                 generator, device)
+    if cfg.num_codebooks > 1:
+        p["cb_heads"] = normal_init(
+            (cfg.num_codebooks, cfg.d_model, cfg.vocab_size), dtype,
+            generator, device)
+    if cfg.frontend:
+        p["frontend"] = frontends.init_frontend(cfg, dtype, generator, device)
     return p
 
 
@@ -274,7 +292,8 @@ def rollback_slot(cfg: ModelConfig, cache: dict, slot: int,
 
 def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
                 cache: Optional[dict]):
-    """One block: mixer, then the FFN where the layer has one. Returns
+    """One block: mixer, cross-attention where the layer has it, then the
+    FFN where the layer has one. Returns
     (x, cache, aux, z). In a decode macro-step with an ``active`` mask,
     inactive slots keep their recurrent state (attention writes its own
     sink row)."""
@@ -291,6 +310,9 @@ def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
                 act.reshape((-1,) + (1,) * (v.ndim - 1)), v, cache[k])
                 for k, v in new_cache.items()}
     x = x + out
+    if "xattn" in p:
+        x = x + tfm.apply_cross_attention(
+            p["xattn"], tfm.apply_norm(p["ln_x"], x, ctx.cfg), ctx)
     aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
         h2 = tfm.apply_norm(p["ln2"], x, ctx.cfg)
@@ -336,15 +358,32 @@ def run_layers(layers: list, x: torch.Tensor, ctx: tfm.Ctx,
     return x, aux, z, new_caches
 
 
-def _embed_in(params: dict, tokens: torch.Tensor, cfg: ModelConfig, dtype):
-    x = params["embed"][tokens.long()].to(dtype)
+def _embed_in(params: dict, inputs: dict, cfg: ModelConfig, dtype):
+    """The first hidden states: SigLIP patches projected, then the token
+    embeddings after them (``patches`` given); projected EnCodec frames
+    (``embeds``); else the token embeddings. Scaled by ``sqrt(d_model)``
+    rounded to ``dtype`` where the config says so."""
+    if cfg.frontend == "siglip" and "patches" in inputs:
+        patches = frontends.project_frontend(params["frontend"],
+                                             inputs["patches"], dtype)
+        x_txt = params["embed"][inputs["tokens"].long()].to(dtype)
+        x = torch.cat([patches, x_txt], dim=1)
+    elif cfg.frontend == "encodec":
+        x = frontends.project_frontend(params["frontend"], inputs["embeds"],
+                                       dtype)
+    else:
+        x = params["embed"][inputs["tokens"].long()].to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     return x
 
 
 def _logits_out(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    """Vocabulary logits in f32 (the JAX head's f32 accumulation)."""
+    """Vocabulary logits in f32 (the JAX head's f32 accumulation): (B, S,
+    V), or (B, S, C, V) through the C codebook heads."""
+    if cfg.num_codebooks > 1:
+        return torch.einsum("bsd,cdv->bscv", x.float(),
+                            params["cb_heads"].float())
     w = params["embed"].t() if cfg.tie_embeddings else params["head"]
     return x.float() @ w.float()
 
@@ -365,7 +404,11 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
             return_hidden: bool = False):
     """Forward pass. Returns (logits, cache, aux_loss, z_loss); with
     ``return_hidden`` the final normed hidden states stand in for the
-    logits.
+    logits. ``inputs``: ``tokens`` (B, S) int; siglip configs may add
+    ``patches`` (B, P, frontend_dim), put before the tokens; encodec
+    configs take ``embeds`` (B, S, frontend_dim) instead of tokens;
+    ``cond`` (B, T, cross_d), the cross-attention memory of a
+    ``cross_attn`` config.
 
     ``mode="train"``: the full sequence at positions ``arange(S)``, no
     cache (the returned cache is None).
@@ -390,7 +433,7 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
         raise ValueError("the dense prefill takes whole prompts: no active "
                          "mask")
     dtype = torch_dtype(cfg.dtype)
-    x = _embed_in(params, inputs["tokens"], cfg, dtype)
+    x = _embed_in(params, inputs, cfg, dtype)
     b, s, _ = x.shape
     if train or dense_prefill:
         cache_len = None
@@ -403,7 +446,8 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
             s, device=x.device)
         cache_layers = cache["layers"]
     ctx = tfm.Ctx(cfg=cfg, pcfg=pcfg, mode=mode, positions=positions,
-                  cache_len=cache_len, paged=paged, decode_active=active)
+                  cache_len=cache_len, paged=paged, decode_active=active,
+                  cond=inputs.get("cond"))
     x, aux, z, new_layers = run_layers(params["layers"], x, ctx,
                                        cache_layers)
     x = tfm.apply_norm(params["final_norm"], x, cfg)

@@ -6,8 +6,9 @@ Prefill and training run the chunked selective scan: within a chunk of
 is a log-depth inclusive scan over ``(B, C, Din, Dst)`` tensors (the
 combine of JAX's ``associative_scan``), and the chunks are chained in
 order with a ``(B, Din, Dst)`` carry, so no ``(B, S, Din, Dst)`` tensor
-exists at full prompt length. Decode is the O(1) update of that state.
-Plain PyTorch, as the JAX layer is plain ``jnp``.
+exists at full prompt length; in training each chunk is recomputed in
+the backward. Decode is the O(1) update of that state. Plain PyTorch, as
+the JAX layer is plain ``jnp``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import normal_init
@@ -100,11 +102,28 @@ def _inclusive_scan(log_a: torch.Tensor, bu: torch.Tensor):
     return log_a, bu
 
 
-def _ssm_chunked(u, dt, b_in, c_in, a, chunk: int):
+def _ssm_chunk(h, u_c, dt_c, b_c, c_c, a):
+    """One chunk of the selective scan from the carry ``h`` (B, Din, Dst):
+    the discretisation, the in-chunk scan and the readout. Returns (the
+    chunk's last state, y (B, C, Din) f32)."""
+    dt_f = dt_c.float()
+    log_a = dt_f[..., None] * a[None, None]                   # (B,C,Din,Dst)
+    bu = (dt_f * u_c.float())[..., None] * b_c.float()[:, :, None, :]
+    acc_a, acc_b = _inclusive_scan(log_a, bu)
+    h_t = acc_b + torch.exp(acc_a) * h[:, None]
+    return h_t[:, -1], torch.einsum("bcds,bcs->bcd", h_t, c_c.float())
+
+
+def _ssm_chunked(u, dt, b_in, c_in, a, chunk: int, remat: bool = False):
     """Selective scan. u: (B, S, Din) model dtype; dt: (B, S, Din) f32;
     b_in/c_in: (B, S, Dst); a: (Din, Dst) f32. Returns y (B, S, Din) f32
     and the final state (B, Din, Dst), the last position's. The
-    discretisation ``(B, C, Din, Dst)`` exists one chunk at a time."""
+    discretisation ``(B, C, Din, Dst)`` exists one chunk at a time.
+    ``remat`` (training) checkpoints each chunk, as the JAX scan's
+    ``jax.checkpoint`` of its step does: autograd keeps only the chunk's
+    inputs and its carry, and the chunk's scan runs again in the
+    backward, so the doubling scan's ``(B, C, Din, Dst)`` rounds are held
+    for one chunk at a time."""
     bsz, s, d_in = u.shape
     chunk = _chunk_len(chunk, s)
     h = torch.zeros((bsz, d_in, a.shape[1]), dtype=torch.float32,
@@ -112,14 +131,12 @@ def _ssm_chunked(u, dt, b_in, c_in, a, chunk: int):
     ys = []
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
-        dt_f = dt[:, sl].float()
-        log_a = dt_f[..., None] * a[None, None]               # (B,C,Din,Dst)
-        bu = (dt_f * u[:, sl].float())[..., None] * \
-            b_in[:, sl].float()[:, :, None, :]
-        acc_a, acc_b = _inclusive_scan(log_a, bu)
-        h_t = acc_b + torch.exp(acc_a) * h[:, None]
-        ys.append(torch.einsum("bcds,bcs->bcd", h_t, c_in[:, sl].float()))
-        h = h_t[:, -1]
+        args = (h, u[:, sl], dt[:, sl], b_in[:, sl], c_in[:, sl], a)
+        if remat:
+            h, y = checkpoint(_ssm_chunk, *args, use_reentrant=False)
+        else:
+            h, y = _ssm_chunk(*args)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 
@@ -164,7 +181,8 @@ def apply_mamba(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
         y = torch.einsum("bds,bs->bd", h, c_in[:, 0].float())[:, None]
         new_ssm = h
     else:
-        y, new_ssm = _ssm_chunked(xm, dt, b_in, c_in, a, ctx.cfg.mamba.chunk)
+        y, new_ssm = _ssm_chunked(xm, dt, b_in, c_in, a, ctx.cfg.mamba.chunk,
+                                  remat=mode == "train")
 
     y = y + p["d_skip"] * xm.float()
     y = (y * F.silu(z.float())).to(x.dtype)

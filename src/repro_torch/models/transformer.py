@@ -1,7 +1,7 @@
 """Transformer building blocks (counterpart of ``repro.models.transformer``):
 norms, GQA attention (full-sequence for training and dense prefill, over
-the dense or the paged KV cache for serving), the dense FFN and the MoE
-FFN.
+the dense or the paged KV cache for serving), cross-attention to a
+conditioning sequence, the dense FFN and the MoE FFN.
 
 Parameters are plain dicts of tensors. The paged K/V pools and the dense
 cache's decode rows are updated in place (the JAX version returns new
@@ -37,6 +37,7 @@ class Ctx:
     #   or None: the dense (B, S_cache) cache
     decode_active: Optional[torch.Tensor] = None  # (B,) decode / (B, S)
     #   prefill mask: inactive slots and rows write to the sink page only
+    cond: Optional[torch.Tensor] = None  # cross-attention memory (B, T, Dc)
 
 
 # ---------------------------------------------------------------------------
@@ -339,3 +340,38 @@ def cache_spec_attention(cfg: ModelConfig, layer_idx: int, batch: int,
     s_cache = min(seq_len, cfg.window) if local else seq_len
     shape = (batch, s_cache, cfg.num_kv_heads, cfg.hd)
     return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (musicgen-large's T5 conditioning)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(cfg: ModelConfig, dtype, generator, device) -> dict:
+    d, hq, hd, dc = cfg.d_model, cfg.num_heads, cfg.hd, cfg.cross_d
+    return {
+        "wq": normal_init((d, hq * hd), dtype, generator, device),
+        "wk": normal_init((dc, hq * hd), dtype, generator, device),
+        "wv": normal_init((dc, hq * hd), dtype, generator, device),
+        "wo": normal_init((hq * hd, d), dtype, generator, device),
+    }
+
+
+def apply_cross_attention(p: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """Every query row attends to every row of ``ctx.cond`` (B, T, Dc): no
+    RoPE, no mask, f32 logits, the softmax cast to x's dtype. K and V are
+    computed from ``cond`` at every call (decode included): nothing is
+    cached, as in the JAX layer. Plain ``torch.matmul``, as the JAX layer
+    is plain einsums."""
+    cfg = ctx.cfg
+    b, s, _ = x.shape
+    hq, hd = cfg.num_heads, cfg.hd
+    cond = ctx.cond.to(x.dtype)
+    t = cond.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    k = (cond @ p["wk"]).reshape(b, t, hq, hd)
+    v = (cond @ p["wv"]).reshape(b, t, hq, hd)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) * hd ** -0.5
+    w = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, v)
+    return out.reshape(b, s, hq * hd) @ p["wo"]

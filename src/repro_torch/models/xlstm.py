@@ -8,7 +8,10 @@ running max ``m``; across chunks a ``(hd, hd)`` matrix memory is carried.
 Decode is the O(hd^2) recurrent update. sLSTM has a true sequential
 dependency through its block-diagonal recurrent matrix, so it is a loop
 over time in both modes; the loop emits each step's ``h`` rounded to
-bf16, whatever the model's dtype, as the JAX scan does. Plain PyTorch.
+bf16, whatever the model's dtype, as the JAX scan does. In training
+every mLSTM chunk and every sLSTM step is recomputed in the backward
+(``torch.utils.checkpoint``), as the JAX scans checkpoint their steps.
+Plain PyTorch.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.mamba import _chunk_len, causal_depthwise_conv
@@ -53,10 +57,52 @@ def init_mlstm(cfg: ModelConfig, dtype, generator, device) -> dict:
     }
 
 
-def _mlstm_chunked(q, k, v, log_i, log_f, chunk: int):
+def _mlstm_chunk(c_mat, n_vec, m_run, qc, kc, vc, li, fc, tri):
+    """One chunk of the chunkwise mLSTM from the carry (C (B, NH, HD, HD),
+    n (B, NH, HD), m (B, NH)). q/k/v (B, C, NH, HD) any dtype, li and the
+    in-chunk cumulative log forget gates fc (B, C, NH) f32. Returns the
+    chunk-end carry and y (B, C, NH, HD) in v's dtype."""
+    hd = qc.shape[-1]
+    out_dtype = vc.dtype
+    qc = qc.float()
+    kc = kc.float() / (hd ** 0.5)
+    vc = vc.float()
+    ft = fc[:, -1]                                           # (B, NH)
+    # intra-chunk pair log-weights D[t,s] = fcum_t - fcum_s + i_s, s<=t
+    dmat = fc[:, :, None, :] - fc[:, None, :, :] + li[:, None, :, :]
+    dmat = torch.where(tri[None, :, :, None], dmat,
+                       torch.tensor(NEG, device=dmat.device))  # (B,C,C,NH)
+    inter_log = fc + m_run[:, None, :]                       # (B,C,NH)
+    m_t = torch.maximum(dmat.amax(dim=2), inter_log)         # (B,C,NH)
+    w_pair = torch.exp(dmat - m_t[:, :, None, :])
+    w_inter = torch.exp(inter_log - m_t)
+    logits = torch.einsum("bthd,bshd->btsh", qc, kc)
+    num = (torch.einsum("btsh,bshd->bthd", logits * w_pair, vc)
+           + torch.einsum("bthd,bhde->bthe", qc, c_mat) * w_inter[..., None])
+    n_t = (torch.einsum("btsh,bshd->bthd", w_pair, kc)
+           + w_inter[..., None] * n_vec[:, None])
+    den = torch.maximum(
+        torch.einsum("bthd,bthd->bth", qc, n_t).abs(), torch.exp(-m_t))
+    y = (num / den[..., None]).to(out_dtype)
+    # chunk-end state
+    end_log = ft[:, None, :] - fc + li                       # (B,C,NH)
+    m_end = torch.maximum(ft + m_run, end_log.amax(dim=1))
+    w_end = torch.exp(end_log - m_end[:, None, :])
+    decay = torch.exp(ft + m_run - m_end)                    # (B, NH)
+    c_mat = decay[..., None, None] * c_mat + torch.einsum(
+        "bsh,bshd,bshe->bhde", w_end, kc, vc)
+    n_vec = decay[..., None] * n_vec + torch.einsum(
+        "bsh,bshd->bhd", w_end, kc)
+    return c_mat, n_vec, m_end, y
+
+
+def _mlstm_chunked(q, k, v, log_i, log_f, chunk: int, remat: bool = False):
     """q/k/v: (B, S, NH, HD) any dtype; log_i/log_f: (B, S, NH) f32.
     Returns y (B, S, NH, HD) in v's dtype and the final (C, n, m) state.
-    f32 copies of q/k/v exist one chunk at a time."""
+    f32 copies of q/k/v exist one chunk at a time. ``remat`` (training)
+    checkpoints each chunk, as the JAX scan's ``jax.checkpoint`` of its
+    step does: the chunk runs again in the backward from its inputs and
+    its carry."""
     bsz, s, nh, hd = q.shape
     chunk = _chunk_len(chunk, s)
     dev = q.device
@@ -68,39 +114,14 @@ def _mlstm_chunked(q, k, v, log_i, log_f, chunk: int):
     ys = []
     for ci in range(s // chunk):
         sl = slice(ci * chunk, (ci + 1) * chunk)
-        qc = q[:, sl].float()
-        kc = k[:, sl].float() / (hd ** 0.5)
-        vc = v[:, sl].float()
-        li = log_i[:, sl]
-        fc = fcum_all[:, ci]
-        ft = fc[:, -1]                                       # (B, NH)
-        # intra-chunk pair log-weights D[t,s] = fcum_t - fcum_s + i_s, s<=t
-        dmat = fc[:, :, None, :] - fc[:, None, :, :] + li[:, None, :, :]
-        dmat = torch.where(tri[None, :, :, None], dmat,
-                           torch.tensor(NEG, device=dev))    # (B,C,C,NH)
-        inter_log = fc + m_run[:, None, :]                   # (B,C,NH)
-        m_t = torch.maximum(dmat.amax(dim=2), inter_log)     # (B,C,NH)
-        w_pair = torch.exp(dmat - m_t[:, :, None, :])
-        w_inter = torch.exp(inter_log - m_t)
-        logits = torch.einsum("bthd,bshd->btsh", qc, kc)
-        num = (torch.einsum("btsh,bshd->bthd", logits * w_pair, vc)
-               + torch.einsum("bthd,bhde->bthe", qc, c_mat)
-               * w_inter[..., None])
-        n_t = (torch.einsum("btsh,bshd->bthd", w_pair, kc)
-               + w_inter[..., None] * n_vec[:, None])
-        den = torch.maximum(
-            torch.einsum("bthd,bthd->bth", qc, n_t).abs(), torch.exp(-m_t))
-        ys.append((num / den[..., None]).to(v.dtype))
-        # chunk-end state
-        end_log = ft[:, None, :] - fc + li                   # (B,C,NH)
-        m_end = torch.maximum(ft + m_run, end_log.amax(dim=1))
-        w_end = torch.exp(end_log - m_end[:, None, :])
-        decay = torch.exp(ft + m_run - m_end)                # (B, NH)
-        c_mat = decay[..., None, None] * c_mat + torch.einsum(
-            "bsh,bshd,bshe->bhde", w_end, kc, vc)
-        n_vec = decay[..., None] * n_vec + torch.einsum(
-            "bsh,bshd->bhd", w_end, kc)
-        m_run = m_end
+        args = (c_mat, n_vec, m_run, q[:, sl], k[:, sl], v[:, sl],
+                log_i[:, sl], fcum_all[:, ci], tri)
+        if remat:
+            c_mat, n_vec, m_run, y = checkpoint(_mlstm_chunk, *args,
+                                                use_reentrant=False)
+        else:
+            c_mat, n_vec, m_run, y = _mlstm_chunk(*args)
+        ys.append(y)
     return torch.cat(ys, dim=1), (c_mat, n_vec, m_run)
 
 
@@ -157,7 +178,8 @@ def apply_mlstm(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
             log_f[:, 0], (cache["c"], cache["n"], cache["m"]))
         y = y[:, None]
     else:
-        y, new_state = _mlstm_chunked(q, k, v, log_i, log_f, cfg.xlstm.chunk)
+        y, new_state = _mlstm_chunked(q, k, v, log_i, log_f, cfg.xlstm.chunk,
+                                      remat=mode == "train")
 
     y = y.reshape(bsz, s, d_in).to(x.dtype)
     out = (y * F.silu(z)) @ p["down"]
@@ -195,29 +217,49 @@ def init_slstm(cfg: ModelConfig, dtype, generator, device) -> dict:
     }
 
 
-def _slstm_scan(gates_in, r, b, nh: int, hd: int, state):
+#: The dtype of the sLSTM's emitted h: bf16 whatever the model dtype, as
+#: the JAX scan emits it (the state keeps h in f32).
+SLSTM_H_DTYPE = torch.bfloat16
+
+
+def _slstm_step(c, n, h, m, g_t, rf, bias):
+    """One sLSTM step from the state (c, n, h, m), each (B, NH, HD) f32.
+    g_t: (B, 4D) the token's input contributions; rf (NH, HD, 4HD) f32.
+    Returns the new state; ``h`` stays f32 in the state."""
+    bsz, nh, hd = c.shape
+    rec = torch.einsum("bhd,hdk->bhk", h, rf)                # (B, NH, 4HD)
+    g = (g_t.float().reshape(bsz, nh, 4, hd)
+         + rec.reshape(bsz, nh, 4, hd) + bias)
+    i_pre, f_pre, z_pre, o_pre = (g[:, :, j] for j in range(4))
+    log_f = F.logsigmoid(f_pre)
+    m_new = torch.maximum(log_f + m, i_pre)
+    i_g = torch.exp(i_pre - m_new)
+    f_g = torch.exp(log_f + m - m_new)
+    c = f_g * c + i_g * torch.tanh(z_pre)
+    n = f_g * n + i_g
+    n = torch.maximum(n, torch.tensor(1e-6, dtype=n.dtype, device=n.device))
+    h = torch.sigmoid(o_pre) * c / n
+    return c, n, h, m_new
+
+
+def _slstm_scan(gates_in, r, b, nh: int, hd: int, state,
+                remat: bool = False):
     """gates_in: (B, S, 4D) precomputed input contributions; ``state``
-    (c, n, h, m), each (B, NH, HD) f32. Returns the bf16 hidden sequence
-    (B, S, NH, HD) and the final state."""
-    bsz, s, _ = gates_in.shape
+    (c, n, h, m), each (B, NH, HD) f32. Returns the hidden sequence
+    (B, S, NH, HD) in ``SLSTM_H_DTYPE`` and the final state. ``remat``
+    (training) checkpoints each step, as the JAX scan's ``jax.checkpoint``
+    of its step does."""
     c, n, h, m = state
     rf = r.float()
     bias = b.reshape(nh, 4, hd)[None]
     hs = []
-    for t in range(s):
-        rec = torch.einsum("bhd,hdk->bhk", h, rf)            # (B, NH, 4HD)
-        g = (gates_in[:, t].float().reshape(bsz, nh, 4, hd)
-             + rec.reshape(bsz, nh, 4, hd) + bias)
-        i_pre, f_pre, z_pre, o_pre = (g[:, :, j] for j in range(4))
-        log_f = F.logsigmoid(f_pre)
-        m_new = torch.maximum(log_f + m, i_pre)
-        i_g = torch.exp(i_pre - m_new)
-        f_g = torch.exp(log_f + m - m_new)
-        c = f_g * c + i_g * torch.tanh(z_pre)
-        n = torch.clamp(f_g * n + i_g, min=1e-6)
-        h = torch.sigmoid(o_pre) * c / n
-        m = m_new
-        hs.append(h.to(torch.bfloat16))
+    for t in range(gates_in.shape[1]):
+        args = (c, n, h, m, gates_in[:, t], rf, bias)
+        if remat:
+            c, n, h, m = checkpoint(_slstm_step, *args, use_reentrant=False)
+        else:
+            c, n, h, m = _slstm_step(*args)
+        hs.append(h.to(SLSTM_H_DTYPE))
     return torch.stack(hs, dim=1), (c, n, h, m)
 
 
@@ -233,7 +275,8 @@ def apply_slstm(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
         zero = torch.zeros((bsz, nh, hd), dtype=torch.float32,
                            device=x.device)
         state = (zero, zero, zero, zero)
-    hs, new_state = _slstm_scan(gates_in, p["r"], p["b"], nh, hd, state)
+    hs, new_state = _slstm_scan(gates_in, p["r"], p["b"], nh, hd, state,
+                                remat=ctx.mode == "train")
     y = hs.reshape(bsz, s, d).to(x.dtype)
     if cache is None:
         return y, None

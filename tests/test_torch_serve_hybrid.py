@@ -20,7 +20,10 @@ interpret mode:
 * the prefix cache and speculation refused with JAX's messages;
 * ``make_prefill_step`` (the chunked scans) against JAX's: last logits
   within 1e-4 and the final recurrent state within 1e-5 x max|ref|;
-* the train path's ``NotImplementedError``.
+* what the port supports, trains and serves (``check_supported``,
+  ``check_trainable``, ``check_servable``): every LM configuration trains,
+  the engines refuse the frontend families, the MLP-experts graft stays
+  refused.
 
 The four dense decoders (gemma-2b, phi3-medium-14b, starcoder2-15b,
 gemma3-12b) on their f32 smoke configs: forward logits within 1e-4 of
@@ -155,28 +158,38 @@ def _assert_cache_equal(tc, jc, cfg_t):
 # ---------------------------------------------------------------------------
 
 def test_check_supported_and_the_train_path():
-    for arch in HYBRID + DENSE:
+    """Every LM configuration is supported and trains; the serving
+    engines refuse the frontend families; the MLP-experts graft stays
+    refused everywhere."""
+    for arch in HYBRID + DENSE + ["paligemma-3b", "musicgen-large",
+                                  "qwen3-moe-30b-a3b", "mixtral-8x7b"]:
         cfg = tcfglib.get_config(arch)
         tlm.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
-            tlm.check_trainable(cfg)
+        tlm.check_trainable(cfg)
+    for arch in HYBRID + DENSE:
+        tlm.check_servable(tcfglib.get_config(arch))
     for arch in ("paligemma-3b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tlm.check_supported(tcfglib.get_config(arch))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
+            tlm.check_servable(tcfglib.get_config(arch))
+    cfg_m = dataclasses.replace(tcfglib.get_smoke_config("musicgen-large"),
+                                dtype="float32")
+    params_m = tlm.init_params(
+        cfg_m, generator=torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tserve.BatchedServer(cfg_m, TPCFG, num_slots=2, max_seq=16,
+                             params=params_m, device="cpu")
     graft = dataclasses.replace(tcfglib.get_smoke_config("qwen3-moe-30b-a3b"),
                                 glu=False)
-    with pytest.raises(NotImplementedError, match="MLP experts"):
-        tlm.check_supported(graft)
-    tlm.check_trainable(tcfglib.get_config("qwen3-moe-30b-a3b"))
+    for check in (tlm.check_supported, tlm.check_trainable):
+        with pytest.raises(NotImplementedError, match="MLP experts"):
+            check(graft)
     _, cfg_t, _, _ = _models("jamba-1.5-large-398b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
-        tsteps.make_train_step(cfg_t, TPCFG, tadamw.OptimizerConfig())
-    with pytest.raises(NotImplementedError, match="recurrent mixers"):
-        ttrain.main(["--arch", "xlstm-350m", "--smoke", "--steps", "1",
-                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="dense FFN"):
-        ttrain.main(["--arch", "gemma-2b", "--smoke", "--steps", "1",
-                     "--device", "cpu"])
+    tsteps.make_train_step(cfg_t, TPCFG, tadamw.OptimizerConfig())
+    for arch in ("xlstm-350m", "gemma-2b"):
+        log = ttrain.main(["--arch", arch, "--smoke", "--steps", "1",
+                           "--global-batch", "2", "--seq-len", "16",
+                           "--device", "cpu"])
+        assert len(log) == 1 and np.isfinite(log[0]["loss"])
 
 
 # ---------------------------------------------------------------------------

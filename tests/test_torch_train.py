@@ -8,7 +8,8 @@ CPU, where every port kernel wrapper runs its plain version:
   and ``ops.esmm`` (the unfused ``moe_glu``, and alone in both weight
   orientations) against ``jax.grad`` of the JAX ops (``impl="pallas"``,
   interpret mode, blk 8) for x, the routing gates and the three weights;
-* ``chunked_attention`` forward and grads;
+* ``chunked_attention`` forward and grads (one case with a prefix-LM
+  mask longer than the query chunk);
 * ``adamw.apply_updates`` on identical grads (schedule, clip, decay mask,
   f32 masters of bf16 parameters), the synthetic ``TokenSource``;
 * the whole train step: 3 steps of the port's ``make_train_step`` against
@@ -152,20 +153,26 @@ def test_esmm_grads_match_jax(transpose_rhs):
     _close(w_t.grad, want[1], GRAD_TOL["float32"])
 
 
-@pytest.mark.parametrize("window,q_chunk,kv_block,softcap", [
-    (None, 2048, 2048, 0.0),
-    (None, 8, 4, 0.0),
-    (8, 8, 4, 0.0),
-    (12, 16, 8, 30.0),
-])
-def test_chunked_attention_matches_jax(window, q_chunk, kv_block, softcap):
+# ids as before the prefix case was added, so each case keeps its name
+@pytest.mark.parametrize("window,q_chunk,kv_block,softcap,prefix_len", [
+    (None, 2048, 2048, 0.0, 0),
+    (None, 8, 4, 0.0, 0),
+    (8, 8, 4, 0.0, 0),
+    (12, 16, 8, 30.0, 0),
+    (None, 8, 4, 0.0, 12),
+], ids=["None-2048-2048-0.0", "None-8-4-0.0", "8-8-4-0.0", "12-16-8-30.0",
+        "prefix12-8-4"])
+def test_chunked_attention_matches_jax(window, q_chunk, kv_block, softcap,
+                                       prefix_len):
+    """The prefix case runs a q_chunk (8) shorter than the prefix (12):
+    chunk 0 reads keys up to its own end only, in both packages."""
     b, s, hq, hkv, hd = 2, 32, 4, 2, 8
     rng = np.random.default_rng(3)
     q, k, v = (rng.normal(size=(b, s, h, hd)).astype(np.float32)
                for h in (hq, hkv, hkv))
     ct = rng.normal(size=(b, s, hq, hd)).astype(np.float32)
     kw = dict(causal=True, window=window, q_chunk=q_chunk,
-              kv_block=kv_block, softcap=softcap)
+              kv_block=kv_block, softcap=softcap, prefix_len=prefix_len)
 
     def jloss(q_, k_, v_):
         out = jattn.chunked_attention(q_, k_, v_, **kw)
