@@ -281,9 +281,11 @@ does):
    norm finite; every leaf's f32 master (a strided sample of 4,096
    elements) moved and every leaf's first moment non-zero somewhere (its
    gradient reached it); step median, tokens/s and the peak.
-8x, 8p, 8m. The same for xlstm-350m (whole), paligemma-3b (256 patches +
-   768 tokens a row) and musicgen-large (1,024 frames, 64 conditioning
-   rows, 4 codebooks a row), at full width and depth, none launching an
+8x, 8p, 8m. The same for xlstm-350m (one 8-layer period of its 24, 7
+   mLSTM and 1 sLSTM: the sLSTM's step loop paces the host),
+   paligemma-3b (256 patches + 768 tokens a row) and musicgen-large
+   (1,024 frames, 64 conditioning rows, 4 codebooks a row), at full width
+   and (but 8x) depth, none launching an
    expert kernel; in 8m ``embed`` and ``head`` alone have a zero
    gradient, as in JAX (the inputs are frames and the 4 codebook heads
    replace the head): their first moments must be exactly 0; 8p and 8m then run a dense prefill and
@@ -385,6 +387,36 @@ path of either package calls it, so its public entry point is its path):
    shape and at hd 256, and S that leaves partial tiles on both routes
    at hd 64, 128 and 256) against the plain version.
 
+13. Phase M, the mesh step: a 1-rank NCCL group on the card
+   (``torch.distributed``, a ``FileStore`` rendezvous, ``device_id``
+   cuda:0) and ``launch.mesh.make_mesh((1, 1, 1), ("pod", "data",
+   "model"))``. Swin-MoE-Small at full width and depth, f32, global batch
+   128, phase 11's seeded weights and batches: 3 AdamW steps mesh-less,
+   then 3 on the mesh in each of model_centric, data_centric
+   (``cache_policy`` shared_cache and janus), hybrid, auto and ep
+   (capacity 8: nothing dropped), each from the same weights. Each step's
+   loss within ``SWIN_LOSS_RTOL`` of the mesh-less step's and the
+   gathered parameters within ``MESH_PARAM_TOL`` of its (``MESH_EP_TOL``
+   for ep, whose experts are cuBLAS products, not the kernels); the step
+   median, images/s, peak memory and the expert kernels' launches of each
+   mode and policy. One rank moves nothing across chips: the gathers are
+   copies on the card, which is what shows the cache's memory effect.
+14. Phase H, heterogeneous execution: ``parallel.hetero_exec.
+   HeteroExecutor`` at Swin-MoE-Small's stage-3 MoE layer (D 384, F 1536,
+   8 experts top-1, 25,088 tokens, f32, MLP experts) and at
+   qwen3-moe-30b-a3b's expert layer (D 2048, F 768, 128 experts top-8,
+   4,096 tokens, bf16, GLU). For each, data- and model-centric, uniform
+   against proportional, at the paper's Table 3 proxy latencies and at a
+   2x skew, and once with a device class at ``expert_bits`` 8: each device
+   program's time (CUDA events) and the simulated-skew step latency. After
+   each timed run (and outside its launch counts) each device program's
+   output is held to its plain version, and the combined output to the
+   unsplit layer but for the 8-bit class, which computes another layer.
+15. Phase R, roofline constants: the card's bf16 peak (the median of a
+   8192^3 ``torch.matmul``) and memory rate (a device copy of 2 GiB) beside
+   ``parallel.autotune.H100_SXM``'s, which must agree within 10 %; and
+   ``crossover_tokens`` at the Swin-Small and qwen widths for TP 2/4/8.
+
 It then prints the kernels' JSON line (the 8-bit branches as entries of
 their own), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -464,6 +496,40 @@ SWIN_GRAD_TOL = 1e-4                              # x max|grad| of the leaf
 # tests/test_torch_tf32x3.py's model at the stage-2 widths.)
 SWIN_ABLATION_TOL = 1e-5                          # x max|grad| of the leaf
 SWIN_BATCH, SWIN_STEPS = 128, 3
+# Phase M: the mesh step on a 1-rank mesh runs the mesh-less step's kernels
+# on the same operands (the gathers are copies), so its parameters may
+# part only by the clip norm's summation order (the sharded norm sums the
+# dense and the MoE leaves apart): an ulp of the update a step.
+# ep runs its experts as cuBLAS products (TF32 off) in place of the
+# kernels: its first loss (the same weights) is held to SWIN_LOSS_RTOL;
+# after that a gradient near 0 may change sign, and an Adam update is
+# about lr in size whatever the gradient's, so two runs' parameters may
+# part by up to 2 x the lr of each step taken (3e-6, 6e-6, 9e-6 at steps
+# 1-3 of OptimizerConfig's warmup), taken x 1.5 for the update's excess
+# over 1 in the first steps (measured on an H100: 1.2e-5 on the third
+# loss, 2.8e-5 on a parameter).
+MESH_MODES = (("model_centric", "none"), ("data_centric", "shared_cache"),
+              ("data_centric", "janus"), ("hybrid", "shared_cache"),
+              ("auto", "shared_cache"), ("ep", "none"))
+MESH_PARAM_TOL = 1e-7
+MESH_EP_TOL = 1.5 * 2 * (3e-6 + 6e-6 + 9e-6)
+MESH_EP_LOSS_RTOL = 1e-4
+# Phase H: the paper's Table 3 proxy latencies (benchmarks/hetero_alloc.py
+# PAPER_CASES: two GPUs at 100/300 W power limits) and a 2x skew.
+HETERO_LATENCIES = {"paper_case1_100W_300W": (4.58, 3.06),
+                    "paper_case2_300W_300W": (3.20, 3.18),
+                    "paper_case3_300W_100W": (3.28, 9.42),
+                    "skew_2x": (1.0, 2.0)}
+HETERO_WIDTHS = {
+    "swin_small_stage3": dict(d=384, f=1536, e=8, k=1, n=SWIN_BATCH * 196,
+                              dtype="float32", glu=False, act="gelu"),
+    "qwen3_moe_30b_a3b": dict(d=2048, f=768, e=128, k=8, n=4096,
+                              dtype="bfloat16", glu=True, act="silu")}
+HETERO_ROUNDS = 5
+# the one route each 8-bit branch runs on (kernels/esffn.py `_route`,
+# `_mlp_route`); phase H checks it on every 8-bit program
+HETERO_QUANT_ROUTE = {"esffn_glu": "stream", "esffn_mlp": "mma_tf32x3"}
+ROOFLINE_TOL = 0.10
 SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
 # Phase T7/8, the paper's Tables 7/8 on the card: Swin-MoE-Small and -Base
 # at full width and depth, f32, blk 128, hexa against tutel (capacity
@@ -604,6 +670,10 @@ HYBRID_TRAIN_SEEDS = (7, 8)
 # 8j/8x/8p/8m: the leaves whose gradient is zero in JAX too (musicgen's
 # inputs are frames, and its codebook heads replace the head).
 ZERO_GRAD_LEAVES = {"musicgen-large": ("embed", "head")}
+# 8x trains one period of xlstm-350m's layer pattern: its 24 layers took
+# 17.7 s a step on an H100 80GB HBM3 at 700 W (3 sLSTM step loops of
+# 1,024 host-paced steps each)
+XLSTM_TRAIN_DEPTH = 8
 FRONTEND_REF_DEPTH = 2
 FRONTEND_PREFILL, FRONTEND_DECODES = 8, 4
 FLASH_CHECK_CASES = (                  # (B, S, Hq, Hkv, hd, dtype, causal)
@@ -2311,9 +2381,10 @@ def _family_train(torch, tag, cfg, batch, seq, *, expect=None,
 def family_train_phase(torch):
     """Phases 8j (Jamba's layout at its "train" cut width, 3.02 B
     parameters: per step 2 ``esffn_glu``, 5 ``esmm`` and 3 ``estmm`` a MoE
-    layer, all on wgmma), 8x (xlstm-350m whole), 8p and 8m (paligemma-3b
-    and musicgen-large at full width and depth, then their dense serve
-    steps), each at TRAIN_BATCH x TRAIN_SEQ rows (``_family_train``)."""
+    layer, all on wgmma), 8x (xlstm-350m, XLSTM_TRAIN_DEPTH layers), 8p
+    and 8m (paligemma-3b and musicgen-large at full width and depth, then
+    their dense serve steps), each at TRAIN_BATCH x TRAIN_SEQ rows
+    (``_family_train``)."""
     from repro_torch import configs as cfglib
 
     from repro_torch.configs import jamba_1_5_large_398b as jamba_cfg
@@ -2323,10 +2394,12 @@ def family_train_phase(torch):
     out = {"8j": _family_train(
         torch, "8j", jamba, TRAIN_BATCH, TRAIN_SEQ,
         expect={"esffn_glu": 2 * n, "esmm": 5 * n, "estmm": 3 * n})}
-    for tag, arch in (("8x", "xlstm-350m"), ("8p", "paligemma-3b"),
-                      ("8m", "musicgen-large")):
-        out[tag] = _family_train(torch, tag, cfglib.get_config(arch),
-                                 TRAIN_BATCH, TRAIN_SEQ,
+    xlstm = dataclasses.replace(cfglib.get_config("xlstm-350m"),
+                                num_layers=XLSTM_TRAIN_DEPTH)
+    for tag, cfg in (("8x", xlstm),
+                     ("8p", cfglib.get_config("paligemma-3b")),
+                     ("8m", cfglib.get_config("musicgen-large"))):
+        out[tag] = _family_train(torch, tag, cfg, TRAIN_BATCH, TRAIN_SEQ,
                                  serve=tag in ("8p", "8m"))
     return out
 
@@ -5499,6 +5572,378 @@ def hybrid_serve_phase(torch, arch, tag):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases M, H, R: the mesh islands, heterogeneous execution, roofline
+# ---------------------------------------------------------------------------
+
+SWIN_KERNELS = ("esffn_mlp", "esmm", "esfk", "ess", "estmm")
+
+
+def _swin_kernel_fns():
+    from repro_torch.kernels import esffn, esfk, esmm, ess, estmm
+
+    return {"esffn_mlp": esffn.esffn_mlp, "esmm": esmm.esmm,
+            "esfk": esfk.esfk, "ess": ess.ess, "estmm": estmm.estmm,
+            "esffn_glu": esffn.esffn_glu}
+
+
+def _reset_launches(fns):
+    for fn in fns.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+
+
+def mesh_phase(torch):
+    """Phase M: Swin-MoE-Small's train step on a 1-rank NCCL mesh in each
+    mode and cache policy, against the mesh-less step."""
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.configs import swin_moe_small
+    from repro_torch.launch.mesh import make_mesh, single_rank_nccl
+    from repro_torch.models import swin
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import (
+        ParallelConfig, shard_tree, unshard_tree)
+
+    cfg = swin_moe_small.CONFIG
+    opt_cfg = adamw.OptimizerConfig(master_fp32=False)
+    fns = _swin_kernel_fns()
+    t_phase = time.perf_counter()
+    with single_rank_nccl():
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        # create every communicator before anything is timed
+        for axes in (("pod",), ("data",), ("model",), ("pod", "data"),
+                     ("pod", "data", "model")):
+            mesh.all_reduce(torch.ones(1, device="cuda"), axes)
+        torch.cuda.synchronize()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        swin.init_swin(cfg, generator=gen, device="cuda")  # phase 11's draws
+        batches = [swin.synthetic_batch(cfg, SWIN_BATCH, generator=gen,
+                                        device="cuda")
+                   for _ in range(SWIN_STEPS)]
+        del gen
+
+        def fresh():
+            g = torch.Generator(device="cuda").manual_seed(0)
+            return swin.init_swin(cfg, generator=g, device="cuda")
+
+        def run(step, params, opt):
+            log, times = [], []
+            for i in range(SWIN_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, _, m = step(params, opt, *batches[i])
+                m = {k: float(v) for k, v in m.items()}
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                log.append(m)
+            return log, times
+
+        params = fresh()
+        opt = adamw.init_opt_state(params, opt_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        ref_log, ref_times = run(swin.make_train_step(
+            cfg, ParallelConfig(blk=128), opt_cfg), params, opt)
+        ref_peak = torch.cuda.max_memory_allocated()
+        ref_params = [t.detach().clone() for t in tree_leaves(params)]
+        del params, opt
+        _release(torch)
+        med = statistics.median(ref_times)
+        print(f"[mesh] mesh-less reference: losses "
+              f"{[m['loss'] for m in ref_log]}; step median "
+              f"{med * 1e3:.1f}ms, {SWIN_BATCH / med:.1f} images/s, peak "
+              f"{ref_peak / 1e9:.2f} GB")
+        out = {"reference": {"losses": [m["loss"] for m in ref_log],
+                             "step_times_s": ref_times,
+                             "step_median_ms": med * 1e3,
+                             "images_per_s": SWIN_BATCH / med,
+                             "peak_allocated_gb": ref_peak / 1e9}}
+        launches_by_path = {}
+        shapes = swin.param_shapes(cfg)
+        for mode, policy in MESH_MODES:
+            pcfg = ParallelConfig(blk=128, mode=mode, cache_policy=policy,
+                                  capacity_factor=8.0)
+            specs = swin.param_specs(cfg, pcfg)
+            full = fresh()
+            params = shard_tree(full, specs, pcfg, mesh)
+            del full
+            opt = adamw.init_opt_state(params, opt_cfg)
+            step = swin.make_train_step(cfg, pcfg, opt_cfg, mesh=mesh)
+            _release(torch)
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches(fns)
+            log, times = run(step, params, opt)
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: fns[k].launches for k in SWIN_KERNELS}
+            routes = {k: dict(fns[k].launches_by_route)
+                      for k in ("esffn_mlp", "esmm", "esfk")}
+            gathered = unshard_tree(tree_map(lambda t: t.detach(), params),
+                                    specs, shapes, pcfg, mesh)
+            tol = MESH_EP_TOL if mode == "ep" else MESH_PARAM_TOL
+            worst = 0.0
+            for a, b in zip(tree_leaves(gathered), ref_params):
+                worst = max(worst, (a - b).abs().max().item())
+            errs = [abs(m["loss"] - r["loss"]) / abs(r["loss"])
+                    for m, r in zip(log, ref_log)]
+            loss_err = max(errs)
+            name = f"{mode}/{policy}"
+            if not (errs[0] <= SWIN_LOSS_RTOL and loss_err <= (
+                    MESH_EP_LOSS_RTOL if mode == "ep" else SWIN_LOSS_RTOL)):
+                raise AssertionError(f"phase M {name}: losses "
+                                     f"{[m['loss'] for m in log]} vs "
+                                     f"{[m['loss'] for m in ref_log]}")
+            if not worst <= tol:
+                raise AssertionError(f"phase M {name}: gathered params "
+                                     f"{worst} from the mesh-less step's "
+                                     f"(limit {tol})")
+            if mode != "ep" and (launches["esffn_mlp"] == 0
+                                 or launches["esfk"] == 0):
+                raise AssertionError(f"phase M {name}: launches {launches}")
+            med = statistics.median(times)
+            print(f"[mesh] {name}: losses {[m['loss'] for m in log]} (worst "
+                  f"rel diff {loss_err:.2e}), gathered params within "
+                  f"{worst:.2e} of the mesh-less step's; step median "
+                  f"{med * 1e3:.1f}ms, {SWIN_BATCH / med:.1f} images/s, peak "
+                  f"{peak / 1e9:.2f} GB; launches {launches}")
+            out[name] = {"losses": [m["loss"] for m in log],
+                         "loss_rel_diff": loss_err,
+                         "param_max_abs_diff": worst, "param_tol": tol,
+                         "step_times_s": times, "step_median_ms": med * 1e3,
+                         "images_per_s": SWIN_BATCH / med,
+                         "peak_allocated_gb": peak / 1e9,
+                         "launches": launches, "launches_by_route": routes}
+            launches_by_path[f"swin_mesh_{mode}_{policy}"] = launches
+            del params, opt, step, gathered
+            _release(torch)
+        janus = out["data_centric/janus"]["peak_allocated_gb"]
+        shared = out["data_centric/shared_cache"]["peak_allocated_gb"]
+        expert_gb = sum(
+            t.numel() * t.element_size()
+            for st in fresh()["stages"] for b in st["blocks"]
+            if "moe" in b for k, t in b["moe"].items()
+            if k in ("w1", "w2")) / 1e9
+        _release(torch)
+        out["janus_minus_shared_cache_gb"] = janus - shared
+        out["expert_weight_gb"] = expert_gb
+        print(f"[mesh] data_centric peak: janus {janus:.3f} GB, shared_cache "
+              f"{shared:.3f} GB: {janus - shared:+.3f} GB kept for the "
+              f"backward (the expert weights: {expert_gb:.3f} GB); 1 rank: "
+              f"no traffic crosses a chip")
+    out["seconds"] = time.perf_counter() - t_phase
+    return launches_by_path, out
+
+
+def _hetero_layer(torch, w, seed=21):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, w["dtype"])
+    d, f, e = w["d"], w["f"], w["e"]
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    p = {"router": randn(d, e, scale=0.02)}
+    if w["glu"]:
+        p.update(w_gate=randn(e, d, f, scale=0.02).to(dt),
+                 w_up=randn(e, d, f, scale=0.02).to(dt),
+                 w_down=randn(e, f, d, scale=0.02).to(dt))
+    else:
+        p.update(w1=randn(e, d, f, scale=0.02).to(dt),
+                 b1=randn(e, f, scale=0.1), w2=randn(e, f, d, scale=0.02)
+                 .to(dt), b2=randn(e, d, scale=0.1))
+    x = randn(w["n"], d, scale=1.0).to(dt)
+    return p, x
+
+
+def _hetero_plain(ex, i, x, w):
+    """Device i's program through the kernels' plain versions."""
+    from repro_torch.core.reindex import build_reindex, scatter_rows
+    from repro_torch.core.routing import route
+    from repro_torch.kernels import esffn
+
+    p = ex.device_params(i)
+    xin = ex.device_input(i, x)
+    n_valid = ex._programs[i][1][1] if ex.mode == "data_centric" else None
+    vm = None
+    if n_valid is not None and n_valid != xin.shape[0]:
+        import torch
+        vm = torch.arange(xin.shape[0], device=xin.device) < n_valid
+    r = route(xin, p["router"], w["k"], valid_mask=vm)
+    ri = build_reindex(r.expert_idx, r.gates, w["e"], 128)
+    args = (xin, ri.row_token, ri.row_gate, ri.block_expert)
+    if w["glu"]:
+        sc = (tuple(p[f"{k}_scale"] for k in ("w_gate", "w_up", "w_down"))
+              if "w_gate_scale" in p else None)
+        ys = esffn.esffn_glu_plain(*args, p["w_gate"], p["w_up"],
+                                   p["w_down"], w_scales=sc, act=w["act"])
+    else:
+        sc = ((p["w1_scale"], p["w2_scale"]) if "w1_scale" in p else None)
+        ys = esffn.esffn_mlp_plain(*args, p["w1"], p.get("b1"), p["w2"],
+                                   p.get("b2"), w_scales=sc, act=w["act"])
+    return scatter_rows(ys, ri.row_token, xin.shape[0])
+
+
+def hetero_phase(torch):
+    """Phase H: the per-device programs of ``HeteroExecutor`` at two full
+    widths, timed; every arm's programs checked after its timed run."""
+    from repro_torch.core import espec
+    from repro_torch.core.hetero import make_hetero_plan, uniform_counterpart
+    from repro_torch.parallel.hetero_exec import HeteroExecutor
+
+    fns = _swin_kernel_fns()
+    t_phase = time.perf_counter()
+    out, launches_by_path, checks = {}, {}, []
+    for wname, w in HETERO_WIDTHS.items():
+        p, x = _hetero_layer(torch, w)
+        kname = "esffn_glu" if w["glu"] else "esffn_mlp"
+        tol_rel = (ESFFN_TOL["bfloat16"] if w["dtype"] == "bfloat16"
+                   else SWIN_KERNEL_TOL)
+        kw = dict(num_experts=w["e"], top_k=w["k"], act=w["act"],
+                  glu=w["glu"], blk=128)
+        full = espec.hexa_moe_ffn(x, p, num_experts=w["e"], top_k=w["k"],
+                                  act=w["act"], glu=w["glu"], blk=128).y
+        res = {}
+        # the 8-bit class's launches go to the 8-bit branch's entry
+        launches, routes, quant = 0, {}, {}
+        qroute = HETERO_QUANT_ROUTE[kname]
+        runs = [(lname, lat, None) for lname, lat in HETERO_LATENCIES.items()]
+        runs.append(("skew_2x_int8", HETERO_LATENCIES["skew_2x"], (16, 8)))
+        for lname, lat, bits in runs:
+            plan = make_hetero_plan(lat, global_batch=w["n"],
+                                    hidden_size=w["f"], token_quantum=128,
+                                    hidden_quantum=128, expert_bits=bits)
+            arms = {"proportional": plan}
+            if bits is None:
+                arms["uniform"] = uniform_counterpart(plan)
+            for mode in ("data_centric", "model_centric"):
+                for arm, pl in arms.items():
+                    ex = HeteroExecutor(p, plan=pl, mode=mode, **kw)
+                    # the counts cover the timed run only, not the checks
+                    _reset_launches(fns)
+                    q0 = dict(fns[kname].launches_quant)
+                    st = ex.timed_step(x, rounds=HETERO_ROUNDS)
+                    torch.cuda.synchronize()
+                    nq = 0
+                    for m, n in fns[kname].launches_quant.items():
+                        quant[m] = quant.get(m, 0) + n - q0[m]
+                        nq += n - q0[m]
+                    launches += fns[kname].launches - nq
+                    for r, n in fns[kname].launches_by_route.items():
+                        routes[r] = (routes.get(r, 0) + n
+                                     - (nq if r == qroute else 0))
+                    key = f"{lname}/{mode}/{arm}"
+                    res[key] = {
+                        "splits": list(pl.token_counts
+                                       if mode == "data_centric"
+                                       else pl.hidden_splits),
+                        "device_ms": [t * 1e3 for t in st.device_times_s],
+                        "skews": list(ex.skews),
+                        "step_ms": st.step_latency_s * 1e3,
+                        "device_param_bytes": list(ex.device_param_bytes())}
+                    # each device program against its plain version, and
+                    # the combined output against the unsplit layer (but
+                    # for the 8-bit class, which computes another layer)
+                    worst = 0.0
+                    for i in range(len(ex.skews)):
+                        r0 = dict(fns[kname].launches_by_route)
+                        q0 = sum(fns[kname].launches_quant.values())
+                        kern = ex.run_device(i, x)
+                        if sum(fns[kname].launches_quant.values()) > q0 \
+                                and fns[kname].launches_by_route[qroute] \
+                                == r0[qroute]:
+                            raise AssertionError(
+                                f"phase H {wname} {key} device {i}: the "
+                                f"8-bit branch ran off {qroute}")
+                        err, tol = _check(
+                            f"phase H {wname} {key} device {i}", kern,
+                            _hetero_plain(ex, i, x, w), tol_rel)
+                        worst = max(worst, err / tol)
+                    c = {"width": wname, "run": key,
+                         "worst_device_err_over_tol": worst}
+                    if bits is None:
+                        err, tol = _check(f"phase H {wname} {key} vs "
+                                          f"unsplit", st.y, full, tol_rel)
+                        c["unsplit_err_over_tol"] = err / tol
+                    checks.append(c)
+                    del ex, st
+            for mode in ("data_centric", "model_centric"):
+                if "uniform" in arms:
+                    u = res[f"{lname}/{mode}/uniform"]["step_ms"]
+                    pr = res[f"{lname}/{mode}/proportional"]["step_ms"]
+                    print(f"[hetero] {wname} {lname} {mode}: uniform "
+                          f"{res[f'{lname}/{mode}/uniform']['device_ms']} ms "
+                          f"-> step {u:.3f} ms; proportional "
+                          f"{res[f'{lname}/{mode}/proportional']['splits']} "
+                          f"{res[f'{lname}/{mode}/proportional']['device_ms']}"
+                          f" ms -> step {pr:.3f} ms ({u / pr:.3f} x)")
+                else:
+                    r = res[f"{lname}/{mode}/proportional"]
+                    print(f"[hetero] {wname} {lname} {mode}: splits "
+                          f"{r['splits']}, device ms {r['device_ms']}, step "
+                          f"{r['step_ms']:.3f} ms, expert bytes "
+                          f"{r['device_param_bytes']}")
+        launches_by_path[f"hetero_{wname}"] = {kname: launches}
+        mine = [c for c in checks if c["width"] == wname]
+        print(f"[hetero] checks {wname}: {len(mine)} arms, worst device "
+              f"err / limit {max(c['worst_device_err_over_tol'] for c in mine):.3g}"
+              f", worst vs unsplit "
+              f"{max(c.get('unsplit_err_over_tol', 0.0) for c in mine):.3g}")
+        out[wname] = {**w, "runs": res, "launches_by_route": routes,
+                      "launches_quant": {m: n for m, n in quant.items() if n}}
+        del p, x, full
+        _release(torch)
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t_phase
+    return launches_by_path, out
+
+
+def roofline_phase(torch):
+    """Phase R: the card's bf16 matmul peak and memory rate against
+    ``autotune.H100_SXM``, and the data-/model-centric crossovers."""
+    from repro_torch.parallel import autotune
+
+    t_phase = time.perf_counter()
+    n = 8192
+    a = torch.randn((n, n), device="cuda", dtype=torch.bfloat16)
+    b = torch.randn((n, n), device="cuda", dtype=torch.bfloat16)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    mm_ms = time_ms(torch, lambda: torch.matmul(a, b), flush, iters=30)
+    peak = 2 * n ** 3 / (mm_ms / 1e3)
+    del a, b
+    nbytes = 2 * 2 ** 30
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    src.fill_(1)
+    cp_ms = time_ms(torch, lambda: dst.copy_(src), flush, iters=20)
+    hbm = 2 * nbytes / (cp_ms / 1e3)             # read + write
+    del src, dst, flush
+    _release(torch)
+    hw = autotune.H100_SXM
+    rel = {"peak_flops": peak / hw.peak_flops - 1,
+           "hbm_bw": hbm / hw.hbm_bw - 1}
+    print(f"[roofline] bf16 {n}^3 matmul {mm_ms:.3f} ms: {peak / 1e12:.1f} "
+          f"TFLOP/s (H100_SXM.peak_flops {hw.peak_flops / 1e12:.1f}, "
+          f"{rel['peak_flops']:+.2%}); 2 GiB copy {cp_ms:.3f} ms: "
+          f"{hbm / 1e12:.3f} TB/s (H100_SXM.hbm_bw {hw.hbm_bw / 1e12:.3f}, "
+          f"{rel['hbm_bw']:+.2%}); link_bw {hw.link_bw / 1e9:.0f} GB/s "
+          f"(NVIDIA's published NVLink figure, not measured)")
+    for k, v in rel.items():
+        if not abs(v) <= ROOFLINE_TOL:
+            raise AssertionError(f"phase R: measured {k} is {v:+.2%} from "
+                                 f"autotune.H100_SXM's: update the profile")
+    cross = {}
+    for name, (d, f, e, k) in (("swin_small_stage3", (384, 1536, 8, 1)),
+                               ("swin_small_stage4", (768, 3072, 8, 1)),
+                               ("qwen3_moe_30b_a3b", (2048, 768, 128, 8))):
+        cross[name] = {tp: autotune.crossover_tokens(d, f, e, k, n_dev=tp)
+                       for tp in (2, 4, 8)}
+    print(f"[roofline] crossover tokens (model- -> data-centric, bf16, "
+          f"H100_SXM) at TP 2/4/8: {cross}")
+    return {"matmul_ms": mm_ms, "peak_flops": peak, "copy_ms": cp_ms,
+            "hbm_bw": hbm, "profile": dataclasses.asdict(hw),
+            "rel_diff": rel, "crossover_tokens": cross,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def _release(torch):
     """Free what the last phase left: its objects in reference cycles (a
     ``SpecDecoder`` and its server point at each other, so their weights
@@ -5657,6 +6102,15 @@ def main() -> int:
         print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
               f"{c['err_over_tol']:.3g} x the limit")
     del flush
+    _release(torch)
+    mesh_launches, mesh_res = mesh_phase(torch)
+    print(f"[mesh] {json.dumps(mesh_res)}")
+    _release(torch)
+    hetero_launches, hetero_res = hetero_phase(torch)
+    print(f"[hetero] {json.dumps(hetero_res)}")
+    _release(torch)
+    roofline_res = roofline_phase(torch)
+    print(f"[roofline] {json.dumps(roofline_res)}")
     print(f"[done] every phase in {time.perf_counter() - t_start:.1f}s")
 
     # Each kernel's launches on the main paths that ran it: the paged and
@@ -5676,7 +6130,8 @@ def main() -> int:
                    "jamba_train_8j": family_train["8j"]}
     paths = {**serve_launches, "qwen_train": train_launches, **qat_paths,
              **swin_launches, **hybrid_paths,
-             **{p: r["launches"] for p, r in jamba_train.items()}}
+             **{p: r["launches"] for p, r in jamba_train.items()},
+             **mesh_launches, **hetero_launches}
     by_path = {}
     for path, counts in paths.items():
         for name, n in counts.items():
@@ -5694,7 +6149,14 @@ def main() -> int:
                    **{f"hybrid_{tag}": r["launches_by_route"]
                       for tag, r in hybrid_ref.items()},
                    **{p: r["launches_by_route"]
-                      for p, r in jamba_train.items()}}
+                      for p, r in jamba_train.items()},
+                   **{f"swin_mesh_{k.replace('/', '_')}":
+                      r["launches_by_route"] for k, r in mesh_res.items()
+                      if isinstance(r, dict) and "launches_by_route" in r},
+                   **{f"hetero_{k}": {("esffn_glu" if r["glu"]
+                                       else "esffn_mlp"):
+                                      r["launches_by_route"]}
+                      for k, r in hetero_res.items() if k in HETERO_WIDTHS}}
 
     def by_route(name, cases, routes, paths=route_paths):
         """Each route of a kernel with several: its launches on each path
@@ -5727,14 +6189,18 @@ def main() -> int:
                 "tolerance": head["tolerance"], "cases": cases, **extra}
 
     # The 8-bit branches' launches on the paths that ran them: the int8
-    # and fp8 serve runs (phase Q3) and the reference paths (phase Q2:
-    # serve, the frozen-expert backward, the Swin forward).
+    # and fp8 serve runs (phase Q3), the reference paths (phase Q2:
+    # serve, the frozen-expert backward, the Swin forward), Jamba's serve
+    # (5j) and phase H's 8-bit device class.
     qpaths = {**{f"quant_serve_{m}": {"esffn_glu": {m: r["launches"][
         "esffn_glu"]}, "paged_attention": {"int8": r["launches"][
             "paged_attention"]}} for m, r in quant_serve.items()},
         **{f"quant_{p}": c for p, c in quant_ref["launches"].items()},
         **{f"hybrid_{tag}_{kind}": r[kind]["launches_quant"]
-           for tag, r in hybrid_serve.items() for kind in ("paged", "dense")}}
+           for tag, r in hybrid_serve.items() for kind in ("paged", "dense")},
+        **{f"hetero_{k}": {("esffn_glu" if r["glu"] else "esffn_mlp"):
+                           r["launches_quant"]}
+           for k, r in hetero_res.items() if k in HETERO_WIDTHS}}
 
     def qentry(kernel, source, replaces, branch, cases, **extra):
         by = {p: sum(c.get(kernel, {}).values()) for p, c in qpaths.items()}

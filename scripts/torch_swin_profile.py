@@ -5,6 +5,8 @@ one NVIDIA GPU.
     python3 scripts/torch_swin_profile.py [--batch 128] [--steps 3]
         [--config small|base] [--moe-impl hexa|tutel|megablocks]
         [--top-k K] [--unfused]
+        [--mode hybrid|model_centric|data_centric|auto|ep]
+        [--cache-policy shared_cache|janus|none]
 
 Builds Swin-MoE-Small or -Base (``configs/swin_moe_small.py``,
 ``configs/swin_moe_base.py``: 8 experts, top-1 unless ``--top-k``, f32)
@@ -12,7 +14,14 @@ at full width and depth with AdamW (``master_fp32=False``, as the JAX
 package's ``benchmarks/memory_table.py`` step), its MoE blocks through
 ``--moe-impl`` (the paper's method, or the Tutel or MegaBlocks baseline),
 with the unfused expert backward (ESTMM + ESS, the Fig. 12 ablation)
-under ``--unfused``; takes one warm-up
+under ``--unfused``. With ``--mode`` the step runs on a 1-rank mesh
+(chip_smoke.py's phase M): a 1-rank NCCL group on the card,
+``make_mesh((1, 1, 1), ("pod", "data", "model"))``, the parameters as the
+mode shards them and ``--cache-policy`` for the gathered expert weights;
+one rank moves nothing across chips, so what differs from the mesh-less
+step is the gathers' copies, the recompute and the collectives' own
+launches (``train_step.grad_sync`` is the gradient sum and the sharded
+clip norm). It takes one warm-up
 step on seeded 224^2 images and labels (blk 128), times ``--steps`` train
 steps on the host clock, then runs as many again under ``torch.profiler``
 and prints, as JSON lines (``scripts/torch_train_profile.report``): the
@@ -25,6 +34,7 @@ The card's name and power limit lead the output.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import sys
 import time
@@ -76,7 +86,18 @@ def main(argv=None) -> int:
     ap.add_argument("--top-k", type=int, default=1)
     ap.add_argument("--unfused", action="store_true",
                     help="the unfused expert backward (ESTMM + ESS)")
+    ap.add_argument("--mode", choices=("hybrid", "model_centric",
+                                       "data_centric", "auto", "ep"),
+                    help="run the step on a 1-rank mesh in this mode")
+    ap.add_argument("--cache-policy", default="shared_cache",
+                    choices=("shared_cache", "janus", "none"),
+                    help="with --mode: what the backward keeps of the "
+                         "gathered expert weights")
     args = ap.parse_args(argv)
+    if args.mode is None and args.cache_policy != "shared_cache":
+        ap.error("--cache-policy needs --mode")
+    if args.mode is not None and args.moe_impl != "hexa":
+        ap.error("--mode runs the hexa islands only")
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 1
@@ -86,17 +107,35 @@ def main(argv=None) -> int:
     build.build()
     base = {"small": swin_moe_small, "base": swin_moe_base}[args.config]
     cfg = swin_moe_small.with_experts(base.CONFIG, 8, args.top_k)
-    pcfg = ParallelConfig(blk=128)
     opt_cfg = adamw.OptimizerConfig(master_fp32=False)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = swin.init_swin(cfg, generator=gen, device="cuda")
-    opt_state = adamw.init_opt_state(params, opt_cfg)
     batches = [swin.synthetic_batch(cfg, args.batch, generator=gen,
                                     device="cuda")
                for _ in range(2 * args.steps + 1)]
-    train_step = swin.make_train_step(cfg, pcfg, opt_cfg,
-                                      moe_impl=args.moe_impl)
-    ops.set_fused_backward(not args.unfused)
+    with contextlib.ExitStack() as stack:
+        mesh = None
+        if args.mode is None:
+            pcfg = ParallelConfig(blk=128)
+        else:
+            from repro_torch.launch.mesh import make_mesh, single_rank_nccl
+            from repro_torch.parallel.sharding import shard_tree
+
+            stack.enter_context(single_rank_nccl())
+            mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+            pcfg = ParallelConfig(blk=128, mode=args.mode,
+                                  cache_policy=args.cache_policy,
+                                  capacity_factor=8.0)
+            params = shard_tree(params, swin.param_specs(cfg, pcfg), pcfg,
+                                mesh)
+        opt_state = adamw.init_opt_state(params, opt_cfg)
+        train_step = swin.make_train_step(cfg, pcfg, opt_cfg,
+                                          moe_impl=args.moe_impl, mesh=mesh)
+        ops.set_fused_backward(not args.unfused)
+        return _profile(args, cfg, params, opt_state, batches, train_step)
+
+
+def _profile(args, cfg, params, opt_state, batches, train_step) -> int:
 
     def run(i):
         _, _, m = train_step(params, opt_state, *batches[i])
@@ -118,7 +157,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     return report(prof, args.steps, wall, KINDS,
                   {"config": cfg.name, "top_k": args.top_k,
-                   "moe_impl": args.moe_impl,
+                   "moe_impl": args.moe_impl, "mesh_mode": args.mode,
+                   "cache_policy": args.cache_policy if args.mode else None,
                    "fused_backward": not args.unfused, "images": args.batch,
                    "train_step_wall_ms": wall * 1e3,
                    "images_per_s": args.batch / wall})

@@ -114,3 +114,31 @@ def swin_opt_state_from_jax(state: dict, cfg: SwinConfig, *,
     out["step"] = torch.tensor(int(np.asarray(state["step"])),
                                dtype=torch.int32, device=device)
     return out
+
+
+def shard_params(tree, specs, cfg, mesh, *, device=None):
+    """This rank's shards of a parameter tree given as numpy arrays (a JAX
+    value tree, or anything ``np.asarray`` takes), under the logical
+    ``specs`` (a tree of the same structure, e.g. ``models.swin.
+    param_specs``) and ``cfg.mode``: the global tree carried over and cut
+    as ``parallel.sharding.shard`` cuts it, on ``device`` (the GPU unless
+    given)."""
+    from repro_torch.parallel.sharding import shard_tree
+
+    device = resolve_device(device)
+    return shard_tree(_map(tree, lambda a: _to_tensor(a, device)), specs,
+                      cfg, mesh)
+
+
+def shard_opt_state(state: dict, specs, cfg, mesh, *, device=None) -> dict:
+    """This rank's shards of an AdamW state given as numpy arrays (the
+    JAX ``repro.optim.adamw`` state, or the port's as numpy): the moments
+    ``m``/``v`` (and ``master``, where present) cut as ``shard_params``
+    cuts the parameters they follow, and ``step`` as an int32 0-d
+    tensor."""
+    device = resolve_device(device)
+    out = {k: shard_params(state[k], specs, cfg, mesh, device=device)
+           for k in ("m", "v", "master") if k in state}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=device)
+    return out

@@ -51,6 +51,22 @@ _MIN_PAGES_PER_SPLIT = 4
 _WORKSPACE = {}
 
 
+def paged_attn_cost(lengths, page: int, hq: int, hkv: int, hd: int,
+                    itemsize: int = 2) -> dict:
+    """Bytes and FLOPs of one paged decode-attention step for actual
+    ``lengths`` (the JAX ``paged_attn_cost``): q in and out, plus the K/V
+    pages that hold live tokens (``ceil(len/page) * page`` rows a slot).
+    No ``num_slots * max_seq`` term: an empty slot costs one query row."""
+    b = len(lengths)
+    kv_rows = sum(-(-int(n) // page) * page for n in lengths)
+    tokens = sum(int(n) for n in lengths)
+    q_bytes = b * hq * hd * itemsize
+    kv_bytes = 2 * kv_rows * hkv * hd * itemsize
+    return {"flops": int(4 * tokens * hq * hd),
+            "bytes_accessed": int(q_bytes * 2 + kv_bytes),
+            "transcendentals": int(tokens * hq)}
+
+
 def pages_per_split(maxp: int) -> int:
     """Logical pages of a split: at least 4, and few enough that a table
     of ``maxp`` pages makes at most ``MAX_SPLITS`` splits (32 pages at

@@ -28,6 +28,16 @@ with window 7 gets one window and no shift). Leaves keep the JAX layouts
 make_train_fn``: cross entropy + 0.01 aux, AdamW. Like it, the forward
 saves every activation (no rematerialisation: ``ParallelConfig.remat`` is
 not read here). Entry points run on the GPU unless given another device.
+
+On a mesh (``launch.mesh.Mesh`` with "pod", "data" and "model" axes) the
+dense layers run data-parallel: each rank holds the batch rows of its
+("pod", "data") group, replicated over "model", and the whole dense
+weights. The MoE blocks go through ``moe_layer`` with the tokens placed
+``(("pod", "data"), None, None)``, as the JAX package's do, each rank
+holding its shards of the expert weights (``param_specs``; the JAX tree
+tags its dense weights fsdp/tp for GSPMD, whose placement of the dense
+layers is its own choice: the values agree). A mesh without a "pod" axis
+raises ``ValueError``, as JAX's ``shard_map`` does on that path.
 """
 from __future__ import annotations
 
@@ -48,8 +58,21 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core import baselines
 from repro_torch.core.routing import route
 from repro_torch.optim import adamw
-from repro_torch.parallel.moe_parallel import MoEStatic, moe_layer
-from repro_torch.parallel.sharding import ParallelConfig, normal_init
+from repro_torch.parallel.moe_parallel import (
+    EP_PARAM_LOGICAL,
+    MOE_PARAM_LOGICAL,
+    MoEStatic,
+    _param_specs,
+    moe_layer,
+)
+from repro_torch.parallel.sharding import (
+    ParallelConfig,
+    normal_init,
+    spec_axes,
+)
+
+#: The MoE blocks' token placement on a mesh (the JAX package's).
+SWIN_X_SPEC = (("pod", "data"), None, None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,15 +227,25 @@ def _window_attention(p, x, heads, window):
     return out.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
 
 
+def _moe_static(cfg: SwinConfig, dim: int) -> MoEStatic:
+    m = cfg.moe
+    return MoEStatic(num_experts=m.num_experts, top_k=m.top_k, act="gelu",
+                     glu=False, norm_topk=m.norm_topk,
+                     softmax_after_topk=m.softmax_after_topk,
+                     d_ff=int(cfg.mlp_ratio * dim))
+
+
 def _apply_moe_ffn(p, x_tokens, cfg: SwinConfig, pcfg: ParallelConfig,
-                   moe_impl: str):
+                   moe_impl: str, mesh=None):
     """x_tokens: (B, L, C) -> (y, aux, z) through ``moe_impl``'s path."""
     m = cfg.moe
     if moe_impl == "hexa":
-        ms = MoEStatic(num_experts=m.num_experts, top_k=m.top_k, act="gelu",
-                       glu=False, norm_topk=m.norm_topk,
-                       softmax_after_topk=m.softmax_after_topk)
-        return moe_layer(x_tokens, p, ms, pcfg)
+        return moe_layer(x_tokens, p, _moe_static(cfg, x_tokens.shape[-1]),
+                         pcfg, mesh, x_spec=SWIN_X_SPEC)
+    if mesh is not None:
+        raise NotImplementedError(
+            f"moe_impl {moe_impl!r} on a mesh: the baselines' distributed "
+            f"paths are not ported (ROADMAP.md A.5)")
     bsz, seq, c = x_tokens.shape
     xf = x_tokens.reshape(bsz * seq, c)
     r = route(xf, p["router"], m.top_k, norm_topk=m.norm_topk,
@@ -230,15 +263,63 @@ def _apply_moe_ffn(p, x_tokens, cfg: SwinConfig, pcfg: ParallelConfig,
     return y.reshape(bsz, seq, c), r.aux_loss, r.z_loss
 
 
+def check_mesh(mesh) -> None:
+    """Swin's MoE islands place their tokens over ("pod", "data"): a mesh
+    that lacks either axis is refused, as the JAX package's ``shard_map``
+    refuses it."""
+    if mesh is None:
+        return
+    missing = [a for a in ("pod", "data") if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(f"Swin's MoE islands shard tokens over ('pod', "
+                         f"'data'); the mesh {mesh.axis_names} lacks "
+                         f"{missing}")
+
+
+def param_specs(cfg: SwinConfig, pcfg: ParallelConfig) -> dict:
+    """Logical spec of every leaf, in the parameter tree's structure: the
+    MoE leaves as ``moe_parallel`` places them under ``pcfg.mode``, every
+    other leaf replicated (the dense layers run data-parallel)."""
+    table = EP_PARAM_LOGICAL if pcfg.mode == "ep" else MOE_PARAM_LOGICAL
+    shapes = param_shapes(cfg)
+
+    def walk(tree, in_moe=False):
+        if isinstance(tree, dict):
+            return {k: (walk(v, True) if k == "moe" else
+                        table[k] if in_moe else walk(v, in_moe))
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, in_moe) for v in tree]
+        return (None,) * len(tree)
+
+    return walk(shapes)
+
+
+def param_shapes(cfg: SwinConfig) -> dict:
+    """Every leaf's global shape, in the parameter tree's structure."""
+    p = init_swin(cfg, generator=torch.Generator(), device="meta")
+    return tree_map(lambda t: tuple(t.shape), p)
+
+
+def _moe_leaf_axes(cfg: SwinConfig, pcfg: ParallelConfig, mesh) -> dict:
+    """stage -> {MoE leaf name: the mesh axes its block is sharded over}."""
+    out = {}
+    for s in cfg.moe_stages:
+        dim = cfg.dims[s]
+        specs = _param_specs(_moe_static(cfg, dim), dim, pcfg, mesh)
+        out[s] = {k: tuple(a for a in mesh.axis_names if a in spec_axes(v))
+                  for k, v in specs.items()}
+    return out
+
+
 def swin_forward(params, images: torch.Tensor, cfg: SwinConfig,
                  pcfg: ParallelConfig, mesh=None, *, moe_impl: str = "hexa"):
     """images: (B, H, W, 3) -> (logits (B, classes) f32, aux, z), the MoE
     losses averaged over the MoE blocks; ``moe_impl`` is "hexa", "tutel"
     or "megablocks" (any other raises ``ValueError`` at the first MoE
-    block)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh islands are not ported yet "
-                                  "(ROADMAP.md)")
+    block). On a ``mesh``: this rank's images and parameter shards, its
+    logits, and the global aux and z."""
+    check_mesh(mesh)
     dtype = torch_dtype(cfg.dtype)
     # The stride-p, p x p VALID patch convolution as one matmul over the
     # flattened (kh, kw, c) patches, in the HWIO weight's order.
@@ -274,7 +355,7 @@ def swin_forward(params, images: torch.Tensor, cfg: SwinConfig,
             if "moe" in blk:
                 y, aux, z = _apply_moe_ffn(blk["moe"],
                                            h.reshape(bb, hh * ww, cc), cfg,
-                                           pcfg, moe_impl)
+                                           pcfg, moe_impl, mesh)
                 y = y.reshape(bb, hh, ww, cc)
                 aux_total = aux_total + aux
                 z_total = z_total + z
@@ -304,25 +385,35 @@ def swin_forward(params, images: torch.Tensor, cfg: SwinConfig,
 # ---------------------------------------------------------------------------
 
 def make_loss_fn(cfg: SwinConfig, pcfg: ParallelConfig, *,
-                 moe_impl: str = "hexa"):
+                 moe_impl: str = "hexa", mesh=None):
     """``loss_fn(params, images, labels) -> (ce + 0.01 aux, metrics)``:
     mean cross entropy of the f32 logits; the z loss is reported only.
-    ``moe_impl`` as ``swin_forward``'s."""
+    ``moe_impl`` as ``swin_forward``'s.
+
+    On a ``mesh`` each rank's loss is its share of the global loss for the
+    backward (``moe_parallel``'s convention: every term counted whole on
+    each rank that holds it): its rows' mean cross entropy over the number
+    of ("pod", "data") groups, plus 0.01 of the global aux. The metrics
+    are global: "ce" the mean over the whole batch."""
+    check_mesh(mesh)
+    n_dp = 1 if mesh is None else mesh.size(("pod", "data"))
 
     def loss_fn(params, images, labels):
-        logits, aux, z = swin_forward(params, images, cfg, pcfg,
+        logits, aux, z = swin_forward(params, images, cfg, pcfg, mesh,
                                       moe_impl=moe_impl)
         logp = torch.log_softmax(logits, dim=-1)
         ce = -logp.gather(-1, labels.long()[:, None]).mean()
-        return ce + AUX_WEIGHT * aux, {"ce": ce, "aux_loss": aux,
-                                       "z_loss": z}
+        total = ce / n_dp + AUX_WEIGHT * aux
+        if mesh is not None:
+            ce = mesh.all_reduce(ce.detach(), ("pod", "data")) / n_dp
+        return total, {"ce": ce, "aux_loss": aux, "z_loss": z}
 
     return loss_fn
 
 
 def make_train_step(cfg: SwinConfig, pcfg: ParallelConfig,
                     opt_cfg: adamw.OptimizerConfig, *,
-                    moe_impl: str = "hexa"):
+                    moe_impl: str = "hexa", mesh=None):
     """One AdamW step of Swin-MoE (``benchmarks/memory_table.py``'s
     ``make_train_fn``, which uses ``OptimizerConfig(master_fp32=False)``
     and takes ``moe_impl`` the same way).
@@ -330,8 +421,18 @@ def make_train_step(cfg: SwinConfig, pcfg: ParallelConfig,
     metrics)``; params and opt_state are updated in place
     (``adamw.apply_updates``) and metrics are 0-d tensors on the device
     ("loss" is ce + 0.01 aux). The update runs under the profiler range
-    ``train_step.adamw``."""
-    loss_fn = make_loss_fn(cfg, pcfg, moe_impl=moe_impl)
+    ``train_step.adamw``.
+
+    On a ``mesh``, params and opt_state hold this rank's shards
+    (``param_specs``; ``convert.shard_params``/``shard_opt_state`` cut
+    them) and images/labels its ("pod", "data") group's rows. The MoE
+    leaves' gradients come out of ``moe_layer`` as the global gradient's
+    blocks; the dense leaves' are summed over ("pod", "data") only (the
+    "model" ranks of a group hold the same rows and the same gradient).
+    The clip norm is the global tree's (``_mesh_grad_norm``), and the
+    moments follow the parameters' shards."""
+    loss_fn = make_loss_fn(cfg, pcfg, moe_impl=moe_impl, mesh=mesh)
+    moe_axes = None if mesh is None else _moe_leaf_axes(cfg, pcfg, mesh)
 
     def train_step(params, opt_state, images, labels):
         leaves = tree_leaves(params)
@@ -344,13 +445,65 @@ def make_train_step(cfg: SwinConfig, pcfg: ParallelConfig,
         it = iter(grads)
         grad_tree = tree_map(lambda _: next(it), params)
         del grads
+        gnorm = None
+        if mesh is not None:
+            with record_function("train_step.grad_sync"):
+                _sync_dense_grads(grad_tree, mesh)
+                gnorm = _mesh_grad_norm(grad_tree, moe_axes, mesh)
         with record_function("train_step.adamw"):
             params, opt_state, om = adamw.apply_updates(
-                params, grad_tree, opt_state, opt_cfg)
+                params, grad_tree, opt_state, opt_cfg, grad_norm=gnorm)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, {**metrics, **om, "loss": total.detach()}
+        loss = (total.detach() if mesh is None
+                else metrics["ce"] + AUX_WEIGHT * metrics["aux_loss"])
+        return params, opt_state, {**metrics, **om, "loss": loss}
 
     return train_step
+
+
+def _dense_leaves(tree):
+    """The leaves outside the MoE blocks, in ``tree_leaves`` order."""
+    out = []
+    for st in tree["stages"]:
+        for blk in st["blocks"]:
+            out.extend(tree_leaves({k: v for k, v in blk.items()
+                                    if k != "moe"}))
+        out.extend(tree_leaves({k: v for k, v in st.items()
+                                if k != "blocks"}))
+    out.extend(tree_leaves({k: v for k, v in tree.items() if k != "stages"}))
+    return out
+
+
+def _sync_dense_grads(grads, mesh) -> None:
+    """Sum the dense leaves' gradients over ("pod", "data"), in place, in
+    one all-reduce of their concatenation."""
+    dense = _dense_leaves(grads)
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in dense]),
+                           ("pod", "data"))
+    off = 0
+    for g in dense:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+
+
+def _mesh_grad_norm(grads, moe_axes, mesh) -> torch.Tensor:
+    """The global gradient tree's norm from this rank's blocks: each MoE
+    leaf's sum of squares summed over the axes it is sharded on (once per
+    group of leaves sharded alike); the dense leaves, replicated, count
+    once."""
+    dense = _dense_leaves(grads)
+    total = torch.stack([torch.sum(torch.square(g.float()))
+                         for g in dense]).sum()
+    by_axes = {}
+    for s, st in enumerate(grads["stages"]):
+        for blk in st["blocks"]:
+            for name, g in blk.get("moe", {}).items():
+                axes = moe_axes[s][name]
+                by_axes.setdefault(axes, []).append(
+                    torch.sum(torch.square(g.float())))
+    for axes, sq in sorted(by_axes.items()):
+        total = total + mesh.all_reduce(torch.stack(sq).sum(), axes)
+    return torch.sqrt(total)
 
 
 def synthetic_batch(cfg: SwinConfig, batch_size: int, *,

@@ -120,18 +120,40 @@ def apply_dense_ffn(p: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_moe_ffn(cfg: ModelConfig, dtype, generator, device,
-                 quant: Optional[str] = None) -> dict:
+                 quant: Optional[str] = None, plan=None) -> dict:
     """Router and GLU expert weights. ``quant`` ("int8" | "fp8"): each
     expert matrix is quantized (``quantize_blockwise``, expert by expert)
     as soon as it is drawn and its full-precision copy dropped, so at most
     one full-precision expert matrix exists; the draws are those of the
-    unquantized init, in the same order."""
+    unquantized init, in the same order.
+
+    ``plan``: a ``core.hetero.HeteroPlan``. When its Eq. 2
+    ``hidden_splits`` are uneven, the hidden dimension is padded to
+    per-TP-rank tiles (``plan.padded_hidden_size()``, drawn at that width)
+    and the padded columns hold exact zeros: they add exactly zero to the
+    forward, get exactly zero gradient, and so stay zero in training. No
+    plan, or an even one, leaves the init as it is, bit for bit."""
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff, m.num_experts
+    col = None  # (F',) validity mask over the padded hidden columns
+    if plan is not None and getattr(plan, "hidden_splits", None) is not None:
+        from repro_torch.core.hetero import hidden_mask
+
+        if sum(plan.hidden_splits) != f:
+            raise ValueError(
+                f"hetero_plan.hidden_splits sum to {sum(plan.hidden_splits)}"
+                f" but d_ff is {f}")
+        if plan.hidden_padded():
+            f = plan.padded_hidden_size()
+            col = torch.from_numpy(hidden_mask(plan)).to(device)
     p = {"router": normal_init((d, e), torch.float32, generator, device)}
-    for name, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)),
-                        ("w_down", (e, f, d))):
+    for name, shape, axis in (("w_gate", (e, d, f), 2), ("w_up", (e, d, f), 2),
+                              ("w_down", (e, f, d), 1)):
         p[name] = normal_init(shape, dtype, generator, device)
+        if col is not None:
+            view = [1, 1, 1]
+            view[axis] = f
+            p[name] = p[name] * col.reshape(view).to(dtype)
         if quant not in (None, "none"):
             p[name], p[f"{name}_scale"] = quantize_blockwise(p[name],
                                                              mode=quant)

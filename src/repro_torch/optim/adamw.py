@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -82,13 +82,18 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(params: Any, grads: Any, state: dict,
-                  cfg: OptimizerConfig) -> tuple[Any, dict, dict]:
+                  cfg: OptimizerConfig, *,
+                  grad_norm: Optional[torch.Tensor] = None
+                  ) -> tuple[Any, dict, dict]:
     """One AdamW step: global-norm clip, bias-corrected moments, decoupled
     weight decay on leaves with ``ndim >= 2`` only. Updates ``params`` and
-    ``state``'s tensors in place and returns (params, state, metrics)."""
+    ``state``'s tensors in place and returns (params, state, metrics).
+    ``grad_norm``: the norm to clip by, where the grads are this rank's
+    shards of a larger tree (``models.swin``'s mesh step); by default the
+    norm of ``grads``."""
     step = state["step"] + 1
     lr = schedule(step, cfg)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)

@@ -1,18 +1,183 @@
-"""Serving page pool and radix prefix index (counterpart of
-``repro.parallel.cache``'s ``PagePool``, ``page_shares``, ``_TrieNode`` and
-``PrefixIndex``).
+"""The pipeline-shared cache, the serving page pool and the radix prefix
+index (counterpart of ``repro.parallel.cache``).
 
-Host-side free list, copy-on-write refcounts and per-group residency
-accounting over the shared KV page pool of ``models.lm.init_paged_cache``,
-and the page-granular trie the paged engine's prefix cache matches prompts
-against. The mesh-side pipeline-shared cache (``PipelineSharedCache``,
-``gather_ffn_params``) belongs to a later slice.
+* ``PipelineSharedCache`` — bounded residency of gathered expert weights
+  (paper §4.5): at most C layers' gathered weights are resident, and the
+  next layer's gather is issued while the current one computes. Here it is
+  a host-side structure: a layer loop fetches layer l's gathered tree (a
+  hit, it was prefetched) and prefetches layer l+1 before layer l's
+  compute, and eviction drops the last reference to the oldest layer's
+  buffers. ``PlanCache`` reuses it to bound the per-plan programs of the
+  straggler -> replan loop. ``gather_ffn_params`` is the gather it holds
+  (the fsdp factor of each expert weight, over the mesh), and
+  ``gathered_layer_bytes`` the bytes of one entry.
+* ``PagePool``, ``page_shares``, ``PrefixIndex`` — host-side free list,
+  copy-on-write refcounts and per-group residency accounting over the
+  shared KV page pool of ``models.lm.init_paged_cache``, and the
+  page-granular trie the paged engine's prefix cache matches prompts
+  against.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from collections import OrderedDict
+from typing import Any, Callable, Dict, Hashable, Optional, Sequence
 
 import numpy as np
+
+
+def tree_bytes(tree: Any) -> int:
+    """Bytes of every tensor in a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    if hasattr(tree, "element_size") and hasattr(tree, "numel"):
+        return int(tree.numel()) * int(tree.element_size())
+    return 0
+
+
+class PipelineSharedCache:
+    """Bounded FIFO cache of gathered parameter trees.
+
+    capacity_layers: maximum simultaneously-resident gathered layers. 2 is
+    the double-buffer (current + prefetched next); the Janus baseline is
+    effectively capacity = num_layers.
+    """
+
+    def __init__(self, capacity_layers: int = 2):
+        if capacity_layers < 1:
+            raise ValueError("capacity_layers must be >= 1")
+        self.capacity_layers = capacity_layers
+        self._resident: "OrderedDict[Hashable, Any]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0      # fetch-path gathers (critical-path stalls)
+        self.prefetches = 0  # gathers issued ahead of use (overlapped)
+        self.evictions = 0
+        self.peak_resident_layers = 0
+        self.peak_resident_bytes = 0
+
+    def fetch(self, key: Hashable, gather_fn: Callable[[], Any]) -> Any:
+        """Return the gathered tree for ``key``, gathering on a miss."""
+        if key in self._resident:
+            self.hits += 1
+            return self._resident[key]
+        self.misses += 1
+        value = gather_fn()
+        self._insert(key, value)
+        return value
+
+    def prefetch(self, key: Hashable, gather_fn: Callable[[], Any]) -> None:
+        """Issue the gather for ``key`` now (no-op if already resident).
+        Call after fetching the current layer and before issuing its
+        compute, so that the gather does not wait on it. Counted apart from
+        misses: a prefetched gather is off the critical path."""
+        if key not in self._resident:
+            self.prefetches += 1
+            self._insert(key, gather_fn())
+
+    def _insert(self, key: Hashable, value: Any) -> None:
+        self._resident[key] = value
+        while len(self._resident) > self.capacity_layers:
+            self._resident.popitem(last=False)
+            self.evictions += 1
+        self.peak_resident_layers = max(self.peak_resident_layers,
+                                        len(self._resident))
+        self.peak_resident_bytes = max(self.peak_resident_bytes,
+                                       self.resident_bytes())
+
+    @property
+    def resident_layers(self) -> int:
+        return len(self._resident)
+
+    def resident_bytes(self) -> int:
+        return sum(tree_bytes(v) for v in self._resident.values())
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "capacity_layers": self.capacity_layers,
+            "resident_layers": self.resident_layers,
+            "resident_bytes": self.resident_bytes(),
+            "peak_resident_layers": self.peak_resident_layers,
+            "peak_resident_bytes": self.peak_resident_bytes,
+            "hits": self.hits,
+            "misses": self.misses,
+            "prefetches": self.prefetches,
+            "evictions": self.evictions,
+        }
+
+
+class PlanCache(PipelineSharedCache):
+    """Bounded FIFO cache of step functions keyed by hetero-plan tuples
+    (``core.hetero.HeteroPlan.key()``): the bound on the per-plan programs
+    of the straggler -> replan loop. Each distinct plan cuts its own
+    shapes, so an unbounded replanner would keep programs without limit;
+    this reuses the pipeline-shared cache's FIFO residency and hit/miss
+    accounting, with ``capacity_layers`` read as "plans retained". A
+    replan oscillating between two plans builds exactly two and then only
+    hits. Values are callables, so no bytes are counted."""
+
+    def resident_bytes(self) -> int:
+        return 0
+
+
+def _drop_axes(logical: tuple, which=("fsdp",)) -> tuple:
+    out = []
+    for entry in logical:
+        if entry in which:
+            out.append(None)
+        elif isinstance(entry, tuple):
+            kept = tuple(a for a in entry if a not in which)
+            out.append(kept if kept else None)
+        else:
+            out.append(entry)
+    return tuple(out)
+
+
+def gather_ffn_params(ffn: dict, cfg, mesh, *, d_ff: Optional[int] = None
+                      ) -> dict:
+    """All-gather the fsdp factor of every MoE expert leaf of this rank's
+    ``ffn`` shards; the router and the TP factors stay as they are. The
+    gather is a global resharding (as the JAX package's sharding
+    constraint): its backward keeps this rank's block of the gathered
+    leaf's cotangent. Without a mesh it returns ``ffn``'s leaves as they
+    are. Pass the result to ``moe_parallel.moe_layer(..., pregathered=
+    True)``. ``d_ff``: the experts' global hidden width."""
+    if mesh is None:
+        return dict(ffn)
+    from repro_torch.parallel.moe_parallel import (
+        MOE_PARAM_LOGICAL,
+        _Reshard,
+        moe_param_shapes,
+    )
+    from repro_torch.parallel.sharding import as_axes, physical_spec
+
+    router = ffn["router"]
+    shapes = moe_param_shapes(router.shape[1], router.shape[0], d_ff)
+    out = {}
+    for name, v in ffn.items():
+        logical = MOE_PARAM_LOGICAL.get(name)
+        if v is None or logical is None or name == "router":
+            out[name] = v
+            continue
+        spec = physical_spec(shapes[name], logical, cfg, mesh)
+        fsdp = set(cfg.axes(mesh)["fsdp"])
+        for dim, (lg, entry) in enumerate(zip(logical, spec)):
+            axes = tuple(a for a in as_axes(entry) if a in fsdp)
+            if lg == "fsdp" and axes:
+                v = _Reshard.apply(v, mesh, axes, dim)
+        out[name] = v
+    return out
+
+
+def gathered_layer_bytes(d: int, f: int, e: int, *, glu: bool = True,
+                         bytes_per_el: int = 2) -> int:
+    """Bytes of ONE layer's fully-gathered expert weights (the unit the
+    residency bound multiplies); MLP experts add f32 biases."""
+    n_mats = 3 if glu else 2
+    total = e * n_mats * d * f * bytes_per_el
+    if not glu:
+        total += e * (f + d) * 4
+    return total
 
 
 class PagePool:

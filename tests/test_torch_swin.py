@@ -385,8 +385,11 @@ def test_entry_points_default_to_the_gpu_and_refuse_what_is_not_ported(
     x = torch.zeros((1, 32, 32, 3))
     with pytest.raises(ValueError, match="moe_impl 'deepspeed'"):
         tswin.swin_forward(params, x, cfg, TPCFG, moe_impl="deepspeed")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tswin.swin_forward(params, x, cfg, TPCFG, mesh=object())
+    # the mesh path is ported (tests/test_torch_mesh_swin.py); a mesh
+    # without the "pod" axis Swin's islands place tokens over is refused
+    with pytest.raises(ValueError, match="pod"):
+        tswin.swin_forward(params, x, cfg, TPCFG, mesh=type(
+            "TwoAxisMesh", (), {"axis_names": ("data", "model")})())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tswin.init_swin(cfg, generator=torch.Generator())
