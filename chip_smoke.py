@@ -239,7 +239,41 @@ The serve phases' weights are then freed, and the training slice runs:
    just before and read just after, phase 8's launches exactly, all on
    wgmma, every loss finite; each mode's step median beside phase 8's.
 
-The qwen training state is then freed, and every other LM family trains
+The qwen training state is then freed, and phase L runs the MoE LM on a
+1-rank NCCL mesh (``launch.mesh.single_rank_nccl``, ``make_mesh((1, 1,
+1), ("pod", "data", "model"))``, every communicator made before anything
+is timed), in each of ``MESH_MODES`` (``capacity_factor`` 8: ep drops
+nothing):
+
+L1. Phase 7's model (2 layers at full width, f32, seed 7, 2 x 64 tokens,
+   blk 16): one ``make_loss_fn`` forward and backward mesh-less, then one
+   on the mesh a mode; each total within ``TRAIN_LOSS_RTOL`` of the
+   mesh-less one and of phase 7's CPU total (the plain versions), each
+   gathered gradient leaf within ``TRAIN_GRAD_TOL`` x its max |grad|
+   (``MESH_EP_TOL`` for ep's cuBLAS experts), the kernel modes' launches
+   ``_f32_expert_routes`` exactly. Then ``LM_MESH_PROMPTS`` greedy
+   requests of ``LM_MESH_PROMPT`` + ``LM_MESH_NEW`` tokens through
+   ``BatchedServer`` (mode auto) mesh-less and on the mesh, with
+   ``cache_layers`` 0 and ``LM_MESH_CACHE_LAYERS``: the streams equal,
+   every macro-step's logits within ``ATTN_TOL["float32"]`` x max|logit|
+   of the mesh-less uncached run's, the pipeline-shared cache's stats
+   (at most ``LM_MESH_CACHE_LAYERS`` resident, a hit on the second
+   layer) and one ``esffn_glu`` a layer a forward on ``stream``.
+L2. Phase 8's state (4 layers, bf16, seed 0, its batches): a warm-up and
+   ``TRAIN_STEPS`` timed steps a mode, each mode from the same weights
+   (``train.build_state(mesh=)``); losses finite and within
+   ``BF16_REF_LOSS_RTOL`` of phase 8's, ``LM_MESH_LAUNCHES`` a layer a
+   step on wgmma in every kernel mode (none in ep); step median, tokens/s
+   and peak beside phase 8's median. One layer's ``gather_ffn_params``
+   on the mesh against a device copy of the same bytes (CUDA events).
+   Then ``LM_MESH_DECODE_REQUESTS`` requests through ``BatchedServer``
+   (``LM_MESH_DECODE_SLOTS`` slots) mesh-less, on the mesh, and on the
+   mesh with the cache: decode step medians, the cache's peak gathered
+   bytes, one ``esffn_glu`` a layer a forward on ``stream`` (bf16
+   streams compared, not asserted). One rank moves nothing across chips:
+   these times show the code path's copies and recompute only.
+
+Then every other LM family trains
 (``train.frontend_batch`` builds each family's batches, as the train CLI
 does):
 
@@ -514,6 +548,19 @@ MESH_MODES = (("model_centric", "none"), ("data_centric", "shared_cache"),
 MESH_PARAM_TOL = 1e-7
 MESH_EP_TOL = 1.5 * 2 * (3e-6 + 6e-6 + 9e-6)
 MESH_EP_LOSS_RTOL = 1e-4
+# Phase L: the LM on the 1-rank mesh. L1 (phase 7's f32 model) decodes
+# LM_MESH_NEW greedy tokens for LM_MESH_PROMPTS prompts of LM_MESH_PROMPT
+# tokens through BatchedServer; L2's decode (phase 8's 4 layers, bf16)
+# serves LM_MESH_DECODE_REQUESTS requests of LM_MESH_PROMPT + LM_MESH_NEW
+# on LM_MESH_DECODE_SLOTS slots. Under remat="block" every kernel mode
+# launches phase 8's 2 esffn_glu, 5 esmm and 3 estmm a layer a step: the
+# block's recompute already runs the island again in the backward, and
+# the cache policies' own checkpoint nested in it recomputes nothing more
+# (ep runs its experts as cuBLAS products: none).
+LM_MESH_PROMPTS, LM_MESH_PROMPT, LM_MESH_NEW = 2, 8, 8
+LM_MESH_DECODE_SLOTS, LM_MESH_DECODE_REQUESTS = 8, 8
+LM_MESH_CACHE_LAYERS = 2
+LM_MESH_LAUNCHES = {"esffn_glu": 2, "esmm": 5, "estmm": 3}
 # Phase H: the paper's Table 3 proxy latencies (benchmarks/hetero_alloc.py
 # PAPER_CASES: two GPUs at 100/300 W power limits) and a 2x skew.
 HETERO_LATENCIES = {"paper_case1_100W_300W": (4.58, 3.06),
@@ -5733,6 +5780,365 @@ def mesh_phase(torch):
     return launches_by_path, out
 
 
+# ---------------------------------------------------------------------------
+# phase L: the LM on a 1-rank mesh
+# ---------------------------------------------------------------------------
+
+def _lm_mesh_decode(torch, cfg, pcfg, params, mesh, prompts, max_new, slots,
+                    max_seq):
+    """Greedy requests through ``BatchedServer`` (mesh-less where ``mesh``
+    is None): the streams, each macro-step's last-row logits (on the
+    host), the decode step times, the expert launches and the prefetch
+    cache's stats."""
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import lm
+
+    srv = BatchedServer(cfg, pcfg, num_slots=slots, max_seq=max_seq,
+                        params=params, device="cuda", mesh=mesh)
+    logits = []
+    inner = srv.serve_step
+
+    def step(p, inputs, cache):
+        lg, cache = inner(p, inputs, cache)
+        logits.append(lg[:, -1].float().cpu())
+        return lg, cache
+
+    srv.serve_step = step
+    for i, pr in enumerate(prompts):
+        srv.submit(Request(rid=i, prompt=pr, max_new=max_new))
+    lm.LAST_PIPELINE_CACHE_STATS = None
+    _reset_expert_counts()
+    with torch.no_grad():
+        done = srv.run()
+    torch.cuda.synchronize()
+    launches, routes = _expert_counts()
+    return {"tokens": {r.rid: list(r.out) for r in done},
+            "logits": logits, "times": srv.decode_times_s[1:],
+            "launches": launches, "routes": routes,
+            "cache_stats": lm.LAST_PIPELINE_CACHE_STATS}
+
+
+def _lm_mesh_f32(torch, mesh, ref7):
+    """L1: phase 7's model (qwen3-moe-30b-a3b, 2 layers at full width,
+    f32, seed 7, 2 x 64 tokens): one loss and gradient mesh-less, then on
+    the mesh in every mode; then greedy decode mesh-less and on the mesh,
+    cache_layers 0 and 2."""
+    import numpy as np
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import steps
+    from repro_torch.launch.inputs import activation_spec, batch_block
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import (
+        ParallelConfig, shard_tree, unshard_tree)
+
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=2, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = lm.init_params(cfg, generator=gen, device="cuda")
+    batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
+                                   vocab_size=cfg.vocab_size,
+                                   seed=7)).batch(0)
+    shape3 = (2, 64, cfg.d_model)
+    shapes = lm.param_shapes(cfg)
+    n_moe = _moe_layers(cfg)
+
+    def loss_grads(pcfg, m):
+        specs = lm.param_specs(cfg, pcfg)
+        p = params if m is None else shard_tree(params, specs, pcfg, m)
+        p = tree_map(lambda t: t.detach().requires_grad_(), p)
+        x_spec = activation_spec(shape3, pcfg, m)
+        _reset_expert_counts()
+        total, met = steps.make_loss_fn(cfg, pcfg, mesh=m,
+                                        batch_shape3=shape3)(
+            p, batch_to(batch_block(batch, x_spec, m), "cuda"))
+        grads = torch.autograd.grad(total, tree_leaves(p))
+        torch.cuda.synchronize()
+        launches, routes = _expert_counts()
+        if m is not None:
+            it = iter(grads)
+            grads = tree_leaves(unshard_tree(
+                tree_map(lambda _: next(it), p), specs, shapes, pcfg, m))
+        return float(total.detach()), list(grads), launches, routes
+
+    base = ParallelConfig(blk=16)
+    ref_total, ref_grads, _, _ = loss_grads(base, None)
+    out = {"meshless_total": ref_total, "phase7_cpu_total": ref7["total_cpu"],
+           "modes": {}}
+    paths = {}
+    for mode, policy in MESH_MODES:
+        pcfg = dataclasses.replace(base, mode=mode, cache_policy=policy,
+                                   capacity_factor=8.0)
+        total, grads, launches, routes = loss_grads(pcfg, mesh)
+        name = f"{mode}/{policy}"
+        tol = MESH_EP_TOL if mode == "ep" else TRAIN_GRAD_TOL
+        worst = 0.0
+        for a, b in zip(grads, ref_grads):
+            scale = b.abs().max().item()
+            worst = max(worst, (a - b).abs().max().item() / (scale or 1.0))
+        del grads
+        rel = abs(total - ref_total) / abs(ref_total)
+        rel_cpu = abs(total - ref7["total_cpu"]) / abs(ref7["total_cpu"])
+        if not (rel <= TRAIN_LOSS_RTOL and rel_cpu <= TRAIN_LOSS_RTOL):
+            raise AssertionError(f"phase L1 {name}: total {total} vs "
+                                 f"mesh-less {ref_total} (rel {rel}) and "
+                                 f"the CPU's {ref7['total_cpu']} (rel "
+                                 f"{rel_cpu})")
+        if not worst <= tol:
+            raise AssertionError(f"phase L1 {name}: a gathered grad leaf "
+                                 f"{worst} x its max |grad| from the "
+                                 f"mesh-less one's (limit {tol})")
+        want = ({k: dict.fromkeys(v, 0) for k, v in routes.items()}
+                if mode == "ep" else _f32_expert_routes(n_moe))
+        if routes != want:
+            raise AssertionError(f"phase L1 {name}: routes {routes}, "
+                                 f"expected {want}")
+        out["modes"][name] = {"total": total, "total_rel_diff": rel,
+                              "total_rel_diff_cpu": rel_cpu,
+                              "worst_grad_rel": worst, "grad_tol": tol,
+                              "launches": launches}
+        paths[f"qwen_mesh_f32_{mode}_{policy}"] = (launches, routes)
+        print(f"[lm-mesh] L1 {name}: total {total!r} (mesh-less rel "
+              f"{rel:.2e}, phase 7's CPU rel {rel_cpu:.2e}), gathered grads "
+              f"within {worst:.2e} x max |grad| (limit {tol}); launches "
+              f"{launches}")
+        _release(torch)
+    del ref_grads
+    _release(torch)
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=LM_MESH_PROMPT)
+               for _ in range(LM_MESH_PROMPTS)]
+    runs = {}
+    for m, layers in ((None, 0), (None, LM_MESH_CACHE_LAYERS), (mesh, 0),
+                      (mesh, LM_MESH_CACHE_LAYERS)):
+        pcfg = ParallelConfig(blk=16, mode="auto", cache_layers=layers)
+        p = params if m is None else shard_tree(
+            params, lm.param_specs(cfg, pcfg), pcfg, m)
+        runs[(m is not None, layers)] = _lm_mesh_decode(
+            torch, cfg, pcfg, p, m, prompts, LM_MESH_NEW, LM_MESH_PROMPTS,
+            LM_MESH_PROMPT + LM_MESH_NEW)
+        del p
+    ref = runs[(False, 0)]
+    worst = 0.0
+    for key, r in runs.items():
+        if r["tokens"] != ref["tokens"]:
+            raise AssertionError(f"phase L1 decode {key}: tokens "
+                                 f"{r['tokens']} vs {ref['tokens']}")
+        for a, b in zip(r["logits"], ref["logits"]):
+            err, _ = _check(f"phase L1 decode {key} logits", a, b,
+                            ATTN_TOL["float32"])
+            worst = max(worst, err / b.abs().max().item())
+        st = r["cache_stats"]
+        if key[1] and not (st and st["peak_resident_layers"]
+                           <= LM_MESH_CACHE_LAYERS and st["hits"] > 0):
+            raise AssertionError(f"phase L1 decode {key}: cache stats {st}")
+        if not key[1] and st is not None:
+            raise AssertionError(f"phase L1 decode {key}: a cache was built")
+    steps_n = len(ref["logits"])
+    want = {"stream": n_moe * steps_n, "wgmma": 0}
+    for key, r in runs.items():
+        if r["routes"]["esffn_glu"] != want:
+            raise AssertionError(f"phase L1 decode {key}: esffn_glu routes "
+                                 f"{r['routes']['esffn_glu']}, expected "
+                                 f"{want}")
+    mesh_run = runs[(True, LM_MESH_CACHE_LAYERS)]
+    paths["qwen_mesh_decode_f32"] = (mesh_run["launches"],
+                                     mesh_run["routes"])
+    out["decode"] = {"tokens": ref["tokens"], "macro_steps": steps_n,
+                     "worst_logit_rel": worst,
+                     "cache_stats": mesh_run["cache_stats"]}
+    print(f"[lm-mesh] L1 decode: {LM_MESH_PROMPTS} x {LM_MESH_NEW} greedy "
+          f"tokens equal mesh-less and on the mesh, cache_layers 0 and "
+          f"{LM_MESH_CACHE_LAYERS}; logits within {worst:.2e} x max |logit| "
+          f"(limit {ATTN_TOL['float32']}); cache {mesh_run['cache_stats']}")
+    return paths, out
+
+
+def _lm_mesh_bf16(torch, mesh, train_out):
+    """L2: phase 8's state (4 layers at full width, bf16, seed 0, 4 x 1024
+    tokens): a warm-up and TRAIN_STEPS timed steps on the mesh in every
+    mode, each from the same weights; then the dense decode mesh-less and
+    on the mesh with the prefetch cache."""
+    import math
+
+    import numpy as np
+    from repro_torch import configs as cfglib
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import steps
+    from repro_torch.launch.inputs import activation_spec, batch_block
+    from repro_torch.launch.train import batch_to, build_state
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=TRAIN_DEPTH)
+    base = ParallelConfig(blk=min(128, max(16, TRAIN_SEQ // 4)),
+                          remat="block", capacity_factor=8.0)
+    opt_cfg = adamw.OptimizerConfig(peak_lr=3e-4, warmup_steps=20,
+                                    decay_steps=40, master_fp32=True)
+    source = TokenSource(DataConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH,
+                                    vocab_size=cfg.vocab_size, seed=0))
+    shape3 = (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    plain_med = train_out["step_median_ms"]
+    plain_losses = [m["loss"] for m in train_out["steps"]]
+    out, paths = {}, {}
+    for mode, policy in MESH_MODES:
+        pcfg = dataclasses.replace(base, mode=mode, cache_policy=policy)
+        params, opt_state = build_state(cfg, opt_cfg, 0, "cuda", pcfg=pcfg,
+                                        mesh=mesh)
+        step = steps.make_train_step(cfg, pcfg, opt_cfg, mesh=mesh,
+                                     batch_shape3=shape3)
+        x_spec = activation_spec(shape3, pcfg, mesh)
+
+        def run(i):
+            batch = batch_to(batch_block(source.batch(i), x_spec, mesh),
+                             "cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, m = step(params, opt_state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            torch.cuda.synchronize()
+            return m, time.perf_counter() - t
+
+        run(0)                                     # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        _reset_expert_counts()
+        log, times = [], []
+        for i in range(1, TRAIN_STEPS + 1):
+            m, dt = run(i)
+            log.append(m)
+            times.append(dt)
+        launches, routes = _expert_counts()
+        peak = torch.cuda.max_memory_allocated()
+        name = f"{mode}/{policy}"
+        losses = [m["loss"] for m in log]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase L2 {name}: losses {losses}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+        if not rel <= BF16_REF_LOSS_RTOL:
+            raise AssertionError(f"phase L2 {name}: losses {losses} vs "
+                                 f"phase 8's {plain_losses}")
+        want = {k: (0 if mode == "ep" else v * TRAIN_DEPTH * TRAIN_STEPS)
+                for k, v in LM_MESH_LAUNCHES.items()}
+        if launches != want:
+            raise AssertionError(f"phase L2 {name}: launches {launches}, "
+                                 f"expected {want}")
+        if mode != "ep" and any(n != routes[k].get("wgmma") for k, n in
+                                launches.items()):
+            raise AssertionError(f"phase L2 {name}: routes {routes}")
+        med = statistics.median(times)
+        print(f"[lm-mesh] L2 {name}: losses {losses} (phase 8's within "
+              f"{rel:.2e}); step median {med * 1e3:.1f}ms against phase 8's "
+              f"mesh-less {plain_med:.1f}ms ({med * 1e3 / plain_med:.3f} x), "
+              f"{tokens / med:.1f} tokens/s, peak {peak / 1e9:.2f} GB; "
+              f"launches {launches} ({ {k: v // (TRAIN_DEPTH * TRAIN_STEPS) for k, v in launches.items()} } a layer a step)")
+        out[name] = {"losses": losses, "loss_rel_diff_phase8": rel,
+                     "step_times_s": times, "step_median_ms": med * 1e3,
+                     "tokens_per_s": tokens / med,
+                     "peak_allocated_gb": peak / 1e9, "launches": launches,
+                     "launches_by_route": routes}
+        paths[f"qwen_mesh_{mode}_{policy}"] = (launches, routes)
+        del params, opt_state, step
+        _release(torch)
+
+    # the dense decode at the same 4 layers, phase 8's weights
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dec_pcfg = ParallelConfig(blk=16, mode="auto")
+    params, _ = steps.sharded_params(cfg, dec_pcfg, mesh, generator=gen,
+                                     device="cuda")
+    # what one layer's fsdp gather costs on one rank: NCCL's all-gather
+    # into a fresh tensor plus the port's moves of the gathered dimension,
+    # against a device copy of the same bytes
+    from repro_torch.parallel.cache import gather_ffn_params
+
+    ffn = params["layers"][0]["ffn"]
+    experts = [t for k, t in ffn.items() if k != "router"]
+    nbytes = sum(t.numel() * t.element_size() for t in experts)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    with torch.no_grad():
+        gather_ms = time_ms(torch, lambda: gather_ffn_params(
+            ffn, dec_pcfg, mesh, d_ff=cfg.moe.d_ff), flush, iters=10)
+        clone_ms = time_ms(torch, lambda: [t.clone() for t in experts],
+                           flush, iters=10)
+    del flush
+    out["layer_gather"] = {"bytes": nbytes, "gather_ms": gather_ms,
+                           "clone_ms": clone_ms}
+    print(f"[lm-mesh] L2: one layer's expert weights ({nbytes / 1e9:.3f} "
+          f"GB) through gather_ffn_params on the 1-rank mesh "
+          f"{gather_ms:.2f} ms ({nbytes / gather_ms / 1e6:.0f} GB/s of "
+          f"output), a device copy of them {clone_ms:.2f} ms")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=LM_MESH_PROMPT)
+               for _ in range(LM_MESH_DECODE_REQUESTS)]
+    runs = {}
+    for m, layers in ((None, 0), (mesh, 0), (mesh, LM_MESH_CACHE_LAYERS)):
+        pcfg = dataclasses.replace(dec_pcfg, cache_layers=layers)
+        # one rank: the shards are the whole tensors, the mesh-less tree
+        runs[(m is not None, layers)] = _lm_mesh_decode(
+            torch, cfg, pcfg, params, m, prompts, LM_MESH_NEW,
+            LM_MESH_DECODE_SLOTS, LM_MESH_PROMPT + LM_MESH_NEW)
+    del params
+    _release(torch)
+    plain = runs[(False, 0)]
+    cached = runs[(True, LM_MESH_CACHE_LAYERS)]
+    st = cached["cache_stats"]
+    if not (st and st["peak_resident_layers"] <= LM_MESH_CACHE_LAYERS
+            and st["hits"] > 0):
+        raise AssertionError(f"phase L2 decode: cache stats {st}")
+    n_moe = _moe_layers(cfg)
+    steps_n = len(plain["logits"])
+    for key, r in runs.items():
+        want = {"stream": n_moe * steps_n, "wgmma": 0}
+        if r["routes"]["esffn_glu"] != want:
+            raise AssertionError(f"phase L2 decode {key}: esffn_glu routes "
+                                 f"{r['routes']['esffn_glu']}, expected "
+                                 f"{want}")
+    meds = {f"{'mesh' if k[0] else 'meshless'}_cache{k[1]}":
+            statistics.median(r["times"]) * 1e3 for k, r in runs.items()}
+    same = sum(r["tokens"] == plain["tokens"] for r in runs.values()) - 1
+    paths["qwen_mesh_decode"] = (cached["launches"], cached["routes"])
+    out["decode"] = {"step_median_ms": meds, "macro_steps": steps_n,
+                     "cache_stats": st,
+                     "gathered_bytes_resident_peak":
+                         st["peak_resident_bytes"],
+                     "mesh_runs_with_the_meshless_streams": same}
+    print(f"[lm-mesh] L2 decode ({LM_MESH_DECODE_SLOTS} slots, "
+          f"{steps_n} macro-steps, bf16, 4 layers): step medians "
+          f"{ {k: round(v, 2) for k, v in meds.items()} } ms; the cache "
+          f"held {st['peak_resident_bytes'] / 1e9:.3f} GB of gathered "
+          f"expert weights at its peak ({st['peak_resident_layers']} "
+          f"layers, {st['hits']} hits a forward); {same} of 2 mesh runs "
+          f"gave the mesh-less streams (bf16: compared, not asserted); one "
+          f"rank moves nothing across chips, so these times show the code "
+          f"path's copies and recompute only")
+    return paths, out
+
+
+def lm_mesh_phase(torch, ref7, train_out):
+    """Phase L: the MoE LM on a 1-rank NCCL mesh (1, 1, 1): L1 against the
+    mesh-less run in f32, L2 timed in bf16."""
+    from repro_torch.launch.mesh import make_mesh, single_rank_nccl
+
+    t_phase = time.perf_counter()
+    with single_rank_nccl():
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        for axes in (("pod",), ("data",), ("model",), ("pod", "data"),
+                     ("pod", "data", "model")):
+            mesh.all_reduce(torch.ones(1, device="cuda"), axes)
+        torch.cuda.synchronize()
+        paths1, l1 = _lm_mesh_f32(torch, mesh, ref7)
+        _release(torch)
+        paths2, l2 = _lm_mesh_bf16(torch, mesh, train_out)
+    seconds = time.perf_counter() - t_phase
+    print(f"[lm-mesh] phase L in {seconds:.1f}s")
+    return {**paths1, **paths2}, {"L1": l1, "L2": l2, "seconds": seconds}
+
+
 def _hetero_layer(torch, w, seed=21):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, w["dtype"])
@@ -6057,6 +6463,9 @@ def main() -> int:
     train_launches, train_out = train_phase(torch)
     print(f"[train] {json.dumps({**train_out, 'reference': train_ref, 'reference_qat': qat_ref, 'reference_bf16': bf16_ref})}")
     _release(torch)               # the qwen training state is gone
+    lm_mesh_paths, lm_mesh_res = lm_mesh_phase(torch, train_ref, train_out)
+    print(f"[lm-mesh] {json.dumps(lm_mesh_res)}")
+    _release(torch)
     family_ref = {"7h": hybrid_train_reference_phase(torch),
                   "7f": frontend_reference_phase(torch)}
     family_train = family_train_phase(torch)
@@ -6131,7 +6540,8 @@ def main() -> int:
     paths = {**serve_launches, "qwen_train": train_launches, **qat_paths,
              **swin_launches, **hybrid_paths,
              **{p: r["launches"] for p, r in jamba_train.items()},
-             **mesh_launches, **hetero_launches}
+             **mesh_launches, **hetero_launches,
+             **{p: c for p, (c, _) in lm_mesh_paths.items()}}
     by_path = {}
     for path, counts in paths.items():
         for name, n in counts.items():
@@ -6156,7 +6566,8 @@ def main() -> int:
                    **{f"hetero_{k}": {("esffn_glu" if r["glu"]
                                        else "esffn_mlp"):
                                       r["launches_by_route"]}
-                      for k, r in hetero_res.items() if k in HETERO_WIDTHS}}
+                      for k, r in hetero_res.items() if k in HETERO_WIDTHS},
+                   **{p: r for p, (_, r) in lm_mesh_paths.items()}}
 
     def by_route(name, cases, routes, paths=route_paths):
         """Each route of a kernel with several: its launches on each path

@@ -28,6 +28,8 @@ _VIEWED = {"bfloat16": (np.uint16, torch.bfloat16),
 
 
 def _to_tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):      # e.g. ``params_from_jax``'s
+        return a.to(device)
     arr = np.array(a)                    # an owned, writable copy
     if arr.dtype.name in _VIEWED:
         raw, dtype = _VIEWED[arr.dtype.name]
@@ -118,11 +120,12 @@ def swin_opt_state_from_jax(state: dict, cfg: SwinConfig, *,
 
 def shard_params(tree, specs, cfg, mesh, *, device=None):
     """This rank's shards of a parameter tree given as numpy arrays (a JAX
-    value tree, or anything ``np.asarray`` takes), under the logical
-    ``specs`` (a tree of the same structure, e.g. ``models.swin.
-    param_specs``) and ``cfg.mode``: the global tree carried over and cut
-    as ``parallel.sharding.shard`` cuts it, on ``device`` (the GPU unless
-    given)."""
+    value tree, or anything ``np.asarray`` takes) or tensors (the LM's
+    from ``params_from_jax``), under the logical ``specs`` (a tree of the
+    same structure, e.g. ``models.swin.param_specs``,
+    ``models.lm.param_specs``) and ``cfg.mode``: the global tree carried
+    over and cut as ``parallel.sharding.shard`` cuts it, on ``device``
+    (the GPU unless given)."""
     from repro_torch.parallel.sharding import shard_tree
 
     device = resolve_device(device)

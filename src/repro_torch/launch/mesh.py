@@ -16,7 +16,9 @@ a process of its own, for tests: the port's counterpart of faking
 devices with ``XLA_FLAGS``. ``single_rank_nccl`` opens a 1-rank NCCL
 group on one card in this process. Both rendezvous through a
 ``FileStore`` in a temporary directory, never a TCP port, so concurrent
-launches cannot collide.
+launches cannot collide. ``cli_process_group`` gives a CLI's ``--mesh``
+its group: the caller's (``launch_local``), ``torchrun``'s, or one of a
+single rank.
 """
 from __future__ import annotations
 
@@ -219,6 +221,75 @@ def single_rank_nccl(device: int = 0):
             yield
         finally:
             dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def cli_process_group(device: torch.device, world: int):
+    """The process group of a CLI run on a mesh of ``world`` ranks, for
+    the length of the block; yields the device this rank runs on.
+
+    An initialised group (``launch_local``'s ranks, or a caller's) is
+    used as it is. Under ``torchrun`` (``RANK``/``WORLD_SIZE`` in the
+    environment) the group is made from its environment: NCCL with this
+    rank on ``cuda:LOCAL_RANK``, or gloo where ``device`` is the CPU. A
+    process on its own makes a group of one rank (``single_rank_nccl`` on
+    the card, gloo on the CPU) when the mesh has one rank. Anything else
+    raises, naming ``torchrun``. A group made here is destroyed on exit."""
+    if dist.is_initialized():
+        _check_world(world)
+        yield device
+        return
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+            torch.cuda.set_device(device)
+            dist.init_process_group("nccl", device_id=device)
+        else:
+            dist.init_process_group("gloo")
+        try:
+            _check_world(world)
+            yield device
+        finally:
+            dist.destroy_process_group()
+        return
+    if world != 1:
+        raise RuntimeError(
+            f"a mesh of {world} ranks needs as many processes: start the "
+            f"CLI under torchrun --nproc-per-node {world} (or "
+            f"launch.mesh.launch_local)")
+    if device.type == "cuda":
+        with single_rank_nccl(device.index or 0):
+            yield device
+        return
+    with tempfile.TemporaryDirectory(prefix="repro_gloo_") as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            yield device
+        finally:
+            dist.destroy_process_group()
+
+
+def _check_world(world: int) -> None:
+    if dist.get_world_size() != world:
+        raise ValueError(f"the mesh needs {world} ranks; the job has "
+                         f"{dist.get_world_size()}")
+
+
+def is_rank0() -> bool:
+    """Whether this process prints for the job: rank 0, or no group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def parse_mesh(text: str):
+    """A CLI's ``--mesh`` ("2,4"): (dims, axes), the axes the last
+    ``len(dims)`` of ("pod", "data", "model"), as the JAX CLIs name
+    them."""
+    dims = tuple(int(x) for x in text.split(","))
+    if not 1 <= len(dims) <= 3 or any(d < 1 for d in dims):
+        raise ValueError(f"--mesh {text!r}: one to three positive sizes")
+    return dims, ("pod", "data", "model")[-len(dims):]
 
 
 # ---------------------------------------------------------------------------

@@ -43,13 +43,21 @@ vocabulary head, as the JAX engines build their inputs: paligemma-3b
 codebook heads) raise ``NotImplementedError`` (``lm.check_servable``);
 their dense prefill and decode steps are ``launch.steps``'.
 
+On a mesh (``mesh=``, the CLI's ``--mesh`` with ``--mode`` and
+``--cache-layers``) the dense engine and ``reference_stream`` run the LM's
+mesh forward: every rank runs the same host scheduler on the same logits,
+gathered over the slots, and holds its block of the dense cache (its
+slots, and its K/V heads where they split over "tp"). The paged engine
+on a mesh raises ``NotImplementedError`` (ROADMAP.md A.5.6).
+
 Not in this slice (ROADMAP.md): hetero plans built from ``--hetero-*``
 latencies (``PagedServer(plan=)`` takes any object with ``token_counts``),
-the dense engine's hetero slot shares, the mesh flags, and observability.
+the dense engine's hetero slot shares, ``--topology``, and observability.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -61,8 +69,10 @@ import torch
 
 from repro_torch import configs as cfglib
 from repro_torch.common import cdiv, resolve_device, torch_dtype, tree_leaves
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sampling
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.inputs import activation_spec
 from repro_torch.models import lm
 from repro_torch.parallel.cache import PagePool, PrefixIndex, page_shares
 from repro_torch.parallel.sharding import ParallelConfig
@@ -138,17 +148,19 @@ def next_token(logits_row, req: Request) -> int:
 
 
 def reference_stream(cfg, pcfg, params, req: Request, *, max_seq: int,
-                     step=None) -> list[int]:
+                     step=None, mesh=None) -> list[int]:
     """One-request-at-a-time dense-cache reference stream: batch-1 prefill
     (token by token) then decode through ``next_token``, on the device the
     params lie on: the ground truth both batched servers are held to, for
-    greedy and sampled requests."""
+    greedy and sampled requests. On a ``mesh``, params are this rank's
+    shards (``lm.param_specs``)."""
     lm.check_servable(cfg)
     device = params["embed"].device
     if step is None:
-        step = steps_lib.make_serve_step(cfg, pcfg)
+        step = steps_lib.make_serve_step(
+            cfg, pcfg, mesh=mesh, batch_shape3=(1, 1, cfg.d_model))
     ref = dataclasses.replace(req, out=[])   # keys follow len(ref.out)
-    cache = lm.init_cache(cfg, 1, max_seq, device)
+    cache = lm.init_cache(cfg, 1, max_seq, device, pcfg=pcfg, mesh=mesh)
 
     def feed(tok):
         nonlocal cache
@@ -166,12 +178,12 @@ def reference_stream(cfg, pcfg, params, req: Request, *, max_seq: int,
 
 
 def greedy_reference(cfg, pcfg, params, prompt, max_new, *, max_seq: int,
-                     step=None) -> list[int]:
+                     step=None, mesh=None) -> list[int]:
     """Greedy ``reference_stream`` of one prompt."""
     return reference_stream(
         cfg, pcfg, params,
         Request(rid=-1, prompt=np.asarray(prompt), max_new=max_new),
-        max_seq=max_seq, step=step)
+        max_seq=max_seq, step=step, mesh=mesh)
 
 
 def _check_request(req: Request):
@@ -195,12 +207,17 @@ class BatchedServer:
     engine exists to kill) and every prompt token of every request costs
     one full-batch macro-step. Only ``valid_slots`` (default: all) are
     schedulable. The cache and lengths live on ``device`` (the GPU unless
-    ``device="cpu"``); the schedule lives on the host."""
+    ``device="cpu"``); the schedule lives on the host. On a ``mesh``:
+    params are this rank's shards, the cache its block
+    (``lm.init_cache(mesh=)``), and every rank schedules alike from the
+    gathered logits."""
 
     def __init__(self, cfg, pcfg, *, num_slots: int, max_seq: int, params,
-                 valid_slots: Optional[list] = None, device=None):
+                 valid_slots: Optional[list] = None, device=None,
+                 mesh=None):
         lm.check_servable(cfg)
-        self.cfg, self.pcfg = cfg, pcfg
+        lm.check_mesh(cfg, pcfg, mesh)
+        self.cfg, self.pcfg, self.mesh = cfg, pcfg, mesh
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "
@@ -208,8 +225,17 @@ class BatchedServer:
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.params = params
-        self.cache = lm.init_cache(cfg, num_slots, max_seq, self.device)
-        self.serve_step = steps_lib.make_serve_step(cfg, pcfg)
+        shape3 = (num_slots, 1, cfg.d_model)
+        self.cache = lm.init_cache(cfg, num_slots, max_seq, self.device,
+                                   pcfg=pcfg, mesh=mesh)
+        self.serve_step = steps_lib.make_serve_step(
+            cfg, pcfg, mesh=mesh, batch_shape3=shape3)
+        # this rank's slots: [lo, lo + n) of the global ones
+        self._slots_lo, self._slots_n = 0, num_slots
+        if mesh is not None:
+            axes = activation_spec(shape3, pcfg, mesh)[0]
+            self._slots_n = num_slots // mesh.size(axes)
+            self._slots_lo = mesh.index(axes) * self._slots_n
         self.slots: list[Optional[_Slot]] = [None] * num_slots
         self.queue: deque[Request] = deque()
         self.free = sorted(valid_slots if valid_slots is not None
@@ -220,7 +246,8 @@ class BatchedServer:
         self._run_t0 = 0.0
 
     def kv_bytes(self) -> int:
-        """Device bytes of the dense KV rectangle."""
+        """Device bytes of the dense KV rectangle (on a mesh, of this
+        rank's block of it)."""
         return lm.cache_bytes(self.cache)
 
     def submit(self, req: Request):
@@ -235,7 +262,9 @@ class BatchedServer:
         while self.free and self.queue:
             slot = self.free.pop()
             req = self.queue.popleft()
-            self.cache = lm.reset_slot(self.cfg, self.cache, slot)
+            local = slot - self._slots_lo
+            if 0 <= local < self._slots_n:
+                self.cache = lm.reset_slot(self.cfg, self.cache, local)
             self.slots[slot] = _Slot(req)
             self.admissions += 1
 
@@ -370,8 +399,12 @@ class PagedServer:
                  prefill_chunk: int = 16, plan=None, kv_quant=None,
                  prefix_cache: bool = False, disagg: bool = False,
                  max_retries: int = 2, audit: bool = False,
-                 clock=time.perf_counter, device=None):
+                 clock=time.perf_counter, device=None, mesh=None):
         lm.check_servable(cfg)
+        if mesh is not None:
+            raise NotImplementedError(
+                "the paged engine on a mesh is not ported (ROADMAP.md "
+                "A.5.6); the dense BatchedServer takes a mesh")
         self.cfg, self.pcfg = cfg, pcfg
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -1022,7 +1055,8 @@ def _unquantized_bytes(params: dict, dtype: torch.dtype) -> int:
 def main(argv=None):
     """CLI entry point: continuous batching of random prompts through a
     seeded random-weight model, on the dense engine or (``--paged``) the
-    paged one."""
+    paged one; ``--mesh`` runs the dense engine over the job's ranks
+    (``launch.mesh.cli_process_group``), rank 0 printing."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -1080,7 +1114,31 @@ def main(argv=None):
                     help="check the page books (refcounts == slot holders + "
                          "prefix-trie nodes) after every scheduler step "
                          "(--paged only)")
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. '2,2' => data,model: the dense engine on a "
+                         "mesh (torchrun or one rank)")
+    ap.add_argument("--mode", default="auto",
+                    choices=["hybrid", "model_centric", "data_centric",
+                             "auto", "ep"],
+                    help="parallel mode on a mesh; 'auto' (default) lets "
+                         "each MoE layer pick data-/model-centric dispatch "
+                         "from the roofline")
+    ap.add_argument("--cache-layers", type=int, default=0,
+                    help="pipeline-shared prefetch cache residency bound "
+                         "(gathered MoE layers) for the serving forwards")
     args = ap.parse_args(argv)
+    if args.quant != "none" and args.mesh:
+        ap.error("--quant serves whole-expert int8/fp8 payloads; combined "
+                 "with --mesh it is not supported (the scales do not shard "
+                 "with the experts)")
+    if args.cache_layers < 0:
+        ap.error("--cache-layers must be >= 0")
+    mesh_dims = None
+    if args.mesh:
+        try:
+            mesh_dims = mesh_lib.parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
     if (args.spec_ngram or args.spec_draft) and not args.paged:
         ap.error("--spec-ngram/--spec-draft require --paged")
     if args.spec_ngram and args.spec_draft:
@@ -1093,22 +1151,38 @@ def main(argv=None):
         ap.error("--fault-spec/--audit require --paged (the recovery "
                  "machinery lives in the paged engine)")
     device = resolve_device(args.device)
+    with contextlib.ExitStack() as stack:
+        mesh = None
+        if mesh_dims is not None:
+            dims, axes = mesh_dims
+            device = stack.enter_context(mesh_lib.cli_process_group(
+                device, int(np.prod(dims))))
+            mesh = mesh_lib.make_mesh(dims, axes, device_type=device.type)
+        return _serve(args, device, mesh)
+
+
+def _serve(args, device, mesh):
+    say = print if mesh_lib.is_rank0() else (lambda *a, **k: None)
     if args.fault_spec:
         faults_lib.install(faults_lib.load_plan(args.fault_spec))
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
     lm.check_servable(cfg)
-    pcfg = ParallelConfig(blk=16)
+    pcfg = ParallelConfig(blk=16, mode=args.mode,
+                          cache_layers=args.cache_layers)
+    lm.check_mesh(cfg, pcfg, mesh)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    if args.quant != "none":
+    if mesh is not None:
+        params, _ = steps_lib.sharded_params(cfg, pcfg, mesh, generator=gen,
+                                             device=device)
+    elif args.quant != "none":
         # quantized layer by layer as drawn: the full-precision tree (61 GB
         # at qwen3-moe-30b-a3b's width) never sits beside its int8 copy
         params = lm.init_params(cfg, generator=gen, device=device,
                                 quant=args.quant)
         before = _unquantized_bytes(params, torch_dtype(cfg.dtype))
-        print(f"[serve] expert weights -> {args.quant}: params "
-              f"{before / 1e6:.1f}MB -> "
-              f"{_tree_bytes(params) / 1e6:.1f}MB")
+        say(f"[serve] expert weights -> {args.quant}: params "
+            f"{before / 1e6:.1f}MB -> {_tree_bytes(params) / 1e6:.1f}MB")
     else:
         params = lm.init_params(cfg, generator=gen, device=device)
     if args.paged:
@@ -1120,7 +1194,7 @@ def main(argv=None):
             max_pages_per_slot=cdiv(args.max_seq, args.page_size),
             params=params, prefill_chunk=args.prefill_chunk,
             kv_quant=args.kv_quant, prefix_cache=args.prefix_cache,
-            disagg=args.disagg, audit=args.audit, device=device)
+            disagg=args.disagg, audit=args.audit, device=device, mesh=mesh)
         if args.spec_ngram or args.spec_draft:
             # spec imports this module (the shared sampling convention),
             # so it is imported here, never at module level
@@ -1140,7 +1214,7 @@ def main(argv=None):
     else:
         server = BatchedServer(cfg, pcfg, num_slots=args.slots,
                                max_seq=args.max_seq, params=params,
-                               device=device)
+                               device=device, mesh=mesh)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         server.submit(Request(
@@ -1154,17 +1228,17 @@ def main(argv=None):
         faults_lib.install(None)
     dt = time.time() - t0
     total_tokens = sum(len(r.out) for r in done)
-    print(f"[serve] {len(done)} requests, {total_tokens} tokens "
+    say(f"[serve] {len(done)} requests, {total_tokens} tokens "
           f"in {dt:.2f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s)")
     if server.decode_times_s:
         ts = np.asarray(server.decode_times_s[1:] or server.decode_times_s)
-        print(f"[serve] measured decode step: median "
+        say(f"[serve] measured decode step: median "
               f"{np.median(ts) * 1e3:.1f}ms p90 "
               f"{np.percentile(ts, 90) * 1e3:.1f}ms over {len(ts)} steps")
     if args.paged:
         st = server.stats()
         server.drop_prefix_cache()
-        print(f"[serve] page pool: {st['peak_in_use_pages']} peak pages "
+        say(f"[serve] page pool: {st['peak_in_use_pages']} peak pages "
               f"({st['peak_in_use_bytes'] / 1024:.1f} KiB KV resident, "
               f"{server.page_bytes} B a {server.kv_quant or cfg.dtype} page) "
               f"of {st['num_pages'] - 1} allocatable; {st['total_allocs']} "
@@ -1172,30 +1246,37 @@ def main(argv=None):
               f"{server.pool.free_pages == st['num_pages'] - 1}")
         if st["aborts"] or st["preemptions"] or st["engine_recoveries"] \
                 or st["failed"]:
-            print(f"[serve] recovery: {st['aborts']} aborts, "
+            say(f"[serve] recovery: {st['aborts']} aborts, "
                   f"{st['preemptions']} preemptions, "
                   f"{st['engine_recoveries']} engine recoveries, "
                   f"{st['failed']} failed")
         if "prefix" in st:
             pf = st["prefix"]
             hit = pf["hit_tokens"] / max(pf["lookup_tokens"], 1)
-            print(f"[serve] prefix cache: {hit:.0%} token hit-rate over "
+            say(f"[serve] prefix cache: {hit:.0%} token hit-rate over "
                   f"{pf['lookups']} lookups, {pf['cached_pages']} pages "
                   f"held at the end, {pf['evictions']} LRU evictions")
         if args.disagg:
-            print(f"[serve] disagg: roles {server.roles}, "
+            say(f"[serve] disagg: roles {server.roles}, "
                   f"{server.transfers} page-table handoffs")
         if server.spec is not None:
             sp = server.spec.stats()
-            print(f"[serve] speculative: {sp['rounds']} verify rounds, "
+            say(f"[serve] speculative: {sp['rounds']} verify rounds, "
                   f"{sp['accepted_drafts']}/{sp['drafted']} drafts "
                   f"accepted ({sp['acceptance_rate']:.0%}), "
                   f"{sp['rollback_tokens']} rows rolled back")
     else:
-        print(f"[serve] dense KV cache: {server.kv_bytes() / 1024:.1f} KiB "
-              f"({args.slots} slots, max_seq {args.max_seq})")
+        say(f"[serve] dense KV cache: {server.kv_bytes() / 1024:.1f} KiB "
+            f"{'a rank ' if mesh is not None else ''}({args.slots} slots, "
+            f"max_seq {args.max_seq})")
+    if lm.LAST_PIPELINE_CACHE_STATS is not None and args.cache_layers:
+        st = lm.LAST_PIPELINE_CACHE_STATS
+        say(f"[serve] prefetch cache (last forward): "
+            f"{st['peak_resident_layers']} peak resident layers, "
+            f"{st['peak_resident_bytes'] / 1024:.1f} KiB, {st['hits']} hits, "
+            f"{st['prefetches']} prefetches")
     for r in done[:3]:
-        print(f"  req {r.rid}: {r.out[:8]}...")
+        say(f"  req {r.rid}: {r.out[:8]}...")
     return done
 
 

@@ -5,8 +5,18 @@ token-wise scan on stacks with recurrent mixers), the speculative
 verify's multi-token score step, and the paged engine's slot handoff and
 page copy.
 PyTorch runs eagerly, so a step is a plain closure; the serving chunk's
-valid count and slot arrive as host ints. One device only: the JAX
-builders' ``mesh`` is None here.
+valid count and slot arrive as host ints.
+
+The training and dense serving builders take a ``mesh`` (a
+``launch.mesh.Mesh``) and the global ``batch_shape3`` (B, S, d_model),
+from which they place the activations (``launch.inputs.
+activation_spec``), as the JAX builders do. On a mesh the parameters and
+the optimizer state are this rank's shards (``sharded_params``,
+``sharded_opt_state``); the train step takes this rank's block of the
+batch (``launch.inputs.batch_block``), the serving steps the whole batch
+of slots, each rank cutting its own and returning the logits of every
+slot, so that every rank's host scheduler sees the same logits. The
+paged engine's builders stay on one device (ROADMAP.md A.5.6).
 """
 from __future__ import annotations
 
@@ -16,9 +26,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.inputs import activation_spec, batch_block
 from repro_torch.models import lm
+from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
-from repro_torch.parallel.sharding import ParallelConfig
+from repro_torch.parallel.moe_parallel import _Psum
+from repro_torch.parallel.sharding import (
+    ParallelConfig,
+    as_axes,
+    global_grad_norm,
+    shard_tree,
+)
 
 
 def _per_token_xent(logits, labels):
@@ -45,12 +63,44 @@ def _chunk_loss(params, x_c, lbl_c, m_c, cfg):
                                      lbl_c) * m_c)
 
 
+def _chunk_loss_mesh(w, x_c, lbl_c, m_c, mesh, vaxes):
+    """A chunk's summed cross entropy from this rank's vocabulary block of
+    the logits: the max and the exp-sum reduced over ``vaxes``, the
+    label's logit taken from the rank that holds it."""
+    logits = x_c.float() @ w.float()                   # (B, S_c, V_l)
+    m = torch.amax(logits, dim=-1).detach()
+    if vaxes:
+        m = torch.amax(mesh.all_gather(m[..., None], vaxes, 2), dim=-1)
+    se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    vl = logits.shape[-1]
+    local = lbl_c.long() - (mesh.index(vaxes) * vl if vaxes else 0)
+    hit = (local >= 0) & (local < vl)
+    ll = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    ll = torch.where(hit, ll, torch.zeros((), device=ll.device))
+    if vaxes:
+        se = _Psum.apply(se, mesh, vaxes)
+        ll = _Psum.apply(ll, mesh, vaxes)
+    return torch.sum((torch.log(se) + m - ll) * m_c)
+
+
 def chunked_xent(x, params, cfg: ModelConfig, labels, mask,
-                 n_chunks: int = 16):
+                 n_chunks: int = 16, pcfg: ParallelConfig = None, mesh=None,
+                 x_spec=None):
     """Cross entropy over sequence chunks: one (B, S_c, V) f32 logits block
     at a time, recomputed in the backward (``torch.utils.checkpoint``), so
     full-sequence logits (which dominate activation memory at 150k-entry
-    vocabularies) never exist. x: (B, S, D) final hidden states."""
+    vocabularies) never exist. x: (B, S, D) final hidden states.
+
+    On a ``mesh`` (an island): x is this rank's block at ``x_spec``, the
+    labels and mask its batch block with the whole sequence. The hidden
+    states' sequence is gathered over "sp" once and the head (or the tied
+    embedding) stays split over "tp" in the vocabulary: every rank
+    computes every chunk's logits for its vocabulary block, the
+    logsumexp from a max and an exp-sum reduced over "tp". The loss is
+    the global mean, the same on every rank."""
+    if mesh is not None:
+        return _chunked_xent_mesh(x, params, cfg, labels, mask, n_chunks,
+                                  pcfg, mesh, x_spec)
     s = x.shape[1]
     while s % n_chunks:
         n_chunks //= 2
@@ -64,7 +114,30 @@ def chunked_xent(x, params, cfg: ModelConfig, labels, mask,
     return total / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig):
+def _chunked_xent_mesh(x, params, cfg, labels, mask, n_chunks, pcfg, mesh,
+                       x_spec):
+    baxes = as_axes(x_spec[0])
+    x = tfm.seq_gather(tfm.island_in(x, mesh, x_spec), mesh,
+                        as_axes(x_spec[1]))
+    w, vaxes = lm.head_weight(params, cfg, pcfg, mesh)
+    s = x.shape[1]
+    while s % n_chunks:
+        n_chunks //= 2
+    cs = s // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * cs, (c + 1) * cs)
+        total = total + checkpoint(_chunk_loss_mesh, w, x[:, sl],
+                                   labels[:, sl], mask[:, sl], mesh, vaxes,
+                                   use_reentrant=False)
+    if baxes:
+        total = _Psum.apply(total, mesh, baxes)
+    denom = mesh.all_reduce(torch.sum(mask.float()), baxes)
+    return tfm.island_out(total / torch.clamp(denom, min=1.0), mesh, ())
+
+
+def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig, *, mesh=None,
+                 batch_shape3=None):
     """Training loss closure: LM forward (hidden-state output) + chunked
     cross entropy + MoE aux/z losses, weighted per ``cfg.moe``. Routing
     takes no jitter. ``loss_fn(params, batch) -> (total, metrics)``;
@@ -73,35 +146,61 @@ def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig):
     loss_mask (B, S) f32. A siglip forward longer than the labels drops
     its first rows (the image prefix) before the loss; the CLI's batches
     cut the tokens so that it is as long, and the loss covers every row,
-    as the JAX package's do."""
+    as the JAX package's do.
+
+    On a ``mesh`` the params are this rank's shards and the batch its
+    block (``launch.inputs.batch_block`` under the activations' batch
+    axes); ``batch_shape3`` is the global (B, S, d_model). The loss, aux
+    and z are global, the same on every rank, and autograd from each
+    rank's total gives this rank's blocks of the global gradient."""
     lm.check_trainable(cfg)
+    lm.check_mesh(cfg, pcfg, mesh)
     aw = cfg.moe.aux_weight if cfg.moe else 0.0
     zw = cfg.moe.z_weight if cfg.moe else 0.0
+    x_spec = _x_spec(batch_shape3, pcfg, mesh)
 
     def loss_fn(params, batch):
         hidden, _, aux, z = lm.forward(params, batch, cfg, pcfg,
-                                       mode="train", return_hidden=True)
+                                       mode="train", return_hidden=True,
+                                       mesh=mesh, x_spec=x_spec)
         labels = batch["labels"]
         if cfg.frontend == "siglip":
             n_img = hidden.shape[1] - labels.shape[1]
             if n_img > 0:
                 hidden = hidden[:, n_img:]
-        loss = chunked_xent(hidden, params, cfg, labels, batch["loss_mask"])
+        loss = chunked_xent(hidden, params, cfg, labels, batch["loss_mask"],
+                            pcfg=pcfg, mesh=mesh, x_spec=x_spec)
         total = loss + aw * aux + zw * z
         return total, {"loss": loss, "aux_loss": aux, "z_loss": z}
 
     return loss_fn
 
 
+def _x_spec(batch_shape3, pcfg: ParallelConfig, mesh):
+    if mesh is None:
+        return None
+    if batch_shape3 is None:
+        raise ValueError("a mesh needs batch_shape3, the global (B, S, "
+                         "d_model) of the activations")
+    return activation_spec(batch_shape3, pcfg, mesh)
+
+
 def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
-                    opt_cfg: adamw.OptimizerConfig):
+                    opt_cfg: adamw.OptimizerConfig, *, mesh=None,
+                    batch_shape3=None):
     """The train step: grads of ``make_loss_fn``'s total by autograd, then
     the AdamW update. ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``; params and opt_state are updated in place
     (``adamw.apply_updates``) and metrics are 0-d tensors on the device.
     The update runs under the profiler range ``train_step.adamw``
-    (``scripts/torch_train_profile.py`` reads its device time)."""
-    loss_fn = make_loss_fn(cfg, pcfg)
+    (``scripts/torch_train_profile.py`` reads its device time).
+
+    On a ``mesh`` (``make_loss_fn``'s placement) the moments and masters
+    follow the parameters' shards, the step count is replicated, and the
+    clip norm is the global gradient's (``sharding.global_grad_norm``:
+    each leaf's squares summed over the axes its block is sharded on)."""
+    loss_fn = make_loss_fn(cfg, pcfg, mesh=mesh, batch_shape3=batch_shape3)
+    pspecs = None if mesh is None else lm.physical_specs(cfg, pcfg, mesh)
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -113,9 +212,11 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                  for p, g in zip(leaves, grads)]
         it = iter(grads)
         grad_tree = tree_map(lambda _: next(it), params)
+        gnorm = (None if mesh is None
+                 else global_grad_norm(grad_tree, pspecs, mesh))
         with record_function("train_step.adamw"):
             params, opt_state, om = adamw.apply_updates(
-                params, grad_tree, opt_state, opt_cfg)
+                params, grad_tree, opt_state, opt_cfg, grad_norm=gnorm)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, {**metrics, **om,
                                    "total_loss": total.detach()}
@@ -123,38 +224,54 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig):
+def _dense_step(cfg, pcfg, mesh, batch_shape3, mode):
+    """The dense-cache forward of ``mode`` as a step; on a mesh each rank
+    cuts its block of the slots from the whole batch of inputs and the
+    logits come back gathered over the slots on every rank."""
+    lm.check_mesh(cfg, pcfg, mesh)
+    x_spec = _x_spec(batch_shape3, pcfg, mesh)
+
+    def step(params, inputs, cache):
+        fwd_in = {k: v for k, v in inputs.items() if k != "active"}
+        active = inputs.get("active")
+        if mesh is not None:
+            fwd_in = batch_block(fwd_in, x_spec, mesh)
+            if active is not None:
+                active = batch_block({"a": active}, x_spec, mesh)["a"]
+        logits, new_cache, _, _ = lm.forward(
+            params, fwd_in, cfg, pcfg, mode=mode, cache=cache,
+            active=active, mesh=mesh, x_spec=x_spec)
+        if mesh is not None:
+            logits = mesh.all_gather(logits, as_axes(x_spec[0]), 0)
+        return logits, new_cache
+
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, *, mesh=None,
+                      batch_shape3=None):
     """Dense-cache prefill: one forward over the whole prompt batch (every
     prompt of the same length S), writing its K/V rows into the ``(slots,
     max_seq)`` cache and setting every slot's length to S.
     ``prefill_step(params, inputs, cache) -> (logits (B, 1, [C,] V) f32 of
     the last row, cache)``; ``inputs``: the forward's (tokens (B, S);
-    siglip patches before them, S their sum; encodec embeds; cond)."""
-
-    def prefill_step(params, inputs, cache):
-        logits, new_cache, _, _ = lm.forward(
-            params, inputs, cfg, pcfg, mode="prefill", cache=cache)
-        return logits, new_cache
-
-    return prefill_step
+    siglip patches before them, S their sum; encodec embeds; cond). On a
+    ``mesh`` (``batch_shape3`` (B, S, d_model)): the whole batch in, this
+    rank's cache block (``lm.init_cache(mesh=)``), every slot's logits
+    out."""
+    return _dense_step(cfg, pcfg, mesh, batch_shape3, "prefill")
 
 
-def make_serve_step(cfg: ModelConfig, pcfg: ParallelConfig):
+def make_serve_step(cfg: ModelConfig, pcfg: ParallelConfig, *, mesh=None,
+                    batch_shape3=None):
     """Dense-cache decode macro-step: one token per occupied slot
     (``active`` (B,) bool masks the rest; absent, every slot advances).
     ``serve_step(params, inputs, cache) -> (logits (B, 1, [C,] V) f32,
     cache)``; ``inputs``: tokens (B, 1) (encodec: embeds (B, 1,
     frontend_dim)), cond where the config cross-attends, and optionally
-    active."""
-
-    def serve_step(params, inputs, cache):
-        fwd_in = {k: v for k, v in inputs.items() if k != "active"}
-        logits, new_cache, _, _ = lm.forward(
-            params, fwd_in, cfg, pcfg, mode="decode", cache=cache,
-            active=inputs.get("active"))
-        return logits, new_cache
-
-    return serve_step
+    active. On a ``mesh`` (``batch_shape3`` (B, 1, d_model)): as
+    ``make_prefill_step``."""
+    return _dense_step(cfg, pcfg, mesh, batch_shape3, "decode")
 
 
 def make_paged_serve_step(cfg: ModelConfig, pcfg: ParallelConfig,
@@ -328,3 +445,22 @@ def _make_paged_prefill_scan(cfg: ModelConfig, pcfg: ParallelConfig,
                                     "len": new_len}
 
     return prefill_step
+
+
+def sharded_params(cfg: ModelConfig, pcfg: ParallelConfig, mesh, *,
+                   generator: torch.Generator, device,
+                   quant=None) -> tuple:
+    """This rank's shards of a freshly drawn parameter tree and the tree's
+    logical specs (``lm.param_specs``): every rank draws the same global
+    tree from ``generator`` (padded by ``pcfg.hetero_plan``) and keeps its
+    blocks, as ``parallel.sharding.shard`` cuts them."""
+    full = lm.init_params(cfg, generator=generator, device=device,
+                          quant=quant, plan=pcfg.hetero_plan)
+    specs = lm.param_specs(cfg, pcfg)
+    return shard_tree(full, specs, pcfg, mesh), specs
+
+
+def sharded_opt_state(params, opt_cfg: adamw.OptimizerConfig) -> dict:
+    """The AdamW state of a rank's parameter shards: the moments and f32
+    masters inherit the shards, and the step count is replicated."""
+    return adamw.init_opt_state(params, opt_cfg)

@@ -12,6 +12,9 @@ codebooks for musicgen-large).
         --layers 4 --steps 3 --global-batch 4 --seq-len 1024   # one GPU
     python -m repro_torch.launch.train --arch musicgen-large \\
         --smoke --steps 3 --global-batch 4 --seq-len 64 --device cpu
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen3-moe-30b-a3b --smoke --steps 3 --global-batch 4 \\
+        --seq-len 64 --device cpu --mesh 2,2 --mode data_centric
 
 It runs on the GPU unless ``--device cpu`` is given, and raises where no
 GPU is present. ``--layers`` cuts the configuration's depth: AdamW with
@@ -19,14 +22,32 @@ f32 masters holds 16 bytes a parameter, so one 80 GB card trains 4 of
 qwen3-moe-30b-a3b's 48 full-width layers. ``--quant int8|fp8`` trains
 quantization-aware: the expert weights pass through block-wise
 ``fake_quant`` inside the MoE layer (straight-through grads) and the
-round-tripped weights go to the full-precision kernels. The JAX
-trainer's mesh, hetero, topology, fault, observability, checkpoint and
-resume flags belong to later slices and are absent here (ROADMAP.md); so
-is its fault-tolerant loop.
+round-tripped weights go to the full-precision kernels.
+
+``--mesh`` (axes the last of ("pod", "data", "model"), as the JAX
+trainer's) trains on a ``launch.mesh.Mesh`` over the job's ranks
+(``launch.mesh.cli_process_group``: ``torchrun``, ``launch_local``, or a
+mesh of one rank in this process), with ``--mode``, ``--schedule``,
+``--cache-policy`` and ``--cache-layers`` as ``ParallelConfig`` reads
+them and ``--proxy-latencies`` for the auto mode's chooser. Every rank
+draws the same weights and the same global batch from the seed and
+keeps its blocks (``steps.sharded_params``, ``inputs.batch_block``);
+rank 0 prints. ``--hetero-latencies`` (with ``--hetero-tp-latencies``)
+builds and runs an Eq. 1/2 ``core.hetero.HeteroPlan``: the weights are
+drawn with its padded hidden width, each batch is packed to ``n_devices
+x batch_capacity`` rows (``core.hetero.pack_batch``), and the step is
+kept in a ``parallel.cache.PlanCache`` under the plan's key. Not here
+(ROADMAP.md): ``--topology`` (A.5.3), ``--hetero-replan`` and
+``--simulate-skew`` (A.6), and the fault, observability, checkpoint and
+resume flags with the fault-tolerant loop (A.6); ``--no-scan`` has no
+counterpart, the port's layer loop being always unrolled. Only the
+recurrent, cross-attention, frontend and codebook configurations refuse
+a mesh (A.5.5).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -36,17 +57,28 @@ import torch
 
 from repro_torch import configs as cfglib
 from repro_torch.common import resolve_device
+from repro_torch.core import hetero as hetero_lib
 from repro_torch.data.pipeline import DataConfig, TokenSource
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.inputs import activation_spec, batch_block
 from repro_torch.models import lm
 from repro_torch.optim import adamw
+from repro_torch.parallel.cache import PlanCache
 from repro_torch.parallel.sharding import ParallelConfig
 
 
-def build_state(cfg, opt_cfg, seed: int, device):
-    """Seeded random parameters on ``device`` and their AdamW state."""
+def build_state(cfg, opt_cfg, seed: int, device, *, pcfg=None, mesh=None):
+    """Seeded random parameters on ``device`` (padded by
+    ``pcfg.hetero_plan``) and their AdamW state; on a ``mesh``, this
+    rank's shards of both."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = lm.init_params(cfg, generator=gen, device=device)
+    if mesh is not None:
+        params, _ = steps_lib.sharded_params(cfg, pcfg, mesh, generator=gen,
+                                             device=device)
+        return params, steps_lib.sharded_opt_state(params, opt_cfg)
+    plan = None if pcfg is None else pcfg.hetero_plan
+    params = lm.init_params(cfg, generator=gen, device=device, plan=plan)
     return params, adamw.init_opt_state(params, opt_cfg)
 
 
@@ -96,8 +128,18 @@ def frontend_batch(cfg, batch: dict, step: int) -> dict:
     }
 
 
+def _latencies(ap, text: str, flag: str) -> tuple:
+    try:
+        vals = tuple(float(t) for t in text.split(","))
+    except ValueError:
+        ap.error(f"{flag} must be comma-separated numbers")
+    if any(t <= 0 for t in vals):
+        ap.error(f"{flag} must all be positive (seconds)")
+    return vals
+
+
 def main(argv=None):
-    """CLI trainer: a synthetic-data train loop on one device."""
+    """CLI trainer: a synthetic-data train loop on one device or a mesh."""
     # no abbreviations: a later slice's flag must not pass as a prefix of
     # a ported one (--metrics would otherwise mean --metrics-out)
     ap = argparse.ArgumentParser(allow_abbrev=False)
@@ -122,8 +164,59 @@ def main(argv=None):
                          "int8/fp8 fake-quant inside the MoE layers "
                          "(straight-through grads; routers and the dense "
                          "layers stay full precision)")
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. '2,4' => data,model; '2,2,2' => "
+                         "pod,data,model (torchrun or one rank)")
+    ap.add_argument("--mode", default="hybrid",
+                    choices=["hybrid", "model_centric", "data_centric",
+                             "auto", "ep"],
+                    help="'auto' picks data/model-centric per MoE layer "
+                         "from the roofline (parallel.autotune)")
+    ap.add_argument("--schedule", default="ag_rs", choices=["ag_rs", "ag_ar"])
+    ap.add_argument("--cache-policy", default="shared_cache",
+                    choices=["shared_cache", "janus", "none"])
+    ap.add_argument("--cache-layers", type=int, default=0,
+                    help="pipeline-shared prefetch cache residency bound "
+                         "(gathered MoE layers); the remat'd train step "
+                         "skips it (its cache is --cache-policy)")
+    ap.add_argument("--proxy-latencies", default=None,
+                    help="comma-separated per-device proxy latencies t_i "
+                         "(core.hetero); makes the auto chooser "
+                         "heterogeneity-aware")
+    ap.add_argument("--hetero-latencies", default=None,
+                    help="comma-separated t_i per batch-group member: build "
+                         "and run an Eq. 1 uneven token split "
+                         "(core.hetero.HeteroPlan). Requires --mesh")
+    ap.add_argument("--hetero-tp-latencies", default=None,
+                    help="comma-separated t_i per TP-group member: adds the "
+                         "Eq. 2 uneven hidden split (padded tiles) to the "
+                         "plan")
     args = ap.parse_args(argv)
+    if args.hetero_latencies and not args.mesh:
+        ap.error("--hetero-latencies requires --mesh")
+    if args.cache_layers < 0:
+        ap.error("--cache-layers must be >= 0")
+    latencies = (None if not args.proxy_latencies else
+                 _latencies(ap, args.proxy_latencies, "--proxy-latencies"))
+    mesh_dims = None
+    if args.mesh:
+        try:
+            mesh_dims = mesh_lib.parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
     device = resolve_device(args.device)
+    with contextlib.ExitStack() as stack:
+        mesh = None
+        if mesh_dims is not None:
+            dims, axes = mesh_dims
+            device = stack.enter_context(mesh_lib.cli_process_group(
+                device, int(np.prod(dims))))
+            mesh = mesh_lib.make_mesh(dims, axes, device_type=device.type)
+        return _train(ap, args, device, mesh, latencies)
+
+
+def _train(ap, args, device, mesh, latencies):
+    say = print if mesh_lib.is_rank0() else (lambda *a, **k: None)
 
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
@@ -131,21 +224,54 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     lm.check_trainable(cfg)
     pcfg = ParallelConfig(blk=min(128, max(16, args.seq_len // 4)),
-                          quant=args.quant)
+                          quant=args.quant, mode=args.mode,
+                          collective_schedule=args.schedule,
+                          cache_policy=args.cache_policy,
+                          cache_layers=args.cache_layers,
+                          device_latencies=latencies)
+    plan = None
+    if args.hetero_latencies:
+        tp_lat = (None if not args.hetero_tp_latencies else _latencies(
+            ap, args.hetero_tp_latencies, "--hetero-tp-latencies"))
+        plan = hetero_lib.make_hetero_plan(
+            _latencies(ap, args.hetero_latencies, "--hetero-latencies"),
+            global_batch=args.global_batch,
+            hidden_size=(cfg.moe.d_ff if tp_lat is not None
+                         and cfg.moe is not None else None),
+            tp_latencies=tp_lat)
+        pcfg = dataclasses.replace(pcfg, hetero_plan=plan)
+        say(f"[hetero] plan: token_counts={plan.token_counts} "
+            f"(capacity {plan.batch_capacity}/device) "
+            f"hidden_splits={plan.hidden_splits}")
+    lm.check_mesh(cfg, pcfg, mesh)
     opt_cfg = adamw.OptimizerConfig(
         peak_lr=args.lr, warmup_steps=args.warmup,
         decay_steps=max(args.steps, 2 * args.warmup), master_fp32=True)
     source = TokenSource(DataConfig(
         seq_len=args.seq_len, global_batch=args.global_batch,
         vocab_size=cfg.vocab_size, seed=args.seed))
-    params, opt_state = build_state(cfg, opt_cfg, args.seed, device)
-    train_step = steps_lib.make_train_step(cfg, pcfg, opt_cfg)
+    params, opt_state = build_state(cfg, opt_cfg, args.seed, device,
+                                    pcfg=pcfg, mesh=mesh)
+    # an uneven plan pads the batch: n_devices x capacity rows, of which
+    # each device's Eq. 1 share is real
+    eff_batch = args.global_batch
+    if plan is not None and plan.token_counts is not None:
+        eff_batch = len(plan.token_counts) * plan.batch_capacity
+    shape3 = (eff_batch, args.seq_len, cfg.d_model)
+    x_spec = activation_spec(shape3, pcfg, mesh)
+    plan_cache = PlanCache(4)
+    train_step = plan_cache.fetch(
+        (0, None if plan is None else plan.key()),
+        lambda: steps_lib.make_train_step(cfg, pcfg, opt_cfg, mesh=mesh,
+                                          batch_shape3=shape3))
 
     metrics_log = []
     t_last = time.perf_counter()
     for step in range(args.steps):
-        batch = batch_to(frontend_batch(cfg, source.batch(step), step),
-                         device)
+        host = frontend_batch(cfg, source.batch(step), step)
+        if plan is not None and plan.token_counts is not None:
+            host = hetero_lib.pack_batch(host, plan)
+        batch = batch_to(batch_block(host, x_spec, mesh), device)
         params, opt_state, m = train_step(params, opt_state, batch)
         m = {k: float(v) for k, v in m.items()}   # waits for the step
         now = time.perf_counter()
@@ -153,15 +279,15 @@ def main(argv=None):
         t_last = now
         metrics_log.append({"step": step + 1, **m})
         if (step + 1) % args.log_every == 0:
-            print(f"step {step + 1:5d} loss {m['loss']:.4f} "
-                  f"aux {m['aux_loss']:.4f} lr {m['lr']:.2e} "
-                  f"({m['step_time_s']:.2f}s)")
-    if args.metrics_out:
+            say(f"step {step + 1:5d} loss {m['loss']:.4f} "
+                f"aux {m['aux_loss']:.4f} lr {m['lr']:.2e} "
+                f"({m['step_time_s']:.2f}s)")
+    if args.metrics_out and mesh_lib.is_rank0():
         with open(args.metrics_out, "w") as f:
             json.dump(metrics_log, f, indent=1)
-    print(f"[train] finished at step {args.steps}; final loss "
-          f"{metrics_log[-1]['loss']:.4f}" if metrics_log
-          else "[train] no steps run")
+    say(f"[train] finished at step {args.steps}; final loss "
+        f"{metrics_log[-1]['loss']:.4f}" if metrics_log
+        else "[train] no steps run")
     return metrics_log
 
 

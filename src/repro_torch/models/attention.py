@@ -90,32 +90,44 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       softcap: float = 0.0) -> torch.Tensor:
     """GQA attention, sub-quadratic-aware. q: (B, S, Hq, hd); k/v:
     (B, S, Hkv, hd). Returns (B, S, Hq, hd) in q's dtype."""
-    b, s, hq, hd = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    assert s == skv, "prefill/train assumes aligned q and kv"
-    g = hq // hkv
-    scale = scale if scale is not None else hd ** -0.5
-    qg = q.reshape(b, s, hkv, g, hd)
-
+    s = q.shape[1]
+    assert s == k.shape[1], "prefill/train assumes aligned q and kv"
     q_chunk = min(q_chunk, s)
     while s % q_chunk:
         q_chunk //= 2
-    outs = []
-    for c in range(s // q_chunk):
-        end = (c + 1) * q_chunk if causal else s
-        start = 0
-        if causal and window is not None and not prefix_len:
-            start = max(0, (c + 1) * q_chunk - window - q_chunk)
-        span = end - start
-        bk = min(kv_block, span)
-        while span % bk:
-            bk //= 2
-        outs.append(checkpoint(
-            _run_chunk, qg[:, c * q_chunk:(c + 1) * q_chunk],
-            k[:, start:end], v[:, start:end], c, q_chunk, start, span, bk,
-            causal, window, prefix_len, scale, softcap, use_reentrant=False))
-    out = torch.cat(outs, dim=1)
-    return out.reshape(b, s, hq, hd).to(q.dtype)
+    return torch.cat([
+        chunk_attention(q[:, c * q_chunk:(c + 1) * q_chunk], k, v, c,
+                        causal=causal, window=window, prefix_len=prefix_len,
+                        kv_block=kv_block, scale=scale, softcap=softcap)
+        for c in range(s // q_chunk)], dim=1)
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    chunk: int, *, causal: bool = True,
+                    window: Optional[int] = None, prefix_len: int = 0,
+                    kv_block: int = 2048, scale: Optional[float] = None,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Query chunk ``chunk`` of a sequence cut into chunks of q's length,
+    against the whole sequence's K/V: ``chunked_attention``'s body for one
+    chunk, and on a mesh one rank's share of sequence-parallel attention.
+    q: (B, C, Hq, hd) at positions ``chunk * C + arange(C)``; k/v:
+    (B, S, Hkv, hd). Returns (B, C, Hq, hd) in q's dtype."""
+    b, cs, hq, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    end = (chunk + 1) * cs if causal else s
+    start = 0
+    if causal and window is not None and not prefix_len:
+        start = max(0, end - window - cs)
+    span = end - start
+    bk = min(kv_block, span)
+    while span % bk:
+        bk //= 2
+    out = checkpoint(
+        _run_chunk, q.reshape(b, cs, hkv, hq // hkv, hd), k[:, start:end],
+        v[:, start:end], chunk, cs, start, span, bk, causal, window,
+        prefix_len, scale, softcap, use_reentrant=False)
+    return out.reshape(b, cs, hq, hd).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

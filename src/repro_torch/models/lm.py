@@ -19,6 +19,20 @@ vocabulary projection or, with ``num_codebooks > 1``, one per codebook.
 Every LM configuration trains and takes the dense steps
 (``check_supported``); the serving engines take token prompts and one
 head only (``check_servable``). MLP experts in an LM stack raise.
+
+On a mesh (``forward(..., mesh=, x_spec=)``) each rank holds its blocks
+of the parameters (``param_specs``, the JAX package's ``Param`` tags;
+``convert.shard_params`` cuts them) and of the batch dimension with the
+whole token sequence. The embedding is vocabulary-parallel over "tp"
+(each rank looks up the ids of its own vocabulary block, zeros for the
+others, ids outside the vocabulary clamped as JAX's gathers clamp them),
+its partial sums reduce-scattered over the sequence straight to the
+activations' (dp, sp, None); the layers run as ``models.transformer``'s
+islands and ``moe_parallel.moe_layer``; the serving logits are gathered
+whole on every rank. The dense cache holds this rank's slots (and K/V
+heads where they split over "tp"). Attention stacks with MoE or dense
+FFNs run there; recurrent mixers, cross-attention, frontends, codebook
+heads and the paged cache raise ``NotImplementedError`` on a mesh.
 """
 from __future__ import annotations
 
@@ -28,10 +42,30 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common import torch_dtype
+from repro_torch.common import torch_dtype, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import frontends, mamba, transformer as tfm, xlstm
-from repro_torch.parallel.sharding import ParallelConfig, normal_init
+from repro_torch.parallel.moe_parallel import (
+    EP_PARAM_LOGICAL,
+    MOE_PARAM_LOGICAL,
+    _Gather,
+)
+from repro_torch.parallel.sharding import (
+    ParallelConfig,
+    as_axes,
+    gather_blocks,
+    normal_init,
+    physical_spec,
+)
+
+#: The pipeline-shared cache's ``stats()`` of the last forward that built
+#: one (``run_layers``); None until then. Tests and the card's smoke run
+#: read it after a call.
+LAST_PIPELINE_CACHE_STATS: Optional[dict] = None
+
+#: Logical specs of the embedding table and the vocabulary head.
+EMBED_LOGICAL = ("tp", "fsdp")
+HEAD_LOGICAL = ("fsdp", "tp")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -60,6 +94,27 @@ def check_servable(cfg: ModelConfig) -> None:
             f"{cfg.name}: the serving engines take token prompts and one "
             f"vocabulary head; frontend inputs and codebook heads are not "
             f"served yet (ROADMAP.md A.4)")
+
+
+def check_mesh(cfg: ModelConfig, pcfg: ParallelConfig, mesh) -> None:
+    """Raise for what the port does not run on a mesh yet: recurrent
+    mixers, cross-attention, frontends and codebook heads (ROADMAP.md
+    A.5.5), and the hierarchical "node" schedule and
+    ``overlap_dispatch`` (A.5.3)."""
+    if mesh is None:
+        return
+    what = [w for w, on in (
+        ("recurrent mixers (Mamba, mLSTM, sLSTM)", recurrent_layers(cfg)),
+        ("cross-attention", cfg.cross_attn), ("a frontend", cfg.frontend),
+        ("codebook heads", cfg.num_codebooks > 1)) if on]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name} on a mesh: {', '.join(what)} are not ported to the "
+            f"mesh yet (ROADMAP.md A.5.5)")
+    if "node" in mesh.axis_names or pcfg.overlap_dispatch:
+        raise NotImplementedError(
+            "the hierarchical 'node' schedule and overlap_dispatch are not "
+            "ported (ROADMAP.md A.5.3)")
 
 
 def recurrent_layers(cfg: ModelConfig) -> list:
@@ -91,11 +146,13 @@ _MIXER_INIT = {"attn": tfm.init_attention, "mamba": mamba.init_mamba,
 
 
 def init_block(cfg: ModelConfig, idx: int, dtype, generator, device,
-               quant: Optional[str] = None) -> dict:
+               quant: Optional[str] = None, plan=None) -> dict:
     """Layer ``idx``'s parameters: its mixer, its cross-attention (attention
     layers of a ``cross_attn`` config), then its FFN (none on mLSTM
     layers; an sLSTM block's GLU of width ``ceil64(ffn_factor * d)``).
-    ``quant``: the MoE experts quantized as drawn (``init_moe_ffn``)."""
+    ``quant``: the MoE experts quantized as drawn; ``plan``: a
+    ``core.hetero.HeteroPlan`` padding their hidden width
+    (``init_moe_ffn``)."""
     kind = cfg.layer_kind(idx)
     p = {"ln1": tfm.init_norm(cfg, device),
          "mixer": _MIXER_INIT[kind](cfg, dtype, generator, device)}
@@ -107,7 +164,7 @@ def init_block(cfg: ModelConfig, idx: int, dtype, generator, device,
         p["ln2"] = tfm.init_norm(cfg, device)
     if fk == "moe":
         p["ffn"] = tfm.init_moe_ffn(cfg, dtype, generator, device,
-                                    quant=quant)
+                                    quant=quant, plan=plan)
     elif fk == "dense":
         p["ffn"] = tfm.init_dense_ffn(cfg, dtype, generator, device)
     elif fk == "slstm_ffn":
@@ -118,21 +175,23 @@ def init_block(cfg: ModelConfig, idx: int, dtype, generator, device,
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
-                device, quant: Optional[str] = None) -> dict:
+                device, quant: Optional[str] = None, plan=None) -> dict:
     """Full parameter tree, drawn from ``generator`` (on ``device``): the
     JAX package's shapes and its 0.02-std normal, not its numbers.
     ``quant`` ("int8" | "fp8"): each expert matrix is quantized
     (``quant.core.quantize_blockwise``, expert by expert) as soon as it is
     drawn and its full-precision copy freed, so the full-precision tree
     never exists; the weights equal ``quantize_lm_params`` of the tree
-    drawn without it."""
+    drawn without it. ``plan``: a ``core.hetero.HeteroPlan`` whose uneven
+    Eq. 2 hidden splits pad every MoE FFN (``tfm.init_moe_ffn``)."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     p = {
         "embed": normal_init((cfg.vocab_size, cfg.d_model), dtype, generator,
                              device),
         "final_norm": tfm.init_norm(cfg, device),
-        "layers": [init_block(cfg, i, dtype, generator, device, quant=quant)
+        "layers": [init_block(cfg, i, dtype, generator, device, quant=quant,
+                              plan=plan)
                    for i in range(cfg.num_layers)],
     }
     if not cfg.tie_embeddings:
@@ -145,6 +204,59 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     if cfg.frontend:
         p["frontend"] = frontends.init_frontend(cfg, dtype, generator, device)
     return p
+
+
+def param_shapes(cfg: ModelConfig, plan=None) -> dict:
+    """Every leaf's global shape, in ``init_params``' tree structure."""
+    p = init_params(cfg, generator=torch.Generator(), device="meta",
+                    plan=plan)
+    return tree_map(lambda t: tuple(t.shape), p)
+
+
+def param_specs(cfg: ModelConfig, pcfg: ParallelConfig) -> dict:
+    """Logical spec of every leaf, in ``init_params``' tree structure (the
+    JAX package's ``Param`` tags, per layer here): the embedding ("tp",
+    "fsdp"), the head ("fsdp", "tp"), attention and dense FFN weights as
+    ``models.transformer``'s tables, the MoE FFN as ``moe_parallel``
+    places it under ``pcfg.mode``, the norms replicated. What a mesh does
+    not run (``check_mesh``) is replicated."""
+    moe = EP_PARAM_LOGICAL if pcfg.mode == "ep" else MOE_PARAM_LOGICAL
+    shapes = param_shapes(cfg, plan=pcfg.hetero_plan)
+
+    def table(name: str, idx: int) -> dict:
+        if name in ("ln1", "ln2", "ln_x"):
+            return tfm.NORM_LOGICAL
+        if name == "mixer" and cfg.layer_kind(idx) == "attn":
+            return tfm.ATTN_LOGICAL
+        if name == "ffn":
+            return moe if _ffn_kind(cfg, idx) == "moe" else \
+                tfm.DENSE_FFN_LOGICAL
+        return {}
+
+    def leaves(sub: dict, tbl: dict) -> dict:
+        return {k: tbl.get(k, (None,) * len(shape)) for k, shape in
+                sub.items()}
+
+    out = {"layers": [{k: leaves(v, table(k, i)) for k, v in lp.items()}
+                      for i, lp in enumerate(shapes["layers"])],
+           "embed": EMBED_LOGICAL,
+           "final_norm": leaves(shapes["final_norm"], tfm.NORM_LOGICAL)}
+    if "head" in shapes:
+        out["head"] = HEAD_LOGICAL
+    if "cb_heads" in shapes:
+        out["cb_heads"] = (None, "fsdp", "tp")
+    if "frontend" in shapes:
+        out["frontend"] = tree_map(lambda shape: (None,) * len(shape),
+                                   shapes["frontend"])
+    return out
+
+
+def physical_specs(cfg: ModelConfig, pcfg: ParallelConfig, mesh) -> dict:
+    """Every leaf's physical spec on ``mesh`` (``param_specs`` placed at
+    the leaf's global shape), in the parameter tree's structure."""
+    return tree_map(lambda lg, shape: physical_spec(shape, lg, pcfg, mesh),
+                    param_specs(cfg, pcfg),
+                    param_shapes(cfg, plan=pcfg.hetero_plan))
 
 
 def _state_spec(cfg: ModelConfig, idx: int, batch: int, dtype) -> dict:
@@ -182,9 +294,44 @@ def _zeros_like_spec(spec: dict, device) -> dict:
             "len": zeros(spec["len"])}
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
-    """The dense ``(batch, seq_len)`` KV rectangle, zeroed, on ``device``."""
-    return _zeros_like_spec(cache_spec(cfg, batch, seq_len), device)
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device, *,
+               pcfg: Optional[ParallelConfig] = None, mesh=None) -> dict:
+    """The dense ``(batch, seq_len)`` KV rectangle, zeroed, on ``device``.
+    On a ``mesh``: this rank's block of it (``cache_specs``)."""
+    if mesh is None:
+        return _zeros_like_spec(cache_spec(cfg, batch, seq_len), device)
+    specs = cache_specs(cfg, pcfg, mesh, batch, seq_len)
+    spec = cache_spec(cfg, batch, seq_len)
+
+    def local(sd, ps):
+        shape = [n // mesh.size(a) for n, a in zip(sd[0], ps)]
+        return (tuple(shape), sd[1])
+
+    return _zeros_like_spec(tree_map(local, spec, specs), device)
+
+
+def cache_specs(cfg: ModelConfig, pcfg: ParallelConfig, mesh, batch: int,
+                seq_len: int) -> dict:
+    """Physical specs of the dense cache's leaves on ``mesh``, in its tree
+    structure: the slots split as the decode step's batch is
+    (``launch.inputs.activation_spec`` of (batch, 1, d_model)), and the
+    K/V heads over "tp" where the heads split
+    (``transformer.heads_shardable``)."""
+    from repro_torch.launch.inputs import activation_spec
+
+    check_mesh(cfg, pcfg, mesh)
+    baxes = activation_spec((batch, 1, cfg.d_model), pcfg, mesh)[0]
+    tp = pcfg.axes(mesh)["tp"]
+    heads = tp if tfm.heads_shardable(cfg, mesh.size(tp)) else None
+    kv = (baxes, None, heads, None)
+    spec = cache_spec(cfg, batch, seq_len)
+    return {"layers": [{k: kv for k in layer} for layer in spec["layers"]],
+            "len": (baxes,)}
+
+
+def gather_cache(cache: dict, specs: dict, mesh) -> dict:
+    """The whole dense cache from every rank's block (collective)."""
+    return tree_map(lambda t, sp: gather_blocks(t, sp, mesh), cache, specs)
 
 
 def cache_bytes(cache: dict) -> int:
@@ -291,14 +438,15 @@ def rollback_slot(cfg: ModelConfig, cache: dict, slot: int,
 # ---------------------------------------------------------------------------
 
 def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
-                cache: Optional[dict]):
+                cache: Optional[dict], gathered: Optional[dict] = None):
     """One block: mixer, cross-attention where the layer has it, then the
     FFN where the layer has one. Returns
     (x, cache, aux, z). In a decode macro-step with an ``active`` mask,
     inactive slots keep their recurrent state (attention writes its own
-    sink row)."""
+    sink row). ``gathered``: the MoE FFN's expert weights from the
+    pipeline-shared cache (``run_layers``)."""
     kind = ctx.cfg.layer_kind(idx)
-    h = tfm.apply_norm(p["ln1"], x, ctx.cfg)
+    h = tfm.block_norm(p["ln1"], x, ctx)
     if kind == "attn":
         out, new_cache = tfm.apply_attention(p["mixer"], h, ctx, idx, cache)
     else:
@@ -315,9 +463,10 @@ def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
             p["xattn"], tfm.apply_norm(p["ln_x"], x, ctx.cfg), ctx)
     aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
-        h2 = tfm.apply_norm(p["ln2"], x, ctx.cfg)
+        h2 = tfm.block_norm(p["ln2"], x, ctx)
         if ctx.cfg.is_moe_layer(idx):
-            y, aux, z = tfm.apply_moe_ffn(p["ffn"], h2, ctx)
+            y, aux, z = tfm.apply_moe_ffn(p["ffn"], h2, ctx,
+                                          idx % ctx.cfg.period, gathered)
         else:
             y = tfm.apply_dense_ffn(p["ffn"], h2, ctx)
         x = x + y
@@ -340,21 +489,61 @@ def run_layers(layers: list, x: torch.Tensor, ctx: tfm.Ctx,
     A training forward with ``pcfg.remat == "block"`` checkpoints each
     block (``torch.utils.checkpoint``, non-reentrant): only its input is
     saved and its forward, kernels included, runs again in the backward,
-    as the JAX package's ``jax.checkpoint`` of a period does."""
-    remat = ctx.mode == "train" and ctx.pcfg.remat != "none"
+    as the JAX package's ``jax.checkpoint`` of a period does.
+
+    ``pcfg.cache_layers > 0`` runs the pipeline-shared prefetch cache
+    (``parallel.cache.PipelineSharedCache``) where the JAX package's
+    unrolled loop runs it: a stack with MoE layers, outside the "ep" mode
+    and outside the remat'd training forward (whose checkpoints would
+    save every gathered layer; there the cache policy is the cache). One
+    entry is one MoE layer's expert weights with their fsdp factor
+    gathered (``gather_ffn_params``), fetched before the layer computes,
+    with the next MoE layer's gather issued first when the capacity is 2
+    or more; ``moe_layer(pregathered=True)`` takes them. JAX keys an entry
+    by period, the port by layer: the same for a period-1 stack. The
+    cache's ``stats()`` go to ``LAST_PIPELINE_CACHE_STATS``."""
+    global LAST_PIPELINE_CACHE_STATS
+    cfg, pcfg = ctx.cfg, ctx.pcfg
+    remat = ctx.mode == "train" and pcfg.remat != "none"
+    moe_idx = [i for i in range(len(layers)) if _ffn_kind(cfg, i) == "moe"]
+    pcache = None
+    if pcfg.cache_layers > 0 and moe_idx and pcfg.mode != "ep" \
+            and not remat:
+        from repro_torch.parallel.cache import (
+            PipelineSharedCache,
+            gather_ffn_params,
+        )
+
+        pcache = PipelineSharedCache(pcfg.cache_layers)
+        d_ff = tfm.moe_static(cfg, pcfg).d_ff
+
+        def gather(i):
+            return gather_ffn_params(layers[i]["ffn"], pcfg, ctx.mesh,
+                                     d_ff=d_ff)
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     z = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for idx, (lp, lc) in enumerate(zip(layers, cache_layers)):
+        g = None
+        if pcache is not None and idx in moe_idx:
+            g = pcache.fetch(idx, lambda: gather(idx))
+            later = [i for i in moe_idx if i > idx]
+            if pcache.capacity_layers >= 2 and later:
+                # double buffer: issue the next MoE layer's gather before
+                # this layer computes
+                pcache.prefetch(later[0], lambda: gather(later[0]))
         if remat:
             x, a, zz = checkpoint(_train_block, lp, x, ctx, idx,
                                   use_reentrant=False)
             nc = lc
         else:
-            x, nc, a, zz = apply_block(lp, x, ctx, idx, lc)
+            x, nc, a, zz = apply_block(lp, x, ctx, idx, lc, gathered=g)
         new_caches.append(nc)
         aux = aux + a
         z = z + zz
+    if pcache is not None:
+        LAST_PIPELINE_CACHE_STATS = pcache.stats()
     return x, aux, z, new_caches
 
 
@@ -376,6 +565,76 @@ def _embed_in(params: dict, inputs: dict, cfg: ModelConfig, dtype):
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     return x
+
+
+def _embed_mesh(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                ctx: tfm.Ctx, dtype) -> torch.Tensor:
+    """The vocabulary-parallel embedding (an island): this rank's tokens
+    (its batch block, the whole sequence) -> its block of the activations
+    at ``ctx.x_spec``. Ids are wrapped and clamped into the vocabulary as
+    JAX's gathers do; each rank looks up those in its vocabulary block
+    and gives zeros for the rest, and the partial sums are
+    reduce-scattered over the sequence (all-reduced where the sequence is
+    not split). A vocabulary "tp" does not divide leaves the table whole:
+    then each rank keeps its own sequence block of the lookup."""
+    mesh, v, d = ctx.mesh, cfg.vocab_size, cfg.d_model
+    spec = physical_spec((v, d), EMBED_LOGICAL, ctx.pcfg, mesh)
+    emb = tfm.weight_in(params["embed"], mesh, spec, EMBED_LOGICAL)
+    ids = tokens.long()
+    ids = torch.where(ids < 0, ids + v, ids).clamp(0, v - 1)
+    vaxes = as_axes(spec[0])
+    seq_axes = as_axes(ctx.x_spec[1])
+    if vaxes:
+        vl = emb.shape[0]
+        local = ids - mesh.index(vaxes) * vl
+        hit = (local >= 0) & (local < vl)
+        x = torch.where(hit[..., None], emb[local.clamp(0, vl - 1)],
+                        torch.zeros((), dtype=emb.dtype, device=emb.device))
+    else:
+        x = emb[ids]
+    x = x.to(dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(d), dtype=dtype)
+    if vaxes:
+        # "sp" and "tp" are one mesh axis: summing the vocabulary blocks
+        # scatters the sequence
+        x = tfm.tp_reduce(x, mesh, seq_axes, vaxes)
+    elif seq_axes:
+        sl = x.shape[1] // mesh.size(seq_axes)
+        x = x.narrow(1, mesh.index(seq_axes) * sl, sl)
+    return tfm.island_out(x, mesh, ctx.x_spec)
+
+
+def head_weight(params: dict, cfg: ModelConfig, pcfg: ParallelConfig,
+                mesh):
+    """The vocabulary head inside a mesh island: (D, V_l) with its fsdp
+    factor gathered and its vocabulary block kept (the tied embedding
+    transposed), and the mesh axes the vocabulary is split over."""
+    v, d = cfg.vocab_size, cfg.d_model
+    if cfg.tie_embeddings:
+        spec = physical_spec((v, d), EMBED_LOGICAL, pcfg, mesh)
+        w = tfm.weight_in(params["embed"], mesh, spec, EMBED_LOGICAL).t()
+        return w, as_axes(spec[0])
+    spec = physical_spec((d, v), HEAD_LOGICAL, pcfg, mesh)
+    return (tfm.weight_in(params["head"], mesh, spec, HEAD_LOGICAL),
+            as_axes(spec[1]))
+
+
+def _logits_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 ctx: tfm.Ctx, last_only: bool) -> torch.Tensor:
+    """Vocabulary logits f32 on a mesh: this rank's batch block, the whole
+    sequence (or its last row) and the whole vocabulary, gathered over
+    the sequence and the vocabulary split."""
+    mesh = ctx.mesh
+    x = tfm.seq_gather(tfm.island_in(x, mesh, ctx.x_spec), mesh,
+                        as_axes(ctx.x_spec[1]))
+    if last_only:
+        x = x[:, -1:]
+    w, vaxes = head_weight(params, cfg, ctx.pcfg, mesh)
+    logits = x.float() @ w.float()
+    if vaxes:
+        logits = _Gather.apply(logits, mesh, vaxes, 2)
+    return tfm.island_out(logits, mesh, (ctx.x_spec[0], None, None))
 
 
 def _logits_out(params: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -401,7 +660,8 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
             pcfg: ParallelConfig, *, mode: str, cache: Optional[dict] = None,
             paged: Optional[dict] = None,
             active: Optional[torch.Tensor] = None,
-            return_hidden: bool = False):
+            return_hidden: bool = False, mesh=None,
+            x_spec: Optional[tuple] = None):
     """Forward pass. Returns (logits, cache, aux_loss, z_loss); with
     ``return_hidden`` the final normed hidden states stand in for the
     logits. ``inputs``: ``tokens`` (B, S) int; siglip configs may add
@@ -421,9 +681,27 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
     cache (``init_cache``; None returns no cache), every slot's length set
     to S. Prefill gives the logits of the last row only.
     ``paged`` (serving): ``{"table": (B, maxp) int32, "page_size": int}``;
-    None means the dense cache."""
+    None means the dense cache.
+
+    ``mesh``: a ``launch.mesh.Mesh``; ``params`` are then this rank's
+    shards (``param_specs``), the inputs, ``active`` and the dense cache
+    its block of the batch (``launch.inputs.batch_block`` under
+    ``x_spec[0]``) with the whole sequence, and ``x_spec`` the physical
+    spec of the global (B, S, D) activations
+    (``launch.inputs.activation_spec``). The hidden states come back at
+    ``x_spec``, the logits with the whole sequence and vocabulary; aux
+    and z are global. Without a mesh nothing changes."""
     if mode not in ("train", "decode", "prefill"):
         raise ValueError(f"forward mode {mode!r}: train | prefill | decode")
+    if mesh is not None:
+        check_mesh(cfg, pcfg, mesh)
+        if paged is not None:
+            raise NotImplementedError(
+                "the paged cache on a mesh is not ported (ROADMAP.md "
+                "A.5.6)")
+        if x_spec is None:
+            raise ValueError("a mesh needs x_spec, the activations' "
+                             "physical spec")
     train = mode == "train"
     dense_prefill = mode == "prefill" and paged is None
     if train and (cache is not None or paged is not None
@@ -433,8 +711,17 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
         raise ValueError("the dense prefill takes whole prompts: no active "
                          "mask")
     dtype = torch_dtype(cfg.dtype)
-    x = _embed_in(params, inputs, cfg, dtype)
-    b, s, _ = x.shape
+    ctx = tfm.Ctx(cfg=cfg, pcfg=pcfg, mode=mode, positions=None,
+                  cache_len=None, paged=paged, decode_active=active,
+                  cond=inputs.get("cond"), mesh=mesh,
+                  x_spec=(None, None, None) if mesh is None
+                  else tuple(x_spec) + (None,) * (3 - len(x_spec)))
+    if mesh is None:
+        x = _embed_in(params, inputs, cfg, dtype)
+        b, s, _ = x.shape
+    else:
+        x = _embed_mesh(params, inputs["tokens"], cfg, ctx, dtype)
+        b, s = inputs["tokens"].shape
     if train or dense_prefill:
         cache_len = None
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -445,15 +732,15 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
         positions = cache_len.long()[:, None] + torch.arange(
             s, device=x.device)
         cache_layers = cache["layers"]
-    ctx = tfm.Ctx(cfg=cfg, pcfg=pcfg, mode=mode, positions=positions,
-                  cache_len=cache_len, paged=paged, decode_active=active,
-                  cond=inputs.get("cond"))
+    ctx.positions, ctx.cache_len = positions, cache_len
     x, aux, z, new_layers = run_layers(params["layers"], x, ctx,
                                        cache_layers)
-    x = tfm.apply_norm(params["final_norm"], x, cfg)
+    x = tfm.block_norm(params["final_norm"], x, ctx)
 
     if return_hidden:
         logits = x
+    elif mesh is not None:
+        logits = _logits_mesh(params, x, cfg, ctx, mode == "prefill")
     elif mode == "prefill":
         logits = _logits_out(params, x[:, -1:], cfg)
     else:

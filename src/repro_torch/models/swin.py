@@ -62,13 +62,13 @@ from repro_torch.parallel.moe_parallel import (
     EP_PARAM_LOGICAL,
     MOE_PARAM_LOGICAL,
     MoEStatic,
-    _param_specs,
     moe_layer,
 )
 from repro_torch.parallel.sharding import (
     ParallelConfig,
+    global_grad_norm,
     normal_init,
-    spec_axes,
+    physical_spec,
 )
 
 #: The MoE blocks' token placement on a mesh (the JAX package's).
@@ -301,15 +301,11 @@ def param_shapes(cfg: SwinConfig) -> dict:
     return tree_map(lambda t: tuple(t.shape), p)
 
 
-def _moe_leaf_axes(cfg: SwinConfig, pcfg: ParallelConfig, mesh) -> dict:
-    """stage -> {MoE leaf name: the mesh axes its block is sharded over}."""
-    out = {}
-    for s in cfg.moe_stages:
-        dim = cfg.dims[s]
-        specs = _param_specs(_moe_static(cfg, dim), dim, pcfg, mesh)
-        out[s] = {k: tuple(a for a in mesh.axis_names if a in spec_axes(v))
-                  for k, v in specs.items()}
-    return out
+def physical_specs(cfg: SwinConfig, pcfg: ParallelConfig, mesh) -> dict:
+    """Every leaf's physical spec on ``mesh`` (``param_specs`` placed at
+    the leaf's global shape), in the parameter tree's structure."""
+    return tree_map(lambda lg, shape: physical_spec(shape, lg, pcfg, mesh),
+                    param_specs(cfg, pcfg), param_shapes(cfg))
 
 
 def swin_forward(params, images: torch.Tensor, cfg: SwinConfig,
@@ -429,10 +425,10 @@ def make_train_step(cfg: SwinConfig, pcfg: ParallelConfig,
     leaves' gradients come out of ``moe_layer`` as the global gradient's
     blocks; the dense leaves' are summed over ("pod", "data") only (the
     "model" ranks of a group hold the same rows and the same gradient).
-    The clip norm is the global tree's (``_mesh_grad_norm``), and the
-    moments follow the parameters' shards."""
+    The clip norm is the global tree's (``sharding.global_grad_norm``),
+    and the moments follow the parameters' shards."""
     loss_fn = make_loss_fn(cfg, pcfg, moe_impl=moe_impl, mesh=mesh)
-    moe_axes = None if mesh is None else _moe_leaf_axes(cfg, pcfg, mesh)
+    pspecs = None if mesh is None else physical_specs(cfg, pcfg, mesh)
 
     def train_step(params, opt_state, images, labels):
         leaves = tree_leaves(params)
@@ -449,7 +445,7 @@ def make_train_step(cfg: SwinConfig, pcfg: ParallelConfig,
         if mesh is not None:
             with record_function("train_step.grad_sync"):
                 _sync_dense_grads(grad_tree, mesh)
-                gnorm = _mesh_grad_norm(grad_tree, moe_axes, mesh)
+                gnorm = global_grad_norm(grad_tree, pspecs, mesh)
         with record_function("train_step.adamw"):
             params, opt_state, om = adamw.apply_updates(
                 params, grad_tree, opt_state, opt_cfg, grad_norm=gnorm)
@@ -484,26 +480,6 @@ def _sync_dense_grads(grads, mesh) -> None:
     for g in dense:
         g.copy_(flat[off:off + g.numel()].view_as(g))
         off += g.numel()
-
-
-def _mesh_grad_norm(grads, moe_axes, mesh) -> torch.Tensor:
-    """The global gradient tree's norm from this rank's blocks: each MoE
-    leaf's sum of squares summed over the axes it is sharded on (once per
-    group of leaves sharded alike); the dense leaves, replicated, count
-    once."""
-    dense = _dense_leaves(grads)
-    total = torch.stack([torch.sum(torch.square(g.float()))
-                         for g in dense]).sum()
-    by_axes = {}
-    for s, st in enumerate(grads["stages"]):
-        for blk in st["blocks"]:
-            for name, g in blk.get("moe", {}).items():
-                axes = moe_axes[s][name]
-                by_axes.setdefault(axes, []).append(
-                    torch.sum(torch.square(g.float())))
-    for axes, sq in sorted(by_axes.items()):
-        total = total + mesh.all_reduce(torch.stack(sq).sum(), axes)
-    return torch.sqrt(total)
 
 
 def synthetic_batch(cfg: SwinConfig, batch_size: int, *,

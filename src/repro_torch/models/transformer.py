@@ -7,6 +7,27 @@ Parameters are plain dicts of tensors. The paged K/V pools and the dense
 cache's decode rows are updated in place (the JAX version returns new
 arrays): serving holds one cache and never needs the old one, so the port
 saves the copy.
+
+On a mesh (``Ctx.mesh``, a ``launch.mesh.Mesh``) the activations are
+placed at ``Ctx.x_spec`` (``launch.inputs.activation_spec``: (dp, sp,
+None)) and each rank holds its blocks of the weights (``*_LOGICAL``
+placed by ``sharding.physical_spec``). The JAX package gets its layout
+from GSPMD's sharding constraints; the port writes it out. Each norm,
+attention and dense FFN runs as an island in the manner of ``shard_map``
+(``island_in``/``island_out``, with ``moe_parallel``'s autograd
+collectives): an input block held by several ranks sums its cotangent
+over them on the way in, an output held by several divides it on the way
+out, and every collective inside is paired with its adjoint, so autograd
+gives the global function's gradients, as ``jax.grad`` does. A dense
+weight's fsdp factor is gathered at use (its gradient reduce-scattered);
+its tp factor stays: attention runs column-parallel q/k/v over this
+rank's heads on the sequence gathered over "sp" and a row-parallel ``wo``
+reduce-scattered back to (dp, sp, None) (all-reduced where the sequence
+is not split), and the dense FFN splits its hidden width over "tp" the
+same way (Megatron). Where the heads do not divide over "tp" (MQA, a
+40-head stack on 16 ranks), attention keeps the queries' sequence chunk
+and gathers K/V over the sequence instead (JAX's ``seq_parallel_attn``).
+The MoE FFN is ``moe_parallel.moe_layer``'s own island.
 """
 from __future__ import annotations
 
@@ -19,8 +40,22 @@ from repro_torch.common import ACTIVATIONS
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import NEG_INF, paged_attention
 from repro_torch.models import attention as attn_lib
-from repro_torch.parallel.moe_parallel import MoEStatic, moe_layer
-from repro_torch.parallel.sharding import ParallelConfig, normal_init
+from repro_torch.parallel.moe_parallel import (
+    MoEStatic,
+    _Enter,
+    _Exit,
+    _Gather,
+    _Psum,
+    _ScatterSum,
+    _unmentioned,
+    moe_layer,
+)
+from repro_torch.parallel.sharding import (
+    ParallelConfig,
+    as_axes,
+    normal_init,
+    physical_spec,
+)
 from repro_torch.quant.core import (dequantize_rows, quantize_blockwise,
                                     quantize_rows)
 
@@ -38,6 +73,81 @@ class Ctx:
     decode_active: Optional[torch.Tensor] = None  # (B,) decode / (B, S)
     #   prefill mask: inactive slots and rows write to the sink page only
     cond: Optional[torch.Tensor] = None  # cross-attention memory (B, T, Dc)
+    mesh: Optional[object] = None       # launch.mesh.Mesh, or None
+    x_spec: tuple = (None, None, None)  # physical spec of (B, S, D)
+
+
+#: Logical specs of the dense layers' weights (the JAX package's ``Param``
+#: tags): the norms replicated, q/k/v column- and ``wo`` row-parallel.
+NORM_LOGICAL = {"scale": (None,), "bias": (None,)}
+ATTN_LOGICAL = {"wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"),
+                "wv": ("fsdp", "tp"), "wo": ("tp", "fsdp"),
+                "q_norm": (None,), "k_norm": (None,)}
+DENSE_FFN_LOGICAL = {"w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"),
+                     "w_down": ("tp", "fsdp"), "w1": ("fsdp", "tp"),
+                     "b1": ("tp",), "w2": ("tp", "fsdp"), "b2": (None,)}
+
+
+# ---------------------------------------------------------------------------
+# islands on a mesh
+# ---------------------------------------------------------------------------
+
+def island_in(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """An island input placed by the physical ``spec``: the identity, with
+    its cotangent summed over the axes the spec leaves it replicated on
+    (``shard_map``'s transpose)."""
+    axes = _unmentioned(mesh, spec)
+    return _Enter.apply(t, mesh, axes) if axes else t
+
+
+def island_out(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """An island output placed by ``spec``: the identity, its cotangent
+    divided by the number of ranks holding each block."""
+    n = mesh.size(_unmentioned(mesh, spec))
+    return _Exit.apply(t, n) if n > 1 else t
+
+
+def weight_in(w: torch.Tensor, mesh, spec, logical, *,
+              gather_tp: bool = False) -> torch.Tensor:
+    """A dense weight's view inside an island: entered (``island_in``),
+    its fsdp factor gathered (the backward reduce-scatters the gradient),
+    and with ``gather_tp`` its tp factor as well."""
+    w = island_in(w, mesh, spec)
+    for dim, (lg, entry) in enumerate(zip(logical, spec)):
+        axes = as_axes(entry)
+        if axes and (lg == "fsdp" or (gather_tp and lg == "tp")):
+            w = _Gather.apply(w, mesh, axes, dim)
+    return w
+
+
+def _leaf_spec(ctx: Ctx, shape, logical) -> tuple:
+    return physical_spec(shape, logical, ctx.pcfg, ctx.mesh)
+
+
+def seq_gather(x: torch.Tensor, mesh, seq_axes) -> torch.Tensor:
+    return _Gather.apply(x, mesh, seq_axes, 1) if seq_axes else x
+
+
+def tp_reduce(y: torch.Tensor, mesh, seq_axes, tp) -> torch.Tensor:
+    """Partial sums over "tp" placed back like x: reduce-scattered over
+    the sequence where x's sequence is split ("sp" is "tp"), else
+    all-reduced."""
+    if seq_axes:
+        return _ScatterSum.apply(y, mesh, seq_axes, 1)
+    if as_axes(tp):
+        return _Psum.apply(y, mesh, tp)
+    return y
+
+
+def block_norm(p: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """``apply_norm`` of the residual stream; on a mesh, an island over
+    x's block with the replicated scale (and bias)."""
+    if ctx.mesh is None:
+        return apply_norm(p, x, ctx.cfg)
+    mesh = ctx.mesh
+    x = island_in(x, mesh, ctx.x_spec)
+    p = {k: island_in(v, mesh, NORM_LOGICAL[k]) for k, v in p.items()}
+    return island_out(apply_norm(p, x, ctx.cfg), mesh, ctx.x_spec)
 
 
 # ---------------------------------------------------------------------------
@@ -109,10 +219,41 @@ def apply_dense_ffn(p: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     layer runs these products outside any Pallas kernel, so they stay
     ``torch.matmul`` here."""
     act = ACTIVATIONS[ctx.cfg.act]
+    if ctx.mesh is not None:
+        return _dense_ffn_mesh(p, x, ctx, act)
     if "w_gate" in p:
         return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     h = x @ p["w1"] + p["b1"].to(x.dtype)
     return act(h) @ p["w2"] + p["b2"].to(x.dtype)
+
+
+def _dense_ffn_mesh(p: dict, x: torch.Tensor, ctx: Ctx, act) -> torch.Tensor:
+    """The Megatron FFN on a mesh: the sequence gathered over "sp" once,
+    the hidden width split over "tp", the down projection's partial sums
+    reduce-scattered back to x's placement (all-reduced where the
+    sequence is not split). A hidden width "tp" does not divide runs
+    whole on x's own block. The MLP's output bias is added once, after
+    the sum."""
+    mesh, d = ctx.mesh, ctx.cfg.d_model
+    f = (p["w_gate"] if "w_gate" in p else p["w1"]).shape[-1]
+    shapes = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d),
+              "w1": (d, f), "b1": (f,), "w2": (f, d), "b2": (d,)}
+    specs = {k: _leaf_spec(ctx, shapes[k], DENSE_FFN_LOGICAL[k]) for k in p}
+    w = {k: weight_in(v, mesh, specs[k], DENSE_FFN_LOGICAL[k])
+         for k, v in p.items()}
+    up = "w_gate" if "w_gate" in p else "w1"
+    split = bool(as_axes(specs[up][1]))
+    seq_axes = as_axes(ctx.x_spec[1]) if split else ()
+    tp = ctx.pcfg.axes(mesh)["tp"] if split else None
+    x = seq_gather(island_in(x, mesh, ctx.x_spec), mesh, seq_axes)
+    if "w_gate" in w:
+        y = (act(x @ w["w_gate"]) * (x @ w["w_up"])) @ w["w_down"]
+        y = tp_reduce(y, mesh, seq_axes, tp)
+    else:
+        h = x @ w["w1"] + w["b1"].to(x.dtype)
+        y = tp_reduce(act(h) @ w["w2"], mesh, seq_axes, tp) \
+            + w["b2"].to(x.dtype)
+    return island_out(y, mesh, ctx.x_spec)
 
 
 # ---------------------------------------------------------------------------
@@ -160,13 +301,34 @@ def init_moe_ffn(cfg: ModelConfig, dtype, generator, device,
     return p
 
 
-def apply_moe_ffn(p: dict, x: torch.Tensor, ctx: Ctx):
-    """Returns (y, aux_loss, z_loss). x: (B, S, D)."""
-    m = ctx.cfg.moe
-    ms = MoEStatic(num_experts=m.num_experts, top_k=m.top_k, act=ctx.cfg.act,
-                   glu=ctx.cfg.glu, norm_topk=m.norm_topk,
-                   softmax_after_topk=m.softmax_after_topk)
-    return moe_layer(x, p, ms, ctx.pcfg)
+def moe_static(cfg: ModelConfig, pcfg: ParallelConfig) -> MoEStatic:
+    """The MoE layer's static hyperparameters; ``d_ff`` the experts'
+    global hidden width, padded where ``pcfg.hetero_plan`` pads it."""
+    m = cfg.moe
+    f = m.d_ff
+    plan = pcfg.hetero_plan
+    if (plan is not None and getattr(plan, "hidden_splits", None) is not None
+            and plan.hidden_padded()):
+        f = plan.padded_hidden_size()
+    return MoEStatic(num_experts=m.num_experts, top_k=m.top_k, act=cfg.act,
+                     glu=cfg.glu, norm_topk=m.norm_topk,
+                     softmax_after_topk=m.softmax_after_topk, d_ff=f)
+
+
+def apply_moe_ffn(p: dict, x: torch.Tensor, ctx: Ctx,
+                  layer_idx: Optional[int] = None,
+                  gathered: Optional[dict] = None):
+    """Returns (y, aux_loss, z_loss). x: (B, S, D), placed at
+    ``ctx.x_spec`` on a mesh. ``layer_idx``: the period position, the key
+    of the auto mode's per-layer plan. ``gathered``: the expert weights
+    with their fsdp factor gathered by the pipeline-shared cache
+    (``parallel.cache.gather_ffn_params``); they replace the shards and
+    the island skips its own gather."""
+    if gathered is not None:
+        p = {**p, **gathered}
+    return moe_layer(x, p, moe_static(ctx.cfg, ctx.pcfg), ctx.pcfg,
+                     ctx.mesh, x_spec=ctx.x_spec, layer_idx=layer_idx,
+                     pregathered=gathered is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +372,8 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
     quantized with its own per-(row, kv head) scale (``quantize_rows``);
     decode hands the scale pools to ``paged_attention``, prefill reads a
     view dequantized to q's dtype."""
+    if ctx.mesh is not None:
+        return _attention_mesh(p, x, ctx, layer_idx, cache)
     cfg = ctx.cfg
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -311,6 +475,82 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
         out = out.reshape(b, s, hq, hd).to(q.dtype)
     y = out.reshape(b, s, hq * hd) @ p["wo"]
     return y, cache
+
+
+def heads_shardable(cfg: ModelConfig, tp_size: int) -> bool:
+    """Whether attention splits its heads over a TP group of ``tp_size``:
+    both the query and the K/V head counts divide."""
+    return cfg.num_heads % tp_size == 0 and cfg.num_kv_heads % tp_size == 0
+
+
+def _attention_mesh(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
+                    cache):
+    """``apply_attention`` on a mesh (train, dense prefill and dense
+    decode); x is this rank's block at ``ctx.x_spec``, the dense cache
+    its block of slots (and of the K/V heads where they split).
+
+    Heads shardable: x's sequence gathered over "sp" once, q/k/v over this
+    rank's heads (the weights' tp column block), ``wo`` row-parallel, its
+    partial sums reduce-scattered back over the sequence (all-reduced
+    where the sequence is not split, decode included). Not shardable: the
+    weights gathered whole; in train and prefill the queries keep this
+    rank's sequence chunk and K/V are gathered over the sequence (one
+    query chunk at its offset, ``attention.chunk_attention``); decode
+    runs every head on every rank."""
+    cfg, mesh = ctx.cfg, ctx.mesh
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    local = cfg.attn_kind(layer_idx) == "local" and cfg.window > 0
+    window = cfg.window if local else None
+    tp = ctx.pcfg.axes(mesh)["tp"]
+    tp_size = mesh.size(tp)
+    shard = heads_shardable(cfg, tp_size)
+    shapes = {"wq": (d, hq * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
+              "wo": (hq * hd, d), "q_norm": (hd,), "k_norm": (hd,)}
+    w = {k: weight_in(v, mesh, _leaf_spec(ctx, shapes[k], ATTN_LOGICAL[k]),
+                      ATTN_LOGICAL[k], gather_tp=not shard)
+         for k, v in p.items()}
+    seq_axes = as_axes(ctx.x_spec[1])
+    x = island_in(x, mesh, ctx.x_spec)
+    positions = ctx.positions
+    if shard:
+        x = seq_gather(x, mesh, seq_axes)
+        hq_l, hkv_l = hq // tp_size, hkv // tp_size
+    else:
+        hq_l, hkv_l = hq, hkv
+        if ctx.mode != "decode" and seq_axes:
+            positions = positions.narrow(
+                1, mesh.index(seq_axes) * x.shape[1], x.shape[1])
+    b, s, _ = x.shape
+    q = (x @ w["wq"]).reshape(b, s, hq_l, hd)
+    k = (x @ w["wk"]).reshape(b, s, hkv_l, hd)
+    v = (x @ w["wv"]).reshape(b, s, hkv_l, hd)
+    if cfg.qk_norm:
+        q = _head_rms(q, w["q_norm"], cfg.norm_eps)
+        k = _head_rms(k, w["k_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        q = attn_lib.rope(q, positions, cfg.rope_theta)
+        k = attn_lib.rope(k, positions, cfg.rope_theta)
+
+    if ctx.mode == "decode":
+        y, cache = _dense_decode(q, k, v, ctx, cache, w["wo"])
+    else:
+        if shard or not seq_axes:
+            out = attn_lib.chunked_attention(
+                q, k, v, causal=True, window=window,
+                prefix_len=cfg.prefix_len, softcap=cfg.logit_softcap,
+                q_chunk=2048 if shard else s)
+        else:
+            k = seq_gather(k, mesh, seq_axes)
+            v = seq_gather(v, mesh, seq_axes)
+            out = attn_lib.chunk_attention(
+                q, k, v, mesh.index(seq_axes), causal=True, window=window,
+                prefix_len=cfg.prefix_len, softcap=cfg.logit_softcap)
+        if cache is not None:
+            cache = _dense_prefill_cache(k, v, cache)
+        y = out.reshape(b, s, hq_l * hd) @ w["wo"]
+    if shard:
+        y = tp_reduce(y, mesh, seq_axes, tp)
+    return island_out(y, mesh, ctx.x_spec), cache
 
 
 def _dense_prefill_cache(k: torch.Tensor, v: torch.Tensor,

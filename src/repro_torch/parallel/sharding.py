@@ -78,12 +78,19 @@ class ParallelConfig:
       a mesh with a "node" axis is not ported (ROADMAP.md A.5).
     overlap_dispatch, collect_router_stats: not ported (ROADMAP.md A.5,
       A.6); True raises in ``moe_parallel.moe_layer``.
+    cache_layers: the residency bound of the pipeline-shared prefetch
+      cache in ``models.lm.run_layers`` (one entry = one MoE layer's
+      gathered expert weights, ``parallel.cache.gather_ffn_params``; 2 =
+      double buffer: layer i+1 is gathered before layer i computes); 0
+      turns it off. Like the JAX package's, it is skipped under the
+      remat'd training forward (there the cache policy above is the
+      cache) and in the "ep" mode.
 
     Every default is the JAX package's. Its ``scan_layers``, ``impl``
     and ``fused_ffn`` have no counterpart: the port's layer loop is always
-    unrolled, and its MoE islands always run the fused expert FFN
-    (``kernels.esffn``). Its ``cache_layers`` comes with the LM's mesh
-    forward, which reads it (ROADMAP.md A.5)."""
+    unrolled, so ``cache_layers > 0`` needs no switch (JAX raises
+    ``ValueError`` for it under ``scan_layers``), and its MoE islands
+    always run the fused expert FFN (``kernels.esffn``)."""
     blk: int = 128
     remat: str = "block"          # none | block
     capacity_factor: float = 1.25
@@ -99,6 +106,7 @@ class ParallelConfig:
     topology: Optional[Any] = None     # autotune.Topology
     overlap_dispatch: bool = False
     collect_router_stats: bool = False
+    cache_layers: int = 0
 
     def __post_init__(self):
         if self.remat not in ("none", "block"):
@@ -117,6 +125,8 @@ class ParallelConfig:
         if self.cache_policy not in ("shared_cache", "janus", "none"):
             raise ValueError(f"cache_policy {self.cache_policy!r}: "
                              f"shared_cache | janus | none")
+        if self.cache_layers < 0:
+            raise ValueError(f"cache_layers {self.cache_layers} < 0")
 
     def axes(self, mesh) -> dict:
         """Logical axis -> mesh axes under ``mode`` ("fsdp" and "dp" a
@@ -208,7 +218,14 @@ def unshard(local: torch.Tensor, logical: Sequence, cfg: ParallelConfig,
             mesh, shape) -> torch.Tensor:
     """The full tensor of global ``shape`` from every rank's ``local``
     block (collective: every rank calls it)."""
-    spec = physical_spec(shape, logical, cfg, mesh)
+    return gather_blocks(local, physical_spec(shape, logical, cfg, mesh),
+                         mesh)
+
+
+def gather_blocks(local: torch.Tensor, spec: Sequence,
+                  mesh) -> torch.Tensor:
+    """The full tensor from every rank's ``local`` block under the
+    physical ``spec`` (collective: every rank calls it)."""
     out = local
     for dim, entry in enumerate(spec):
         axes = as_axes(entry)
@@ -237,6 +254,31 @@ def unshard_tree(tree, specs, shapes, cfg: ParallelConfig, mesh):
     flat = _map2(lambda t, sp: (t, sp), tree, specs)
     return _map2(lambda ts, shape: unshard(ts[0], ts[1], cfg, mesh, shape),
                  flat, shapes)
+
+
+def global_grad_norm(grads, specs, mesh) -> torch.Tensor:
+    """The norm of a gradient tree sharded over ``mesh``, from this rank's
+    blocks: ``specs`` holds each leaf's physical spec in a tree of the
+    same structure. Each leaf's sum of squares is summed over the axes its
+    block is sharded on (one all-reduce for the leaves sharded alike), a
+    replicated leaf's counted once, and the leaves' sums are added in the
+    tree's order, as ``optim.adamw.global_norm`` adds them (so a mesh of
+    one rank gives its bits). Collective: every rank calls it."""
+    from repro_torch.common import tree_leaves
+
+    sq, groups = [], {}
+    for g, spec in zip(tree_leaves(grads), tree_leaves(
+            _map2(lambda t, sp: sp, grads, specs))):
+        if g is None:
+            continue
+        axes = tuple(a for a in mesh.axis_names if a in spec_axes(spec))
+        groups.setdefault(axes, []).append(len(sq))
+        sq.append(torch.sum(torch.square(g.float())))
+    for axes, idx in sorted(groups.items()):
+        summed = mesh.all_reduce(torch.stack([sq[i] for i in idx]), axes)
+        for i, v in zip(idx, summed.unbind()):
+            sq[i] = v
+    return torch.sqrt(torch.stack(sq).sum())
 
 
 def normal_init(shape, dtype: torch.dtype, generator: torch.Generator,

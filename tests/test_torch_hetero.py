@@ -500,17 +500,16 @@ def test_init_moe_ffn_plan_pads_with_zero_columns():
 
 
 def test_parallel_config_defaults_are_jax():
-    """Every ``ParallelConfig`` field the port has carries JAX's default;
+    """Every ``ParallelConfig`` field the port has carries JAX's default
+    (``cache_layers`` among them, read by the LM's unrolled layer loop);
     the port lacks exactly ``impl``, ``scan_layers`` (one impl a device,
-    an unrolled layer loop), ``fused_ffn`` (its islands always run the
-    fused expert FFN) and ``cache_layers`` (read by the LM's mesh forward,
-    not ported); each is refused, not ignored."""
+    an unrolled layer loop) and ``fused_ffn`` (its islands always run the
+    fused expert FFN); each is refused, not ignored."""
     jf = {f.name: f.default for f in dataclasses.fields(JPC)}
     tf = {f.name: f.default for f in dataclasses.fields(TPC)}
-    assert set(jf) - set(tf) == {"impl", "scan_layers", "fused_ffn",
-                                 "cache_layers"}
+    assert set(jf) - set(tf) == {"impl", "scan_layers", "fused_ffn"}
     assert set(tf) <= set(jf)
     assert {k: v for k, v in jf.items() if k in tf} == tf
-    for kw in (dict(fused_ffn=False), dict(cache_layers=2)):
+    for kw in (dict(fused_ffn=False), dict(scan_layers=True)):
         with pytest.raises(TypeError):
             TPC(**kw)

@@ -431,7 +431,7 @@ def test_train_cli_contract(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "2,2"], ["--mode", "auto"], ["--hetero-latencies", "1,2"],
+    ["--simulate-skew", "1,2"], ["--hetero-replan"], ["--overlap-dispatch"],
     ["--topology", "1:1:1"], ["--fault-spec", "{}"],
     ["--metrics", "m.prom"], ["--ckpt-dir", "ck"], ["--resume"],
     ["--impl", "pallas"]])
