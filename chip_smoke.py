@@ -129,8 +129,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    of its bf16 streams equal the paged engine's (48 bf16 layers round the
    two attention paths differently, so equality is asserted in phase 4).
    5s. Speculative serve, on the same weights: ``SPEC_SERVE_REQUESTS`` of
-   the same prompts (8, not 16: one wave of the 8 slots, so the phase
-   adds about half a minute), odd rids sampled at 0.8, 16 new tokens,
+   the same prompts (8, not 16: one wave of the 8 slots), odd rids
+   sampled at 0.8, 16 new tokens,
    through ``PagedServer`` without and with ``SpecDecoder``
    (``NGramDrafter``, k ``SPEC_K``), in turn ``SPEC_SERVE_PAIRS`` times,
    ``esffn_glu``'s counts set to 0 just before each run and read just
@@ -272,6 +272,15 @@ L2. Phase 8's state (4 layers, bf16, seed 0, its batches): a warm-up and
    bytes, one ``esffn_glu`` a layer a forward on ``stream`` (bf16
    streams compared, not asserted). One rank moves nothing across chips:
    these times show the code path's copies and recompute only.
+   L1 and L2 then decode again in the "auto" mode with ``cache_layers``
+   ``LM_MESH_CACHE_LAYERS``, eager and with ``overlap_dispatch``, under
+   auto's own chooser and forced to data-centric dispatch (each cache
+   entry then a layer's whole expert weights, ``gather_ffn_params(
+   collectives="all")``): tokens and every macro-step's logits bit for
+   bit the eager run's, the residency bounded; the cache's stats and
+   the decode step medians. The two-level "node" schedule needs a node
+   extent above 1, so one rank cannot run it
+   (``scripts/torch_lm_mesh_scaling.py --topology`` runs it on 4 cards).
 
 Then every other LM family trains
 (``train.frontend_batch`` builds each family's batches, as the train CLI
@@ -325,6 +334,16 @@ does):
    replace the head): their first moments must be exactly 0; 8p and 8m then run a dense prefill and
    ``FRONTEND_DECODES`` decodes from the trained weights: logits finite,
    the lengths advancing.
+
+N. The families on the 1-rank NCCL mesh against their mesh-less runs on
+   the card (``mesh_families_phase``): N1 Jamba's layout at 7h's cut, f32,
+   one loss and gradient, the total within ``TRAIN_LOSS_RTOL``, every
+   gathered grad leaf within ``TRAIN_GRAD_TOL`` x its max |grad|, exactly
+   ``_f32_expert_routes`` (the Mamba islands split their channels over
+   "model"); N2 xlstm-350m whole in bf16, ``2 * LM_MESH_PROMPTS`` greedy
+   requests through ``BatchedServer``: the streams equal, the decode tick
+   printed; N3 paligemma-3b and musicgen-large at 7f's cut, the loss
+   within ``TRAIN_LOSS_RTOL``.
 
 The training states are then freed, and the Swin-MoE slice runs (Swin-MoE-
 Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
@@ -385,8 +404,7 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    dropped copies' gates 0 (the bytes each forward keeps for its backward
    are recorded); then Swin-MoE-Small and -Base at full width and depth,
    f32, at every point of ``T78_AXES`` (8 experts, top-1/2, batch
-   64; Table 8's 4 experts at top-k 1-4, batch 32, and at top-1, batch
-   16-128; Table 7's 8 experts at top-k 1, 2, 4, 8, batch 16), each
+   64; Table 8's 4 experts at top-k 1-4, batch 32), each
    through hexa, tutel (capacity factor 1.25) and megablocks
    (``make_train_step(..., moe_impl=...)``): a fresh seeded state a cell
    and its peak predicted (a cell predicted past ``T78_PEAK_LIMIT_GB`` is
@@ -435,6 +453,12 @@ path of either package calls it, so its public entry point is its path):
    median, images/s, peak memory and the expert kernels' launches of each
    mode and policy. One rank moves nothing across chips: the gathers are
    copies on the card, which is what shows the cache's memory effect.
+   Then the baselines on the mesh (``_mesh_baselines``): 3 steps through
+   ``moe_impl="tutel"`` (capacity factor 1.25: copies drop) and
+   ``"megablocks"`` mesh-less and on the mesh, each from the same
+   weights: losses within ``SWIN_LOSS_RTOL``, the gathered parameters
+   within ``MESH_PARAM_TOL``, the copies each step drops equal (tutel
+   some, megablocks none); a step median each.
 14. Phase H, heterogeneous execution: ``parallel.hetero_exec.
    HeteroExecutor`` at Swin-MoE-Small's stage-3 MoE layer (D 384, F 1536,
    8 experts top-1, 25,088 tokens, f32, MLP experts) and at
@@ -502,14 +526,16 @@ SAMPLE_SEEDS = (1000, 1001, 1003, 2 ** 31 - 1, 2 ** 31, 2 ** 32 + 5, -1, 7)
 SAMPLE_STEPS = (0, 1, 5, 15, 300, 2, 9, 123)
 SPEC_K = 4
 SPEC_SERVE_REQUESTS = 8
-SPEC_SERVE_PAIRS = 2
+# one off/on pair, to hold the script's time as the mesh phases grew
+SPEC_SERVE_PAIRS = 1
 # Phases 4p and 5p, the prefix-sharing paged engine: requests opening with
 # one PREFIX_SHARED-token prompt (four PREFIX_PAGE-token pages) and a tail
 # of their own; 4p in f32 at 2 layers (equalities asserted), 5p at phase
 # 5's 48 bf16 layers.
 PREFIX_PAGE, PREFIX_SHARED = 16, 64
 PREFIX_REF_REQUESTS, PREFIX_REF_SLOTS = 6, 3
-PREFIX_SERVE_REQUESTS, PREFIX_OWN, PREFIX_NEW = 16, 8, 16
+# PREFIX_NEW 8, to hold the script's time as the mesh phases grew
+PREFIX_SERVE_REQUESTS, PREFIX_OWN, PREFIX_NEW = 16, 8, 8
 # Phase 8q: quantization-aware training on phase 8's state, one warm-up
 # and QAT_STEPS timed steps a mode; 7q holds it to the CPU at phase 7's
 # size with phase 7's limits.
@@ -588,6 +614,8 @@ SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
 # top-k 1-4, batch 32) and its batch axis (top-1 at batch 16, 32, 64 and
 # 128; the batch-32 point is the grid's cell); Table 7's memory against
 # top-k (benchmarks/memory_table.py: 8 experts, top-k 1, 2, 4, 8, batch 16).
+# The batch axis and Table 7's top-k axis are not run, to hold the script
+# well under its time limit as the mesh phases grew.
 T78_CONFIGS = ("swin_moe_small", "swin_moe_base")
 T78_TOP_K = (1, 2)
 T78_IMPLS = ("hexa", "tutel", "megablocks")
@@ -596,9 +624,6 @@ T78_AXES = {
     **{f"table7_batch64_{c[9:]}": [(c, T78_EXPERTS, k, T78_BATCH)
                                    for k in T78_TOP_K] for c in T78_CONFIGS},
     "table8_topk": [("swin_moe_small", 4, k, 32) for k in (1, 2, 3, 4)],
-    "table8_batch": [("swin_moe_small", 4, 1, b) for b in (16, 32, 64, 128)],
-    **{f"table7_topk_{c[9:]}": [(c, 8, k, 16) for k in (1, 2, 4, 8)]
-       for c in T78_CONFIGS},
 }
 # A cell whose predicted peak passes this is not run (the card holds 80 GB):
 # it is printed and listed as "not run", the analogue of an out-of-memory
@@ -5776,8 +5801,109 @@ def mesh_phase(torch):
               f"{shared:.3f} GB: {janus - shared:+.3f} GB kept for the "
               f"backward (the expert weights: {expert_gb:.3f} GB); 1 rank: "
               f"no traffic crosses a chip")
+        out["baselines"] = _mesh_baselines(torch, cfg, mesh, fresh, run,
+                                           opt_cfg)
     out["seconds"] = time.perf_counter() - t_phase
     return launches_by_path, out
+
+
+def _mesh_baselines(torch, cfg, mesh, fresh, run, opt_cfg):
+    """Phase M's baselines: Swin-MoE-Small's train steps through
+    ``moe_impl="tutel"`` (capacity factor 1.25: copies drop) and
+    ``"megablocks"`` on the 1-rank mesh against the mesh-less steps: the
+    losses within SWIN_LOSS_RTOL, the parameters after the steps (so the
+    gradients) within MESH_PARAM_TOL, the copies each step drops equal;
+    a step median each. The baselines compute with ``torch.bmm``: no
+    kernel of the port is on their path."""
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.core import baselines
+    from repro_torch.models import swin
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import (
+        ParallelConfig, shard_tree, unshard_tree)
+
+    real = baselines.dispatch_combine_moe
+    drops = []
+
+    def counting(x, r, w1, *a, capacity=None, capacity_factor=1.25,
+                 rank_offset=None, **kw):
+        n, k = r.expert_idx.shape
+        e = w1.shape[0]
+        cap = capacity or baselines.tutel_capacity(n, k, e, capacity_factor)
+        rank, _ = baselines._dispatch_ranks(r.expert_idx, e)
+        if rank_offset is not None:
+            rank = rank + rank_offset[r.expert_idx.long()]
+        drops.append((rank >= cap).sum())
+        return real(x, r, w1, *a, capacity=cap, rank_offset=rank_offset,
+                    **kw)
+
+    out = {}
+    shapes = swin.param_shapes(cfg)
+    for impl in ("tutel", "megablocks"):
+        res = {}
+        for on_mesh in (False, True):
+            pcfg = ParallelConfig(blk=128)
+            m = mesh if on_mesh else None
+            specs = swin.param_specs(cfg, pcfg)
+            params = fresh()
+            if on_mesh:
+                params = shard_tree(params, specs, pcfg, mesh)
+            opt = adamw.init_opt_state(params, opt_cfg)
+            step = swin.make_train_step(cfg, pcfg, opt_cfg, moe_impl=impl,
+                                        mesh=m)
+            _release(torch)
+            torch.cuda.reset_peak_memory_stats()
+            del drops[:]
+            baselines.dispatch_combine_moe = counting
+            try:
+                log, times = run(step, params, opt)
+            finally:
+                baselines.dispatch_combine_moe = real
+            dropped = [int(d) for d in drops]
+            peak = torch.cuda.max_memory_allocated()
+            final = params if not on_mesh else unshard_tree(
+                tree_map(lambda t: t.detach(), params), specs, shapes, pcfg,
+                mesh)
+            res[on_mesh] = {"losses": [x["loss"] for x in log],
+                            "times": times, "peak": peak, "drops": dropped,
+                            "params": [t.detach().clone()
+                                       for t in tree_leaves(final)]}
+            del params, opt, step, final
+            _release(torch)
+        plain, meshed = res[False], res[True]
+        errs = [abs(a - b) / abs(b) for a, b in zip(meshed["losses"],
+                                                   plain["losses"])]
+        worst = max((a - b).abs().max().item() for a, b in
+                    zip(meshed["params"], plain["params"]))
+        if not max(errs) <= SWIN_LOSS_RTOL:
+            raise AssertionError(f"phase M {impl}: losses "
+                                 f"{meshed['losses']} vs {plain['losses']}")
+        if not worst <= MESH_PARAM_TOL:
+            raise AssertionError(f"phase M {impl}: gathered params {worst} "
+                                 f"from the mesh-less step's (limit "
+                                 f"{MESH_PARAM_TOL})")
+        if meshed["drops"] != plain["drops"] or (
+                impl == "megablocks" and any(meshed["drops"])) or (
+                impl == "tutel" and not any(meshed["drops"])):
+            raise AssertionError(f"phase M {impl}: dropped copies "
+                                 f"{meshed['drops']} vs {plain['drops']}")
+        meds = {k: statistics.median(r["times"]) * 1e3
+                for k, r in (("meshless", plain), ("mesh", meshed))}
+        out[impl] = {"losses": meshed["losses"], "loss_rel_diff": max(errs),
+                     "param_max_abs_diff": worst, "param_tol": MESH_PARAM_TOL,
+                     "dropped_copies": sum(meshed["drops"]),
+                     "step_median_ms": meds,
+                     "images_per_s": SWIN_BATCH / meds["mesh"] * 1e3,
+                     "peak_allocated_gb": {"meshless": plain["peak"] / 1e9,
+                                           "mesh": meshed["peak"] / 1e9}}
+        print(f"[mesh] {impl} on the mesh: losses {meshed['losses']} "
+              f"(worst rel diff {max(errs):.2e}), gathered params within "
+              f"{worst:.2e} of the mesh-less step's, "
+              f"{sum(meshed['drops'])} dropped copies as mesh-less; step "
+              f"median {meds['mesh']:.1f} ms (mesh-less "
+              f"{meds['meshless']:.1f} ms), peak "
+              f"{meshed['peak'] / 1e9:.2f} GB")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5954,7 +6080,73 @@ def _lm_mesh_f32(torch, mesh, ref7):
           f"tokens equal mesh-less and on the mesh, cache_layers 0 and "
           f"{LM_MESH_CACHE_LAYERS}; logits within {worst:.2e} x max |logit| "
           f"(limit {ATTN_TOL['float32']}); cache {mesh_run['cache_stats']}")
+    p = shard_tree(params, lm.param_specs(cfg, ParallelConfig(
+        mode="auto")), ParallelConfig(mode="auto"), mesh)
+    out["overlap"], opaths = _lm_mesh_overlap(
+        torch, "L1", cfg, p, mesh, prompts, LM_MESH_PROMPTS)
+    del p
+    paths.update({f"qwen_mesh_overlap_f32_{k}": v for k, v in opaths.items()})
     return paths, out
+
+
+def _lm_mesh_overlap(torch, tag, cfg, params, mesh, prompts, slots):
+    """The overlap schedule on the 1-rank mesh: greedy decode through
+    ``BatchedServer`` in the "auto" mode with ``cache_layers`` 2, eager
+    and with ``overlap_dispatch``, under auto's own chooser and forced to
+    data-centric dispatch (where each cache entry is a layer's whole
+    expert weights): tokens and every macro-step's logits bit for bit
+    the eager run's, the cache's residency bounded. Both run under
+    ``torch.use_deterministic_algorithms`` (the combine's ``index_add_``
+    otherwise adds in the atomics' order, which differs between any two
+    runs). The "node" schedule itself needs a node extent above 1: one
+    rank cannot run it."""
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    out, paths = {}, {}
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    for forced in (None, "data_centric"):
+        runs = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for overlap in (False, True):
+                pcfg = ParallelConfig(blk=16, mode="auto",
+                                      cache_layers=LM_MESH_CACHE_LAYERS,
+                                      overlap_dispatch=overlap,
+                                      forced_layer_mode=forced)
+                runs[overlap] = _lm_mesh_decode(
+                    torch, cfg, pcfg, params, mesh, prompts, LM_MESH_NEW,
+                    slots, LM_MESH_PROMPT + LM_MESH_NEW)
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        eager, ovl = runs[False], runs[True]
+        name = forced or "chooser"
+        diff = max((a - b).abs().max().item()
+                   for a, b in zip(ovl["logits"], eager["logits"]))
+        if ovl["tokens"] != eager["tokens"] or len(ovl["logits"]) != len(
+                eager["logits"]) or diff != 0.0:
+            raise AssertionError(f"phase {tag} overlap ({name}): the overlap "
+                                 f"decode is not the eager one bit for bit: "
+                                 f"tokens {ovl['tokens']} vs "
+                                 f"{eager['tokens']}, logits {diff} apart")
+        st, st0 = ovl["cache_stats"], eager["cache_stats"]
+        if not (st and st["peak_resident_layers"] <= LM_MESH_CACHE_LAYERS
+                and st["hits"] > 0 and st["prefetches"] > 0):
+            raise AssertionError(f"phase {tag} overlap ({name}): cache "
+                                 f"stats {st}")
+        meds = {k: statistics.median(r["times"]) * 1e3
+                for k, r in (("eager", eager), ("overlap", ovl))}
+        out[name] = {"bitwise": True, "cache_stats": st,
+                     "cache_stats_eager": st0, "step_median_ms": meds,
+                     "launches": ovl["launches"]}
+        paths[name] = (ovl["launches"], ovl["routes"])
+        print(f"[lm-mesh] {tag} overlap ({name}): {len(ovl['logits'])} "
+              f"macro-steps' logits and the tokens bit for bit the eager "
+              f"schedule's; cache {st} (eager: peak "
+              f"{st0['peak_resident_bytes'] / 1e9:.3f} GB); decode step "
+              f"medians {meds['eager']:.2f} ms eager, {meds['overlap']:.2f} "
+              f"ms overlap; the node schedule is off at node extent 1")
+    return out, paths
 
 
 def _lm_mesh_bf16(torch, mesh, train_out):
@@ -6082,8 +6274,8 @@ def _lm_mesh_bf16(torch, mesh, train_out):
         runs[(m is not None, layers)] = _lm_mesh_decode(
             torch, cfg, pcfg, params, m, prompts, LM_MESH_NEW,
             LM_MESH_DECODE_SLOTS, LM_MESH_PROMPT + LM_MESH_NEW)
+    ovl_params = params
     del params
-    _release(torch)
     plain = runs[(False, 0)]
     cached = runs[(True, LM_MESH_CACHE_LAYERS)]
     st = cached["cache_stats"]
@@ -6107,6 +6299,11 @@ def _lm_mesh_bf16(torch, mesh, train_out):
                      "gathered_bytes_resident_peak":
                          st["peak_resident_bytes"],
                      "mesh_runs_with_the_meshless_streams": same}
+    out["overlap"], opaths = _lm_mesh_overlap(
+        torch, "L2", cfg, ovl_params, mesh, prompts, LM_MESH_DECODE_SLOTS)
+    del ovl_params
+    _release(torch)
+    paths.update({f"qwen_mesh_overlap_{k}": v for k, v in opaths.items()})
     print(f"[lm-mesh] L2 decode ({LM_MESH_DECODE_SLOTS} slots, "
           f"{steps_n} macro-steps, bf16, 4 layers): step medians "
           f"{ {k: round(v, 2) for k, v in meds.items()} } ms; the cache "
@@ -6137,6 +6334,157 @@ def lm_mesh_phase(torch, ref7, train_out):
     seconds = time.perf_counter() - t_phase
     print(f"[lm-mesh] phase L in {seconds:.1f}s")
     return {**paths1, **paths2}, {"L1": l1, "L2": l2, "seconds": seconds}
+
+
+def mesh_families_phase(torch):
+    """Phase N: the other LM families on the 1-rank NCCL mesh (1, 1, 1)
+    against their mesh-less runs on the card. N1: Jamba's layout at phase
+    7h's f32 cut (Mamba islands splitting channels over "model", MoE and
+    dense FFNs), one loss and gradient at phase L1's limits, the expert
+    kernels' launches counted; N2: xlstm-350m whole in bf16 through
+    ``BatchedServer`` (the mLSTM/sLSTM islands), tokens equal; N3:
+    paligemma-3b and musicgen-large at phase 7f's cut (frontends,
+    cross-attention, codebook heads), the loss."""
+    import numpy as np
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.configs import jamba_1_5_large_398b as jamba
+    from repro_torch.launch import steps
+    from repro_torch.launch.inputs import activation_spec, batch_block
+    from repro_torch.launch.mesh import make_mesh, single_rank_nccl
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import (
+        ParallelConfig, shard_tree, unshard_tree)
+
+    t_phase = time.perf_counter()
+    out, paths = {}, {}
+    pcfg = ParallelConfig(blk=16)
+
+    def loss_grads(cfg, params, batch, m, grads=True):
+        specs = lm.param_specs(cfg, pcfg)
+        p = params if m is None else shard_tree(params, specs, pcfg, m)
+        p = tree_map(lambda t: t.detach().requires_grad_(grads), p)
+        seq = batch["labels"].shape[1]
+        shape3 = (batch["labels"].shape[0], seq, cfg.d_model)
+        x_spec = activation_spec(shape3, pcfg, m)
+        _reset_expert_counts()
+        with torch.set_grad_enabled(grads):
+            total, _ = steps.make_loss_fn(cfg, pcfg, mesh=m,
+                                          batch_shape3=shape3)(
+                p, batch_to(batch_block(batch, x_spec, m), "cuda"))
+        g = None
+        if grads:
+            g = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
+            g = [torch.zeros_like(t) if x is None else x
+                 for t, x in zip(tree_leaves(p), g)]
+            if m is not None:
+                it = iter(g)
+                g = tree_leaves(unshard_tree(
+                    tree_map(lambda _: next(it), p), specs,
+                    lm.param_shapes(cfg), pcfg, m))
+        torch.cuda.synchronize()
+        launches, routes = _expert_counts()
+        return float(total.detach()), g, launches, routes
+
+    with single_rank_nccl():
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        for axes in (("pod",), ("data",), ("model",), ("pod", "data"),
+                     ("pod", "data", "model")):
+            mesh.all_reduce(torch.ones(1, device="cuda"), axes)
+        torch.cuda.synchronize()
+
+        # N1: Jamba's layout, f32, loss and gradient
+        cfg = jamba.cut_config("reference", "float32")
+        params = lm.init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(7), device="cuda")
+        batch = _family_batch(cfg, 2, 64, 7)
+        ref_total, ref_g, _, _ = loss_grads(cfg, params, batch, None)
+        total, g, launches, routes = loss_grads(cfg, params, batch, mesh)
+        del params
+        worst = 0.0
+        for a, b in zip(g, ref_g):
+            scale = b.abs().max().item()
+            worst = max(worst, (a - b).abs().max().item() / (scale or 1.0))
+        del g, ref_g
+        _release(torch)
+        rel = abs(total - ref_total) / abs(ref_total)
+        n_moe = _moe_layers(cfg)
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"phase N1: total {total} vs mesh-less "
+                                 f"{ref_total} (rel {rel})")
+        if not worst <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"phase N1: a gathered grad leaf {worst} x "
+                                 f"its max |grad| from the mesh-less one's")
+        if routes != _f32_expert_routes(n_moe):
+            raise AssertionError(f"phase N1: routes {routes}, expected "
+                                 f"{_f32_expert_routes(n_moe)}")
+        out["jamba"] = {"total": total, "total_rel_diff": rel,
+                        "worst_grad_rel": worst, "launches": launches}
+        paths["jamba_mesh_f32"] = (launches, routes)
+        print(f"[mesh-families] N1 jamba layout ({cfg.num_layers} layers, "
+              f"f32): total {total!r} (mesh-less rel {rel:.2e}), gathered "
+              f"grads within {worst:.2e} x max |grad| (limit "
+              f"{TRAIN_GRAD_TOL}); launches {launches}")
+
+        # N2: xlstm-350m whole, bf16, the dense engine
+        cfg = cfglib.get_config("xlstm-350m")
+        params = lm.init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        rng = np.random.default_rng(13)
+        prompts = [rng.integers(0, cfg.vocab_size, size=LM_MESH_PROMPT)
+                   for _ in range(LM_MESH_PROMPTS * 2)]
+        runs = {}
+        for m in (None, mesh):
+            p = params if m is None else shard_tree(
+                params, lm.param_specs(cfg, pcfg), pcfg, m)
+            runs[m is not None] = _lm_mesh_decode(
+                torch, cfg, pcfg, p, m, prompts, LM_MESH_NEW, len(prompts),
+                LM_MESH_PROMPT + LM_MESH_NEW)
+            del p
+        del params
+        _release(torch)
+        plain, meshed = runs[False], runs[True]
+        if meshed["tokens"] != plain["tokens"]:
+            raise AssertionError(f"phase N2: tokens {meshed['tokens']} vs "
+                                 f"{plain['tokens']}")
+        lworst = max(((a - b).abs().max() / b.abs().max()).item()
+                     for a, b in zip(meshed["logits"], plain["logits"]))
+        ticks = {k: statistics.median(r["times"]) * 1e3
+                 for k, r in (("meshless", plain), ("mesh", meshed))}
+        out["xlstm"] = {"tokens": meshed["tokens"], "worst_logit_rel": lworst,
+                        "decode_tick_median_ms": ticks}
+        print(f"[mesh-families] N2 xlstm-350m (24 layers, bf16): "
+              f"{len(prompts)} greedy streams equal on the mesh and "
+              f"mesh-less {meshed['tokens']}; logits within {lworst:.2e} x "
+              f"max |logit|; decode tick median {ticks['mesh']:.2f} ms on "
+              f"the mesh, {ticks['meshless']:.2f} ms mesh-less")
+
+        # N3: the frontend families, f32, the loss
+        out["frontends"] = {}
+        for arch in ("paligemma-3b", "musicgen-large"):
+            cfg = dataclasses.replace(cfglib.get_config(arch),
+                                      num_layers=FRONTEND_REF_DEPTH,
+                                      dtype="float32")
+            params = lm.init_params(cfg, generator=torch.Generator(
+                device="cuda").manual_seed(11), device="cuda")
+            seq = FRONTEND_PREFILL + cfg.prefix_len if cfg.prefix_len else 64
+            batch = _family_batch(cfg, 2, seq, 11)
+            ref_total = loss_grads(cfg, params, batch, None, grads=False)[0]
+            total = loss_grads(cfg, params, batch, mesh, grads=False)[0]
+            del params
+            _release(torch)
+            rel = abs(total - ref_total) / abs(ref_total)
+            if not rel <= TRAIN_LOSS_RTOL:
+                raise AssertionError(f"phase N3 {arch}: total {total} vs "
+                                     f"mesh-less {ref_total} (rel {rel})")
+            out["frontends"][arch] = {"total": total, "total_rel_diff": rel}
+            print(f"[mesh-families] N3 {arch} ({FRONTEND_REF_DEPTH} layers, "
+                  f"f32): total {total!r} on the mesh, mesh-less rel "
+                  f"{rel:.2e}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[mesh-families] phase N in {out['seconds']:.1f}s")
+    return paths, out
 
 
 def _hetero_layer(torch, w, seed=21):
@@ -6471,6 +6819,9 @@ def main() -> int:
     family_train = family_train_phase(torch)
     print(f"[train-families] {json.dumps({'reference': family_ref, 'train': family_train})}")
     _release(torch)
+    family_mesh_paths, family_mesh_res = mesh_families_phase(torch)
+    print(f"[mesh-families] {json.dumps(family_mesh_res)}")
+    _release(torch)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     swin_res = swin_kernel_cases(torch, flush)
     for k in ("esffn_mlp", "esfk", "ess", "esmm", "estmm"):
@@ -6541,7 +6892,8 @@ def main() -> int:
              **swin_launches, **hybrid_paths,
              **{p: r["launches"] for p, r in jamba_train.items()},
              **mesh_launches, **hetero_launches,
-             **{p: c for p, (c, _) in lm_mesh_paths.items()}}
+             **{p: c for p, (c, _) in lm_mesh_paths.items()},
+             **{p: c for p, (c, _) in family_mesh_paths.items()}}
     by_path = {}
     for path, counts in paths.items():
         for name, n in counts.items():
@@ -6567,7 +6919,8 @@ def main() -> int:
                                        else "esffn_mlp"):
                                       r["launches_by_route"]}
                       for k, r in hetero_res.items() if k in HETERO_WIDTHS},
-                   **{p: r for p, (_, r) in lm_mesh_paths.items()}}
+                   **{p: r for p, (_, r) in lm_mesh_paths.items()},
+                   **{p: r for p, (_, r) in family_mesh_paths.items()}}
 
     def by_route(name, cases, routes, paths=route_paths):
         """Each route of a kernel with several: its launches on each path

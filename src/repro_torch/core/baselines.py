@@ -1,6 +1,6 @@
 """The MoE execution paths the paper compares against (counterpart of
-``repro.core.baselines``; its distributed ``ep_all_to_all`` helpers belong
-to the mesh slice and are not ported).
+``repro.core.baselines``; its ``ep_all_to_all`` helpers have no caller in
+either package: the "ep" mode's island is ``parallel.moe_parallel``'s).
 
 * ``dispatch_combine_moe`` — Tutel-style: token copies are dispatched into a
   dense (E, C, D) capacity buffer (padding and dropping), the experts run
@@ -64,13 +64,19 @@ def dispatch_combine_moe(
     capacity_factor: float = 1.25,
     capacity: Optional[int] = None,
     glu_up: Optional[torch.Tensor] = None,
+    rank_offset: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Tutel-like dense dispatch/combine MoE FFN over flat tokens x (N, D).
 
     C = ``tutel_capacity(N, k, E, capacity_factor)`` unless given; copies
     ranked at C or past it are DROPPED (their gate counts 0), the rest are
     padded into a dense (E, C, D) buffer that the experts compute whole.
-    ``glu_up`` (E, D, F) makes the expert act(x W1 + b1) * (x U) first."""
+    ``glu_up`` (E, D, F) makes the expert act(x W1 + b1) * (x U) first.
+    ``rank_offset`` (E,): the copies queued at each expert before these
+    tokens (on a mesh, by the ranks before this one), added to each
+    copy's position in its queue, so that ``capacity`` (then the global
+    one) drops the copies the whole batch's dispatch drops; each copy
+    keeps the row of its global slot."""
     n, d = x.shape
     e = w1.shape[0]
     k = r.expert_idx.shape[1]
@@ -79,6 +85,8 @@ def dispatch_combine_moe(
     rows = e * capacity
 
     rank, _ = _dispatch_ranks(r.expert_idx, e)
+    if rank_offset is not None:
+        rank = rank + rank_offset.to(rank.dtype)[r.expert_idx.long()]
     keep = rank < capacity                                      # (N, k)
     # dispatch: a dropped copy goes to one junk row past the buffer (the
     # JAX scatter's out-of-range slot, mode="drop"), sliced off after

@@ -4,7 +4,11 @@
 A ``Mesh`` lays the job's ranks out row-major over named axes (``init_device_mesh``)
 and keeps one process group for every subset of them, so a collective can
 run over any tuple of axes: a tuple is major first, in mesh order, which
-is the order JAX concatenates a gather over several axes in. Its
+is the order JAX concatenates a gather over several axes in. A two-level
+mesh, ("data", "node", "model") or ("pod", "data", "node", "model")
+(``split_model_axis``), is laid out the same way: the ("node", "model")
+group is node-major, as ``Mesh.index`` counts it, so a gather phased
+over "model" and then "node" concatenates as the flat one does. Its
 collectives (``all_gather``, ``reduce_scatter``, ``all_reduce``,
 ``all_to_all``) take and return plain tensors without autograd; the MoE
 islands wrap them in autograd Functions (``parallel.moe_parallel``).
@@ -282,14 +286,18 @@ def is_rank0() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def parse_mesh(text: str):
+def parse_mesh(text: str, topology=None):
     """A CLI's ``--mesh`` ("2,4"): (dims, axes), the axes the last
     ``len(dims)`` of ("pod", "data", "model"), as the JAX CLIs name
-    them."""
+    them; with a ``topology`` (``autotune.Topology``) the model extent
+    split into ("node", "model") by ``split_model_axis``."""
     dims = tuple(int(x) for x in text.split(","))
     if not 1 <= len(dims) <= 3 or any(d < 1 for d in dims):
         raise ValueError(f"--mesh {text!r}: one to three positive sizes")
-    return dims, ("pod", "data", "model")[-len(dims):]
+    axes = ("pod", "data", "model")[-len(dims):]
+    if topology is not None:
+        dims, axes = split_model_axis(dims, axes, topology.node_size)
+    return dims, axes
 
 
 # ---------------------------------------------------------------------------

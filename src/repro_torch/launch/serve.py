@@ -50,9 +50,15 @@ gathered over the slots, and holds its block of the dense cache (its
 slots, and its K/V heads where they split over "tp"). The paged engine
 on a mesh raises ``NotImplementedError`` (ROADMAP.md A.5.6).
 
-Not in this slice (ROADMAP.md): hetero plans built from ``--hetero-*``
-latencies (``PagedServer(plan=)`` takes any object with ``token_counts``),
-the dense engine's hetero slot shares, ``--topology``, and observability.
+The CLI's ``--hetero-latencies`` (with ``--hetero-tp-latencies``)
+builds an Eq. 1/2 ``core.hetero.HeteroPlan``, as the JAX CLI does: the
+dense engine on a mesh takes its slot shares as padded slots of which
+``valid_slots`` are scheduled, the paged one its page-pool shares, and
+the weights are drawn at its padded hidden width. ``--topology`` splits
+``--mesh``'s model extent into ("node", "model") for the hierarchical
+schedule; ``--overlap-dispatch`` (with ``--cache-layers``) runs the
+overlap schedule in the serving forwards. Not in this slice (ROADMAP.md
+A.6): observability.
 """
 from __future__ import annotations
 
@@ -69,9 +75,11 @@ import torch
 
 from repro_torch import configs as cfglib
 from repro_torch.common import cdiv, resolve_device, torch_dtype, tree_leaves
+from repro_torch.core import hetero as hetero_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sampling
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch import train as train_lib
 from repro_torch.launch.inputs import activation_spec
 from repro_torch.models import lm
 from repro_torch.parallel.cache import PagePool, PrefixIndex, page_shares
@@ -1060,6 +1068,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this many layers (0: all)")
     ap.add_argument("--paged", action="store_true",
                     help="serve from the paged KV pool (default: the dense "
                          "(slots, max_seq) cache of BatchedServer)")
@@ -1126,6 +1136,24 @@ def main(argv=None):
     ap.add_argument("--cache-layers", type=int, default=0,
                     help="pipeline-shared prefetch cache residency bound "
                          "(gathered MoE layers) for the serving forwards")
+    ap.add_argument("--topology", default=None,
+                    help="intra_bw:inter_bw:node_size: a two-level "
+                         "interconnect; prices the auto chooser per level "
+                         "and, on a mesh whose model extent spans several "
+                         "nodes, serves with the hierarchical dispatch "
+                         "schedule")
+    ap.add_argument("--overlap-dispatch", action="store_true",
+                    help="prefetch the next data-centric MoE layer's whole "
+                         "expert weights before the current one computes "
+                         "(--mode auto). Requires --cache-layers > 0")
+    ap.add_argument("--hetero-latencies", default=None,
+                    help="comma-separated t_i per batch-group member: an "
+                         "Eq. 1 plan, uneven SLOT shares for the dense "
+                         "server, uneven PAGE-POOL shares for --paged. "
+                         "Requires --mesh for dense")
+    ap.add_argument("--hetero-tp-latencies", default=None,
+                    help="comma-separated t_i per TP-group member: Eq. 2 "
+                         "uneven hidden tiles")
     args = ap.parse_args(argv)
     if args.quant != "none" and args.mesh:
         ap.error("--quant serves whole-expert int8/fp8 payloads; combined "
@@ -1133,10 +1161,16 @@ def main(argv=None):
                  "with the experts)")
     if args.cache_layers < 0:
         ap.error("--cache-layers must be >= 0")
+    if args.overlap_dispatch and args.cache_layers <= 0:
+        ap.error("--overlap-dispatch requires --cache-layers > 0 (the "
+                 "prefetcher lives in the pipeline-shared cache)")
+    topo = train_lib.parse_topology(ap, args.topology)
+    if args.hetero_latencies and not args.mesh and not args.paged:
+        ap.error("--hetero-latencies requires --mesh (dense server)")
     mesh_dims = None
     if args.mesh:
         try:
-            mesh_dims = mesh_lib.parse_mesh(args.mesh)
+            mesh_dims = mesh_lib.parse_mesh(args.mesh, topo)
         except ValueError as e:
             ap.error(str(e))
     if (args.spec_ngram or args.spec_draft) and not args.paged:
@@ -1158,18 +1192,47 @@ def main(argv=None):
             device = stack.enter_context(mesh_lib.cli_process_group(
                 device, int(np.prod(dims))))
             mesh = mesh_lib.make_mesh(dims, axes, device_type=device.type)
-        return _serve(args, device, mesh)
+        return _serve(ap, args, device, mesh, topo)
 
 
-def _serve(args, device, mesh):
+def _serve(ap, args, device, mesh, topo):
     say = print if mesh_lib.is_rank0() else (lambda *a, **k: None)
     if args.fault_spec:
         faults_lib.install(faults_lib.load_plan(args.fault_spec))
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     lm.check_servable(cfg)
+    plan = None
+    num_slots, valid_slots = args.slots, None
+    if args.hetero_latencies:
+        tp_lat = (None if not args.hetero_tp_latencies else
+                  train_lib.parse_latencies(ap, args.hetero_tp_latencies,
+                                       "--hetero-tp-latencies"))
+        plan = hetero_lib.make_hetero_plan(
+            train_lib.parse_latencies(ap, args.hetero_latencies,
+                                 "--hetero-latencies"),
+            global_batch=args.slots,
+            hidden_size=(cfg.moe.d_ff if tp_lat is not None
+                         and cfg.moe is not None else None),
+            tp_latencies=tp_lat)
+        if args.paged:
+            say(f"[serve] hetero plan: page-pool shares proportional to "
+                f"{plan.token_counts} (all {num_slots} slots schedulable)")
+        else:
+            # padded slot layout, device i's Eq. 1 share schedulable
+            cap = plan.batch_capacity
+            num_slots = len(plan.token_counts) * cap
+            valid_slots = [i * cap + j
+                           for i, c in enumerate(plan.token_counts)
+                           for j in range(c)]
+            say(f"[serve] hetero plan: slot shares {plan.token_counts} "
+                f"({num_slots} padded slots), hidden {plan.hidden_splits}")
     pcfg = ParallelConfig(blk=16, mode=args.mode,
-                          cache_layers=args.cache_layers)
+                          cache_layers=args.cache_layers, hetero_plan=plan,
+                          topology=topo,
+                          overlap_dispatch=args.overlap_dispatch)
     lm.check_mesh(cfg, pcfg, mesh)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if mesh is not None:
@@ -1179,12 +1242,12 @@ def _serve(args, device, mesh):
         # quantized layer by layer as drawn: the full-precision tree (61 GB
         # at qwen3-moe-30b-a3b's width) never sits beside its int8 copy
         params = lm.init_params(cfg, generator=gen, device=device,
-                                quant=args.quant)
+                                quant=args.quant, plan=plan)
         before = _unquantized_bytes(params, torch_dtype(cfg.dtype))
         say(f"[serve] expert weights -> {args.quant}: params "
             f"{before / 1e6:.1f}MB -> {_tree_bytes(params) / 1e6:.1f}MB")
     else:
-        params = lm.init_params(cfg, generator=gen, device=device)
+        params = lm.init_params(cfg, generator=gen, device=device, plan=plan)
     if args.paged:
         pages = args.pages or (
             args.slots * cdiv(args.max_seq, args.page_size) // 2 + 1)
@@ -1192,7 +1255,7 @@ def _serve(args, device, mesh):
             cfg, pcfg, num_slots=args.slots, page_size=args.page_size,
             num_pages=pages,
             max_pages_per_slot=cdiv(args.max_seq, args.page_size),
-            params=params, prefill_chunk=args.prefill_chunk,
+            params=params, prefill_chunk=args.prefill_chunk, plan=plan,
             kv_quant=args.kv_quant, prefix_cache=args.prefix_cache,
             disagg=args.disagg, audit=args.audit, device=device, mesh=mesh)
         if args.spec_ngram or args.spec_draft:
@@ -1212,9 +1275,10 @@ def _serve(args, device, mesh):
                 drafter = spec_lib.NGramDrafter()
             spec_lib.SpecDecoder(server, drafter, k=args.spec_k)
     else:
-        server = BatchedServer(cfg, pcfg, num_slots=args.slots,
+        server = BatchedServer(cfg, pcfg, num_slots=num_slots,
                                max_seq=args.max_seq, params=params,
-                               device=device, mesh=mesh)
+                               valid_slots=valid_slots, device=device,
+                               mesh=mesh)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         server.submit(Request(
@@ -1267,7 +1331,7 @@ def _serve(args, device, mesh):
                   f"{sp['rollback_tokens']} rows rolled back")
     else:
         say(f"[serve] dense KV cache: {server.kv_bytes() / 1024:.1f} KiB "
-            f"{'a rank ' if mesh is not None else ''}({args.slots} slots, "
+            f"{'a rank ' if mesh is not None else ''}({num_slots} slots, "
             f"max_seq {args.max_seq})")
     if lm.LAST_PIPELINE_CACHE_STATS is not None and args.cache_layers:
         st = lm.LAST_PIPELINE_CACHE_STATS

@@ -15,8 +15,10 @@ the optimizer state are this rank's shards (``sharded_params``,
 ``sharded_opt_state``); the train step takes this rank's block of the
 batch (``launch.inputs.batch_block``), the serving steps the whole batch
 of slots, each rank cutting its own and returning the logits of every
-slot, so that every rank's host scheduler sees the same logits. The
-paged engine's builders stay on one device (ROADMAP.md A.5.6).
+slot, so that every rank's host scheduler sees the same logits. Every
+LM family takes them: the codebook heads' loss is the
+vocabulary-parallel cross entropy once a codebook. The paged engine's
+builders stay on one device (ROADMAP.md A.5.6).
 """
 from __future__ import annotations
 
@@ -96,8 +98,9 @@ def chunked_xent(x, params, cfg: ModelConfig, labels, mask,
     states' sequence is gathered over "sp" once and the head (or the tied
     embedding) stays split over "tp" in the vocabulary: every rank
     computes every chunk's logits for its vocabulary block, the
-    logsumexp from a max and an exp-sum reduced over "tp". The loss is
-    the global mean, the same on every rank."""
+    logsumexp from a max and an exp-sum reduced over "tp"; codebook
+    heads do so once a codebook, the losses averaged over them. The loss
+    is the global mean, the same on every rank."""
     if mesh is not None:
         return _chunked_xent_mesh(x, params, cfg, labels, mask, n_chunks,
                                   pcfg, mesh, x_spec)
@@ -119,17 +122,25 @@ def _chunked_xent_mesh(x, params, cfg, labels, mask, n_chunks, pcfg, mesh,
     baxes = as_axes(x_spec[0])
     x = tfm.seq_gather(tfm.island_in(x, mesh, x_spec), mesh,
                         as_axes(x_spec[1]))
-    w, vaxes = lm.head_weight(params, cfg, pcfg, mesh)
+    if cfg.num_codebooks > 1:
+        # the vocabulary-parallel loss once a codebook, averaged over them
+        w, vaxes = lm.cb_head_weight(params, cfg, pcfg, mesh)
+        heads = [(w[c], labels[..., c]) for c in range(cfg.num_codebooks)]
+    else:
+        w, vaxes = lm.head_weight(params, cfg, pcfg, mesh)
+        heads = [(w, labels)]
     s = x.shape[1]
     while s % n_chunks:
         n_chunks //= 2
     cs = s // n_chunks
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c in range(n_chunks):
-        sl = slice(c * cs, (c + 1) * cs)
-        total = total + checkpoint(_chunk_loss_mesh, w, x[:, sl],
-                                   labels[:, sl], mask[:, sl], mesh, vaxes,
-                                   use_reentrant=False)
+    for wc, lbl in heads:
+        for c in range(n_chunks):
+            sl = slice(c * cs, (c + 1) * cs)
+            total = total + checkpoint(_chunk_loss_mesh, wc, x[:, sl],
+                                       lbl[:, sl], mask[:, sl], mesh, vaxes,
+                                       use_reentrant=False)
+    total = total / len(heads)
     if baxes:
         total = _Psum.apply(total, mesh, baxes)
     denom = mesh.all_reduce(torch.sum(mask.float()), baxes)
@@ -166,6 +177,12 @@ def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig, *, mesh=None,
         labels = batch["labels"]
         if cfg.frontend == "siglip":
             n_img = hidden.shape[1] - labels.shape[1]
+            if mesh is not None:
+                n_img = batch_shape3[1] - labels.shape[1]
+                if n_img > 0:
+                    raise ValueError(
+                        "on a mesh the labels cover the whole forward "
+                        "(patches and tokens), as the train CLI's do")
             if n_img > 0:
                 hidden = hidden[:, n_img:]
         loss = chunked_xent(hidden, params, cfg, labels, batch["loss_mask"],

@@ -36,13 +36,19 @@ rank 0 prints. ``--hetero-latencies`` (with ``--hetero-tp-latencies``)
 builds and runs an Eq. 1/2 ``core.hetero.HeteroPlan``: the weights are
 drawn with its padded hidden width, each batch is packed to ``n_devices
 x batch_capacity`` rows (``core.hetero.pack_batch``), and the step is
-kept in a ``parallel.cache.PlanCache`` under the plan's key. Not here
-(ROADMAP.md): ``--topology`` (A.5.3), ``--hetero-replan`` and
-``--simulate-skew`` (A.6), and the fault, observability, checkpoint and
-resume flags with the fault-tolerant loop (A.6); ``--no-scan`` has no
-counterpart, the port's layer loop being always unrolled. Only the
-recurrent, cross-attention, frontend and codebook configurations refuse
-a mesh (A.5.5).
+kept in a ``parallel.cache.PlanCache`` under the plan's key.
+``--topology`` prices the chooser per interconnect level and, where
+``--mesh``'s model extent spans several nodes, splits it into ("node",
+"model") (``launch.mesh.split_model_axis``): the MoE islands then run
+the hierarchical schedule. ``--overlap-dispatch`` (with
+``--cache-layers``) prefetches a data-centric layer's whole expert
+weights; the remat'd train step skips the prefetch cache, so it acts
+with ``models.lm.forward`` outside the train step. Not here
+(ROADMAP.md): ``--hetero-replan`` and ``--simulate-skew`` (A.6), and the
+fault, observability, checkpoint and resume flags with the
+fault-tolerant loop (A.6); ``--no-scan`` has no counterpart, the port's
+layer loop being always unrolled. Every LM configuration trains on a
+mesh.
 """
 from __future__ import annotations
 
@@ -128,7 +134,7 @@ def frontend_batch(cfg, batch: dict, step: int) -> dict:
     }
 
 
-def _latencies(ap, text: str, flag: str) -> tuple:
+def parse_latencies(ap, text: str, flag: str) -> tuple:
     try:
         vals = tuple(float(t) for t in text.split(","))
     except ValueError:
@@ -191,17 +197,33 @@ def main(argv=None):
                     help="comma-separated t_i per TP-group member: adds the "
                          "Eq. 2 uneven hidden split (padded tiles) to the "
                          "plan")
+    ap.add_argument("--topology", default=None,
+                    help="intra_bw:inter_bw:node_size (e.g. 50e9:12.5e9:4): "
+                         "a two-level interconnect. Prices the auto "
+                         "chooser's collectives per level and, where the "
+                         "mesh's model extent spans several nodes, splits "
+                         "it into ('node', 'model') and runs the MoE "
+                         "islands' hierarchical dispatch")
+    ap.add_argument("--overlap-dispatch", action="store_true",
+                    help="prefetch the next data-centric MoE layer's whole "
+                         "expert weights (fsdp and tp factor) before the "
+                         "current one computes (--mode auto). Requires "
+                         "--cache-layers > 0")
     args = ap.parse_args(argv)
     if args.hetero_latencies and not args.mesh:
         ap.error("--hetero-latencies requires --mesh")
     if args.cache_layers < 0:
         ap.error("--cache-layers must be >= 0")
+    topo = parse_topology(ap, args.topology)
+    if args.overlap_dispatch and args.cache_layers <= 0:
+        ap.error("--overlap-dispatch requires --cache-layers > 0 (the "
+                 "prefetcher lives in the pipeline-shared cache)")
     latencies = (None if not args.proxy_latencies else
-                 _latencies(ap, args.proxy_latencies, "--proxy-latencies"))
+                 parse_latencies(ap, args.proxy_latencies, "--proxy-latencies"))
     mesh_dims = None
     if args.mesh:
         try:
-            mesh_dims = mesh_lib.parse_mesh(args.mesh)
+            mesh_dims = mesh_lib.parse_mesh(args.mesh, topo)
         except ValueError as e:
             ap.error(str(e))
     device = resolve_device(args.device)
@@ -212,10 +234,23 @@ def main(argv=None):
             device = stack.enter_context(mesh_lib.cli_process_group(
                 device, int(np.prod(dims))))
             mesh = mesh_lib.make_mesh(dims, axes, device_type=device.type)
-        return _train(ap, args, device, mesh, latencies)
+        return _train(ap, args, device, mesh, latencies, topo)
 
 
-def _train(ap, args, device, mesh, latencies):
+def parse_topology(ap, text):
+    """A CLI's ``--topology`` as an ``autotune.Topology`` (None without
+    one); a malformed one is an argparse error, as the JAX CLIs make it."""
+    if not text:
+        return None
+    from repro_torch.parallel.autotune import Topology
+
+    try:
+        return Topology.parse(text)
+    except (ValueError, TypeError) as e:
+        ap.error(f"--topology: {e}")
+
+
+def _train(ap, args, device, mesh, latencies, topo):
     say = print if mesh_lib.is_rank0() else (lambda *a, **k: None)
 
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
@@ -228,13 +263,14 @@ def _train(ap, args, device, mesh, latencies):
                           collective_schedule=args.schedule,
                           cache_policy=args.cache_policy,
                           cache_layers=args.cache_layers,
-                          device_latencies=latencies)
+                          device_latencies=latencies, topology=topo,
+                          overlap_dispatch=args.overlap_dispatch)
     plan = None
     if args.hetero_latencies:
-        tp_lat = (None if not args.hetero_tp_latencies else _latencies(
+        tp_lat = (None if not args.hetero_tp_latencies else parse_latencies(
             ap, args.hetero_tp_latencies, "--hetero-tp-latencies"))
         plan = hetero_lib.make_hetero_plan(
-            _latencies(ap, args.hetero_latencies, "--hetero-latencies"),
+            parse_latencies(ap, args.hetero_latencies, "--hetero-latencies"),
             global_batch=args.global_batch,
             hidden_size=(cfg.moe.d_ff if tp_lat is not None
                          and cfg.moe is not None else None),
@@ -277,6 +313,9 @@ def _train(ap, args, device, mesh, latencies):
         now = time.perf_counter()
         m["step_time_s"] = now - t_last
         t_last = now
+        if device.type == "cuda":
+            m["peak_allocated_gb"] = torch.cuda.max_memory_allocated(
+                device) / 1e9
         metrics_log.append({"step": step + 1, **m})
         if (step + 1) % args.log_every == 0:
             say(f"step {step + 1:5d} loss {m['loss']:.4f} "

@@ -12,6 +12,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import normal_init
 
+#: Logical spec of the projection (the JAX package's).
+FRONTEND_LOGICAL = {"proj": (None, "fsdp")}
+
 
 def init_frontend(cfg: ModelConfig, dtype, generator, device) -> dict:
     """``proj`` ``(frontend_dim, d_model)``; empty without a frontend."""

@@ -30,9 +30,15 @@ its partial sums reduce-scattered over the sequence straight to the
 activations' (dp, sp, None); the layers run as ``models.transformer``'s
 islands and ``moe_parallel.moe_layer``; the serving logits are gathered
 whole on every rank. The dense cache holds this rank's slots (and K/V
-heads where they split over "tp"). Attention stacks with MoE or dense
-FFNs run there; recurrent mixers, cross-attention, frontends, codebook
-heads and the paged cache raise ``NotImplementedError`` on a mesh.
+heads where they split over "tp", a Mamba layer's state channels where
+it splits them). Every layer kind runs there as an island: attention,
+cross-attention, dense and MoE FFNs (``models.transformer``), Mamba
+(``models.mamba``), mLSTM and sLSTM (``models.xlstm``); frontend inputs
+are projected on every TP rank alike and the codebook heads are
+vocabulary-parallel as the head is. A "node" axis runs the MoE islands'
+hierarchical schedule, and ``overlap_dispatch`` the overlap schedule in
+``run_layers``. The paged cache raises ``NotImplementedError`` on a mesh
+(ROADMAP.md A.5.6), and ``check_mesh`` what else stays refused.
 """
 from __future__ import annotations
 
@@ -46,9 +52,11 @@ from repro_torch.common import torch_dtype, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import frontends, mamba, transformer as tfm, xlstm
 from repro_torch.parallel.moe_parallel import (
+    EP_NODE_REFUSAL,
     EP_PARAM_LOGICAL,
     MOE_PARAM_LOGICAL,
     _Gather,
+    _Psum,
 )
 from repro_torch.parallel.sharding import (
     ParallelConfig,
@@ -63,9 +71,11 @@ from repro_torch.parallel.sharding import (
 #: read it after a call.
 LAST_PIPELINE_CACHE_STATS: Optional[dict] = None
 
-#: Logical specs of the embedding table and the vocabulary head.
+#: Logical specs of the embedding table, the vocabulary head and the
+#: codebook heads (each vocabulary-parallel).
 EMBED_LOGICAL = ("tp", "fsdp")
 HEAD_LOGICAL = ("fsdp", "tp")
+CB_HEADS_LOGICAL = (None, "fsdp", "tp")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -74,7 +84,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None and not cfg.glu:
         raise NotImplementedError(
             f"{cfg.name}: MLP experts in an LM stack are not ported yet "
-            f"(ROADMAP.md A.4)")
+            f"(ROADMAP.md A.4.1)")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -93,28 +103,22 @@ def check_servable(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the serving engines take token prompts and one "
             f"vocabulary head; frontend inputs and codebook heads are not "
-            f"served yet (ROADMAP.md A.4)")
+            f"served yet (ROADMAP.md A.4.2)")
 
 
 def check_mesh(cfg: ModelConfig, pcfg: ParallelConfig, mesh) -> None:
-    """Raise for what the port does not run on a mesh yet: recurrent
-    mixers, cross-attention, frontends and codebook heads (ROADMAP.md
-    A.5.5), and the hierarchical "node" schedule and
-    ``overlap_dispatch`` (A.5.3)."""
+    """Raise for what the port does not run on a mesh: router statistics
+    (ROADMAP.md A.6), and the "ep" mode on a two-level "node" mesh, as
+    the JAX package refuses it. The paged cache on a mesh (A.5.6) is
+    refused where it is asked for (``forward``, ``PagedServer``)."""
     if mesh is None:
         return
-    what = [w for w, on in (
-        ("recurrent mixers (Mamba, mLSTM, sLSTM)", recurrent_layers(cfg)),
-        ("cross-attention", cfg.cross_attn), ("a frontend", cfg.frontend),
-        ("codebook heads", cfg.num_codebooks > 1)) if on]
-    if what:
+    if pcfg.collect_router_stats:
         raise NotImplementedError(
-            f"{cfg.name} on a mesh: {', '.join(what)} are not ported to the "
-            f"mesh yet (ROADMAP.md A.5.5)")
-    if "node" in mesh.axis_names or pcfg.overlap_dispatch:
-        raise NotImplementedError(
-            "the hierarchical 'node' schedule and overlap_dispatch are not "
-            "ported (ROADMAP.md A.5.3)")
+            "collect_router_stats is not ported (ROADMAP.md A.6)")
+    if pcfg.mode == "ep" and cfg.moe is not None \
+            and "node" in mesh.axis_names:
+        raise NotImplementedError(EP_NODE_REFUSAL)
 
 
 def recurrent_layers(cfg: ModelConfig) -> list:
@@ -218,16 +222,19 @@ def param_specs(cfg: ModelConfig, pcfg: ParallelConfig) -> dict:
     JAX package's ``Param`` tags, per layer here): the embedding ("tp",
     "fsdp"), the head ("fsdp", "tp"), attention and dense FFN weights as
     ``models.transformer``'s tables, the MoE FFN as ``moe_parallel``
-    places it under ``pcfg.mode``, the norms replicated. What a mesh does
-    not run (``check_mesh``) is replicated."""
+    places it under ``pcfg.mode``, the recurrent mixers,
+    cross-attention and frontend projection as their modules' tables,
+    the codebook heads ``CB_HEADS_LOGICAL``, the norms replicated."""
     moe = EP_PARAM_LOGICAL if pcfg.mode == "ep" else MOE_PARAM_LOGICAL
     shapes = param_shapes(cfg, plan=pcfg.hetero_plan)
 
     def table(name: str, idx: int) -> dict:
         if name in ("ln1", "ln2", "ln_x"):
             return tfm.NORM_LOGICAL
-        if name == "mixer" and cfg.layer_kind(idx) == "attn":
-            return tfm.ATTN_LOGICAL
+        if name == "mixer":
+            return _MIXER_LOGICAL[cfg.layer_kind(idx)]
+        if name == "xattn":
+            return tfm.XATTN_LOGICAL
         if name == "ffn":
             return moe if _ffn_kind(cfg, idx) == "moe" else \
                 tfm.DENSE_FFN_LOGICAL
@@ -244,11 +251,15 @@ def param_specs(cfg: ModelConfig, pcfg: ParallelConfig) -> dict:
     if "head" in shapes:
         out["head"] = HEAD_LOGICAL
     if "cb_heads" in shapes:
-        out["cb_heads"] = (None, "fsdp", "tp")
+        out["cb_heads"] = CB_HEADS_LOGICAL
     if "frontend" in shapes:
-        out["frontend"] = tree_map(lambda shape: (None,) * len(shape),
-                                   shapes["frontend"])
+        out["frontend"] = leaves(shapes["frontend"],
+                                 frontends.FRONTEND_LOGICAL)
     return out
+
+
+_MIXER_LOGICAL = {"attn": tfm.ATTN_LOGICAL, "mamba": mamba.MAMBA_LOGICAL,
+                  "mlstm": xlstm.MLSTM_LOGICAL, "slstm": xlstm.SLSTM_LOGICAL}
 
 
 def physical_specs(cfg: ModelConfig, pcfg: ParallelConfig, mesh) -> dict:
@@ -314,18 +325,31 @@ def cache_specs(cfg: ModelConfig, pcfg: ParallelConfig, mesh, batch: int,
                 seq_len: int) -> dict:
     """Physical specs of the dense cache's leaves on ``mesh``, in its tree
     structure: the slots split as the decode step's batch is
-    (``launch.inputs.activation_spec`` of (batch, 1, d_model)), and the
-    K/V heads over "tp" where the heads split
-    (``transformer.heads_shardable``)."""
+    (``launch.inputs.activation_spec`` of (batch, 1, d_model)), the K/V
+    heads over "tp" where the heads split
+    (``transformer.heads_shardable``), a Mamba layer's conv window and
+    SSM state over "tp" in their channels where the layer splits them
+    (``mamba.mesh_split``), the xLSTM states whole on every TP rank."""
     from repro_torch.launch.inputs import activation_spec
 
     check_mesh(cfg, pcfg, mesh)
     baxes = activation_spec((batch, 1, cfg.d_model), pcfg, mesh)[0]
     tp = pcfg.axes(mesh)["tp"]
     heads = tp if tfm.heads_shardable(cfg, mesh.size(tp)) else None
-    kv = (baxes, None, heads, None)
+    chans = tp if mamba.mesh_split(cfg, pcfg, mesh) else None
     spec = cache_spec(cfg, batch, seq_len)
-    return {"layers": [{k: kv for k in layer} for layer in spec["layers"]],
+
+    def layer_specs(i: int, layer: dict) -> dict:
+        kind = cfg.layer_kind(i)
+        if kind == "attn":
+            return {k: (baxes, None, heads, None) for k in layer}
+        if kind == "mamba":
+            return {"conv": (baxes, None, chans), "ssm": (baxes, chans, None)}
+        return {k: (baxes,) + (None,) * (len(sd[0]) - 1)
+                for k, sd in layer.items()}
+
+    return {"layers": [layer_specs(i, layer)
+                       for i, layer in enumerate(spec["layers"])],
             "len": (baxes,)}
 
 
@@ -438,13 +462,14 @@ def rollback_slot(cfg: ModelConfig, cache: dict, slot: int,
 # ---------------------------------------------------------------------------
 
 def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
-                cache: Optional[dict], gathered: Optional[dict] = None):
+                cache: Optional[dict], gathered: Optional[tuple] = None):
     """One block: mixer, cross-attention where the layer has it, then the
     FFN where the layer has one. Returns
     (x, cache, aux, z). In a decode macro-step with an ``active`` mask,
     inactive slots keep their recurrent state (attention writes its own
     sink row). ``gathered``: the MoE FFN's expert weights from the
-    pipeline-shared cache (``run_layers``)."""
+    pipeline-shared cache and the collectives that gathered them
+    ("fsdp" or "all"; ``run_layers``)."""
     kind = ctx.cfg.layer_kind(idx)
     h = tfm.block_norm(p["ln1"], x, ctx)
     if kind == "attn":
@@ -460,7 +485,7 @@ def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
     x = x + out
     if "xattn" in p:
         x = x + tfm.apply_cross_attention(
-            p["xattn"], tfm.apply_norm(p["ln_x"], x, ctx.cfg), ctx)
+            p["xattn"], tfm.block_norm(p["ln_x"], x, ctx), ctx)
     aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
         h2 = tfm.block_norm(p["ln2"], x, ctx)
@@ -501,7 +526,15 @@ def run_layers(layers: list, x: torch.Tensor, ctx: tfm.Ctx,
     with the next MoE layer's gather issued first when the capacity is 2
     or more; ``moe_layer(pregathered=True)`` takes them. JAX keys an entry
     by period, the port by layer: the same for a period-1 stack. The
-    cache's ``stats()`` go to ``LAST_PIPELINE_CACHE_STATS``."""
+    cache's ``stats()`` go to ``LAST_PIPELINE_CACHE_STATS``.
+
+    ``pcfg.overlap_dispatch`` in the "auto" mode (the overlap schedule):
+    each MoE layer's dispatch is resolved once, with the island's own
+    chooser (``moe_parallel._auto_layer_mode``); a data-centric layer's
+    entry is its whole expert weights (``gather_ffn_params(collectives=
+    "all")``), so the next layer's TP gather is issued before this layer
+    computes too, and the island skips its own (``pregathered="all"``).
+    The values are the eager schedule's, bit for bit."""
     global LAST_PIPELINE_CACHE_STATS
     cfg, pcfg = ctx.cfg, ctx.pcfg
     remat = ctx.mode == "train" and pcfg.remat != "none"
@@ -515,11 +548,27 @@ def run_layers(layers: list, x: torch.Tensor, ctx: tfm.Ctx,
         )
 
         pcache = PipelineSharedCache(pcfg.cache_layers)
-        d_ff = tfm.moe_static(cfg, pcfg).d_ff
+        ms = tfm.moe_static(cfg, pcfg)
+        levels = dict.fromkeys(moe_idx, "fsdp")
+        if pcfg.overlap_dispatch and pcfg.mode == "auto":
+            # the overlap schedule: each MoE layer's level resolved once
+            # with the island's own chooser, so an "all"-gathered layer is
+            # exactly one the island would run data-centric
+            from repro_torch.parallel.moe_parallel import _auto_layer_mode
+
+            tokens = x.shape[0] * x.shape[1]
+            if ctx.mesh is not None:
+                tokens *= ctx.mesh.size(as_axes(ctx.x_spec[0])) \
+                    * ctx.mesh.size(as_axes(ctx.x_spec[1]))
+            for i in moe_idx:
+                if _auto_layer_mode(ms, cfg.d_model, pcfg, ctx.mesh, tokens,
+                                    i % cfg.period) == "data_centric":
+                    levels[i] = "all"
 
         def gather(i):
-            return gather_ffn_params(layers[i]["ffn"], pcfg, ctx.mesh,
-                                     d_ff=d_ff)
+            g = gather_ffn_params(layers[i]["ffn"], pcfg, ctx.mesh,
+                                  d_ff=ms.d_ff, collectives=levels[i])
+            return g, levels[i]
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     z = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -567,42 +616,85 @@ def _embed_in(params: dict, inputs: dict, cfg: ModelConfig, dtype):
     return x
 
 
-def _embed_mesh(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+def _embed_mesh(params: dict, inputs: dict, cfg: ModelConfig,
                 ctx: tfm.Ctx, dtype) -> torch.Tensor:
-    """The vocabulary-parallel embedding (an island): this rank's tokens
-    (its batch block, the whole sequence) -> its block of the activations
-    at ``ctx.x_spec``. Ids are wrapped and clamped into the vocabulary as
-    JAX's gathers do; each rank looks up those in its vocabulary block
-    and gives zeros for the rest, and the partial sums are
-    reduce-scattered over the sequence (all-reduced where the sequence is
-    not split). A vocabulary "tp" does not divide leaves the table whole:
-    then each rank keeps its own sequence block of the lookup."""
+    """The first hidden states on a mesh (an island): this rank's batch
+    block of the inputs (the whole sequence) -> its block of the
+    activations at ``ctx.x_spec``.
+
+    Tokens: the vocabulary-parallel embedding. Ids are wrapped and
+    clamped into the vocabulary as JAX's gathers do; each rank looks up
+    those in its vocabulary block and gives zeros for the rest, and the
+    partial sums are reduce-scattered over the sequence (all-reduced
+    where the sequence is not split). A vocabulary "tp" does not divide
+    leaves the table whole: then each rank keeps its own sequence block
+    of the lookup. Frontend inputs: the projection (its fsdp factor
+    gathered) on every rank of the TP group alike; SigLIP patches go
+    before the token embeddings, summed whole over the vocabulary split
+    first; each rank keeps its sequence block."""
+    mesh, d = ctx.mesh, cfg.d_model
+    seq_axes = as_axes(ctx.x_spec[1])
+    scale = (torch.tensor(math.sqrt(d), dtype=dtype) if cfg.embed_scale
+             else None)
+    if cfg.frontend == "encodec":
+        x = _frontend_mesh(params, inputs["embeds"], cfg, ctx, dtype)
+        if scale is not None:
+            x = x * scale
+        return tfm.island_out(tfm.seq_take(x, mesh, seq_axes), mesh,
+                              ctx.x_spec)
+    x, vaxes = _vocab_lookup(params, inputs["tokens"], cfg, ctx, dtype)
+    if cfg.frontend == "siglip" and "patches" in inputs:
+        if vaxes:
+            x = _Psum.apply(x, mesh, vaxes)
+        x = torch.cat([_frontend_mesh(params, inputs["patches"], cfg, ctx,
+                                      dtype), x], dim=1)
+        if scale is not None:
+            x = x * scale
+        return tfm.island_out(tfm.seq_take(x, mesh, seq_axes), mesh,
+                              ctx.x_spec)
+    if scale is not None:
+        x = x * scale
+    if vaxes:
+        # "sp" and "tp" are one mesh axis: summing the vocabulary blocks
+        # scatters the sequence
+        x = tfm.tp_reduce(x, mesh, seq_axes, vaxes)
+    else:
+        x = tfm.seq_take(x, mesh, seq_axes)
+    return tfm.island_out(x, mesh, ctx.x_spec)
+
+
+def _vocab_lookup(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                  ctx: tfm.Ctx, dtype):
+    """This rank's partial embedding of ``tokens`` (B, S) from its
+    vocabulary block (zeros for the ids it does not hold), and the mesh
+    axes the vocabulary is split over (none: the whole lookup)."""
     mesh, v, d = ctx.mesh, cfg.vocab_size, cfg.d_model
     spec = physical_spec((v, d), EMBED_LOGICAL, ctx.pcfg, mesh)
     emb = tfm.weight_in(params["embed"], mesh, spec, EMBED_LOGICAL)
     ids = tokens.long()
     ids = torch.where(ids < 0, ids + v, ids).clamp(0, v - 1)
     vaxes = as_axes(spec[0])
-    seq_axes = as_axes(ctx.x_spec[1])
-    if vaxes:
-        vl = emb.shape[0]
-        local = ids - mesh.index(vaxes) * vl
-        hit = (local >= 0) & (local < vl)
-        x = torch.where(hit[..., None], emb[local.clamp(0, vl - 1)],
-                        torch.zeros((), dtype=emb.dtype, device=emb.device))
-    else:
-        x = emb[ids]
-    x = x.to(dtype)
-    if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(d), dtype=dtype)
-    if vaxes:
-        # "sp" and "tp" are one mesh axis: summing the vocabulary blocks
-        # scatters the sequence
-        x = tfm.tp_reduce(x, mesh, seq_axes, vaxes)
-    elif seq_axes:
-        sl = x.shape[1] // mesh.size(seq_axes)
-        x = x.narrow(1, mesh.index(seq_axes) * sl, sl)
-    return tfm.island_out(x, mesh, ctx.x_spec)
+    if not vaxes:
+        return emb[ids].to(dtype), vaxes
+    vl = emb.shape[0]
+    local = ids - mesh.index(vaxes) * vl
+    hit = (local >= 0) & (local < vl)
+    x = torch.where(hit[..., None], emb[local.clamp(0, vl - 1)],
+                    torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return x.to(dtype), vaxes
+
+
+def _frontend_mesh(params: dict, feats: torch.Tensor, cfg: ModelConfig,
+                   ctx: tfm.Ctx, dtype) -> torch.Tensor:
+    """``frontends.project_frontend`` inside an island: the projection
+    entered at its placement with its fsdp factor gathered."""
+    p = params["frontend"]
+    shape = (cfg.frontend_dim, cfg.d_model)
+    logical = frontends.FRONTEND_LOGICAL["proj"]
+    w = tfm.weight_in(p["proj"], ctx.mesh,
+                      physical_spec(shape, logical, ctx.pcfg, ctx.mesh),
+                      logical)
+    return frontends.project_frontend({"proj": w}, feats, dtype)
 
 
 def head_weight(params: dict, cfg: ModelConfig, pcfg: ParallelConfig,
@@ -620,21 +712,39 @@ def head_weight(params: dict, cfg: ModelConfig, pcfg: ParallelConfig,
             as_axes(spec[1]))
 
 
+def cb_head_weight(params: dict, cfg: ModelConfig, pcfg: ParallelConfig,
+                   mesh):
+    """The codebook heads inside a mesh island: (C, D, V_l) with the fsdp
+    factor gathered and the vocabulary block kept, and the mesh axes the
+    vocabulary is split over."""
+    shape = (cfg.num_codebooks, cfg.d_model, cfg.vocab_size)
+    spec = physical_spec(shape, CB_HEADS_LOGICAL, pcfg, mesh)
+    return (tfm.weight_in(params["cb_heads"], mesh, spec, CB_HEADS_LOGICAL),
+            as_axes(spec[2]))
+
+
 def _logits_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig,
                  ctx: tfm.Ctx, last_only: bool) -> torch.Tensor:
     """Vocabulary logits f32 on a mesh: this rank's batch block, the whole
     sequence (or its last row) and the whole vocabulary, gathered over
-    the sequence and the vocabulary split."""
+    the sequence and the vocabulary split; (B, S, C, V) through the
+    codebook heads."""
     mesh = ctx.mesh
     x = tfm.seq_gather(tfm.island_in(x, mesh, ctx.x_spec), mesh,
                         as_axes(ctx.x_spec[1]))
     if last_only:
         x = x[:, -1:]
-    w, vaxes = head_weight(params, cfg, ctx.pcfg, mesh)
-    logits = x.float() @ w.float()
+    if cfg.num_codebooks > 1:
+        w, vaxes = cb_head_weight(params, cfg, ctx.pcfg, mesh)
+        logits = torch.einsum("bsd,cdv->bscv", x.float(), w.float())
+        spec = (ctx.x_spec[0], None, None, None)
+    else:
+        w, vaxes = head_weight(params, cfg, ctx.pcfg, mesh)
+        logits = x.float() @ w.float()
+        spec = (ctx.x_spec[0], None, None)
     if vaxes:
-        logits = _Gather.apply(logits, mesh, vaxes, 2)
-    return tfm.island_out(logits, mesh, (ctx.x_spec[0], None, None))
+        logits = _Gather.apply(logits, mesh, vaxes, logits.ndim - 1)
+    return tfm.island_out(logits, mesh, spec)
 
 
 def _logits_out(params: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -720,8 +830,9 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
         x = _embed_in(params, inputs, cfg, dtype)
         b, s, _ = x.shape
     else:
-        x = _embed_mesh(params, inputs["tokens"], cfg, ctx, dtype)
-        b, s = inputs["tokens"].shape
+        x = _embed_mesh(params, inputs, cfg, ctx, dtype)
+        b = x.shape[0]
+        s = x.shape[1] * mesh.size(as_axes(ctx.x_spec[1]))
     if train or dense_prefill:
         cache_len = None
         positions = torch.arange(s, device=x.device)[None].expand(b, s)

@@ -8,7 +8,8 @@ combine of JAX's ``associative_scan``), and the chunks are chained in
 order with a ``(B, Din, Dst)`` carry, so no ``(B, S, Din, Dst)`` tensor
 exists at full prompt length; in training each chunk is recomputed in
 the backward. Decode is the O(1) update of that state. Plain PyTorch, as
-the JAX layer is plain ``jnp``.
+the JAX layer is plain ``jnp``. On a mesh the layer is an island that
+splits its inner channels over "tp" (``_apply_mamba_mesh``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.parallel.sharding import normal_init
+from repro_torch.parallel.moe_parallel import _Gather, _Psum
+from repro_torch.parallel.sharding import as_axes, normal_init, physical_spec
 
 
 def _dims(cfg: ModelConfig):
@@ -140,23 +142,57 @@ def _ssm_chunked(u, dt, b_in, c_in, a, chunk: int, remat: bool = False):
     return torch.cat(ys, dim=1), h
 
 
+#: Logical specs of the layer's leaves (the JAX package's ``Param``
+#: tags): channels (``d_inner``) over "tp".
+MAMBA_LOGICAL = {"in_proj": ("fsdp", "tp"), "conv_w": (None, "tp"),
+                 "conv_b": ("tp",), "x_proj": ("tp", None),
+                 "dt_proj": (None, "tp"), "dt_bias": ("tp",),
+                 "a_log": ("tp", None), "d_skip": ("tp",),
+                 "out_proj": ("tp", "fsdp")}
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """Global shapes of the layer's leaves."""
+    d = cfg.d_model
+    d_in, d_state, d_conv, dt_rank = _dims(cfg)
+    return {"in_proj": (d, 2 * d_in), "conv_w": (d_conv, d_in),
+            "conv_b": (d_in,), "x_proj": (d_in, dt_rank + 2 * d_state),
+            "dt_proj": (dt_rank, d_in), "dt_bias": (d_in,),
+            "a_log": (d_in, d_state), "d_skip": (d_in,),
+            "out_proj": (d_in, d)}
+
+
 def apply_mamba(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
     """x: (B, S, D) -> (y, new_cache). ``cache``: {"conv": (B, K-1, Din)
     in the model dtype, "ssm": (B, Din, Dst) f32}; decode (S == 1) reads
     and advances it, prefill/train start from zero and, with a cache,
-    return the final state (conv: the last K-1 pre-conv inputs)."""
-    mode = ctx.mode
-    d_in, d_state, d_conv, dt_rank = _dims(ctx.cfg)
+    return the final state (conv: the last K-1 pre-conv inputs). On a
+    mesh: ``_apply_mamba_mesh``."""
+    if ctx.mesh is not None:
+        return _apply_mamba_mesh(p, x, ctx, cache)
+    d_in = _dims(ctx.cfg)[0]
     xz = x @ p["in_proj"]
-    xm, z = xz[..., :d_in], xz[..., d_in:]
+    y, new_cache = _mixer(p, xz[..., :d_in], xz[..., d_in:], ctx, cache,
+                          x.dtype)
+    return y @ p["out_proj"], new_cache
 
+
+def _mixer(p: dict, xm, z, ctx, cache, dtype, proj_sum=None):
+    """The layer between its two projections, over the channels of
+    ``xm``/``z`` (B, S, C) and the leaves' matching blocks: the causal
+    conv (or its decode window), ``x_proj`` (its partial sums completed
+    by ``proj_sum`` where the channels are a block), the discretisation,
+    the scan (or the decode update) and the gate. Returns (y (B, S, C)
+    in ``dtype``, new_cache)."""
+    mode = ctx.mode
+    _, d_state, d_conv, dt_rank = _dims(ctx.cfg)
     if mode == "decode":
-        assert x.shape[1] == 1 and cache is not None
+        assert xm.shape[1] == 1 and cache is not None
         conv_state = torch.cat([cache["conv"], xm.to(cache["conv"].dtype)],
                                dim=1)                         # (B, K, Din)
         xm_c = torch.einsum("bkd,kd->bd", conv_state.float(),
                             p["conv_w"].float()) + p["conv_b"]
-        xm = F.silu(xm_c)[:, None].to(x.dtype)
+        xm = F.silu(xm_c)[:, None].to(dtype)
         new_conv = conv_state[:, 1:]
     else:
         xm_conv = causal_depthwise_conv(xm, p["conv_w"], p["conv_b"])
@@ -164,9 +200,11 @@ def apply_mamba(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
         if cache is not None:
             new_conv = F.pad(xm, (0, 0, d_conv - 1, 0))[:, -(d_conv - 1):]
             new_conv = new_conv.to(cache["conv"].dtype)
-        xm = F.silu(xm_conv).to(x.dtype)
+        xm = F.silu(xm_conv).to(dtype)
 
     proj = xm @ p["x_proj"]
+    if proj_sum is not None:
+        proj = proj_sum(proj)
     dt_lr = proj[..., :dt_rank]
     b_in = proj[..., dt_rank:dt_rank + d_state]
     c_in = proj[..., dt_rank + d_state:]
@@ -185,11 +223,62 @@ def apply_mamba(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
                                   remat=mode == "train")
 
     y = y + p["d_skip"] * xm.float()
-    y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ p["out_proj"]
+    y = (y * F.silu(z.float())).to(dtype)
     if cache is None:
-        return out, None
-    return out, {"conv": new_conv, "ssm": new_ssm}
+        return y, None
+    return y, {"conv": new_conv, "ssm": new_ssm}
+
+
+def _apply_mamba_mesh(p: dict, x: torch.Tensor, ctx, cache):
+    """The layer as an island on a mesh, x at ``ctx.x_spec``. Where "tp"
+    splits ``d_inner``: the sequence gathered over "sp" once,
+    ``in_proj`` column-parallel (the products gathered over the channels,
+    each rank keeping its block of ``xm`` and of ``z``), the conv,
+    ``dt_proj`` and the scan on this rank's channels, ``x_proj``
+    row-parallel with its partial sums all-reduced (its output is
+    replicated, as the JAX package constrains it), ``out_proj``
+    row-parallel, reduce-scattered back over the sequence. The decode
+    state is this rank's channels. Where it does not split: the weights
+    gathered whole, the layer on the whole sequence, and this rank's
+    sequence block kept."""
+    from repro_torch.models import transformer as tfm
+
+    mesh = ctx.mesh
+    d_in = _dims(ctx.cfg)[0]
+    tp = as_axes(ctx.pcfg.axes(mesh)["tp"])
+    split = mesh_split(ctx.cfg, ctx.pcfg, mesh)
+    w, _ = tfm.mesh_weights(p, ctx, param_shapes(ctx.cfg), MAMBA_LOGICAL,
+                            gather_tp=not split)
+    seq_axes = as_axes(ctx.x_spec[1])
+    x = tfm.seq_gather(tfm.island_in(x, mesh, ctx.x_spec), mesh, seq_axes)
+    xz = x @ w["in_proj"]
+    if not split:
+        y, new_cache = _mixer(w, xz[..., :d_in], xz[..., d_in:], ctx, cache,
+                              x.dtype)
+        out = tfm.seq_take(y @ w["out_proj"], mesh, seq_axes)
+        return tfm.island_out(out, mesh, ctx.x_spec), new_cache
+    xz = _Gather.apply(xz, mesh, tp, 2)
+    dl = d_in // mesh.size(tp)
+    r = mesh.index(tp)
+    xm = xz[..., r * dl:(r + 1) * dl]
+    z = xz[..., d_in + r * dl:d_in + (r + 1) * dl]
+    y, new_cache = _mixer(w, xm, z, ctx, cache, x.dtype,
+                          proj_sum=lambda t: _Psum.apply(t, mesh, tp))
+    out = tfm.tp_reduce(y @ w["out_proj"], mesh, seq_axes, tp)
+    return tfm.island_out(out, mesh, ctx.x_spec), new_cache
+
+
+def mesh_split(cfg: ModelConfig, pcfg, mesh) -> bool:
+    """Whether the layer splits ``d_inner`` over "tp" on ``mesh`` (its
+    decode state then holds this rank's channels)."""
+    tp = as_axes(pcfg.axes(mesh)["tp"])
+    if cfg.mamba is None or not tp:
+        return False
+    shapes = param_shapes(cfg)
+    return all(
+        as_axes(physical_spec(shapes[k], MAMBA_LOGICAL[k], pcfg, mesh)[i])
+        == tp for k, i in (("in_proj", 1), ("conv_w", 1), ("x_proj", 0),
+                           ("dt_proj", 1), ("a_log", 0), ("out_proj", 0)))
 
 
 def cache_spec_mamba(cfg: ModelConfig, batch: int, dtype) -> dict:

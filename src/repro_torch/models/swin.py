@@ -36,8 +36,11 @@ weights. The MoE blocks go through ``moe_layer`` with the tokens placed
 ``(("pod", "data"), None, None)``, as the JAX package's do, each rank
 holding its shards of the expert weights (``param_specs``; the JAX tree
 tags its dense weights fsdp/tp for GSPMD, whose placement of the dense
-layers is its own choice: the values agree). A mesh without a "pod" axis
-raises ``ValueError``, as JAX's ``shard_map`` does on that path.
+layers is its own choice: the values agree). The baselines compute the
+whole batch's function there too (``_baseline_mesh``: the global
+capacity and dispatch order, the global aux loss). A mesh without a
+"pod" axis raises ``ValueError``, as JAX's ``shard_map`` does on that
+path.
 """
 from __future__ import annotations
 
@@ -62,10 +65,17 @@ from repro_torch.parallel.moe_parallel import (
     EP_PARAM_LOGICAL,
     MOE_PARAM_LOGICAL,
     MoEStatic,
+    _Enter,
+    _Exit,
+    _Gather,
+    _Psum,
+    _unmentioned,
     moe_layer,
 )
+from repro_torch.parallel.moe_parallel import _param_specs as _moe_param_specs
 from repro_torch.parallel.sharding import (
     ParallelConfig,
+    as_axes,
     global_grad_norm,
     normal_init,
     physical_spec,
@@ -243,9 +253,7 @@ def _apply_moe_ffn(p, x_tokens, cfg: SwinConfig, pcfg: ParallelConfig,
         return moe_layer(x_tokens, p, _moe_static(cfg, x_tokens.shape[-1]),
                          pcfg, mesh, x_spec=SWIN_X_SPEC)
     if mesh is not None:
-        raise NotImplementedError(
-            f"moe_impl {moe_impl!r} on a mesh: the baselines' distributed "
-            f"paths are not ported (ROADMAP.md A.5)")
+        return _baseline_mesh(p, x_tokens, cfg, pcfg, moe_impl, mesh)
     bsz, seq, c = x_tokens.shape
     xf = x_tokens.reshape(bsz * seq, c)
     r = route(xf, p["router"], m.top_k, norm_topk=m.norm_topk,
@@ -261,6 +269,65 @@ def _apply_moe_ffn(p, x_tokens, cfg: SwinConfig, pcfg: ParallelConfig,
     else:
         raise ValueError(f"moe_impl {moe_impl!r}: hexa | tutel | megablocks")
     return y.reshape(bsz, seq, c), r.aux_loss, r.z_loss
+
+
+def _baseline_mesh(p, x_tokens, cfg: SwinConfig, pcfg: ParallelConfig,
+                   moe_impl: str, mesh):
+    """A baseline on a mesh: the one global function the JAX package's
+    GSPMD run computes, from this rank's tokens (its ("pod", "data")
+    block, the same on every "model" rank). The expert weights are
+    gathered whole (their gradients reduce-scattered back). Tutel's
+    capacity is the whole batch's, and each copy's place in its expert's
+    queue counts the copies of the ranks before this one (an exclusive
+    prefix sum of the per-expert counts over ("pod", "data") in
+    ``Mesh.index`` order), so the same copies drop; MegaBlocks'
+    worst-case buffer drops nothing and stays this rank's. The aux loss
+    is ``E * sum(f_e * P_e)`` of the global means (their numerators
+    summed over the batch axes), the z loss the global mean. The
+    boundary is ``moe_layer``'s (``shard_map``'s transpose)."""
+    m = cfg.moe
+    bsz, seq, c = x_tokens.shape
+    ms = _moe_static(cfg, c)
+    e, k = m.num_experts, m.top_k
+    baxes = as_axes(SWIN_X_SPEC[0])
+    n_dp, world = mesh.size(baxes), tuple(mesh.axis_names)
+    specs = _moe_param_specs(ms, c, pcfg, mesh)
+    x = _Enter.apply(x_tokens, mesh, _unmentioned(mesh, SWIN_X_SPEC))
+    w = {}
+    for name, v in p.items():
+        v = _Enter.apply(v, mesh, _unmentioned(mesh, specs[name]))
+        for dim, entry in enumerate(specs[name]):
+            if as_axes(entry):
+                v = _Gather.apply(v, mesh, as_axes(entry), dim)
+        w[name] = v
+    xf = x.reshape(bsz * seq, c)
+    r = route(xf, w["router"], k, norm_topk=m.norm_topk,
+              softmax_after_topk=m.softmax_after_topk)
+    n_all = xf.shape[0] * n_dp
+    gelu = ACTIVATIONS["gelu"]
+    if moe_impl == "tutel":
+        _, counts = baselines._dispatch_ranks(r.expert_idx, e)
+        every = mesh.all_gather(counts[None], baxes, 0)         # (n_dp, E)
+        offset = every[:mesh.index(baxes)].sum(0)
+        y = baselines.dispatch_combine_moe(
+            xf, r, w["w1"], w["b1"], w["w2"], w["b2"], act=gelu,
+            capacity=baselines.tutel_capacity(n_all, k, e,
+                                              pcfg.capacity_factor),
+            rank_offset=offset)
+    elif moe_impl == "megablocks":
+        y = baselines.grouped_dense_moe(xf, r, w["w1"], w["b1"], w["w2"],
+                                        w["b2"], act=gelu)
+    else:
+        raise ValueError(f"moe_impl {moe_impl!r}: hexa | tutel | megablocks")
+    f_num = mesh.all_reduce(torch.nn.functional.one_hot(
+        r.expert_idx.long(), e).sum((0, 1)).float(), baxes)
+    p_num = _Psum.apply(r.probs.sum(0), mesh, baxes)
+    aux = e * torch.sum((f_num / (n_all * k)) * (p_num / n_all))
+    z = _Psum.apply(r.z_loss, mesh, baxes) / n_dp
+    n = mesh.size(world)
+    y = _Exit.apply(y.reshape(bsz, seq, c),
+                    mesh.size(_unmentioned(mesh, SWIN_X_SPEC)))
+    return y, _Exit.apply(aux, n), _Exit.apply(z, n)
 
 
 def check_mesh(mesh) -> None:

@@ -27,7 +27,11 @@ is not split), and the dense FFN splits its hidden width over "tp" the
 same way (Megatron). Where the heads do not divide over "tp" (MQA, a
 40-head stack on 16 ranks), attention keeps the queries' sequence chunk
 and gathers K/V over the sequence instead (JAX's ``seq_parallel_attn``).
-The MoE FFN is ``moe_parallel.moe_layer``'s own island.
+Cross-attention is the same island with K/V from the conditioning. On a
+two-level mesh "tp" is the tuple ("node", "model"): the heads split over
+its product, and these islands' collectives stay flat over the tuple (the
+JAX package phases only the MoE island's). The MoE FFN is
+``moe_parallel.moe_layer``'s own island.
 """
 from __future__ import annotations
 
@@ -126,6 +130,49 @@ def _leaf_spec(ctx: Ctx, shape, logical) -> tuple:
 
 def seq_gather(x: torch.Tensor, mesh, seq_axes) -> torch.Tensor:
     return _Gather.apply(x, mesh, seq_axes, 1) if seq_axes else x
+
+
+def seq_take(x: torch.Tensor, mesh, seq_axes) -> torch.Tensor:
+    """This rank's sequence block of a whole-sequence value that every
+    rank of ``seq_axes`` computed alike (its backward pads the cotangent
+    with zeros: each rank carries its own block's share)."""
+    if not seq_axes:
+        return x
+    sl = x.shape[1] // mesh.size(seq_axes)
+    return x.narrow(1, mesh.index(seq_axes) * sl, sl)
+
+
+def mesh_weights(p: dict, ctx: "Ctx", shapes: dict, table: dict, *,
+                 gather_tp=()) -> tuple:
+    """``weight_in`` of every leaf of ``p`` under its logical spec in
+    ``table`` at its global shape in ``shapes``; the leaves named in
+    ``gather_tp`` (or all, for True) also gather their tp factor.
+    Returns (the weights, their physical specs)."""
+    specs = {k: _leaf_spec(ctx, shapes[k], table[k]) for k in p}
+    w = {k: weight_in(v, ctx.mesh, specs[k], table[k],
+                      gather_tp=gather_tp is True
+                      or (bool(gather_tp) and k in gather_tp))
+         for k, v in p.items()}
+    return w, specs
+
+
+def row_parallel_out(h: torch.Tensor, w: torch.Tensor, rows, ctx: "Ctx",
+                     seq_axes) -> torch.Tensor:
+    """``h @ w`` for a whole-sequence ``h`` (B, S, K) that every rank of
+    the TP group holds alike, with ``w`` this rank's block of rows over
+    the axes ``rows`` (none: whole): this rank's K block of ``h`` times
+    its rows, the partial sums reduce-scattered over the sequence back to
+    x's placement (all-reduced where the sequence is not split); a whole
+    ``w`` gives the product on each rank, which keeps its sequence
+    block."""
+    mesh = ctx.mesh
+    if not rows:
+        return seq_take(h @ w, mesh, seq_axes)
+    kl = w.shape[0]
+    y = h.narrow(-1, mesh.index(rows) * kl, kl) @ w
+    if seq_axes and tuple(rows) != tuple(seq_axes):
+        return seq_take(_Psum.apply(y, mesh, rows), mesh, seq_axes)
+    return tp_reduce(y, mesh, seq_axes, rows)
 
 
 def tp_reduce(y: torch.Tensor, mesh, seq_axes, tp) -> torch.Tensor:
@@ -317,18 +364,20 @@ def moe_static(cfg: ModelConfig, pcfg: ParallelConfig) -> MoEStatic:
 
 def apply_moe_ffn(p: dict, x: torch.Tensor, ctx: Ctx,
                   layer_idx: Optional[int] = None,
-                  gathered: Optional[dict] = None):
+                  gathered: Optional[tuple] = None):
     """Returns (y, aux_loss, z_loss). x: (B, S, D), placed at
     ``ctx.x_spec`` on a mesh. ``layer_idx``: the period position, the key
-    of the auto mode's per-layer plan. ``gathered``: the expert weights
-    with their fsdp factor gathered by the pipeline-shared cache
-    (``parallel.cache.gather_ffn_params``); they replace the shards and
-    the island skips its own gather."""
+    of the auto mode's per-layer plan. ``gathered``: (the expert weights
+    gathered by the pipeline-shared cache, the collectives that gathered
+    them: "fsdp" or "all"; ``parallel.cache.gather_ffn_params``); they
+    replace the shards and the island skips those gathers."""
+    pregathered = False
     if gathered is not None:
-        p = {**p, **gathered}
+        weights, pregathered = gathered
+        p = {**p, **weights}
     return moe_layer(x, p, moe_static(ctx.cfg, ctx.pcfg), ctx.pcfg,
                      ctx.mesh, x_spec=ctx.x_spec, layer_idx=layer_idx,
-                     pregathered=gathered is not None)
+                     pregathered=pregathered)
 
 
 # ---------------------------------------------------------------------------
@@ -618,15 +667,42 @@ def init_cross_attention(cfg: ModelConfig, dtype, generator, device) -> dict:
     }
 
 
+#: Logical specs of the cross-attention weights (the JAX package's).
+XATTN_LOGICAL = {"wq": ("fsdp", "tp"), "wk": (None, "tp"),
+                 "wv": (None, "tp"), "wo": ("tp", "fsdp")}
+
+
+def cross_attention_shapes(cfg: ModelConfig) -> dict:
+    d, hq, hd, dc = cfg.d_model, cfg.num_heads, cfg.hd, cfg.cross_d
+    return {"wq": (d, hq * hd), "wk": (dc, hq * hd), "wv": (dc, hq * hd),
+            "wo": (hq * hd, d)}
+
+
 def apply_cross_attention(p: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     """Every query row attends to every row of ``ctx.cond`` (B, T, Dc): no
     RoPE, no mask, f32 logits, the softmax cast to x's dtype. K and V are
     computed from ``cond`` at every call (decode included): nothing is
     cached, as in the JAX layer. Plain ``torch.matmul``, as the JAX layer
-    is plain einsums."""
+    is plain einsums.
+
+    On a mesh (``ctx.cond`` this rank's batch block, whole), an island as
+    self-attention's: where the heads split over "tp", the sequence
+    gathered over "sp", q/k/v over this rank's heads, ``wo`` row-parallel
+    and reduce-scattered back; else the weights gathered whole and the
+    rank's own query rows attending (no mask needs the others)."""
     cfg = ctx.cfg
-    b, s, _ = x.shape
     hq, hd = cfg.num_heads, cfg.hd
+    mesh = ctx.mesh
+    shard = False
+    if mesh is not None:
+        tp = ctx.pcfg.axes(mesh)["tp"]
+        shard = hq % mesh.size(tp) == 0
+        p, _ = mesh_weights(p, ctx, cross_attention_shapes(cfg),
+                            XATTN_LOGICAL, gather_tp=not shard)
+        seq_axes = as_axes(ctx.x_spec[1]) if shard else ()
+        x = seq_gather(island_in(x, mesh, ctx.x_spec), mesh, seq_axes)
+        hq //= mesh.size(tp) if shard else 1
+    b, s, _ = x.shape
     cond = ctx.cond.to(x.dtype)
     t = cond.shape[1]
     q = (x @ p["wq"]).reshape(b, s, hq, hd)
@@ -636,4 +712,9 @@ def apply_cross_attention(p: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
                           k.float()) * hd ** -0.5
     w = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v)
-    return out.reshape(b, s, hq * hd) @ p["wo"]
+    y = out.reshape(b, s, hq * hd) @ p["wo"]
+    if mesh is None:
+        return y
+    if shard:
+        y = tp_reduce(y, mesh, seq_axes, tp)
+    return island_out(y, mesh, ctx.x_spec)

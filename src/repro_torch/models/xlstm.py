@@ -11,7 +11,9 @@ over time in both modes; the loop emits each step's ``h`` rounded to
 bf16, whatever the model's dtype, as the JAX scan does. In training
 every mLSTM chunk and every sLSTM step is recomputed in the backward
 (``torch.utils.checkpoint``), as the JAX scans checkpoint their steps.
-Plain PyTorch.
+Plain PyTorch. On a mesh each layer is an island whose cell runs
+replicated over "tp", as the JAX package constrains it: the recurrent
+head structure is too narrow to split.
 """
 from __future__ import annotations
 
@@ -23,15 +25,41 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.mamba import _chunk_len, causal_depthwise_conv
-from repro_torch.parallel.sharding import normal_init
+from repro_torch.parallel.moe_parallel import _Gather
+from repro_torch.parallel.sharding import as_axes, normal_init
 
 NEG = -1e30
+
+#: Logical specs of the leaves (the JAX package's ``Param`` tags).
+MLSTM_LOGICAL = {"up": ("fsdp", "tp"), "conv_w": (None, "tp"),
+                 "conv_b": ("tp",), "wq": ("tp", None), "wk": ("tp", None),
+                 "wv": ("tp", None), "w_if": ("tp", None), "b_if": (None,),
+                 "down": ("tp", "fsdp")}
+SLSTM_LOGICAL = {"w_in": ("fsdp", "tp"), "r": (None, None, None),
+                 "b": (None,)}
 
 
 def _dims(cfg: ModelConfig):
     d_in = int(cfg.xlstm.proj_factor * cfg.d_model)
     nh = cfg.num_heads
     return d_in, nh, d_in // nh
+
+
+def mlstm_shapes(cfg: ModelConfig) -> dict:
+    """Global shapes of an mLSTM layer's leaves."""
+    d = cfg.d_model
+    d_in, nh, _ = _dims(cfg)
+    return {"up": (d, 2 * d_in), "conv_w": (cfg.xlstm.conv_kernel, d_in),
+            "conv_b": (d_in,), "wq": (d_in, d_in), "wk": (d_in, d_in),
+            "wv": (d_in, d_in), "w_if": (d_in, 2 * nh), "b_if": (2 * nh,),
+            "down": (d_in, d)}
+
+
+def slstm_shapes(cfg: ModelConfig) -> dict:
+    """Global shapes of an sLSTM layer's leaves."""
+    d, nh = cfg.d_model, cfg.num_heads
+    return {"w_in": (d, 4 * d), "r": (nh, d // nh, 4 * d // nh),
+            "b": (4 * d,)}
 
 
 # ---------------------------------------------------------------------------
@@ -142,24 +170,60 @@ def _mlstm_step(q, k, v, log_i, log_f, state):
 
 
 def apply_mlstm(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
-    """x: (B, S, D) -> (y, cache'). cache: {"c", "n", "m", "conv"}."""
+    """x: (B, S, D) -> (y, cache'). cache: {"c", "n", "m", "conv"}. On a
+    mesh, an island: ``up`` column-parallel and its products gathered
+    over the channels (the JAX package constrains ``xz`` replicated), the
+    conv and the q/k/v/gate products with their weights gathered whole,
+    the cell replicated over "tp", ``down`` row-parallel."""
+    d_in = _dims(ctx.cfg)[0]
+    if ctx.mesh is None:
+        xz = x @ p["up"]
+        h, new_cache = _mlstm_body(p, xz[..., :d_in], xz[..., d_in:], ctx,
+                                   cache, x.dtype)
+        return h @ p["down"], new_cache
+    from repro_torch.models import transformer as tfm
+
+    mesh = ctx.mesh
+    w, specs = tfm.mesh_weights(p, ctx, mlstm_shapes(ctx.cfg),
+                                MLSTM_LOGICAL, gather_tp=(
+                                    "conv_w", "conv_b", "wq", "wk", "wv",
+                                    "w_if"))
+    seq_axes = as_axes(ctx.x_spec[1])
+    xf = tfm.seq_gather(tfm.island_in(x, mesh, ctx.x_spec), mesh, seq_axes)
+    xz = _gather_cols(xf @ w["up"], mesh, specs["up"][1])
+    h, new_cache = _mlstm_body(w, xz[..., :d_in], xz[..., d_in:], ctx, cache,
+                               x.dtype)
+    out = tfm.row_parallel_out(h, w["down"], as_axes(specs["down"][0]), ctx,
+                               seq_axes)
+    return tfm.island_out(out, mesh, ctx.x_spec), new_cache
+
+
+def _gather_cols(t: torch.Tensor, mesh, entry) -> torch.Tensor:
+    """A column-parallel product gathered over the weight's column axes
+    (a replicated whole on every rank of them)."""
+    axes = as_axes(entry)
+    return _Gather.apply(t, mesh, axes, t.ndim - 1) if axes else t
+
+
+def _mlstm_body(p: dict, xm, z, ctx, cache, dtype):
+    """The mLSTM between its two projections: conv, q/k/v and gates, the
+    chunkwise cell (or its decode step), the output gate. Returns (the
+    gated hidden (B, S, d_in) in ``dtype``, cache')."""
     cfg, mode = ctx.cfg, ctx.mode
-    bsz, s, _ = x.shape
+    bsz, s, _ = xm.shape
     d_in, nh, hd = _dims(cfg)
     kconv = cfg.xlstm.conv_kernel
-    xz = x @ p["up"]
-    xm, z = xz[..., :d_in], xz[..., d_in:]
 
     if mode == "decode":
         conv_in = torch.cat([cache["conv"], xm.to(cache["conv"].dtype)],
                             dim=1)
         xc = torch.einsum("bkd,kd->bd", conv_in.float(),
                           p["conv_w"].float()) + p["conv_b"]
-        xc = F.silu(xc)[:, None].to(x.dtype)
+        xc = F.silu(xc)[:, None].to(dtype)
         new_conv = conv_in[:, 1:]
     else:
         xc = F.silu(causal_depthwise_conv(xm, p["conv_w"], p["conv_b"]))
-        xc = xc.to(x.dtype)
+        xc = xc.to(dtype)
         new_conv = None
         if cache is not None:
             new_conv = F.pad(xm, (0, 0, kconv - 1, 0))[:, -(kconv - 1):]
@@ -181,12 +245,12 @@ def apply_mlstm(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
         y, new_state = _mlstm_chunked(q, k, v, log_i, log_f, cfg.xlstm.chunk,
                                       remat=mode == "train")
 
-    y = y.reshape(bsz, s, d_in).to(x.dtype)
-    out = (y * F.silu(z)) @ p["down"]
+    y = y.reshape(bsz, s, d_in).to(dtype)
+    h = y * F.silu(z)
     if cache is None:
-        return out, None
-    return out, {"c": new_state[0], "n": new_state[1], "m": new_state[2],
-                 "conv": new_conv}
+        return h, None
+    return h, {"c": new_state[0], "n": new_state[1], "m": new_state[2],
+               "conv": new_conv}
 
 
 def cache_spec_mlstm(cfg: ModelConfig, batch: int, dtype) -> dict:
@@ -264,20 +328,40 @@ def _slstm_scan(gates_in, r, b, nh: int, hd: int, state,
 
 
 def apply_slstm(p: dict, x: torch.Tensor, ctx, cache: Optional[dict]):
+    """x: (B, S, D) -> (y, cache'). On a mesh, an island: ``w_in``
+    column-parallel and its products gathered (the JAX package
+    constrains ``gates_in`` replicated), the recurrent loop replicated
+    over "tp" with the replicated ``r``, and this rank's sequence block
+    of its output kept."""
     cfg = ctx.cfg
     bsz, s, d = x.shape
     nh = cfg.num_heads
     hd = d // nh
-    gates_in = x @ p["w_in"]                                 # (B, S, 4D)
+    mesh = ctx.mesh
+    if mesh is None:
+        w = p
+        gates_in = x @ p["w_in"]                             # (B, S, 4D)
+    else:
+        from repro_torch.models import transformer as tfm
+
+        w, specs = tfm.mesh_weights(p, ctx, slstm_shapes(cfg), SLSTM_LOGICAL)
+        seq_axes = as_axes(ctx.x_spec[1])
+        x = tfm.seq_gather(tfm.island_in(x, mesh, ctx.x_spec), mesh,
+                           seq_axes)
+        bsz, s, _ = x.shape
+        gates_in = _gather_cols(x @ w["w_in"], mesh, specs["w_in"][1])
     if cache is not None and ctx.mode == "decode":
         state = (cache["c"], cache["n"], cache["h"], cache["m"])
     else:
         zero = torch.zeros((bsz, nh, hd), dtype=torch.float32,
                            device=x.device)
         state = (zero, zero, zero, zero)
-    hs, new_state = _slstm_scan(gates_in, p["r"], p["b"], nh, hd, state,
+    hs, new_state = _slstm_scan(gates_in, w["r"], w["b"], nh, hd, state,
                                 remat=ctx.mode == "train")
     y = hs.reshape(bsz, s, d).to(x.dtype)
+    if mesh is not None:
+        y = tfm.island_out(tfm.seq_take(y, mesh, seq_axes), mesh,
+                           ctx.x_spec)
     if cache is None:
         return y, None
     return y, dict(zip(("c", "n", "h", "m"), new_state))

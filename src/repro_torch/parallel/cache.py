@@ -133,15 +133,21 @@ def _drop_axes(logical: tuple, which=("fsdp",)) -> tuple:
     return tuple(out)
 
 
-def gather_ffn_params(ffn: dict, cfg, mesh, *, d_ff: Optional[int] = None
-                      ) -> dict:
+def gather_ffn_params(ffn: dict, cfg, mesh, *, d_ff: Optional[int] = None,
+                      collectives: str = "fsdp") -> dict:
     """All-gather the fsdp factor of every MoE expert leaf of this rank's
-    ``ffn`` shards; the router and the TP factors stay as they are. The
+    ``ffn`` shards; the router and the TP factors stay as they are.
+    ``collectives="all"`` (the overlap schedule of ``models.lm.
+    run_layers``) gathers the TP factor too: the whole expert weights a
+    data-centric layer gathers inside its island, the same values. Each
     gather is a global resharding (as the JAX package's sharding
     constraint): its backward keeps this rank's block of the gathered
     leaf's cotangent. Without a mesh it returns ``ffn``'s leaves as they
     are. Pass the result to ``moe_parallel.moe_layer(..., pregathered=
-    True)``. ``d_ff``: the experts' global hidden width."""
+    True)`` ("all": ``pregathered="all"``). ``d_ff``: the experts' global
+    hidden width."""
+    if collectives not in ("fsdp", "all"):
+        raise ValueError(f"collectives {collectives!r}: fsdp | all")
     if mesh is None:
         return dict(ffn)
     from repro_torch.parallel.moe_parallel import (
@@ -153,6 +159,10 @@ def gather_ffn_params(ffn: dict, cfg, mesh, *, d_ff: Optional[int] = None
 
     router = ffn["router"]
     shapes = moe_param_shapes(router.shape[1], router.shape[0], d_ff)
+    axes = cfg.axes(mesh)
+    which = {"fsdp": set(axes["fsdp"])}
+    if collectives == "all":
+        which["tp"] = set(as_axes(axes["tp"]))
     out = {}
     for name, v in ffn.items():
         logical = MOE_PARAM_LOGICAL.get(name)
@@ -160,11 +170,10 @@ def gather_ffn_params(ffn: dict, cfg, mesh, *, d_ff: Optional[int] = None
             out[name] = v
             continue
         spec = physical_spec(shapes[name], logical, cfg, mesh)
-        fsdp = set(cfg.axes(mesh)["fsdp"])
         for dim, (lg, entry) in enumerate(zip(logical, spec)):
-            axes = tuple(a for a in as_axes(entry) if a in fsdp)
-            if lg == "fsdp" and axes:
-                v = _Reshard.apply(v, mesh, axes, dim)
+            got = tuple(a for a in as_axes(entry) if a in which.get(lg, ()))
+            if got:
+                v = _Reshard.apply(v, mesh, got, dim)
         out[name] = v
     return out
 

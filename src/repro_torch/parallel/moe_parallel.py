@@ -43,9 +43,20 @@ router's gradient is summed over every rank inside the layer.
 
 ``cfg.cache_policy`` decides what the training backward keeps of the
 gathered expert weights (``torch.utils.checkpoint``; see
-``sharding.ParallelConfig``). Not ported, and refused: the hierarchical
-schedule of a mesh with a "node" axis, ``overlap_dispatch`` and
-``collect_router_stats`` (ROADMAP.md A.5, A.6).
+``sharding.ParallelConfig``).
+
+A mesh with a "node" axis spans TP over ("node", "model"), node-major
+(``launch.mesh.split_model_axis``). With ``cfg.topology`` set and more
+than one node, the island runs the two-level schedule: every TP gather
+phased over "model" first, then "node" (the same values as the flat
+gather), and the partial outputs combined inside the node before they
+cross nodes (``ag_rs``: an all-reduce over "model", a reduce-scatter
+over "node", then this rank's "model" chunk; ``ag_ar``: the all-reduce
+phased the same way). Each phase is an autograd op whose backward is its
+adjoint. ``pregathered="all"`` (the overlap schedule of
+``models.lm.run_layers``) also skips the data-centric TP gather. Not
+ported, and refused: ``collect_router_stats`` (ROADMAP.md A.6), and the
+"ep" mode on a node mesh (refused by the JAX package too).
 """
 from __future__ import annotations
 
@@ -64,6 +75,12 @@ from repro_torch.parallel.sharding import (
     spec_axes,
 )
 from repro_torch.quant.core import EXPERT_WEIGHT_KEYS, fake_quant
+
+
+#: The "ep" mode's refusal of a two-level mesh, the JAX package's words.
+EP_NODE_REFUSAL = ("the EP baseline does not support two-level (node) "
+                   "meshes; use the hexa modes for hierarchical dispatch "
+                   "(DESIGN.md §10)")
 
 
 class MoEStatic(NamedTuple):
@@ -192,6 +209,40 @@ def _ag(x, mesh, axes, dim):
     return _Gather.apply(x, mesh, axes, dim)
 
 
+def _ag_hier(x, mesh, axes, dim, hier: bool):
+    """``_ag``, phased per interconnect level when ``hier``: the minor
+    (intra-node) axis first, then the major one. The phases concatenate
+    in the tuple's order, so the result is the flat gather's, bit for
+    bit, where ``Mesh.group`` orders the tuple's ranks node-major."""
+    if x is None or not axes:
+        return x
+    if hier and len(as_axes(axes)) > 1:
+        for a in reversed(as_axes(axes)):
+            x = _Gather.apply(x, mesh, a, dim)
+        return x
+    return _Gather.apply(x, mesh, axes, dim)
+
+
+def _psum_hier(y, mesh, axes, hier: bool):
+    """All-reduce over ``axes``, phased per level when ``hier``: the
+    node-local sum first, so only node-combined partial sums cross
+    nodes."""
+    if hier and len(as_axes(axes)) > 1:
+        for a in reversed(as_axes(axes)):
+            y = _Psum.apply(y, mesh, a)
+        return y
+    return _Psum.apply(y, mesh, axes)
+
+
+def _hier_schedule(cfg: ParallelConfig, mesh, tp) -> bool:
+    """Whether the island runs the two-level schedule: a topology is set,
+    TP is the tuple ("node", "model") and there is more than one node.
+    Anything else keeps the flat collectives."""
+    return (getattr(cfg, "topology", None) is not None
+            and isinstance(tp, tuple) and len(tp) == 2
+            and mesh.size(tp[0]) > 1)
+
+
 def _unmentioned(mesh, spec) -> tuple:
     named = set(spec_axes(spec))
     return tuple(a for a in mesh.axis_names if a not in named)
@@ -206,7 +257,7 @@ def _mask_rank0(b, mesh, tp_axis):
     bias). A multiply, not a branch: every rank runs the same graph."""
     if b is None or tp_axis is None:
         return b
-    keep = 1.0 if mesh.coord(tp_axis) == 0 else 0.0
+    keep = 1.0 if mesh.index(tp_axis) == 0 else 0.0
     return b * keep
 
 
@@ -214,22 +265,28 @@ def _island_weights(p: dict, ms: MoEStatic, cfg: ParallelConfig, mesh, *,
                     layer_mode, pregathered) -> dict:
     """The weights the island computes with: each expert weight gathered
     over its fsdp factor (unless ``pregathered``) and, for data-centric
-    dispatch, its TP factor; fake-quantized under ``cfg.quant``; the
-    MLP's output bias kept on TP rank 0 only when the output is a sum
-    over TP."""
+    dispatch, its TP factor (unless ``pregathered == "all"``; phased per
+    level under the two-level schedule); fake-quantized under
+    ``cfg.quant``; the MLP's output bias kept on TP rank 0 only when the
+    output is a sum over TP."""
     quantized = "w_gate_scale" in p or "w1_scale" in p
+    hier = False
     if mesh is None:
         fsdp, tp = (), None
     else:
         axes = cfg.axes(mesh)
         fsdp, tp = (() if pregathered else axes["fsdp"]), axes["tp"]
+        hier = _hier_schedule(cfg, mesh, tp)
         if quantized and (fsdp or tp is not None):
             raise NotImplementedError(
                 "true-quantized expert weights require ungathered "
                 "whole-expert layouts (no fsdp/tp over expert weights); use "
                 "cfg.quant (QAT fake-quant) on sharded meshes")
     dc = layer_mode == "data_centric" and tp is not None
-    tp_w = tp if dc else None
+    tp_w = tp if dc and pregathered != "all" else None
+
+    def agw(w, dim):
+        return _ag_hier(w, mesh, tp_w, dim, hier)
 
     def fq(w):
         if w is None or quantized or cfg.quant == "none":
@@ -240,12 +297,11 @@ def _island_weights(p: dict, ms: MoEStatic, cfg: ParallelConfig, mesh, *,
     if ms.glu:
         for name, fdim, tdim in (("w_gate", 1, 2), ("w_up", 1, 2),
                                  ("w_down", 2, 1)):
-            out[name] = fq(_ag(_ag(p[name], mesh, fsdp, fdim), mesh, tp_w,
-                               tdim))
+            out[name] = fq(agw(_ag(p[name], mesh, fsdp, fdim), tdim))
     else:
-        out["w1"] = fq(_ag(_ag(p["w1"], mesh, fsdp, 1), mesh, tp_w, 2))
-        out["w2"] = fq(_ag(_ag(p["w2"], mesh, fsdp, 2), mesh, tp_w, 1))
-        out["b1"] = _ag(p.get("b1"), mesh, tp_w, 1)
+        out["w1"] = fq(agw(_ag(p["w1"], mesh, fsdp, 1), 2))
+        out["w2"] = fq(agw(_ag(p["w2"], mesh, fsdp, 2), 1))
+        out["b1"] = agw(p.get("b1"), 1)
         b2 = _ag(p.get("b2"), mesh, fsdp, 1)
         out["b2"] = b2 if dc else _mask_rank0(b2, mesh, tp)
     return out
@@ -263,8 +319,9 @@ def hexa_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
     gathered here) or replicated. ``layer_mode``: "data_centric" gathers
     the weights' TP factor and keeps tokens and output local;
     "model_centric"/None keeps the TP split and moves tokens.
-    ``pregathered``: the fsdp factor was gathered outside
-    (``parallel.cache.gather_ffn_params``). ``token_valid``: the (N_l,)
+    ``pregathered``: the weight collectives that ran outside
+    (``parallel.cache.gather_ffn_params``): True or "fsdp" the fsdp
+    factor, "all" the data-centric TP factor too (the overlap schedule). ``token_valid``: the (N_l,)
     Eq. 1 tail mask; masked rows get gate 0, exactly zero output and
     gradient, and no part in the aux losses. ``weights``: the island's
     weights already gathered (``_island_weights``), for the "janus"
@@ -273,11 +330,14 @@ def hexa_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
     tp = None if mesh is None else cfg.axes(mesh)["tp"]
     dc = layer_mode == "data_centric" and tp is not None
     gather_tokens = tp is not None and tokens_sharded_tp and not dc
+    hier = tp is not None and _hier_schedule(cfg, mesh, tp)
     if gather_tokens:
-        x = _ag(x, mesh, tp, 0)
+        x = _ag_hier(x, mesh, tp, 0, hier)
         if token_valid is not None:
-            token_valid = mesh.all_gather(token_valid.to(torch.int32), tp,
-                                          0).bool()
+            tv = token_valid.to(torch.int32)
+            for a in (reversed(tp) if hier else (tp,)):
+                tv = mesh.all_gather(tv, a, 0)
+            token_valid = tv.bool()
     if weights is None:
         weights = _island_weights(p, ms, cfg, mesh, layer_mode=layer_mode,
                                   pregathered=pregathered)
@@ -302,14 +362,25 @@ def hexa_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
     if tp is not None and not dc:
         # partial products over the TP-sharded hidden dim
         if gather_tokens and cfg.collective_schedule == "ag_rs":
-            y = _ScatterSum.apply(y, mesh, tp, 0)
+            if hier:
+                # node-local combine before the cross-node exchange, then
+                # this rank's "model" chunk of its node's share: the rows
+                # the flat reduce-scatter over ("node", "model") gives it
+                # (the slice's backward pads its cotangent with zeros)
+                node_ax, model_ax = tp
+                y = _Psum.apply(y, mesh, model_ax)
+                y = _ScatterSum.apply(y, mesh, node_ax, 0)
+                nl = y.shape[0] // mesh.size(model_ax)
+                y = y.narrow(0, mesh.coord(model_ax) * nl, nl)
+            else:
+                y = _ScatterSum.apply(y, mesh, tp, 0)
         elif gather_tokens:
             # paper-faithful ag_ar: all-reduce, then keep own token chunk
-            y = _Psum.apply(y, mesh, tp)
+            y = _psum_hier(y, mesh, tp, hier)
             nl = y.shape[0] // mesh.size(tp)
             y = y.narrow(0, mesh.index(tp) * nl, nl)
         else:
-            y = _Psum.apply(y, mesh, tp)
+            y = _psum_hier(y, mesh, tp, hier)
     return y, r.aux_loss, r.z_loss
 
 
@@ -326,6 +397,8 @@ def ep_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
         raise NotImplementedError(
             "the EP baseline does not support quantized expert weights")
     tp = cfg.axes(mesh)["tp"]
+    if isinstance(tp, tuple):
+        raise NotImplementedError(EP_NODE_REFUSAL)
     ep = mesh.size(tp) if tp else 1
     e, k = ms.num_experts, ms.top_k
     if e % ep:
@@ -419,13 +492,6 @@ def _hetero_mask_counts(plan, x_spec, mesh, b: int):
 
 
 def _check_mesh(cfg: ParallelConfig, mesh, ms: MoEStatic) -> None:
-    if "node" in mesh.axis_names:
-        raise NotImplementedError(
-            "the hierarchical two-level schedule (a mesh with a 'node' "
-            "axis) is not ported (ROADMAP.md A.5)")
-    if cfg.overlap_dispatch:
-        raise NotImplementedError(
-            "overlap_dispatch is not ported (ROADMAP.md A.5)")
     if cfg.collect_router_stats:
         raise NotImplementedError(
             "collect_router_stats is not ported (ROADMAP.md A.6)")
@@ -444,8 +510,10 @@ def moe_layer(x: torch.Tensor, p: dict, ms: MoEStatic, cfg: ParallelConfig,
     3-entry physical spec) places it, ``p`` its parameter shards, and y
     comes back placed like x; aux and z are the global means (weighted by
     valid rows under an uneven ``cfg.hetero_plan``). ``layer_idx`` feeds
-    the auto-mode plan lookup; ``pregathered``: the weights' fsdp factor
-    was gathered outside (``parallel.cache.gather_ffn_params``)."""
+    the auto-mode plan lookup; ``pregathered``: the weight collectives
+    that ran outside (``parallel.cache.gather_ffn_params``): True or
+    "fsdp" the fsdp factor, "all" the TP factor too, which makes the
+    layer data-centric (the overlap prefetcher resolved it so)."""
     b, s, d = x.shape
     if mesh is None:
         # one device: no group to move tokens or weights across, so every
@@ -464,7 +532,9 @@ def moe_layer(x: torch.Tensor, p: dict, ms: MoEStatic, cfg: ParallelConfig,
     gs = s * mesh.size(as_axes(x_spec[1]))
     ep = cfg.mode == "ep"
     layer_mode = None
-    if not ep and cfg.mode == "auto":
+    if not ep and pregathered == "all":
+        layer_mode = "data_centric"
+    elif not ep and cfg.mode == "auto":
         layer_mode = _auto_layer_mode(ms, d, cfg, mesh, gb * gs, layer_idx)
     mask_counts = _hetero_mask_counts(cfg.hetero_plan, x_spec, mesh, gb)
     tokens_tp = x_spec[1] is not None
@@ -540,15 +610,17 @@ def _param_specs(ms: MoEStatic, d: int, cfg: ParallelConfig, mesh, *,
                  pregathered: bool = False) -> dict:
     """Physical specs of the MoE leaves at their global shapes (E, D, F),
     from the same tables the init and gather paths use. ``pregathered``:
-    the weights arrive with their fsdp factor gathered."""
+    the weights arrive with their fsdp factor gathered ("all": their TP
+    factor too)."""
     from repro_torch.parallel.cache import _drop_axes
 
     table = EP_PARAM_LOGICAL if cfg.mode == "ep" else MOE_PARAM_LOGICAL
     shapes = moe_param_shapes(ms.num_experts, d, ms.d_ff)
+    drop = ("fsdp", "tp") if pregathered == "all" else ("fsdp",)
     out = {}
     for name, logical in table.items():
         if pregathered and name != "router":
-            logical = _drop_axes(logical, ("fsdp",))
+            logical = _drop_axes(logical, drop)
         shape = shapes.get(name)
         out[name] = (tuple(None for _ in logical) if shape is None
                      else physical_spec(shape, logical, cfg, mesh))

@@ -74,10 +74,14 @@ class ParallelConfig:
       ``token_counts`` mask each batch-group member's tail rows in the MoE
       islands (zero output, zero gradient, left out of the aux losses).
     topology: an ``autotune.Topology`` pricing the chooser's collectives
-      per interconnect level. The hierarchical schedule it switches on for
-      a mesh with a "node" axis is not ported (ROADMAP.md A.5).
-    overlap_dispatch, collect_router_stats: not ported (ROADMAP.md A.5,
-      A.6); True raises in ``moe_parallel.moe_layer``.
+      per interconnect level; on a mesh with a "node" axis of extent above
+      1 it switches the MoE islands to the hierarchical schedule
+      (``moe_parallel._hier_schedule``).
+    overlap_dispatch: the overlap schedule of ``models.lm.run_layers``
+      (with ``cache_layers`` > 0 and the "auto" mode): a data-centric
+      layer's whole expert weights are prefetched, TP factor included.
+    collect_router_stats: not ported (ROADMAP.md A.6); True raises in
+      ``moe_parallel.moe_layer`` and ``models.lm.check_mesh``.
     cache_layers: the residency bound of the pipeline-shared prefetch
       cache in ``models.lm.run_layers`` (one entry = one MoE layer's
       gathered expert weights, ``parallel.cache.gather_ffn_params``; 2 =

@@ -456,13 +456,101 @@ def test_lm_mesh_clip_norm_is_the_global_norm(results, case):
                                rtol=GRAD_TOL)
 
 
-@pytest.mark.parametrize("case", CASES, ids=NAMES)
-def test_lm_shard_params_and_opt_state_gather_to_jax(results, case):
+#: The other LM families, cut as ``test_torch_mesh_recurrent.py`` cuts
+#: them: (name, arch, config overrides, mode) on the (2, 2) mesh.
+FAMILY_CASES = [
+    ("jamba-hybrid", "jamba-1.5-large-398b",
+     {"num_layers": 2, "layer_pattern": ("mamba", "attn")}, "hybrid"),
+    ("jamba-data", "jamba-1.5-large-398b",
+     {"num_layers": 2, "layer_pattern": ("mamba", "attn")}, "data_centric"),
+    ("xlstm-hybrid", "xlstm-350m",
+     {"num_layers": 2, "layer_pattern": ("mlstm", "slstm")}, "hybrid"),
+    ("paligemma-hybrid", "paligemma-3b", {}, "hybrid"),
+    ("musicgen-hybrid", "musicgen-large", {}, "hybrid"),
+]
+
+
+def _family_shard_rank(rank, cases, tmp):
+    """``shard_params`` and ``shard_opt_state`` of each family's JAX tree,
+    gathered back: the largest difference from the JAX arrays."""
+    import dataclasses
+
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_leaves
+    from repro_torch.convert import (
+        opt_state_from_jax,
+        params_from_jax,
+        shard_opt_state,
+        shard_params,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig, unshard_tree
+
+    data = dict(np.load(os.path.join(tmp, "fam.npz")))
+    mesh = make_mesh(*MESH4)
+    out = {}
+    for name, arch, cut, mode in cases:
+        cfg = dataclasses.replace(cfglib.get_smoke_config(arch),
+                                  dtype="float32", **cut)
+        jtree = _nest(_sub(data, arch + "/"))
+        tree = params_from_jax(jtree, cfg, device="cpu")
+        pcfg = ParallelConfig(mode=mode)
+        specs = lm.param_specs(cfg, pcfg)
+        shapes = lm.param_shapes(cfg)
+        jstate = {"m": _tmap(lambda a: a * 0.5, jtree),
+                  "v": _tmap(lambda a: a * a, jtree), "step": np.int32(3)}
+        st = shard_opt_state(opt_state_from_jax(jstate, cfg, device="cpu"),
+                             specs, pcfg, mesh, device="cpu")
+        err = 0.0
+        for got, want in ((shard_params(tree, specs, pcfg, mesh,
+                                        device="cpu"), tree),
+                          (st["m"], _tmap(lambda a: a * 0.5, tree)),
+                          (st["v"], _tmap(lambda a: a * a, tree))):
+            full = unshard_tree(got, specs, shapes, pcfg, mesh)
+            err = max([err] + [float((a - b).abs().max()) for a, b in
+                               zip(tree_leaves(full), tree_leaves(want))])
+        out[name] = {"shard_err": err, "opt_step": int(st["step"])}
+    return out if rank == 0 else None
+
+
+@pytest.fixture(scope="module")
+def family_shards(tmp_path_factory):
+    import dataclasses
+
+    import jax
+
+    from repro import configs as jcfglib
+    from repro.models import lm as jlm
+    from repro.parallel.sharding import split_tree
+
+    tmp = tmp_path_factory.mktemp("mesh_lm_fam")
+    arrays = {}
+    for _, arch, cut, _ in FAMILY_CASES:
+        jcfg = dataclasses.replace(jcfglib.get_smoke_config(arch),
+                                   dtype="float32", **cut)
+        params, _ = split_tree(jlm.init_params(jax.random.PRNGKey(0), jcfg))
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                           for k in path)
+            arrays[f"{arch}/{key}"] = np.asarray(leaf)
+    np.savez(tmp / "fam.npz", **arrays)
+    return launch_local(_family_shard_rank, 4, FAMILY_CASES, str(tmp),
+                        timeout=240)[0]
+
+
+@pytest.mark.parametrize("case", CASES + FAMILY_CASES,
+                         ids=NAMES + [c[0] for c in FAMILY_CASES])
+def test_lm_shard_params_and_opt_state_gather_to_jax(request, case):
     """``convert.shard_params`` of ``params_from_jax``'s tree and
     ``shard_opt_state`` of ``opt_state_from_jax``'s, under
     ``lm.param_specs`` and the case's mode: every rank's blocks, gathered,
-    are the JAX arrays bit for bit; the step count is kept."""
-    _, port = results
-    r = port[case[0]]
+    are the JAX arrays bit for bit; the step count is kept. The other
+    families' cases (Mamba, mLSTM, sLSTM, cross-attention, frontend and
+    codebook-head leaves) shard their JAX trees alone."""
+    if case in FAMILY_CASES:
+        r = request.getfixturevalue("family_shards")[case[0]]
+    else:
+        r = request.getfixturevalue("results")[1][case[0]]
     assert r["shard_err"] == 0.0
     assert r["opt_step"] == 3

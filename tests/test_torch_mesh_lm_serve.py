@@ -389,35 +389,47 @@ def test_batched_server_on_mesh_matches_jax(results):
 
 
 class _FakeMesh:
-    """Enough of a mesh for the refusals, which come before any
-    collective."""
+    """Enough of a mesh to build the steps and reach the refusals, which
+    come before any collective."""
 
     def __init__(self, axes=("data", "model")):
         self.axis_names = axes
         self.shape = {a: 2 for a in axes}
 
+    def size(self, axes):
+        from repro_torch.parallel.sharding import as_axes
+
+        return int(np.prod([self.shape[a] for a in as_axes(axes)]))
+
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m",
                                   "musicgen-large", "paligemma-3b"])
 def test_model_parts_on_a_mesh_are_refused(arch):
+    """The recurrent mixers, cross-attention, frontends and codebook heads
+    run on a mesh now (``test_torch_mesh_recurrent.py``,
+    ``test_torch_mesh_frontends.py``): their steps build on one, and what
+    stays refused there, router statistics, names ROADMAP.md A.6."""
     from repro_torch.launch import steps
     from repro_torch.models import lm
     from repro_torch.optim import adamw
     from repro_torch.parallel.sharding import ParallelConfig
 
     cfg = _cfg(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5.5"):
-        steps.make_train_step(cfg, ParallelConfig(), adamw.OptimizerConfig(),
-                              mesh=_FakeMesh(), batch_shape3=(4, 8, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5.5"):
-        lm.forward({}, {"tokens": torch.zeros(1, 1, dtype=torch.int32)},
-                   cfg, ParallelConfig(), mode="train", mesh=_FakeMesh(),
-                   x_spec=(None, None, None))
+    lm.check_mesh(cfg, ParallelConfig(), _FakeMesh())
+    steps.make_train_step(cfg, ParallelConfig(), adamw.OptimizerConfig(),
+                          mesh=_FakeMesh(), batch_shape3=(4, 8, 64))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+        steps.make_train_step(cfg, ParallelConfig(collect_router_stats=True),
+                              adamw.OptimizerConfig(), mesh=_FakeMesh(),
+                              batch_shape3=(4, 8, 64))
 
 
 def test_paged_engine_node_axis_and_overlap_on_a_mesh_are_refused():
+    """The paged engine on a mesh stays refused (ROADMAP.md A.5.6). A
+    "node" axis and ``overlap_dispatch`` build the dense steps now; on a
+    node mesh only the "ep" mode is refused, as JAX's is."""
     from repro_torch.launch import steps
-    from repro_torch.launch.serve import BatchedServer, PagedServer
+    from repro_torch.launch.serve import PagedServer
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import ParallelConfig
 
@@ -431,11 +443,12 @@ def test_paged_engine_node_axis_and_overlap_on_a_mesh_are_refused():
                    cfg, ParallelConfig(), mode="decode", mesh=_FakeMesh(),
                    x_spec=(None, None, None),
                    paged={"table": None, "page_size": 4})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5.3"):
-        steps.make_serve_step(cfg, ParallelConfig(),
-                              mesh=_FakeMesh(("data", "node", "model")),
+    node = _FakeMesh(("data", "node", "model"))
+    steps.make_serve_step(cfg, ParallelConfig(), mesh=node,
+                          batch_shape3=(4, 1, 64))
+    with pytest.raises(NotImplementedError, match="two-level \\(node\\)"):
+        steps.make_serve_step(cfg, ParallelConfig(mode="ep"), mesh=node,
                               batch_shape3=(4, 1, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5.3"):
-        BatchedServer(cfg, ParallelConfig(overlap_dispatch=True),
-                      num_slots=2, max_seq=8, params={"embed": torch.zeros(
-                          1)}, device="cpu", mesh=_FakeMesh())
+    steps.make_serve_step(cfg, ParallelConfig(overlap_dispatch=True,
+                                              cache_layers=2),
+                          mesh=_FakeMesh(), batch_shape3=(4, 1, 64))

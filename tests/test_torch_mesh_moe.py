@@ -19,8 +19,9 @@ gathered back to global arrays on the ranks and held to JAX's:
   output and gradient exactly 0 in both packages, the rest within the
   limits above; a uniform plan bit for bit the no-plan run;
 * ``gather_ffn_params`` + ``pregathered=True`` bit for bit the in-island
-  gather, and the refusals (a "node" axis, ``overlap_dispatch``,
-  ``collect_router_stats``, true-quantized experts on a sharded mesh);
+  gather, ``overlap_dispatch`` leaving the layer as it is, and the
+  refusals (``collect_router_stats``, true-quantized experts on a
+  sharded mesh, the "ep" mode on a node mesh);
   ``make_production_mesh`` over the 4 ranks and ``split_model_axis``
   against JAX's.
 """
@@ -186,16 +187,22 @@ def _port_rank(rank, cases):
                                        for k in ("y", "aux", "z"))
     check["pregathered_grad_err"] = max(float(np.abs(pre[k] - ref[k]).max())
                                         for k in ref)
+    # overlap_dispatch is the layer loop's schedule: the layer runs as it is
+    ovl = run(True, dataclasses.replace(base, overlap_dispatch=True), TOK_TP)
+    check["overlap_layer_bitwise"] = all(np.array_equal(ovl[k], ref[k])
+                                         for k in ref)
     refusals = {}
     x, p, _ = _inputs(True)
     ms = mp.MoEStatic(E, K, glu=True, d_ff=F)
-    for what, cfg in (("overlap", dataclasses.replace(base,
-                                                      overlap_dispatch=True)),
-                      ("stats", dataclasses.replace(
-                          base, collect_router_stats=True))):
+    node = make_mesh((1, 2, 2), ("data", "node", "model"))
+    for what, cfg, m, spec in (
+            ("stats", dataclasses.replace(base, collect_router_stats=True),
+             mesh, TOK_TP),
+            ("ep_node", ParallelConfig(mode="ep"), node,
+             ("data", ("node", "model"), None))):
         try:
-            mp.moe_layer(torch.from_numpy(x[:4, :8]), {}, ms, cfg, mesh,
-                         x_spec=TOK_TP)
+            mp.moe_layer(torch.from_numpy(x[:4, :8]), {}, ms, cfg, m,
+                         x_spec=spec)
             refusals[what] = "ran"
         except NotImplementedError as e:
             refusals[what] = str(e)
@@ -279,13 +286,22 @@ def test_uniform_plan_and_pregathered_are_the_plain_run(results):
 
 
 def test_mesh_refusals_name_the_roadmap(results):
+    """What stays refused names its ROADMAP item, or is JAX's own
+    refusal; ``overlap_dispatch``, refused until the overlap schedule was
+    ported, leaves the layer as it is (the schedule is ``lm.run_layers``')."""
     _, _, checks = results
     for c in checks:
         refusals = dict(c["refusals"])
-        # true-quantized experts on a sharded mesh raise, as JAX's do
+        # true-quantized experts on a sharded mesh, and the EP baseline on
+        # a node mesh, raise as JAX's do
         assert "true-quantized" in refusals.pop("quantized")
+        assert refusals.pop("ep_node") == (
+            "the EP baseline does not support two-level (node) meshes; use "
+            "the hexa modes for hierarchical dispatch (DESIGN.md §10)")
+        assert "overlap" not in refusals
         for what, msg in refusals.items():
             assert "ROADMAP.md" in msg, (what, msg)
+        assert c["overlap_layer_bitwise"]
 
 
 def test_production_mesh_and_model_axis_split(results):
@@ -305,6 +321,8 @@ def test_production_mesh_and_model_axis_split(results):
 
 
 def test_node_axis_is_refused():
+    """A "node" axis runs the hexa modes (``test_torch_hier_dispatch.py``);
+    the "ep" mode refuses it before any collective, as JAX's does."""
     from repro_torch.parallel import moe_parallel as mp
     from repro_torch.parallel.sharding import ParallelConfig
 
@@ -312,6 +330,12 @@ def test_node_axis_is_refused():
         axis_names = ("data", "node", "model")
         shape = {"data": 1, "node": 2, "model": 2}
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
+        def size(self, axes):
+            from repro_torch.parallel.sharding import as_axes
+
+            return int(np.prod([self.shape[a] for a in as_axes(axes)]))
+
+    with pytest.raises(NotImplementedError, match="two-level \\(node\\)"):
         mp.moe_layer(torch.zeros(1, 2, D), {}, mp.MoEStatic(E, K, d_ff=F),
-                     ParallelConfig(), NodeMesh(), x_spec=TOK_TP)
+                     ParallelConfig(mode="ep"), NodeMesh(),
+                     x_spec=("data", ("node", "model"), None))
