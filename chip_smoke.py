@@ -116,6 +116,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    within ``ESFFN_TOL`` of its own on the CPU. 4x. xlstm-350m in f32, all
    24 layers: the same, every request on both CPU engines, the chunked
    mLSTM within the JAX suite's 3e-3 (``HYBRID_CHUNK_TOL``).
+   P1. The paged engine on a 1-rank NCCL mesh (``paged_mesh_phase``;
+   ``single_rank_nccl``, ``make_mesh((1, 1, 1), ("pod", "data",
+   "model"))``): phase 4's model and prompts through ``PagedServer``
+   mesh-less and on the mesh in each of ``PAGED_MESH_VARIANTS`` (plain,
+   whose streams are phase 4's; the prefix cache on a 16-token shared
+   page, hit; half/half disaggregated roles, 3 transfers; int8 pages;
+   speculation with phase 4s's drafter that is wrong by construction,
+   every draft rolled back): streams and the whole trace equal, the page
+   books audited every step and drained, every kernel launch on the mesh
+   held to its plain version (``_HeldToPlain``: ``ATTN_TOL`` /
+   ``ESFFN_TOL`` x max|plain|), exactly one ``esffn_glu`` (stream) a
+   layer a forward and one ``paged_attention`` a layer a decode step.
+   Then the MLP-experts graft (``glu=False``, biases drawn) at phase 7's
+   size: one loss forward and backward card vs CPU at phase 7's limits,
+   every expert kernel's launches counted; 2 requests through the paged
+   engine on the mesh (held to plain; one ``esffn_mlp`` a layer a
+   forward on ``mma_tf32x3``) against the CPU's: streams equal.
 5. Serve phase: qwen3-moe-30b-a3b at full width and depth (48 layers, about
    61 GB of bf16 weights from a seeded generator) serves 16 greedy requests
    (8-token prompts, 16 new tokens) through ``PagedServer`` with 8 slots and
@@ -153,6 +170,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    first and the second wave, the decode-tick median, tok/s, peak pages
    and peak memory, and how many bf16 streams equal the cache-off run's
    (not asserted: bf16 serving is not repeatable between calls).
+   P2. On the same weights (no second copy: on one rank every block is
+   the whole tensor), ``PAGED_MESH_P2`` requests of phase 5's prompts
+   through ``PagedServer`` on the 1-rank NCCL mesh (8 slots): a warm-up
+   with 2 new tokens a request, every launch held to its plain version,
+   then the timed run, its launches exactly one ``esffn_glu`` (stream) a
+   layer a forward and one ``paged_attention`` a layer a decode step; the
+   decode step median, tok/s, TTFT, peak, pool and cache bytes beside
+   phase 5's mesh-less median.
    Q3. The same serve with int8 expert weights (drawn and quantized layer
    by layer, about 32 GB) and int8 KV pages, then 4 requests with fp8
    experts: the 8-bit launch counts, set to 0 just before, must be one
@@ -402,9 +427,9 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    ``SWIN_KERNEL_TOL``, through tutel at an ample capacity megablocks' bit
    for bit, and through tutel at a tight capacity megablocks' with the
    dropped copies' gates 0 (the bytes each forward keeps for its backward
-   are recorded); then Swin-MoE-Small and -Base at full width and depth,
-   f32, at every point of ``T78_AXES`` (8 experts, top-1/2, batch
-   64; Table 8's 4 experts at top-k 1-4, batch 32), each
+   are recorded); then Swin-MoE-Small (Base ran through PR 28) at full
+   width and depth, f32, at every point of ``T78_AXES`` (8 experts,
+   top-1/2, batch 64; Table 8's 4 experts at top-k 1-4, batch 32), each
    through hexa, tutel (capacity factor 1.25) and megablocks
    (``make_train_step(..., moe_impl=...)``): a fresh seeded state a cell
    and its peak predicted (a cell predicted past ``T78_PEAK_LIMIT_GB`` is
@@ -603,9 +628,14 @@ HETERO_ROUNDS = 5
 # `_mlp_route`); phase H checks it on every 8-bit program
 HETERO_QUANT_ROUTE = {"esffn_glu": "stream", "esffn_mlp": "mma_tf32x3"}
 ROOFLINE_TOL = 0.10
+# Phase P: the paged engine on a 1-rank NCCL mesh. P1's variants on phase
+# 4's model (each mesh-less and on the mesh); P2's requests (8-token
+# prompts from phase 5's) on phase 5's weights.
+PAGED_MESH_VARIANTS = ("plain", "prefix", "disagg", "int8", "spec")
+PAGED_MESH_P2 = {"requests": 8, "new": 8}
 SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
-# Phase T7/8, the paper's Tables 7/8 on the card: Swin-MoE-Small and -Base
-# at full width and depth, f32, blk 128, hexa against tutel (capacity
+# Phase T7/8, the paper's Tables 7/8 on the card: Swin-MoE-Small (and
+# -Base through PR 28) at full width and depth, f32, blk 128, hexa against tutel (capacity
 # factor 1.25) and megablocks, along these axes, each a list of points
 # (config, experts, top-k, batch): the first grid (8 experts, top-1 and top-2,
 # batch 64: every activation is kept, and megablocks' buffer of E N k rows
@@ -616,7 +646,9 @@ SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
 # top-k (benchmarks/memory_table.py: 8 experts, top-k 1, 2, 4, 8, batch 16).
 # The batch axis and Table 7's top-k axis are not run, to hold the script
 # well under its time limit as the mesh phases grew.
-T78_CONFIGS = ("swin_moe_small", "swin_moe_base")
+# Base's Table-7 grid ran through PR 28; cut to keep the script's time
+# with phase P (``swin_moe_base`` stays in ``T78_ACT_GB_PER_IMAGE``).
+T78_CONFIGS = ("swin_moe_small",)
 T78_TOP_K = (1, 2)
 T78_IMPLS = ("hexa", "tutel", "megablocks")
 T78_EXPERTS, T78_BATCH, T78_STEPS = 8, 64, 3
@@ -3533,8 +3565,9 @@ def _t78_axis(points):
 
 def tables78_phase(torch):
     """Phase T7/8: the paper's Tables 7/8 (peak memory and step time of
-    hexa against tutel and megablocks) on the card: Swin-MoE-Small and
-    -Base at full width and depth, f32, at every point of T78_AXES (a
+    hexa against tutel and megablocks) on the card: Swin-MoE-Small (and
+    -Base where T78_CONFIGS names it) at full width and depth, f32, at
+    every point of T78_AXES (a
     point shared by two axes runs once); every cell one warm-up and
     T78_STEPS timed steps; then tutel and megablocks on Small at 8 experts,
     top-1, batch 64 once more with TF32 allowed in cuBLAS. The layer checks
@@ -4564,9 +4597,13 @@ def serve_phase(torch):
         torch, cfg, params, [r.prompt for r in reqs], make_server)
     prefix_launches, prefix_routes, prefix_res = _prefix_serve(
         torch, cfg, params)
+    p2_launches, p2_routes, p2_res = _paged_mesh_serve(
+        torch, cfg, pcfg, params, [r.prompt for r in reqs],
+        statistics.median(steps) * 1e3)
     return {"serve": launches, "serve_dense": dense_launches,
             "serve_spec": {"esffn_glu": spec_launches},
-            **prefix_launches}, {
+            "paged_mesh_p2": p2_launches, **prefix_launches}, {
+        "paged_mesh": p2_res, "paged_mesh_launches_by_route": p2_routes,
         "prefix": prefix_res, "prefix_launches_by_route": prefix_routes,
         "requests": len(done), "tokens": tokens, "wall_s": wall,
         "decode_step_median_ms": statistics.median(steps) * 1e3,
@@ -5338,6 +5375,420 @@ def jamba_kernel_cases(torch, flush):
                             flush),
         "bound_ms": b_ms, "bound_by": b_by})
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase P: the paged engine on a 1-rank NCCL mesh (P1 after phase 4, P2 on
+# phase 5's weights)
+# ---------------------------------------------------------------------------
+
+def _paged_kernel_fns():
+    from repro_torch.kernels import paged_attention as pa
+
+    return {**_swin_kernel_fns(), "paged_attention": pa.paged_attention}
+
+
+def _reset_paged_counts(fns):
+    _reset_launches(fns)
+    _reset_quant(*(fn for fn in fns.values() if hasattr(fn, "launches_quant")))
+
+
+def _paged_counts(fns):
+    """Each kernel's launches, launches by route and 8-bit launches since
+    ``_reset_paged_counts``."""
+    return ({k: fn.launches for k, fn in fns.items()},
+            {k: dict(fn.launches_by_route) for k, fn in fns.items()
+             if hasattr(fn, "launches_by_route")},
+            {k: dict(fn.launches_quant) for k, fn in fns.items()
+             if hasattr(fn, "launches_quant")})
+
+
+class _HeldToPlain:
+    """While active (a ``with`` block), every launch of ``paged_attention``,
+    ``esffn_glu`` and ``esffn_mlp`` that the model makes is followed by the
+    kernel's plain version on the same inputs, on the card, and held to it:
+    ``ATTN_TOL``/``ESFFN_TOL`` of the output's dtype x max|plain|, over the
+    whole output. The wrappers go in at the call sites (the attention
+    layer's ``paged_attention``, ``kernels.ops``' view of the ``esffn``
+    module), so the kernels count their launches as always; the plain calls
+    launch nothing, so the counts are the path's own. ``checks`` counts the
+    held launches a kernel and ``worst`` keeps the largest err / limit."""
+
+    def __init__(self):
+        self.checks = dict.fromkeys(("paged_attention", "esffn_glu",
+                                     "esffn_mlp"), 0)
+        self.worst = dict.fromkeys(self.checks, 0.0)
+        self._saved = []
+
+    def __enter__(self):
+        from repro_torch.kernels import esffn, ops, paged_attention as pa
+        from repro_torch.models import transformer as tfm
+
+        self._saved = [(tfm, "paged_attention", tfm.paged_attention),
+                       (ops, "esffn_kernel", ops.esffn_kernel)]
+        tfm.paged_attention = self._held(
+            "paged_attention", pa.paged_attention, pa.paged_attention_ref,
+            ATTN_TOL)
+        ops.esffn_kernel = _ModuleView(esffn, {
+            name: self._held(name, getattr(esffn, name),
+                             getattr(esffn, name + "_plain"), ESFFN_TOL)
+            for name in ("esffn_glu", "esffn_mlp")})
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, value in self._saved:
+            setattr(mod, name, value)
+        self._saved = []
+
+    def _held(self, name, kernel, plain, tol):
+        def run(*args, **kw):
+            out = kernel(*args, **kw)
+            want = plain(*args, **kw)
+            lim = tol[str(out.dtype).replace("torch.", "")] * max(
+                want.float().abs().max().item(), 1e-30)
+            err = (out.float() - want.float()).abs().max().item()
+            self.checks[name] += 1
+            self.worst[name] = max(self.worst[name], err / lim)
+            if not err <= lim:
+                raise AssertionError(f"{name} on the mesh path: err {err} "
+                                     f"against the plain version, limit "
+                                     f"{lim}")
+            return out
+
+        return run
+
+
+class _ModuleView:
+    """A module's attributes, some of them replaced."""
+
+    def __init__(self, module, replaced: dict):
+        self._module = module
+        self.__dict__.update(replaced)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+def _forwards(trace):
+    """(prefill chunks, decode steps, verify rounds) in a ``trace``."""
+    n = collections.Counter(e[0] for e in trace)
+    return n["prefill_chunk"], n["decode"], n["spec_verify"]
+
+
+def _mesh_warm(torch, mesh):
+    """Make every communicator of the 1-rank mesh before anything runs."""
+    for axes in (("pod",), ("data",), ("model",), ("pod", "data"),
+                 ("pod", "data", "model")):
+        mesh.all_reduce(torch.ones(1, device="cuda"), axes)
+    torch.cuda.synchronize()
+
+
+def paged_mesh_phase(torch, serve_ref):
+    """Phase P1: phase 4's model (qwen3-moe-30b-a3b, 2 layers at full width,
+    f32, seed 3) through ``PagedServer`` mesh-less and on a 1-rank NCCL
+    mesh (1, 1, 1) in each of ``PAGED_MESH_VARIANTS``: streams and the
+    whole trace equal, the page books audited every step and drained,
+    every kernel launch on the mesh held to its plain version
+    (``_HeldToPlain``) and the launches exactly one a layer a forward;
+    then the MLP-experts graft (``_paged_mesh_graft``). Returns (launches
+    by path, launches by route by path, result)."""
+    import numpy as np
+    from repro_torch import configs as cfglib
+    from repro_torch.launch import serve, spec
+    from repro_torch.launch.mesh import make_mesh, single_rank_nccl
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=2, dtype="float32")
+    pcfg = ParallelConfig(blk=16)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = lm.init_params(cfg, generator=gen, device="cuda")
+    rng = np.random.default_rng(4)            # phase 4's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
+               for _ in range(3)]
+    rng = np.random.default_rng(9)
+    shared = rng.integers(0, cfg.vocab_size, size=16)
+    prefixed = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab_size, size=n)]).astype(np.int32) for n in (3, 5, 2)]
+    fns = _paged_kernel_fns()
+    held = _HeldToPlain()
+
+    def run(variant, mesh, drafter=None):
+        srv = serve.PagedServer(
+            cfg, pcfg, num_slots=2, page_size=16, num_pages=9,
+            max_pages_per_slot=4, params=params, device="cuda", audit=True,
+            prefix_cache=variant == "prefix", disagg=variant == "disagg",
+            kv_quant="int8" if variant == "int8" else None, mesh=mesh)
+        if drafter is not None:
+            spec.SpecDecoder(srv, drafter, k=SPEC_K)
+        for i, pr in enumerate(prefixed if variant == "prefix" else prompts):
+            srv.submit(serve.Request(rid=i, prompt=pr, max_new=4))
+        with torch.no_grad():
+            out = {r.rid: r.out for r in srv.run()}
+        torch.cuda.synchronize()
+        st = srv.stats()
+        srv.drop_prefix_cache()
+        _drained(srv, f"P1 {variant}")
+        return srv, out, st
+
+    res, paths, route_paths = {}, {}, {}
+    with single_rank_nccl():
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        _mesh_warm(torch, mesh)
+        plain = None
+        for variant in PAGED_MESH_VARIANTS:
+            mix = [{"rid": i, "prompt": p} for i, p in enumerate(prompts)]
+            wrong = (lambda: _WrongDrafter(mix, plain, cfg.vocab_size)) \
+                if variant == "spec" else (lambda: None)
+            ref, want, _ = run(variant, None, wrong())
+            _reset_paged_counts(fns)
+            t0 = time.perf_counter()
+            with held:
+                srv, got, st = run(variant, mesh, wrong())
+            wall = time.perf_counter() - t0
+            launches, routes, quant = _paged_counts(fns)
+            if got != want or srv.trace != ref.trace or len(got) != 3:
+                raise AssertionError(f"P1 {variant}: mesh streams {got} vs "
+                                     f"mesh-less {want}")
+            chunks, decodes, rounds = _forwards(srv.trace)
+            expect = {"esffn_glu": 2 * (chunks + decodes + rounds),
+                      "paged_attention": 2 * decodes}
+            if {k: launches[k] for k in expect} != expect \
+                    or routes["esffn_glu"]["stream"] != expect["esffn_glu"]:
+                raise AssertionError(f"P1 {variant}: launches {launches} "
+                                     f"{routes}, expected {expect}")
+            if variant == "plain":
+                plain = want
+                if {str(k): v for k, v in want.items()} != \
+                        serve_ref["tokens"]:
+                    raise AssertionError(f"P1: streams {want} vs phase "
+                                         f"4's {serve_ref['tokens']}")
+            if variant == "prefix" and not st["prefix"]["hit_tokens"]:
+                raise AssertionError(f"P1 prefix: no hit {st['prefix']}")
+            if variant == "disagg" and srv.transfers != 3:
+                raise AssertionError(f"P1 disagg: {srv.transfers} transfers")
+            if variant == "int8" and quant["paged_attention"]["int8"] != \
+                    expect["paged_attention"]:
+                raise AssertionError(f"P1 int8: launches {quant}")
+            sp = srv.spec.stats() if srv.spec is not None else None
+            if variant == "spec" and (not sp["drafted"]
+                                      or sp["accepted_drafts"]
+                                      or sp["rollback_tokens"]
+                                      != sp["drafted"]):
+                raise AssertionError(f"P1 spec: wrong drafter {sp}")
+            paths[f"paged_mesh_p1_{variant}"] = {
+                k: n for k, n in launches.items() if n}
+            route_paths[f"paged_mesh_p1_{variant}"] = {
+                "esffn_glu": routes["esffn_glu"]}
+            res[variant] = {"streams": {str(k): v for k, v in got.items()},
+                            "forwards": [chunks, decodes, rounds],
+                            "launches": launches, "wall_s": wall,
+                            "transfers": srv.transfers, "spec": sp,
+                            "prefix": st.get("prefix")}
+            print(f"[paged-mesh] P1 {variant}: streams and trace equal "
+                  f"mesh-less and on the mesh ({len(srv.trace)} events, "
+                  f"{chunks} prefill chunks, {decodes} decode steps, "
+                  f"{rounds} verify rounds); launches "
+                  f"{paths[f'paged_mesh_p1_{variant}']}; {wall:.2f}s on "
+                  f"the mesh")
+            del ref, srv
+        graft_paths, graft_routes, graft = _paged_mesh_graft(torch, mesh,
+                                                             held, fns)
+    paths.update(graft_paths)
+    route_paths.update(graft_routes)
+    seconds = time.perf_counter() - t_phase
+    res.update({"graft": graft, "held_checks": dict(held.checks),
+                "held_worst_err_over_limit": dict(held.worst),
+                "seconds": seconds})
+    print(f"[paged-mesh] P1: {held.checks} launches held to their plain "
+          f"versions, worst err / limit "
+          f"{ {k: round(v, 4) for k, v in held.worst.items()} }; phase P1 "
+          f"in {seconds:.1f}s")
+    return paths, route_paths, res
+
+
+def _paged_mesh_graft(torch, mesh, held, fns):
+    """P1's graft: phase 7's size (2 layers at full width, f32, seed 7, 2 x
+    64 tokens) with MLP experts (``glu=False``; biases drawn, not zero):
+    one loss forward and backward card vs CPU at phase 7's limits
+    (``_card_vs_cpu_loss``), every expert kernel's launches counted; then
+    2 greedy requests of 8 + 4 through ``PagedServer`` on the mesh (every
+    launch held to its plain version, one ``esffn_mlp`` a layer a forward
+    on ``mma_tf32x3``) against the same on the CPU: streams equal."""
+    import numpy as np
+    from repro_torch import configs as cfglib
+    from repro_torch.common import tree_map
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=2, dtype="float32", glu=False)
+    pcfg = ParallelConfig(blk=16)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = lm.init_params(cfg, generator=gen, device="cuda")
+    for layer in params["layers"]:
+        for k in ("b1", "b2"):
+            b = layer["ffn"][k]
+            b.copy_(0.02 * torch.randn(b.shape, generator=gen, device="cuda"))
+    batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
+                                   vocab_size=cfg.vocab_size,
+                                   seed=7)).batch(0)
+    _reset_paged_counts(fns)
+    loss = _card_vs_cpu_loss(torch, "P1 graft", cfg, pcfg, params, batch)
+    train_launches, train_routes, _ = _paged_counts(fns)
+    if not train_launches["esffn_mlp"] or train_launches["esffn_glu"]:
+        raise AssertionError(f"P1 graft: train launches {train_launches}")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
+               for _ in range(2)]
+
+    def run(p, device, m):
+        srv = serve.PagedServer(cfg, pcfg, num_slots=2, page_size=16,
+                                num_pages=9, max_pages_per_slot=4, params=p,
+                                device=device, audit=True, mesh=m)
+        for i, pr in enumerate(prompts):
+            srv.submit(serve.Request(rid=i, prompt=pr, max_new=4))
+        with torch.no_grad():
+            out = {r.rid: r.out for r in srv.run()}
+        _drained(srv, f"P1 graft {device}")
+        return srv, out
+
+    t0 = time.perf_counter()
+    _, want = run(tree_map(lambda t: t.cpu(), params), "cpu", None)
+    cpu_s = time.perf_counter() - t0
+    _reset_paged_counts(fns)
+    with held:
+        srv, got = run(params, "cuda", mesh)
+    torch.cuda.synchronize()
+    launches, routes, _ = _paged_counts(fns)
+    chunks, decodes, _ = _forwards(srv.trace)
+    n = 2 * (chunks + decodes)
+    if got != want or launches["esffn_mlp"] != n \
+            or routes["esffn_mlp"]["mma_tf32x3"] != n \
+            or launches["paged_attention"] != 2 * decodes:
+        raise AssertionError(f"P1 graft: mesh streams {got} vs CPU {want}; "
+                             f"launches {launches} {routes}, expected {n} "
+                             f"esffn_mlp")
+    print(f"[paged-mesh] P1 graft (glu=False, 2 full-width layers, f32): "
+          f"total card {loss['total_gpu']!r} CPU {loss['total_cpu']!r} (rel "
+          f"{loss['total_rel_diff']:.3e}), worst grad "
+          f"{loss['worst_grad_rel']:.3e} x max|grad| at "
+          f"{loss['worst_leaf']}; train launches "
+          f"{ {k: v for k, v in train_launches.items() if v} }; paged "
+          f"decode on the mesh == CPU {got}, launches "
+          f"{ {k: v for k, v in launches.items() if v} } (CPU run "
+          f"{cpu_s:.1f}s)")
+    paths = {"paged_mesh_p1_graft_train": {
+        k: v for k, v in train_launches.items() if v},
+        "paged_mesh_p1_graft_decode": {k: v for k, v in launches.items()
+                                       if v}}
+    route_paths = {"paged_mesh_p1_graft_train": train_routes,
+                   "paged_mesh_p1_graft_decode": {
+                       "esffn_mlp": routes["esffn_mlp"]}}
+    return paths, route_paths, {
+        "loss": {k: loss[k] for k in ("total_gpu", "total_cpu",
+                                      "total_rel_diff", "worst_grad_rel",
+                                      "worst_leaf", "grad_leaves")},
+        "train_launches": train_launches, "train_routes": train_routes,
+        "streams": {str(k): v for k, v in got.items()},
+        "decode_launches": launches, "cpu_decode_s": cpu_s}
+
+
+def _paged_mesh_serve(torch, cfg, pcfg, params, prompts, base_median_ms):
+    """Phase P2, on phase 5's weights (no second copy: on a 1-rank mesh
+    every block is the whole tensor): ``PAGED_MESH_P2`` requests through
+    ``PagedServer`` on the 1-rank NCCL mesh (8 slots, 16-token pages).
+    First an unmeasured warm-up of the same prompts with 2 new tokens
+    each, in which every kernel launch is held to its plain version
+    (``_HeldToPlain``: the timed run is not, so that no check sits inside
+    its times); then the timed run, its launches counted from 0: exactly
+    one ``esffn_glu`` (stream) a layer a forward and one
+    ``paged_attention`` a layer a decode step. Returns (launches, routes,
+    result)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh, single_rank_nccl
+
+    t_phase = time.perf_counter()
+    n_req, new = PAGED_MESH_P2["requests"], PAGED_MESH_P2["new"]
+    slots, page, max_seq = 8, 16, 128
+    maxp = max_seq // page
+    fns = _paged_kernel_fns()
+    held = _HeldToPlain()
+    with single_rank_nccl():
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        _mesh_warm(torch, mesh)
+
+        def make_server(max_new):
+            srv = serve.PagedServer(
+                cfg, pcfg, num_slots=slots, page_size=page,
+                num_pages=slots * maxp // 2 + 1, max_pages_per_slot=maxp,
+                params=params, prefill_chunk=16, device="cuda", mesh=mesh)
+            for i, pr in enumerate(prompts[:n_req]):
+                srv.submit(serve.Request(rid=i, prompt=pr, max_new=max_new))
+            return srv
+
+        warm = make_server(2)
+        with held, torch.no_grad():
+            warm.run()
+        _drained(warm, "P2 warm-up")
+        del warm
+        server = make_server(new)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_paged_counts(fns)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            done = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, routes, _ = _paged_counts(fns)
+        peak = torch.cuda.max_memory_allocated()
+    chunks, decodes, _ = _forwards(server.trace)
+    n = cfg.num_layers
+    expect = {"esffn_glu": n * (chunks + decodes), "paged_attention":
+              n * decodes}
+    if {k: launches[k] for k in expect} != expect \
+            or routes["esffn_glu"]["stream"] != expect["esffn_glu"]:
+        raise AssertionError(f"P2: launches {launches} {routes}, expected "
+                             f"{expect}")
+    if len(done) != n_req or any(len(r.out) != new for r in done) \
+            or not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
+        raise AssertionError("P2: a request did not finish in the "
+                             "vocabulary")
+    _drained(server, "P2")
+    steps = server.decode_times_s
+    ttft = sorted(server.ttft_s.values())
+    tokens = sum(len(r.out) for r in done)
+    seconds = time.perf_counter() - t_phase
+    res = {"requests": len(done), "tokens": tokens, "wall_s": wall,
+           "tok_per_s": tokens / wall,
+           "decode_step_median_ms": statistics.median(steps) * 1e3,
+           "decode_steps": len(steps),
+           "meshless_decode_step_median_ms": base_median_ms,
+           "ttft_median_ms": statistics.median(ttft) * 1e3,
+           "peak_allocated_gb": peak / 1e9,
+           "pool_bytes": server.pool.num_pages * server.page_bytes,
+           "cache_bytes": server.kv_bytes(), "launches": launches,
+           "held_checks": dict(held.checks),
+           "held_worst_err_over_limit": dict(held.worst),
+           "seconds": seconds}
+    print(f"[paged-mesh] P2 {n}-layer full-width bf16 on the 1-rank mesh: "
+          f"{len(done)} requests, {tokens} tokens in {wall:.3f}s "
+          f"({res['tok_per_s']:.1f} tok/s); decode step median "
+          f"{res['decode_step_median_ms']:.2f}ms over {len(steps)} steps "
+          f"(phase 5 mesh-less: {base_median_ms:.2f}ms); TTFT median "
+          f"{res['ttft_median_ms']:.1f}ms; peak allocated {peak / 1e9:.2f} "
+          f"GB; pool {res['pool_bytes'] / 1e6:.1f} MB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; warm-up launches "
+          f"held to plain {held.checks}, worst err / limit "
+          f"{ {k: round(v, 4) for k, v in held.worst.items()} }; "
+          f"{seconds:.1f}s")
+    return ({k: v for k, v in launches.items() if v},
+            {"esffn_glu": routes["esffn_glu"]}, res)
 
 
 def _hybrid_config(arch, dtype):
@@ -6764,6 +7215,9 @@ def main() -> int:
 
     serve_ref = reference_phase(torch)
     _release(torch)
+    pm_paths, pm_routes, pm_res = paged_mesh_phase(torch, serve_ref)
+    print(f"[paged-mesh] {json.dumps(pm_res)}")
+    _release(torch)
     spec_ref = spec_reference_phase(torch)
     _release(torch)
     prefix_ref = prefix_reference_phase(torch)
@@ -6878,7 +7332,7 @@ def main() -> int:
     # disaggregated ones (phases 5, 5s, 5p), the qwen train steps and the
     # QAT steps (phases 8, 8q), the Swin train steps and the
     # unfused-backward pass (phase 11), the Jamba layout's training
-    # (phases 7h, 8j).
+    # (phases 7h, 8j), the paged engine on the mesh (phase P).
     qat_paths = {f"qwen_qat_{m}": r["launches"]
                  for m, r in train_out["qat"].items()}
     hybrid_paths = {f"hybrid_{tag}": r["launches"]
@@ -6893,7 +7347,8 @@ def main() -> int:
              **{p: r["launches"] for p, r in jamba_train.items()},
              **mesh_launches, **hetero_launches,
              **{p: c for p, (c, _) in lm_mesh_paths.items()},
-             **{p: c for p, (c, _) in family_mesh_paths.items()}}
+             **{p: c for p, (c, _) in family_mesh_paths.items()},
+             **pm_paths}
     by_path = {}
     for path, counts in paths.items():
         for name, n in counts.items():
@@ -6920,7 +7375,9 @@ def main() -> int:
                                       r["launches_by_route"]}
                       for k, r in hetero_res.items() if k in HETERO_WIDTHS},
                    **{p: r for p, (_, r) in lm_mesh_paths.items()},
-                   **{p: r for p, (_, r) in family_mesh_paths.items()}}
+                   **{p: r for p, (_, r) in family_mesh_paths.items()},
+                   **pm_routes, "paged_mesh_p2":
+                       serve_res["paged_mesh_launches_by_route"]}
 
     def by_route(name, cases, routes, paths=route_paths):
         """Each route of a kernel with several: its launches on each path

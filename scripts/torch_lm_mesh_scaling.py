@@ -5,7 +5,7 @@ port's train and serve CLIs.
     python3 scripts/torch_lm_mesh_scaling.py [--nproc 4] [--mesh 2,2]
         [--modes hybrid,model_centric,data_centric,ep] [--layers 4]
         [--steps 4] [--topology INTRA:INTER:NODE] [--overlap-dispatch]
-        [--out chiprun_out/lm_mesh] [--smoke --device cpu]
+        [--paged] [--out chiprun_out/lm_mesh] [--smoke --device cpu]
 
 Runs ``python -m repro_torch.launch.train`` mesh-less on one device, then
 ``torchrun --standalone --nproc-per-node NPROC`` of the same CLI with
@@ -20,14 +20,19 @@ each split run's losses must be within 5e-3 of the flat run's, relative
 (the script fails otherwise). With ``--overlap-dispatch`` the serve CLI
 then decodes on the mesh (``--mode auto --cache-layers 2``; flat, and,
 with ``--topology``, split with ``--overlap-dispatch``): 8 greedy
-requests of 8 + 16 tokens on 8 slots.
+requests of 8 + 16 tokens on 8 slots. With ``--paged`` the paged engine
+serves the same requests through the serve CLI (``--paged``, 16-token
+pages, a pool of 16, mode auto): on one device, then on the mesh flat
+and, with ``--topology``, split. ``--modes ''`` runs no training.
 
 Prints one JSON line a run: train runs the losses, the step median over
 the steps after the first (the CLI's host clock, each step ending when
 its metrics reach the host), tokens/s, the peak allocated memory on rank
 0 and the largest loss difference from the one-device run and from the
 flat run of its mode, relative; serve runs the decode step median, the
-prefetch cache's line and the first requests' tokens. On the GPU the
+prefetch cache's line and the first requests' tokens, and whether they
+equal the flat run's (and, paged, the one-device run's; bf16, so not
+asserted). On the GPU the
 kernels are built first (``kernels.build.build``). The card's name and
 power limit lead the output (none with ``--device cpu``, the rehearsal
 on the CPU's gloo ranks). Each run's log and metrics go to ``--out``.
@@ -78,6 +83,10 @@ def main(argv=None) -> int:
                     help="then decode through the serve CLI on the mesh "
                          "(auto, --cache-layers 2), split runs with "
                          "--overlap-dispatch")
+    ap.add_argument("--paged", action="store_true",
+                    help="then serve through the paged engine on one "
+                         "device and on the mesh (flat, and split by "
+                         "--topology)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="chiprun_out/lm_mesh")
@@ -105,8 +114,9 @@ def main(argv=None) -> int:
     layouts = [("flat", [])]
     if args.topology:
         layouts.append(("node", ["--topology", args.topology]))
-    runs = [("one_device", None, [sys.executable, *cli])]
-    for entry in args.modes.split(","):
+    modes = [m for m in args.modes.split(",") if m]
+    runs = [("one_device", None, [sys.executable, *cli])] if modes else []
+    for entry in modes:
         mode, _, sched = entry.partition(":")
         extra = ["--mode", mode] + (["--schedule", sched] if sched else [])
         for layout, flags in layouts:
@@ -138,6 +148,7 @@ def main(argv=None) -> int:
         if row.get("loss_rel_diff_flat", 0.0) > LOSS_RTOL:
             raise SystemExit(f"{name}: losses {losses} against the flat "
                              f"run's {flat[entry]}: beyond {LOSS_RTOL}")
+    serve_runs = []
     if args.overlap_dispatch:
         serve = [*dist, "-m", "repro_torch.launch.serve", *common,
                  "--mesh", args.mesh, "--mode", "auto", "--cache-layers",
@@ -148,18 +159,39 @@ def main(argv=None) -> int:
             srv.append(("serve/node_overlap", [*serve, "--topology",
                                                args.topology,
                                                "--overlap-dispatch"]))
+        serve_runs.append(srv)
+    if args.paged:
+        paged = ["-m", "repro_torch.launch.serve", *common, "--paged",
+                 "--page-size", "16", "--pages", "17", "--mode", "auto",
+                 "--slots", "8", "--requests", "8", "--max-new", "16",
+                 "--max-seq", "32"]
+        on_mesh = [*dist, *paged, "--mesh", args.mesh]
+        srv = [("paged/one_device", [sys.executable, *paged]),
+               ("paged/flat", on_mesh)]
+        if args.topology:
+            srv.append(("paged/node", [*on_mesh, "--topology",
+                                       args.topology]))
+        serve_runs.append(srv)
+    for srv in serve_runs:
         first = None
         for name, cmd in srv:
             text = _run(cmd, env, out / f"{name.replace('/', '_')}.log")
             med = re.search(r"decode step: median ([0-9.]+)ms", text)
-            cache = re.search(r"\[serve\] prefetch cache[^\n]*", text)
+            rate = re.search(r"tokens in ([0-9.]+)s \(([0-9.]+) tok/s\)",
+                             text)
+            cache = re.search(r"\[serve\] (prefetch cache|page pool)"
+                              r"[^\n]*", text)
             reqs = re.findall(r"  req \d+: [^\n]*", text)
             first = reqs if first is None else first
             print(json.dumps({
-                "run": name, "mesh": args.mesh, "ranks": args.nproc,
+                "run": name, "mesh": None if "one_device" in name
+                else args.mesh, "ranks": 1 if "one_device" in name
+                else args.nproc,
                 "decode_step_median_ms": med and float(med.group(1)),
+                "wall_s": rate and float(rate.group(1)),
+                "tok_per_s": rate and float(rate.group(2)),
                 "cache": cache and cache.group(0), "requests": reqs,
-                "tokens_equal_flat": reqs == first}), flush=True)
+                "tokens_equal_first": reqs == first}), flush=True)
     return 0
 
 

@@ -17,7 +17,6 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import check_supported, check_trainable
 from repro_torch.models.swin import SwinConfig
 
 
@@ -51,7 +50,6 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
     arrays, or anything ``np.asarray`` takes), on ``device`` (the GPU
     unless given). A tree from ``repro.quant.quantize_lm_params`` carries
     over with its int8/fp8 payloads and ``<name>_scale`` leaves."""
-    check_supported(cfg)
     return _unstack(tree, cfg, resolve_device(device))
 
 
@@ -61,7 +59,6 @@ def opt_state_from_jax(state: dict, cfg: ModelConfig, *, device=None) -> dict:
     ``master`` copies (None where a parameter is f32) unstacked as
     ``params_from_jax`` unstacks the parameters, and ``step`` as an int32
     0-d tensor, all on ``device`` (the GPU unless given)."""
-    check_trainable(cfg)
     device = resolve_device(device)
     out = {k: _unstack(state[k], cfg, device)
            for k in ("m", "v", "master") if k in state}

@@ -10,8 +10,9 @@ mesh, ("data", "node", "model") or ("pod", "data", "node", "model")
 group is node-major, as ``Mesh.index`` counts it, so a gather phased
 over "model" and then "node" concatenates as the flat one does. Its
 collectives (``all_gather``, ``reduce_scatter``, ``all_reduce``,
-``all_to_all``) take and return plain tensors without autograd; the MoE
-islands wrap them in autograd Functions (``parallel.moe_parallel``).
+``all_to_all``, ``broadcast0``) take and return plain tensors without
+autograd; the MoE islands wrap them in autograd Functions
+(``parallel.moe_parallel``).
 They run even over a group of one rank (the card's 1-rank mesh), where
 an all-gather still writes a fresh tensor.
 
@@ -139,6 +140,13 @@ class Mesh:
         out = x.contiguous().clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group(axes))
         return out
+
+    def broadcast0(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``x`` on every rank of the mesh (in place; ``x`` is
+        returned)."""
+        if dist.get_world_size() > 1:
+            dist.broadcast(x, src=0, group=self.group(self.axis_names))
+        return x
 
     def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Block i of dim 0 goes to member i; block j of the result came

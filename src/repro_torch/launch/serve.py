@@ -32,23 +32,31 @@ prefill and decode roles that hand finished prompts over by page table
 NaN watchdog, engine recovery, priority preemption, deadlines and device
 dropout; ``--audit`` checks the page books after every scheduler step.
 
-Every LM stack of the registry but the multimodal ones serves on both
-engines: MoE, dense and hybrid (Mamba + attention, jamba-1.5-large-398b)
-stacks and xLSTM (xlstm-350m); a slot's recurrent state is zeroed
-whenever the slot is reused (``lm.reset_slot``). Speculation and the
-prefix cache need an all-attention stack and refuse the others. The
-engines, ``reference_stream`` and the CLI take token prompts and one
-vocabulary head, as the JAX engines build their inputs: paligemma-3b
-(SigLIP patches) and musicgen-large (EnCodec frames, T5 conditioning, 4
-codebook heads) raise ``NotImplementedError`` (``lm.check_servable``);
-their dense prefill and decode steps are ``launch.steps``'.
+Every LM stack of the registry serves on both engines but musicgen-large:
+MoE stacks (MLP experts too), dense and hybrid (Mamba + attention,
+jamba-1.5-large-398b) stacks, xLSTM (xlstm-350m) and paligemma-3b's
+token prompts (no image prefix, as the JAX engines serve it); a slot's
+recurrent state is zeroed whenever the slot is reused
+(``lm.reset_slot``). Speculation and the prefix cache need an
+all-attention stack and refuse the others. musicgen-large (EnCodec
+frames, 4 codebook heads) raises ``NotImplementedError``
+(``lm.check_servable``), as no JAX engine serves it; its dense prefill
+and decode steps are ``launch.steps``'.
 
-On a mesh (``mesh=``, the CLI's ``--mesh`` with ``--mode`` and
-``--cache-layers``) the dense engine and ``reference_stream`` run the LM's
-mesh forward: every rank runs the same host scheduler on the same logits,
-gathered over the slots, and holds its block of the dense cache (its
-slots, and its K/V heads where they split over "tp"). The paged engine
-on a mesh raises ``NotImplementedError`` (ROADMAP.md A.5.6).
+On a mesh (``mesh=``, the CLI's ``--mesh`` with ``--mode``,
+``--cache-layers``, ``--topology`` and ``--overlap-dispatch``) both
+engines and ``reference_stream`` run the LM's mesh forward: every rank
+runs the same host scheduler on the same logits, gathered over the
+slots. The dense engine holds its block of the dense cache (its slots,
+and its K/V heads where they split over "tp"). The paged engine holds
+every page with its K/V heads (``lm.paged_cache_specs``), so the host
+pool's page ids are global and any slot reads any page, and its block
+of the slots' recurrent state; the prefill chunks run whole on every
+rank. Its decisions agree on every rank: the drawn tokens and their
+finiteness are rank 0's, and so is every reading of the engine clock
+(deadlines, ``trace_t``). Every feature runs there: the prefix cache,
+disaggregation, int8 pages, page shares, faults and recovery, and
+speculation.
 
 The CLI's ``--hetero-latencies`` (with ``--hetero-tp-latencies``)
 builds an Eq. 1/2 ``core.hetero.HeteroPlan``, as the JAX CLI does: the
@@ -124,18 +132,24 @@ def argmax_token(logits_row) -> int:
     return int(np.argmax(row))
 
 
-def draw_rows(rows: torch.Tensor, reqs: list, steps=None) -> tuple:
+def draw_rows(rows: torch.Tensor, reqs: list, steps=None,
+              mesh=None) -> tuple:
     """``next_token`` of every row of ``rows`` (B, V), row ``i`` for
     ``reqs[i]`` at step ``steps[i]`` (default ``len(reqs[i].out)``), and
     whether the row is finite, both computed on the rows' device and
     brought to the host in ONE copy: (tokens (B,) int64, finite (B,)
-    bool). A None entry of ``reqs`` is drawn greedily and unused."""
+    bool). A None entry of ``reqs`` is drawn greedily and unused. On a
+    ``mesh`` both are rank 0's on every rank (``Mesh.broadcast0``), so
+    every rank's scheduler takes the same decisions even where ranks
+    computed a row with different rounding."""
     if steps is None:
         steps = [len(r.out) if r else 0 for r in reqs]
     drawn = sampling.sample_rows(
         rows, [r.seed if r else 0 for r in reqs], steps,
         [r.temperature if r else 0.0 for r in reqs])
     host = torch.stack([drawn, torch.isfinite(rows).all(-1).long()])
+    if mesh is not None:
+        mesh.broadcast0(host)
     host = host.cpu().numpy()
     return host[0], host[1].astype(bool)
 
@@ -345,6 +359,22 @@ class _PagedSlot:
     matched: int = 0     # prefix-cache pages mapped in at refcount + 1
 
 
+class _AgreedClock:
+    """Rank 0's reading of ``clock`` on every rank of ``mesh``: each call
+    reads the clock and broadcasts rank 0's value (a collective, which
+    every rank's identical scheduler reaches at the same point), so a
+    deadline expires at the same step on every rank and the collectives
+    of the steps stay in step."""
+
+    def __init__(self, clock, mesh, device):
+        self.clock, self.mesh, self.device = clock, mesh, device
+
+    def __call__(self) -> float:
+        t = torch.tensor([self.clock()], dtype=torch.float64,
+                         device=self.device)
+        return float(self.mesh.broadcast0(t)[0])
+
+
 def derive_roles(token_counts) -> list:
     """Disaggregated prefill/decode role per device class: the class(es)
     with the largest Eq. 1 token share prefill, the rest decode. A uniform
@@ -400,6 +430,14 @@ class PagedServer:
     rid, slot, n)``, ``("spec_verify", rid, slot, n_valid, accepted)`` and
     ``("fail", rid, reason)``, as the JAX engine's ``trace`` yields them;
     ``trace_t`` holds the engine clock at each.
+
+    On a ``mesh``: params are this rank's shards (``lm.param_specs``) and
+    the cache its block (``lm.init_paged_cache(mesh=)``: every page, its
+    K/V heads, its slots' recurrent state); every rank runs this
+    scheduler alike, on rank 0's draws and clock readings (``draw_rows``,
+    ``_AgreedClock``). A ``plan``'s Eq. 1 shares are page budgets, so its
+    ``token_counts`` are dropped from the steps' ``pcfg`` (no slot row is
+    masked), as the JAX engine drops them; its Eq. 2 widths stay.
     """
 
     def __init__(self, cfg, pcfg, *, num_slots: int, page_size: int,
@@ -409,15 +447,17 @@ class PagedServer:
                  max_retries: int = 2, audit: bool = False,
                  clock=time.perf_counter, device=None, mesh=None):
         lm.check_servable(cfg)
-        if mesh is not None:
-            raise NotImplementedError(
-                "the paged engine on a mesh is not ported (ROADMAP.md "
-                "A.5.6); the dense BatchedServer takes a mesh")
-        self.cfg, self.pcfg = cfg, pcfg
+        lm.check_mesh(cfg, pcfg, mesh)
+        if pcfg.hetero_plan is not None:
+            pcfg = dataclasses.replace(pcfg, hetero_plan=dataclasses.replace(
+                pcfg.hetero_plan, token_counts=None, token_capacity=None))
+        self.cfg, self.pcfg, self.mesh = cfg, pcfg, mesh
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"server runs on {self.device}")
+        if mesh is not None and mesh.size(mesh.axis_names) > 1:
+            clock = _AgreedClock(clock, mesh, self.device)
         self.max_retries = max_retries
         self.audit = audit
         self.clock = clock
@@ -428,7 +468,10 @@ class PagedServer:
         self.params = params
         self.kv_quant = None if kv_quant in (None, "none") else kv_quant
         self.cache = lm.init_paged_cache(cfg, num_slots, num_pages, page_size,
-                                         self.device, kv_quant=self.kv_quant)
+                                         self.device, kv_quant=self.kv_quant,
+                                         pcfg=pcfg, mesh=mesh)
+        # the slots whose recurrent state rows this rank holds
+        self._held = lm.paged_slot_block(cfg, pcfg, mesh, num_slots)[1:]
         self.page_bytes = lm.paged_kv_page_bytes(cfg, page_size,
                                                  kv_quant=self.kv_quant)
         # each class's Eq. 1 weight, kept so a device dropout can re-derive
@@ -507,10 +550,11 @@ class PagedServer:
         """(Re)build the decode and prefill steps, at construction and in
         ``_recover_engine``. The handoff and page-copy steps are built on
         first use; an attached ``SpecDecoder`` rebuilds its score step."""
+        kw = {"mesh": self.mesh, "num_slots": self.num_slots}
         self.serve_step = steps_lib.make_paged_serve_step(
-            self.cfg, self.pcfg, self.page_size)
+            self.cfg, self.pcfg, self.page_size, **kw)
         self.prefill_step = steps_lib.make_paged_prefill_step(
-            self.cfg, self.pcfg, self.page_size)
+            self.cfg, self.pcfg, self.page_size, **kw)
         self._handoff_step = None
         self._copy_step = None
         if self.spec is not None:
@@ -526,6 +570,11 @@ class PagedServer:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def kv_bytes(self) -> int:
+        """Device bytes of the paged cache (on a mesh, of this rank's
+        block: every page with its K/V heads)."""
+        return lm.cache_bytes(self.cache)
 
     def _need_pages(self, req: Request) -> int:
         # cache rows written = prompt + fed-back outputs (the last
@@ -594,7 +643,8 @@ class PagedServer:
             self.queue.popleft()
             self.free.remove(slot)
             m = len(matched) * self.page_size
-            self.cache = lm.reset_slot(self.cfg, self.cache, slot, length=m)
+            self.cache = lm.reset_slot(self.cfg, self.cache, slot, length=m,
+                                       held=self._held)
             self.slots[slot] = _PagedSlot(
                 req, self.groups[slot], self._order, need,
                 reserved=reserve_n, pages=list(matched), pos=m, length=m,
@@ -903,7 +953,7 @@ class PagedServer:
             for f in faults_lib.inject("serve.prefill_logits"):
                 if f.kind == "nan":
                     rows = torch.full_like(rows, float("nan"))
-            tok, finite = draw_rows(rows, [st.req])
+            tok, finite = draw_rows(rows, [st.req], mesh=self.mesh)
             if not finite[0]:
                 self._abort_slot(slot, reason="non-finite prefill logits")
                 return True
@@ -915,7 +965,8 @@ class PagedServer:
 
     def _handoff(self, src: int, dst: int):
         if self._handoff_step is None:
-            self._handoff_step = steps_lib.make_paged_handoff_step(self.cfg)
+            self._handoff_step = steps_lib.make_paged_handoff_step(
+                self.cfg, self.pcfg, mesh=self.mesh, num_slots=self.num_slots)
         self.cache = self._handoff_step(self.cache, src, dst)
 
     def _transfer_tick(self) -> bool:
@@ -979,7 +1030,7 @@ class PagedServer:
         emit = [None] * self.num_slots
         for slot, st in dec:
             emit[slot] = st.req
-        nxt, finite = draw_rows(rows, emit)
+        nxt, finite = draw_rows(rows, emit, mesh=self.mesh)
         self.decode_times_s.append(time.perf_counter() - t0)
         self._event("decode", tuple(slot for slot, _ in dec))
         for slot, st in dec:
@@ -1063,7 +1114,7 @@ def _unquantized_bytes(params: dict, dtype: torch.dtype) -> int:
 def main(argv=None):
     """CLI entry point: continuous batching of random prompts through a
     seeded random-weight model, on the dense engine or (``--paged``) the
-    paged one; ``--mesh`` runs the dense engine over the job's ranks
+    paged one; ``--mesh`` runs either over the job's ranks
     (``launch.mesh.cli_process_group``), rank 0 printing."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -1125,8 +1176,8 @@ def main(argv=None):
                          "prefix-trie nodes) after every scheduler step "
                          "(--paged only)")
     ap.add_argument("--mesh", default=None,
-                    help="e.g. '2,2' => data,model: the dense engine on a "
-                         "mesh (torchrun or one rank)")
+                    help="e.g. '2,2' => data,model: the engine on a mesh "
+                         "(torchrun or one rank)")
     ap.add_argument("--mode", default="auto",
                     choices=["hybrid", "model_centric", "data_centric",
                              "auto", "ep"],
@@ -1302,9 +1353,12 @@ def _serve(ap, args, device, mesh, topo):
     if args.paged:
         st = server.stats()
         server.drop_prefix_cache()
+        per_rank = ("" if mesh is None else
+                    f"; {server.kv_bytes() / 1024:.1f} KiB of cache a rank")
         say(f"[serve] page pool: {st['peak_in_use_pages']} peak pages "
               f"({st['peak_in_use_bytes'] / 1024:.1f} KiB KV resident, "
-              f"{server.page_bytes} B a {server.kv_quant or cfg.dtype} page) "
+              f"{server.page_bytes} B a {server.kv_quant or cfg.dtype} page"
+              f"{per_rank}) "
               f"of {st['num_pages'] - 1} allocatable; {st['total_allocs']} "
               f"allocs, leak-free="
               f"{server.pool.free_pages == st['num_pages'] - 1}")

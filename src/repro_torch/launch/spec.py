@@ -26,8 +26,10 @@ refuses them at construction (``make_paged_score_step`` raises).
 A round takes the engine's fault sites (``serve.decode`` before it,
 ``serve.logits`` after its forward) and NaN watchdog: non-finite verify
 logits abort the slot's request and retry it, as the plain decode tick
-does. Not ported here (ROADMAP.md A.6): the metrics registry and trace
-spans.
+does. On a mesh the score forward runs whole on every rank, as the
+prefill chunk does, and the drafts are drawn on every rank alike (the
+accepted tokens are rank 0's draws). Not ported here (ROADMAP.md A.6):
+the metrics registry and trace spans.
 """
 from __future__ import annotations
 
@@ -91,7 +93,7 @@ class ModelDrafter:
     length back to the committed history so rejected draft rows vanish.
     Hence only all-attention, non-windowed configs: a rolling window
     buffer and recurrent state cannot rewind. The config must also be one
-    the port serves (``lm.check_supported``). The caches live on
+    the engines serve (``lm.check_servable``). The caches live on
     ``device`` (the GPU unless ``device="cpu"``)."""
 
     def __init__(self, cfg, pcfg, params, *, max_seq: int, device=None):
@@ -106,7 +108,7 @@ class ModelDrafter:
                 "rolling local-attention cache cannot truncate safely")
         if cfg.num_codebooks > 1:
             raise ValueError("ModelDrafter does not support codebook heads")
-        lm.check_supported(cfg)
+        lm.check_servable(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"draft params lie on {params['embed'].device}, "
@@ -201,7 +203,7 @@ class SpecDecoder:
         """(Re)build the score step (the engine's recovery path)."""
         srv = self.server
         self._score_step = steps_lib.make_paged_score_step(
-            srv.cfg, srv.pcfg, srv.page_size)
+            srv.cfg, srv.pcfg, srv.page_size, mesh=srv.mesh)
 
     def stats(self) -> dict:
         """Counters, and the fraction of drafted tokens accepted."""
@@ -245,6 +247,8 @@ class SpecDecoder:
             draft = [int(t) for t in
                      self.drafter.draft(history, min(self.k, budget - 1),
                                         req.rid)][:budget - 1]
+        if srv.mesh is not None:
+            draft = self._agreed(draft)
         if any(not 0 <= t < srv.cfg.vocab_size for t in draft):
             raise ValueError(f"slot {slot}: draft {draft} leaves the "
                              f"vocabulary of {srv.cfg.vocab_size}")
@@ -263,7 +267,7 @@ class SpecDecoder:
                 logits[:] = float("nan")
         n0 = len(req.out)          # row i draws at step len(out) + i
         host, finite = draw_rows(logits[:n_valid], [req] * n_valid,
-                                 range(n0, n0 + n_valid))
+                                 range(n0, n0 + n_valid), mesh=srv.mesh)
         if not finite.all():
             srv._abort_slot(slot, reason="non-finite verify logits")
             self.round_times_s.append(time.perf_counter() - t0)
@@ -295,6 +299,17 @@ class SpecDecoder:
             srv._reclaim(slot, st)
         self.round_times_s.append(time.perf_counter() - t0)
         return accepted
+
+    def _agreed(self, draft: list) -> list:
+        """Rank 0's draft on every rank of the server's mesh: a drafter
+        whose forward rounds differently on another rank must not change
+        the verify round's shape or its acceptance."""
+        buf = torch.zeros(self.k + 1, dtype=torch.int64)
+        buf[0] = len(draft)
+        buf[1:1 + len(draft)] = torch.tensor(draft, dtype=torch.int64)
+        buf = self.server.mesh.broadcast0(buf.to(self.server.device))
+        buf = buf.cpu()
+        return buf[1:1 + int(buf[0])].tolist()
 
     def forget(self, rid: int) -> None:
         """Drop per-request drafter state (called from

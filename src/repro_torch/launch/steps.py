@@ -18,9 +18,14 @@ of slots, each rank cutting its own and returning the logits of every
 slot, so that every rank's host scheduler sees the same logits. Every
 LM family takes them: the codebook heads' loss is the
 vocabulary-parallel cross entropy once a codebook. The paged engine's
-builders stay on one device (ROADMAP.md A.5.6).
+builders take a ``mesh`` and ``num_slots`` under the same rule: the
+decode step cuts this rank's block of the slots, the batch-1 prefill
+chunk and score forwards run whole on every rank, and the slots' lengths
+are whole on every rank (``lm.paged_cache_specs``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch.profiler import record_function
@@ -164,7 +169,6 @@ def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig, *, mesh=None,
     axes); ``batch_shape3`` is the global (B, S, d_model). The loss, aux
     and z are global, the same on every rank, and autograd from each
     rank's total gives this rank's blocks of the global gradient."""
-    lm.check_trainable(cfg)
     lm.check_mesh(cfg, pcfg, mesh)
     aw = cfg.moe.aux_weight if cfg.moe else 0.0
     zw = cfg.moe.z_weight if cfg.moe else 0.0
@@ -292,38 +296,72 @@ def make_serve_step(cfg: ModelConfig, pcfg: ParallelConfig, *, mesh=None,
 
 
 def make_paged_serve_step(cfg: ModelConfig, pcfg: ParallelConfig,
-                          page_size: int):
+                          page_size: int, *, mesh=None,
+                          num_slots: Optional[int] = None):
     """Continuous-batching decode macro-step over the paged KV cache.
     ``inputs``: tokens (B, 1), page_table (B, maxp) int32, active (B,)
-    bool. Returns (logits (B, 1, V) f32, cache)."""
+    bool. Returns (logits (B, 1, V) f32, cache). On a ``mesh`` (B =
+    ``num_slots``): the whole batch in, this rank's block of the slots
+    forwarded (``lm.paged_slot_block``), every slot's logits out."""
+    lm.check_mesh(cfg, pcfg, mesh)
+    baxes, lo, n = _slot_block(cfg, pcfg, mesh, num_slots)
+    x_spec = _x_spec(None if mesh is None else (num_slots, 1, cfg.d_model),
+                     pcfg, mesh)
 
     def serve_step(params, inputs, cache):
-        logits, new_cache, _, _ = lm.forward(
-            params, {"tokens": inputs["tokens"]}, cfg, pcfg, mode="decode",
-            cache=cache,
-            paged={"table": inputs["page_table"], "page_size": page_size},
-            active=inputs["active"])
-        return logits, new_cache
+        blk = {"tokens": inputs["tokens"], "page_table": inputs["page_table"],
+               "active": inputs["active"]}
+        if mesh is not None:
+            blk = batch_block(blk, x_spec, mesh)
+        ln = cache["len"] if n is None else cache["len"][lo:lo + n]
+        logits, new_sub, _, _ = lm.forward(
+            params, {"tokens": blk["tokens"]}, cfg, pcfg, mode="decode",
+            cache={"layers": cache["layers"], "len": ln},
+            paged={"table": blk["page_table"], "page_size": page_size},
+            active=blk["active"], mesh=mesh, x_spec=x_spec)
+        if baxes:
+            logits = mesh.all_gather(logits, baxes, 0)
+        new_len = (cache["len"] + inputs["active"].int()).to(torch.int32)
+        return logits, {"layers": new_sub["layers"], "len": new_len}
 
     return serve_step
 
 
+def _slot_block(cfg, pcfg, mesh, num_slots):
+    """``lm.paged_slot_block`` on a mesh; ((), 0, None) without one (the
+    step's slots are whatever the inputs hold)."""
+    if mesh is None:
+        return (), 0, None
+    if num_slots is None:
+        raise ValueError("a mesh needs num_slots, the paged engine's slots")
+    return lm.paged_slot_block(cfg, pcfg, mesh, num_slots)
+
+
+def _whole_spec(cfg, pcfg, mesh):
+    """The activations' spec of a batch-1 forward: whole on every rank."""
+    return _x_spec(None if mesh is None else (1, 1, cfg.d_model), pcfg, mesh)
+
+
 def make_paged_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
-                            page_size: int):
+                            page_size: int, *, mesh=None,
+                            num_slots: Optional[int] = None):
     """Chunked prefill into the paged cache: one request's next ``chunk``
     prompt tokens. Signature ``(params, tokens (chunk,), n_valid, slot,
     table_row (maxp,), cache) -> (last_logits (V,) f32, cache)``; a short
     final chunk pads and masks. All-attention stacks run ONE batch-1
     forward over the chunk; stacks with recurrent mixers a loop of
     single-token decode forwards (their state advances token by token
-    mid-stream, so the chunk is a scheduling unit, not a compute one)."""
+    mid-stream, so the chunk is a scheduling unit, not a compute one).
+    On a ``mesh`` the forwards run whole on every rank, so every rank
+    writes the chunk's rows alike; ``num_slots``: the engine's slots,
+    whose recurrent state the ranks hold in blocks."""
     if not lm.recurrent_layers(cfg):
-        return _make_paged_prefill_chunk(cfg, pcfg, page_size)
-    return _make_paged_prefill_scan(cfg, pcfg, page_size)
+        return _make_paged_prefill_chunk(cfg, pcfg, page_size, mesh)
+    return _make_paged_prefill_scan(cfg, pcfg, page_size, mesh, num_slots)
 
 
 def _paged_chunk_forward(cfg: ModelConfig, pcfg: ParallelConfig,
-                         page_size: int):
+                         page_size: int, mesh):
     """Shared body of the chunk-extension paged forward: final-norm hidden
     states at every chunk position and the cache with the slot's length
     advanced by ``n_valid``. All-attention stacks only."""
@@ -331,6 +369,8 @@ def _paged_chunk_forward(cfg: ModelConfig, pcfg: ParallelConfig,
         raise ValueError(
             "chunk-extension paged forward requires an all-attention "
             "stack (recurrent mixers advance token-wise)")
+    lm.check_mesh(cfg, pcfg, mesh)
+    x_spec = _whole_spec(cfg, pcfg, mesh)
 
     def fwd(params, tokens, n_valid: int, slot: int, table_row, cache):
         chunk = tokens.shape[0]
@@ -341,31 +381,32 @@ def _paged_chunk_forward(cfg: ModelConfig, pcfg: ParallelConfig,
         hidden, sub, _, _ = lm.forward(
             params, {"tokens": tokens[None]}, cfg, pcfg, mode="prefill",
             cache=sub, paged={"table": table_row[None], "page_size": page_size},
-            active=active, return_hidden=True)
+            active=active, return_hidden=True, mesh=mesh, x_spec=x_spec)
         new_len = cache["len"].clone()
         new_len[slot] = sub["len"][0]
         return hidden, {"layers": sub["layers"], "len": new_len}
 
-    return fwd
+    return fwd, x_spec
 
 
 def _make_paged_prefill_chunk(cfg: ModelConfig, pcfg: ParallelConfig,
-                              page_size: int):
-    fwd = _paged_chunk_forward(cfg, pcfg, page_size)
+                              page_size: int, mesh):
+    fwd, x_spec = _paged_chunk_forward(cfg, pcfg, page_size, mesh)
 
     def prefill_step(params, tokens, n_valid: int, slot: int, table_row,
                      cache):
         hidden, new_cache = fwd(params, tokens, n_valid, slot, table_row,
                                 cache)
         # last valid row only: the first-generated-token logits
-        logits = lm._logits_out(params, hidden[:, n_valid - 1:n_valid], cfg)
+        logits = lm.head_logits(params, hidden[:, n_valid - 1:n_valid], cfg,
+                                pcfg, mesh, x_spec)
         return logits.reshape(-1), new_cache
 
     return prefill_step
 
 
 def make_paged_score_step(cfg: ModelConfig, pcfg: ParallelConfig,
-                          page_size: int):
+                          page_size: int, *, mesh=None):
     """Multi-token scoring step for speculative verification: the
     chunk-extension paged forward of ``make_paged_prefill_step`` with
     logits at EVERY chunk position. Signature ``(params, tokens (k,),
@@ -374,35 +415,66 @@ def make_paged_score_step(cfg: ModelConfig, pcfg: ParallelConfig,
     ``tokens[:i+1]``, what a sequential decode would give having fed
     ``tokens[i]``. The slot's length advances by ``n_valid``; rows at and
     past ``n_valid`` write to the sink page and are to be ignored.
-    All-attention stacks only (``_paged_chunk_forward`` raises)."""
+    All-attention stacks only (``_paged_chunk_forward`` raises). On a
+    ``mesh``, whole on every rank as the prefill chunk."""
     if cfg.num_codebooks > 1:
         raise ValueError("score step does not support codebook heads")
-    fwd = _paged_chunk_forward(cfg, pcfg, page_size)
+    fwd, x_spec = _paged_chunk_forward(cfg, pcfg, page_size, mesh)
 
     def score_step(params, tokens, n_valid: int, slot: int, table_row,
                    cache):
         hidden, new_cache = fwd(params, tokens, n_valid, slot, table_row,
                                 cache)
-        return lm.score_logits(params, hidden, cfg)[0], new_cache
+        return (lm.score_logits(params, hidden, cfg, pcfg, mesh, x_spec)[0],
+                new_cache)
 
     return score_step
 
 
-def make_paged_handoff_step(cfg: ModelConfig):
+class _SlotRows:
+    """One slot's rows of the recurrent state on a mesh whose ranks hold
+    the slots in blocks of ``n`` over ``axes``: ``take`` gathers the row
+    from its holder (a collective over ``axes``), ``put`` writes it where
+    this rank holds the slot. Without a mesh the rows are local."""
+
+    def __init__(self, mesh, axes, lo: int, n: Optional[int]):
+        self.mesh, self.axes, self.lo, self.n = mesh, axes, lo, n
+
+    def held(self, slot: int) -> bool:
+        return self.n is None or self.lo <= slot < self.lo + self.n
+
+    def take(self, t: torch.Tensor, slot: int) -> torch.Tensor:
+        if not self.axes:
+            return t[slot - self.lo:slot - self.lo + 1]
+        i = slot % self.n
+        rows = self.mesh.all_gather(t[i:i + 1], self.axes, 0)
+        return rows[slot // self.n:slot // self.n + 1]
+
+    def put(self, t: torch.Tensor, slot: int, row: torch.Tensor) -> None:
+        if self.held(slot):
+            t[slot - self.lo] = row[0]
+
+
+def make_paged_handoff_step(cfg: ModelConfig, pcfg: Optional[ParallelConfig]
+                            = None, *, mesh=None,
+                            num_slots: Optional[int] = None):
     """Prefill-to-decode role handoff: move one finished-prefill sequence
     from slot ``src`` to slot ``dst``. The K/V pages stay in the shared
     pools and are reached through the host table row the scheduler moves,
     so no K/V byte moves; on the device the slot's ``len`` and its
     recurrent state rows (Mamba conv/ssm, xLSTM c/n/h/m) move, and
     ``src``'s are zeroed. ``handoff(cache, src, dst) -> cache``, in
-    place."""
+    place. On a ``mesh`` a state row held by another rank than ``dst``'s
+    crosses over (a gather over the slots' axes)."""
     recurrent = lm.recurrent_layers(cfg)
+    rows = _SlotRows(mesh, *_slot_block(cfg, pcfg, mesh, num_slots))
 
     def handoff(cache, src: int, dst: int):
         for i in recurrent:
             for t in cache["layers"][i].values():
-                t[dst] = t[src]
-                t[src].zero_()
+                row = rows.take(t, src)
+                rows.put(t, dst, row)
+                rows.put(t, src, torch.zeros_like(row))
         ln = cache["len"]
         ln[dst] = ln[src]
         ln[src] = 0
@@ -417,7 +489,7 @@ def make_page_copy_step(cfg: ModelConfig):
     ``parallel.cache.PagePool.cow``, which hands the writer ``dst`` so the
     shared original is never written. Recurrent layers' per-slot state is
     not paged and stays. ``copy_page(cache, src, dst) -> cache``, in
-    place."""
+    place; on a mesh every rank copies its own heads of the page."""
     recurrent = lm.recurrent_layers(cfg)
 
     def copy_page(cache, src: int, dst: int):
@@ -431,21 +503,25 @@ def make_page_copy_step(cfg: ModelConfig):
 
 
 def _make_paged_prefill_scan(cfg: ModelConfig, pcfg: ParallelConfig,
-                             page_size: int):
+                             page_size: int, mesh, num_slots):
     """The paged prefill of stacks with recurrent mixers: the slot's state
-    rows taken out, one batch-1 decode forward a valid chunk token, the
-    rows written back; the last one's logits are returned. The JAX scan
-    also runs the padding tokens past ``n_valid``, inactive (a sink-page
-    write, state and length kept), which changes nothing; here they are
-    skipped."""
-    serve_step = make_paged_serve_step(cfg, pcfg, page_size)
+    rows taken out (on a mesh, gathered from the rank that holds them),
+    one batch-1 decode forward a valid chunk token (whole on every rank),
+    the rows written back where they are held; the last one's logits are
+    returned. The JAX scan also runs the padding tokens past ``n_valid``,
+    inactive (a sink-page write, state and length kept), which changes
+    nothing; here they are skipped."""
+    serve_step = make_paged_serve_step(cfg, pcfg, page_size, mesh=mesh,
+                                       num_slots=1)
     recurrent = lm.recurrent_layers(cfg)
+    rows = _SlotRows(mesh, *_slot_block(cfg, pcfg, mesh, num_slots))
 
     def prefill_step(params, tokens, n_valid: int, slot: int, table_row,
                      cache):
         sub = {"layers": [
-            {k: t[slot:slot + 1] for k, t in layer.items()} if i in recurrent
-            else layer for i, layer in enumerate(cache["layers"])],
+            {k: rows.take(t, slot) for k, t in layer.items()}
+            if i in recurrent else layer
+            for i, layer in enumerate(cache["layers"])],
             "len": cache["len"][slot:slot + 1]}
         inputs = {"page_table": table_row[None],
                   "active": torch.ones(1, dtype=torch.bool,
@@ -455,7 +531,7 @@ def _make_paged_prefill_scan(cfg: ModelConfig, pcfg: ParallelConfig,
                 params, {**inputs, "tokens": tokens[t].reshape(1, 1)}, sub)
         for i in recurrent:
             for k, t in cache["layers"][i].items():
-                t[slot:slot + 1] = sub["layers"][i][k]
+                rows.put(t, slot, sub["layers"][i][k])
         new_len = cache["len"].clone()
         new_len[slot] = sub["len"][0]
         return logits.reshape(-1), {"layers": cache["layers"],

@@ -257,7 +257,6 @@ def _train(ap, args, device, mesh, latencies, topo):
            else cfglib.get_config(args.arch))
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    lm.check_trainable(cfg)
     pcfg = ParallelConfig(blk=min(128, max(16, args.seq_len // 4)),
                           quant=args.quant, mode=args.mode,
                           collective_schedule=args.schedule,

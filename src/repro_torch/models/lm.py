@@ -16,9 +16,10 @@ layers have K/V rows or pages. The input is token embeddings, SigLIP
 patches projected and put before them (``inputs["patches"]``), or
 projected EnCodec frames (``inputs["embeds"]``); the head is the
 vocabulary projection or, with ``num_codebooks > 1``, one per codebook.
-Every LM configuration trains and takes the dense steps
-(``check_supported``); the serving engines take token prompts and one
-head only (``check_servable``). MLP experts in an LM stack raise.
+Every LM configuration trains and takes the dense steps, MLP experts in
+an LM stack (``glu=False`` with ``moe``: ``moe_mlp``) included; the
+serving engines take token prompts and one head (``check_servable``), so
+paligemma-3b serves as text, as the JAX engines serve it.
 
 On a mesh (``forward(..., mesh=, x_spec=)``) each rank holds its blocks
 of the parameters (``param_specs``, the JAX package's ``Param`` tags;
@@ -37,8 +38,10 @@ cross-attention, dense and MoE FFNs (``models.transformer``), Mamba
 are projected on every TP rank alike and the codebook heads are
 vocabulary-parallel as the head is. A "node" axis runs the MoE islands'
 hierarchical schedule, and ``overlap_dispatch`` the overlap schedule in
-``run_layers``. The paged cache raises ``NotImplementedError`` on a mesh
-(ROADMAP.md A.5.6), and ``check_mesh`` what else stays refused.
+``run_layers``. The paged cache on a mesh (``paged_cache_specs``) keeps
+every page on every rank with this rank's K/V heads, the slots' lengths
+whole, and the recurrent state cut as the dense cache cuts it;
+``check_mesh`` says what stays refused.
 """
 from __future__ import annotations
 
@@ -78,39 +81,24 @@ HEAD_LOGICAL = ("fsdp", "tp")
 CB_HEADS_LOGICAL = (None, "fsdp", "tp")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port cannot run: MLP experts in an
-    LM stack (the Swin graft)."""
-    if cfg.moe is not None and not cfg.glu:
-        raise NotImplementedError(
-            f"{cfg.name}: MLP experts in an LM stack are not ported yet "
-            f"(ROADMAP.md A.4.1)")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port does not train: what
-    ``check_supported`` refuses."""
-    check_supported(cfg)
-
-
 def check_servable(cfg: ModelConfig) -> None:
-    """Raise for a configuration the serving engines do not take: besides
-    ``check_supported``'s, a frontend (their prompts are token ids) or
-    codebook heads (their sampler draws one token a row). The dense steps
-    (``make_prefill_step``/``make_serve_step``) take both."""
-    check_supported(cfg)
-    if cfg.frontend or cfg.num_codebooks > 1:
+    """Raise for a configuration the serving engines do not take: EnCodec
+    frames or codebook heads (musicgen-large). The engines' prompts are
+    token ids and their sampler draws one token a row, as the JAX
+    engines' are and do: a siglip config serves its token prompts with no
+    image prefix. The dense steps (``make_prefill_step``/
+    ``make_serve_step``) take every configuration."""
+    if cfg.frontend == "encodec" or cfg.num_codebooks > 1:
         raise NotImplementedError(
             f"{cfg.name}: the serving engines take token prompts and one "
-            f"vocabulary head; frontend inputs and codebook heads are not "
-            f"served yet (ROADMAP.md A.4.2)")
+            f"vocabulary head, as the JAX package's do; EnCodec frames and "
+            f"codebook heads are served by neither")
 
 
 def check_mesh(cfg: ModelConfig, pcfg: ParallelConfig, mesh) -> None:
     """Raise for what the port does not run on a mesh: router statistics
     (ROADMAP.md A.6), and the "ep" mode on a two-level "node" mesh, as
-    the JAX package refuses it. The paged cache on a mesh (A.5.6) is
-    refused where it is asked for (``forward``, ``PagedServer``)."""
+    the JAX package refuses it."""
     if mesh is None:
         return
     if pcfg.collect_router_stats:
@@ -188,7 +176,6 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     never exists; the weights equal ``quantize_lm_params`` of the tree
     drawn without it. ``plan``: a ``core.hetero.HeteroPlan`` whose uneven
     Eq. 2 hidden splits pad every MoE FFN (``tfm.init_moe_ffn``)."""
-    check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     p = {
         "embed": normal_init((cfg.vocab_size, cfg.d_model), dtype, generator,
@@ -398,12 +385,100 @@ def paged_cache_spec(cfg: ModelConfig, num_slots: int, num_pages: int,
         "len": ((num_slots,), torch.int32)}
 
 
+def paged_cache_logical_specs(cfg: ModelConfig, cache: dict) -> dict:
+    """The JAX package's logical specs of the paged cache, layer by layer
+    (its tree per period position without the leading period axis): the
+    pools' page dimension over "dp", the recurrent state's slots over
+    "dp" (Mamba's and the mLSTM's conv channels, Mamba's SSM channels
+    over "tp"), the lengths over "dp". JAX's engine never applies them,
+    and neither does the port: pages over "dp" would need every read of a
+    slot's pages gathered across ranks, since the pool hands out any page
+    to any slot. The port places the cache by ``paged_cache_specs``."""
+    layers = []
+    for i, layer in enumerate(cache["layers"]):
+        kind = cfg.layer_kind(i)
+        if kind == "attn":
+            spec = {"k": ("dp", None, None, None),
+                    "v": ("dp", None, None, None)}
+            if "k_scale" in layer:
+                spec["k_scale"] = spec["v_scale"] = ("dp", None, None)
+        elif kind == "mamba":
+            spec = {"conv": ("dp", None, "tp"), "ssm": ("dp", "tp", None)}
+        elif kind == "mlstm":
+            spec = {"c": ("dp", None, None, None), "n": ("dp", None, None),
+                    "m": ("dp", None), "conv": ("dp", None, "tp")}
+        else:
+            spec = {k: ("dp", None, None) for k in ("c", "n", "h", "m")}
+        layers.append(spec)
+    return {"layers": layers, "len": ("dp",)}
+
+
+def paged_slot_block(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
+                     num_slots: int) -> tuple:
+    """(axes, lo, n): the mesh axes the paged engine's slots split over
+    (the decode step's batch, ``launch.inputs.activation_spec`` of
+    (num_slots, 1, d_model)) and this rank's slots ``[lo, lo + n)``;
+    ((), 0, num_slots) without a mesh."""
+    if mesh is None:
+        return (), 0, num_slots
+    from repro_torch.launch.inputs import activation_spec
+
+    axes = as_axes(activation_spec((num_slots, 1, cfg.d_model), pcfg,
+                                   mesh)[0])
+    n = num_slots // mesh.size(axes)
+    return axes, mesh.index(axes) * n, n
+
+
+def paged_cache_specs(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
+                      num_slots: int, num_pages: int, page_size: int,
+                      kv_quant: Optional[str] = None) -> dict:
+    """Physical specs of the paged cache's leaves on ``mesh``, in its tree
+    structure. Every page lies on every rank, so the host ``PagePool``
+    keeps its global page ids and any slot reads any page where it runs:
+    each written K/V row (with its int8 scale) goes to every rank's pool
+    (``models.transformer``'s paged branches gather the rows over the
+    slots' axes before the write). The pools hold this rank's K/V heads
+    where the heads split over "tp" (``transformer.heads_shardable``), all
+    of them otherwise (MQA). The recurrent state is cut as the dense
+    cache cuts it (``cache_specs``: the slots over their axes, Mamba's
+    channels over "tp"); the lengths are whole on every rank."""
+    check_mesh(cfg, pcfg, mesh)
+    baxes = paged_slot_block(cfg, pcfg, mesh, num_slots)[0] or None
+    tp = pcfg.axes(mesh)["tp"]
+    heads = tp if tfm.heads_shardable(cfg, mesh.size(tp)) else None
+    chans = tp if mamba.mesh_split(cfg, pcfg, mesh) else None
+    spec = paged_cache_spec(cfg, num_slots, num_pages, page_size, kv_quant)
+
+    def layer_specs(i: int, layer: dict) -> dict:
+        kind = cfg.layer_kind(i)
+        if kind == "attn":
+            return {k: (None, None, heads) + (None,) * (len(sd[0]) - 3)
+                    for k, sd in layer.items()}
+        if kind == "mamba":
+            return {"conv": (baxes, None, chans), "ssm": (baxes, chans, None)}
+        return {k: (baxes,) + (None,) * (len(sd[0]) - 1)
+                for k, sd in layer.items()}
+
+    return {"layers": [layer_specs(i, layer)
+                       for i, layer in enumerate(spec["layers"])],
+            "len": (None,)}
+
+
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
                      page_size: int, device,
-                     kv_quant: Optional[str] = None) -> dict:
-    return _zeros_like_spec(
-        paged_cache_spec(cfg, num_slots, num_pages, page_size, kv_quant),
-        device)
+                     kv_quant: Optional[str] = None, *,
+                     pcfg: Optional[ParallelConfig] = None,
+                     mesh=None) -> dict:
+    """The paged cache, zeroed, on ``device``; on a ``mesh``, this rank's
+    block of it (``paged_cache_specs``)."""
+    spec = paged_cache_spec(cfg, num_slots, num_pages, page_size, kv_quant)
+    if mesh is not None:
+        specs = paged_cache_specs(cfg, pcfg, mesh, num_slots, num_pages,
+                                  page_size, kv_quant)
+        spec = tree_map(lambda sd, ps: (tuple(
+            n // mesh.size(a) for n, a in zip(sd[0], ps)), sd[1]),
+            spec, specs)
+    return _zeros_like_spec(spec, device)
 
 
 def paged_kv_page_bytes(cfg: ModelConfig, page_size: int,
@@ -421,20 +496,25 @@ def paged_kv_page_bytes(cfg: ModelConfig, page_size: int,
 
 
 def reset_slot(cfg: ModelConfig, cache: dict, slot: int,
-               length: int = 0) -> dict:
+               length: int = 0, *, held: Optional[tuple] = None) -> dict:
     """Reset one slot so a new request can reuse it (in place): its length
     to ``length`` and its recurrent state rows to zero. K/V needs no
     scrub: the dense buffer and freshly granted pages are both masked by
     ``len``. ``length > 0`` (prefix-sharing admission) only on
-    all-attention stacks: recurrent state has no paged representation."""
+    all-attention stacks: recurrent state has no paged representation.
+    ``held``: (lo, n), the slots ``[lo, lo + n)`` whose state rows the
+    cache holds, at rows ``slot - lo`` (a paged cache on a mesh, whose
+    lengths are whole); default every slot."""
     recurrent = recurrent_layers(cfg)
     if length and recurrent:
         raise ValueError(
             "prefix-sharing reset (length > 0) requires an all-attention "
             "stack: recurrent per-slot state has no paged representation")
-    for i in recurrent:
-        for t in cache["layers"][i].values():
-            t[slot].zero_()
+    lo, n = held if held is not None else (0, cache["len"].shape[0])
+    if lo <= slot < lo + n:
+        for i in recurrent:
+            for t in cache["layers"][i].values():
+                t[slot - lo].zero_()
     cache["len"][slot] = length
     return cache
 
@@ -724,24 +804,23 @@ def cb_head_weight(params: dict, cfg: ModelConfig, pcfg: ParallelConfig,
 
 
 def _logits_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                 ctx: tfm.Ctx, last_only: bool) -> torch.Tensor:
+                 pcfg: ParallelConfig, mesh, x_spec, last_only: bool):
     """Vocabulary logits f32 on a mesh: this rank's batch block, the whole
     sequence (or its last row) and the whole vocabulary, gathered over
     the sequence and the vocabulary split; (B, S, C, V) through the
     codebook heads."""
-    mesh = ctx.mesh
-    x = tfm.seq_gather(tfm.island_in(x, mesh, ctx.x_spec), mesh,
-                        as_axes(ctx.x_spec[1]))
+    x = tfm.seq_gather(tfm.island_in(x, mesh, x_spec), mesh,
+                        as_axes(x_spec[1]))
     if last_only:
         x = x[:, -1:]
     if cfg.num_codebooks > 1:
-        w, vaxes = cb_head_weight(params, cfg, ctx.pcfg, mesh)
+        w, vaxes = cb_head_weight(params, cfg, pcfg, mesh)
         logits = torch.einsum("bsd,cdv->bscv", x.float(), w.float())
-        spec = (ctx.x_spec[0], None, None, None)
+        spec = (x_spec[0], None, None, None)
     else:
-        w, vaxes = head_weight(params, cfg, ctx.pcfg, mesh)
+        w, vaxes = head_weight(params, cfg, pcfg, mesh)
         logits = x.float() @ w.float()
-        spec = (ctx.x_spec[0], None, None)
+        spec = (x_spec[0], None, None)
     if vaxes:
         logits = _Gather.apply(logits, mesh, vaxes, logits.ndim - 1)
     return tfm.island_out(logits, mesh, spec)
@@ -757,13 +836,26 @@ def _logits_out(params: dict, x: torch.Tensor, cfg: ModelConfig):
     return x.float() @ w.float()
 
 
-def score_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig):
+def head_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig,
+                pcfg: Optional[ParallelConfig] = None, mesh=None,
+                x_spec: Optional[tuple] = None) -> torch.Tensor:
+    """Vocabulary logits f32 at every position of final-norm ``hidden``
+    states (``forward(return_hidden=True)``'s); on a ``mesh``, of this
+    rank's block at ``x_spec``, the whole vocabulary gathered."""
+    if mesh is None:
+        return _logits_out(params, hidden, cfg)
+    return _logits_mesh(params, hidden, cfg, pcfg, mesh, x_spec, False)
+
+
+def score_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig,
+                 pcfg: Optional[ParallelConfig] = None, mesh=None,
+                 x_spec: Optional[tuple] = None):
     """Vocabulary logits (B, S, V) f32 at EVERY position of final-norm
     ``hidden`` states: the multi-position head of the speculative verify
-    step, through the single-row head's ``_logits_out``."""
+    step (``head_logits``)."""
     if cfg.num_codebooks > 1:
         raise ValueError("score_logits does not support codebook heads")
-    return _logits_out(params, hidden, cfg)
+    return head_logits(params, hidden, cfg, pcfg, mesh, x_spec)
 
 
 def forward(params: dict, inputs: dict, cfg: ModelConfig,
@@ -800,18 +892,23 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
     spec of the global (B, S, D) activations
     (``launch.inputs.activation_spec``). The hidden states come back at
     ``x_spec``, the logits with the whole sequence and vocabulary; aux
-    and z are global. Without a mesh nothing changes."""
+    and z are global. A paged cache on a mesh (``init_paged_cache(
+    mesh=)``) holds every page and this rank's K/V heads: the table, the
+    lengths and the recurrent state are the batch block's, and each
+    written K/V row is gathered over the batch axes before the write, so
+    every rank's pools stay alike; the sequence must not be split.
+    Without a mesh nothing changes."""
     if mode not in ("train", "decode", "prefill"):
         raise ValueError(f"forward mode {mode!r}: train | prefill | decode")
     if mesh is not None:
         check_mesh(cfg, pcfg, mesh)
-        if paged is not None:
-            raise NotImplementedError(
-                "the paged cache on a mesh is not ported (ROADMAP.md "
-                "A.5.6)")
         if x_spec is None:
             raise ValueError("a mesh needs x_spec, the activations' "
                              "physical spec")
+        if paged is not None and len(x_spec) > 1 \
+                and mesh.size(as_axes(x_spec[1])) > 1:
+            raise ValueError("the paged cache takes whole sequences: "
+                             "x_spec must not split the sequence")
     train = mode == "train"
     dense_prefill = mode == "prefill" and paged is None
     if train and (cache is not None or paged is not None
@@ -851,7 +948,8 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
     if return_hidden:
         logits = x
     elif mesh is not None:
-        logits = _logits_mesh(params, x, cfg, ctx, mode == "prefill")
+        logits = _logits_mesh(params, x, cfg, pcfg, mesh, ctx.x_spec,
+                              mode == "prefill")
     elif mode == "prefill":
         logits = _logits_out(params, x[:, -1:], cfg)
     else:

@@ -309,11 +309,13 @@ def _dense_ffn_mesh(p: dict, x: torch.Tensor, ctx: Ctx, act) -> torch.Tensor:
 
 def init_moe_ffn(cfg: ModelConfig, dtype, generator, device,
                  quant: Optional[str] = None, plan=None) -> dict:
-    """Router and GLU expert weights. ``quant`` ("int8" | "fp8"): each
-    expert matrix is quantized (``quantize_blockwise``, expert by expert)
-    as soon as it is drawn and its full-precision copy dropped, so at most
-    one full-precision expert matrix exists; the draws are those of the
-    unquantized init, in the same order.
+    """Router and expert weights: GLU (``w_gate``/``w_up``/``w_down``) or,
+    where ``cfg.glu`` is False, MLP experts (``w1``, ``b1`` (E, F), ``w2``,
+    ``b2`` (E, D), the biases f32 zeros, JAX's layout). ``quant`` ("int8"
+    | "fp8"): each expert matrix is quantized (``quantize_blockwise``,
+    expert by expert) as soon as it is drawn and its full-precision copy
+    dropped, so at most one full-precision expert matrix exists; the
+    draws are those of the unquantized init, in the same order.
 
     ``plan``: a ``core.hetero.HeteroPlan``. When its Eq. 2
     ``hidden_splits`` are uneven, the hidden dimension is padded to
@@ -335,8 +337,15 @@ def init_moe_ffn(cfg: ModelConfig, dtype, generator, device,
             f = plan.padded_hidden_size()
             col = torch.from_numpy(hidden_mask(plan)).to(device)
     p = {"router": normal_init((d, e), torch.float32, generator, device)}
-    for name, shape, axis in (("w_gate", (e, d, f), 2), ("w_up", (e, d, f), 2),
-                              ("w_down", (e, f, d), 1)):
+    # (name, shape, the hidden axis or None)
+    leaves = ((("w_gate", (e, d, f), 2), ("w_up", (e, d, f), 2),
+               ("w_down", (e, f, d), 1)) if cfg.glu else
+              (("w1", (e, d, f), 2), ("b1", (e, f), 1), ("w2", (e, f, d), 1),
+               ("b2", (e, d), None)))
+    for name, shape, axis in leaves:
+        if name.startswith("b"):
+            p[name] = torch.zeros(shape, dtype=torch.float32, device=device)
+            continue
         p[name] = normal_init(shape, dtype, generator, device)
         if col is not None:
             view = [1, 1, 1]
@@ -450,16 +459,37 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
         assert ctx.mode == "decode" and s == 1
         return _dense_decode(q, k, v, ctx, cache, p["wo"])
 
+    out = _paged_attend(q, k, v, ctx, cache, window)
+    y = out.reshape(b, s, hq * hd) @ p["wo"]
+    return y, cache
+
+
+def _paged_attend(q, k, v, ctx: Ctx, cache: dict, window,
+                  write_axes=()) -> torch.Tensor:
+    """Paged serving attention over this rank's heads: q (B, S, Hq, hd),
+    k and v (B, S, Hkv, hd) of the call's slots; the K/V rows are written
+    into the pools of ``cache`` in place and the output (B, S, Hq, hd) is
+    returned. ``write_axes``: the mesh axes the batch is split over; the
+    rows, their page ids and offsets are gathered over them before the
+    write, so every rank's pools receive every slot's rows."""
+    cfg = ctx.cfg
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
     page = int(ctx.paged["page_size"])
     table = ctx.paged["table"]                        # (B, maxp) int32
     maxp = table.shape[1]
     k_pool, v_pool = cache["k"], cache["v"]
     k_sc, v_sc = cache.get("k_scale"), cache.get("v_scale")
-    rows = torch.arange(b, device=x.device)
+    rows = torch.arange(b, device=q.device)
 
-    def write(idx, k_rows, v_rows):
-        """K/V rows into the pools at ``idx`` (in place), quantized with
-        their own scales where the pools are int8."""
+    def write(phys, off, k_rows, v_rows):
+        """K/V rows into the pools at (phys, off) (in place), gathered
+        over ``write_axes`` first and quantized with their own scales
+        where the pools are int8."""
+        if write_axes:
+            g = lambda t: ctx.mesh.all_gather(t, write_axes, 0)  # noqa: E731
+            phys, off, k_rows, v_rows = g(phys), g(off), g(k_rows), g(v_rows)
+        idx = (phys, off)
         if k_sc is None:
             k_pool[idx] = k_rows.to(k_pool.dtype)
             v_pool[idx] = v_rows.to(v_pool.dtype)
@@ -475,55 +505,52 @@ def apply_attention(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
         assert s == 1
         active = ctx.decode_active
         if active is None:
-            active = torch.ones(b, dtype=torch.bool, device=x.device)
+            active = torch.ones(b, dtype=torch.bool, device=q.device)
         length = ctx.cache_len
         logical = (length // page).clamp(max=maxp - 1).long()
         phys = torch.where(active, table[rows, logical], 0).long()
         off = (length % page).long()
-        write((phys, off), k[:, 0], v[:, 0])
+        write(phys, off, k[:, 0], v[:, 0])
         lengths = (length + active.int()).to(torch.int32)
-        out = paged_attention(q, k_pool, v_pool, table, lengths,
-                              k_scale=k_sc, v_scale=v_sc, window=window,
-                              softcap=cfg.logit_softcap)
-    elif ctx.mode == "prefill":
-        active = ctx.decode_active                     # (B, S) valid rows
-        if active is None:
-            active = torch.ones((b, s), dtype=torch.bool, device=x.device)
-        pos_abs = ctx.cache_len.long()[:, None] + torch.arange(
-            s, device=x.device)[None]                  # (B, S)
-        logical = (pos_abs // page).clamp(max=maxp - 1)
-        phys = torch.where(active, table[rows[:, None], logical], 0).long()
-        off = pos_abs % page
-        write((phys.reshape(-1), off.reshape(-1)), k.reshape(b * s, hkv, hd),
-              v.reshape(b * s, hkv, hd))
+        return paged_attention(q, k_pool, v_pool, table, lengths,
+                               k_scale=k_sc, v_scale=v_sc, window=window,
+                               softcap=cfg.logit_softcap)
+    active = ctx.decode_active                         # (B, S) valid rows
+    if active is None:
+        active = torch.ones((b, s), dtype=torch.bool, device=q.device)
+    pos_abs = ctx.cache_len.long()[:, None] + torch.arange(
+        s, device=q.device)[None]                      # (B, S)
+    logical = (pos_abs // page).clamp(max=maxp - 1)
+    phys = torch.where(active, table[rows[:, None], logical], 0).long()
+    off = pos_abs % page
+    write(phys.reshape(-1), off.reshape(-1), k.reshape(b * s, hkv, hd),
+          v.reshape(b * s, hkv, hd))
 
-        s_all = maxp * page
-        pt = table.long()
+    s_all = maxp * page
+    pt = table.long()
 
-        def view(pool, sc):
-            if sc is None:
-                return pool[pt].reshape(b, s_all, hkv, hd)
-            return dequantize_rows(pool[pt], sc[pt], dtype=q.dtype).reshape(
-                b, s_all, hkv, hd)
+    def view(pool, sc):
+        if sc is None:
+            return pool[pt].reshape(b, s_all, hkv, hd)
+        return dequantize_rows(pool[pt], sc[pt], dtype=q.dtype).reshape(
+            b, s_all, hkv, hd)
 
-        k_view, v_view = view(k_pool, k_sc), view(v_pool, v_sc)
-        g = hq // hkv
-        qg = q.reshape(b, s, hkv, g, hd)
-        logits = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(),
-                              k_view.float()) * (hd ** -0.5)
-        if cfg.logit_softcap:
-            logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-        kpos = torch.arange(s_all, device=x.device)[None, None]
-        allowed = kpos <= pos_abs[:, :, None]          # causal, absolute
-        if window is not None:
-            allowed &= kpos > pos_abs[:, :, None] - window
-        logits = torch.where(allowed[:, :, None, None, :], logits, NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bqhgk,bkhd->bqhgd",
-                           probs.to(v_view.dtype).float(), v_view.float())
-        out = out.reshape(b, s, hq, hd).to(q.dtype)
-    y = out.reshape(b, s, hq * hd) @ p["wo"]
-    return y, cache
+    k_view, v_view = view(k_pool, k_sc), view(v_pool, v_sc)
+    g = hq // hkv
+    qg = q.reshape(b, s, hkv, g, hd)
+    logits = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(),
+                          k_view.float()) * (hd ** -0.5)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    kpos = torch.arange(s_all, device=q.device)[None, None]
+    allowed = kpos <= pos_abs[:, :, None]              # causal, absolute
+    if window is not None:
+        allowed &= kpos > pos_abs[:, :, None] - window
+    logits = torch.where(allowed[:, :, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bqhgk,bkhd->bqhgd",
+                       probs.to(v_view.dtype).float(), v_view.float())
+    return out.reshape(b, s, hq, hd).to(q.dtype)
 
 
 def heads_shardable(cfg: ModelConfig, tp_size: int) -> bool:
@@ -534,9 +561,12 @@ def heads_shardable(cfg: ModelConfig, tp_size: int) -> bool:
 
 def _attention_mesh(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
                     cache):
-    """``apply_attention`` on a mesh (train, dense prefill and dense
+    """``apply_attention`` on a mesh (train, dense and paged prefill and
     decode); x is this rank's block at ``ctx.x_spec``, the dense cache
-    its block of slots (and of the K/V heads where they split).
+    its block of slots (and of the K/V heads where they split), the paged
+    cache every page with this rank's K/V heads (``lm.paged_cache_specs``):
+    each written row is gathered over x's batch axes before the write
+    (``_paged_attend``), and decode reads through ``paged_attention``.
 
     Heads shardable: x's sequence gathered over "sp" once, q/k/v over this
     rank's heads (the weights' tp column block), ``wo`` row-parallel, its
@@ -580,7 +610,11 @@ def _attention_mesh(p: dict, x: torch.Tensor, ctx: Ctx, layer_idx: int,
         q = attn_lib.rope(q, positions, cfg.rope_theta)
         k = attn_lib.rope(k, positions, cfg.rope_theta)
 
-    if ctx.mode == "decode":
+    if ctx.paged is not None:
+        out = _paged_attend(q, k, v, ctx, cache, window, tuple(
+            a for a in as_axes(ctx.x_spec[0]) if mesh.size(a) > 1))
+        y = out.reshape(b, s, hq_l * hd) @ w["wo"]
+    elif ctx.mode == "decode":
         y, cache = _dense_decode(q, k, v, ctx, cache, w["wo"])
     else:
         if shard or not seq_axes:

@@ -31,6 +31,10 @@ devices in one subprocess, started while the ranks run. Two node meshes,
   overlap schedule's prefill logits bit for bit the eager schedule's,
   the cache's residency bounded by 2 with prefetches and hits, and both
   within 1e-5 x max|ref| of JAX's overlap run on the same mesh.
+* The paged engine (and ``greedy_reference``) on the split (2, 2, 2) mesh
+  streams the flat (2, 4) mesh's tokens (the counterpart of
+  ``tests/test_serve_parity.py::test_hier_topology_serving_token_
+  identical``).
 * The CLIs' ``--topology``, ``--overlap-dispatch`` and serve
   ``--hetero-latencies`` errors, equal to the JAX CLIs' messages; the
   train CLI on 4 ranks with ``--mesh 1,4 --topology`` against the flat
@@ -257,7 +261,46 @@ def _port_rank(rank, tmp):
             logits = mesh.all_gather(logits, x_spec[0], 0)
             out[f"{mkey}/lm/{overlap}"] = (
                 logits.numpy(), dict(lm.LAST_PIPELINE_CACHE_STATS))
+        if mkey == "222":
+            out["paged"] = {
+                "flat": _paged_streams(tree, cfg, flat,
+                                       ParallelConfig(blk=8)),
+                "hier": _paged_streams(tree, cfg, mesh, ParallelConfig(
+                    blk=8, topology=topo))}
     return out if rank == 0 else None
+
+
+def _paged_streams(tree, cfg, mesh, pcfg):
+    """The paged engine's greedy streams on ``mesh`` (4 slots, 4-token
+    pages, chunks of 5, slots refilled) and ``greedy_reference``'s, as
+    ``tests/test_serve_parity.py::test_hier_topology_serving_token_
+    identical`` draws its requests."""
+    from repro_torch.convert import shard_params
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    rng = np.random.default_rng(11)
+    reqs = []
+    for i in range(6):
+        plen = int(rng.integers(2, 14))
+        reqs.append(serve.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size, size=plen).astype(
+                np.int32), max_new=int(rng.integers(1, 6))))
+    params = shard_params(tree, lm.param_specs(cfg, pcfg), pcfg, mesh,
+                          device="cpu")
+    srv = serve.PagedServer(cfg, pcfg, num_slots=4, page_size=4,
+                            num_pages=1 + 4 * 8, max_pages_per_slot=8,
+                            params=params, prefill_chunk=5, device="cpu",
+                            mesh=mesh)
+    for r in reqs:
+        srv.submit(r)
+    with torch.no_grad():
+        done = srv.run()
+        refs = {r.rid: serve.greedy_reference(
+            cfg, pcfg, params, r.prompt, r.max_new, max_seq=32, mesh=mesh)
+            for r in reqs}
+    srv.pool.assert_consistent()
+    return {r.rid: list(r.out) for r in done}, refs
 
 
 @pytest.fixture(scope="module")
@@ -352,6 +395,19 @@ def test_split_model_axis_rank_order(results, mkey):
     (1, 2, 2, 2)."""
     _, port = results
     assert port[mkey + "/order"] is True
+
+
+def test_hier_topology_serving_token_identical(results):
+    """Paged serving on the split mesh (2, 2, 2) streams token for token
+    what the flat (2, 4) mesh streams, and so does the batch-1
+    ``greedy_reference`` on the same meshes: the topology reshapes the
+    collectives, never the tokens (the JAX test of the same name)."""
+    _, port = results
+    (flat, flat_ref), (hier, hier_ref) = (port["paged"]["flat"],
+                                          port["paged"]["hier"])
+    assert len(flat) == 6
+    assert hier == flat
+    assert hier_ref == flat_ref
 
 
 @pytest.mark.parametrize("mkey", list(TOPO))

@@ -22,7 +22,9 @@ on qwen3-moe-30b-a3b's smoke config in its own bf16:
   of the mesh-less serve CLI, and the prefetch cache's line;
 * the flag errors: what JAX's train CLI refuses with an argparse error
   the port's refuses too, and a mesh of several ranks in one process
-  raises naming ``torchrun``; ``--mesh 1,1`` runs in one process.
+  raises naming ``torchrun``; ``--mesh 1,1`` runs in one process, the
+  paged engine's streams (``--paged --prefix-cache --disagg``) those of
+  the mesh-less paged engine.
 """
 import contextlib
 import io
@@ -297,8 +299,12 @@ def test_cli_mesh_errors_and_one_rank_mesh():
                     "cpu", "--mesh", "2,2"])
     with pytest.raises(SystemExit):
         serve.main(SERVE + ["--mesh", "1,1", "--quant", "int8"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5.6"):
-        serve.main(SERVE + ["--mesh", "1,1", "--paged"])
+    # the paged engine on a 1-rank mesh streams what it streams without
+    paged = ["--paged", "--page-size", "4", "--prefix-cache", "--disagg"]
+    on_mesh = serve.main(SERVE + ["--mesh", "1,1"] + paged)
+    plain = serve.main(SERVE + paged)
+    assert {r.rid: r.out for r in on_mesh} == {r.rid: r.out for r in plain}
+    assert len(on_mesh) == 5 and all(len(r.out) == 4 for r in on_mesh)
     log = train.main(["--arch", ARCH, "--smoke", "--steps", "1",
                       "--global-batch", "2", "--seq-len", "16", "--device",
                       "cpu", "--mesh", "1,1,1", "--mode", "data_centric"])

@@ -27,9 +27,9 @@ Weights: JAX's init of the f32 smoke configs
 * token ids outside the vocabulary read the rows JAX's gather reads
   (wrapped once if negative, then clamped), through the
   vocabulary-parallel embedding on the mesh;
-* the refusals: recurrent mixers, cross-attention, frontends and codebook
-  heads on a mesh, the paged engine on a mesh, the "node" axis and
-  ``overlap_dispatch`` raise ``NotImplementedError`` naming ROADMAP.md.
+* what the steps take on a mesh: every model part, the paged engine's
+  steps, the "node" axis and ``overlap_dispatch``; router statistics and
+  the "ep" mode on a node mesh stay refused.
 """
 import os
 import subprocess
@@ -401,6 +401,9 @@ class _FakeMesh:
 
         return int(np.prod([self.shape[a] for a in as_axes(axes)]))
 
+    def index(self, axes):
+        return 0
+
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m",
                                   "musicgen-large", "paligemma-3b"])
@@ -425,30 +428,43 @@ def test_model_parts_on_a_mesh_are_refused(arch):
 
 
 def test_paged_engine_node_axis_and_overlap_on_a_mesh_are_refused():
-    """The paged engine on a mesh stays refused (ROADMAP.md A.5.6). A
-    "node" axis and ``overlap_dispatch`` build the dense steps now; on a
-    node mesh only the "ep" mode is refused, as JAX's is."""
+    """The paged engine's steps build on a mesh, a "node" mesh and with
+    ``overlap_dispatch`` (``test_torch_mesh_paged.py`` runs them); so do
+    the dense steps. What stays refused: the "ep" mode on a node mesh, as
+    JAX's is, and a paged forward whose sequence is split."""
     from repro_torch.launch import steps
-    from repro_torch.launch.serve import PagedServer
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import ParallelConfig
 
     cfg = _cfg(QWEN)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5.6"):
-        PagedServer(cfg, ParallelConfig(), num_slots=2, page_size=4,
-                    num_pages=8, max_pages_per_slot=4, params={},
-                    device="cpu", mesh=_FakeMesh())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5.6"):
+    node = _FakeMesh(("data", "node", "model"))
+    for m in (_FakeMesh(), node):
+        steps.make_paged_serve_step(cfg, ParallelConfig(), 4, mesh=m,
+                                    num_slots=4)
+        steps.make_paged_prefill_step(cfg, ParallelConfig(), 4, mesh=m,
+                                      num_slots=4)
+        steps.make_paged_score_step(cfg, ParallelConfig(), 4, mesh=m)
+        steps.make_paged_handoff_step(cfg, ParallelConfig(), mesh=m,
+                                      num_slots=4)
+    with pytest.raises(ValueError, match="num_slots"):
+        steps.make_paged_serve_step(cfg, ParallelConfig(), 4,
+                                    mesh=_FakeMesh())
+    with pytest.raises(ValueError, match="whole sequences"):
         lm.forward({}, {"tokens": torch.zeros(1, 1, dtype=torch.int32)},
                    cfg, ParallelConfig(), mode="decode", mesh=_FakeMesh(),
-                   x_spec=(None, None, None),
+                   x_spec=(None, "model", None),
                    paged={"table": None, "page_size": 4})
-    node = _FakeMesh(("data", "node", "model"))
     steps.make_serve_step(cfg, ParallelConfig(), mesh=node,
                           batch_shape3=(4, 1, 64))
     with pytest.raises(NotImplementedError, match="two-level \\(node\\)"):
         steps.make_serve_step(cfg, ParallelConfig(mode="ep"), mesh=node,
                               batch_shape3=(4, 1, 64))
+    with pytest.raises(NotImplementedError, match="two-level \\(node\\)"):
+        steps.make_paged_serve_step(cfg, ParallelConfig(mode="ep"), 4,
+                                    mesh=node, num_slots=4)
     steps.make_serve_step(cfg, ParallelConfig(overlap_dispatch=True,
                                               cache_layers=2),
                           mesh=_FakeMesh(), batch_shape3=(4, 1, 64))
+    steps.make_paged_serve_step(cfg, ParallelConfig(overlap_dispatch=True,
+                                                    cache_layers=2), 4,
+                                mesh=_FakeMesh(), num_slots=4)

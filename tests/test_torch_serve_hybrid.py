@@ -20,10 +20,9 @@ interpret mode:
 * the prefix cache and speculation refused with JAX's messages;
 * ``make_prefill_step`` (the chunked scans) against JAX's: last logits
   within 1e-4 and the final recurrent state within 1e-5 x max|ref|;
-* what the port supports, trains and serves (``check_supported``,
-  ``check_trainable``, ``check_servable``): every LM configuration trains,
-  the engines refuse the frontend families, the MLP-experts graft stays
-  refused.
+* what the port trains and serves: every LM configuration trains, the
+  MLP-experts graft too; the engines (``check_servable``) take every
+  configuration but musicgen-large's EnCodec frames and codebook heads.
 
 The four dense decoders (gemma-2b, phi3-medium-14b, starcoder2-15b,
 gemma3-12b) on their f32 smoke configs: forward logits within 1e-4 of
@@ -158,31 +157,26 @@ def _assert_cache_equal(tc, jc, cfg_t):
 # ---------------------------------------------------------------------------
 
 def test_check_supported_and_the_train_path():
-    """Every LM configuration is supported and trains; the serving
-    engines refuse the frontend families; the MLP-experts graft stays
-    refused everywhere."""
-    for arch in HYBRID + DENSE + ["paligemma-3b", "musicgen-large",
-                                  "qwen3-moe-30b-a3b", "mixtral-8x7b"]:
-        cfg = tcfglib.get_config(arch)
-        tlm.check_supported(cfg)
-        tlm.check_trainable(cfg)
-    for arch in HYBRID + DENSE:
+    """Every LM configuration builds its train step, the MLP-experts graft
+    too; the serving engines take every configuration but musicgen-large
+    (``check_servable``)."""
+    for arch in HYBRID + DENSE + ["paligemma-3b", "qwen3-moe-30b-a3b",
+                                  "mixtral-8x7b"]:
         tlm.check_servable(tcfglib.get_config(arch))
-    for arch in ("paligemma-3b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
-            tlm.check_servable(tcfglib.get_config(arch))
+    with pytest.raises(NotImplementedError, match="token prompts and one"):
+        tlm.check_servable(tcfglib.get_config("musicgen-large"))
     cfg_m = dataclasses.replace(tcfglib.get_smoke_config("musicgen-large"),
                                 dtype="float32")
     params_m = tlm.init_params(
         cfg_m, generator=torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="EnCodec frames"):
         tserve.BatchedServer(cfg_m, TPCFG, num_slots=2, max_seq=16,
                              params=params_m, device="cpu")
     graft = dataclasses.replace(tcfglib.get_smoke_config("qwen3-moe-30b-a3b"),
                                 glu=False)
-    for check in (tlm.check_supported, tlm.check_trainable):
-        with pytest.raises(NotImplementedError, match="MLP experts"):
-            check(graft)
+    tlm.check_servable(graft)
+    for cfg in (graft, cfg_m):
+        tsteps.make_train_step(cfg, TPCFG, tadamw.OptimizerConfig())
     _, cfg_t, _, _ = _models("jamba-1.5-large-398b")
     tsteps.make_train_step(cfg_t, TPCFG, tadamw.OptimizerConfig())
     for arch in ("xlstm-350m", "gemma-2b"):
