@@ -264,6 +264,26 @@ The serve phases' weights are then freed, and the training slice runs:
    just before and read just after, phase 8's launches exactly, all on
    wgmma, every loss finite; each mode's step median beside phase 8's.
 
+F. The fault-tolerant train loop, through the train CLI's ``main`` in
+   this process (``ft_train_phase``): qwen3-moe-30b-a3b at full width cut
+   to ``FT_DEPTH`` layer (17.4 GB of bf16 weights, f32 masters and
+   moments), phase 8's settings, ``FT_STEPS`` steps. Run (a) saves once
+   (``--save-every 4``); run (b) saves every 2 steps with
+   ``FTConfig.keep`` 1, and a ``train.step`` error at call
+   ``FT_FAULT_AT`` makes it restore step 2 and replay; both write
+   ``--metrics``, ``--trace-out`` and ``--events-out``. (b)'s losses and
+   its step-4 checkpoint's crc32 list (every leaf of the final state)
+   must equal (a)'s (both under ``torch.use_deterministic_algorithms``:
+   without it the combine's bf16 ``index_add_`` makes two unfaulted runs
+   differ from step 1); (b) records one recovery and the event
+   ``train.recover``; exactly 2/5/3 ``esffn_glu``/``esmm``/``estmm`` a
+   step that ran, on wgmma. The checkpoints go to a temporary directory
+   under ``build/`` (removed at the end), whose free bytes must hold two
+   checkpoints. Printed: the state's bytes, the D2H snapshot's ms
+   (training blocked), the background write's and the restore's s, the
+   step median with and without a write in flight, the span coverage and
+   the event kinds.
+
 The qwen training state is then freed, and phase L runs the MoE LM on a
 1-rank NCCL mesh (``launch.mesh.single_rank_nccl``, ``make_mesh((1, 1,
 1), ("pod", "data", "model"))``, every communicator made before anything
@@ -510,6 +530,7 @@ import collections
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -559,8 +580,9 @@ SPEC_SERVE_PAIRS = 1
 # 5's 48 bf16 layers.
 PREFIX_PAGE, PREFIX_SHARED = 16, 64
 PREFIX_REF_REQUESTS, PREFIX_REF_SLOTS = 6, 3
-# PREFIX_NEW 8, to hold the script's time as the mesh phases grew
-PREFIX_SERVE_REQUESTS, PREFIX_OWN, PREFIX_NEW = 16, 8, 8
+# PREFIX_NEW 8 and 10 requests (the second wave of the 8 slots cut to 2),
+# to hold the script's time as the mesh phases and phase F grew
+PREFIX_SERVE_REQUESTS, PREFIX_OWN, PREFIX_NEW = 10, 8, 8
 # Phase 8q: quantization-aware training on phase 8's state, one warm-up
 # and QAT_STEPS timed steps a mode; 7q holds it to the CPU at phase 7's
 # size with phase 7's limits.
@@ -568,6 +590,9 @@ QAT_MODES = ("int8", "fp8")
 QAT_STEPS = 2
 TRAIN_DEPTH = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
+# Phase F, the fault-tolerant train loop: one full-width qwen3 layer (17.4
+# GB of state, three checkpoints written), 4 steps, a step error at call 3
+FT_DEPTH, FT_STEPS, FT_FAULT_AT = 1, 4, 3
 # Swin: the f32 kernels sum in another order than the plain versions'
 # cuBLAS products (TF32 off): 1e-4 x max|plain| as ESFFN_TOL in f32.
 SWIN_KERNEL_TOL = 1e-4
@@ -2086,6 +2111,228 @@ def qat_train_phase(torch, cfg, pcfg, opt_cfg, run, first_step, plain_med):
 # ---------------------------------------------------------------------------
 # phases 7h, 7f, 8j, 8x, 8p, 8m: training every LM family
 # ---------------------------------------------------------------------------
+
+def _ft_state_bytes(torch, cfg):
+    """Bytes of the train state of ``cfg`` as the train CLI holds it: the
+    parameters, an f32 master for each non-f32 floating leaf, f32 m and
+    v, the step count (a checkpoint's leaves)."""
+    from repro_torch.common import tree_leaves
+    from repro_torch.models import lm
+
+    meta = lm.init_params(cfg, generator=torch.Generator(), device="meta")
+    total = 4
+    for t in tree_leaves(meta):
+        n = t.numel()
+        total += n * (t.element_size() + 8)
+        if t.is_floating_point() and t.dtype != torch.float32:
+            total += 4 * n
+    return total
+
+
+def _ft_spans(events, name):
+    return [e for e in events if e["ph"] == "X" and e["name"] == name]
+
+
+def _ft_run(torch, train, obs, argv, keep, d, tag):
+    """One train CLI run of phase F in this process; its log, wall time,
+    spans, event kinds, recoveries, span coverage and the step-4
+    checkpoint's crc32 list."""
+    paths = {k: os.path.join(d, f"{tag}.{k}")
+             for k in ("prom", "trace.json", "events.jsonl")}
+    t0 = time.perf_counter()
+    log = train.main(argv + ["--ckpt-dir", os.path.join(d, tag),
+                             "--metrics", paths["prom"],
+                             "--trace-out", paths["trace.json"],
+                             "--events-out", paths["events.jsonl"]],
+                     keep=keep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = list(obs.tracer.events)
+    fam = obs.registry.families.get("repro_ft_recoveries_total")
+    with open(os.path.join(d, tag, f"step_{FT_STEPS:08d}",
+                           "manifest.json")) as f:
+        crcs = json.load(f)["crc32"]
+    return {"log": log, "wall_s": wall, "events": events,
+            "kinds": [r["kind"] for r in obs.events.records],
+            "recoveries": 0 if fam is None else int(fam.labels().value),
+            "coverage": obs.span_coverage(events), "crc32": crcs}
+
+
+def ft_train_phase(torch, deterministic=True):
+    """Phase F: the fault-tolerant train loop, through the train CLI
+    (``repro_torch.launch.train.main``) in this process:
+    qwen3-moe-30b-a3b at full width cut to ``FT_DEPTH`` layer, phase 8's
+    bf16, AdamW and ``remat="block"``, ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens. Run (a): ``FT_STEPS`` steps, ``--save-every 4`` (one
+    checkpoint). Run (b): ``--save-every 2``, ``FTConfig.keep`` 1 and a
+    ``train.step`` error at call ``FT_FAULT_AT``: it restores step 2 and
+    replays. Both take ``--metrics``, ``--trace-out`` and ``--events-out``.
+    (b)'s per-step losses must equal (a)'s and the two step-4 checkpoints'
+    crc32 lists must be equal, leaf by leaf (the final states, bit for
+    bit). The free bytes of the checkpoint directory (a temporary one
+    under the git-ignored ``build/``, removed at the end) must hold two
+    checkpoints; (a)'s is removed before (b) starts. The expert kernels'
+    counts are set to 0 just before (a) and read just after (b): 2/5/3
+    ``esffn_glu``/``esmm``/``estmm`` a layer a step that ran, on wgmma.
+    Both runs train under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` (``deterministic``): without it the bf16
+    ``index_add_`` of the MoE combine and of its dX adds a token's rows
+    in the atomics' order, and two unfaulted runs already differ at step
+    1's loss. Returns (launches, routes, result)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs as cfglib
+    from repro_torch import obs
+    from repro_torch.kernels import esffn, esmm, estmm
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfglib.get_config("qwen3-moe-30b-a3b"),
+                              num_layers=FT_DEPTH)
+    state_bytes = _ft_state_bytes(torch, cfg)
+    need = 2 * state_bytes
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="ft_ckpt_", dir=ROOT / "build")
+    fns = (esffn.esffn_glu, esmm.esmm, estmm.estmm)
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        free = shutil.disk_usage(d).free
+        print(f"[train-ft] checkpoint directory {d}: {free / 1e9:.1f} GB "
+              f"free, {need / 1e9:.1f} GB needed (two checkpoints of "
+              f"{state_bytes / 1e9:.2f} GB while the newer is written)")
+        if free < need:
+            raise RuntimeError(
+                f"phase F: {free / 1e9:.1f} GB free under {d}, "
+                f"{need / 1e9:.1f} GB needed for two checkpoints")
+        base = ["--arch", "qwen3-moe-30b-a3b", "--layers", str(FT_DEPTH),
+                "--steps", str(FT_STEPS), "--global-batch", str(TRAIN_BATCH),
+                "--seq-len", str(TRAIN_SEQ), "--lr", "3e-4", "--warmup",
+                "20", "--device", "cuda"]
+        fault = json.dumps({"faults": [{"site": "train.step",
+                                        "kind": "error",
+                                        "at": FT_FAULT_AT}]})
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        for fn in fns:
+            fn.launches = 0
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        a = _ft_run(torch, train, obs, base + ["--save-every", "4"], None,
+                    d, "a")
+        shutil.rmtree(os.path.join(d, "a"))      # room for (b)'s two
+        _release(torch)
+        b = _ft_run(torch, train, obs, base + ["--save-every", "2",
+                                               "--fault-spec", fault], 1,
+                    d, "b")
+        launches = {"esffn_glu": esffn.esffn_glu.launches,
+                    "esmm": esmm.esmm.launches, "estmm": estmm.estmm.launches}
+        routes = {"esffn_glu": dict(esffn.esffn_glu.launches_by_route),
+                  "esmm": dict(esmm.esmm.launches_by_route),
+                  "estmm": dict(estmm.estmm.launches_by_route)}
+        left = sorted(os.listdir(os.path.join(d, "b")))
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        shutil.rmtree(d, ignore_errors=True)
+        obs.configure(metrics=False, tracing=False, event_log=False,
+                      reset=True)
+    by_a = {m["step"]: m["loss"] for m in a["log"]}
+    by_b = {m["step"]: m["loss"] for m in b["log"]}
+    steps_b = [m["step"] for m in b["log"]]
+    if steps_b != [1, 2, 3, 3, 4] or left != [f"step_{FT_STEPS:08d}"]:
+        raise AssertionError(f"train_ft: run (b) logged steps {steps_b}, "
+                             f"left {left}")
+    if b["recoveries"] != 1 or b["kinds"] != ["train.recover"] \
+            or a["kinds"] or a["recoveries"]:
+        raise AssertionError(f"train_ft: recoveries {a['recoveries']}/"
+                             f"{b['recoveries']}, events {a['kinds']}/"
+                             f"{b['kinds']}")
+    differ = [i for i, (x, y) in enumerate(zip(a["crc32"], b["crc32"]))
+              if x != y]
+    if by_a != by_b or differ or len(a["crc32"]) != len(b["crc32"]):
+        names = _ft_leaf_names(torch, cfg)
+        raise AssertionError(
+            f"train_ft: run (b) is not run (a) bit for bit: losses "
+            f"{by_a} vs {by_b}; {len(differ)} leaves differ: "
+            f"{[names[i] for i in differ[:12]]}")
+    snap = [e["dur"] for e in _ft_spans(b["events"], "ckpt.snapshot")]
+    writes = [(e["t"], e["t"] + e["dur"])
+              for e in _ft_spans(b["events"], "ckpt.write")]
+    restore = [e["dur"] for e in _ft_spans(b["events"], "ckpt.restore")]
+    # step spans: each run's first (warm-up) and (b)'s faulted call left out
+    steps_busy, steps_quiet = [], []
+    for r in (a, b):
+        spans = _ft_spans(r["events"], "train.step")
+        if r is b:
+            del spans[FT_FAULT_AT]
+        for e in spans[1:]:
+            lo, hi = e["t"], e["t"] + e["dur"]
+            (steps_busy if any(lo < w1 and w0 < hi for w0, w1 in writes)
+             else steps_quiet).append(e["dur"])
+    res = {
+        "layers": FT_DEPTH, "state_bytes": state_bytes,
+        "deterministic_algorithms": deterministic,
+        "losses": [by_a[k] for k in sorted(by_a)],
+        "final_state_crc32_equal": True, "leaves": len(a["crc32"]),
+        "snapshot_ms": [x * 1e3 for x in snap],
+        "snapshot_gb_per_s": [state_bytes / x / 1e9 for x in snap],
+        "write_s": [w1 - w0 for w0, w1 in writes],
+        "write_a_s": [e["dur"] for e in _ft_spans(a["events"], "ckpt.write")],
+        "restore_s": restore,
+        "step_median_ms_quiet": statistics.median(steps_quiet) * 1e3,
+        "step_median_ms_write_in_flight": (
+            statistics.median(steps_busy) * 1e3 if steps_busy else None),
+        "steps_quiet": len(steps_quiet), "steps_write_in_flight":
+            len(steps_busy),
+        "recoveries": b["recoveries"], "span_coverage": {
+            "a": a["coverage"], "b": b["coverage"]},
+        "event_kinds": {"a": a["kinds"], "b": b["kinds"]},
+        "wall_s": {"a": a["wall_s"], "b": b["wall_s"]},
+        "launches": launches, "launches_by_route": routes,
+        "seconds": time.perf_counter() - t_phase}
+    print(f"[train-ft] state {state_bytes / 1e9:.3f} GB; D2H snapshot "
+          f"{', '.join(f'{x:.0f}' for x in res['snapshot_ms'])} ms "
+          f"(training blocked); background write "
+          f"{', '.join(f'{x:.1f}' for x in res['write_s'])} s; restore "
+          f"{', '.join(f'{x:.1f}' for x in restore)} s; step median "
+          f"{res['step_median_ms_quiet']:.1f} ms without a write in flight "
+          f"({len(steps_quiet)} steps), "
+          f"{res['step_median_ms_write_in_flight'] or float('nan'):.1f} ms "
+          f"with one ({len(steps_busy)}); recoveries {b['recoveries']}; "
+          f"span coverage {a['coverage']:.3f}/{b['coverage']:.3f}; events "
+          f"{res['event_kinds']}; losses and final state of (b) equal "
+          f"(a)'s bit for bit; launches {launches}; "
+          f"{res['seconds']:.1f}s")
+    # (a)'s steps, then (b)'s up to the faulted call and its replay from
+    # the step-2 checkpoint
+    ran = FT_STEPS + FT_FAULT_AT + FT_STEPS - 2
+    want = {k: v * FT_DEPTH * ran for k, v in
+            {"esffn_glu": 2, "esmm": 5, "estmm": 3}.items()}
+    if launches != want:
+        raise AssertionError(f"train_ft: launches {launches}, expected "
+                             f"{want} ({ran} steps)")
+    idle = {"esffn_glu": ("stream",), "esmm": ("simt", "mma_tf32x3"),
+            "estmm": ("simt", "mma_tf32x3")}
+    want_routes = {k: {**dict.fromkeys(idle[k], 0), "wgmma": want[k]}
+                   for k in routes}
+    if routes != want_routes:
+        raise AssertionError(f"train_ft: routes {routes}, expected "
+                             f"{want_routes}")
+    return launches, routes, res
+
+
+def _ft_leaf_names(torch, cfg):
+    """The dotted names of the train state's checkpoint leaves, in their
+    order (None masters left out)."""
+    from repro_torch.common import tree_map
+    from repro_torch.models import lm
+
+    p = lm.init_params(cfg, generator=torch.Generator(), device="meta")
+    master = tree_map(lambda t: t if t.is_floating_point()
+                      and t.dtype != torch.float32 else None, p)
+    state = {"params": p, "opt": {"m": p, "v": p, "master": master,
+                                  "step": 0}}
+    return [n for n, t in _named_leaves(state) if t is not None]
+
 
 def _family_batch(cfg, batch, seq, seed):
     """The train CLI's batch of ``cfg`` (``train.frontend_batch``, numpy):
@@ -7265,6 +7512,9 @@ def main() -> int:
     train_launches, train_out = train_phase(torch)
     print(f"[train] {json.dumps({**train_out, 'reference': train_ref, 'reference_qat': qat_ref, 'reference_bf16': bf16_ref})}")
     _release(torch)               # the qwen training state is gone
+    ft_launches, ft_routes, ft_res = ft_train_phase(torch)
+    print(f"[train-ft] {json.dumps(ft_res)}")
+    _release(torch)
     lm_mesh_paths, lm_mesh_res = lm_mesh_phase(torch, train_ref, train_out)
     print(f"[lm-mesh] {json.dumps(lm_mesh_res)}")
     _release(torch)
@@ -7331,7 +7581,8 @@ def main() -> int:
     # the dense serve runs, the speculative one and the prefix-sharing and
     # disaggregated ones (phases 5, 5s, 5p), the qwen train steps and the
     # QAT steps (phases 8, 8q), the Swin train steps and the
-    # unfused-backward pass (phase 11), the Jamba layout's training
+    # unfused-backward pass (phase 11), the fault-tolerant train loop's
+    # runs (phase F), the Jamba layout's training
     # (phases 7h, 8j), the paged engine on the mesh (phase P).
     qat_paths = {f"qwen_qat_{m}": r["launches"]
                  for m, r in train_out["qat"].items()}
@@ -7342,7 +7593,8 @@ def main() -> int:
         for tag, r in hybrid_serve.items() for kind in ("paged", "dense")})
     jamba_train = {"jamba_train_7h": family_ref["7h"]["jamba-1.5-large-398b"],
                    "jamba_train_8j": family_train["8j"]}
-    paths = {**serve_launches, "qwen_train": train_launches, **qat_paths,
+    paths = {**serve_launches, "qwen_train": train_launches,
+             "train_ft": ft_launches, **qat_paths,
              **swin_launches, **hybrid_paths,
              **{p: r["launches"] for p, r in jamba_train.items()},
              **mesh_launches, **hetero_launches,
@@ -7360,6 +7612,7 @@ def main() -> int:
                    "serve_spec": serve_res["spec_launches_by_route"],
                    **serve_res["prefix_launches_by_route"],
                    "qwen_train": train_out["launches_by_route"],
+                   "train_ft": ft_routes,
                    **{f"qwen_qat_{m}": r["launches_by_route"]
                       for m, r in train_out["qat"].items()},
                    **swin_out["launches_by_route"],

@@ -43,34 +43,54 @@ from repro_torch.parallel.sharding import as_axes
 
 class Mesh:
     """The ranks of the job on named axes, with a process group for each
-    tuple of axes (in mesh order)."""
+    tuple of axes (in mesh order). ``ranks`` (row-major over ``shape``)
+    are the global ranks the mesh holds: the whole job by default, or
+    the survivors of an elastic shrink (``runtime.elastic.make_mesh``),
+    whose groups every rank of the job takes part in creating; a rank
+    outside ``ranks`` holds no group and calls no collective on it."""
 
     def __init__(self, device_mesh, axis_names: Sequence[str],
-                 shape: Sequence[int]):
+                 shape: Sequence[int], *, ranks: Optional[Sequence[int]] = None,
+                 device_type: Optional[str] = None):
         self.device_mesh = device_mesh
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
-        self.device_type = device_mesh.device_type
-        self._coords = dict(zip(self.axis_names,
-                                device_mesh.get_coordinate()))
-        self._groups = {}
-        rank = dist.get_rank()
         dims = list(self.shape.values())
-        grid = torch.arange(dist.get_world_size()).reshape(dims)
+        self.ranks = (list(range(dist.get_world_size())) if ranks is None
+                      else [int(r) for r in ranks])
+        if len(self.ranks) != self.size(self.axis_names):
+            raise ValueError(f"mesh {tuple(dims)} needs "
+                             f"{self.size(self.axis_names)} ranks, got "
+                             f"{len(self.ranks)}")
+        self.device_type = (device_mesh.device_type if device_mesh is not None
+                            else device_type)
+        rank = dist.get_rank()
+        grid = torch.tensor(self.ranks).reshape(dims)
+        hit = (grid == rank).nonzero().tolist()
+        self._coords = (dict(zip(self.axis_names, hit[0])) if hit else None)
+        self._groups = {}
         # every rank creates every group, in the same order (new_group is
         # collective over the world)
         for r in range(1, len(dims) + 1):
             for sub in itertools.combinations(range(len(dims)), r):
                 axes = tuple(self.axis_names[i] for i in sub)
-                if r == 1:
+                if r == 1 and device_mesh is not None:
                     self._groups[axes] = device_mesh.get_group(axes[0])
                     continue
                 rest = [i for i in range(len(dims)) if i not in sub]
                 moved = grid.permute(*rest, *sub).reshape(-1, self.size(axes))
-                for ranks in moved.tolist():
-                    g = dist.new_group(ranks)
-                    if rank in ranks:
+                for members in moved.tolist():
+                    g = dist.new_group(members)
+                    if rank in members:
                         self._groups[axes] = g
+
+    def member(self) -> bool:
+        """Whether this rank is on the mesh."""
+        return self._coords is not None
+
+    def is_first(self) -> bool:
+        """Whether this rank is the mesh's first (its writer and printer)."""
+        return dist.get_rank() == self.ranks[0]
 
     def size(self, axes) -> int:
         """Ranks in a group of ``axes`` (a name or a tuple; 1 for ())."""
@@ -142,11 +162,19 @@ class Mesh:
         return out
 
     def broadcast0(self, x: torch.Tensor) -> torch.Tensor:
-        """Rank 0's ``x`` on every rank of the mesh (in place; ``x`` is
-        returned)."""
-        if dist.get_world_size() > 1:
-            dist.broadcast(x, src=0, group=self.group(self.axis_names))
+        """The mesh's first rank's ``x`` on every rank of the mesh (in
+        place; ``x`` is returned)."""
+        if len(self.ranks) > 1:
+            dist.broadcast(x, src=self.ranks[0],
+                           group=self.group(self.axis_names))
         return x
+
+    def barrier(self) -> None:
+        """Every rank of the mesh waits for all of them: a one-element
+        all-reduce read back on the host (NCCL's barrier would need the
+        device of each rank)."""
+        dev = "cuda" if self.device_type == "cuda" else "cpu"
+        self.all_reduce(torch.zeros(1, device=dev), self.axis_names).item()
 
     def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Block i of dim 0 goes to member i; block j of the result came

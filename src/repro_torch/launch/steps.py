@@ -25,6 +25,7 @@ are whole on every rank (``lm.paged_cache_specs``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -557,3 +558,22 @@ def sharded_opt_state(params, opt_cfg: adamw.OptimizerConfig) -> dict:
     """The AdamW state of a rank's parameter shards: the moments and f32
     masters inherit the shards, and the step count is replicated."""
     return adamw.init_opt_state(params, opt_cfg)
+
+
+def wrap_step_with_faults(step_fn, site: str):
+    """The chaos wrapper of a step callable (DESIGN.md §9):
+    ``faults.inject(site)`` runs before every call (raising for the
+    ``error``/``device_drop`` kinds, sleeping for ``delay``) and the step
+    is entered only if no fault fires. The port's steps are eager, so it
+    simply wraps the callable; the drivers wrap outside the
+    ``PlanCache``, as the JAX package's do, so the hook is never cached
+    with the step. With no installed plan it adds one attribute read a
+    step."""
+    from repro_torch.runtime import faults as faults_lib
+
+    @functools.wraps(step_fn)
+    def wrapped(*args, **kwargs):
+        faults_lib.inject(site)
+        return step_fn(*args, **kwargs)
+
+    return wrapped

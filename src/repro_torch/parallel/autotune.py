@@ -34,6 +34,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
@@ -600,6 +602,22 @@ def _tp_group_size(cfg, mesh) -> int:
     return size
 
 
+def _record_mode(mode: str, source: str, cost_s=None) -> str:
+    """Publish a layer-mode decision and pass it through. The port decides
+    at every forward (eager), so the counter counts forwards, where the
+    JAX package's counts traces."""
+    obs.registry.counter(
+        "repro_autotune_mode_total",
+        "per-layer parallel-mode decisions, by mode and decision source",
+        labels=("mode", "source")).labels(mode, source).inc()
+    if cost_s is not None:
+        obs.registry.gauge(
+            "repro_autotune_predicted_latency_seconds",
+            "roofline-predicted layer latency for the chosen mode",
+            labels=("mode",)).labels(mode).set(float(cost_s))
+    return mode
+
+
 def resolve_layer_mode(
     tokens: int,
     *,
@@ -630,11 +648,11 @@ def resolve_layer_mode(
     data-centric — the per-node weight staging amortises the slow links.
     """
     if cfg.forced_layer_mode is not None:
-        return cfg.forced_layer_mode
+        return _record_mode(cfg.forced_layer_mode, "forced")
     if cfg.layer_mode_plan and layer_idx is not None:
         planned = cfg.layer_mode_plan[layer_idx % len(cfg.layer_mode_plan)]
         if planned is not None:
-            return planned
+            return _record_mode(planned, "plan")
     from repro_torch.quant.core import quant_bits
 
     topo = getattr(cfg, "topology", None)
@@ -661,7 +679,8 @@ def resolve_layer_mode(
             )
             for m in CHOOSABLE_MODES
         }
-        return min(costs, key=costs.get)
+        best = min(costs, key=costs.get)
+        return _record_mode(best, "roofline_uneven", cost_s=costs[best])
     if cfg.device_latencies:
         lat = list(cfg.device_latencies)
         # Exactly one latency per group member: use them directly. A shorter
@@ -672,8 +691,8 @@ def resolve_layer_mode(
             n_dev = effective_devices(lat)
         else:
             n_dev = n_dev * effective_devices(lat) / len(lat)
-    return choose_mode(tokens, d, f, e, k, n_dev=n_dev, hw=hw,
-                       weight_bits=bits)
+    return _record_mode(choose_mode(tokens, d, f, e, k, n_dev=n_dev, hw=hw,
+                                    weight_bits=bits), "roofline")
 
 
 def plan_layer_modes(model_cfg, cfg, mesh, tokens: int) -> Tuple[Optional[str], ...]:

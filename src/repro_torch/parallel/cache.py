@@ -24,6 +24,17 @@ from typing import Any, Callable, Dict, Hashable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
+
+
+class _Snapshot:
+    """``obs_metrics()`` from ``stats()``: one ``repro_cache_<stat>`` gauge
+    per entry for the observability registry (DESIGN.md §12), told apart
+    across cache kinds by the registry's ``kind`` label."""
+
+    def obs_metrics(self) -> Dict[str, float]:
+        return {f"repro_cache_{k}": float(v) for k, v in self.stats().items()}
+
 
 def tree_bytes(tree: Any) -> int:
     """Bytes of every tensor in a tree of dicts, lists and tuples."""
@@ -36,7 +47,7 @@ def tree_bytes(tree: Any) -> int:
     return 0
 
 
-class PipelineSharedCache:
+class PipelineSharedCache(_Snapshot):
     """Bounded FIFO cache of gathered parameter trees.
 
     capacity_layers: maximum simultaneously-resident gathered layers. 2 is
@@ -55,6 +66,7 @@ class PipelineSharedCache:
         self.evictions = 0
         self.peak_resident_layers = 0
         self.peak_resident_bytes = 0
+        obs.maybe_register(self)
 
     def fetch(self, key: Hashable, gather_fn: Callable[[], Any]) -> Any:
         """Return the gathered tree for ``key``, gathering on a miss."""
@@ -189,7 +201,7 @@ def gathered_layer_bytes(d: int, f: int, e: int, *, glu: bool = True,
     return total
 
 
-class PagePool:
+class PagePool(_Snapshot):
     """Free-list allocator + copy-on-write refcounts + residency accounting
     over ``num_pages`` physical pages.
 
@@ -492,7 +504,7 @@ class _TrieNode:
         self.last_used = 0
 
 
-class PrefixIndex:
+class PrefixIndex(_Snapshot):
     """Radix prefix index keyed on token ids at page granularity: admission
     matches the longest cached prefix of a prompt against whole pages
     already resident in the pool and maps them into the new slot's page

@@ -1,13 +1,22 @@
 """Deterministic fault injection: the chaos substrate (counterpart of
-``repro.runtime.faults``, its serving half).
+``repro.runtime.faults``; DESIGN.md §9).
 
 A ``FaultPlan`` is a seedable script of faults keyed to named injection
-**sites** the engines call through ``inject(site)``: with no plan installed
-that is one attribute read. The same plan fires at the same calls as the
-JAX package's, so a scenario replays on both.
+**sites** the drivers call through ``inject(site)``: with no plan
+installed that is one attribute read. The same plan fires at the same
+calls as the JAX package's, so a scenario replays on both.
 
-Sites the port's paged engine calls:
+Sites:
 
+  ``train.step``            before a training step runs (through
+                            ``launch.steps.wrap_step_with_faults``)
+  ``train.preempt``         polled once a step by ``ft.run_with_recovery``
+  ``train.loss``            after a step: ``nan`` poisons the reported loss
+  ``ckpt.write``            after a checkpoint directory commits:
+                            ``truncate`` / ``bitflip`` damage a committed
+                            leaf file, the storage failure
+                            ``checkpoint.manager.verify`` and
+                            ``latest_valid_step`` exist to catch
   ``serve.decode``          before a paged decode macro-step (or a
                             speculative tick)
   ``serve.prefill``         before a paged prefill chunk
@@ -20,28 +29,33 @@ Kinds:
 
   ``error``        raise ``FaultError``. With a ``{"slot": k}`` payload the
                    serving engine aborts and retries slot ``k``'s request;
-                   without one it rebuilds its steps and resumes.
+                   without one it rebuilds its steps and resumes; the
+                   trainer restores the newest valid checkpoint.
   ``device_drop``  raise ``DeviceLostError`` carrying
                    ``payload["survivors"]`` (the elastic-shrink trigger).
   ``delay``        sleep ``payload["delay_s"]``.
-  anything else    returned to the site, which interprets it (``nan``).
+  ``nan``          returned to the site, which poisons the named value.
+  ``preempt``      returned to the site (``ft`` sets the SIGTERM flag).
+  ``truncate`` / ``bitflip``  returned to the ``ckpt.write`` site, which
+                   applies :func:`corrupt_checkpoint`.
 
 Matching is by per-site call counters (``at``: 0-based call index,
 ``every``: periodic) or a ``prob`` drawn from the plan's own seeded RNG,
-at most ``times`` firings. The training sites (``train.*``, ``ckpt.write``
-and ``corrupt_checkpoint``) and the fired-faults counter of the metrics
-registry wait for the ports of ``runtime/ft.py``, ``checkpoint`` and
-``obs`` (ROADMAP.md A.6).
+at most ``times`` firings; every firing bumps the registry's
+``repro_faults_fired_total`` counter (by site and kind).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+
+from repro_torch import obs
 
 
 class FaultError(RuntimeError):
@@ -55,8 +69,9 @@ class FaultError(RuntimeError):
 
 
 class DeviceLostError(FaultError):
-    """An injected device dropout; ``survivors`` names what is left (the
-    surviving page-pool groups of a serving engine)."""
+    """An injected device dropout; ``survivors`` names what is left: an
+    int count (the first ranks of a training mesh) or a sequence of
+    surviving ranks or page-pool groups."""
 
     def __init__(self, message: str, fault: Optional["Fault"] = None,
                  survivors: Any = None):
@@ -121,6 +136,10 @@ class FaultPlan:
             if f.matches(call, self.rng):
                 entry[1] -= 1
                 self.fired.append((site, call, f.kind))
+                obs.registry.counter(
+                    "repro_faults_fired_total",
+                    "injected faults that fired, by site and kind",
+                    labels=("site", "kind")).labels(site, f.kind).inc()
                 out.append(f)
         return out
 
@@ -183,3 +202,31 @@ def inject(site: str, **ctx) -> List[Fault]:
         else:
             passthrough.append(f)
     return passthrough
+
+
+# ---------------------------------------------------------------------------
+# checkpoint corruption (the ``ckpt.write`` site's payload interpreter)
+# ---------------------------------------------------------------------------
+
+def corrupt_checkpoint(path: str, fault: Fault) -> str:
+    """Damage one committed leaf file under checkpoint directory ``path``
+    (``payload["leaf"]``, default 0): ``truncate`` drops the trailing half
+    of its bytes (a partial write), ``bitflip`` XORs 0x40 into the byte at
+    ``payload["offset"]`` (default mid-file; silent media corruption).
+    Returns the damaged file's path. Both are what
+    ``checkpoint.manager.verify``'s byte counts and crc32 exist to catch,
+    and both damage the same bytes the JAX package's does."""
+    leaf = int(fault.payload.get("leaf", 0))
+    target = os.path.join(path, f"a_{leaf:05d}.npy")
+    with open(target, "rb") as fh:
+        data = bytearray(fh.read())
+    if fault.kind == "truncate":
+        data = data[: max(1, len(data) // 2)]
+    elif fault.kind == "bitflip":
+        pos = int(fault.payload.get("offset", len(data) // 2))
+        data[pos] ^= 0x40
+    else:
+        raise ValueError(f"unknown corruption kind {fault.kind!r}")
+    with open(target, "wb") as fh:
+        fh.write(bytes(data))
+    return target

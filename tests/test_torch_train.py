@@ -430,13 +430,15 @@ def test_train_cli_contract(tmp_path, monkeypatch, capsys):
                      "1"])
 
 
-# --overlap-dispatch and --topology are ported: without --cache-layers,
-# and with a malformed topology, they are JAX's argparse errors (exit 2)
+# --overlap-dispatch, --topology and the fault-tolerance and obs flags are
+# ported: misused, they are JAX's argparse errors (exit 2); --impl and
+# --no-scan have no counterpart and stay absent
 @pytest.mark.parametrize("flag", [
-    ["--simulate-skew", "1,2"], ["--hetero-replan"], ["--overlap-dispatch"],
-    ["--topology", "1:1"], ["--fault-spec", "{}"],
-    ["--metrics", "m.prom"], ["--ckpt-dir", "ck"], ["--resume"],
-    ["--impl", "pallas"]])
+    ["--simulate-skew", "1,2"],
+    ["--hetero-replan", "--simulate-skew", "1,x"], ["--overlap-dispatch"],
+    ["--topology", "1:1"], ["--elastic"],
+    ["--metrics-interval", "x"], ["--save-every", "x"],
+    ["--resume", "--no-scan"], ["--impl", "pallas"]])
 def test_train_cli_later_slice_flags_absent(flag):
     with pytest.raises(SystemExit) as err:
         ttrain.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device",
