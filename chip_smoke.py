@@ -146,7 +146,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    of its bf16 streams equal the paged engine's (48 bf16 layers round the
    two attention paths differently, so equality is asserted in phase 4).
    5s. Speculative serve, on the same weights: ``SPEC_SERVE_REQUESTS`` of
-   the same prompts (8, not 16: one wave of the 8 slots), odd rids
+   the same prompts (4, not 16: half a wave of the 8 slots), odd rids
    sampled at 0.8, 16 new tokens,
    through ``PagedServer`` without and with ``SpecDecoder``
    (``NGramDrafter``, k ``SPEC_K``), in turn ``SPEC_SERVE_PAIRS`` times,
@@ -198,6 +198,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    the vocabulary; weight GB, peaks, decode tick, tok/s and TTFT printed,
    the two engines' bf16 streams counted. 5x. xlstm-350m, 24 layers,
    bf16, the same traffic on both engines (no kernel on its path).
+   O. Router telemetry and the serving half of obs (``serve_obs_phase``):
+   the serve CLI on the paged engine, qwen3-moe-30b-a3b at full width cut
+   to 4 layers, 8 slots, 8 requests of 8 + 16 tokens, without, with
+   ``--metrics`` (``--metrics-interval 4``), ``--trace-out`` and
+   ``--events-out``, and without again (deterministic algorithms on):
+   greedy tokens equal, per-expert counts summing to
+   top_k x the routed tokens, entropy in [0, ln E], no drop, TTFT from
+   the trace equal to ``ttft_s``, one prefill chunk's counts equal to a
+   host ``np.bincount`` of its routing, exact launch counts, and a short
+   third run with every ``paged_attention``/``esffn_glu`` launch held to
+   its plain version; the decode-step medians with and without telemetry
+   and the drain's flush times printed (path ``serve_obs``).
 
 The serve phases' weights are then freed, and the training slice runs:
 
@@ -282,7 +294,10 @@ F. The fault-tolerant train loop, through the train CLI's ``main`` in
    checkpoints. Printed: the state's bytes, the D2H snapshot's ms
    (training blocked), the background write's and the restore's s, the
    step median with and without a write in flight, the span coverage and
-   the event kinds.
+   the event kinds. train_obs (``train_obs_phase``): the same model through
+   the train CLI with ``--metrics`` for 2 steps: the per-expert router
+   series in the dump, summing to top_k x the routed tokens, and exactly
+   2/5/3 launches a step (path ``train_obs``).
 
 The qwen training state is then freed, and phase L runs the MoE LM on a
 1-rank NCCL mesh (``launch.mesh.single_rank_nccl``, ``make_mesh((1, 1,
@@ -344,7 +359,7 @@ does):
    ``stream`` in f32), 5 ``esmm`` and 3 ``estmm`` a MoE layer, the latter
    two on ``mma_tf32x3``: the expert kernels inside a hybrid backward,
    between the Mamba layers' scans; then xlstm-350m whole (no kernel),
-   under ``HYBRID_TRAIN_GRAD_TOL``, at two seeds, and once more with the
+   under ``HYBRID_TRAIN_GRAD_TOL`` (at one seed), and once more with the
    sLSTM's bf16 rounding of h turned off on both sides
    (``xlstm.SLSTM_H_DTYPE`` f32), where it must meet phase 7's
    ``TRAIN_GRAD_TOL``: the witness that the rounding is the gap.
@@ -449,7 +464,8 @@ Small, the paper's own benchmark: 8 experts top-1, f32, blk 128):
    dropped copies' gates 0 (the bytes each forward keeps for its backward
    are recorded); then Swin-MoE-Small (Base ran through PR 28) at full
    width and depth, f32, at every point of ``T78_AXES`` (8 experts,
-   top-1/2, batch 64; Table 8's 4 experts at top-k 1-4, batch 32), each
+   top-1/2, batch 64; Table 8's 4 experts at top-k 1, 2 and 4, batch
+   32), each
    through hexa, tutel (capacity factor 1.25) and megablocks
    (``make_train_step(..., moe_impl=...)``): a fresh seeded state a cell
    and its peak predicted (a cell predicted past ``T78_PEAK_LIMIT_GB`` is
@@ -519,6 +535,9 @@ path of either package calls it, so its public entry point is its path):
    8192^3 ``torch.matmul``) and memory rate (a device copy of 2 GiB) beside
    ``parallel.autotune.H100_SXM``'s, which must agree within 10 %; and
    ``crossover_tokens`` at the Swin-Small and qwen widths for TP 2/4/8.
+16. ``optim.compression.compressed_psum`` on a 1-rank NCCL mesh over a
+   256 MiB f32 gradient: bit for bit the local quantise-dequantise, 3
+   error-feedback steps likewise, and its time.
 
 It then prints the kernels' JSON line (the 8-bit branches as entries of
 their own), and last
@@ -571,7 +590,7 @@ SAMPLE_VOCAB = 151936
 SAMPLE_SEEDS = (1000, 1001, 1003, 2 ** 31 - 1, 2 ** 31, 2 ** 32 + 5, -1, 7)
 SAMPLE_STEPS = (0, 1, 5, 15, 300, 2, 9, 123)
 SPEC_K = 4
-SPEC_SERVE_REQUESTS = 8
+SPEC_SERVE_REQUESTS = 4          # half a wave, for the script's time
 # one off/on pair, to hold the script's time as the mesh phases grew
 SPEC_SERVE_PAIRS = 1
 # Phases 4p and 5p, the prefix-sharing paged engine: requests opening with
@@ -666,7 +685,7 @@ SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
 # batch 64: every activation is kept, and megablocks' buffer of E N k rows
 # a MoE block adds about 229 MB (Small) or 305 MB (Base) x batch x k);
 # Table 8's latency grid (benchmarks/latency_table.py: Small, 4 experts,
-# top-k 1-4, batch 32) and its batch axis (top-1 at batch 16, 32, 64 and
+# top-k 1, 2 and 4 (3 cut for time), batch 32) and its batch axis (top-1 at batch 16, 32, 64 and
 # 128; the batch-32 point is the grid's cell); Table 7's memory against
 # top-k (benchmarks/memory_table.py: 8 experts, top-k 1, 2, 4, 8, batch 16).
 # The batch axis and Table 7's top-k axis are not run, to hold the script
@@ -680,7 +699,7 @@ T78_EXPERTS, T78_BATCH, T78_STEPS = 8, 64, 3
 T78_AXES = {
     **{f"table7_batch64_{c[9:]}": [(c, T78_EXPERTS, k, T78_BATCH)
                                    for k in T78_TOP_K] for c in T78_CONFIGS},
-    "table8_topk": [("swin_moe_small", 4, k, 32) for k in (1, 2, 3, 4)],
+    "table8_topk": [("swin_moe_small", 4, k, 32) for k in (1, 2, 4)],
 }
 # A cell whose predicted peak passes this is not run (the card holds 80 GB):
 # it is printed and listed as "not run", the analogue of an out-of-memory
@@ -768,7 +787,7 @@ BF16_REF_GRAD_TOL = 0.1                           # x |grad| (Frobenius)
 # chunked prefill; 4x runs every request on both CPU engines.
 JAMBA_DEPTH = 8
 HYBRID_REF_FFN = 1024
-HYBRID_REF_REQUESTS, HYBRID_REF_NEW = 4, 6
+HYBRID_REF_REQUESTS, HYBRID_REF_NEW = 4, 4   # 6 new tokens, cut for time
 HYBRID_CHUNK_TOL = {"jamba-1.5-large-398b": ATTN_TOL["float32"],
                     "xlstm-350m": 3e-3}
 HYBRID_CPU = {"jamba-1.5-large-398b": (("paged",), 1),
@@ -795,7 +814,7 @@ JAMBA_WEIGHT_GB = (51.4, 52.4)     # predicted 51.9 +- 0.5 (int8 experts)
 # HYBRID_TRAIN_SEEDS, and at the first once more with that rounding off
 # on both sides, under TRAIN_GRAD_TOL.
 HYBRID_TRAIN_GRAD_TOL = {"xlstm-350m": 2.0 ** -8}
-HYBRID_TRAIN_SEEDS = (7, 8)
+HYBRID_TRAIN_SEEDS = (7,)        # a second seed cut for the script's time
 # 8j/8x/8p/8m: the leaves whose gradient is zero in JAX too (musicgen's
 # inputs are frames, and its codebook heads replace the head).
 ZERO_GRAD_LEAVES = {"musicgen-large": ("embed", "head")}
@@ -5426,7 +5445,8 @@ def _prefix_serve(torch, cfg, params):
 
 def _spec_serve(torch, cfg, params, prompts, make_server):
     """Phase 5s: phase 5's weights, the first ``SPEC_SERVE_REQUESTS`` of its
-    prompts (8 of 16, one wave of the 8 slots: the 16 took 70 s), odd rids
+    prompts (4 of 16, half a wave of the 8 slots: the 16 took 70 s, 8
+    took 36 s on a slower host), odd rids
     sampled at 0.8, 16 new tokens, speculation off then on
     (``NGramDrafter``, k ``SPEC_K``), ``SPEC_SERVE_PAIRS`` times in turn.
     Each run's ``esffn_glu`` counts are set to 0 just before and read just
@@ -5515,7 +5535,7 @@ def _spec_serve(torch, cfg, params, prompts, make_server):
            "tok_per_s_on_over_off": [b["tok_per_s"] / a["tok_per_s"]
                                      for a, b in zip(offs, ons)]}
     print(f"[serve-spec] {len(mix)} of phase 5's {len(prompts)} requests "
-          f"(cut to one wave of the slots, to keep the script's time), k "
+          f"(cut to half a wave of the slots, to keep the script's time), k "
           f"{SPEC_K}, {SPEC_SERVE_PAIRS} off/on pairs: tok/s on / off {res['tok_per_s_on_over_off']}; "
           f"bf16 streams equal on and off {same} of {len(mix)}")
     return ons[-1]["esffn_glu_launches"], ons[-1]["routes"], res
@@ -5659,9 +5679,11 @@ class _HeldToPlain:
     layer's ``paged_attention``, ``kernels.ops``' view of the ``esffn``
     module), so the kernels count their launches as always; the plain calls
     launch nothing, so the counts are the path's own. ``checks`` counts the
-    held launches a kernel and ``worst`` keeps the largest err / limit."""
+    held launches a kernel and ``worst`` keeps the largest err / limit.
+    ``path`` names the path in the error."""
 
-    def __init__(self):
+    def __init__(self, path: str = "the mesh path"):
+        self.path = path
         self.checks = dict.fromkeys(("paged_attention", "esffn_glu",
                                      "esffn_mlp"), 0)
         self.worst = dict.fromkeys(self.checks, 0.0)
@@ -5697,7 +5719,7 @@ class _HeldToPlain:
             self.checks[name] += 1
             self.worst[name] = max(self.worst[name], err / lim)
             if not err <= lim:
-                raise AssertionError(f"{name} on the mesh path: err {err} "
+                raise AssertionError(f"{name} on {self.path}: err {err} "
                                      f"against the plain version, limit "
                                      f"{lim}")
             return out
@@ -7396,6 +7418,355 @@ def roofline_phase(torch):
             "seconds": time.perf_counter() - t_phase}
 
 
+SERVE_OBS_ARGV = ["--arch", "qwen3-moe-30b-a3b", "--paged", "--layers",
+                  str(4), "--slots", "8", "--requests", "8", "--max-new",
+                  "16", "--device", "cuda", "--seed", "0"]
+#: the short run whose every paged_attention / esffn_glu launch is held to
+#: its plain version (8 prefill chunks and 3 decode steps of 4 layers)
+SERVE_OBS_HELD = ["--max-new", "4"]
+
+
+class _ServerLog:
+    """While active, every ``PagedServer`` the serve CLI builds is kept in
+    ``servers`` and its router drain's ``flush`` calls are timed
+    (``flush_ms``, with the pending pushes each took)."""
+
+    def __init__(self):
+        self.servers = []
+        self.flush_ms = []
+
+    def __enter__(self):
+        from repro_torch.launch import serve as serve_lib
+
+        self._lib, self._orig = serve_lib, serve_lib.PagedServer
+        log = self
+
+        class Logged(self._orig):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                log.servers.append(self)
+                drain = self.router_drain
+                if drain is not None:
+                    flush = drain.flush
+
+                    def timed():
+                        n = len(drain._pending)
+                        t0 = time.perf_counter()
+                        flush()
+                        log.flush_ms.append(
+                            ((time.perf_counter() - t0) * 1e3, n))
+
+                    drain.flush = timed
+
+        serve_lib.PagedServer = Logged
+        return self
+
+    def __exit__(self, *exc):
+        self._lib.PagedServer = self._orig
+
+
+def _prom_series(path, name):
+    """{labels: value} of one Prometheus family in a text dump."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith(name + "{"):
+                labels, value = line.rsplit(" ", 1)
+                out[labels[len(name):]] = float(value)
+    return out
+
+
+def serve_obs_phase(torch):
+    """Phase O: the serve CLI (``repro_torch.launch.serve.main``) with the
+    paged engine on qwen3-moe-30b-a3b at full width cut to 4 layers (seeded
+    bf16 weights, ~5.1 GB), 8 slots, 8 requests of 8 prompt + 16 new
+    tokens, three times: without the obs flags, with ``--metrics``
+    (``--metrics-interval 4``), ``--trace-out`` and ``--events-out``, and
+    without them again, under ``torch.use_deterministic_algorithms`` (the
+    combine's bf16 ``index_add_``). The greedy tokens must be equal; the
+    drained per-expert counts must sum
+    to ``top_k`` x the routed-token counter (in the drain and in the
+    Prometheus dump); the mean gate entropy must lie in [0, ln E] and the
+    hexa path drop nothing; the trace's span coverage must be 1 and its
+    TTFT equal the engine's ``ttft_s`` bit for bit; the kernels' launches
+    must be exactly 4 ``esffn_glu`` (stream) a prefill chunk and a decode
+    step and 4 ``paged_attention`` a decode step. Then one prefill chunk's
+    per-expert counts against a host ``np.bincount`` of the same
+    forward's routing decisions (captured at ``core.routing.route``),
+    bitwise, and a short fourth run (``SERVE_OBS_HELD``) with every
+    ``paged_attention`` and ``esffn_glu`` launch held to its plain version
+    (``_HeldToPlain``). Prints the decode-step medians with and without
+    telemetry and the drain's flush times. Returns (launches, routes,
+    result); the launches are the second run's (path ``serve_obs``)."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core import espec
+    from repro_torch.launch import serve as serve_lib
+
+    t_phase = time.perf_counter()
+    fns = _paged_kernel_fns()
+    d = tempfile.mkdtemp(prefix="serve_obs_")
+    paths = {k: os.path.join(d, k) for k in ("m.prom", "t.json", "e.jsonl")}
+    obs_argv = ["--metrics", paths["m.prom"], "--metrics-interval", "4",
+                "--trace-out", paths["t.json"], "--events-out",
+                paths["e.jsonl"]]
+    runs = {}
+    # deterministic algorithms: the combine's bf16 index_add_ adds a
+    # token's rows in the atomics' order otherwise, and two runs' greedy
+    # tokens part (phase F's finding)
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for tag, extra in (("plain", []), ("obs", obs_argv),
+                           ("plain_again", [])):
+            _reset_paged_counts(fns)
+            with _ServerLog() as log:
+                done = serve_lib.main(SERVE_OBS_ARGV + extra)
+            torch.cuda.synchronize()
+            srv = log.servers[0]
+            launches, routes, _ = _paged_counts(fns)
+            runs[tag] = {"tokens": {r.rid: list(r.out) for r in done},
+                         "server": srv, "launches": launches,
+                         "routes": routes, "flush_ms": log.flush_ms,
+                         "forwards": _forwards(srv.trace),
+                         "decode_ms": [t * 1e3 for t in
+                                       srv.decode_times_s[1:]]}
+            if tag == "obs":
+                runs[tag]["ttft_trace"], _ = obs.derive_request_latencies(
+                    obs.tracer.events)
+                runs[tag]["coverage"] = obs.span_coverage(obs.tracer.events)
+                runs[tag]["events"] = len(obs.events.records)
+                # the next run records nothing
+                obs.configure(metrics=False, tracing=False, event_log=False)
+            else:
+                runs[tag]["server"] = None    # its weights may go
+                del srv
+                _release(torch)
+        srv = runs["obs"]["server"]
+        drain = srv.router_drain
+        k, e = srv.cfg.moe.top_k, srv.cfg.moe.num_experts
+        depth = srv.cfg.num_layers
+        if not runs["obs"]["tokens"] == runs["plain"]["tokens"] \
+                == runs["plain_again"]["tokens"]:
+            raise AssertionError("phase O: the greedy tokens change with "
+                                 "the obs flags on")
+        if int(drain.total.sum()) != k * drain.total_tokens \
+                or drain.total_tokens == 0:
+            raise AssertionError(f"phase O: per-expert counts sum to "
+                                 f"{int(drain.total.sum())}, not {k} x "
+                                 f"{drain.total_tokens} routed tokens")
+        per_expert = _prom_series(paths["m.prom"],
+                                  "repro_router_expert_tokens_total")
+        routed = _prom_series(paths["m.prom"],
+                              "repro_router_routed_tokens_total")
+        if len(per_expert) != e or sum(per_expert.values()) \
+                != k * sum(routed.values()):
+            raise AssertionError("phase O: the Prometheus dump's router "
+                                 "series do not sum to top_k x routed")
+        entropy = drain.entropy_sum / drain.total_tokens
+        if not 0.0 <= entropy <= math.log(e) or drain.total_dropped:
+            raise AssertionError(f"phase O: gate entropy {entropy} outside "
+                                 f"[0, ln {e}] or {drain.total_dropped} "
+                                 f"dropped on the hexa path")
+        if runs["obs"]["ttft_trace"] != srv.ttft_s \
+                or runs["obs"]["coverage"] < 1.0:
+            raise AssertionError(f"phase O: TTFT from the trace "
+                                 f"{runs['obs']['ttft_trace']} against "
+                                 f"ttft_s {srv.ttft_s}, coverage "
+                                 f"{runs['obs']['coverage']}")
+        for tag, r in runs.items():
+            chunks, steps, _ = r["forwards"]
+            want = {"esffn_glu": depth * (chunks + steps),
+                    "paged_attention": depth * steps}
+            got = {n: r["launches"][n] for n in want}
+            if got != want or r["routes"]["esffn_glu"].get("stream") \
+                    != want["esffn_glu"]:
+                raise AssertionError(f"phase O ({tag}): launches {got}, "
+                                     f"routes {r['routes']['esffn_glu']}, "
+                                     f"expected {want} on stream")
+
+        # one prefill chunk's counts against a host recount of the routing
+        # decisions it made, captured where the islands call it
+        picks = []
+        route = espec.route
+
+        def capture(*a, **kw):
+            out = route(*a, **kw)
+            picks.append(out.expert_idx)
+            return out
+
+        espec.route = capture
+        try:
+            toks = torch.arange(16, dtype=torch.int32, device=srv.device) \
+                * 997 % srv.cfg.vocab_size
+            row = torch.zeros(srv.max_pages_per_slot, dtype=torch.int32,
+                              device=srv.device)  # the sink page only
+            _, srv.cache, one = srv.prefill_step(srv.params, toks, 16, 0,
+                                                 row, srv.cache)
+        finally:
+            espec.route = route
+        recount = np.bincount(torch.cat(picks).reshape(-1).cpu().numpy(),
+                              minlength=e).astype(np.int32)
+        counts = one["expert_tokens"].cpu().numpy()
+        if len(picks) != depth or not np.array_equal(counts, recount) \
+                or int(one["tokens"]) != depth * 16:
+            raise AssertionError(f"phase O: device counts {counts.tolist()}"
+                                 f" against the host recount "
+                                 f"{recount.tolist()} ({len(picks)} routes)")
+        runs["obs"]["server"] = srv = drain = None
+        _release(torch)
+
+        with _HeldToPlain("phase O's path") as held, _ServerLog():
+            serve_lib.main(SERVE_OBS_ARGV + SERVE_OBS_HELD + obs_argv)
+        if not held.checks["paged_attention"] or not held.checks["esffn_glu"]:
+            raise AssertionError(f"phase O: nothing held {held.checks}")
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        obs.configure(metrics=False, tracing=False, event_log=False,
+                      reset=True)
+        shutil.rmtree(d, ignore_errors=True)
+
+    res = {"card": card_line(), "tokens_equal": True,
+           "forwards": {t: r["forwards"] for t, r in runs.items()},
+           "launches": {t: r["launches"] for t, r in runs.items()},
+           "decode_median_ms": {t: float(np.median(r["decode_ms"]))
+                                for t, r in runs.items()},
+           "decode_steps_timed": {t: len(r["decode_ms"])
+                                  for t, r in runs.items()},
+           "flush_ms": runs["obs"]["flush_ms"],
+           "entropy_mean": entropy, "routed_tokens": int(sum(
+               routed.values())),
+           "span_coverage": runs["obs"]["coverage"],
+           "events": runs["obs"]["events"],
+           "bincount_equal": True,
+           "held_checks": held.checks, "held_worst": held.worst,
+           "seconds": time.perf_counter() - t_phase}
+    med = res["decode_median_ms"]
+    print(f"[serve-obs] decode step median without telemetry "
+          f"{med['plain']:.3f} and {med['plain_again']:.3f} ms, with it "
+          f"{med['obs']:.3f} ms; drain flushes "
+          f"{[(round(ms, 3), n) for ms, n in res['flush_ms']]} (ms, pushes); "
+          f"{res['card']}")
+    return ({"serve_obs": runs["obs"]["launches"]},
+            {"serve_obs": runs["obs"]["routes"]}, res)
+
+
+def train_obs_phase(torch):
+    """The train_obs step: phase F's model (qwen3-moe-30b-a3b at full width
+    cut to ``FT_DEPTH`` layer, bf16, ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens) through ``repro_torch.launch.train.main --metrics`` for 2
+    steps (no checkpoint is written): the per-expert router series must be
+    in the dump, one a expert, and sum to ``top_k`` x the routed-token
+    counter, which must be the steps' tokens x the MoE layers. Returns
+    (launches, routes, result) of the expert kernels (path
+    ``train_obs``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs as cfglib
+    from repro_torch import obs
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    cfg = cfglib.get_config("qwen3-moe-30b-a3b")
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="train_obs_", dir=ROOT / "build")
+    prom = os.path.join(d, "m.prom")
+    steps = 2
+    try:
+        _reset_expert_counts()
+        log = train.main(["--arch", "qwen3-moe-30b-a3b", "--layers",
+                          str(FT_DEPTH), "--steps", str(steps),
+                          "--global-batch", str(TRAIN_BATCH), "--seq-len",
+                          str(TRAIN_SEQ), "--device", "cuda",
+                          "--save-every", "1000", "--ckpt-dir",
+                          os.path.join(d, "ck"), "--metrics", prom])
+        torch.cuda.synchronize()
+        launches, routes = _expert_counts()
+        per_expert = _prom_series(prom, "repro_router_expert_tokens_total")
+        routed = _prom_series(prom, "repro_router_routed_tokens_total")
+    finally:
+        obs.configure(metrics=False, tracing=False, event_log=False,
+                      reset=True)
+        shutil.rmtree(d, ignore_errors=True)
+    want_routed = steps * TRAIN_BATCH * TRAIN_SEQ * FT_DEPTH
+    k = cfg.moe.top_k
+    if len(per_expert) != cfg.moe.num_experts \
+            or sum(routed.values()) != want_routed \
+            or sum(per_expert.values()) != k * want_routed:
+        raise AssertionError(f"train_obs: {len(per_expert)} expert series "
+                             f"summing to {sum(per_expert.values())}, "
+                             f"routed {routed}, expected {k} x "
+                             f"{want_routed}")
+    want = {"esffn_glu": 2 * FT_DEPTH * steps, "esmm": 5 * FT_DEPTH * steps,
+            "estmm": 3 * FT_DEPTH * steps}
+    if launches != want:
+        raise AssertionError(f"train_obs: launches {launches}, expected "
+                             f"{want}")
+    res = {"losses": [m["loss"] for m in log], "routed_tokens": want_routed,
+           "expert_tokens_sum": sum(per_expert.values()),
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
+    return {"train_obs": launches}, {"train_obs": routes}, res
+
+
+def compression_phase(torch):
+    """``optim.compression.compressed_psum`` on a 1-rank NCCL mesh
+    (("pod", "data", "model") = (1, 1, 1)) over a 256 MiB f32 gradient:
+    its sum must equal a local quantise-dequantise of the same gradient
+    bit for bit (one rank: the sum is its own payload) and the residual
+    be ``g`` minus that, rounded once (``compression._residual``); then 3
+    error-feedback steps, each residual ``g + r`` less its
+    reconstruction. Timed with CUDA events (median of
+    5 calls)."""
+    from repro_torch.launch.mesh import make_mesh, single_rank_nccl
+    from repro_torch.optim.compression import _residual, compressed_psum
+    from repro_torch.quant.core import _per, dequantize_int8, quantize_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    g = torch.randn(64 * 2 ** 20, generator=gen, device="cuda")   # 256 MiB
+    with single_rank_nccl():
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        out, res = compressed_psum(g, mesh, "pod")
+        scale = _per(g.abs().max(), 127.0)
+        q = quantize_int8(g, scale)
+        want = dequantize_int8(q, scale)
+        if not (torch.equal(out, want)
+                and torch.equal(res, _residual(g, q, scale))):
+            raise AssertionError("compressed_psum on one rank is not the "
+                                 "local quantise-dequantise")
+        r = None
+        for _ in range(3):
+            gf = g if r is None else g + r
+            out, r_new = compressed_psum(g, mesh, "pod", r)
+            sc = _per(gf.abs().max(), 127.0)
+            q = quantize_int8(gf, sc)
+            if not (torch.equal(out, dequantize_int8(q, sc))
+                    and torch.equal(r_new, _residual(gf, q, sc))):
+                raise AssertionError("compressed_psum's error feedback")
+            r = r_new
+        ts = []
+        for _ in range(6):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            compressed_psum(g, mesh, "pod", r)
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+    res = {"bytes": g.numel() * 4, "ms": statistics.median(ts[1:]),
+           "bitwise": True, "card": card_line()}
+    print(f"[compression] compressed_psum of 256 MiB f32 on a 1-rank NCCL "
+          f"mesh: {res['ms']:.3f} ms, equal to the local round trip; "
+          f"{res['card']}")
+    return res
+
+
 def _release(torch):
     """Free what the last phase left: its objects in reference cycles (a
     ``SpecDecoder`` and its server point at each other, so their weights
@@ -7486,6 +7857,9 @@ def main() -> int:
         hybrid_serve[tag] = hybrid_serve_phase(torch, arch, tag)
         _release(torch)
     print(f"[hybrid] {json.dumps({'reference': hybrid_ref, 'serve': hybrid_serve})}")
+    _release(torch)
+    so_paths, so_routes, so_res = serve_obs_phase(torch)
+    print(f"[serve-obs] {json.dumps(so_res)}")
 
     _release(torch)           # the serve phase's weights are gone
     print(f"[train] device memory allocated before training: "
@@ -7514,6 +7888,9 @@ def main() -> int:
     _release(torch)               # the qwen training state is gone
     ft_launches, ft_routes, ft_res = ft_train_phase(torch)
     print(f"[train-ft] {json.dumps(ft_res)}")
+    _release(torch)
+    to_paths, to_routes, to_res = train_obs_phase(torch)
+    print(f"[train-obs] {json.dumps(to_res)}")
     _release(torch)
     lm_mesh_paths, lm_mesh_res = lm_mesh_phase(torch, train_ref, train_out)
     print(f"[lm-mesh] {json.dumps(lm_mesh_res)}")
@@ -7575,6 +7952,9 @@ def main() -> int:
     _release(torch)
     roofline_res = roofline_phase(torch)
     print(f"[roofline] {json.dumps(roofline_res)}")
+    _release(torch)
+    compression_res = compression_phase(torch)
+    print(f"[compression] {json.dumps(compression_res)}")
     print(f"[done] every phase in {time.perf_counter() - t_start:.1f}s")
 
     # Each kernel's launches on the main paths that ran it: the paged and
@@ -7583,7 +7963,9 @@ def main() -> int:
     # QAT steps (phases 8, 8q), the Swin train steps and the
     # unfused-backward pass (phase 11), the fault-tolerant train loop's
     # runs (phase F), the Jamba layout's training
-    # (phases 7h, 8j), the paged engine on the mesh (phase P).
+    # (phases 7h, 8j), the paged engine on the mesh (phase P), the serve
+    # CLI with telemetry (phase O) and the train CLI with --metrics
+    # (train_obs).
     qat_paths = {f"qwen_qat_{m}": r["launches"]
                  for m, r in train_out["qat"].items()}
     hybrid_paths = {f"hybrid_{tag}": r["launches"]
@@ -7600,7 +7982,7 @@ def main() -> int:
              **mesh_launches, **hetero_launches,
              **{p: c for p, (c, _) in lm_mesh_paths.items()},
              **{p: c for p, (c, _) in family_mesh_paths.items()},
-             **pm_paths}
+             **pm_paths, **so_paths, **to_paths}
     by_path = {}
     for path, counts in paths.items():
         for name, n in counts.items():
@@ -7630,7 +8012,8 @@ def main() -> int:
                    **{p: r for p, (_, r) in lm_mesh_paths.items()},
                    **{p: r for p, (_, r) in family_mesh_paths.items()},
                    **pm_routes, "paged_mesh_p2":
-                       serve_res["paged_mesh_launches_by_route"]}
+                       serve_res["paged_mesh_launches_by_route"],
+                   **so_routes, **to_routes}
 
     def by_route(name, cases, routes, paths=route_paths):
         """Each route of a kernel with several: its launches on each path

@@ -65,8 +65,25 @@ dense engine on a mesh takes its slot shares as padded slots of which
 the weights are drawn at its padded hidden width. ``--topology`` splits
 ``--mesh``'s model extent into ("node", "model") for the hierarchical
 schedule; ``--overlap-dispatch`` (with ``--cache-layers``) runs the
-overlap schedule in the serving forwards. Not in this slice (ROADMAP.md
-A.6): observability.
+overlap schedule in the serving forwards.
+
+Observability (``obs``; DESIGN.md §12): the paged engine records the
+spans ``serve.run``, ``serve.prefill_chunk``, ``serve.handoff`` and
+``serve.decode`` (with the ``repro_serve_decode_step_seconds``
+histogram) and the instants ``serve.first_token`` and ``serve.token``,
+mirrors every scheduler event into ``obs.events`` with its reason, and
+registers itself, its pool and its prefix index for snapshot polling
+(``obs_metrics``), as the JAX engine does. With
+``pcfg.collect_router_stats`` and an MoE config every step's router
+stats go to a ``RouterStatsDrain`` (phase "serve") without a host copy,
+flushed at each dump; the dense engine drains its steps' stats the same
+way. On a mesh only rank 0 drains (the stats are global on every rank)
+and the CLI turns the recorders on only there. The serve CLI's
+``--metrics``, ``--metrics-interval``, ``--trace-out`` and
+``--events-out`` are the JAX CLI's: stats are collected with ``--paged``
+and an MoE config, the registry is dumped at exit (and every N
+scheduler steps), and the trace's span coverage, TTFT and TPOT are
+printed.
 """
 from __future__ import annotations
 
@@ -82,6 +99,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs as cfglib
+from repro_torch import obs
 from repro_torch.common import cdiv, resolve_device, torch_dtype, tree_leaves
 from repro_torch.core import hetero as hetero_lib
 from repro_torch.launch import mesh as mesh_lib
@@ -175,9 +193,11 @@ def reference_stream(cfg, pcfg, params, req: Request, *, max_seq: int,
     (token by token) then decode through ``next_token``, on the device the
     params lie on: the ground truth both batched servers are held to, for
     greedy and sampled requests. On a ``mesh``, params are this rank's
-    shards (``lm.param_specs``)."""
+    shards (``lm.param_specs``). The reference collects no router
+    telemetry (``collect_router_stats`` is switched off for its step)."""
     lm.check_servable(cfg)
     device = params["embed"].device
+    pcfg = dataclasses.replace(pcfg, collect_router_stats=False)
     if step is None:
         step = steps_lib.make_serve_step(
             cfg, pcfg, mesh=mesh, batch_shape3=(1, 1, cfg.d_model))
@@ -188,7 +208,7 @@ def reference_stream(cfg, pcfg, params, req: Request, *, max_seq: int,
         nonlocal cache
         logits, cache = step(
             params, {"tokens": torch.tensor([[tok]], dtype=torch.int32,
-                                            device=device)}, cache)
+                                            device=device)}, cache)[:2]
         return logits[0, -1]
 
     for tok in ref.prompt:
@@ -232,7 +252,9 @@ class BatchedServer:
     ``device="cpu"``); the schedule lives on the host. On a ``mesh``:
     params are this rank's shards, the cache its block
     (``lm.init_cache(mesh=)``), and every rank schedules alike from the
-    gathered logits."""
+    gathered logits. With ``pcfg.collect_router_stats`` and an MoE config
+    each macro-step's router stats go to ``router_drain`` (phase
+    "serve"; rank 0's on a mesh), flushed by ``run`` at its end."""
 
     def __init__(self, cfg, pcfg, *, num_slots: int, max_seq: int, params,
                  valid_slots: Optional[list] = None, device=None,
@@ -266,6 +288,7 @@ class BatchedServer:
         self.ttft_s: dict = {}           # rid -> first-token latency
         self.admissions = 0
         self._run_t0 = 0.0
+        self.router_drain = _router_drain(cfg, pcfg, mesh)
 
     def kv_bytes(self) -> int:
         """Device bytes of the dense KV rectangle (on a mesh, of this
@@ -301,11 +324,14 @@ class BatchedServer:
                                if st.pos < len(st.req.prompt)
                                else st.req.out[-1])
         t0 = time.perf_counter()
-        logits, self.cache = self.serve_step(
+        out = self.serve_step(
             self.params,
             {"tokens": torch.from_numpy(tokens).to(self.device),
              "active": torch.from_numpy(active).to(self.device)},
             self.cache)
+        logits, self.cache = out[:2]
+        if self.router_drain is not None:
+            self.router_drain.push(out[2])
         emit = [st.req if st is not None
                 and st.pos + 1 >= len(st.req.prompt) else None
                 for st in self.slots]
@@ -337,7 +363,20 @@ class BatchedServer:
             self._admit()
             done.extend(self._macro_step())
             steps += 1
+        if self.router_drain is not None:
+            self.router_drain.flush()
         return done
+
+
+def _router_drain(cfg, pcfg, mesh):
+    """An engine's router-stats drain: with ``collect_router_stats``, an
+    MoE config, and on a mesh rank 0 only (the stats are global)."""
+    if not pcfg.collect_router_stats or cfg.moe is None:
+        return None
+    if mesh is not None and not mesh_lib.is_rank0():
+        return None
+    return obs.RouterStatsDrain(obs.registry, cfg.moe.num_experts,
+                                phase="serve")
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +584,16 @@ class PagedServer:
         self.engine_recoveries = 0       # step rebuilds
         self._order = 0
         self._run_t0 = 0.0
+        # router telemetry: the steps' stats, pushed here and flushed at
+        # each dump; periodic Prometheus dumps from run() (every
+        # obs_dump_every scheduler steps; 0: at the end only)
+        self.router_drain = _router_drain(cfg, pcfg, mesh)
+        self.obs_dump_every = 0
+        self.obs_dump_path: Optional[str] = None
+        obs.maybe_register(self)
+        obs.maybe_register(self.pool)
+        if self.index is not None:
+            obs.maybe_register(self.index)
 
     def _build_steps(self):
         """(Re)build the decode and prefill steps, at construction and in
@@ -560,13 +609,50 @@ class PagedServer:
         if self.spec is not None:
             self.spec.reset_steps()
 
-    def _event(self, name: str, *args):
+    def _event(self, name: str, *args, reason: Optional[str] = None):
         """Record one scheduler event in ``trace``, and the engine clock at
         it in ``trace_t`` (the clock is read once an event, as the JAX
         engine reads it, so a deadline on a tick clock expires at the same
-        step in both)."""
-        self.trace_t.append(self.clock())
+        step in both); mirrored into ``obs.events`` as ``serve.<name>``
+        with its ``reason`` when the event log is on."""
+        t = self.clock()
+        self.trace_t.append(t)
         self.trace.append((name, *args))
+        obs.events.emit(f"serve.{name}", reason=reason, t=t,
+                        detail=list(args))
+
+    def obs_metrics(self) -> dict:
+        """Scheduler counters for registry snapshot polling."""
+        return {
+            "repro_serve_admissions_total": self.admissions,
+            "repro_serve_transfers_total": self.transfers,
+            "repro_serve_aborts_total": self.aborts,
+            "repro_serve_preemptions_total": self.preemptions,
+            "repro_serve_engine_recoveries_total": self.engine_recoveries,
+            "repro_serve_failed_requests_total": len(self.failed),
+            "repro_serve_queue_depth": len(self.queue),
+            "repro_serve_live_slots": sum(
+                s is not None for s in self.slots),
+        }
+
+    def _unpack_step(self, out):
+        """A step's (result, cache): with ``collect_router_stats`` every
+        step returns its router stats third, pushed onto the drain (no
+        host copy)."""
+        if self.pcfg.collect_router_stats:
+            a, cache, rstats = out
+            if self.router_drain is not None:
+                self.router_drain.push(rstats)
+            return a, cache
+        return out
+
+    def _dump_metrics(self):
+        """Flush the router drain and write a Prometheus snapshot (the
+        periodic in-run dumps; the CLI also dumps at exit)."""
+        if self.router_drain is not None:
+            self.router_drain.flush()
+        if self.obs_dump_path:
+            obs.dump_prometheus(obs.registry, self.obs_dump_path)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -737,7 +823,8 @@ class PagedServer:
             st.allocated -= len(dropped)
         self.cache = lm.rollback_slot(self.cfg, self.cache, slot, new_len)
         st.length = new_len
-        self._event("rollback", st.req.rid, slot, n)
+        self._event("rollback", st.req.rid, slot, n,
+                    reason="speculative rows rejected")
 
     def _finish(self, slot: int, st: _PagedSlot, done: list):
         done.append(st.req)
@@ -762,7 +849,7 @@ class PagedServer:
         req.error = reason
         req.out.clear()
         self.failed.append(req)
-        self._event("fail", req.rid, reason)
+        self._event("fail", req.rid, reason, reason=reason)
 
     def _abort_slot(self, slot: int, *, reason: str, requeue_at: int = 0,
                     count_retry: bool = True):
@@ -776,7 +863,7 @@ class PagedServer:
         req = st.req
         self._release_slot(slot, st)
         req.out.clear()
-        self._event("abort", req.rid, slot, reason)
+        self._event("abort", req.rid, slot, reason, reason=reason)
         if count_retry:
             req.aborts += 1
             self.aborts += 1
@@ -802,7 +889,7 @@ class PagedServer:
         _, _, slot, st = min(victims)
         st.req.preemptions += 1
         self.preemptions += 1
-        self._event("preempt", st.req.rid, slot)
+        self._event("preempt", st.req.rid, slot, reason="page pressure")
         self._abort_slot(slot, reason="preempted", requeue_at=1,
                          count_retry=False)
         return True
@@ -822,7 +909,8 @@ class PagedServer:
             if st is not None and expired(st.req):
                 req = st.req
                 self._release_slot(slot, st)
-                self._event("abort", req.rid, slot, "deadline")
+                self._event("abort", req.rid, slot, "deadline",
+                            reason="deadline")
                 self._fail_request(req, "deadline exceeded")
 
     def _recover_engine(self):
@@ -835,7 +923,7 @@ class PagedServer:
         idempotent."""
         self.engine_recoveries += 1
         self._build_steps()
-        self._event("recover")
+        self._event("recover", reason="engine step failure")
 
     def _on_fault(self, err: faults_lib.FaultError):
         """Route an injected fault: a ``{"slot": k}`` payload on a live slot
@@ -876,7 +964,7 @@ class PagedServer:
             group_roles = derive_roles(weights)
             self.roles = [group_roles[self.groups[s]]
                           for s in range(self.num_slots)]
-        self._event("shrink", tuple(survivors))
+        self._event("shrink", tuple(survivors), reason="device dropout")
         for req in [r for r in self.queue
                     if self._need_pages(r) > max(self.pool.shares)]:
             self.queue.remove(req)
@@ -940,9 +1028,11 @@ class PagedServer:
         self._ensure_pages(slot, st, st.length + n)
         toks = np.zeros((self.prefill_chunk,), np.int32)
         toks[:n] = st.req.prompt[st.pos: st.pos + n]
-        last, self.cache = self.prefill_step(
-            self.params, self._tensor(toks), n, slot,
-            self._tensor(self.table[slot]), self.cache)
+        with obs.tracer.span("serve.prefill_chunk", rid=st.req.rid,
+                             slot=slot, n=n):
+            last, self.cache = self._unpack_step(self.prefill_step(
+                self.params, self._tensor(toks), n, slot,
+                self._tensor(self.table[slot]), self.cache))
         st.pos += n
         st.length += n
         self._reclaim(slot, st)
@@ -958,7 +1048,11 @@ class PagedServer:
                 self._abort_slot(slot, reason="non-finite prefill logits")
                 return True
             st.req.out.append(int(tok[0]))
-            self.ttft_s[st.req.rid] = time.perf_counter() - self._run_t0
+            # one clock read for the dict and the trace instant, so the
+            # TTFT derived from the trace is this value, bit for bit
+            now = time.perf_counter()
+            self.ttft_s[st.req.rid] = now - self._run_t0
+            obs.tracer.instant("serve.first_token", t=now, rid=st.req.rid)
             if len(st.req.out) >= st.req.max_new:
                 self._finish(slot, st, done)
         return True
@@ -967,7 +1061,8 @@ class PagedServer:
         if self._handoff_step is None:
             self._handoff_step = steps_lib.make_paged_handoff_step(
                 self.cfg, self.pcfg, mesh=self.mesh, num_slots=self.num_slots)
-        self.cache = self._handoff_step(self.cache, src, dst)
+        with obs.tracer.span("serve.handoff", src=src, dst=dst):
+            self.cache = self._handoff_step(self.cache, src, dst)
 
     def _transfer_tick(self) -> bool:
         """Disaggregated handoff: move every prefill-role slot that has
@@ -1017,21 +1112,27 @@ class PagedServer:
             tokens[slot, 0] = st.req.out[-1]
             active[slot] = True
         t0 = time.perf_counter()
-        logits, self.cache = self.serve_step(
-            self.params,
-            {"tokens": self._tensor(tokens),
-             "page_table": self._tensor(self.table),
-             "active": self._tensor(active)},
-            self.cache)
-        rows = logits[:, -1]
-        for f in faults_lib.inject("serve.logits"):
-            if f.kind == "nan":
-                rows[int(f.payload.get("slot", dec[0][0]))] = float("nan")
-        emit = [None] * self.num_slots
-        for slot, st in dec:
-            emit[slot] = st.req
-        nxt, finite = draw_rows(rows, emit, mesh=self.mesh)
-        self.decode_times_s.append(time.perf_counter() - t0)
+        with obs.tracer.span("serve.decode", t0=t0, slots=len(dec)):
+            logits, self.cache = self._unpack_step(self.serve_step(
+                self.params,
+                {"tokens": self._tensor(tokens),
+                 "page_table": self._tensor(self.table),
+                 "active": self._tensor(active)},
+                self.cache))
+            rows = logits[:, -1]
+            for f in faults_lib.inject("serve.logits"):
+                if f.kind == "nan":
+                    rows[int(f.payload.get("slot", dec[0][0]))] = \
+                        float("nan")
+            emit = [None] * self.num_slots
+            for slot, st in dec:
+                emit[slot] = st.req
+            nxt, finite = draw_rows(rows, emit, mesh=self.mesh)
+        dt = time.perf_counter() - t0
+        self.decode_times_s.append(dt)
+        obs.registry.histogram(
+            "repro_serve_decode_step_seconds",
+            "paged decode macro-step latency").observe(dt)
         self._event("decode", tuple(slot for slot, _ in dec))
         for slot, st in dec:
             if not finite[slot]:
@@ -1039,6 +1140,7 @@ class PagedServer:
                 continue
             st.length += 1
             st.req.out.append(int(nxt[slot]))
+            obs.tracer.instant("serve.token", rid=st.req.rid)
             self._reclaim(slot, st)
             if len(st.req.out) >= st.req.max_new:
                 self._finish(slot, st, done)
@@ -1051,25 +1153,31 @@ class PagedServer:
         done: list[Request] = []
         steps = 0
         self._run_t0 = time.perf_counter()
-        while (self.queue or any(s is not None for s in self.slots)) \
-                and steps < max_steps:
-            try:
-                self._expire_deadlines()
-                self._admit()
-                advanced = self._transfer_tick()
-                advanced |= self._prefill_tick(done)
-                advanced |= self._decode_tick(done)
-            except faults_lib.DeviceLostError as e:
-                self._shrink(e.survivors)
-                advanced = True
-            except faults_lib.FaultError as e:
-                self._on_fault(e)
-                advanced = True
-            if self.audit:
-                self.assert_page_invariants()
-            if not advanced and not self.queue:
-                break
-            steps += 1
+        # the span starts at _run_t0, so the TTFT derived from the trace
+        # subtracts the stamp ttft_s subtracts
+        with obs.tracer.span("serve.run", t0=self._run_t0):
+            while (self.queue or any(s is not None for s in self.slots)) \
+                    and steps < max_steps:
+                try:
+                    self._expire_deadlines()
+                    self._admit()
+                    advanced = self._transfer_tick()
+                    advanced |= self._prefill_tick(done)
+                    advanced |= self._decode_tick(done)
+                except faults_lib.DeviceLostError as e:
+                    self._shrink(e.survivors)
+                    advanced = True
+                except faults_lib.FaultError as e:
+                    self._on_fault(e)
+                    advanced = True
+                if self.audit:
+                    self.assert_page_invariants()
+                if not advanced and not self.queue:
+                    break
+                steps += 1
+                if self.obs_dump_every and steps % self.obs_dump_every == 0:
+                    self._dump_metrics()
+        self._dump_metrics()
         return done
 
     def drop_prefix_cache(self) -> int:
@@ -1093,6 +1201,37 @@ class PagedServer:
 # ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
+
+def _write_obs(args, server) -> None:
+    """The CLI's exit dumps: the Prometheus snapshot (the drain flushed
+    first), the Chrome trace with its span coverage and the TTFT/TPOT it
+    gives, and the event log."""
+    if args.metrics:
+        if getattr(server, "router_drain", None) is not None:
+            server.router_drain.flush()
+        obs.registry.collect()
+        obs.dump_prometheus(obs.registry, args.metrics)
+        print(f"[serve] metrics -> {args.metrics}")
+    if args.trace_out:
+        obs.tracer.write(args.trace_out)
+        cov = obs.span_coverage(obs.tracer.events)
+        ttft, tpot = obs.derive_request_latencies(obs.tracer.events)
+        print(f"[serve] trace -> {args.trace_out} "
+              f"({len(obs.tracer.events)} events, "
+              f"{cov:.0%} span coverage)")
+        if ttft:
+            ms = sorted(v * 1e3 for v in ttft.values())
+            line = (f"[serve] TTFT from spans: median "
+                    f"{ms[len(ms) // 2]:.1f}ms over {len(ms)} requests")
+            if tpot:
+                tp = sorted(v * 1e3 for v in tpot.values())
+                line += f"; TPOT median {tp[len(tp) // 2]:.2f}ms"
+            print(line)
+    if args.events_out:
+        obs.events.write_jsonl(args.events_out)
+        print(f"[serve] events -> {args.events_out} "
+              f"({len(obs.events.records)} records)")
+
 
 def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
@@ -1205,6 +1344,21 @@ def main(argv=None):
     ap.add_argument("--hetero-tp-latencies", default=None,
                     help="comma-separated t_i per TP-group member: Eq. 2 "
                          "uneven hidden tiles")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="enable the metrics registry and dump a "
+                         "Prometheus text snapshot to PATH at exit; with "
+                         "--paged and an MoE config the steps also carry "
+                         "per-expert router telemetry")
+    ap.add_argument("--metrics-interval", type=int, default=0,
+                    metavar="N",
+                    help="also dump the Prometheus snapshot every N "
+                         "scheduler steps (0 = exit-only)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record spans/instants and write a Chrome "
+                         "trace-event JSON (Perfetto-loadable) to PATH")
+    ap.add_argument("--events-out", default=None, metavar="PATH",
+                    help="write the structured scheduler event log "
+                         "(JSONL, monotonic timestamps + reasons) to PATH")
     args = ap.parse_args(argv)
     if args.quant != "none" and args.mesh:
         ap.error("--quant serves whole-expert int8/fp8 payloads; combined "
@@ -1250,6 +1404,14 @@ def _serve(ap, args, device, mesh, topo):
     say = print if mesh_lib.is_rank0() else (lambda *a, **k: None)
     if args.fault_spec:
         faults_lib.install(faults_lib.load_plan(args.fault_spec))
+    # the recorders run on rank 0 only: every rank computes the same
+    # global stats and schedule
+    obs_on = bool(args.metrics or args.trace_out or args.events_out) \
+        and mesh_lib.is_rank0()
+    if obs_on:
+        obs.configure(metrics=bool(args.metrics),
+                      tracing=bool(args.trace_out),
+                      event_log=bool(args.events_out), reset=True)
     cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
     if args.layers:
@@ -1280,10 +1442,15 @@ def _serve(ap, args, device, mesh, topo):
                            for j in range(c)]
             say(f"[serve] hetero plan: slot shares {plan.token_counts} "
                 f"({num_slots} padded slots), hidden {plan.hidden_splits}")
+    # --metrics adds the router telemetry to the paged engine's steps (the
+    # dense engine keeps its 2-tuple steps, as the JAX CLI's does)
     pcfg = ParallelConfig(blk=16, mode=args.mode,
                           cache_layers=args.cache_layers, hetero_plan=plan,
                           topology=topo,
-                          overlap_dispatch=args.overlap_dispatch)
+                          overlap_dispatch=args.overlap_dispatch,
+                          collect_router_stats=(bool(args.metrics)
+                                                and args.paged
+                                                and cfg.moe is not None))
     lm.check_mesh(cfg, pcfg, mesh)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if mesh is not None:
@@ -1309,6 +1476,9 @@ def _serve(ap, args, device, mesh, topo):
             params=params, prefill_chunk=args.prefill_chunk, plan=plan,
             kv_quant=args.kv_quant, prefix_cache=args.prefix_cache,
             disagg=args.disagg, audit=args.audit, device=device, mesh=mesh)
+        if args.metrics and obs_on:
+            server.obs_dump_path = args.metrics
+            server.obs_dump_every = args.metrics_interval
         if args.spec_ngram or args.spec_draft:
             # spec imports this module (the shared sampling convention),
             # so it is imported here, never at module level
@@ -1393,6 +1563,8 @@ def _serve(ap, args, device, mesh, topo):
             f"{st['peak_resident_layers']} peak resident layers, "
             f"{st['peak_resident_bytes'] / 1024:.1f} KiB, {st['hits']} hits, "
             f"{st['prefetches']} prefetches")
+    if obs_on:
+        _write_obs(args, server)
     for r in done[:3]:
         say(f"  req {r.rid}: {r.out[:8]}...")
     return done

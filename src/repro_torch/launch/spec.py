@@ -28,16 +28,26 @@ A round takes the engine's fault sites (``serve.decode`` before it,
 logits abort the slot's request and retry it, as the plain decode tick
 does. On a mesh the score forward runs whole on every rank, as the
 prefill chunk does, and the drafts are drawn on every rank alike (the
-accepted tokens are rank 0's draws). Not ported here (ROADMAP.md A.6):
-the metrics registry and trace spans.
+accepted tokens are rank 0's draws).
+
+Observability, as the JAX decoder's: the decoder registers itself for
+snapshot polling (``obs_metrics``: rounds, drafted, accepted and
+rolled-back tokens, the acceptance rate), each verify forward is a
+``serve.spec_verify`` span and each committed token a ``serve.token``
+instant, and with ``collect_router_stats`` the score step's router stats
+go to the engine's drain. A ``ModelDrafter`` collects none: its model is
+not the one served.
 """
 from __future__ import annotations
 
 import time
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.common import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.serve import argmax_token, draw_rows
@@ -113,6 +123,8 @@ class ModelDrafter:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"draft params lie on {params['embed'].device}, "
                              f"the drafter runs on {self.device}")
+        # the draft model's routing is not the served model's: no stats
+        pcfg = dataclasses.replace(pcfg, collect_router_stats=False)
         self.cfg, self.pcfg = cfg, pcfg
         self.params = params
         self.max_seq = max_seq
@@ -198,6 +210,17 @@ class SpecDecoder:
         self.rollback_tokens = 0    # speculative rows truncated away
         self.round_times_s: list = []
         server.spec = self
+        obs.maybe_register(self)
+
+    def obs_metrics(self) -> dict:
+        """Speculative counters for registry snapshot polling."""
+        return {
+            "repro_spec_rounds_total": self.rounds,
+            "repro_spec_drafted_tokens_total": self.drafted,
+            "repro_spec_accepted_drafts_total": self.accepted_drafts,
+            "repro_spec_rollback_tokens_total": self.rollback_tokens,
+            "repro_spec_acceptance_rate": self.stats()["acceptance_rate"],
+        }
 
     def reset_steps(self) -> None:
         """(Re)build the score step (the engine's recovery path)."""
@@ -258,9 +281,11 @@ class SpecDecoder:
         toks = np.zeros((self.chunk,), np.int32)
         toks[0] = req.out[-1]
         toks[1:n_valid] = draft
-        logits, srv.cache = self._score_step(
-            srv.params, srv._tensor(toks), n_valid, slot,
-            srv._tensor(srv.table[slot]), srv.cache)
+        with obs.tracer.span("serve.spec_verify", rid=req.rid, slot=slot,
+                             n_valid=n_valid):
+            logits, srv.cache = srv._unpack_step(self._score_step(
+                srv.params, srv._tensor(toks), n_valid, slot,
+                srv._tensor(srv.table[slot]), srv.cache))
         st.length += n_valid
         for f in faults_lib.inject("serve.logits"):
             if f.kind == "nan" and int(f.payload.get("slot", slot)) == slot:
@@ -277,6 +302,7 @@ class SpecDecoder:
         for i in range(n_valid):
             tok = int(host[i])
             req.out.append(tok)
+            obs.tracer.instant("serve.token", rid=req.rid)
             accepted = i + 1
             if len(req.out) >= req.max_new:
                 finished = True

@@ -22,6 +22,13 @@ builders take a ``mesh`` and ``num_slots`` under the same rule: the
 decode step cuts this rank's block of the slots, the batch-1 prefill
 chunk and score forwards run whole on every rank, and the slots' lengths
 are whole on every rank (``lm.paged_cache_specs``).
+
+With ``pcfg.collect_router_stats`` every step follows the JAX package's
+arities: the train step's metrics carry ``"router_stats"``
+(the ``obs.device`` stats, tensors on the device), and the dense and
+paged serve, prefill and score steps return the stats as a third
+element; the token-wise paged prefill sums them token by token
+(``obs.add_stats``).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.inputs import activation_spec, batch_block
 from repro_torch.models import lm
 from repro_torch.models import transformer as tfm
+from repro_torch.obs import device as obs_device
 from repro_torch.optim import adamw
 from repro_torch.parallel.moe_parallel import _Psum
 from repro_torch.parallel.sharding import (
@@ -176,9 +184,9 @@ def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig, *, mesh=None,
     x_spec = _x_spec(batch_shape3, pcfg, mesh)
 
     def loss_fn(params, batch):
-        hidden, _, aux, z = lm.forward(params, batch, cfg, pcfg,
-                                       mode="train", return_hidden=True,
-                                       mesh=mesh, x_spec=x_spec)
+        out = lm.forward(params, batch, cfg, pcfg, mode="train",
+                         return_hidden=True, mesh=mesh, x_spec=x_spec)
+        hidden, _, aux, z = out[:4]
         labels = batch["labels"]
         if cfg.frontend == "siglip":
             n_img = hidden.shape[1] - labels.shape[1]
@@ -193,7 +201,12 @@ def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig, *, mesh=None,
         loss = chunked_xent(hidden, params, cfg, labels, batch["loss_mask"],
                             pcfg=pcfg, mesh=mesh, x_spec=x_spec)
         total = loss + aw * aux + zw * z
-        return total, {"loss": loss, "aux_loss": aux, "z_loss": z}
+        metrics = {"loss": loss, "aux_loss": aux, "z_loss": z}
+        if pcfg.collect_router_stats:
+            # the device telemetry rides the metrics (not differentiated);
+            # the CLIs pop it before they read the scalars
+            metrics["router_stats"] = out[4]
+        return total, metrics
 
     return loss_fn
 
@@ -239,7 +252,8 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
         with record_function("train_step.adamw"):
             params, opt_state, om = adamw.apply_updates(
                 params, grad_tree, opt_state, opt_cfg, grad_norm=gnorm)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v if k == "router_stats" else v.detach()
+                   for k, v in metrics.items()}
         return params, opt_state, {**metrics, **om,
                                    "total_loss": total.detach()}
 
@@ -260,12 +274,12 @@ def _dense_step(cfg, pcfg, mesh, batch_shape3, mode):
             fwd_in = batch_block(fwd_in, x_spec, mesh)
             if active is not None:
                 active = batch_block({"a": active}, x_spec, mesh)["a"]
-        logits, new_cache, _, _ = lm.forward(
-            params, fwd_in, cfg, pcfg, mode=mode, cache=cache,
-            active=active, mesh=mesh, x_spec=x_spec)
+        out = lm.forward(params, fwd_in, cfg, pcfg, mode=mode, cache=cache,
+                         active=active, mesh=mesh, x_spec=x_spec)
+        logits, new_cache = out[:2]
         if mesh is not None:
             logits = mesh.all_gather(logits, as_axes(x_spec[0]), 0)
-        return logits, new_cache
+        return (logits, new_cache) + tuple(out[4:])
 
     return step
 
@@ -315,15 +329,17 @@ def make_paged_serve_step(cfg: ModelConfig, pcfg: ParallelConfig,
         if mesh is not None:
             blk = batch_block(blk, x_spec, mesh)
         ln = cache["len"] if n is None else cache["len"][lo:lo + n]
-        logits, new_sub, _, _ = lm.forward(
+        out = lm.forward(
             params, {"tokens": blk["tokens"]}, cfg, pcfg, mode="decode",
             cache={"layers": cache["layers"], "len": ln},
             paged={"table": blk["page_table"], "page_size": page_size},
             active=blk["active"], mesh=mesh, x_spec=x_spec)
+        logits, new_sub = out[:2]
         if baxes:
             logits = mesh.all_gather(logits, baxes, 0)
         new_len = (cache["len"] + inputs["active"].int()).to(torch.int32)
-        return logits, {"layers": new_sub["layers"], "len": new_len}
+        return (logits, {"layers": new_sub["layers"], "len": new_len}) \
+            + tuple(out[4:])
 
     return serve_step
 
@@ -364,8 +380,9 @@ def make_paged_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
 def _paged_chunk_forward(cfg: ModelConfig, pcfg: ParallelConfig,
                          page_size: int, mesh):
     """Shared body of the chunk-extension paged forward: final-norm hidden
-    states at every chunk position and the cache with the slot's length
-    advanced by ``n_valid``. All-attention stacks only."""
+    states at every chunk position, the cache with the slot's length
+    advanced by ``n_valid``, and the router stats (None when telemetry
+    is off). All-attention stacks only."""
     if lm.recurrent_layers(cfg):
         raise ValueError(
             "chunk-extension paged forward requires an all-attention "
@@ -379,13 +396,15 @@ def _paged_chunk_forward(cfg: ModelConfig, pcfg: ParallelConfig,
         # (batch-free) page pools — only the length is per-slot
         sub = {"layers": cache["layers"], "len": cache["len"][slot:slot + 1]}
         active = (torch.arange(chunk, device=tokens.device) < n_valid)[None]
-        hidden, sub, _, _ = lm.forward(
+        out = lm.forward(
             params, {"tokens": tokens[None]}, cfg, pcfg, mode="prefill",
             cache=sub, paged={"table": table_row[None], "page_size": page_size},
             active=active, return_hidden=True, mesh=mesh, x_spec=x_spec)
+        hidden, sub = out[:2]
         new_len = cache["len"].clone()
         new_len[slot] = sub["len"][0]
-        return hidden, {"layers": sub["layers"], "len": new_len}
+        stats = out[4] if pcfg.collect_router_stats else None
+        return hidden, {"layers": sub["layers"], "len": new_len}, stats
 
     return fwd, x_spec
 
@@ -396,11 +415,13 @@ def _make_paged_prefill_chunk(cfg: ModelConfig, pcfg: ParallelConfig,
 
     def prefill_step(params, tokens, n_valid: int, slot: int, table_row,
                      cache):
-        hidden, new_cache = fwd(params, tokens, n_valid, slot, table_row,
-                                cache)
+        hidden, new_cache, stats = fwd(params, tokens, n_valid, slot,
+                                       table_row, cache)
         # last valid row only: the first-generated-token logits
         logits = lm.head_logits(params, hidden[:, n_valid - 1:n_valid], cfg,
                                 pcfg, mesh, x_spec)
+        if stats is not None:
+            return logits.reshape(-1), new_cache, stats
         return logits.reshape(-1), new_cache
 
     return prefill_step
@@ -424,10 +445,12 @@ def make_paged_score_step(cfg: ModelConfig, pcfg: ParallelConfig,
 
     def score_step(params, tokens, n_valid: int, slot: int, table_row,
                    cache):
-        hidden, new_cache = fwd(params, tokens, n_valid, slot, table_row,
-                                cache)
-        return (lm.score_logits(params, hidden, cfg, pcfg, mesh, x_spec)[0],
-                new_cache)
+        hidden, new_cache, stats = fwd(params, tokens, n_valid, slot,
+                                       table_row, cache)
+        logits = lm.score_logits(params, hidden, cfg, pcfg, mesh, x_spec)[0]
+        if stats is not None:
+            return logits, new_cache, stats
+        return logits, new_cache
 
     return score_step
 
@@ -511,7 +534,10 @@ def _make_paged_prefill_scan(cfg: ModelConfig, pcfg: ParallelConfig,
     the rows written back where they are held; the last one's logits are
     returned. The JAX scan also runs the padding tokens past ``n_valid``,
     inactive (a sink-page write, state and length kept), which changes
-    nothing; here they are skipped."""
+    nothing; here they are skipped. With ``pcfg.collect_router_stats``
+    the stats of the token forwards are summed (``obs.add_stats``) and
+    returned third: the valid tokens' (JAX's sum also routes the inactive
+    padding tokens of a short last chunk)."""
     serve_step = make_paged_serve_step(cfg, pcfg, page_size, mesh=mesh,
                                        num_slots=1)
     recurrent = lm.recurrent_layers(cfg)
@@ -527,16 +553,24 @@ def _make_paged_prefill_scan(cfg: ModelConfig, pcfg: ParallelConfig,
         inputs = {"page_table": table_row[None],
                   "active": torch.ones(1, dtype=torch.bool,
                                        device=tokens.device)}
+        stats = (obs_device.zero_stats(
+            cfg.moe.num_experts if cfg.moe is not None else 1,
+            tokens.device) if pcfg.collect_router_stats else None)
         for t in range(n_valid):
-            logits, sub = serve_step(
+            out = serve_step(
                 params, {**inputs, "tokens": tokens[t].reshape(1, 1)}, sub)
+            logits, sub = out[:2]
+            if stats is not None:
+                stats = obs_device.add_stats(stats, out[2])
         for i in recurrent:
             for k, t in cache["layers"][i].items():
                 rows.put(t, slot, sub["layers"][i][k])
         new_len = cache["len"].clone()
         new_len[slot] = sub["len"][0]
-        return logits.reshape(-1), {"layers": cache["layers"],
-                                    "len": new_len}
+        new_cache = {"layers": cache["layers"], "len": new_len}
+        if stats is not None:
+            return logits.reshape(-1), new_cache, stats
+        return logits.reshape(-1), new_cache
 
     return prefill_step
 

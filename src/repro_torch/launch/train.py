@@ -61,8 +61,11 @@ observed step times re-plan the Eq. 1 shares, one step a plan in the
 ``PlanCache``); ``--simulate-skew`` synthesises the per-device times on
 one host. ``--metrics``, ``--metrics-interval``, ``--trace-out`` and
 ``--events-out`` write the ``obs`` registry (Prometheus text), the
-train-loop spans (Chrome trace) and the event log (JSONL), on rank 0;
-the per-expert router series wait for their slice (ROADMAP.md A.6).
+train-loop spans (Chrome trace) and the event log (JSONL), on rank 0.
+``--metrics`` on an MoE config also turns on the router telemetry
+(``collect_router_stats``): each step's stats go to a
+``RouterStatsDrain`` (phase "train") without a host copy, flushed into
+the per-expert series at every metrics dump, as the JAX trainer does.
 
     python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke \
         --steps 4 --global-batch 4 --seq-len 64 --device cpu \
@@ -362,7 +365,10 @@ def _train(ap, args, device, mesh, latencies, topo, keep):
                           cache_policy=args.cache_policy,
                           cache_layers=args.cache_layers,
                           device_latencies=latencies, topology=topo,
-                          overlap_dispatch=args.overlap_dispatch)
+                          overlap_dispatch=args.overlap_dispatch,
+                          # --metrics adds the per-expert router telemetry
+                          collect_router_stats=(bool(args.metrics)
+                                                and cfg.moe is not None))
     plan = None
     if args.hetero_latencies:
         tp_lat = (None if not args.hetero_tp_latencies else parse_latencies(
@@ -440,10 +446,16 @@ def _train(ap, args, device, mesh, latencies, topo, keep):
     metrics_log = []
     t_last = [time.perf_counter()]
     writes_obs = mesh_lib.is_rank0()
+    router_drain = None
+    if pcfg.collect_router_stats and writes_obs:
+        router_drain = obs.RouterStatsDrain(
+            obs.registry, cfg.moe.num_experts, phase="train")
 
     def dump_obs_metrics():
         if not args.metrics or not writes_obs:
             return
+        if router_drain is not None:
+            router_drain.flush()
         obs.registry.collect()
         obs.dump_prometheus(obs.registry, args.metrics)
 
@@ -461,6 +473,11 @@ def _train(ap, args, device, mesh, latencies, topo, keep):
         with obs.tracer.span("train.step", step=step):
             params, opt, m = step_box[0](state["params"], state["opt"],
                                          batch)
+            # the device-side router stats ride the metrics; the drain
+            # takes them before the scalars are read
+            rstats = m.pop("router_stats", None)
+            if router_drain is not None:
+                router_drain.push(rstats)
             m = {k: float(v) for k, v in m.items()}   # waits for the step
         now = time.perf_counter()
         m["step_time_s"] = now - t_last[0]

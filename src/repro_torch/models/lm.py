@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common import torch_dtype, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import frontends, mamba, transformer as tfm, xlstm
+from repro_torch.obs import device as obs_device
 from repro_torch.parallel.moe_parallel import (
     EP_NODE_REFUSAL,
     EP_PARAM_LOGICAL,
@@ -96,14 +97,10 @@ def check_servable(cfg: ModelConfig) -> None:
 
 
 def check_mesh(cfg: ModelConfig, pcfg: ParallelConfig, mesh) -> None:
-    """Raise for what the port does not run on a mesh: router statistics
-    (ROADMAP.md A.6), and the "ep" mode on a two-level "node" mesh, as
-    the JAX package refuses it."""
+    """Raise for what the port does not run on a mesh: the "ep" mode on a
+    two-level "node" mesh, as the JAX package refuses it."""
     if mesh is None:
         return
-    if pcfg.collect_router_stats:
-        raise NotImplementedError(
-            "collect_router_stats is not ported (ROADMAP.md A.6)")
     if pcfg.mode == "ep" and cfg.moe is not None \
             and "node" in mesh.axis_names:
         raise NotImplementedError(EP_NODE_REFUSAL)
@@ -545,7 +542,9 @@ def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
                 cache: Optional[dict], gathered: Optional[tuple] = None):
     """One block: mixer, cross-attention where the layer has it, then the
     FFN where the layer has one. Returns
-    (x, cache, aux, z). In a decode macro-step with an ``active`` mask,
+    (x, cache, aux, z, stats): ``stats`` the MoE layer's router stats when
+    ``ctx.pcfg.collect_router_stats`` is set and the block holds an MoE
+    FFN, else None. In a decode macro-step with an ``active`` mask,
     inactive slots keep their recurrent state (attention writes its own
     sink row). ``gathered``: the MoE FFN's expert weights from the
     pipeline-shared cache and the collectives that gathered them
@@ -567,15 +566,19 @@ def apply_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int,
         x = x + tfm.apply_cross_attention(
             p["xattn"], tfm.block_norm(p["ln_x"], x, ctx), ctx)
     aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    stats = None
     if "ffn" in p:
         h2 = tfm.block_norm(p["ln2"], x, ctx)
         if ctx.cfg.is_moe_layer(idx):
-            y, aux, z = tfm.apply_moe_ffn(p["ffn"], h2, ctx,
-                                          idx % ctx.cfg.period, gathered)
+            out = tfm.apply_moe_ffn(p["ffn"], h2, ctx, idx % ctx.cfg.period,
+                                    gathered)
+            y, aux, z = out[:3]
+            if ctx.pcfg.collect_router_stats:
+                stats = out[3]
         else:
             y = tfm.apply_dense_ffn(p["ffn"], h2, ctx)
         x = x + y
-    return x, new_cache, aux, z
+    return x, new_cache, aux, z, stats
 
 
 _RECURRENT_APPLY = {"mamba": mamba.apply_mamba, "mlstm": xlstm.apply_mlstm,
@@ -583,13 +586,16 @@ _RECURRENT_APPLY = {"mamba": mamba.apply_mamba, "mlstm": xlstm.apply_mlstm,
 
 
 def _train_block(p: dict, x: torch.Tensor, ctx: tfm.Ctx, idx: int):
-    x, _, aux, z = apply_block(p, x, ctx, idx, None)
-    return x, aux, z
+    x, _, aux, z, stats = apply_block(p, x, ctx, idx, None)
+    return x, aux, z, stats
 
 
 def run_layers(layers: list, x: torch.Tensor, ctx: tfm.Ctx,
                cache_layers: list):
-    """The unrolled layer loop. Returns (x, aux, z, cache_layers).
+    """The unrolled layer loop. Returns (x, aux, z, cache_layers, stats):
+    ``stats`` the router stats summed over every MoE layer
+    (``obs.add_stats``) when ``pcfg.collect_router_stats`` is set and the
+    stack has MoE layers, else None.
 
     A training forward with ``pcfg.remat == "block"`` checkpoints each
     block (``torch.utils.checkpoint``, non-reentrant): only its input is
@@ -652,6 +658,8 @@ def run_layers(layers: list, x: torch.Tensor, ctx: tfm.Ctx,
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     z = torch.zeros((), dtype=torch.float32, device=x.device)
+    stats = (obs_device.zero_stats(cfg.moe.num_experts, x.device)
+             if pcfg.collect_router_stats and cfg.moe is not None else None)
     new_caches = []
     for idx, (lp, lc) in enumerate(zip(layers, cache_layers)):
         g = None
@@ -663,17 +671,19 @@ def run_layers(layers: list, x: torch.Tensor, ctx: tfm.Ctx,
                 # this layer computes
                 pcache.prefetch(later[0], lambda: gather(later[0]))
         if remat:
-            x, a, zz = checkpoint(_train_block, lp, x, ctx, idx,
-                                  use_reentrant=False)
+            x, a, zz, st = checkpoint(_train_block, lp, x, ctx, idx,
+                                      use_reentrant=False)
             nc = lc
         else:
-            x, nc, a, zz = apply_block(lp, x, ctx, idx, lc, gathered=g)
+            x, nc, a, zz, st = apply_block(lp, x, ctx, idx, lc, gathered=g)
         new_caches.append(nc)
         aux = aux + a
         z = z + zz
+        if stats is not None and st is not None:
+            stats = obs_device.add_stats(stats, st)
     if pcache is not None:
         LAST_PIPELINE_CACHE_STATS = pcache.stats()
-    return x, aux, z, new_caches
+    return x, aux, z, new_caches, stats
 
 
 def _embed_in(params: dict, inputs: dict, cfg: ModelConfig, dtype):
@@ -866,7 +876,10 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
             x_spec: Optional[tuple] = None):
     """Forward pass. Returns (logits, cache, aux_loss, z_loss); with
     ``return_hidden`` the final normed hidden states stand in for the
-    logits. ``inputs``: ``tokens`` (B, S) int; siglip configs may add
+    logits. With ``pcfg.collect_router_stats`` a fifth element follows:
+    the router stats (``obs.device``) summed over every MoE layer, the
+    global counts on a mesh (a stack without MoE layers gives
+    ``zero_stats(1)``, as JAX's does). ``inputs``: ``tokens`` (B, S) int; siglip configs may add
     ``patches`` (B, P, frontend_dim), put before the tokens; encodec
     configs take ``embeds`` (B, S, frontend_dim) instead of tokens;
     ``cond`` (B, T, cross_d), the cross-attention memory of a
@@ -941,8 +954,8 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
             s, device=x.device)
         cache_layers = cache["layers"]
     ctx.positions, ctx.cache_len = positions, cache_len
-    x, aux, z, new_layers = run_layers(params["layers"], x, ctx,
-                                       cache_layers)
+    x, aux, z, new_layers, stats = run_layers(params["layers"], x, ctx,
+                                              cache_layers)
     x = tfm.block_norm(params["final_norm"], x, ctx)
 
     if return_hidden:
@@ -956,8 +969,12 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
         logits = _logits_out(params, x, cfg)
 
     n_moe = max(sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers)), 1)
+    tail = ()
+    if pcfg.collect_router_stats:
+        tail = (stats if stats is not None
+                else obs_device.zero_stats(1, x.device),)
     if cache is None:
-        return logits, None, aux / n_moe, z / n_moe
+        return (logits, None, aux / n_moe, z / n_moe) + tail
     if dense_prefill:
         new_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
     elif active is None:
@@ -967,4 +984,4 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig,
     else:
         new_len = (cache_len + active.int().sum(dim=1)).to(torch.int32)
     new_cache = {"layers": new_layers, "len": new_len}
-    return logits, new_cache, aux / n_moe, z / n_moe
+    return (logits, new_cache, aux / n_moe, z / n_moe) + tail

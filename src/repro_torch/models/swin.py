@@ -250,6 +250,10 @@ def _apply_moe_ffn(p, x_tokens, cfg: SwinConfig, pcfg: ParallelConfig,
     """x_tokens: (B, L, C) -> (y, aux, z) through ``moe_impl``'s path."""
     m = cfg.moe
     if moe_impl == "hexa":
+        if pcfg.collect_router_stats:
+            # router telemetry is an LM-stack feature; the vision tower
+            # keeps the plain 3-tuple, as the JAX package's does
+            pcfg = dataclasses.replace(pcfg, collect_router_stats=False)
         return moe_layer(x_tokens, p, _moe_static(cfg, x_tokens.shape[-1]),
                          pcfg, mesh, x_spec=SWIN_X_SPEC)
     if mesh is not None:

@@ -374,8 +374,9 @@ def moe_static(cfg: ModelConfig, pcfg: ParallelConfig) -> MoEStatic:
 def apply_moe_ffn(p: dict, x: torch.Tensor, ctx: Ctx,
                   layer_idx: Optional[int] = None,
                   gathered: Optional[tuple] = None):
-    """Returns (y, aux_loss, z_loss). x: (B, S, D), placed at
-    ``ctx.x_spec`` on a mesh. ``layer_idx``: the period position, the key
+    """Returns (y, aux_loss, z_loss), and the layer's router stats last
+    when ``ctx.pcfg.collect_router_stats`` is set (``moe_layer``'s, passed
+    up unchanged). x: (B, S, D), placed at ``ctx.x_spec`` on a mesh. ``layer_idx``: the period position, the key
     of the auto mode's per-layer plan. ``gathered``: (the expert weights
     gathered by the pipeline-shared cache, the collectives that gathered
     them: "fsdp" or "all"; ``parallel.cache.gather_ffn_params``); they

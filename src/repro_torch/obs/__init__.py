@@ -4,7 +4,7 @@ Three pillars behind one module-level handle:
 
 * **metrics** — a process-local :class:`MetricsRegistry` (counters,
   gauges, log-bucket histograms; labeled series; thread-safe; no-op when
-  disabled).
+  disabled) plus the on-device router accumulators in ``obs.device``.
 * **tracing** — :class:`Tracer` span/instant recording with Chrome
   trace-event JSON export (Perfetto-loadable).
 * **exporters** — Prometheus text dumps and the JSONL event log.
@@ -15,12 +15,17 @@ instrumented library code (``runtime.ft``, ``runtime.straggler``,
 flag check per event until a driver calls :func:`configure`. The
 instances are persistent: ``configure`` flips their ``enabled`` flags
 rather than swapping objects, so snapshot objects registered before
-enablement still publish afterwards. The per-expert router accumulators
-of the JAX package (``repro.obs.device``) are not ported yet (ROADMAP.md
-A.6).
+enablement still publish afterwards.
 """
 from __future__ import annotations
 
+from repro_torch.obs.device import (  # noqa: F401 — re-exports
+    RouterStatsDrain,
+    add_stats,
+    expert_stats,
+    load_imbalance,
+    zero_stats,
+)
 from repro_torch.obs.exporters import EventLog, dump_prometheus  # noqa: F401
 from repro_torch.obs.metrics import (  # noqa: F401
     DEFAULT_SECONDS_BUCKETS,

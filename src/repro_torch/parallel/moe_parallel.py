@@ -54,9 +54,17 @@ cross nodes (``ag_rs``: an all-reduce over "model", a reduce-scatter
 over "node", then this rank's "model" chunk; ``ag_ar``: the all-reduce
 phased the same way). Each phase is an autograd op whose backward is its
 adjoint. ``pregathered="all"`` (the overlap schedule of
-``models.lm.run_layers``) also skips the data-centric TP gather. Not
-ported, and refused: ``collect_router_stats`` (ROADMAP.md A.6), and the
-"ep" mode on a node mesh (refused by the JAX package too).
+``models.lm.run_layers``) also skips the data-centric TP gather. The
+"ep" mode refuses a node mesh, as the JAX package does.
+
+``cfg.collect_router_stats`` adds the router telemetry
+(``obs.device.expert_stats``) to every island's return and makes
+``moe_layer`` return (y, aux, z, stats), with or without a mesh: the
+hexa islands count the rows this rank routed under the Eq. 1 mask, the
+"ep" island also its capacity-overflow drops. On a mesh the counts are
+summed over every rank (one all-reduce of the integers, one of the
+entropy) and divided by the number of ranks that routed the same rows,
+so they are the global counts on every rank.
 """
 from __future__ import annotations
 
@@ -68,6 +76,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import ACTIVATIONS
 from repro_torch.core import baselines, espec
+from repro_torch.obs import device as obs_device
 from repro_torch.parallel.sharding import (
     ParallelConfig,
     as_axes,
@@ -313,7 +322,9 @@ def hexa_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
                     layer_mode: Optional[str] = None, pregathered=False,
                     token_valid: Optional[torch.Tensor] = None,
                     weights: Optional[dict] = None):
-    """Local tokens x (N_l, D) -> (y, aux_loss, z_loss).
+    """Local tokens x (N_l, D) -> (y, aux_loss, z_loss), and the router
+    stats of the rows this rank routed last when
+    ``cfg.collect_router_stats`` is set.
 
     ``tokens_sharded_tp``: whether the token dim is sharded over TP (and
     gathered here) or replicated. ``layer_mode``: "data_centric" gathers
@@ -347,6 +358,9 @@ def hexa_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
     r = espec.route(x, w["router"], ms.top_k, norm_topk=ms.norm_topk,
                     softmax_after_topk=ms.softmax_after_topk,
                     valid_mask=token_valid)
+    stats = (obs_device.expert_stats(r.expert_idx, r.probs, ms.num_experts,
+                                     valid_mask=token_valid)
+             if cfg.collect_router_stats else None)
     ri = espec.build_reindex(r.expert_idx, r.gates, ms.num_experts, cfg.blk)
     if ms.glu:
         scales = ((w["w_gate_scale"], w["w_up_scale"], w["w_down_scale"])
@@ -381,22 +395,28 @@ def hexa_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
             y = y.narrow(0, mesh.index(tp) * nl, nl)
         else:
             y = _psum_hier(y, mesh, tp, hier)
+    if stats is not None:
+        return y, r.aux_loss, r.z_loss, stats
     return y, r.aux_loss, r.z_loss
 
 
 def ep_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
-                  cfg: ParallelConfig, mesh, *, tokens_sharded_tp: bool,
+                  cfg: ParallelConfig, mesh=None, *,
+                  tokens_sharded_tp: bool = False,
                   token_valid: Optional[torch.Tensor] = None):
     """Expert-parallel baseline: experts sharded over "model", tokens
     travel by all-to-all into a capacity buffer (padding and drops), the
     GShard/Tutel execution the paper replaces. Masked rows (``token_valid``)
     get gate 0, so their output and weight gradients are exactly zero;
-    they may still take capacity slots."""
+    they may still take capacity slots. Without a mesh the whole buffer is
+    local (the JAX island on its one-device mesh). With
+    ``cfg.collect_router_stats`` the stats (with the valid token slots
+    past the capacity as ``dropped_tokens``) come last in the return."""
     del tokens_sharded_tp  # each rank routes its own rows either way
     if "w_gate_scale" in p or "w1_scale" in p:
         raise NotImplementedError(
             "the EP baseline does not support quantized expert weights")
-    tp = cfg.axes(mesh)["tp"]
+    tp = None if mesh is None else cfg.axes(mesh)["tp"]
     if isinstance(tp, tuple):
         raise NotImplementedError(EP_NODE_REFUSAL)
     ep = mesh.size(tp) if tp else 1
@@ -411,6 +431,16 @@ def ep_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
     capacity = max(int((n * k / e) * cfg.capacity_factor), 1)
     rank, _ = baselines._dispatch_ranks(r.expert_idx, e)
     keep = rank < capacity
+    stats = None
+    if cfg.collect_router_stats:
+        # capacity-overflow drops: valid token slots whose dispatch rank
+        # passed the buffer
+        vt = (torch.ones((n,), dtype=torch.int32, device=x.device)
+              if token_valid is None else token_valid.to(torch.int32))
+        dropped = torch.sum((~keep).to(torch.int32) * vt[:, None])
+        stats = obs_device.expert_stats(r.expert_idx, r.probs, e,
+                                        valid_mask=token_valid,
+                                        dropped=dropped)
     slot = r.expert_idx.long() * capacity + rank.long()
     slot = torch.where(keep, slot, e * capacity)       # dropped: extra row
     src = x[:, None, :].expand(n, k, d).reshape(n * k, d)
@@ -444,6 +474,8 @@ def ep_moe_island(x: torch.Tensor, p: dict, ms: MoEStatic,
     got = y_flat[torch.clamp(slot, max=e * capacity - 1).reshape(-1)]
     gates = (r.gates * keep.to(r.gates.dtype))[..., None].to(x.dtype)
     y = torch.sum(got.reshape(n, k, d) * gates, dim=1)
+    if stats is not None:
+        return y, r.aux_loss, r.z_loss, stats
     return y, r.aux_loss, r.z_loss
 
 
@@ -492,9 +524,6 @@ def _hetero_mask_counts(plan, x_spec, mesh, b: int):
 
 
 def _check_mesh(cfg: ParallelConfig, mesh, ms: MoEStatic) -> None:
-    if cfg.collect_router_stats:
-        raise NotImplementedError(
-            "collect_router_stats is not ported (ROADMAP.md A.6)")
     if ms.d_ff is None:
         raise ValueError("a mesh needs MoEStatic.d_ff, the experts' global "
                          "hidden width")
@@ -503,7 +532,10 @@ def _check_mesh(cfg: ParallelConfig, mesh, ms: MoEStatic) -> None:
 def moe_layer(x: torch.Tensor, p: dict, ms: MoEStatic, cfg: ParallelConfig,
               mesh=None, *, x_spec=None, layer_idx: Optional[int] = None,
               pregathered: bool = False):
-    """MoE FFN over a (B, S, D) activation -> (y, aux_loss, z_loss).
+    """MoE FFN over a (B, S, D) activation -> (y, aux_loss, z_loss), with
+    the router stats (``obs.device``) last when
+    ``cfg.collect_router_stats`` is set: the global per-expert token
+    counts, drops, entropy and token sums, the same on every rank.
 
     Without a mesh: the whole layer on this device. With one: ``x`` is
     this rank's block of the global (B, S, D) activation as ``x_spec`` (a
@@ -515,11 +547,12 @@ def moe_layer(x: torch.Tensor, p: dict, ms: MoEStatic, cfg: ParallelConfig,
     "fsdp" the fsdp factor, "all" the TP factor too, which makes the
     layer data-centric (the overlap prefetcher resolved it so)."""
     b, s, d = x.shape
+    collect = cfg.collect_router_stats
     if mesh is None:
         # one device: no group to move tokens or weights across, so every
         # mode (and auto's choice) runs the same local body
-        y, aux, z = hexa_moe_island(x.reshape(b * s, d), p, ms, cfg)
-        return y.reshape(b, s, d), aux, z
+        out = hexa_moe_island(x.reshape(b * s, d), p, ms, cfg)
+        return (out[0].reshape(b, s, d),) + tuple(out[1:])
 
     _check_mesh(cfg, mesh, ms)
     x_spec = tuple(x_spec) + (None,) * (3 - len(x_spec))
@@ -557,9 +590,8 @@ def moe_layer(x: torch.Tensor, p: dict, ms: MoEStatic, cfg: ParallelConfig,
 
     xf = x.reshape(b * s, d)
     if ep:
-        y, aux, z = ep_moe_island(xf, pl, ms, cfg, mesh,
-                                  tokens_sharded_tp=tokens_tp,
-                                  token_valid=tv)
+        out = ep_moe_island(xf, pl, ms, cfg, mesh,
+                            tokens_sharded_tp=tokens_tp, token_valid=tv)
     else:
         island = functools.partial(
             hexa_moe_island, ms=ms, cfg=cfg, mesh=mesh,
@@ -573,8 +605,8 @@ def moe_layer(x: torch.Tensor, p: dict, ms: MoEStatic, cfg: ParallelConfig,
             def run(xf, *leaves):
                 return island(xf, dict(zip(names, leaves)))
 
-            y, aux, z = checkpoint(run, xf, *(pl[k] for k in names),
-                                   use_reentrant=False)
+            out = checkpoint(run, xf, *(pl[k] for k in names),
+                             use_reentrant=False)
         elif policy == "janus":
             # the gathered weights are saved; the compute is recomputed
             w = _island_weights(pl, ms, cfg, mesh, layer_mode=layer_mode,
@@ -584,10 +616,11 @@ def moe_layer(x: torch.Tensor, p: dict, ms: MoEStatic, cfg: ParallelConfig,
             def run(xf, *leaves):
                 return island(xf, pl, weights=dict(zip(wnames, leaves)))
 
-            y, aux, z = checkpoint(run, xf, *(w[k] for k in wnames),
-                                   use_reentrant=False)
+            out = checkpoint(run, xf, *(w[k] for k in wnames),
+                             use_reentrant=False)
         else:
-            y, aux, z = island(xf, pl)
+            out = island(xf, pl)
+    y, aux, z = out[:3]
 
     n = mesh.size(world)
     if bv is None:
@@ -603,7 +636,34 @@ def moe_layer(x: torch.Tensor, p: dict, ms: MoEStatic, cfg: ParallelConfig,
         z = _Psum.apply(z * wgt, mesh, world) / wsum
     y = _Exit.apply(y.reshape(b, s, d),
                     mesh.size(_unmentioned(mesh, x_spec)))
+    if collect:
+        # the island's rows are routed again by every rank that holds them:
+        # those x is replicated over, and the TP group that gathered them
+        dup = mesh.size(_unmentioned(mesh, x_spec))
+        tp = cfg.axes(mesh)["tp"]
+        if not ep and tp is not None and tokens_tp \
+                and layer_mode != "data_centric":
+            dup *= mesh.size(tp)
+        return (y, _Exit.apply(aux, n), _Exit.apply(z, n),
+                _global_stats(out[3], mesh, world, dup))
     return y, _Exit.apply(aux, n), _Exit.apply(z, n)
+
+
+def _global_stats(st: dict, mesh, world, dup: int) -> dict:
+    """One rank's router stats summed over ``world`` (the integers in one
+    all-reduce, the entropy in another) and divided by ``dup``, the
+    ranks that routed each row: exact integer division, as JAX's
+    de-duplication of its TP-replicated counts."""
+    e = st["expert_tokens"].shape[0]
+    ints = mesh.all_reduce(torch.cat([st["expert_tokens"],
+                                      st["dropped_tokens"].reshape(1),
+                                      st["tokens"].reshape(1)]), world)
+    ent = mesh.all_reduce(st["entropy_sum"].reshape(1), world)[0]
+    if dup > 1:
+        ints = torch.div(ints, dup, rounding_mode="floor")
+        ent = ent / dup
+    return {"expert_tokens": ints[:e], "dropped_tokens": ints[e],
+            "entropy_sum": ent, "tokens": ints[e + 1]}
 
 
 def _param_specs(ms: MoEStatic, d: int, cfg: ParallelConfig, mesh, *,

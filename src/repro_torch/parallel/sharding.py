@@ -80,8 +80,11 @@ class ParallelConfig:
     overlap_dispatch: the overlap schedule of ``models.lm.run_layers``
       (with ``cache_layers`` > 0 and the "auto" mode): a data-centric
       layer's whole expert weights are prefetched, TP factor included.
-    collect_router_stats: not ported (ROADMAP.md A.6); True raises in
-      ``moe_parallel.moe_layer`` and ``models.lm.check_mesh``.
+    collect_router_stats: the router telemetry (``obs.device``): the MoE
+      layer returns its stats last, ``models.lm.forward`` a fifth element
+      (summed over the MoE layers), and every ``make_*_step`` of
+      ``launch.steps`` the stats too, with or without a mesh. The Swin
+      tower switches it off, as the JAX package's does.
     cache_layers: the residency bound of the pipeline-shared prefetch
       cache in ``models.lm.run_layers`` (one entry = one MoE layer's
       gathered expert weights, ``parallel.cache.gather_ffn_params``; 2 =

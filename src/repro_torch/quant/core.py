@@ -1,6 +1,6 @@
-"""Block-wise expert-weight and KV-row quantization (counterpart of
-``repro.quant.core``; the gradient-compression helpers wait for
-``optim/compression.py``).
+"""Block-wise expert-weight and KV-row quantization, and the int8
+helpers of the gradient compression (``optim.compression``), as the
+counterpart of ``repro.quant.core``.
 
 One rounding and clipping convention, bit for bit the JAX package's:
 
@@ -55,6 +55,19 @@ def quant_bits(mode: Optional[str]) -> int:
     if mode not in QUANT_FORMATS:
         raise ValueError(f"unknown quant mode {mode!r}")
     return 8
+
+
+def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 with a caller-supplied (shared) scale, the
+    collective-safe form ``optim.compression.compressed_psum`` needs (the
+    scale is agreed across the group before the payloads move)."""
+    q = torch.round(x.float() / torch.clamp(scale.float(), min=1e-30))
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_int8`` (float32 out)."""
+    return q.float() * scale
 
 
 # ---------------------------------------------------------------------------

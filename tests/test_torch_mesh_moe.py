@@ -19,9 +19,11 @@ gathered back to global arrays on the ranks and held to JAX's:
   output and gradient exactly 0 in both packages, the rest within the
   limits above; a uniform plan bit for bit the no-plan run;
 * ``gather_ffn_params`` + ``pregathered=True`` bit for bit the in-island
-  gather, ``overlap_dispatch`` leaving the layer as it is, and the
-  refusals (``collect_router_stats``, true-quantized experts on a
-  sharded mesh, the "ep" mode on a node mesh);
+  gather, ``overlap_dispatch`` leaving the layer as it is,
+  ``collect_router_stats`` (refused on a mesh until the port's router
+  stats) returning JAX's 4-tuple with JAX's global counts, and the
+  refusals (true-quantized experts on a sharded mesh, the "ep" mode on a
+  node mesh);
   ``make_production_mesh`` over the 4 ranks and ``split_model_axis``
   against JAX's.
 """
@@ -122,6 +124,17 @@ for name, glu, mode, sched, forced, spec, lat in cases:
     out[name + "/gx"] = np.asarray(gx)
     for k in keys:
         out[name + "/g_" + k] = np.asarray(getattr(gp, k))
+# the router stats of the hybrid layer, tokens sharded over "model"
+p = MoEParams(**{k[4:]: jnp.asarray(data[k]) for k in data.files
+                 if k.startswith("glu/") and k[4:] not in ("x", "ct")})
+cfg = ParallelConfig(mode="hybrid", blk=16, collect_router_stats=True)
+ms = MoEStatic(num_experts=%(e)d, top_k=%(k)d, act="silu", glu=True)
+with mesh:
+    st = jax.jit(lambda x, p: moe_layer(x, p, ms, cfg, mesh,
+                                        x_spec=P("data", "model", None))[3])(
+        jnp.asarray(data["glu/x"]), p)
+for key, v in st.items():
+    out["stats/" + key] = np.asarray(v)
 np.savez(sys.argv[3], **out)
 print("RESULT ok")
 """ % dict(skew=SKEW_BATCH, e=E, k=K, aw=AUX_W, zw=Z_W)
@@ -196,10 +209,8 @@ def _port_rank(rank, cases):
     ms = mp.MoEStatic(E, K, glu=True, d_ff=F)
     node = make_mesh((1, 2, 2), ("data", "node", "model"))
     for what, cfg, m, spec in (
-            ("stats", dataclasses.replace(base, collect_router_stats=True),
-             mesh, TOK_TP),
             ("ep_node", ParallelConfig(mode="ep"), node,
-             ("data", ("node", "model"), None))):
+             ("data", ("node", "model"), None)),):
         try:
             mp.moe_layer(torch.from_numpy(x[:4, :8]), {}, ms, cfg, m,
                          x_spec=spec)
@@ -216,6 +227,14 @@ def _port_rank(rank, cases):
     except NotImplementedError as e:
         refusals["quantized"] = str(e)
     check["refusals"] = refusals
+    # router stats on the mesh: JAX's 4-tuple, the global counts
+    xs = shard(torch.from_numpy(x), TOK_TP, ParallelConfig(), mesh)
+    ps = {k: shard(torch.from_numpy(v), mp.MOE_PARAM_LOGICAL[k], base, mesh)
+          for k, v in p.items()}
+    got = mp.moe_layer(xs, ps, ms, dataclasses.replace(
+        base, collect_router_stats=True), mesh, x_spec=TOK_TP)
+    check["stats_arity"] = len(got)
+    check["stats"] = {k: v.numpy() for k, v in got[3].items()}
     from repro_torch.launch.mesh import make_production_mesh
 
     prod = make_production_mesh(model=2)
@@ -288,9 +307,20 @@ def test_uniform_plan_and_pregathered_are_the_plain_run(results):
 def test_mesh_refusals_name_the_roadmap(results):
     """What stays refused names its ROADMAP item, or is JAX's own
     refusal; ``overlap_dispatch``, refused until the overlap schedule was
-    ported, leaves the layer as it is (the schedule is ``lm.run_layers``')."""
-    _, _, checks = results
+    ported, leaves the layer as it is (the schedule is ``lm.run_layers``');
+    ``collect_router_stats``, refused until the port's router stats, runs
+    and gives JAX's global counts on every rank (the integers bitwise,
+    the entropy sum within 1e-5 relative)."""
+    jax_out, _, checks = results
     for c in checks:
+        assert c["stats_arity"] == 4
+        for k, v in c["stats"].items():
+            want = jax_out["stats/" + k]
+            if k == "entropy_sum":
+                np.testing.assert_allclose(v, want, rtol=1e-5)
+            else:
+                np.testing.assert_array_equal(v, want)
+        assert int(c["stats"]["tokens"]) == B * S
         refusals = dict(c["refusals"])
         # true-quantized experts on a sharded mesh, and the EP baseline on
         # a node mesh, raise as JAX's do

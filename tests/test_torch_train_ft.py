@@ -15,8 +15,8 @@
   (2, 2) and print the shares the JAX CLI prints. (With ``--simulate-skew
   1,3`` the synthesised times are equal under the plan's (3, 1) shares,
   and neither package replans.)
-* ``--metrics`` writes the JAX CLI's series names less the router ones
-  (the router-telemetry slice), and ``--events-out`` the JAX CLI's event
+* ``--metrics`` writes the JAX CLI's series names, the per-expert router
+  series included, and ``--events-out`` the JAX CLI's event
   kinds in its order; ``--trace-out``'s spans cover the run.
 """
 import contextlib
@@ -236,10 +236,11 @@ def test_obs_outputs_match_the_jax_cli(mesh_runs):
         with open(path) as f:
             return [json.loads(x)["kind"] for x in f if x.strip()]
 
-    jnames = [n for n in names(os.path.join(tmp, "jmetrics"))
-              if not n.startswith("repro_router_")]
+    # every family, the per-expert router series too
+    jnames = names(os.path.join(tmp, "jmetrics"))
     assert names(os.path.join(tmp, "metrics0")) == jnames
     assert "repro_ft_recoveries_total" in jnames
+    assert "repro_router_expert_tokens_total" in jnames
     assert kinds(os.path.join(tmp, "events0")) == \
         kinds(os.path.join(tmp, "jevents")) == ["train.shrink",
                                                 "train.recover"]
