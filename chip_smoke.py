@@ -61,6 +61,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``ESFFN_TOL`` with a transposed-scale-grid negative control, timed;
    ``paged_attention`` at B 8, Hq 64, Hkv 8, hd 128, page 16, checked as
    above and timed.
+   3d. The same two kernels at the shapes of the five configurations of
+   phases 4d-8d (``fullwidth_kernel_cases``): ``paged_attention`` at
+   gemma-2b's 8/1 and gemma3-12b's 16/8 heads at hd 256, phi3-medium-
+   14b's 40/10, starcoder2-15b's 48/4 and mixtral-8x7b's 32/8 at hd 128,
+   over 5d's lengths on 8 slots with each one's local window, and at the
+   crossing requests' lengths (1,116 with gemma3-12b's 1,024 window and
+   without it, 4,216 with mixtral-8x7b's 4,096); ``esffn_glu``'s 8-bit
+   stream route at mixtral-8x7b's experts (D 4096, F 14,336, E 8, top-2)
+   for N 8 and 16; all checked and timed.
 4. Reference phase: a 2-layer model at qwen3-moe-30b-a3b's full width in
    float32 serves 3 prompts through the dense ``BatchedServer`` on the GPU
    (the kernels); its greedy tokens must equal those of ``PagedServer`` and
@@ -116,6 +125,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    within ``ESFFN_TOL`` of its own on the CPU. 4x. xlstm-350m in f32, all
    24 layers: the same, every request on both CPU engines, the chunked
    mLSTM within the JAX suite's 3e-3 (``HYBRID_CHUNK_TOL``).
+   4d. Each of ``FULLWIDTH``'s five (gemma-2b, gemma3-12b, phi3-medium-
+   14b, starcoder2-15b, mixtral-8x7b) at full width in f32, cut to 2
+   layers (gemma3-12b to one 6-layer 5:1 period, so a global layer is
+   in; mixtral-8x7b's expert d_ff to ``HYBRID_REF_FFN``), seed 41: 2
+   greedy requests of 8 + 4 on 2 slots through the card's
+   ``BatchedServer`` and ``PagedServer`` and the CPU's ``PagedServer``,
+   every stream equal, every card launch of ``paged_attention`` and
+   ``esffn_glu`` held to its plain version (``_HeldToPlain``), the
+   launches counted from 0 (``_expect_launches``). gemma3-12b and
+   mixtral-8x7b then serve one request past their windows (1,100 + 8
+   and 4,200 + 8 tokens; the paged engine in 256-token prefill chunks)
+   on both card engines: the tokens equal, every paged launch held.
    P1. The paged engine on a 1-rank NCCL mesh (``paged_mesh_phase``;
    ``single_rank_nccl``, ``make_mesh((1, 1, 1), ("pod", "data",
    "model"))``): phase 4's model and prompts through ``PagedServer``
@@ -146,7 +167,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    of its bf16 streams equal the paged engine's (48 bf16 layers round the
    two attention paths differently, so equality is asserted in phase 4).
    5s. Speculative serve, on the same weights: ``SPEC_SERVE_REQUESTS`` of
-   the same prompts (4, not 16: half a wave of the 8 slots), odd rids
+   the same prompts (2, not 16: a greedy and a sampled one), odd rids
    sampled at 0.8, 16 new tokens,
    through ``PagedServer`` without and with ``SpecDecoder``
    (``NGramDrafter``, k ``SPEC_K``), in turn ``SPEC_SERVE_PAIRS`` times,
@@ -198,6 +219,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    the vocabulary; weight GB, peaks, decode tick, tok/s and TTFT printed,
    the two engines' bf16 streams counted. 5x. xlstm-350m, 24 layers,
    bf16, the same traffic on both engines (no kernel on its path).
+   5d. ``FULLWIDTH``'s five at full width and depth in bf16 (mixtral-
+   8x7b whole with int8 experts, 48.3 GB, its paged run through the
+   serve CLI with ``--quant int8 --paged``): 8 greedy requests of 8 + 16
+   on ``PagedServer`` (8 slots) and ``BatchedServer`` (8 x 128), each
+   after a warm-up whose first decode step is held to plain, the counts
+   set to 0 just before and read just after; decode median against the
+   byte bound of the weights read once, tok/s, TTFT, peak, weight and KV
+   bytes printed, the bf16 streams of the engines counted. Then the
+   crossing requests with 16 new tokens on the paged engine, their first
+   2 decode steps held.
    O. Router telemetry and the serving half of obs (``serve_obs_phase``):
    the serve CLI on the paged engine, qwen3-moe-30b-a3b at full width cut
    to 4 layers, 8 slots, 8 requests of 8 + 16 tokens, without, with
@@ -384,7 +415,8 @@ does):
    norm finite; every leaf's f32 master (a strided sample of 4,096
    elements) moved and every leaf's first moment non-zero somewhere (its
    gradient reached it); step median, tokens/s and the peak.
-8x, 8p, 8m. The same for xlstm-350m (one 8-layer period of its 24, 7
+8x, 8p, 8m. The same for xlstm-350m (one 8-layer period of its 24, one
+   timed step (``FAMILY_TRAIN_STEPS``, as 8j), 7
    mLSTM and 1 sLSTM: the sLSTM's step loop paces the host),
    paligemma-3b (256 patches + 768 tokens a row) and musicgen-large
    (1,024 frames, 64 conditioning rows, 4 codebooks a row), at full width
@@ -394,6 +426,11 @@ does):
    replace the head): their first moments must be exactly 0; 8p and 8m then run a dense prefill and
    ``FRONTEND_DECODES`` decodes from the trained weights: logits finite,
    the lengths advancing.
+8d. ``FULLWIDTH``'s five at full width, bf16, the same way: gemma-2b
+   whole (18 layers), gemma3-12b 6, phi3-medium-14b and starcoder2-15b 4,
+   mixtral-8x7b 2 (2 ``esffn_glu``, 5 ``esmm``, 3 ``estmm`` a layer a
+   step on wgmma); state and peak printed, a peak past
+   ``FULLWIDTH_PEAK_NOTE_GB`` reported.
 
 N. The families on the 1-rank NCCL mesh against their mesh-less runs on
    the card (``mesh_families_phase``): N1 Jamba's layout at 7h's cut, f32,
@@ -539,6 +576,13 @@ path of either package calls it, so its public entry point is its path):
    256 MiB f32 gradient: bit for bit the local quantise-dequantise, 3
    error-feedback steps likewise, and its time.
 
+The CPU sides of the reference phases (4, 4s, Q2, 4j, 4x, 4d, 7, 7q, 7b,
+and all of 7h's but one, and 7f) run on the CPU lane (``_CpuLane``): one
+worker thread that runs them, checks included, while the card's phases go
+on; its jobs print ``[cpu-lane] NAME Ns``. The script waits for the lane
+before phase O and T7/8 (each turns on a module global the lane's runs
+would see) and before its result: a failed CPU check fails the run there.
+
 It then prints the kernels' JSON line (the 8-bit branches as entries of
 their own), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -546,6 +590,7 @@ their own), and last
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -553,6 +598,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -590,7 +636,23 @@ SAMPLE_VOCAB = 151936
 SAMPLE_SEEDS = (1000, 1001, 1003, 2 ** 31 - 1, 2 ** 31, 2 ** 32 + 5, -1, 7)
 SAMPLE_STEPS = (0, 1, 5, 15, 300, 2, 9, 123)
 SPEC_K = 4
-SPEC_SERVE_REQUESTS = 4          # half a wave, for the script's time
+SPEC_SERVE_REQUESTS = 2          # a greedy and a sampled request, for
+                                 # the script's time (8 -> 4 -> 2)
+# The CPU sides of the reference phases (4, 4s, Q2, 4j, 4x, 4d, P1's
+# graft, 7, 7q, 7b, 7h, 7f: the plain versions, 1-3 s a forward at these
+# widths) run on the CPU lane (``_CpuLane``) beside the card's phases:
+# LANE_THREADS intra-op threads of an H100 host's 8 cores at niceness
+# LANE_NICE, so the thread that drives the card (and its NCCL and driver
+# threads) keeps two cores; with all 8 the lane's jobs took 1.4-1.8 x as
+# long and phase P 2.2 x (H100 80GB HBM3, 700 W). The jobs of LANE_FULL's
+# configurations keep the host's default count, as the main thread ran
+# them: their f32 sums split by thread count, and xlstm-350m's 24
+# recurrent layers carry that to 4x's card-vs-CPU logits (3.1e-4 of a
+# 2.9e-4 limit with 6 threads, 1.9e-4 with 8). At most LANE_GB of host
+# tensors queued (the host has 96 GiB; at 48 the card's thread waited
+# ~65 s for room in 4d).
+LANE_THREADS, LANE_NICE, LANE_GB = 6, 10, 64.0
+LANE_FULL = ("xlstm-350m",)
 # one off/on pair, to hold the script's time as the mesh phases grew
 SPEC_SERVE_PAIRS = 1
 # Phases 4p and 5p, the prefix-sharing paged engine: requests opening with
@@ -601,7 +663,8 @@ PREFIX_PAGE, PREFIX_SHARED = 16, 64
 PREFIX_REF_REQUESTS, PREFIX_REF_SLOTS = 6, 3
 # PREFIX_NEW 8 and 10 requests (the second wave of the 8 slots cut to 2),
 # to hold the script's time as the mesh phases and phase F grew
-PREFIX_SERVE_REQUESTS, PREFIX_OWN, PREFIX_NEW = 10, 8, 8
+# and 9 requests (one in the second wave; 10 before phases 3d-8d came)
+PREFIX_SERVE_REQUESTS, PREFIX_OWN, PREFIX_NEW = 9, 8, 8
 # Phase 8q: quantization-aware training on phase 8's state, one warm-up
 # and QAT_STEPS timed steps a mode; 7q holds it to the CPU at phase 7's
 # size with phase 7's limits.
@@ -655,6 +718,9 @@ MESH_EP_LOSS_RTOL = 1e-4
 LM_MESH_PROMPTS, LM_MESH_PROMPT, LM_MESH_NEW = 2, 8, 8
 LM_MESH_DECODE_SLOTS, LM_MESH_DECODE_REQUESTS = 8, 8
 LM_MESH_CACHE_LAYERS = 2
+# L2's timed steps a mode (TRAIN_STEPS before phases 3d-8d came: cut for
+# the script's time)
+LM_MESH_STEPS = 2
 LM_MESH_LAUNCHES = {"esffn_glu": 2, "esmm": 5, "estmm": 3}
 # Phase H: the paper's Table 3 proxy latencies (benchmarks/hetero_alloc.py
 # PAPER_CASES: two GPUs at 100/300 W power limits) and a 2x skew.
@@ -695,7 +761,9 @@ SWIN_REF_DEPTHS, SWIN_REF_BATCH = (2, 2, 2, 2), 2
 T78_CONFIGS = ("swin_moe_small",)
 T78_TOP_K = (1, 2)
 T78_IMPLS = ("hexa", "tutel", "megablocks")
-T78_EXPERTS, T78_BATCH, T78_STEPS = 8, 64, 3
+# T78_STEPS timed steps a cell (3 before phases 3d-8d came: cut for the
+# script's time)
+T78_EXPERTS, T78_BATCH, T78_STEPS = 8, 64, 2
 T78_AXES = {
     **{f"table7_batch64_{c[9:]}": [(c, T78_EXPERTS, k, T78_BATCH)
                                    for k in T78_TOP_K] for c in T78_CONFIGS},
@@ -758,6 +826,7 @@ FLASH_CASES = (
 # to phase 7's (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL) and the Swin kernels'.
 QUANT_SWIN_BATCH = 8
 QUANT_FP8_REQUESTS = 4
+QUANT_INT8_REQUESTS = 8          # one wave (16 before phases 3d-8d)
 # Phase 7b (bf16, blk 128: the wgmma route, GPU vs CPU), set before its
 # first run. bf16 rounds every activation to 8 mantissa bits (2^-8) at
 # other places on the two sides, and a token whose router top-k picks
@@ -784,7 +853,8 @@ BF16_REF_GRAD_TOL = 0.1                           # x |grad| (Frobenius)
 # CPU, 23.5 GB of f32 weights take an H100 machine's host 2.2 s a
 # forward (the whole mix on both CPU engines took 204 s there), so 4j's
 # CPU side is the paged engine on HYBRID_CPU's first request and the
-# chunked prefill; 4x runs every request on both CPU engines.
+# chunked prefill; 4x runs every request on both CPU engines (both on the
+# CPU lane).
 JAMBA_DEPTH = 8
 HYBRID_REF_FFN = 1024
 HYBRID_REF_REQUESTS, HYBRID_REF_NEW = 4, 4   # 6 new tokens, cut for time
@@ -793,7 +863,9 @@ HYBRID_CHUNK_TOL = {"jamba-1.5-large-398b": ATTN_TOL["float32"],
 HYBRID_CPU = {"jamba-1.5-large-398b": (("paged",), 1),
               "xlstm-350m": (("paged", "reference_stream"),
                              HYBRID_REF_REQUESTS)}
-HYBRID_SERVE_REQUESTS, HYBRID_SERVE_NEW = 16, 16
+# 5j/5x: one wave of the 8 slots (16 requests before phases 3d-8d came:
+# cut for the script's time)
+HYBRID_SERVE_REQUESTS, HYBRID_SERVE_NEW = 8, 16
 JAMBA_WEIGHT_GB = (51.4, 52.4)     # predicted 51.9 +- 0.5 (int8 experts)
 # Phases 7h/7f/8j/8x/8p/8m: training every LM family. jamba-1.5-large-398b
 # cannot train on one 80 GB card at full width (one period is 45.2 B
@@ -820,8 +892,10 @@ HYBRID_TRAIN_SEEDS = (7,)        # a second seed cut for the script's time
 ZERO_GRAD_LEAVES = {"musicgen-large": ("embed", "head")}
 # 8x trains one period of xlstm-350m's layer pattern: its 24 layers took
 # 17.7 s a step on an H100 80GB HBM3 at 700 W (3 sLSTM step loops of
-# 1,024 host-paced steps each)
-XLSTM_TRAIN_DEPTH = 8
+# 1,024 host-paced steps each). 8j/8x/8p/8m time FAMILY_TRAIN_STEPS
+# steps after the warm-up (TRAIN_STEPS before phases 3d-8d came: cut for
+# the script's time)
+XLSTM_TRAIN_DEPTH, FAMILY_TRAIN_STEPS = 8, 1
 FRONTEND_REF_DEPTH = 2
 FRONTEND_PREFILL, FRONTEND_DECODES = 8, 4
 FLASH_CHECK_CASES = (                  # (B, S, Hq, Hkv, hd, dtype, causal)
@@ -1825,8 +1899,9 @@ def jamba_train_kernel_cases(torch, flush):
 def train_reference_phase(torch):
     """Phase 7: one loss_fn forward + backward of a 2-layer full-width f32
     model on the GPU (kernels) and the CPU (plain versions)
-    (``_card_vs_cpu_loss``); the GPU run's expert kernels exactly
-    ``_f32_expert_routes``: every f32 esmm and estmm on mma_tf32x3."""
+    (``_card_vs_cpu_loss``, the CPU side on the CPU lane as job "7"); the
+    GPU run's expert kernels exactly ``_f32_expert_routes``: every f32
+    esmm and estmm on mma_tf32x3."""
     from repro_torch import configs as cfglib
     from repro_torch.data.pipeline import DataConfig, TokenSource
     from repro_torch.models import lm
@@ -1846,11 +1921,8 @@ def train_reference_phase(torch):
         raise AssertionError(f"train reference: routes "
                              f"{r['launches_by_route']}, expected {want}")
     print(f"[train-reference] 2-layer full-width f32, 2 x 64 tokens: loss "
-          f"GPU {r['loss_gpu']!r} CPU {r['loss_cpu']!r}, total GPU "
-          f"{r['total_gpu']!r} CPU {r['total_cpu']!r} (rel diff "
-          f"{r['total_rel_diff']:.3e}); {r['grad_leaves']} grad leaves, "
-          f"worst max |diff| / max |grad| {r['worst_grad_rel']:.3e}; routes "
-          f"{r['launches_by_route']}")
+          f"GPU {r['loss_gpu']!r}, total GPU {r['total_gpu']!r} (the CPU's "
+          f"on the lane, job 7); routes {r['launches_by_route']}")
     return r
 
 
@@ -1859,7 +1931,8 @@ def train_qat_reference_phase(torch):
     tokens, blk 16, seed 7) with ``quant="int8"``. Every expert weight's
     int8 payload and scales on the card equal the CPU's; one QAT
     ``loss_fn`` forward and backward on the card and on the CPU (plain
-    versions) agree within ``TRAIN_LOSS_RTOL`` and ``TRAIN_GRAD_TOL``;
+    versions) agree within ``TRAIN_LOSS_RTOL`` and ``TRAIN_GRAD_TOL``
+    (the CPU sides on the CPU lane, ``_qat_reference_cpu``);
     and on one layer the QAT loss and grads equal those of the plain loss
     with each expert weight replaced by ``dequant(quant(w))`` computed
     outside (the straight-through estimator: the master weight's grad is
@@ -1879,50 +1952,25 @@ def train_qat_reference_phase(torch):
     pcfg = ParallelConfig(blk=16, remat="none", quant="int8")
     gen = torch.Generator(device="cuda").manual_seed(7)
     params = lm.init_params(cfg, generator=gen, device="cuda")
-    cpu = tree_map(lambda t: t.cpu(), params)
-    levels, blocks = 0, 0
-    for layer, clayer in zip(params["layers"], cpu["layers"]):
-        for name in qcore.EXPERT_WEIGHT_KEYS:
-            if name not in layer["ffn"]:
-                continue
-            qg, sg = qcore.quantize_blockwise(layer["ffn"][name], mode="int8")
-            qc, sc = qcore.quantize_blockwise(clayer["ffn"][name],
-                                              mode="int8")
-            levels += int((qg.cpu() != qc).sum())
-            blocks += int((sg.cpu() != sc).sum())
-            del qg, sg, qc, sc
-    if levels or blocks:
-        raise AssertionError(f"QAT reference: {levels} int8 levels and "
-                             f"{blocks} scales differ between card and CPU")
+    payloads = [[qcore.quantize_blockwise(layer["ffn"][name], mode="int8")
+                 for name in qcore.EXPERT_WEIGHT_KEYS if name in layer["ffn"]]
+                for layer in params["layers"]]
+    payloads = [[(q.cpu(), sc.cpu()) for q, sc in layer]
+                for layer in payloads]
     batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
                                    vocab_size=cfg.vocab_size,
                                    seed=7)).batch(0)
     loss_fn = steps.make_loss_fn(cfg, pcfg)
-    out = {}
-    for device, p0 in (("cuda", params), ("cpu", cpu)):
-        p = tree_map(lambda t: t.detach().requires_grad_(), p0)
-        total, _ = loss_fn(p, batch_to(batch, device))
-        grads = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
-        out[device] = (float(total.detach()),
-                       [None if g is None else g.cpu() for g in grads])
-        del p, grads
-    (tg, gg), (tc, gc) = out["cuda"], out["cpu"]
-    if not abs(tg - tc) <= TRAIN_LOSS_RTOL * abs(tc):
-        raise AssertionError(f"QAT reference: GPU loss {tg} vs CPU {tc}")
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(gg, gc)):
-        if (a is None) != (b is None):
-            raise AssertionError(f"QAT reference: grad leaf {i} missing")
-        if a is None:
-            continue
-        scale = b.abs().max().item()
-        err = (a - b).abs().max().item()
-        if not err <= TRAIN_GRAD_TOL * scale:
-            raise AssertionError(f"QAT reference: grad leaf {i} "
-                                 f"{tuple(b.shape)} err {err} > "
-                                 f"{TRAIN_GRAD_TOL} x {scale}")
-        worst = max(worst, err / scale if scale else 0.0)
-    del out, gg, gc, cpu
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    total, _ = loss_fn(p, batch_to(batch, "cuda"))
+    grads = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
+    tg, gg = (float(total.detach()),
+              [None if g is None else g.cpu() for g in grads])
+    del p, grads
+    cpu = tree_map(lambda t: t.cpu(), params)
+    _LANE.submit("7q", 2 * _host_bytes(cpu), _qat_reference_cpu, cfg, pcfg,
+                 cpu, payloads, batch, tg, gg)
+    del cpu, payloads, gg
     # the straight-through estimator, on one layer
     one = dataclasses.replace(cfg, num_layers=1)
     params1 = {**params, "layers": params["layers"][:1]}
@@ -1956,16 +2004,58 @@ def train_qat_reference_phase(torch):
                                  f"err {err} > {TRAIN_GRAD_TOL} x {scale}")
         ste_worst = max(ste_worst, err / scale if scale else 0.0)
     seconds = time.perf_counter() - t_phase
-    print(f"[qat-reference] 2-layer full-width f32, int8: payloads and "
-          f"scales card == CPU; loss GPU {tg!r} CPU {tc!r} (rel diff "
-          f"{abs(tg - tc) / abs(tc):.3e}), worst grad max |diff| / max "
-          f"|grad| {worst:.3e}; one layer, QAT == plain on dequant(quant(w)):"
-          f" loss {lq!r} vs {ld!r}, worst grad {ste_worst:.3e}; "
-          f"{seconds:.1f}s")
-    return {"loss_gpu": tg, "loss_cpu": tc, "total_rel_diff":
-            abs(tg - tc) / abs(tc), "worst_grad_rel": worst,
-            "flipped_levels": levels, "ste_loss": [lq, ld],
+    print(f"[qat-reference] 2-layer full-width f32, int8: loss GPU {tg!r} "
+          f"(the CPU's payloads, scales, loss and grads on the lane); one "
+          f"layer, QAT == plain on dequant(quant(w)): loss {lq!r} vs "
+          f"{ld!r}, worst grad {ste_worst:.3e}; {seconds:.1f}s")
+    return {"loss_gpu": tg, "ste_loss": [lq, ld],
             "ste_worst_grad_rel": ste_worst, "seconds": seconds}
+
+
+def _qat_reference_cpu(cfg, pcfg, cpu, payloads, batch, tg, gg):
+    """Phase 7q's CPU side (the plain versions): every expert weight's
+    int8 payload and scales equal the card's, and the QAT loss and grads
+    are within phase 7's limits of the card's."""
+    import torch
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to
+    from repro_torch.quant import core as qcore
+
+    levels, blocks = 0, 0
+    for layer, card in zip(cpu["layers"], payloads):
+        names = [n for n in qcore.EXPERT_WEIGHT_KEYS if n in layer["ffn"]]
+        for name, (qg, sg) in zip(names, card):
+            qc, sc = qcore.quantize_blockwise(layer["ffn"][name],
+                                              mode="int8")
+            levels += int((qg != qc).sum())
+            blocks += int((sg != sc).sum())
+    if levels or blocks:
+        raise AssertionError(f"QAT reference: {levels} int8 levels and "
+                             f"{blocks} scales differ between card and CPU")
+    p = tree_map(lambda t: t.detach().requires_grad_(), cpu)
+    total, _ = steps.make_loss_fn(cfg, pcfg)(p, batch_to(batch, "cpu"))
+    gc = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
+    tc = float(total.detach())
+    if not abs(tg - tc) <= TRAIN_LOSS_RTOL * abs(tc):
+        raise AssertionError(f"QAT reference: GPU loss {tg} vs CPU {tc}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        if (a is None) != (b is None):
+            raise AssertionError(f"QAT reference: grad leaf {i} missing")
+        if a is None:
+            continue
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if not err <= TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"QAT reference: grad leaf {i} "
+                                 f"{tuple(b.shape)} err {err} > "
+                                 f"{TRAIN_GRAD_TOL} x {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    print(f"[qat-reference] CPU (plain versions): payloads and scales card "
+          f"== CPU; loss GPU {tg!r} CPU {tc!r} (rel diff "
+          f"{abs(tg - tc) / abs(tc):.3e}), worst grad max |diff| / max "
+          f"|grad| {worst:.3e}")
 
 
 def train_phase(torch):
@@ -2382,35 +2472,58 @@ def _expert_counts():
 
 
 def _card_vs_cpu_loss(torch, tag, cfg, pcfg, params, batch,
-                      grad_tol=TRAIN_GRAD_TOL):
+                      grad_tol=TRAIN_GRAD_TOL, label=None, lane=True):
     """One ``loss_fn`` forward and backward from ``params`` (on the card)
     and from their copy on the CPU (the plain versions) on ``batch``: the
     totals within TRAIN_LOSS_RTOL and every grad leaf within ``grad_tol``
-    x its max |grad| (every leaf is measured before any is judged).
-    Returns the numbers and the expert kernels' launches and routes of the
-    card run, counted from 0."""
+    x its max |grad| (every leaf is measured before any is judged). The
+    CPU side (``_cpu_loss_check``) runs on the CPU lane as job ``label``
+    (default ``tag``), or here with ``lane=False``. Returns the card run's
+    numbers and its expert kernels' launches and routes, counted from
+    0 (with ``lane=False`` the CPU side's numbers too)."""
+    from repro_torch.common import tree_map
+
+    t0 = time.perf_counter()
+    _reset_expert_counts()
+    lg, tg, gg = _loss_grads(cfg, pcfg, params, batch, "cuda")
+    torch.cuda.synchronize()
+    launches, routes = _expert_counts()
+    card = {"grad_tol": grad_tol, "loss_gpu": lg, "total_gpu": tg,
+            "launches": launches, "launches_by_route": routes,
+            "wall_s": {"cuda": time.perf_counter() - t0}}
+    names = [n for n, _ in _named_leaves(params)]
+    cpu_params = tree_map(lambda t: t.detach().cpu(), params)
+    job = (tag, label or tag, cfg, pcfg, cpu_params, batch, names, tg, gg,
+           grad_tol)
+    if not lane:
+        return {**card, **_cpu_loss_check(*job)}
+    _LANE.submit(label or tag, 2 * _host_bytes(cpu_params), _cpu_loss_check,
+                 *job, full=cfg.name in LANE_FULL)
+    return card
+
+
+def _loss_grads(cfg, pcfg, params, batch, device):
+    """``loss_fn``'s loss and total and the grads of every leaf (host, or
+    None where unused) from a copy of ``params`` on ``device``."""
+    import torch
     from repro_torch.common import tree_leaves, tree_map
     from repro_torch.launch import steps
     from repro_torch.launch.train import batch_to
 
-    loss_fn = steps.make_loss_fn(cfg, pcfg)
-    names = [n for n, _ in _named_leaves(params)]
-    out, wall = {}, {}
-    for device in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        p = tree_map(lambda t: t.detach().to(device).requires_grad_(), params)
-        if device == "cuda":
-            _reset_expert_counts()
-        total, metrics = loss_fn(p, batch_to(batch, device))
-        grads = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
-        if device == "cuda":
-            torch.cuda.synchronize()
-            launches, routes = _expert_counts()
-        out[device] = (float(metrics["loss"].detach()), float(total.detach()),
-                       [None if g is None else g.cpu() for g in grads])
-        wall[device] = time.perf_counter() - t0
-        del p, grads
-    (lg, tg, gg), (lc, tc, gc) = out["cuda"], out["cpu"]
+    p = tree_map(lambda t: t.detach().to(device).requires_grad_(), params)
+    total, metrics = steps.make_loss_fn(cfg, pcfg)(p, batch_to(batch, device))
+    grads = torch.autograd.grad(total, tree_leaves(p), allow_unused=True)
+    return (float(metrics["loss"].detach()), float(total.detach()),
+            [None if g is None else g.cpu() for g in grads])
+
+
+def _cpu_loss_check(tag, label, cfg, pcfg, cpu_params, batch, names, tg, gg,
+                    grad_tol):
+    """``_card_vs_cpu_loss``'s CPU side: the CPU's loss and grads against
+    the card's total ``tg`` and grads ``gg``. Prints and returns the CPU's
+    numbers."""
+    t0 = time.perf_counter()
+    lc, tc, gc = _loss_grads(cfg, pcfg, cpu_params, batch, "cpu")
     rel = abs(tg - tc) / abs(tc)
     if not rel <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"phase {tag}: GPU total {tg} vs CPU {tc} "
@@ -2437,11 +2550,16 @@ def _card_vs_cpu_loss(torch, tag, cfg, pcfg, params, batch,
                              f"leaves past the limit, worst {worst} at "
                              f"{worst_leaf}: {bad[:4]}; by part "
                              f"{json.dumps(by_kind)}")
-    return {"grad_tol": grad_tol, "loss_gpu": lg, "loss_cpu": lc, "total_gpu": tg, "total_cpu": tc,
-            "total_rel_diff": rel, "grad_leaves": len(gc),
-            "worst_grad_rel": worst, "worst_leaf": worst_leaf,
-            "worst_grad_rel_by_part": by_kind, "launches": launches,
-            "launches_by_route": routes, "wall_s": wall}
+    out = {"loss_cpu": lc, "total_cpu": tc, "total_rel_diff": rel,
+           "grad_leaves": len(gc), "worst_grad_rel": worst,
+           "worst_leaf": worst_leaf, "worst_grad_rel_by_part": by_kind,
+           "cpu_s": time.perf_counter() - t0}
+    print(f"[{label}] {cfg.name}, {cfg.num_layers} layers, CPU (plain "
+          f"versions): total GPU {tg!r} CPU {tc!r} (rel {rel:.3e}); "
+          f"{len(gc)} grad leaves, worst max |diff| / max |grad| "
+          f"{worst:.3e} at {worst_leaf} (limit {grad_tol:.3g}); by part "
+          f"{json.dumps(by_kind)}")
+    return out
 
 
 def _moe_layers(cfg):
@@ -2468,7 +2586,9 @@ def hybrid_train_reference_phase(torch):
     ``mma_tf32x3``; xlstm-350m launches none. xlstm-350m runs at each of
     ``HYBRID_TRAIN_SEEDS`` under ``HYBRID_TRAIN_GRAD_TOL``, then at the
     first with ``xlstm.SLSTM_H_DTYPE`` f32 on both sides (no bf16
-    rounding of h) under ``TRAIN_GRAD_TOL``."""
+    rounding of h) under ``TRAIN_GRAD_TOL``. The CPU sides run on the CPU
+    lane but that one's, which swaps the global: it runs first, here,
+    once the lane is empty."""
     from repro_torch import configs as cfglib
     from repro_torch.common import tree_leaves
     from repro_torch.configs import jamba_1_5_large_398b as jamba
@@ -2476,14 +2596,16 @@ def hybrid_train_reference_phase(torch):
     from repro_torch.parallel.sharding import ParallelConfig
 
     xl = dataclasses.replace(cfglib.get_config("xlstm-350m"), dtype="float32")
-    runs = [("jamba-1.5-large-398b", jamba.cut_config("reference",
+    # the run that swaps the global first, while the lane is likely idle
+    runs = [("xlstm-350m", xl, HYBRID_TRAIN_SEEDS[0], False)]
+    runs += [("jamba-1.5-large-398b", jamba.cut_config("reference",
                                                       "float32"), 7, True)]
     runs += [("xlstm-350m", xl, seed, True) for seed in HYBRID_TRAIN_SEEDS]
-    runs += [("xlstm-350m", xl, HYBRID_TRAIN_SEEDS[0], False)]
     res = {}
     for arch, cfg, seed, h_bf16 in runs:
-        key = arch if not res.get(arch) else (
-            f"{arch} seed {seed}" if h_bf16 else f"{arch} h f32")
+        key = (f"{arch} h f32" if not h_bf16 else arch
+               if seed == HYBRID_TRAIN_SEEDS[0] or arch != "xlstm-350m"
+               else f"{arch} seed {seed}")
         t0 = time.perf_counter()
         pcfg = ParallelConfig(blk=16)
         params = lm.init_params(cfg, generator=torch.Generator(
@@ -2491,11 +2613,14 @@ def hybrid_train_reference_phase(torch):
         n_params = sum(t.numel() for t in tree_leaves(params))
         tol = (HYBRID_TRAIN_GRAD_TOL.get(arch, TRAIN_GRAD_TOL) if h_bf16
                else TRAIN_GRAD_TOL)
+        if not h_bf16:
+            _LANE.drain()       # no lane job may see the swapped global
         xlstm.SLSTM_H_DTYPE = torch.bfloat16 if h_bf16 else torch.float32
         try:
             r = _card_vs_cpu_loss(torch, "7h", cfg, pcfg, params,
                                   _family_batch(cfg, 2, 64, seed),
-                                  grad_tol=tol)
+                                  grad_tol=tol, label=f"7h {key}",
+                                  lane=h_bf16)
         finally:
             xlstm.SLSTM_H_DTYPE = torch.bfloat16
         n = _moe_layers(cfg)
@@ -2508,13 +2633,10 @@ def hybrid_train_reference_phase(torch):
                  seconds=time.perf_counter() - t0)
         print(f"[7h] {key}, {cfg.num_layers} layers, d_model "
               f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, f32, 2 x "
-              f"64 tokens, seed {seed}: total GPU {r['total_gpu']!r} CPU "
-              f"{r['total_cpu']!r} (rel {r['total_rel_diff']:.3e}); "
-              f"{r['grad_leaves']} grad leaves, worst max |diff| / max "
-              f"|grad| {r['worst_grad_rel']:.3e} at {r['worst_leaf']} "
-              f"(limit {r['grad_tol']:.3g}); by "
-              f"part {json.dumps(r['worst_grad_rel_by_part'])}; launches "
-              f"{r['launches']}; {r['seconds']:.1f}s")
+              f"64 tokens, seed {seed}: total GPU {r['total_gpu']!r}"
+              + (f" CPU {r['total_cpu']!r}" if "total_cpu" in r else
+                 " (the CPU's on the lane)")
+              + f"; launches {r['launches']}; {r['seconds']:.1f}s")
         res[key] = r
         del params
         _release(torch)
@@ -2582,7 +2704,8 @@ def frontend_reference_phase(torch):
     + ``FRONTEND_PREFILL`` tokens; musicgen: ``FRONTEND_PREFILL`` frames +
     64 conditioning rows) and ``FRONTEND_DECODES`` ``make_serve_step``
     decodes: every step's logits within ESFFN_TOL["float32"] x max|CPU|
-    (4j's limit) and the cache lengths advancing by one a decode."""
+    (4j's limit) and the cache lengths advancing by one a decode. The CPU
+    sides run on the CPU lane."""
     from repro_torch import configs as cfglib
     from repro_torch.common import tree_leaves, tree_map
     from repro_torch.models import lm
@@ -2600,44 +2723,49 @@ def frontend_reference_phase(torch):
         n_params = sum(t.numel() for t in tree_leaves(params))
         seq = FRONTEND_PREFILL + cfg.prefix_len if cfg.prefix_len else 64
         r = _card_vs_cpu_loss(torch, "7f", cfg, pcfg, params,
-                              _family_batch(cfg, 2, seq, 11))
+                              _family_batch(cfg, 2, seq, 11),
+                              label=f"7f {arch}")
         if any(r["launches"].values()):
             raise AssertionError(f"phase 7f {arch}: expert kernels launched "
                                  f"{r['launches']}")
+        card, total = _frontend_serve(torch, cfg, pcfg, params, "cuda", 2, 12)
         cpu = tree_map(lambda t: t.cpu(), params)
-        steps_out = {}
-        for device, p in (("cuda", params), ("cpu", cpu)):
-            steps_out[device], total = _frontend_serve(torch, cfg, pcfg, p,
-                                                    device, 2, 12)
-        errs = []
-        for i, (a, b) in enumerate(zip(steps_out["cuda"], steps_out["cpu"])):
-            err, tol = _check(f"phase 7f {arch}: step {i} logits", a, b,
-                              ESFFN_TOL["float32"])
-            errs.append(err / tol)
+        _LANE.submit(f"7f {arch} steps", _host_bytes(cpu), _frontend_cpu,
+                     torch, arch, cfg, pcfg, cpu, card)
         r.update(arch=arch, layers=FRONTEND_REF_DEPTH, params=n_params,
                  prefill_rows=total, decodes=FRONTEND_DECODES,
-                 logits_shape=list(steps_out["cuda"][0].shape),
-                 worst_logit_err_over_tol=max(errs),
+                 logits_shape=list(card[0].shape),
                  seconds=time.perf_counter() - t0)
         print(f"[7f] {arch}, {FRONTEND_REF_DEPTH} layers at full width, "
               f"{n_params / 1e9:.3f} B parameters, f32: loss batch 2 x {seq}"
-              f" rows: total GPU {r['total_gpu']!r} CPU {r['total_cpu']!r} "
-              f"(rel {r['total_rel_diff']:.3e}); {r['grad_leaves']} grad "
-              f"leaves, worst {r['worst_grad_rel']:.3e} at "
-              f"{r['worst_leaf']}; dense prefill of {total} rows and "
-              f"{FRONTEND_DECODES} decodes, logits {r['logits_shape']}, worst"
-              f" err / limit {max(errs):.3g}; {r['seconds']:.1f}s")
+              f" rows: total GPU {r['total_gpu']!r}; dense prefill of "
+              f"{total} rows and {FRONTEND_DECODES} decodes, logits "
+              f"{r['logits_shape']} (the CPU's loss, grads and steps on the "
+              f"lane); {r['seconds']:.1f}s")
         res[arch] = r
         del params, cpu
         _release(torch)
     return res
 
 
+def _frontend_cpu(torch, arch, cfg, pcfg, cpu_params, card):
+    """Phase 7f's dense steps on the CPU (the plain versions): every
+    step's logits within ESFFN_TOL["float32"] x max|CPU| of the card's."""
+    steps_out, _ = _frontend_serve(torch, cfg, pcfg, cpu_params, "cpu", 2, 12)
+    errs = []
+    for i, (a, b) in enumerate(zip(card, steps_out)):
+        err, tol = _check(f"phase 7f {arch}: step {i} logits", a, b,
+                          ESFFN_TOL["float32"])
+        errs.append(err / tol)
+    print(f"[7f] {arch}: dense prefill and {FRONTEND_DECODES} decodes, card "
+          f"vs CPU logits, worst err / limit {max(errs):.3g}")
+
+
 def _family_train(torch, tag, cfg, batch, seq, *, expect=None,
-                  serve=False):
+                  n_steps=TRAIN_STEPS, serve=False):
     """Phases 8j/8x/8p/8m: ``cfg`` in bf16, AdamW with f32 masters,
     ``remat="block"``, blk 128, the train CLI's batches of ``batch`` x
-    ``seq`` rows: one warm-up step, then TRAIN_STEPS steps with the expert
+    ``seq`` rows: one warm-up step, then ``n_steps`` steps with the expert
     kernels' counts set to 0 just before and read just after (``expect``:
     per-step launches of each, all on wgmma; else none). Every loss and
     grad norm finite; every leaf's f32 master (the leaf itself where it is
@@ -2673,7 +2801,7 @@ def _family_train(torch, tag, cfg, batch, seq, *, expect=None,
     before = [sample(t) for t in masters]
     train_step = steps.make_train_step(cfg, pcfg, opt_cfg)
     batches = [_family_batch(cfg, batch, seq, i)
-               for i in range(TRAIN_STEPS + 1)]
+               for i in range(n_steps + 1)]
 
     def run(i):
         b = batch_to(batches[i], "cuda")
@@ -2688,7 +2816,7 @@ def _family_train(torch, tag, cfg, batch, seq, *, expect=None,
     torch.cuda.reset_peak_memory_stats()
     _reset_expert_counts()
     times, log = [], []
-    for i in range(1, TRAIN_STEPS + 1):
+    for i in range(1, n_steps + 1):
         m, dt = run(i)
         times.append(dt)
         log.append(m)
@@ -2707,7 +2835,7 @@ def _family_train(torch, tag, cfg, batch, seq, *, expect=None,
         raise AssertionError(f"phase {tag}: masters not moved {still}; "
                              f"leaves with no gradient {no_grad}, expected "
                              f"{zero_ok}")
-    want = {k: (expect or {}).get(k, 0) * TRAIN_STEPS for k in launches}
+    want = {k: (expect or {}).get(k, 0) * n_steps for k in launches}
     idle = {"esffn_glu": ("stream",), "esmm": ("simt", "mma_tf32x3"),
             "estmm": ("simt", "mma_tf32x3")}
     want_routes = {k: {**dict.fromkeys(idle[k], 0), "wgmma": want[k]}
@@ -2754,7 +2882,7 @@ def family_train_phase(torch):
     layer, all on wgmma), 8x (xlstm-350m, XLSTM_TRAIN_DEPTH layers), 8p
     and 8m (paligemma-3b and musicgen-large at full width and depth, then
     their dense serve steps), each at TRAIN_BATCH x TRAIN_SEQ rows
-    (``_family_train``)."""
+    (``_family_train``), FAMILY_TRAIN_STEPS timed steps each."""
     from repro_torch import configs as cfglib
 
     from repro_torch.configs import jamba_1_5_large_398b as jamba_cfg
@@ -2763,14 +2891,17 @@ def family_train_phase(torch):
     n = _moe_layers(jamba)
     out = {"8j": _family_train(
         torch, "8j", jamba, TRAIN_BATCH, TRAIN_SEQ,
-        expect={"esffn_glu": 2 * n, "esmm": 5 * n, "estmm": 3 * n})}
+        expect={"esffn_glu": 2 * n, "esmm": 5 * n, "estmm": 3 * n},
+        n_steps=FAMILY_TRAIN_STEPS)}
     xlstm = dataclasses.replace(cfglib.get_config("xlstm-350m"),
                                 num_layers=XLSTM_TRAIN_DEPTH)
     for tag, cfg in (("8x", xlstm),
                      ("8p", cfglib.get_config("paligemma-3b")),
                      ("8m", cfglib.get_config("musicgen-large"))):
-        out[tag] = _family_train(torch, tag, cfg, TRAIN_BATCH, TRAIN_SEQ,
-                                 serve=tag in ("8p", "8m"))
+        out[tag] = _family_train(
+            torch, tag, cfg, TRAIN_BATCH, TRAIN_SEQ,
+            n_steps=FAMILY_TRAIN_STEPS,
+            serve=tag in ("8p", "8m"))
     return out
 
 
@@ -4333,15 +4464,14 @@ def quant_reference_phase(torch):
     and backward of it with the experts frozen (dX reaches the embeddings
     and routers through the 8-bit esmm backward); one Swin-MoE-Small
     forward at full width and depth with int8 MoE experts. The launches of
-    each path are counted from 0."""
+    each path are counted from 0. The CPU sides run on the CPU lane
+    (``_quant_reference_cpu``)."""
     import numpy as np
     from repro_torch import configs as cfglib
-    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.common import tree_map
     from repro_torch.configs import swin_moe_small
     from repro_torch.data.pipeline import DataConfig, TokenSource
     from repro_torch.kernels import esffn, esmm, paged_attention
-    from repro_torch.launch import serve, steps
-    from repro_torch.launch.train import batch_to
     from repro_torch.models import lm, swin
     from repro_torch.parallel.sharding import ParallelConfig
     from repro_torch.quant.core import quantize_ffn
@@ -4356,58 +4486,32 @@ def quant_reference_phase(torch):
     rng = np.random.default_rng(24)
     prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
                for _ in range(3)]
-    streams = {}
-    for device in ("cuda", "cpu"):
-        p = tree_map(lambda t: t.to(device), params)
-        server = serve.PagedServer(
-            cfg, ParallelConfig(blk=16), num_slots=2, page_size=16,
-            num_pages=9, max_pages_per_slot=4, params=p, kv_quant="int8",
-            device=device)
-        for i, pr in enumerate(prompts):
-            server.submit(serve.Request(rid=i, prompt=pr, max_new=4))
-        _reset_quant(*kernels)
-        streams[device] = {r.rid: r.out for r in server.run()}
-        if device == "cuda":
-            out["launches"]["reference_serve"] = _quant_counts(*kernels)
-        del p, server
-    if streams["cuda"] != streams["cpu"] or len(streams["cuda"]) != 3:
-        raise AssertionError(f"quant reference: GPU tokens {streams['cuda']}"
-                             f" != CPU tokens {streams['cpu']}")
+    _reset_quant(*kernels)
+    served_tokens = _quant_reference_serve(cfg, params, "cuda", prompts)
+    out["launches"]["reference_serve"] = _quant_counts(*kernels)
+    if len(served_tokens) != 3 or any(len(o) != 4
+                                      for o in served_tokens.values()):
+        raise AssertionError(f"quant reference: GPU tokens {served_tokens}")
     served = out["launches"]["reference_serve"]
     if served["esffn_glu"]["int8"] <= 0 or \
             served["paged_attention"]["int8"] <= 0:
         raise AssertionError(f"quant reference: launches {served}")
     print(f"[quant-reference] 2-layer full-width f32, int8 experts + int8 "
-          f"KV: GPU == CPU greedy tokens {streams['cuda']}; launches "
-          f"{served}")
+          f"KV: GPU greedy tokens {served_tokens} (the CPU's on the lane); "
+          f"launches {served}")
 
     # one loss forward + backward, experts frozen: grads of every float
     # leaf but the scales (embeddings, attention, norms, routers, head)
     batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
                                    vocab_size=cfg.vocab_size,
                                    seed=25)).batch(0)
-    loss_fn = steps.make_loss_fn(cfg, ParallelConfig(blk=16))
-    res = {}
-    for device in ("cuda", "cpu"):
-        p = tree_map(lambda t: t.detach().to(device), params)
-        named = [(n, t) for n, t in _named_leaves(p)
-                 if t.dtype == torch.float32 and not n.endswith("_scale")]
-        leaves = [t for _, t in named]
-        for t in leaves:
-            t.requires_grad_(True)
-        _reset_quant(*kernels)
-        esmm.esmm.launches_by_route = dict.fromkeys(
-            esmm.esmm.launches_by_route, 0)
-        total, metrics = loss_fn(p, batch_to(batch, device))
-        grads = torch.autograd.grad(total, leaves)
-        if device == "cuda":
-            torch.cuda.synchronize()
-            out["launches"]["reference_backward"] = _quant_counts(*kernels)
-            esmm_routes = dict(esmm.esmm.launches_by_route)
-        res[device] = (float(total.detach()), [g.cpu() for g in grads],
-                       [n for n, _ in named])
-        del p, leaves, grads
-    (tg, gg, leaf_names), (tc, gc, _) = res["cuda"], res["cpu"]
+    _reset_quant(*kernels)
+    esmm.esmm.launches_by_route = dict.fromkeys(
+        esmm.esmm.launches_by_route, 0)
+    tg, gg, leaf_names = _quant_reference_grads(cfg, params, batch, "cuda")
+    torch.cuda.synchronize()
+    out["launches"]["reference_backward"] = _quant_counts(*kernels)
+    esmm_routes = dict(esmm.esmm.launches_by_route)
     back = out["launches"]["reference_backward"]
     # a layer: esffn_glu in the forward and again in remat's recompute,
     # esmm for g, u, t and the two dX products of the backward
@@ -4420,18 +4524,11 @@ def quant_reference_phase(torch):
         raise AssertionError(f"quant reference backward: esmm routes "
                              f"{esmm_routes}")
     out["esmm_routes_backward"] = esmm_routes
-    if not abs(tg - tc) <= TRAIN_LOSS_RTOL * abs(tc):
-        raise AssertionError(f"quant reference: GPU loss {tg} vs CPU {tc}")
-    worst = _grad_err(gg, gc, TRAIN_GRAD_TOL, "quant reference")
     print(f"[quant-reference] loss + grads, 2 x 64 tokens, int8 experts "
-          f"frozen: total GPU {tg!r} CPU {tc!r} (rel diff "
-          f"{abs(tg - tc) / abs(tc):.3e}); {len(gc)} grad leaves (incl. "
-          f"{sum(n.endswith('router') for n in leaf_names)} routers), worst "
-          f"max |diff| / max |grad| {worst:.3e}; launches "
-          f"{back}")
-    out.update(loss_gpu=tg, loss_cpu=tc, loss_rel_diff=abs(tg - tc) / abs(tc),
-               worst_grad_rel=worst)
-    del params
+          f"frozen: total GPU {tg!r} ({len(gg)} grad leaves, incl. "
+          f"{sum(n.endswith('router') for n in leaf_names)} routers; the "
+          f"CPU's on the lane); launches {back}")
+    out.update(loss_gpu=tg)
 
     # Swin-MoE-Small, full width and depth, int8 MoE experts: one forward
     scfg = swin_moe_small.CONFIG
@@ -4443,29 +4540,91 @@ def quant_reference_phase(torch):
                 blk["moe"] = quantize_ffn(blk["moe"], mode="int8")
     images, _ = swin.synthetic_batch(scfg, QUANT_SWIN_BATCH, generator=sgen,
                                      device="cuda")
-    spcfg = ParallelConfig(blk=128)
-    logits = {}
-    for device in ("cuda", "cpu"):
-        p = tree_map(lambda t: t.to(device), sp)
-        _reset_quant(*kernels)
-        with torch.no_grad():
-            logits[device] = swin.swin_forward(p, images.to(device), scfg,
-                                               spcfg)[0].float().cpu()
-        if device == "cuda":
-            out["launches"]["reference_swin"] = _quant_counts(*kernels)
-        del p
+    _reset_quant(*kernels)
+    with torch.no_grad():
+        logits = swin.swin_forward(sp, images, scfg, ParallelConfig(
+            blk=128))[0].float().cpu()
+    out["launches"]["reference_swin"] = _quant_counts(*kernels)
     n_moe = sum("moe" in blk for st in sp["stages"] for blk in st["blocks"])
     sw = out["launches"]["reference_swin"]
     if sw["esffn_mlp"]["int8"] != n_moe:
         raise AssertionError(f"quant swin: launches {sw}, expected {n_moe} "
                              f"int8 esffn_mlp")
-    err, tol = _check("quant swin forward", logits["cuda"], logits["cpu"],
-                      SWIN_KERNEL_TOL)
+    if not bool(logits.isfinite().all()):
+        raise AssertionError("quant swin forward: non-finite output")
     print(f"[quant-reference] Swin-MoE-Small full width and depth, int8 MoE "
-          f"experts, {QUANT_SWIN_BATCH} images: logits max |diff| {err:.3e} "
-          f"(limit {tol:.3e}); launches {sw}")
-    out.update(swin_logits_err=err, swin_tolerance=tol)
+          f"experts, {QUANT_SWIN_BATCH} images: launches {sw} (the CPU's "
+          f"logits on the lane)")
+    cpu = {"lm": tree_map(lambda t: t.cpu(), params),
+           "swin": tree_map(lambda t: t.cpu(), sp), "images": images.cpu()}
+    card = {"tokens": served_tokens, "total": tg, "grads": gg,
+            "logits": logits}
+    _LANE.submit("Q2", _host_bytes(cpu) + _host_bytes(gg), _quant_reference_cpu,
+                 cfg, scfg, cpu, prompts, batch, card)
     return out
+
+
+def _quant_reference_serve(cfg, params, device, prompts):
+    """Phase Q2's int8-KV ``PagedServer`` (2 slots, 3 requests of 8 + 4)."""
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    server = serve.PagedServer(
+        cfg, ParallelConfig(blk=16), num_slots=2, page_size=16,
+        num_pages=9, max_pages_per_slot=4, params=params, kv_quant="int8",
+        device=device)
+    for i, pr in enumerate(prompts):
+        server.submit(serve.Request(rid=i, prompt=pr, max_new=4))
+    return {r.rid: r.out for r in server.run()}
+
+
+def _quant_reference_grads(cfg, params, batch, device):
+    """Phase Q2's loss forward and backward, experts frozen: the total, the
+    grads (on the host) of every float leaf but the scales, their names."""
+    import torch
+    from repro_torch.common import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    p = tree_map(lambda t: t.detach().to(device), params)
+    named = [(n, t) for n, t in _named_leaves(p)
+             if t.dtype == torch.float32 and not n.endswith("_scale")]
+    leaves = [t.requires_grad_(True) for _, t in named]
+    loss_fn = steps.make_loss_fn(cfg, ParallelConfig(blk=16))
+    total, _ = loss_fn(p, batch_to(batch, device))
+    grads = torch.autograd.grad(total, leaves)
+    return (float(total.detach()), [g.cpu() for g in grads],
+            [n for n, _ in named])
+
+
+def _quant_reference_cpu(cfg, scfg, cpu, prompts, batch, card):
+    """Phase Q2's CPU sides (the plain versions): the int8-KV engine's
+    tokens on every request, the frozen-expert loss and grads within phase
+    7's limits, the int8 Swin forward within SWIN_KERNEL_TOL."""
+    import torch
+    from repro_torch.models import swin
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    tokens = _quant_reference_serve(cfg, cpu["lm"], "cpu", prompts)
+    if tokens != card["tokens"]:
+        raise AssertionError(f"quant reference: GPU tokens {card['tokens']}"
+                             f" != CPU tokens {tokens}")
+    tc, gc, _ = _quant_reference_grads(cfg, cpu["lm"], batch, "cpu")
+    tg = card["total"]
+    if not abs(tg - tc) <= TRAIN_LOSS_RTOL * abs(tc):
+        raise AssertionError(f"quant reference: GPU loss {tg} vs CPU {tc}")
+    worst = _grad_err(card["grads"], gc, TRAIN_GRAD_TOL, "quant reference")
+    with torch.no_grad():
+        logits = swin.swin_forward(cpu["swin"], cpu["images"], scfg,
+                                   ParallelConfig(blk=128))[0].float()
+    err, tol = _check("quant swin forward", card["logits"], logits,
+                      SWIN_KERNEL_TOL)
+    print(f"[quant-reference] CPU (plain versions): greedy tokens {tokens} "
+          f"== the card's; loss + grads total GPU {tg!r} CPU {tc!r} (rel "
+          f"diff {abs(tg - tc) / abs(tc):.3e}), worst max |diff| / max "
+          f"|grad| {worst:.3e}; Swin logits max |diff| {err:.3e} (limit "
+          f"{tol:.3e})")
 
 
 def _named_leaves(tree, prefix=""):
@@ -4508,7 +4667,8 @@ def quant_serve_phase(torch, bf16_peak_gb):
             num_pages=slots * maxp // 2 + 1, max_pages_per_slot=maxp,
             params=params, prefill_chunk=16, kv_quant="int8", device="cuda")
 
-    for mode, n_req in (("int8", 16), ("fp8", QUANT_FP8_REQUESTS)):
+    for mode, n_req in (("int8", QUANT_INT8_REQUESTS),
+                        ("fp8", QUANT_FP8_REQUESTS)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -4607,16 +4767,14 @@ def train_reference_bf16_phase(torch):
     """Phase 7b: phase 7 in the working dtype: one loss_fn forward and
     backward of a 2-layer full-width model in bf16 at blk 128 (2 x 64
     tokens) on the GPU, where every esmm and estmm launch takes the wgmma
-    route, and on the CPU (the plain versions). The routers' top-k picks
-    of both runs are recorded: a pick that differs sends a token's grads to
-    another expert, which the limits below allow for."""
+    route, and on the CPU (the plain versions, on the CPU lane:
+    ``_bf16_reference_cpu``). The routers' top-k picks of both runs are
+    recorded: a pick that differs sends a token's grads to another expert,
+    which the limits below allow for."""
     from repro_torch import configs as cfglib
-    from repro_torch.common import tree_leaves, tree_map
-    from repro_torch.core import espec
+    from repro_torch.common import tree_map
     from repro_torch.data.pipeline import DataConfig, TokenSource
     from repro_torch.kernels import esffn, esmm, estmm
-    from repro_torch.launch import steps
-    from repro_torch.launch.train import batch_to
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import ParallelConfig
 
@@ -4629,38 +4787,13 @@ def train_reference_bf16_phase(torch):
     batch = TokenSource(DataConfig(seq_len=64, global_batch=2,
                                    vocab_size=cfg.vocab_size,
                                    seed=7)).batch(0)
-    loss_fn = steps.make_loss_fn(cfg, pcfg)
-    picks = {}
-    route = espec.route
-    out = {}
-    try:
-        for device in ("cuda", "cpu"):
-            sink = picks.setdefault(device, [])
-
-            def recording(*a, sink=sink, **kw):
-                r = route(*a, **kw)
-                sink.append(torch.sort(r.expert_idx, dim=-1)[0].cpu())
-                return r
-
-            espec.route = recording
-            before = {fn.__name__: dict(fn.launches_by_route)
-                      for fn in routed}
-            p = tree_map(lambda t: t.detach().to(device).requires_grad_(),
-                         params)
-            total, metrics = loss_fn(p, batch_to(batch, device))
-            grads = torch.autograd.grad(total, tree_leaves(p))
-            if device == "cuda":
-                torch.cuda.synchronize()
-                routes = {fn.__name__: {r: fn.launches_by_route[r]
-                                        - before[fn.__name__][r]
-                                        for r in fn.launches_by_route}
-                          for fn in routed}
-            out[device] = (float(metrics["loss"].detach()),
-                           float(total.detach()),
-                           [g.float().cpu() for g in grads])
-            del p, grads
-    finally:
-        espec.route = route
+    before = {fn.__name__: dict(fn.launches_by_route) for fn in routed}
+    card = _bf16_loss_picks(cfg, pcfg, params, batch, "cuda")
+    torch.cuda.synchronize()
+    routes = {fn.__name__: {r: fn.launches_by_route[r]
+                            - before[fn.__name__][r]
+                            for r in fn.launches_by_route}
+              for fn in routed}
     # esffn_glu: once a layer in the forward and again in remat's
     # recompute, every launch on wgmma
     want = {"esffn_glu": {"stream": 0, "wgmma": 2 * cfg.num_layers},
@@ -4671,9 +4804,53 @@ def train_reference_bf16_phase(torch):
     if routes != want:
         raise AssertionError(f"bf16 train reference: routes {routes}, "
                              f"expected {want}")
+    cpu = tree_map(lambda t: t.cpu(), params)
+    _LANE.submit("7b", 3 * _host_bytes(cpu), _bf16_reference_cpu, cfg, pcfg,
+                 cpu, batch, card)
+    print(f"[train-reference-bf16] 2-layer full-width bf16, blk 128, 2 x 64 "
+          f"tokens: loss GPU {card[0]!r}, total GPU {card[1]!r} (the CPU's "
+          f"on the lane); routes {routes}")
+    return {"loss_gpu": card[0], "routes": routes}
+
+
+def _bf16_loss_picks(cfg, pcfg, params, batch, device):
+    """Phase 7b's ``loss_fn`` forward and backward from a copy of
+    ``params`` on ``device``: loss, total, the grads (host, f32) and each
+    router call's sorted top-k picks (host), recorded on this thread."""
+    import torch
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.core import espec
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import batch_to
+
+    picks, route = [], espec.route
+
+    def recording(*a, **kw):
+        r = route(*a, **kw)
+        picks.append(torch.sort(r.expert_idx, dim=-1)[0].cpu())
+        return r
+
+    espec.route = _this_thread_only(recording, route)
+    try:
+        p = tree_map(lambda t: t.detach().to(device).requires_grad_(),
+                     params)
+        total, metrics = steps.make_loss_fn(cfg, pcfg)(
+            p, batch_to(batch, device))
+        grads = torch.autograd.grad(total, tree_leaves(p))
+    finally:
+        espec.route = route
+    return (float(metrics["loss"].detach()), float(total.detach()),
+            [g.float().cpu() for g in grads], picks)
+
+
+def _bf16_reference_cpu(cfg, pcfg, cpu, batch, card):
+    """Phase 7b's CPU side and its limits: the totals within
+    BF16_REF_LOSS_RTOL and every grad leaf within BF16_REF_GRAD_TOL of its
+    Frobenius norm; the tokens whose picks differ are printed."""
+    lg, tg, gg, picks_g = card
+    lc, tc, gc, picks_c = _bf16_loss_picks(cfg, pcfg, cpu, batch, "cpu")
     flips = [int((a != b).any(dim=-1).sum())
-             for a, b in zip(picks["cuda"], picks["cpu"])]
-    (lg, tg, gg), (lc, tc, gc) = out["cuda"], out["cpu"]
+             for a, b in zip(picks_g, picks_c)]
     rel = abs(tg - tc) / abs(tc)
     worst_f, worst_max, worst_leaf = 0.0, 0.0, None
     for i, (a, b) in enumerate(zip(gg, gc)):
@@ -4689,11 +4866,7 @@ def train_reference_bf16_phase(torch):
           f"leaves, worst |diff| / |grad| (Frobenius) {worst_f:.3e} at leaf "
           f"{worst_leaf} (limit {BF16_REF_GRAD_TOL}), worst max |diff| / max "
           f"|grad| {worst_max:.3e} (not a limit); tokens whose top-k picks "
-          f"differ, per layer: {flips}; routes {routes}")
-    res = {"loss_gpu": lg, "loss_cpu": lc, "total_rel_diff": rel,
-           "worst_grad_frobenius_rel": worst_f, "worst_leaf": worst_leaf,
-           "worst_grad_max_rel": worst_max, "routing_flips": flips,
-           "routes": routes}
+          f"differ, per layer: {flips}")
     if not rel <= BF16_REF_LOSS_RTOL:
         raise AssertionError(f"bf16 train reference: GPU total {tg} vs CPU "
                              f"{tc} (rel {rel})")
@@ -4701,19 +4874,17 @@ def train_reference_bf16_phase(torch):
         raise AssertionError(f"bf16 train reference: grad leaf {worst_leaf}"
                              f" |diff| / |grad| {worst_f} > "
                              f"{BF16_REF_GRAD_TOL}")
-    return res
 
 
 def reference_phase(torch):
     """2 layers at full width in f32: the dense ``BatchedServer`` on the GPU
     must give the same greedy tokens as ``PagedServer`` and the batch-1
     ``reference_stream``, each on the GPU (kernels) and on the CPU (plain
-    versions), from the same weights. Returns the tokens and each run's
-    wall time."""
+    versions, on the CPU lane: ``_reference_cpu``), from the same weights.
+    Returns the tokens and each card run's wall time."""
     import numpy as np
     from repro_torch import configs as cfglib
     from repro_torch.common import tree_map
-    from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import ParallelConfig
 
@@ -4722,51 +4893,66 @@ def reference_phase(torch):
     pcfg = ParallelConfig(blk=16)
     gen = torch.Generator(device="cuda").manual_seed(3)
     params = lm.init_params(cfg, generator=gen, device="cuda")
-    cpu_params = tree_map(lambda t: t.cpu(), params)
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
                for _ in range(3)]
-    max_new, max_seq = 4, 64
-
-    def engine(kind, device, p):
-        if kind == "dense":
-            return serve.BatchedServer(cfg, pcfg, num_slots=2,
-                                       max_seq=max_seq, params=p,
-                                       device=device)
-        return serve.PagedServer(
-            cfg, pcfg, num_slots=2, page_size=16, num_pages=9,
-            max_pages_per_slot=4, params=p, device=device)
-
     streams, wall = {}, {}
-    for kind, device, p in (("dense", "cuda", params),
-                            ("paged", "cuda", params),
-                            ("paged", "cpu", cpu_params),
-                            ("reference_stream", "cuda", params),
-                            ("reference_stream", "cpu", cpu_params)):
+    for kind in ("dense", "paged", "reference_stream"):
         t0 = time.perf_counter()
-        reqs = [serve.Request(rid=i, prompt=pr, max_new=max_new)
-                for i, pr in enumerate(prompts)]
-        if kind == "reference_stream":
-            out = {r.rid: serve.reference_stream(cfg, pcfg, p, r,
-                                                 max_seq=max_seq)
-                   for r in reqs}
-        else:
-            server = engine(kind, device, p)
-            for r in reqs:
-                server.submit(r)
-            out = {r.rid: r.out for r in server.run()}
-        streams[f"{kind} {device}"] = out
-        wall[f"{kind} {device}"] = time.perf_counter() - t0
+        streams[f"{kind} cuda"] = _reference_engine(cfg, pcfg, kind, "cuda",
+                                                    params, prompts)
+        wall[f"{kind} cuda"] = time.perf_counter() - t0
     want = streams["dense cuda"]
-    if len(want) != 3 or any(len(o) != max_new for o in want.values()) \
+    if len(want) != 3 or any(len(o) != 4 for o in want.values()) \
             or any(st != want for st in streams.values()):
         raise AssertionError(f"reference phase: greedy tokens differ: "
                              f"{streams}")
-    print(f"[reference] 2-layer full-width f32: dense BatchedServer (GPU) == "
-          f"PagedServer (GPU, CPU) == reference_stream (GPU, CPU) greedy "
-          f"tokens {want}; wall s {json.dumps(wall)}")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    _LANE.submit("4", _host_bytes(cpu_params), _reference_cpu, cfg, pcfg,
+                 cpu_params, prompts, want)
+    print(f"[reference] 2-layer full-width f32: dense BatchedServer == "
+          f"PagedServer == reference_stream on the GPU, greedy tokens "
+          f"{want} (the CPU's engines on the lane); wall s "
+          f"{json.dumps(wall)}")
     return {"tokens": {str(k): v for k, v in want.items()},
             "engines": sorted(streams), "wall_s": wall}
+
+
+def _reference_engine(cfg, pcfg, kind, device, p, prompts):
+    """Phase 4's engines (2 slots, 3 requests of 8 + 4): greedy streams."""
+    from repro_torch.launch import serve
+
+    reqs = [serve.Request(rid=i, prompt=pr, max_new=4)
+            for i, pr in enumerate(prompts)]
+    if kind == "reference_stream":
+        return {r.rid: serve.reference_stream(cfg, pcfg, p, r, max_seq=64)
+                for r in reqs}
+    if kind == "dense":
+        server = serve.BatchedServer(cfg, pcfg, num_slots=2, max_seq=64,
+                                     params=p, device=device)
+    else:
+        server = serve.PagedServer(
+            cfg, pcfg, num_slots=2, page_size=16, num_pages=9,
+            max_pages_per_slot=4, params=p, device=device)
+    for r in reqs:
+        server.submit(r)
+    return {r.rid: r.out for r in server.run()}
+
+
+def _reference_cpu(cfg, pcfg, cpu_params, prompts, want):
+    """Phase 4's CPU side (the plain versions): ``PagedServer`` and
+    ``reference_stream`` on every request give the card's tokens."""
+    streams, wall = {}, {}
+    for kind in ("paged", "reference_stream"):
+        t0 = time.perf_counter()
+        streams[f"{kind} cpu"] = _reference_engine(cfg, pcfg, kind, "cpu",
+                                                   cpu_params, prompts)
+        wall[f"{kind} cpu"] = time.perf_counter() - t0
+    if any(st != want for st in streams.values()):
+        raise AssertionError(f"reference phase: the CPU's greedy tokens "
+                             f"{streams} != the card's {want}")
+    print(f"[reference] PagedServer (CPU) == reference_stream (CPU) == the "
+          f"card's greedy tokens {want}; wall s {json.dumps(wall)}")
 
 
 def serve_phase(torch):
@@ -5091,8 +5277,8 @@ def spec_reference_phase(torch):
     drafted row, same streams; ``ModelDrafter`` with the target's own
     config and params accepts every greedy draft; the pool checked after
     every tick and drained; temperature 0.8 moves a token off greedy; the
-    CPU's speculative engine (the plain versions) gives the card's
-    streams."""
+    CPU's speculative engine (the plain versions, on the CPU lane) gives
+    the card's streams."""
     import numpy as np
     from repro_torch import configs as cfglib
     from repro_torch.common import tree_map
@@ -5112,19 +5298,10 @@ def spec_reference_phase(torch):
     max_seq = 64
 
     def run(what, p, device, reqs, drafter=None):
-        srv = _audited(serve.PagedServer(
-            cfg, pcfg, num_slots=2, page_size=16, num_pages=9,
-            max_pages_per_slot=4, params=p, device=device))
-        if drafter is not None:
-            spec.SpecDecoder(srv, drafter, k=SPEC_K)
-        for r in reqs:
-            srv.submit(serve.Request(**r))
         t0 = time.perf_counter()
-        out = {r.rid: r.out for r in srv.run()}
+        srv, out = _spec_reference_run(cfg, pcfg, what, p, device, reqs,
+                                       drafter)
         wall[what] = time.perf_counter() - t0
-        _drained(srv, f"spec reference ({what})")
-        if len(out) != len(reqs):
-            raise AssertionError(f"spec reference ({what}): unfinished")
         return srv, out
 
     wall = {}
@@ -5159,20 +5336,52 @@ def spec_reference_phase(torch):
     if not moved:
         raise AssertionError("spec reference: temperature 0.8 moved no "
                              "stream off greedy")
-    _, cpu_on = run("ngram cpu", cpu_params, "cpu", mix, spec.NGramDrafter())
-    if cpu_on != off:
-        raise AssertionError(f"spec reference: CPU streams {cpu_on} vs the "
-                             f"card's {off}")
+    _LANE.submit("4s", _host_bytes(cpu_params), _spec_reference_cpu, cfg,
+                 pcfg, cpu_params, mix, off)
     res = {"streams": {str(k): v for k, v in off.items()},
            "ngram": ngram.spec.stats(), "wrong": sw, "model_self": ss,
            "sampled_streams_off_greedy": moved, "wall_s": wall}
     print(f"[spec-reference] 2-layer full-width f32, k {SPEC_K}: NGram "
-          f"speculation (card) == off == reference_stream == NGram on the "
-          f"CPU, streams {off}; NGram {res['ngram']}; wrong drafter {sw}; "
+          f"speculation (card) == off == reference_stream (NGram on the "
+          f"CPU on the lane), streams {off}; NGram {res['ngram']}; wrong "
+          f"drafter {sw}; "
           f"self-drafting ModelDrafter {ss}; {moved} of 2 sampled streams "
           f"off greedy; pool checked every tick and drained; wall s "
           f"{json.dumps(wall)}")
     return res
+
+
+def _spec_reference_run(cfg, pcfg, what, p, device, reqs, drafter=None):
+    """Phase 4s's audited ``PagedServer`` (2 slots), speculating with
+    ``drafter`` if one is given: the server and its streams, drained."""
+    from repro_torch.launch import serve, spec
+
+    srv = _audited(serve.PagedServer(
+        cfg, pcfg, num_slots=2, page_size=16, num_pages=9,
+        max_pages_per_slot=4, params=p, device=device))
+    if drafter is not None:
+        spec.SpecDecoder(srv, drafter, k=SPEC_K)
+    for r in reqs:
+        srv.submit(serve.Request(**r))
+    out = {r.rid: r.out for r in srv.run()}
+    _drained(srv, f"spec reference ({what})")
+    if len(out) != len(reqs):
+        raise AssertionError(f"spec reference ({what}): unfinished")
+    return srv, out
+
+
+def _spec_reference_cpu(cfg, pcfg, cpu_params, mix, off):
+    """Phase 4s's CPU side: NGram speculation on the CPU (the plain
+    versions) gives the card's streams on the whole mix."""
+    from repro_torch.launch import spec
+
+    _, cpu_on = _spec_reference_run(cfg, pcfg, "ngram cpu", cpu_params,
+                                    "cpu", mix, spec.NGramDrafter())
+    if cpu_on != off:
+        raise AssertionError(f"spec reference: CPU streams {cpu_on} vs the "
+                             f"card's {off}")
+    print(f"[spec-reference] NGram speculation on the CPU == the card's "
+          f"streams {off}")
 
 
 def _shared_prefix_prompts(rng, vocab, own_lengths):
@@ -5445,7 +5654,7 @@ def _prefix_serve(torch, cfg, params):
 
 def _spec_serve(torch, cfg, params, prompts, make_server):
     """Phase 5s: phase 5's weights, the first ``SPEC_SERVE_REQUESTS`` of its
-    prompts (4 of 16, half a wave of the 8 slots: the 16 took 70 s, 8
+    prompts (2 of 16, a greedy and a sampled one: the 16 took 70 s, 8
     took 36 s on a slower host), odd rids
     sampled at 0.8, 16 new tokens, speculation off then on
     (``NGramDrafter``, k ``SPEC_K``), ``SPEC_SERVE_PAIRS`` times in turn.
@@ -5535,7 +5744,7 @@ def _spec_serve(torch, cfg, params, prompts, make_server):
            "tok_per_s_on_over_off": [b["tok_per_s"] / a["tok_per_s"]
                                      for a, b in zip(offs, ons)]}
     print(f"[serve-spec] {len(mix)} of phase 5's {len(prompts)} requests "
-          f"(cut to half a wave of the slots, to keep the script's time), k "
+          f"(cut to keep the script's time), k "
           f"{SPEC_K}, {SPEC_SERVE_PAIRS} off/on pairs: tok/s on / off {res['tok_per_s_on_over_off']}; "
           f"bf16 streams equal on and off {same} of {len(mix)}")
     return ons[-1]["esffn_glu_launches"], ons[-1]["routes"], res
@@ -5680,7 +5889,9 @@ class _HeldToPlain:
     module), so the kernels count their launches as always; the plain calls
     launch nothing, so the counts are the path's own. ``checks`` counts the
     held launches a kernel and ``worst`` keeps the largest err / limit.
-    ``path`` names the path in the error."""
+    ``path`` names the path in the error. Only the calls of the thread
+    that enters are held (``_this_thread_only``): the CPU lane's go to the
+    wrappers as they are."""
 
     def __init__(self, path: str = "the mesh path"):
         self.path = path
@@ -5695,12 +5906,14 @@ class _HeldToPlain:
 
         self._saved = [(tfm, "paged_attention", tfm.paged_attention),
                        (ops, "esffn_kernel", ops.esffn_kernel)]
-        tfm.paged_attention = self._held(
+        tfm.paged_attention = _this_thread_only(self._held(
             "paged_attention", pa.paged_attention, pa.paged_attention_ref,
-            ATTN_TOL)
+            ATTN_TOL), tfm.paged_attention)
         ops.esffn_kernel = _ModuleView(esffn, {
-            name: self._held(name, getattr(esffn, name),
-                             getattr(esffn, name + "_plain"), ESFFN_TOL)
+            name: _this_thread_only(
+                self._held(name, getattr(esffn, name),
+                           getattr(esffn, name + "_plain"), ESFFN_TOL),
+                getattr(esffn, name))
             for name in ("esffn_glu", "esffn_mlp")})
         return self
 
@@ -5885,12 +6098,12 @@ def _paged_mesh_graft(torch, mesh, held, fns):
     (``_card_vs_cpu_loss``), every expert kernel's launches counted; then
     2 greedy requests of 8 + 4 through ``PagedServer`` on the mesh (every
     launch held to its plain version, one ``esffn_mlp`` a layer a forward
-    on ``mma_tf32x3``) against the same on the CPU: streams equal."""
+    on ``mma_tf32x3``) against the same on the CPU: streams equal. The
+    CPU sides run on the CPU lane (``_graft_decode_cpu``)."""
     import numpy as np
     from repro_torch import configs as cfglib
     from repro_torch.common import tree_map
     from repro_torch.data.pipeline import DataConfig, TokenSource
-    from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import ParallelConfig
 
@@ -5915,42 +6128,26 @@ def _paged_mesh_graft(torch, mesh, held, fns):
     prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
                for _ in range(2)]
 
-    def run(p, device, m):
-        srv = serve.PagedServer(cfg, pcfg, num_slots=2, page_size=16,
-                                num_pages=9, max_pages_per_slot=4, params=p,
-                                device=device, audit=True, mesh=m)
-        for i, pr in enumerate(prompts):
-            srv.submit(serve.Request(rid=i, prompt=pr, max_new=4))
-        with torch.no_grad():
-            out = {r.rid: r.out for r in srv.run()}
-        _drained(srv, f"P1 graft {device}")
-        return srv, out
-
-    t0 = time.perf_counter()
-    _, want = run(tree_map(lambda t: t.cpu(), params), "cpu", None)
-    cpu_s = time.perf_counter() - t0
     _reset_paged_counts(fns)
     with held:
-        srv, got = run(params, "cuda", mesh)
+        srv, got = _graft_serve(cfg, pcfg, params, "cuda", mesh, prompts)
     torch.cuda.synchronize()
     launches, routes, _ = _paged_counts(fns)
     chunks, decodes, _ = _forwards(srv.trace)
     n = 2 * (chunks + decodes)
-    if got != want or launches["esffn_mlp"] != n \
+    if len(got) != 2 or launches["esffn_mlp"] != n \
             or routes["esffn_mlp"]["mma_tf32x3"] != n \
             or launches["paged_attention"] != 2 * decodes:
-        raise AssertionError(f"P1 graft: mesh streams {got} vs CPU {want}; "
-                             f"launches {launches} {routes}, expected {n} "
-                             f"esffn_mlp")
+        raise AssertionError(f"P1 graft: mesh streams {got}; launches "
+                             f"{launches} {routes}, expected {n} esffn_mlp")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    _LANE.submit("P1 graft decode", _host_bytes(cpu_params),
+                 _graft_decode_cpu, cfg, pcfg, cpu_params, prompts, got)
     print(f"[paged-mesh] P1 graft (glu=False, 2 full-width layers, f32): "
-          f"total card {loss['total_gpu']!r} CPU {loss['total_cpu']!r} (rel "
-          f"{loss['total_rel_diff']:.3e}), worst grad "
-          f"{loss['worst_grad_rel']:.3e} x max|grad| at "
-          f"{loss['worst_leaf']}; train launches "
-          f"{ {k: v for k, v in train_launches.items() if v} }; paged "
-          f"decode on the mesh == CPU {got}, launches "
-          f"{ {k: v for k, v in launches.items() if v} } (CPU run "
-          f"{cpu_s:.1f}s)")
+          f"total card {loss['total_gpu']!r} (the CPU's on the lane); train "
+          f"launches { {k: v for k, v in train_launches.items() if v} }; "
+          f"paged decode on the mesh {got} (the CPU's on the lane), "
+          f"launches { {k: v for k, v in launches.items() if v} }")
     paths = {"paged_mesh_p1_graft_train": {
         k: v for k, v in train_launches.items() if v},
         "paged_mesh_p1_graft_decode": {k: v for k, v in launches.items()
@@ -5959,12 +6156,36 @@ def _paged_mesh_graft(torch, mesh, held, fns):
                    "paged_mesh_p1_graft_decode": {
                        "esffn_mlp": routes["esffn_mlp"]}}
     return paths, route_paths, {
-        "loss": {k: loss[k] for k in ("total_gpu", "total_cpu",
-                                      "total_rel_diff", "worst_grad_rel",
-                                      "worst_leaf", "grad_leaves")},
+        "loss": {"total_gpu": loss["total_gpu"]},
         "train_launches": train_launches, "train_routes": train_routes,
         "streams": {str(k): v for k, v in got.items()},
-        "decode_launches": launches, "cpu_decode_s": cpu_s}
+        "decode_launches": launches}
+
+
+def _graft_serve(cfg, pcfg, p, device, mesh, prompts):
+    """P1 graft's audited ``PagedServer`` (2 slots, 2 requests of 8 + 4)."""
+    import torch
+    from repro_torch.launch import serve
+
+    srv = serve.PagedServer(cfg, pcfg, num_slots=2, page_size=16,
+                            num_pages=9, max_pages_per_slot=4, params=p,
+                            device=device, audit=True, mesh=mesh)
+    for i, pr in enumerate(prompts):
+        srv.submit(serve.Request(rid=i, prompt=pr, max_new=4))
+    with torch.no_grad():
+        out = {r.rid: r.out for r in srv.run()}
+    _drained(srv, f"P1 graft {device}")
+    return srv, out
+
+
+def _graft_decode_cpu(cfg, pcfg, cpu_params, prompts, got):
+    """P1 graft's CPU side: the CPU's paged engine (the plain versions)
+    gives the mesh's streams."""
+    _, want = _graft_serve(cfg, pcfg, cpu_params, "cpu", None, prompts)
+    if got != want:
+        raise AssertionError(f"P1 graft: mesh streams {got} vs CPU {want}")
+    print(f"[paged-mesh] P1 graft: paged decode on the CPU == on the mesh "
+          f"{want}")
 
 
 def _paged_mesh_serve(torch, cfg, pcfg, params, prompts, base_median_ms):
@@ -6107,8 +6328,9 @@ def hybrid_reference_phase(torch, arch, tag):
     requests of 8 prompt and ``HYBRID_REF_NEW`` new tokens through the
     dense ``BatchedServer``, ``PagedServer`` and ``reference_stream`` on
     the card and the ``HYBRID_CPU`` engines on the CPU (on its first
-    requests), 2 slots so both engines refill a slot: every stream
-    equal. The paged card run's kernel launches, counted from 0, are
+    requests; on the CPU lane, ``_hybrid_reference_cpu``), 2 slots so both
+    engines refill a slot: every stream equal. The paged card run's kernel
+    launches, counted from 0, are
     exactly one ``esffn_glu`` a MoE layer and one ``paged_attention`` an
     attention layer a forward (one forward a prompt token, the token-wise
     prefill, and one a decode step), all ``esffn_glu`` on ``stream``.
@@ -6117,7 +6339,7 @@ def hybrid_reference_phase(torch, arch, tag):
     within ESFFN_TOL of its own on the CPU."""
     import numpy as np
     from repro_torch.common import tree_leaves, tree_map
-    from repro_torch.launch import serve, steps
+    from repro_torch.launch import steps
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import ParallelConfig
 
@@ -6127,47 +6349,21 @@ def hybrid_reference_phase(torch, arch, tag):
     params = lm.init_params(cfg, generator=torch.Generator(
         device="cuda").manual_seed(41), device="cuda")
     n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    cpu_params = tree_map(lambda t: t.cpu(), params)
     rng = np.random.default_rng(42)
     prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
                for _ in range(HYBRID_REF_REQUESTS)]
-    max_seq = 64
     per_fwd = _hybrid_launch_counts(cfg)
 
     cpu_kinds, cpu_requests = HYBRID_CPU[arch]
     streams, wall, counts = {}, {}, {}
-    for kind, device, p in (("dense", "cuda", params),
-                            ("paged", "cuda", params),
-                            ("reference_stream", "cuda", params),
-                            *((k, "cpu", cpu_params) for k in cpu_kinds)):
-        reqs = [serve.Request(rid=i, prompt=pr, max_new=HYBRID_REF_NEW)
-                for i, pr in enumerate(prompts)]
-        if device == "cpu":
-            reqs = reqs[:cpu_requests]
+    for kind in ("dense", "paged", "reference_stream"):
         t0 = time.perf_counter()
         _reset_counts()
-        if kind == "reference_stream":
-            out = {r.rid: serve.reference_stream(cfg, pcfg, p, r,
-                                                 max_seq=max_seq)
-                   for r in reqs}
-        else:
-            if kind == "dense":
-                server = serve.BatchedServer(cfg, pcfg, num_slots=2,
-                                             max_seq=max_seq, params=p,
-                                             device=device)
-            else:
-                server = serve.PagedServer(
-                    cfg, pcfg, num_slots=2, page_size=16, num_pages=9,
-                    max_pages_per_slot=4, params=p, device=device)
-            for r in reqs:
-                server.submit(r)
-            out = {r.rid: r.out for r in server.run()}
-        key = f"{kind} {device}"
+        out, fwds = _hybrid_engine(cfg, pcfg, kind, "cuda", params, prompts)
+        key = f"{kind} cuda"
         streams[key], wall[key] = out, time.perf_counter() - t0
         if key == "paged cuda":
             counts = _read_counts()
-            fwds = sum(len(r.prompt) for r in reqs) + len(
-                server.decode_times_s)
             want = {"esffn_glu": per_fwd[0] * fwds,
                     "paged_attention": per_fwd[1] * fwds}
             got = {k: counts[k] for k in want}
@@ -6178,37 +6374,33 @@ def hybrid_reference_phase(torch, arch, tag):
     want = streams["dense cuda"]
     if len(want) != HYBRID_REF_REQUESTS or any(
             len(o) != HYBRID_REF_NEW for o in want.values()) or any(
-            st != {rid: want[rid] for rid in range(
-                cpu_requests if key.endswith("cpu") else len(want))}
-            for key, st in streams.items()):
+            st != want for st in streams.values()):
         raise AssertionError(f"phase {tag}: greedy tokens differ: {streams}")
 
     tokens = np.stack(prompts)
     b = tokens.shape[0]
-    logits = {}
-    for device, p in (("cuda", params), ("cpu", cpu_params)):
-        t0 = time.perf_counter()
-        lg, _ = steps.make_prefill_step(cfg, pcfg)(
-            p, {"tokens": torch.from_numpy(tokens).to(device)},
-            lm.init_cache(cfg, b, max_seq, device))
-        logits[device] = lg[:, -1].float().cpu()
-        wall[f"make_prefill_step {device}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunked = _hybrid_prefill(cfg, pcfg, params, tokens, "cuda")
+    wall["make_prefill_step cuda"] = time.perf_counter() - t0
     step = steps.make_serve_step(cfg, pcfg)
-    cache = lm.init_cache(cfg, b, max_seq, "cuda")
+    cache = lm.init_cache(cfg, b, 64, "cuda")
     for t in range(tokens.shape[1]):
         lg, cache = step(params, {"tokens": torch.from_numpy(
             tokens[:, t:t + 1]).cuda()}, cache)
     tokenwise = lg[:, -1].float().cpu()
     err_tw, tol_tw = _check(f"phase {tag}: chunked vs token-wise logits",
-                            logits["cuda"], tokenwise, HYBRID_CHUNK_TOL[arch])
-    err_cpu, tol_cpu = _check(f"phase {tag}: card vs CPU logits",
-                              logits["cuda"], logits["cpu"],
-                              ESFFN_TOL["float32"])
+                            chunked, tokenwise, HYBRID_CHUNK_TOL[arch])
+    del cache, lg
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    _LANE.submit(tag, n_bytes, _hybrid_reference_cpu, tag, cfg, pcfg,
+                 cpu_params, prompts, cpu_kinds, cpu_requests, want, chunked,
+                 full=arch in LANE_FULL)
     res = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "d_ff": cfg.d_ff, "moe_d_ff": cfg.moe.d_ff if cfg.moe else None,
            "weights_gb": n_bytes / 1e9, "tokens": {str(k): v for k, v in
                                                    want.items()},
-           "engines": sorted(streams), "cpu_requests": cpu_requests,
+           "engines": sorted(streams) + [f"{k} cpu" for k in cpu_kinds],
+           "cpu_requests": cpu_requests,
            "launches": {
                k: counts[k] for k in ("esffn_glu", "paged_attention")},
            "launches_per_forward": {"esffn_glu": per_fwd[0],
@@ -6216,16 +6408,75 @@ def hybrid_reference_phase(torch, arch, tag):
            "launches_by_route": {"esffn_glu": counts["esffn_glu_routes"]},
            "chunked_vs_tokenwise_err": err_tw,
            "chunked_vs_tokenwise_tol": tol_tw,
-           "card_vs_cpu_logit_err": err_cpu, "card_vs_cpu_logit_tol": tol_cpu,
            "wall_s": wall, "seconds": time.perf_counter() - t_phase}
     print(f"[{tag}] {arch}, {cfg.num_layers} layers, f32, {n_bytes / 1e9:.2f}"
-          f" GB: greedy tokens {want} equal on {sorted(streams)} (the CPU "
-          f"engines on the first {cpu_requests} requests); launches "
-          f"{res['launches']} ({per_fwd} a forward); prefill logits chunked "
-          f"vs token-wise err {err_tw:.3g} (limit {tol_tw:.3g}), card vs "
-          f"CPU {err_cpu:.3g} (limit {tol_cpu:.3g}); in "
-          f"{res['seconds']:.1f}s, wall s {json.dumps(wall)}")
+          f" GB: greedy tokens {want} equal on {sorted(streams)} (the CPU's "
+          f"{cpu_kinds} on the first {cpu_requests} requests on the lane); "
+          f"launches {res['launches']} ({per_fwd} a forward); prefill "
+          f"logits chunked vs token-wise err {err_tw:.3g} (limit "
+          f"{tol_tw:.3g}); in {res['seconds']:.1f}s, wall s "
+          f"{json.dumps(wall)}")
     return res
+
+
+def _hybrid_engine(cfg, pcfg, kind, device, p, prompts):
+    """Phases 4j/4x's engines (2 slots, ``HYBRID_REF_NEW`` new tokens a
+    request): the greedy streams and the forwards the paged engine ran
+    (one a prompt token and one a decode step; else None)."""
+    from repro_torch.launch import serve
+
+    reqs = [serve.Request(rid=i, prompt=pr, max_new=HYBRID_REF_NEW)
+            for i, pr in enumerate(prompts)]
+    if kind == "reference_stream":
+        return {r.rid: serve.reference_stream(cfg, pcfg, p, r, max_seq=64)
+                for r in reqs}, None
+    if kind == "dense":
+        server = serve.BatchedServer(cfg, pcfg, num_slots=2, max_seq=64,
+                                     params=p, device=device)
+    else:
+        server = serve.PagedServer(
+            cfg, pcfg, num_slots=2, page_size=16, num_pages=9,
+            max_pages_per_slot=4, params=p, device=device)
+    for r in reqs:
+        server.submit(r)
+    out = {r.rid: r.out for r in server.run()}
+    fwds = (sum(len(r.prompt) for r in reqs) + len(server.decode_times_s)
+            if kind == "paged" else None)
+    return out, fwds
+
+
+def _hybrid_prefill(cfg, pcfg, params, tokens, device):
+    """``steps.make_prefill_step``'s last logits (host, f32)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    lg, _ = steps.make_prefill_step(cfg, pcfg)(
+        params, {"tokens": torch.from_numpy(tokens).to(device)},
+        lm.init_cache(cfg, tokens.shape[0], 64, device))
+    return lg[:, -1].float().cpu()
+
+
+def _hybrid_reference_cpu(tag, cfg, pcfg, cpu_params, prompts, kinds,
+                          n_requests, want, chunked):
+    """Phases 4j/4x's CPU side (the plain versions): ``kinds`` on the first
+    ``n_requests`` prompts give the card's streams, and the chunked
+    prefill's last logits are within ESFFN_TOL of the card's."""
+    import numpy as np
+
+    streams = {f"{kind} cpu": _hybrid_engine(
+        cfg, pcfg, kind, "cpu", cpu_params, prompts[:n_requests])[0]
+        for kind in kinds}
+    cpu_want = {rid: want[rid] for rid in range(n_requests)}
+    if any(st != cpu_want for st in streams.values()):
+        raise AssertionError(f"phase {tag}: the CPU's greedy tokens "
+                             f"{streams} != the card's {cpu_want}")
+    logits = _hybrid_prefill(cfg, pcfg, cpu_params, np.stack(prompts), "cpu")
+    err, tol = _check(f"phase {tag}: card vs CPU logits", chunked, logits,
+                      ESFFN_TOL["float32"])
+    print(f"[{tag}] CPU (plain versions): {kinds} on {n_requests} requests "
+          f"== the card's greedy tokens; chunked prefill logits card vs CPU "
+          f"{err:.3g} (limit {tol:.3g})")
 
 
 def hybrid_serve_phase(torch, arch, tag):
@@ -6361,6 +6612,668 @@ def hybrid_serve_phase(torch, arch, tag):
           f" {equal} of {len(prompts)} dense streams equal the paged "
           f"engine's; phase {res['seconds']:.1f}s")
     del params
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 3d, 4d, 5d, 8d: the five LM configurations first run on the card
+# here, at full width
+# ---------------------------------------------------------------------------
+
+#: Per configuration: the depth of the f32 reference (4d) and of the bf16
+#: training (8d), each a whole number of ``cfg.period`` (gemma3-12b's 6 is
+#: one 5:1 local:global period, so a global layer is in); the serve
+#: weights (5d, full depth; mixtral-8x7b's experts int8, drawn and
+#: quantized expert matrix by expert matrix) and the 8d state at 14 B a
+#: parameter (the bf16 weight, its f32 master, m and v: what the step
+#: holds between steps), both reckoned from the configs (GB); and the
+#: prompt length
+#: of the request that crosses the window of the local layers (0: no
+#: window). 4d cuts mixtral-8x7b's expert d_ff to HYBRID_REF_FFN, as 4j
+#: cuts Jamba's.
+FULLWIDTH = {
+    "gemma-2b": dict(ref_layers=2, train_layers=18, weight_gb=5.012,
+                     train_gb=35.09, cross=0),
+    "gemma3-12b": dict(ref_layers=6, train_layers=6, weight_gb=23.532,
+                       train_gb=32.92, cross=1100),
+    "phi3-medium-14b": dict(ref_layers=2, train_layers=4, weight_gb=29.320,
+                            train_gb=33.47, cross=0),
+    "starcoder2-15b": dict(ref_layers=2, train_layers=4, weight_gb=31.919,
+                           train_gb=29.95, cross=0),
+    "mixtral-8x7b": dict(ref_layers=2, train_layers=2, weight_gb=48.322,
+                         train_gb=44.31, cross=4200),
+}
+FULLWIDTH_WEIGHT_RTOL = 0.01       # measured weight bytes vs reckoned
+# 4d: 2 greedy requests of 8 + 4 on 2 slots; the crossing request gets 8
+# new tokens. 5d: 8 of 8 + 16 on 8 slots (16-token pages, a dense 8 x 128
+# rectangle), each engine after a warm-up of 8 of 8 + 2 whose first decode
+# step is held to plain; the crossing request gets 16 new tokens, and its
+# first FULLWIDTH_CROSS_HELD decode steps are held (the plain esffn_glu at
+# mixtral-8x7b's width is ~100 ms a call, 32 a step).
+FULLWIDTH_REF_REQUESTS, FULLWIDTH_REF_PROMPT, FULLWIDTH_REF_NEW = 2, 8, 4
+FULLWIDTH_SERVE_REQUESTS, FULLWIDTH_SERVE_NEW = 8, 16
+FULLWIDTH_CROSS_REF_NEW, FULLWIDTH_CROSS_NEW = 8, 16
+FULLWIDTH_CROSS_CHUNK, FULLWIDTH_CROSS_HELD = 256, 2
+# mixtral-8x7b's paged run is the serve CLI a user with one card types
+FULLWIDTH_CLI = {"mixtral-8x7b": [
+    "--arch", "mixtral-8x7b", "--quant", "int8", "--paged", "--slots", "8",
+    "--requests", str(FULLWIDTH_SERVE_REQUESTS), "--max-new",
+    str(FULLWIDTH_SERVE_NEW)]}
+# 5d crosses the windows at full depth on the paged engine only: the
+# dense engine prefills token by token, and gemma3-12b's 1,116 forwards of
+# 48 layers took 92.2 s on an H100 80GB HBM3 at 700 W (mixtral-8x7b's
+# 4,216 of 32 would take more); 4d crosses both windows on both engines
+FULLWIDTH_PEAK_NOTE_GB = 72.0      # an 8d peak past this is reported
+
+
+def _fullwidth_config(arch, dtype, layers=None):
+    """``arch`` at full width in ``dtype``, cut to ``layers``; in f32 an
+    MoE config's expert d_ff is cut to HYBRID_REF_FFN."""
+    from repro_torch import configs as cfglib
+
+    cfg = dataclasses.replace(cfglib.get_config(arch), dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if dtype == "float32" and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, d_ff=HYBRID_REF_FFN))
+    return cfg
+
+
+def _hold_steps(server, held, n):
+    """The first ``n`` calls of ``server.serve_step`` (a paged engine's
+    decode step, a dense engine's macro-step) run inside ``held``."""
+    step, left = server.serve_step, [n]
+
+    def run(*args, **kw):
+        if left[0] <= 0:
+            return step(*args, **kw)
+        left[0] -= 1
+        with held:
+            return step(*args, **kw)
+
+    server.serve_step = run
+
+
+def _engine_run(torch, server, reqs):
+    """Submit ``reqs``, set the launch counts to 0, run to the end.
+    Returns (done, wall s, counts)."""
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return done, wall, _read_counts()
+
+
+def _expect_launches(tag, cfg, server, counts, quant=None):
+    """The launches of one engine run: one ``esffn_glu`` a MoE layer a
+    forward (a prefill chunk, a decode step, a dense macro-step), every one
+    on the stream route (int8 where ``quant``), and on the paged engine one
+    bf16 ``paged_attention`` an attention layer a decode step (the chunked
+    prefill attends through einsums, as JAX's). Returns the launches."""
+    n_moe, n_attn = _hybrid_launch_counts(cfg)
+    paged = hasattr(server, "trace")
+    if paged:
+        chunks, decodes, _ = _forwards(server.trace)
+    else:
+        chunks, decodes = 0, len(server.decode_times_s)
+    want = {"esffn_glu": n_moe * (chunks + decodes),
+            "paged_attention": n_attn * decodes if paged else 0}
+    got = {k: counts[k] for k in want}
+    if got != want or counts["esffn_glu_routes"] != {
+            "stream": want["esffn_glu"], "wgmma": 0} \
+            or counts["esffn_glu_quant"].get("int8", 0) != (
+                want["esffn_glu"] if quant else 0) \
+            or counts["paged_attention_quant"]["int8"]:
+        raise AssertionError(f"phase {tag}: launches {counts}, expected "
+                             f"{want} ({chunks} prefill chunks, {decodes} "
+                             f"decode steps)")
+    return got
+
+
+def _cross_window(torch, tag, cfg, pcfg, params, quant, new, kinds, held,
+                  hold_steps=None):
+    """One request of ``FULLWIDTH[arch]["cross"]`` prompt tokens and
+    ``new`` new ones, past the window of ``cfg``'s local layers, on 1 slot
+    of each engine in ``kinds``: the paged engine prefills it in
+    FULLWIDTH_CROSS_CHUNK-token chunks (mixtral-8x7b's pages wholly behind
+    its window go back to the pool as it decodes), the dense engine token
+    by token into its ``min(max_seq, window)``-row rolling buffer. The
+    paged run goes through ``held``: whole, or its first ``hold_steps``
+    decode steps. Returns ({kind: result}, {kind: tokens})."""
+    import numpy as np
+    from repro_torch.common import cdiv
+    from repro_torch.launch import serve
+
+    n = FULLWIDTH[cfg.name]["cross"]
+    if not n > cfg.window:
+        raise AssertionError(f"phase {tag}: a {n}-token prompt does not "
+                             f"cross the {cfg.window}-token window")
+    prompt = np.random.default_rng(43).integers(
+        0, cfg.vocab_size, size=n).astype(np.int32)
+    maxp = cdiv(n + new, 16)
+    out, toks = {}, {}
+    for kind in kinds:
+        if kind == "paged":
+            server = serve.PagedServer(
+                cfg, pcfg, num_slots=1, page_size=16, num_pages=1 + maxp,
+                max_pages_per_slot=maxp, params=params,
+                prefill_chunk=FULLWIDTH_CROSS_CHUNK, device="cuda")
+        else:
+            server = serve.BatchedServer(cfg, pcfg, num_slots=1,
+                                         max_seq=n + new, params=params,
+                                         device="cuda")
+        if kind == "paged" and hold_steps:
+            _hold_steps(server, held, hold_steps)
+        before = dict(held.checks)
+        torch.cuda.reset_peak_memory_stats()
+        with (held if kind == "paged" and not hold_steps
+              else contextlib.nullcontext()):
+            done, wall, counts = _engine_run(
+                torch, server, [serve.Request(rid=0, prompt=prompt,
+                                              max_new=new)])
+        launches = _expect_launches(f"{tag} crossing ({kind})", cfg, server,
+                                    counts, quant=quant)
+        if len(done) != 1 or len(done[0].out) != new:
+            raise AssertionError(f"phase {tag} crossing ({kind}): the "
+                                 f"request did not finish")
+        if kind == "paged":
+            _drained(server, f"phase {tag} crossing")
+        steps = server.decode_times_s
+        first = server.ttft_s[0]
+        toks[kind] = list(done[0].out)
+        out[kind] = {
+            "prompt": n, "new": new, "window": cfg.window,
+            "wall_s": wall, "ttft_ms": first * 1e3,
+            "decode_step_median_ms": statistics.median(
+                steps[-(new - 1):]) * 1e3,
+            "steps": len(steps), "launches": launches,
+            "launches_quant": {"esffn_glu": counts["esffn_glu_quant"]},
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "held_checks": {k: held.checks[k] - before[k]
+                            for k in held.checks}}
+        print(f"[{tag}] {cfg.name} crossing ({kind}): {n} + {new} tokens "
+              f"past the {cfg.window}-token window in {wall:.2f}s (TTFT "
+              f"{first * 1e3:.1f}ms, decode step median "
+              f"{out[kind]['decode_step_median_ms']:.2f}ms); launches "
+              f"{launches}; held to plain "
+              f"{out[kind]['held_checks']}")
+        del server, done
+    return out, toks
+
+
+def fullwidth_kernel_cases(torch, flush):
+    """Phase 3d: the two kernels at the shapes the five configurations give
+    them. ``paged_attention`` (bf16, page 16) at each one's heads (gemma-2b
+    8/1 hd 256, gemma3-12b 16/8 hd 256, phi3-medium-14b 40/10, starcoder2-15b
+    48/4, mixtral-8x7b 32/8, hd 128) over 5d's lengths on 8 slots, with the
+    window its local layers pass, and at the crossing requests' lengths
+    (gemma3-12b 1,116 with its 1,024 window and without, for its global
+    layers; mixtral-8x7b 4,216 with its 4,096 window), checked as phase 3
+    checks; ``esffn_glu``'s 8-bit stream route at mixtral-8x7b's experts
+    (D 4096, F 14,336, E 8, top-2, blk 16, int8 payloads with 128 x 128
+    tile scales 2^-2 .. 2^2 apart) for N 8 (a decode step of 8 slots) and
+    16 (a 16-token prefill chunk) against the plain version at ESFFN_TOL.
+    All timed, the bounds from the bytes the case needs."""
+    from repro_torch import configs as cfglib
+    from repro_torch.core.reindex import build_reindex
+    from repro_torch.core.routing import route
+    from repro_torch.kernels import esffn
+    from repro_torch.kernels import paged_attention as pa
+
+    t_phase = time.perf_counter()
+    res = {"esffn_glu": [], "paged_attention": []}
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    page = 16
+    serve_lengths = [FULLWIDTH_REF_PROMPT + 1 + 2 * i for i in range(8)]
+    for arch, fw in FULLWIDTH.items():
+        cfg = cfglib.get_config(arch)
+        local = cfg.window if "local" in cfg.attn_pattern else None
+        shapes = [(f"{arch} heads, 5d lengths", 8, serve_lengths,
+                   128 // page, local)]
+        if fw["cross"]:
+            n = fw["cross"] + FULLWIDTH_CROSS_NEW
+            shapes.append((f"{arch} heads, crossing length", 1, [n],
+                           -(-n // page), cfg.window))
+            if "global" in cfg.attn_pattern:
+                shapes.append((f"{arch} heads, crossing length, global "
+                               f"layer", 1, [n], -(-n // page), None))
+        for case, b, lengths_l, maxp, window in shapes:
+            maxp = max(maxp, -(-max(lengths_l) // page))
+            args, _ = _paged_inputs(torch, gen, b, cfg.num_heads,
+                                    cfg.num_kv_heads, cfg.hd, page,
+                                    lengths_l, maxp, "bfloat16")
+            kw = {"window": window}
+            _, _, err, tol, worst = _paged_check(
+                torch, f"paged_attention {case}", args, kw, "bfloat16")
+            nbytes, flops = _paged_work(args, False, window)
+            b_ms, b_by = bound(nbytes, flops, "bfloat16")
+            res["paged_attention"].append({
+                "case": case,
+                "shape": {"B": b, "Hq": cfg.num_heads,
+                          "Hkv": cfg.num_kv_heads, "hd": cfg.hd,
+                          "page": page, "maxp": maxp, "lengths": lengths_l,
+                          "window": window, "softcap": 0.0,
+                          "splits": pa.num_splits(maxp)},
+                "dtype": "bfloat16", "max_abs_err": err, "tolerance": tol,
+                "worst_slot_err_over_tol": worst,
+                "kernel_ms": time_ms(torch, lambda: pa.paged_attention(
+                    *args, **kw), flush),
+                "plain_ms": time_ms(torch, lambda: pa.paged_attention_ref(
+                    *args, **kw), flush, iters=5, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "library": "none: no one call takes the paged layout"})
+            del args
+
+    cfg = cfglib.get_config("mixtral-8x7b")
+    d, e, f, k, blk = (cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff,
+                       cfg.moe.top_k, 16)
+
+    def payload(shape):
+        q = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        tiles = (shape[0], shape[1] // 128, shape[2] // 128)
+        s = 0.02 / 127 * torch.exp2(torch.rand(
+            tiles, generator=gen, device="cuda") * 4 - 2)
+        return q, s
+
+    qs = [payload(s) for s in ((e, d, f), (e, d, f), (e, f, d))]
+    wq, sc = [q for q, _ in qs], tuple(s for _, s in qs)
+    router = torch.randn((d, e), generator=gen, device="cuda") * 0.02
+    for n in (8, 16):
+        x = torch.randn((n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        r = route(x, router, k)
+        ri = build_reindex(r.expert_idx, r.gates, e, blk)
+        args = (x, ri.row_token, ri.row_gate, ri.block_expert, *wq)
+        name = f"esffn_glu int8 mixtral N={n} blk={blk} bfloat16"
+        plain = esffn.esffn_glu_plain(*args, w_scales=sc)
+        kern, kroute = _routed(torch, lambda: esffn.esffn_glu(
+            *args, w_scales=sc), esffn.esffn_glu)
+        if kroute != "stream":
+            raise AssertionError(f"{name}: took the {kroute} route")
+        err, tol = _check(name, kern, plain, ESFFN_TOL["bfloat16"])
+        del plain, kern
+        live = (ri.row_gate.reshape(-1, blk) != 0).any(dim=1)
+        experts = torch.unique(ri.block_expert[live]).numel()
+        np_rows = ri.row_token.numel()
+        nbytes = (n * d * 2 + experts * 3 * d * f
+                  + experts * sum(s[0].numel() for s in sc) * 4
+                  + np_rows * 8 + ri.block_expert.numel() * 4
+                  + np_rows * d * 2)
+        flops = 6 * int((ri.row_gate != 0).sum()) * d * f
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        res["esffn_glu"].append({
+            "case": "mixtral-8x7b experts",
+            "shape": {"N": n, "D": d, "E": e, "F": f, "top_k": k, "blk": blk,
+                      "Np": np_rows, "live_blocks": int(live.sum()),
+                      "experts_read": experts},
+            "dtype": "bfloat16", "weights": "int8", "kernel_route": kroute,
+            "max_abs_err": err, "tolerance": tol,
+            "kernel_ms": time_ms(torch, lambda: esffn.esffn_glu(
+                *args, w_scales=sc), flush, iters=10),
+            "plain_ms": time_ms(torch, lambda: esffn.esffn_glu_plain(
+                *args, w_scales=sc), flush, iters=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": _NO_LIBRARY_Q})
+    del qs, wq, sc
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[3d] paged_attention at the five configurations' heads and "
+          f"esffn_glu int8 at mixtral-8x7b's experts: "
+          f"{len(res['paged_attention']) + len(res['esffn_glu'])} cases "
+          f"checked and timed in {res['seconds']:.1f}s")
+    return res
+
+
+def fullwidth_reference_phase(torch, arch):
+    """Phase 4d: ``arch`` at full width, f32, cut to its FULLWIDTH
+    ``ref_layers`` (mixtral-8x7b's expert d_ff to HYBRID_REF_FFN), seed 41:
+    FULLWIDTH_REF_REQUESTS greedy requests of FULLWIDTH_REF_PROMPT +
+    FULLWIDTH_REF_NEW tokens on 2 slots through the card's
+    ``BatchedServer`` and ``PagedServer`` and the CPU's ``PagedServer``
+    from the same weights (on the CPU lane, ``_fullwidth_reference_cpu``):
+    every stream equal; the card engines' every
+    ``paged_attention`` and ``esffn_glu`` launch held to its plain version
+    (``_HeldToPlain``), the paged run's launches counted from 0 and as
+    ``_expect_launches`` says. Where the config has a window, one request
+    past it (``_cross_window``, FULLWIDTH_CROSS_REF_NEW new tokens) on
+    both card engines: the streams equal, every paged launch held. This
+    is the one place the windows are checked exactly: the CPU cannot
+    prefill 1,100-4,200 tokens at this width in the script's time."""
+    import numpy as np
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    t_phase = time.perf_counter()
+    tag = "4d"
+    cfg = _fullwidth_config(arch, "float32", FULLWIDTH[arch]["ref_layers"])
+    pcfg = ParallelConfig(blk=16)
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(41), device="cuda")
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(0, cfg.vocab_size, size=FULLWIDTH_REF_PROMPT)
+               .astype(np.int32) for _ in range(FULLWIDTH_REF_REQUESTS)]
+    held = _HeldToPlain(path=f"phase 4d {arch}")
+    streams, wall, launches = {}, {}, {}
+    for kind in ("dense", "paged"):
+        key = f"{kind} cuda"
+        server = _fullwidth_ref_engine(cfg, pcfg, kind, "cuda", params)
+        with held:
+            done, wall[key], counts = _engine_run(
+                torch, server, _fullwidth_ref_requests(prompts))
+        launches[key] = _expect_launches(f"{tag} {arch} ({key})", cfg,
+                                         server, counts)
+        streams[key] = {r.rid: list(r.out) for r in done}
+        if kind == "paged":
+            _drained(server, f"phase {tag} {arch} ({key})")
+        del server, done
+    want = streams["dense cuda"]
+    if len(want) != FULLWIDTH_REF_REQUESTS or any(
+            len(o) != FULLWIDTH_REF_NEW for o in want.values()) or any(
+            st != want for st in streams.values()):
+        raise AssertionError(f"phase {tag} {arch}: greedy tokens differ: "
+                             f"{streams}")
+    t0 = time.perf_counter()
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    to_cpu_s = time.perf_counter() - t0
+    _LANE.submit(f"4d {arch}", n_bytes, _fullwidth_reference_cpu, arch, cfg,
+                 pcfg, cpu_params, prompts, want)
+    del cpu_params
+    res = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.hd],
+           "moe_d_ff": cfg.moe.d_ff if cfg.moe else None,
+           "weights_gb": n_bytes / 1e9, "to_cpu_s": to_cpu_s,
+           "tokens": {str(k): v for k, v in want.items()},
+           "engines": sorted(streams) + ["paged cpu"], "launches": launches,
+           "wall_s": wall}
+    if FULLWIDTH[arch]["cross"]:
+        xheld = _HeldToPlain(path=f"phase 4d {arch} window crossing")
+        res["cross"], toks = _cross_window(
+            torch, tag, cfg, pcfg, params, None, FULLWIDTH_CROSS_REF_NEW,
+            ("paged", "dense"), xheld)
+        if toks["paged"] != toks["dense"]:
+            raise AssertionError(f"phase {tag} {arch}: past the window the "
+                                 f"paged engine's tokens {toks['paged']} "
+                                 f"differ from the dense engine's "
+                                 f"{toks['dense']}")
+        res["cross"]["tokens"] = toks["paged"]
+        res["cross"]["held_worst_err_over_limit"] = dict(xheld.worst)
+    res["held_checks"] = dict(held.checks)
+    res["held_worst_err_over_limit"] = dict(held.worst)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[{tag}] {arch}, {cfg.num_layers} layers at full width"
+          f"{f' (expert d_ff {cfg.moe.d_ff})' if cfg.moe else ''}, f32, "
+          f"{n_bytes / 1e9:.2f} GB: greedy tokens {want} equal on "
+          f"{sorted(streams)} (the CPU's paged engine on the lane); card "
+          f"launches {launches}, each held to plain "
+          f"({held.checks}, worst err / limit "
+          f"{ {k: round(v, 4) for k, v in held.worst.items()} })"
+          + (f"; past the window: tokens {res['cross']['tokens']} equal on "
+             f"both card engines" if "cross" in res else "")
+          + f"; phase {res['seconds']:.1f}s")
+    del params
+    return res
+
+
+def _fullwidth_ref_engine(cfg, pcfg, kind, device, p):
+    """Phase 4d's engines: 2 slots, 16-token pages."""
+    from repro_torch.launch import serve
+
+    if kind == "dense":
+        return serve.BatchedServer(cfg, pcfg, num_slots=2, max_seq=64,
+                                   params=p, device=device)
+    return serve.PagedServer(cfg, pcfg, num_slots=2, page_size=16,
+                             num_pages=9, max_pages_per_slot=4, params=p,
+                             device=device)
+
+
+def _fullwidth_ref_requests(prompts):
+    from repro_torch.launch import serve
+
+    return [serve.Request(rid=i, prompt=pr, max_new=FULLWIDTH_REF_NEW)
+            for i, pr in enumerate(prompts)]
+
+
+def _fullwidth_reference_cpu(arch, cfg, pcfg, cpu_params, prompts, want):
+    """Phase 4d's CPU side: the CPU's ``PagedServer`` (the plain versions)
+    gives the card's streams and drains its pool."""
+    server = _fullwidth_ref_engine(cfg, pcfg, "paged", "cpu", cpu_params)
+    for r in _fullwidth_ref_requests(prompts):
+        server.submit(r)
+    got = {r.rid: list(r.out) for r in server.run()}
+    _drained(server, f"phase 4d {arch} (paged cpu)")
+    if got != want:
+        raise AssertionError(f"phase 4d {arch}: the CPU's greedy tokens "
+                             f"{got} != the card's {want}")
+    print(f"[4d] {arch}: PagedServer (CPU) == the card's greedy tokens "
+          f"{want}")
+
+
+def _fullwidth_cli(torch, tag, cfg, argv):
+    """The serve CLI (``launch.serve.main(argv)``) in process, its printed
+    lines captured and shown, the kernels' counts set to 0 just before it
+    and read just after (``_expect_launches``; every ``esffn_glu`` on the
+    int8 stream route). Returns (result, {rid: tokens})."""
+    import io
+
+    from repro_torch.common import tree_leaves
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with _ServerLog() as log, contextlib.redirect_stdout(out):
+        done = serve_lib.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, peak = _read_counts(), torch.cuda.max_memory_allocated()
+    printed = out.getvalue().splitlines()
+    for line in printed:
+        print(f"[{tag}] {cfg.name} serve CLI | {line}")
+    srv = log.servers[0]
+    launches = _expect_launches(f"{tag} {cfg.name} (serve CLI)", cfg, srv,
+                                counts, quant="int8")
+    _drained(srv, f"phase {tag} {cfg.name} (serve CLI)")
+    if len(done) != FULLWIDTH_SERVE_REQUESTS or any(
+            len(r.out) != FULLWIDTH_SERVE_NEW for r in done):
+        raise AssertionError(f"phase {tag} {cfg.name}: the serve CLI did "
+                             f"not finish every request")
+    steps = srv.decode_times_s
+    tokens = sum(len(r.out) for r in done)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(srv.params))
+    res = {"entry": "launch.serve.main " + " ".join(argv),
+           "requests": len(done), "tokens": tokens, "wall_s": wall,
+           "run_s": log.run_s[0], "tok_per_s": tokens / log.run_s[0],
+           "decode_step_median_ms": statistics.median(steps[1:]) * 1e3,
+           "decode_steps": len(steps),
+           "ttft_median_ms": statistics.median(srv.ttft_s.values()) * 1e3,
+           "peak_allocated_gb": peak / 1e9, "weights_gb": n_bytes / 1e9,
+           "cache_bytes": lm.cache_bytes(srv.cache), "launches": launches,
+           "launches_quant": {"esffn_glu": counts["esffn_glu_quant"]},
+           "printed": printed}
+    streams = {r.rid: list(r.out) for r in done}
+    del srv, log, done
+    return res, streams
+
+
+def fullwidth_serve_phase(torch, arch):
+    """Phase 5d: ``arch`` at full width and depth in bf16 (mixtral-8x7b's
+    experts int8, drawn and quantized expert matrix by expert matrix),
+    seed 0, FULLWIDTH_SERVE_REQUESTS greedy requests of 8 (the serve CLI's
+    prompts) + FULLWIDTH_SERVE_NEW tokens through ``PagedServer`` (8
+    slots, 16-token pages) and ``BatchedServer`` (8 x 128), each after an
+    unmeasured warm-up (8 of 8 + 2) whose first decode step is held to
+    plain, the counts set to 0 just before each run and read just after
+    (``_expect_launches``). mixtral-8x7b's paged run is the serve CLI
+    (FULLWIDTH_CLI), its printed lines captured, last: after both
+    warm-ups, the dense run and the crossing, once the phase's weights
+    are freed (the CLI draws its own; both would not fit). Prints the
+    decode-step median (the first step left out, as the CLI leaves it
+    out) against the byte bound of reading the weights once, tok/s,
+    TTFT, peak memory, weight and KV bytes; the two engines' bf16 streams
+    are counted, not asserted. Then the window-crossing request
+    (``_cross_window``, its first FULLWIDTH_CROSS_HELD decode steps held)
+    on the paged engine."""
+    import numpy as np
+    from repro_torch.common import tree_leaves
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ParallelConfig
+
+    t_phase = time.perf_counter()
+    tag = "5d"
+    fw = FULLWIDTH[arch]
+    cfg = _fullwidth_config(arch, "bfloat16")
+    quant = "int8" if cfg.moe is not None else None
+    pcfg = ParallelConfig(blk=16)
+    slots, page, max_seq = 8, 16, 128
+    maxp = max_seq // page
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
+               for _ in range(FULLWIDTH_SERVE_REQUESTS)]
+    res = {"arch": arch, "layers": cfg.num_layers,
+           "weights": quant and f"bf16 + {quant} experts" or "bf16",
+           "reckoned_weights_gb": fw["weight_gb"]}
+    outs = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda", quant=quant)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    if abs(n_bytes / 1e9 - fw["weight_gb"]) > FULLWIDTH_WEIGHT_RTOL * \
+            fw["weight_gb"]:
+        raise AssertionError(f"phase {tag} {arch}: {n_bytes / 1e9} GB of "
+                             f"weights, reckoned {fw['weight_gb']}")
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    res.update(weights_gb=n_bytes / 1e9, init_s=init_s,
+               init_peak_allocated_gb=init_peak / 1e9,
+               decode_bound_ms=bound_ms)
+    held = _HeldToPlain(path=f"phase 5d {arch}")
+
+    def make(kind):
+        if kind == "paged":
+            return serve.PagedServer(
+                cfg, pcfg, num_slots=slots, page_size=page,
+                num_pages=1 + slots * maxp, max_pages_per_slot=maxp,
+                params=params, prefill_chunk=16, device="cuda")
+        return serve.BatchedServer(cfg, pcfg, num_slots=slots,
+                                   max_seq=max_seq, params=params,
+                                   device="cuda")
+
+    for kind in ("paged", "dense"):
+        warm = make(kind)
+        _hold_steps(warm, held, 1)
+        for i in range(slots):
+            warm.submit(serve.Request(rid=-1 - i, prompt=np.arange(
+                8, dtype=np.int32) + i, max_new=2))
+        warm.run()
+        del warm
+        if kind == "paged" and arch in FULLWIDTH_CLI:
+            continue                  # the serve CLI's run, below
+        server = make(kind)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        done, wall, counts = _engine_run(torch, server, [
+            serve.Request(rid=i, prompt=pr, max_new=FULLWIDTH_SERVE_NEW)
+            for i, pr in enumerate(prompts)])
+        peak = torch.cuda.max_memory_allocated()
+        launches = _expect_launches(f"{tag} {arch} ({kind})", cfg, server,
+                                    counts, quant=quant)
+        if len(done) != len(prompts) or any(
+                len(r.out) != FULLWIDTH_SERVE_NEW for r in done) or not all(
+                0 <= t < cfg.vocab_size for r in done for t in r.out):
+            raise AssertionError(f"phase {tag} {arch} ({kind}): not every "
+                                 f"request finished in the vocabulary")
+        if kind == "paged":
+            _drained(server, f"phase {tag} {arch}")
+        steps = server.decode_times_s
+        tokens = sum(len(r.out) for r in done)
+        outs[kind] = {r.rid: list(r.out) for r in done}
+        res[kind] = {
+            "requests": len(done), "tokens": tokens, "wall_s": wall,
+            "tok_per_s": tokens / wall,
+            "decode_step_median_ms": statistics.median(steps[1:]) * 1e3,
+            "decode_steps": len(steps),
+            "ttft_median_ms": statistics.median(
+                server.ttft_s.values()) * 1e3,
+            "peak_allocated_gb": peak / 1e9,
+            "cache_bytes": lm.cache_bytes(server.cache),
+            "launches": launches,
+            "launches_quant": {"esffn_glu": counts["esffn_glu_quant"]}}
+        del server, done
+    if fw["cross"]:
+        res["cross"], toks = _cross_window(
+            torch, tag, cfg, pcfg, params, quant, FULLWIDTH_CROSS_NEW,
+            ("paged",), held, hold_steps=FULLWIDTH_CROSS_HELD)
+        res["cross"]["tokens"] = toks["paged"]
+    del params
+    if arch in FULLWIDTH_CLI:         # after the warm-ups: the weights
+        _release(torch)               # of its own are drawn again
+        res["paged"], outs["paged"] = _fullwidth_cli(torch, tag, cfg,
+                                                     FULLWIDTH_CLI[arch])
+    for kind in ("paged", "dense"):
+        r = res[kind]
+        r["decode_over_bound"] = r["decode_step_median_ms"] / bound_ms
+        print(f"[{tag}] {arch} ({kind}): {r['requests']} requests, "
+              f"{r['tokens']} tokens ({r['tok_per_s']:.1f} tok/s); decode "
+              f"step median {r['decode_step_median_ms']:.2f}ms over "
+              f"{r['decode_steps']} steps = {r['decode_over_bound']:.2f} x "
+              f"the {bound_ms:.2f}ms byte bound; TTFT median "
+              f"{r['ttft_median_ms']:.1f}ms; peak allocated "
+              f"{r['peak_allocated_gb']:.2f} GB; KV "
+              f"{r['cache_bytes'] / 1e6:.1f} MB; launches {r['launches']}")
+    res["dense_streams_equal_to_paged"] = sum(
+        outs["dense"][rid] == outs["paged"][rid] for rid in outs["paged"])
+    res["held_checks"] = dict(held.checks)
+    res["held_worst_err_over_limit"] = dict(held.worst)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[{tag}] {arch}, {cfg.num_layers} layers at full width, "
+          f"{res['weights']}: {n_bytes / 1e9:.3f} GB of weights (reckoned "
+          f"{fw['weight_gb']}; drawn in {init_s:.1f}s, peak "
+          f"{init_peak / 1e9:.2f} GB); {res['dense_streams_equal_to_paged']}"
+          f" of {len(prompts)} dense streams equal the paged engine's; held "
+          f"to plain {held.checks}, worst err / limit "
+          f"{ {k: round(v, 4) for k, v in held.worst.items()} }; phase "
+          f"{res['seconds']:.1f}s")
+    return res
+
+
+def fullwidth_train_phase(torch, arch):
+    """Phase 8d: ``arch`` at full width cut to its FULLWIDTH
+    ``train_layers``, bf16, through ``_family_train`` (AdamW with f32
+    masters, ``remat="block"``, TRAIN_BATCH x TRAIN_SEQ rows, blk 128);
+    mixtral-8x7b's 2 MoE layers launch 2 ``esffn_glu``, 5 ``esmm`` and 3
+    ``estmm`` a layer a step, all on wgmma. A peak past
+    FULLWIDTH_PEAK_NOTE_GB is printed as a finding."""
+    cfg = _fullwidth_config(arch, "bfloat16",
+                            FULLWIDTH[arch]["train_layers"])
+    n = _moe_layers(cfg)
+    res = _family_train(torch, "8d", cfg, TRAIN_BATCH, TRAIN_SEQ,
+                        expect=n and {"esffn_glu": 2 * n, "esmm": 5 * n,
+                                      "estmm": 3 * n} or None)
+    res["reckoned_state_gb"] = FULLWIDTH[arch]["train_gb"]
+    res["tokens_per_s"] = res["rows_per_s"]
+    if res["peak_allocated_gb"] > FULLWIDTH_PEAK_NOTE_GB:
+        print(f"[8d] finding: {arch}'s peak {res['peak_allocated_gb']:.2f} "
+              f"GB is past {FULLWIDTH_PEAK_NOTE_GB} GB")
+    print(f"[8d] {arch}: {res['state_gb']:.2f} GB of state (reckoned "
+          f"{res['reckoned_state_gb']}), step median "
+          f"{res['step_median_ms']:.1f}ms, {res['tokens_per_s']:.1f} "
+          f"tokens/s; phase {res['seconds']:.1f}s")
     return res
 
 
@@ -6664,7 +7577,7 @@ def _lm_mesh_decode(torch, cfg, pcfg, params, mesh, prompts, max_new, slots,
             "cache_stats": lm.LAST_PIPELINE_CACHE_STATS}
 
 
-def _lm_mesh_f32(torch, mesh, ref7):
+def _lm_mesh_f32(torch, mesh):
     """L1: phase 7's model (qwen3-moe-30b-a3b, 2 layers at full width,
     f32, seed 7, 2 x 64 tokens): one loss and gradient mesh-less, then on
     the mesh in every mode; then greedy decode mesh-less and on the mesh,
@@ -6711,7 +7624,8 @@ def _lm_mesh_f32(torch, mesh, ref7):
 
     base = ParallelConfig(blk=16)
     ref_total, ref_grads, _, _ = loss_grads(base, None)
-    out = {"meshless_total": ref_total, "phase7_cpu_total": ref7["total_cpu"],
+    cpu_total = _LANE.result("7")["total_cpu"]   # phase 7's CPU side
+    out = {"meshless_total": ref_total, "phase7_cpu_total": cpu_total,
            "modes": {}}
     paths = {}
     for mode, policy in MESH_MODES:
@@ -6726,11 +7640,11 @@ def _lm_mesh_f32(torch, mesh, ref7):
             worst = max(worst, (a - b).abs().max().item() / (scale or 1.0))
         del grads
         rel = abs(total - ref_total) / abs(ref_total)
-        rel_cpu = abs(total - ref7["total_cpu"]) / abs(ref7["total_cpu"])
+        rel_cpu = abs(total - cpu_total) / abs(cpu_total)
         if not (rel <= TRAIN_LOSS_RTOL and rel_cpu <= TRAIN_LOSS_RTOL):
             raise AssertionError(f"phase L1 {name}: total {total} vs "
                                  f"mesh-less {ref_total} (rel {rel}) and "
-                                 f"the CPU's {ref7['total_cpu']} (rel "
+                                 f"the CPU's {cpu_total} (rel "
                                  f"{rel_cpu})")
         if not worst <= tol:
             raise AssertionError(f"phase L1 {name}: a gathered grad leaf "
@@ -6871,7 +7785,7 @@ def _lm_mesh_overlap(torch, tag, cfg, params, mesh, prompts, slots):
 
 def _lm_mesh_bf16(torch, mesh, train_out):
     """L2: phase 8's state (4 layers at full width, bf16, seed 0, 4 x 1024
-    tokens): a warm-up and TRAIN_STEPS timed steps on the mesh in every
+    tokens): a warm-up and LM_MESH_STEPS timed steps on the mesh in every
     mode, each from the same weights; then the dense decode mesh-less and
     on the mesh with the prefetch cache."""
     import math
@@ -6921,7 +7835,7 @@ def _lm_mesh_bf16(torch, mesh, train_out):
         torch.cuda.reset_peak_memory_stats()
         _reset_expert_counts()
         log, times = [], []
-        for i in range(1, TRAIN_STEPS + 1):
+        for i in range(1, LM_MESH_STEPS + 1):
             m, dt = run(i)
             log.append(m)
             times.append(dt)
@@ -6935,7 +7849,7 @@ def _lm_mesh_bf16(torch, mesh, train_out):
         if not rel <= BF16_REF_LOSS_RTOL:
             raise AssertionError(f"phase L2 {name}: losses {losses} vs "
                                  f"phase 8's {plain_losses}")
-        want = {k: (0 if mode == "ep" else v * TRAIN_DEPTH * TRAIN_STEPS)
+        want = {k: (0 if mode == "ep" else v * TRAIN_DEPTH * LM_MESH_STEPS)
                 for k, v in LM_MESH_LAUNCHES.items()}
         if launches != want:
             raise AssertionError(f"phase L2 {name}: launches {launches}, "
@@ -6948,7 +7862,7 @@ def _lm_mesh_bf16(torch, mesh, train_out):
               f"{rel:.2e}); step median {med * 1e3:.1f}ms against phase 8's "
               f"mesh-less {plain_med:.1f}ms ({med * 1e3 / plain_med:.3f} x), "
               f"{tokens / med:.1f} tokens/s, peak {peak / 1e9:.2f} GB; "
-              f"launches {launches} ({ {k: v // (TRAIN_DEPTH * TRAIN_STEPS) for k, v in launches.items()} } a layer a step)")
+              f"launches {launches} ({ {k: v // (TRAIN_DEPTH * LM_MESH_STEPS) for k, v in launches.items()} } a layer a step)")
         out[name] = {"losses": losses, "loss_rel_diff_phase8": rel,
                      "step_times_s": times, "step_median_ms": med * 1e3,
                      "tokens_per_s": tokens / med,
@@ -7036,7 +7950,7 @@ def _lm_mesh_bf16(torch, mesh, train_out):
     return paths, out
 
 
-def lm_mesh_phase(torch, ref7, train_out):
+def lm_mesh_phase(torch, train_out):
     """Phase L: the MoE LM on a 1-rank NCCL mesh (1, 1, 1): L1 against the
     mesh-less run in f32, L2 timed in bf16."""
     from repro_torch.launch.mesh import make_mesh, single_rank_nccl
@@ -7048,7 +7962,7 @@ def lm_mesh_phase(torch, ref7, train_out):
                      ("pod", "data", "model")):
             mesh.all_reduce(torch.ones(1, device="cuda"), axes)
         torch.cuda.synchronize()
-        paths1, l1 = _lm_mesh_f32(torch, mesh, ref7)
+        paths1, l1 = _lm_mesh_f32(torch, mesh)
         _release(torch)
         paths2, l2 = _lm_mesh_bf16(torch, mesh, train_out)
     seconds = time.perf_counter() - t_phase
@@ -7428,12 +8342,14 @@ SERVE_OBS_HELD = ["--max-new", "4"]
 
 class _ServerLog:
     """While active, every ``PagedServer`` the serve CLI builds is kept in
-    ``servers`` and its router drain's ``flush`` calls are timed
-    (``flush_ms``, with the pending pushes each took)."""
+    ``servers``, its ``run`` timed (``run_s``) and its router drain's
+    ``flush`` calls timed (``flush_ms``, with the pending pushes each
+    took)."""
 
     def __init__(self):
         self.servers = []
         self.flush_ms = []
+        self.run_s = []
 
     def __enter__(self):
         from repro_torch.launch import serve as serve_lib
@@ -7457,6 +8373,12 @@ class _ServerLog:
                             ((time.perf_counter() - t0) * 1e3, n))
 
                     drain.flush = timed
+
+            def run(self, *a, **kw):
+                t0 = time.perf_counter()
+                out = super().run(*a, **kw)
+                log.run_s.append(time.perf_counter() - t0)
+                return out
 
         serve_lib.PagedServer = Logged
         return self
@@ -7775,6 +8697,157 @@ def _release(torch):
     torch.cuda.empty_cache()
 
 
+class _CpuLane:
+    """The CPU sides of the reference phases, run beside the card's phases.
+
+    A phase runs its card side, copies what its CPU side needs to the host
+    and hands that side, checks included, to ``submit``. One worker thread
+    runs the jobs in order, with ``LANE_THREADS`` intra-op threads
+    (``LANE_FULL``'s jobs the host's count) at niceness ``LANE_NICE``, both
+    set on the worker's own threads, so the thread that drives the card
+    keeps its cores. A job's failed check
+    fails the run: ``submit``, ``result``, ``drain`` and ``join`` raise the
+    first failure, and ``main`` joins before it prints any result.
+    ``submit`` waits while the jobs queued and running hold more than
+    ``LANE_GB`` of host tensors (each job states its bytes). Every job
+    prints ``[cpu-lane] NAME Ns``; ``join`` prints the lane's busy seconds
+    and how long the card's thread waited for it."""
+
+    def __init__(self):
+        # (LANE_THREADS, the host's count for LANE_FULL jobs), set by
+        # ``main``; None leaves the thread count alone
+        self.threads = None
+        self._cv = threading.Condition()
+        self._jobs = collections.deque()
+        self._held = 0
+        self._busy = False
+        self._results, self._failure = {}, None
+        self._thread = None
+        self.busy_s = self.waited_s = 0.0
+
+    def submit(self, name, nbytes, fn, *args, full=False):
+        """Queue ``fn(*args)`` as job ``name`` holding ``nbytes`` of host
+        tensors; ``full``: at the host's thread count (``LANE_FULL``)."""
+        t0 = time.perf_counter()
+        with self._cv:
+            self._cv.wait_for(lambda: self._failure or not self._held
+                              or self._held + nbytes <= LANE_GB * 1e9)
+            self._raise()
+            self._held += nbytes
+            self._jobs.append((name, nbytes, fn, args, full))
+            self._cv.notify_all()
+        self.waited_s += time.perf_counter() - t0
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._work, daemon=True,
+                                            name="cpu-lane")
+            self._thread.start()
+
+    def result(self, name):
+        """Job ``name``'s return value, once it has run."""
+        self._wait(lambda: name in self._results)
+        return self._results[name]
+
+    def drain(self):
+        """Wait until every job submitted has run (before a phase that
+        swaps a module global the jobs read)."""
+        self._wait(lambda: not self._jobs and not self._busy)
+
+    def join(self):
+        self.drain()
+        print(f"[cpu-lane] {len(self._results)} jobs, busy "
+              f"{self.busy_s:.1f}s; the card's thread waited "
+              f"{self.waited_s:.1f}s for the lane", flush=True)
+
+    def _wait(self, ready):
+        t0 = time.perf_counter()
+        with self._cv:
+            self._cv.wait_for(lambda: self._failure or ready())
+            self._raise()
+        self.waited_s += time.perf_counter() - t0
+
+    def _raise(self):
+        if self._failure:
+            name, exc = self._failure
+            raise AssertionError(f"CPU lane job {name}: {exc}") from exc
+
+    def _work(self):
+        try:
+            os.setpriority(os.PRIO_PROCESS, threading.get_native_id(),
+                           LANE_NICE)
+        except OSError as exc:     # the lane runs all the same
+            print(f"[cpu-lane] niceness {LANE_NICE} not set: {exc}",
+                  flush=True)
+        while True:
+            with self._cv:
+                self._cv.wait_for(lambda: self._jobs)
+                name, nbytes, fn, args, full = self._jobs.popleft()
+                self._busy = True
+            if self.threads:
+                import torch
+                torch.set_num_threads(self.threads[bool(full)])
+            t0 = time.perf_counter()
+            try:
+                out, failure = fn(*args), None
+            except Exception as exc:          # held for the card's thread
+                out, failure = None, (name, exc)
+                import traceback
+                traceback.print_exc()
+            del fn, args
+            dt = time.perf_counter() - t0
+            print(f"[cpu-lane] {name} {dt:.1f}s", flush=True)
+            with self._cv:
+                self._results[name] = out
+                self._failure = self._failure or failure
+                self._held -= nbytes
+                self._busy = False
+                self.busy_s += dt
+                self._cv.notify_all()
+
+
+_LANE = _CpuLane()
+
+
+def _host_bytes(tree):
+    """Bytes of the tensors in a tree of dicts and lists."""
+    from repro_torch.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if hasattr(t, "element_size"))
+
+
+def _this_thread_only(wrapper, real):
+    """``wrapper`` for the calls made on the thread that makes this, and
+    ``real`` for the CPU lane's: a module global swapped by a phase on the
+    card's thread must not see (or count) the lane's CPU runs."""
+    me = threading.get_ident()
+
+    def call(*a, **kw):
+        return (wrapper if threading.get_ident() == me else real)(*a, **kw)
+
+    return call
+
+
+def _print_phase_seconds():
+    """Wrap every module-level ``*_phase`` and ``*_cases`` function so it
+    prints its wall seconds as it returns (``[phase-time] name s``): the
+    script's budget is read from these lines."""
+    g = globals()
+    for name, fn in list(g.items()):
+        if name.startswith("_") or not callable(fn) or not (
+                name.endswith("_phase") or name.endswith("_cases")):
+            continue
+
+        def timed(*args, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                print(f"[phase-time] {_name} "
+                      f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+        g[name] = timed
+
+
 def main() -> int:
     import torch
 
@@ -7788,6 +8861,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
 
+    _print_phase_seconds()
     print(card_line())
     t_start = t0 = time.perf_counter()
     logs = build.build()
@@ -7799,6 +8873,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _LANE.threads = (LANE_THREADS, torch.get_num_threads())
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     esffn_res = esffn_cases(torch, flush)
     esffn_checks = esffn_check_cases(torch)
@@ -7827,6 +8902,10 @@ def main() -> int:
     for c in jamba_res["negative_controls"]:
         print(f"[negative-control] {c['kernel']} {c['fault']}: fails at "
               f"{c['err_over_tol']:.3g} x the limit")
+    fw_kernels = fullwidth_kernel_cases(torch, flush)
+    for k in ("esffn_glu", "paged_attention"):
+        for c in fw_kernels[k]:
+            print(f"[kernel-fullwidth] {k} {json.dumps(c)}")
     sampling_res = sampling_phase(torch, flush)
     del flush
     _release(torch)
@@ -7846,6 +8925,10 @@ def main() -> int:
     for tag, arch in (("4j", "jamba-1.5-large-398b"), ("4x", "xlstm-350m")):
         hybrid_ref[tag] = hybrid_reference_phase(torch, arch, tag)
         _release(torch)
+    fw_ref = {}
+    for arch in FULLWIDTH:
+        fw_ref[arch] = fullwidth_reference_phase(torch, arch)
+        _release(torch)
     serve_launches, serve_res = serve_phase(torch)
     print(f"[serve] {json.dumps({**serve_res, 'reference': serve_ref, 'spec_reference': spec_ref, 'prefix_reference': prefix_ref, 'sampling': sampling_res})}")
     _release(torch)           # the serve phase's weights are gone
@@ -7858,6 +8941,12 @@ def main() -> int:
         _release(torch)
     print(f"[hybrid] {json.dumps({'reference': hybrid_ref, 'serve': hybrid_serve})}")
     _release(torch)
+    fw_serve = {}
+    for arch in FULLWIDTH:
+        fw_serve[arch] = fullwidth_serve_phase(torch, arch)
+        _release(torch)
+    print(f"[fullwidth] {json.dumps({'reference': fw_ref, 'serve': fw_serve})}")
+    _LANE.drain()      # phase O turns on the engines' global telemetry
     so_paths, so_routes, so_res = serve_obs_phase(torch)
     print(f"[serve-obs] {json.dumps(so_res)}")
 
@@ -7892,13 +8981,16 @@ def main() -> int:
     to_paths, to_routes, to_res = train_obs_phase(torch)
     print(f"[train-obs] {json.dumps(to_res)}")
     _release(torch)
-    lm_mesh_paths, lm_mesh_res = lm_mesh_phase(torch, train_ref, train_out)
+    lm_mesh_paths, lm_mesh_res = lm_mesh_phase(torch, train_out)
     print(f"[lm-mesh] {json.dumps(lm_mesh_res)}")
     _release(torch)
     family_ref = {"7h": hybrid_train_reference_phase(torch),
                   "7f": frontend_reference_phase(torch)}
     family_train = family_train_phase(torch)
     print(f"[train-families] {json.dumps({'reference': family_ref, 'train': family_train})}")
+    _release(torch)
+    fw_train = {arch: fullwidth_train_phase(torch, arch) for arch in FULLWIDTH}
+    print(f"[fullwidth-train] {json.dumps(fw_train)}")
     _release(torch)
     family_mesh_paths, family_mesh_res = mesh_families_phase(torch)
     print(f"[mesh-families] {json.dumps(family_mesh_res)}")
@@ -7931,6 +9023,7 @@ def main() -> int:
     swin_launches, swin_out = swin_train_phase(torch)
     print(f"[swin] {json.dumps({**swin_out, 'reference': swin_ref})}")
     _release(torch)               # the Swin training state is gone
+    _LANE.drain()      # T7/8 wraps the router and the reindexing
     t78 = tables78_phase(torch)
     print(f"[t78] {json.dumps(t78)}")
     _release(torch)
@@ -7955,6 +9048,7 @@ def main() -> int:
     _release(torch)
     compression_res = compression_phase(torch)
     print(f"[compression] {json.dumps(compression_res)}")
+    _LANE.join()
     print(f"[done] every phase in {time.perf_counter() - t_start:.1f}s")
 
     # Each kernel's launches on the main paths that ran it: the paged and
@@ -7964,8 +9058,9 @@ def main() -> int:
     # unfused-backward pass (phase 11), the fault-tolerant train loop's
     # runs (phase F), the Jamba layout's training
     # (phases 7h, 8j), the paged engine on the mesh (phase P), the serve
-    # CLI with telemetry (phase O) and the train CLI with --metrics
-    # (train_obs).
+    # CLI with telemetry (phase O), the train CLI with --metrics
+    # (train_obs) and the five configurations at full width (phases 4d,
+    # 5d with their window crossings, 8d).
     qat_paths = {f"qwen_qat_{m}": r["launches"]
                  for m, r in train_out["qat"].items()}
     hybrid_paths = {f"hybrid_{tag}": r["launches"]
@@ -7975,11 +9070,32 @@ def main() -> int:
         for tag, r in hybrid_serve.items() for kind in ("paged", "dense")})
     jamba_train = {"jamba_train_7h": family_ref["7h"]["jamba-1.5-large-398b"],
                    "jamba_train_8j": family_train["8j"]}
+    # phases 4d, 5d, 8d: the five configurations at full width (the 8-bit
+    # esffn_glu launches of mixtral-8x7b's 5d runs stand in qpaths)
+    fw_paths = {}
+    for arch in FULLWIDTH:
+        fw_paths[f"fullwidth_4d_{arch}"] = fw_ref[arch]["launches"][
+            "paged cuda"]
+        fw_paths[f"fullwidth_4d_{arch}_dense"] = fw_ref[arch]["launches"][
+            "dense cuda"]
+        for kind, r in fw_ref[arch].get("cross", {}).items():
+            if isinstance(r, dict) and "launches" in r:
+                fw_paths[f"fullwidth_4d_{arch}_cross_{kind}"] = r["launches"]
+        quant = fw_serve[arch]["weights"] != "bf16"
+        runs = {kind: fw_serve[arch][kind] for kind in ("paged", "dense")}
+        runs.update({f"cross_{kind}": r for kind, r in fw_serve[arch].get(
+            "cross", {}).items() if isinstance(r, dict) and "launches" in r})
+        for kind, r in runs.items():
+            fw_paths[f"fullwidth_5d_{arch}_{kind}"] = (
+                {"paged_attention": r["launches"]["paged_attention"]}
+                if quant else r["launches"])
+        if fw_train[arch]["launches"]["esffn_glu"]:
+            fw_paths[f"fullwidth_8d_{arch}"] = fw_train[arch]["launches"]
     paths = {**serve_launches, "qwen_train": train_launches,
              "train_ft": ft_launches, **qat_paths,
              **swin_launches, **hybrid_paths,
              **{p: r["launches"] for p, r in jamba_train.items()},
-             **mesh_launches, **hetero_launches,
+             **fw_paths, **mesh_launches, **hetero_launches,
              **{p: c for p, (c, _) in lm_mesh_paths.items()},
              **{p: c for p, (c, _) in family_mesh_paths.items()},
              **pm_paths, **so_paths, **to_paths}
@@ -8002,6 +9118,9 @@ def main() -> int:
                       for tag, r in hybrid_ref.items()},
                    **{p: r["launches_by_route"]
                       for p, r in jamba_train.items()},
+                   **{f"fullwidth_8d_{a}": r["launches_by_route"]
+                      for a, r in fw_train.items()
+                      if r["launches"]["esffn_glu"]},
                    **{f"swin_mesh_{k.replace('/', '_')}":
                       r["launches_by_route"] for k, r in mesh_res.items()
                       if isinstance(r, dict) and "launches_by_route" in r},
@@ -8055,9 +9174,41 @@ def main() -> int:
         **{f"quant_{p}": c for p, c in quant_ref["launches"].items()},
         **{f"hybrid_{tag}_{kind}": r[kind]["launches_quant"]
            for tag, r in hybrid_serve.items() for kind in ("paged", "dense")},
+        **{f"fullwidth_5d_{a}_{kind}": r[kind]["launches_quant"]
+           for a, r in fw_serve.items() if r["weights"] != "bf16"
+           for kind in ("paged", "dense")},
+        **{f"fullwidth_5d_{a}_cross_{kind}": x["launches_quant"]
+           for a, r in fw_serve.items() if r["weights"] != "bf16"
+           for kind, x in r.get("cross", {}).items()
+           if isinstance(x, dict) and "launches_quant" in x},
         **{f"hetero_{k}": {("esffn_glu" if r["glu"] else "esffn_mlp"):
                            r["launches_quant"]}
            for k, r in hetero_res.items() if k in HETERO_WIDTHS}}
+
+    # PERF.md's rows of the five's new kernel shapes: each one's time and
+    # bound (phase 3d; paged_attention at 5d's lengths) beside its
+    # launches on its own configuration's paths (4d, 5d, crossings, 8d)
+    timing = ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for arch in FULLWIDTH:
+        mine = {p: n for p, n in by_path.get("paged_attention", {}).items()
+                if p.startswith(f"fullwidth_4d_{arch}")
+                or p.startswith(f"fullwidth_5d_{arch}")}
+        for c in fw_kernels["paged_attention"]:
+            if c["case"] == f"{arch} heads, 5d lengths":
+                row = {"arch": arch, "window": c["shape"]["window"],
+                       "heads": [c["shape"][k] for k in ("Hq", "Hkv", "hd")],
+                       **{k: c.get(k) for k in timing},
+                       "launches": sum(mine.values()),
+                       "launches_by_path": mine}
+                print(f"[fullwidth-shape] paged_attention {json.dumps(row)}")
+    mine = {p: sum(q.get("esffn_glu", {}).values())
+            for p, q in qpaths.items()
+            if p.startswith("fullwidth_5d_mixtral-8x7b")}
+    for c in fw_kernels["esffn_glu"]:
+        row = {"N": c["shape"]["N"], "route": c["kernel_route"],
+               **{k: c.get(k) for k in timing},
+               "launches": sum(mine.values()), "launches_by_path": mine}
+        print(f"[fullwidth-shape] esffn_glu int8 {json.dumps(row)}")
 
     def qentry(kernel, source, replaces, branch, cases, **extra):
         by = {p: sum(c.get(kernel, {}).values()) for p, c in qpaths.items()}
@@ -8092,7 +9243,8 @@ def main() -> int:
               small_width_checks=esffn_checks),
         entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:295",
-              attn_res + jamba_res["paged_attention"],
+              attn_res + jamba_res["paged_attention"]
+              + fw_kernels["paged_attention"],
               negative_controls=[attn_neg], checks=attn_checks),
         entry("esmm", "src/repro_torch/csrc/esmm.cu",
               "src/repro/kernels/esmm.py:80",
@@ -8152,7 +9304,8 @@ def main() -> int:
          "launches_from": "phase 12, the public entry point"},
         qentry("esffn_glu", "src/repro_torch/csrc/esffn.cu",
                "src/repro/kernels/esffn.py:280", "int8/fp8 weights",
-               quant_res["esffn_glu"] + jamba_res["esffn_glu"],
+               quant_res["esffn_glu"] + jamba_res["esffn_glu"]
+               + fw_kernels["esffn_glu"],
                tpu_branch="w_scales: _wtile, src/repro/kernels/esffn.py:118"),
         qentry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
                "src/repro/kernels/paged_attention.py:295", "int8 KV",

@@ -3,9 +3,11 @@
 The JAX ``PagedServer`` (Pallas kernels in interpret mode, blk 8) and the
 port's ``PagedServer`` on the CPU serve the same requests from the same
 weights (carried over by ``params_from_jax``) on the f32 smoke configs,
-with more requests than slots so slots refill mid-run. Greedy streams must
-be token-identical, every chunk's prefill logits within 1e-4, and the page
-pool leak-free. One bf16 decode forward is compared on its own, and the
+with more requests than slots so slots refill mid-run, and past the
+sliding window on gemma3-12b's and mixtral-8x7b's (int8 experts). Greedy
+streams must be token-identical (the port's dense engine's too), the
+scheduler traces equal, every prefill chunk's and decode step's logits
+within 1e-4, and the page pool leak-free. One bf16 decode forward is compared on its own, and the
 CLI's contract (the dense engine without ``--paged``, sampled requests
 served, GPU unless asked) is checked."""
 import dataclasses
@@ -21,6 +23,7 @@ from repro.launch import serve as jserve
 from repro.launch import steps as jsteps
 from repro.models import lm as jlm
 from repro.parallel.sharding import ParallelConfig as JPC, split_tree
+from repro.quant import core as jq
 from repro_torch import common as tcommon
 from repro_torch import configs as tcfglib
 from repro_torch.convert import params_from_jax
@@ -33,7 +36,6 @@ from repro_torch.parallel.sharding import ParallelConfig as TPC
 # the cores the other test processes use.
 torch.set_num_threads(1)
 
-ARCHS = ["qwen3-moe-30b-a3b", "mixtral-8x7b"]
 NUM_SLOTS, PAGE, MAXP, CHUNK, N_REQ = 3, 4, 8, 5, 6
 
 
@@ -59,47 +61,88 @@ def _requests(vocab, seed=11):
 
 
 def _record(server, sink):
-    step = server.prefill_step
+    """Every prefill chunk's and decode step's logits, in call order."""
+    for name in ("prefill_step", "serve_step"):
+        step = getattr(server, name)
 
-    def wrapped(*args):
-        out = step(*args)
-        sink.append(np.asarray(out[0], np.float32).reshape(-1))
-        return out
+        def wrapped(*args, _step=step):
+            out = _step(*args)
+            sink.append(np.asarray(out[0], np.float32).reshape(-1))
+            return out
 
-    server.prefill_step = wrapped
+        setattr(server, name, wrapped)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_paged_server_matches_jax(arch):
+# (arch, expert weights, prompt lengths, slots, max pages a slot, prefill
+# chunk). The random mixes refill slots mid-run; the window crossings
+# (gemma3-12b's and mixtral-8x7b's smoke window is 16 rows) send 3
+# requests to 2 slots, the first two prompts past the window, in chunks
+# that do not divide it, mixtral-8x7b's experts int8.
+PAGED_CASES = [
+    ("qwen3-moe-30b-a3b", "none", None, NUM_SLOTS, MAXP, CHUNK),
+    ("mixtral-8x7b", "none", None, NUM_SLOTS, MAXP, CHUNK),
+    ("gemma3-12b", "none", (37, 21, 5), 2, 16, 7),
+    ("mixtral-8x7b", "int8", (41, 23, 6), 2, 16, 7),
+]
+
+
+@pytest.mark.parametrize("arch,quant,lengths,slots,maxp,chunk", PAGED_CASES,
+                         ids=["qwen3-moe-30b-a3b", "mixtral-8x7b",
+                              "gemma3-12b-past-window",
+                              "mixtral-8x7b-int8-past-window"])
+def test_paged_server_matches_jax(arch, quant, lengths, slots, maxp, chunk):
     cfg_j, cfg_t = _configs(arch)
-    pj, pt = _params(cfg_j, cfg_t)
-    reqs = _requests(cfg_j.vocab_size)
-    kw = dict(num_slots=NUM_SLOTS, page_size=PAGE,
-              num_pages=1 + NUM_SLOTS * MAXP, max_pages_per_slot=MAXP,
-              prefill_chunk=CHUNK)
+    pj, _ = split_tree(jlm.init_params(jax.random.PRNGKey(0), cfg_j))
+    if quant != "none":
+        pj = jq.quantize_lm_params(pj, cfg_j, mode=quant)
+    pt = params_from_jax(jax.tree.map(np.asarray, pj), cfg_t, device="cpu")
+    if lengths is None:
+        reqs = _requests(cfg_j.vocab_size)
+    else:
+        assert cfg_t.window == 16 and cfg_t.window % chunk
+        assert max(lengths) > cfg_t.window
+        assert pt["layers"][0]["ffn"]["w_up"].dtype == (
+            torch.int8 if quant == "int8" else torch.float32)
+        rng = np.random.default_rng(19)
+        reqs = [(i, rng.integers(0, cfg_t.vocab_size, size=n).astype(
+            np.int32), int(rng.integers(6, 10))) for i, n in
+            enumerate(lengths)]
+    kw = dict(num_slots=slots, page_size=PAGE, num_pages=1 + slots * maxp,
+              max_pages_per_slot=maxp, prefill_chunk=chunk)
 
     js = jserve.PagedServer(cfg_j, JPC(blk=8, impl="pallas"), None,
                             params=pj, **kw)
     ts = tserve.PagedServer(cfg_t, TPC(blk=8), params=pt, device="cpu", **kw)
+    dense = tserve.BatchedServer(cfg_t, TPC(blk=8), num_slots=slots,
+                                 max_seq=PAGE * maxp, params=pt,
+                                 device="cpu")
     j_logits, t_logits = [], []
     _record(js, j_logits)
     _record(ts, t_logits)
     for rid, prompt, max_new in reqs:
         js.submit(jserve.Request(rid=rid, prompt=prompt, max_new=max_new))
         ts.submit(tserve.Request(rid=rid, prompt=prompt, max_new=max_new))
+        dense.submit(tserve.Request(rid=rid, prompt=prompt, max_new=max_new))
     jdone = {r.rid: r.out for r in js.run()}
     tdone = {r.rid: r.out for r in ts.run()}
 
-    assert ts.admissions > NUM_SLOTS, "no mid-run slot refill happened"
-    assert len(tdone) == N_REQ
+    assert ts.admissions > slots, "no mid-run slot refill happened"
+    assert len(tdone) == len(reqs)
     assert tdone == jdone
-    assert len(t_logits) == len(j_logits) > N_REQ   # multi-chunk prompts
+    assert ts.trace == js.trace and ts.stats() == js.stats()
+    assert len(t_logits) == len(j_logits) > len(reqs)  # multi-chunk prompts
     for got, want in zip(t_logits, j_logits):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    # the dense engine (its rolling window buffer past the window) too
+    assert {r.rid: r.out for r in dense.run()} == tdone
     ts.pool.assert_consistent()
-    assert ts.pool.free_pages == NUM_SLOTS * MAXP
+    assert ts.pool.free_pages == slots * maxp
     assert ts.pool.in_use_pages == 0 and (ts.table == 0).all()
     assert ts.stats()["total_allocs"] == js.pool.stats()["total_allocs"]
+    if lengths is not None:
+        # every layer windowed: the pages wholly behind the window were
+        # handed back while the long requests decoded
+        assert (ts.reclaim_window == cfg_t.window) == (arch == "mixtral-8x7b")
 
 
 def test_decode_forward_bf16_matches_jax():
